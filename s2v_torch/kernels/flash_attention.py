@@ -77,22 +77,28 @@ def _check_shapes(q, k, v, key_pad_mask) -> None:
         raise ValueError(f"key_pad_mask must be [Skv={k.shape[1]}], got {tuple(key_pad_mask.shape)}")
 
 
+def check_kernel_tensor(name: str, t: torch.Tensor) -> None:
+    """Raise unless the kernels take ``t`` as a ``[B, S, H, d]`` operand:
+    bf16, d = 64, rows contiguous and 16-byte aligned (base pointer and
+    strides: rows are loaded with 16-byte ``cp.async``)."""
+    if t.dtype != torch.bfloat16:
+        raise ValueError(f"flash_attention kernels take bf16; {name} is {t.dtype}")
+    if t.shape[-1] != KERNEL_HEAD_DIM:
+        raise ValueError(f"flash_attention kernels take d={KERNEL_HEAD_DIM}; {name} has d={t.shape[-1]}")
+    if t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:-1]):
+        raise ValueError(f"{name} needs a contiguous last dim and 16-byte aligned rows; strides {t.stride()}")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must start on a 16-byte boundary; its storage offset is {t.storage_offset()}")
+
+
 def check_kernel_inputs(q, k, v, key_pad_mask=None) -> None:
-    """Raise unless the CUDA kernel takes these tensors: bf16, d = 64, rows
-    contiguous and 16-byte aligned (base pointer and strides: K/V rows are
-    loaded with 16-byte ``cp.async``).  Reads only metadata, so it is checked
+    """Raise unless the CUDA kernel takes these tensors (see
+    :func:`check_kernel_tensor`).  Reads only metadata, so it is checked
     before any launch (and testable on CPU or meta tensors).  The mask is
     read byte by byte and needs no alignment."""
     _check_shapes(q, k, v, key_pad_mask)
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != torch.bfloat16:
-            raise ValueError(f"flash_attention kernel takes bf16; {name} is {t.dtype}")
-        if t.shape[-1] != KERNEL_HEAD_DIM:
-            raise ValueError(f"flash_attention kernel takes d={KERNEL_HEAD_DIM}; {name} has d={t.shape[-1]}")
-        if t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:-1]):
-            raise ValueError(f"{name} needs a contiguous last dim and 16-byte aligned rows; strides {t.stride()}")
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must start on a 16-byte boundary; its storage offset is {t.storage_offset()}")
+        check_kernel_tensor(name, t)
     if q.shape[0] * q.shape[2] > 65535:
         raise ValueError("B * H must be at most 65535 (grid y)")
 

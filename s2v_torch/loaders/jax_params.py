@@ -100,3 +100,15 @@ def t5_from_jax(params: dict, cfg: T5Config, device: Optional[Union[str, torch.d
     out = {k: _convert(v, device, cfg.dtype) for k, v in params.items() if k != "blocks"}
     out["blocks"] = [_convert(layer, device, cfg.dtype) for layer in _unstack(params["blocks"])]
     return out
+
+
+def lora_from_jax(tree, device: Optional[Union[str, torch.device]] = None,
+                  dtype: torch.dtype = torch.float32):
+    """A JAX LoRA tree (the trainer's ``{target: {"a", "b"}}`` or a runtime
+    ``{"blocks": ..., "top": ...}`` tree, numpy leaves) -> the same tree of
+    tensors on ``device``.  Both packages keep the factors in one layout
+    (``a [..., in, r]``, ``b [..., r, out]``), so nothing is transposed."""
+    device = resolve_device(device)
+    if isinstance(tree, dict):
+        return {k: lora_from_jax(v, device, dtype) for k, v in tree.items()}
+    return _tensor(tree, device, dtype)

@@ -2,11 +2,14 @@
 (counterpart of ``s2v_tpu/ops/attention.py``).
 
 Backends:
-  * ``flash`` — kernel B1 (``s2v_torch.kernels.flash_attention``) in the
-    bounded softmax mode, the JAX package's default; on CPU tensors the
-    kernel's plain version runs instead.
+  * ``flash`` — :func:`flash_attention_trainable`: kernel B1
+    (``s2v_torch.kernels.flash_attention``) in the bounded softmax mode, the
+    JAX package's default, and under autograd kernel B2
+    (``s2v_torch.kernels.flash_attention_bwd``) for the backward; on CPU
+    tensors both kernels' plain versions run instead.
   * ``plain`` — exact fp32 softmax attention in PyTorch ops (B1's plain
-    version in the online mode); the CPU analogue of the JAX ``xla`` backend.
+    version in the online mode, differentiated by autograd); the CPU
+    analogue of the JAX ``xla`` backend.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ from typing import Optional, Tuple
 import torch
 
 from s2v_torch.kernels.flash_attention import flash_attention, flash_attention_reference
+from s2v_torch.kernels.flash_attention_bwd import flash_attention_bwd
 from s2v_torch.ops.norms import layer_norm
 from s2v_torch.ops.quant import dense
 from s2v_torch.ops.rope import apply_rotary_emb
@@ -31,6 +35,32 @@ def resolve_attention_backend(backend: str, device: torch.device) -> str:
     if backend != "auto":
         return backend
     return "flash" if torch.device(device).type == "cuda" else "plain"
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Flash attention both ways (``s2v_tpu/ops/attention.py:344-383``):
+    the forward is B1 with lse, saving q, k, v, o and the true lse; the
+    backward is B2, which recomputes P from the lse."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        o, lse = flash_attention(q, k, v, return_lse=True, softmax_mode=FLASH_SOFTMAX_MODE)
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, o, lse = ctx.saved_tensors
+        return flash_attention_bwd(q, k, v, o, lse, g.contiguous())
+
+
+def flash_attention_trainable(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Differentiable flash attention, ``[B, S, H, d]`` in and out.  Without
+    autograd (no input needs a grad, or grad mode is off) it is one B1 call
+    without lse, exactly what inference runs."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(q, k, v)
+    return flash_attention(q, k, v, softmax_mode=FLASH_SOFTMAX_MODE)
 
 
 def qkv_projections(params: dict, x: torch.Tensor, num_heads: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -66,7 +96,7 @@ def joint_attention(
         # fp16 storage is upcast once before attention and cast back after
         q, k, v = (t.float() for t in (q, k, v))
     if backend == "flash":
-        out = flash_attention(q, k, v, softmax_mode=FLASH_SOFTMAX_MODE)
+        out = flash_attention_trainable(q, k, v)
     elif backend == "plain":
         out = flash_attention_reference(q, k, v)
     else:

@@ -101,13 +101,25 @@ def ddim_step(
     return prev.to(dt), x0.to(dt)
 
 
-def add_noise(original: torch.Tensor, noise: torch.Tensor, alphas_cumprod: np.ndarray, timesteps) -> torch.Tensor:
-    a = torch.as_tensor(np.asarray(alphas_cumprod)[np.asarray(timesteps)], device=original.device).to(original.dtype)
-    a = a.reshape(a.shape + (1,) * (original.dim() - a.dim()))
+def _alpha_at(alphas_cumprod, timesteps, like: torch.Tensor) -> torch.Tensor:
+    """alpha-bar at ``timesteps``, in ``like``'s dtype, shaped to broadcast
+    against it.  A timestep tensor is used where it lies: the table is
+    indexed on that device, with no host sync.  Host ints and numpy arrays
+    index the host table."""
+    if isinstance(timesteps, torch.Tensor):
+        table = torch.as_tensor(alphas_cumprod, device=timesteps.device)
+        a = table[timesteps.long()]
+    else:
+        a = torch.as_tensor(np.asarray(alphas_cumprod)[np.asarray(timesteps)])
+    a = a.to(like.device, like.dtype)
+    return a.reshape(a.shape + (1,) * (like.dim() - a.dim()))
+
+
+def add_noise(original: torch.Tensor, noise: torch.Tensor, alphas_cumprod, timesteps) -> torch.Tensor:
+    a = _alpha_at(alphas_cumprod, timesteps, original)
     return a**0.5 * original + (1.0 - a) ** 0.5 * noise
 
 
-def get_velocity(sample: torch.Tensor, noise: torch.Tensor, alphas_cumprod: np.ndarray, timesteps) -> torch.Tensor:
-    a = torch.as_tensor(np.asarray(alphas_cumprod)[np.asarray(timesteps)], device=sample.device).to(sample.dtype)
-    a = a.reshape(a.shape + (1,) * (sample.dim() - a.dim()))
+def get_velocity(sample: torch.Tensor, noise: torch.Tensor, alphas_cumprod, timesteps) -> torch.Tensor:
+    a = _alpha_at(alphas_cumprod, timesteps, sample)
     return a**0.5 * noise - (1.0 - a) ** 0.5 * sample

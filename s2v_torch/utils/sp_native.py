@@ -2,9 +2,10 @@
 (``native/sp_tokenizer.cc``), built with ``g++`` into ``build/`` on first use
 (counterpart of ``s2v_tpu/utils/sp_native.py``).
 
-The native path applies no nmt_nfkc normalization, so it takes printable
-ASCII prompts only and rejects anything else with an error (the port has
-no ``tokenizer.json`` route yet).
+The native path applies no nmt_nfkc normalization.  A prompt that
+normalization could change (any non-ASCII character, or ASCII that NFKC
+rewrites) raises, as it does in the JAX package without a fallback
+``tokenizer.json`` (the port has no ``tokenizer.json`` route yet).
 """
 
 from __future__ import annotations
@@ -40,8 +41,15 @@ def _library() -> ctypes.CDLL:
     return _lib
 
 
-def _is_printable_ascii(text: str) -> bool:
-    return all(0x20 <= ord(c) <= 0x7E for c in text)
+def _needs_nmt_nfkc(text: str) -> bool:
+    """True when the native path (no normalization) could tokenize ``text``
+    differently from sentencepiece's ``nmt_nfkc``: any non-ASCII character,
+    or ASCII that NFKC would rewrite (the rule of ``s2v_tpu``'s guard)."""
+    import unicodedata
+
+    if any(ord(c) > 0x7F for c in text):
+        return True
+    return unicodedata.normalize("NFKC", text) != text
 
 
 def _varint(n: int) -> bytes:
@@ -106,11 +114,12 @@ class NativeSPTokenizer:
         """``[B, max_length]`` int32 ids; truncation keeps room for EOS."""
         if isinstance(prompts, str):
             prompts = [prompts]
-        bad = [p for p in prompts if not _is_printable_ascii(p)]
+        bad = [p for p in prompts if _needs_nmt_nfkc(p)]
         if bad:
             raise ValueError(
-                "the native tokenizer applies no nmt_nfkc normalization and takes "
-                f"printable ASCII prompts only; got {bad[0]!r}"
+                "the native tokenizer applies no nmt_nfkc normalization, so the ids of "
+                f"{bad[0]!r} could differ from sentencepiece's; tokenize it with a "
+                "tokenizer.json-backed tokenizer"
             )
         out = np.full((len(prompts), max_length), self.pad_id, np.int32)
         for i, p in enumerate(prompts):

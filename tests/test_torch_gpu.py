@@ -1,4 +1,6 @@
-"""Kernel B1 on the card against its plain PyTorch version.
+"""Kernels B1 and B2 on the card against their plain PyTorch versions, and
+the differentiable flash attention (B1 forward, B2 backward) against plain
+autograd.
 
 Marked ``gpu``; every test skips without a CUDA device (decided inside the
 fixture, so every worker collects the same tests).  On a machine with a card:
@@ -17,6 +19,8 @@ from s2v_torch.kernels.flash_attention import (
     flash_attention,
     flash_attention_reference,
 )
+from s2v_torch.kernels.flash_attention_bwd import flash_attention_bwd, flash_attention_bwd_reference
+from s2v_torch.ops.attention import flash_attention_trainable
 
 pytestmark = pytest.mark.gpu
 
@@ -101,3 +105,63 @@ def test_unsupported_inputs_raise_before_launch(cuda):
     with pytest.raises(ValueError):
         flash_attention(shifted, k, v)
     assert flash_attention.launches == before
+
+
+# B2 against its plain version on the same bf16 inputs: the kernel rounds P
+# and dS to bf16 before their products and writes bf16 grads (relative 2^-8
+# each); gradients here are of order 0.1 to 2, so the bars above hold them
+# to a few bf16 ulps of the largest and to 1% in relative L2.
+@pytest.mark.parametrize("sq,skv", [(200, 200), (77, 333), (1000, 129)])
+def test_bwd_kernel_matches_plain(cuda, sq, skv):
+    q, k, v = _qkv(2, sq, skv, 3, 4, cuda)
+    o, lse = flash_attention(q, k, v, return_lse=True, softmax_mode="bounded")
+    do = torch.from_numpy(np.random.RandomState(5).randn(*q.shape).astype(np.float32)).to(cuda, torch.bfloat16)
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, o, lse, do)
+    want = flash_attention_bwd_reference(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == before + 1
+    for a, w, x in zip(got, want, (q, k, v)):
+        assert a.shape == x.shape and a.dtype == torch.bfloat16
+        _assert_close(a, w)
+
+
+def test_bwd_kernel_reads_strided_views(cuda):
+    """q/k/v as views into a fused [B, S, 3, H, d] tensor (the DiT's layout
+    after the qkv linear) give the grads of contiguous copies."""
+    qkv = torch.from_numpy(np.random.RandomState(6).randn(1, 150, 3, 2, 64).astype(np.float32)).to(cuda, torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    o, lse = flash_attention(q, k, v, return_lse=True)
+    do = torch.ones_like(q)
+    strided = flash_attention_bwd(q, k, v, o, lse, do)
+    dense = flash_attention_bwd(q.contiguous(), k.contiguous(), v.contiguous(), o, lse, do)
+    for a, b in zip(strided, dense):
+        assert torch.equal(a, b)
+
+
+def test_trainable_grads_match_plain_autograd(cuda):
+    q, k, v = (x.requires_grad_() for x in _qkv(1, 300, 300, 2, 7, cuda))
+    do = torch.from_numpy(np.random.RandomState(8).randn(1, 300, 2, 64).astype(np.float32)).to(cuda, torch.bfloat16)
+    before = (flash_attention.launches, flash_attention_bwd.launches)
+    got = torch.autograd.grad(flash_attention_trainable(q, k, v), (q, k, v), do)
+    assert (flash_attention.launches, flash_attention_bwd.launches) == (before[0] + 1, before[1] + 1)
+    leaves = [x.detach().float().requires_grad_() for x in (q, k, v)]
+    s = torch.einsum("bqhd,bkhd->bhqk", leaves[0], leaves[1]) / 8.0
+    want = torch.autograd.grad(torch.einsum("bhqk,bkhd->bqhd", s.softmax(-1), leaves[2]), leaves, do.float())
+    torch.cuda.synchronize()
+    for a, w in zip(got, want):
+        _assert_close(a, w)
+
+
+def test_bwd_unsupported_inputs_raise_before_launch(cuda):
+    q, k, v = _qkv(1, 64, 64, 1, 9, cuda)
+    o, lse = flash_attention(q, k, v, return_lse=True)
+    before = flash_attention_bwd.launches
+    with pytest.raises(ValueError):
+        flash_attention_bwd(q.float(), k.float(), v.float(), o.float(), lse, o.float())
+    with pytest.raises(ValueError):
+        flash_attention_bwd(q, k, v, o, lse.to(torch.bfloat16), o)
+    shifted = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda)[1:].view(q.shape)
+    with pytest.raises(ValueError):
+        flash_attention_bwd(q, k, v, o, lse, shifted)
+    assert flash_attention_bwd.launches == before

@@ -59,7 +59,9 @@ def tok(tmp_path_factory):
 
     path = tmp_path_factory.mktemp("sp") / "spiece.model"
     write_spiece_model(path, PIECES)
-    return NativeSPTokenizer(path)
+    tok = NativeSPTokenizer(path)
+    tok.model_path = path
+    return tok
 
 
 def test_native_tokenizer_ids(tok):
@@ -73,7 +75,18 @@ def test_native_tokenizer_ids(tok):
     assert list(arr[1]) == [4, 5, 6, 7, 4, 1]  # truncated to max_length - 1, EOS kept
 
 
-def test_native_tokenizer_rejects_what_it_cannot_normalize(tok):
-    for prompt in ("café", "a\tpig", "a\x07pig"):
-        with pytest.raises(ValueError):
-            tok.encode(prompt)
+@pytest.mark.parametrize("prompt", ["café", "a\tpig", "a\x07pig"], ids=["non_ascii", "tab", "bell"])
+def test_native_tokenizer_rejects_what_it_cannot_normalize(tok, prompt):
+    """The JAX package's guard: only text that nmt_nfkc could change (non-ASCII,
+    or NFKC-variant ASCII) leaves the native path, and without a fallback
+    tokenizer.json it raises in both packages; ASCII control characters are
+    encoded natively, to the same ids in both."""
+    from s2v_tpu.utils.sp_native import NativeSPTokenizer as JNativeSPTokenizer
+
+    theirs = JNativeSPTokenizer(str(tok.model_path))
+    if prompt == "café":
+        for t in (tok, theirs):
+            with pytest.raises(ValueError):
+                t.encode(prompt)
+        return
+    np.testing.assert_array_equal(tok.encode(prompt, max_length=8), theirs.encode(prompt, max_length=8))
