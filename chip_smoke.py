@@ -19,20 +19,35 @@ Phases, each printing one JSON line:
                 training shape B=1, H=48, S=19,126, d=64 (q/k LayerNormed,
                 lse from B1, dO seeded), timed beside its bound, the plain
                 version and the backward of one SDPA call (a yardstick only);
-  5. reference — a small bf16 pipeline on the card, flash kernel against
-                the plain fp32 attention on the same weights and noise;
-  6. e2e      — ``S2VPipeline.generate`` at full CogVideoX-5b width (42-block
+  5. kernel_banded — kernel B4 (banded windowed attention; global queries
+                through B1) against its plain version: small ragged
+                geometries (clamped windows, w = 0, a window wider than the
+                clip), and the main shape B=2, G=1,576, tpf=1,350, F=13, w=2,
+                timed beside its bound, the plain version, the gather path on
+                B1, and one SDPA call with a boolean band mask over the video
+                queries (a yardstick only);
+  6. kernel_banded_bwd — kernel B5 (its backward; global queries through
+                B2) the same way at the training shape (B=1);
+  7. reference — a small bf16 pipeline on the card, flash kernel against
+                the plain fp32 attention on the same weights and noise, and
+                the same with the windowed backends (B4 against the gather
+                path on the plain attention);
+  8. e2e      — ``S2VPipeline.generate`` at full CogVideoX-5b width (42-block
                 DiT, T5-XXL, the full VAE; random weights from fixed seeds):
                 49 frames at 480x720, 2 DDIM steps, batched CFG; the launch
                 counts are zeroed just before and read just after;
-  7. train    — on the same pipeline: one seeded 49x480x720 clip through
+  9. e2e_windowed — the same after ``set_attention("windowed", 2)``: per
+                step 42 B1 launches (global queries) and 42 B4 launches;
+ 10. train    — on the same pipeline: one seeded 49x480x720 clip through
                 ``latent_batches`` (RoPE tables added), then 3 LoRA train
                 steps (rank 128 on all seven target families, flash both
                 ways, remat, adamw with a bf16 first moment and clip 1.0);
                 per step the counts are zeroed before and read after: B1
                 twice per block (forward and recompute), B2 once per block;
                 then one more step under ``torch.profiler`` (device time by
-                kernel family, the device's idle share).
+                kernel family, the device's idle share);
+ 11. train_windowed — the same with ``attention_backend="windowed"``: per
+                step B1 and B4 twice per block, B2 and B5 once per block.
 Then the kernels line, the nvidia-smi line, and the result line.  Any failed
 phase raises: the script exits non-zero and prints no result.  It needs a
 CUDA device and the repository beside it.  ``--phases a,b`` runs only those
@@ -50,6 +65,14 @@ import numpy as np
 REPO = Path(__file__).resolve().parent
 MAIN_SHAPE = (2, 19126, 48, 64)  # B, S, H, d: batched CFG over [text 226 | ref 1350 | video 17550]
 TRAIN_SHAPE = (1, 19126, 48, 64)  # the LoRA train step: one clip, no CFG
+# windowed attention at the 5b geometry: [text 226 | ref 1,350] global, 13 frames of 1,350, w = 2
+BAND = (1576, 1350, 2)  # global_len, tokens_per_frame, window_frames
+# (B, H, G, tpf, F, w): ragged frames and globals, clamped windows at both
+# edges, w = 0, a small clip (span - 1 >= F - span: edge key frames take
+# every query frame), a window wider than the clip, full-size frames
+BANDED_SMALL = [(2, 3, 24, 20, 5, 1), (1, 2, 24, 20, 3, 2), (1, 2, 24, 20, 4, 0), (1, 2, 24, 20, 4, 1),
+                (1, 2, 1, 8, 2, 0), (1, 2, 300, 24, 4, 1), (1, 2, 7, 130, 3, 2), (1, 2, 129, 16, 7, 3),
+                (1, 2, 50, 40, 5, 9), (1, 3, 1576, 1350, 5, 2)]
 MODES = ("online", "bounded", "bounded_exp2")
 MAIN_MODE = "bounded"  # the softmax mode the DiT's attention uses
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, HBM3
@@ -93,17 +116,20 @@ def cuda_ms(fn, iters):
 
 
 def phase_build():
+    from s2v_torch.kernels.banded_attention import SOURCE as BANDED_SRC
+    from s2v_torch.kernels.banded_attention_bwd import SOURCE as BANDED_BWD_SRC
     from s2v_torch.kernels.flash_attention import SOURCE as FLASH_SRC
     from s2v_torch.kernels.flash_attention_bwd import SOURCE as FLASH_BWD_SRC
     from s2v_torch.utils import native_build
     from s2v_torch.utils.sp_native import SOURCE as SP_SRC
 
     t0 = time.perf_counter()
-    results = native_build.build([FLASH_SRC, FLASH_BWD_SRC, SP_SRC])
+    kernels = (FLASH_SRC, FLASH_BWD_SRC, BANDED_SRC, BANDED_BWD_SRC)
+    results = native_build.build([*kernels, SP_SRC])
     # per kernel: its registers, spills and shared memory
     ptxas = {src.stem: [ln.strip() for ln in results[src.stem]["log"].splitlines()
                         if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
-             for src in (FLASH_SRC, FLASH_BWD_SRC)}
+             for src in kernels}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_source_s": {k: v["seconds"] for k, v in results.items()}, "ptxas": ptxas})
 
@@ -273,9 +299,213 @@ def phase_kernel_bwd(dev):
     return result
 
 
+def _bound(flops, nbytes):
+    """(bound_ms, bound_by): the larger of the operations over the bf16 peak
+    and the bytes over the memory rate."""
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def _ln_qkv(b, s, h, seed, dev):
+    """q, k, v at the DiT's scale: q/k LayerNormed over d, as after qk-norm."""
+    import torch
+    import torch.nn.functional as F
+
+    q, k, v = _qkv(b, s, s, h, seed, dev)
+    return F.layer_norm(q.float(), (64,)).to(torch.bfloat16), F.layer_norm(k.float(), (64,)).to(torch.bfloat16), v
+
+
+def _library_ms(what, setup, shapes):
+    """Time the one PyTorch call ``setup(shape)`` returns at the first shape
+    of ``shapes`` that runs on the card; returns (ms, shape, reasons for the
+    shapes that did not run)."""
+    import torch
+
+    reasons = []
+    for shape in shapes:
+        try:
+            call = setup(shape)
+            call()  # warm-up
+            return cuda_ms(call, 10), list(shape), reasons
+        except (torch.OutOfMemoryError, RuntimeError) as e:
+            reasons.append(f"{what} at {list(shape)}: {type(e).__name__}: {str(e)[:200]}")
+            torch.cuda.empty_cache()
+    return None, None, reasons
+
+
+def _masked_sdpa_args(b, h, geo, seed, dev, requires_grad=False):
+    """Inputs of the library yardstick: the video queries against every key
+    with the band as a boolean ``[S_vid, S]`` mask."""
+    import torch
+
+    from s2v_torch.kernels.banded_attention import band_mask
+
+    s = geo.global_len + geo.n_frames * geo.tokens_per_frame
+    q, k, v = _ln_qkv(b, s, h, seed, dev)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q[:, geo.global_len:], k, v))
+    if requires_grad:
+        qt, kt, vt = (x.detach().requires_grad_() for x in (qt, kt, vt))
+    return qt, kt, vt, band_mask(geo, torch.arange(geo.global_len, s, device=dev), s)
+
+
+def _compare_banded(q, k, v, band):
+    from s2v_torch.kernels.banded_attention import banded_flash_attention, banded_flash_attention_reference
+
+    o, lse = banded_flash_attention(q, k, v, *band, return_lse=True)
+    o_ref, lse_ref = banded_flash_attention_reference(q, k, v, *band, return_lse=True)
+    what = f"banded_flash_attention {tuple(q.shape)} band {band}"
+    stats = _agreement(o, o_ref, what)
+    lse_err = (lse - lse_ref).abs().max().item()
+    if not lse_err < LSE_TOL:
+        raise AssertionError(f"{what}: lse max_abs_err {lse_err} (tol {LSE_TOL})")
+    return {**stats, "lse_err": lse_err, "lse_tol": LSE_TOL}
+
+
+def phase_kernel_banded(dev):
+    """Kernel B4 (with the global queries' B1 call) against its plain
+    version: small geometries, then the main shape, timed beside its bound,
+    the plain version, the gather path on B1 and one masked SDPA call over
+    the video queries (a yardstick only: the port never calls it)."""
+    import torch
+    import torch.nn.functional as F
+
+    from s2v_torch.kernels.banded_attention import (
+        band_geometry,
+        banded_flash_attention,
+        banded_flash_attention_reference,
+        launch_banded,
+    )
+    from s2v_torch.ops.windowed_attention import windowed_attention
+
+    small = []
+    for (b, h, g, tpf, f, w) in BANDED_SMALL:
+        q, k, v = _qkv(b, g + f * tpf, g + f * tpf, h, g + tpf + f, dev)
+        small.append({"b": b, "h": h, "band": [g, tpf, f, w], **_compare_banded(q, k, v, (g, tpf, w))})
+    emit({"phase": "kernel_banded_small", "cases": small})
+
+    b, s, h, d = MAIN_SHAPE
+    q, k, v = _ln_qkv(b, s, h, 7, dev)
+    geo = band_geometry(s, *BAND)
+    stats = _compare_banded(q, k, v, BAND)
+    banded_flash_attention(q, k, v, *BAND)  # warm-up
+    ms = cuda_ms(lambda: banded_flash_attention(q, k, v, *BAND), 10)
+    lse_ms = cuda_ms(lambda: banded_flash_attention(q, k, v, *BAND, return_lse=True), 10)
+    o = torch.empty_like(q)
+    video_ms = cuda_ms(lambda: launch_banded(q, k, v, o, None, geo, d ** -0.5), 10)
+    plain_ms = cuda_ms(lambda: banded_flash_attention_reference(q, k, v, *BAND), 2)
+    windowed_attention(q, k, v, *BAND)  # warm-up
+    gather_ms = cuda_ms(lambda: windowed_attention(q, k, v, *BAND), 10)
+    del o
+
+    def masked_sdpa(shape):
+        qt, kt, vt, mask = _masked_sdpa_args(*shape, geo, 7, dev)
+        return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+
+    library_ms, library_shape, library_failed = _library_ms(
+        "masked SDPA over the video queries", masked_sdpa, [(b, h), (1, h), (1, h // 2)])
+    pairs_vid, pairs_glob = geo.pairs()
+    flops_vid, flops_glob = 4 * b * h * d * pairs_vid, 4 * b * h * d * pairs_glob
+    # q, k, v read once and o written once in bf16 (the inference call: no lse)
+    bound_ms, bound_by = _bound(flops_vid + flops_glob, 4 * b * s * h * d * 2)
+    s_vid = s - geo.global_len
+    video_bound_ms, _ = _bound(flops_vid, (2 * s_vid + 2 * s) * b * h * d * 2)
+    result = {"phase": "kernel_banded_main", "shape": list(MAIN_SHAPE), "band": list(BAND), **stats,
+              "ms": ms, "with_lse_ms": lse_ms, "video_launch_ms": video_ms, "gather_path_ms": gather_ms,
+              "plain_ms": plain_ms, "library_ms": library_ms, "library_shape": library_shape,
+              "library_not_run": library_failed, "bound_ms": bound_ms, "bound_by": bound_by,
+              "video_bound_ms": video_bound_ms, "global_bound_ms": flops_glob / PEAK_BF16_FLOPS * 1e3,
+              "video_tflops": flops_vid / video_ms / 1e9}
+    emit(result)
+    return result
+
+
+def _banded_bwd_inputs(b, h, s, band, seed, dev, layer_norm=False):
+    """q, k, v, o, lse (B4 with lse) and a seeded dO."""
+    import torch
+
+    from s2v_torch.kernels.banded_attention import banded_flash_attention
+
+    q, k, v = _ln_qkv(b, s, h, seed, dev) if layer_norm else _qkv(b, s, s, h, seed, dev)
+    o, lse = banded_flash_attention(q, k, v, *band, return_lse=True)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    do = torch.randn(q.shape, device=dev, generator=g).to(torch.bfloat16)
+    return q, k, v, o, lse, do
+
+
+def _compare_banded_bwd(q, k, v, o, lse, do, band):
+    from s2v_torch.kernels.banded_attention_bwd import (
+        banded_flash_attention_bwd,
+        banded_flash_attention_bwd_reference,
+    )
+
+    got = banded_flash_attention_bwd(q, k, v, o, lse, do, *band)
+    want = banded_flash_attention_bwd_reference(q, k, v, o, lse, do, *band)
+    what = f"banded_flash_attention_bwd {tuple(q.shape)} band {band}"
+    return {name: _agreement(a, r, f"{what} {name}") for name, a, r in zip(("dq", "dk", "dv"), got, want)}
+
+
+def phase_kernel_banded_bwd(dev):
+    """Kernel B5 (with the global queries' B2 call) against its plain
+    version: small geometries, then the training shape, timed beside its
+    bound, the plain version and the backward of one masked SDPA call over
+    the video queries (a yardstick only)."""
+    import torch
+    import torch.nn.functional as F
+
+    from s2v_torch.kernels.banded_attention import band_geometry
+    from s2v_torch.kernels.banded_attention_bwd import (
+        banded_flash_attention_bwd,
+        banded_flash_attention_bwd_reference,
+        launch_banded_bwd,
+    )
+    from s2v_torch.kernels.flash_attention_bwd import row_delta
+
+    small = []
+    for (b, h, g, tpf, f, w) in BANDED_SMALL:
+        inputs = _banded_bwd_inputs(b, h, g + f * tpf, (g, tpf, w), g + tpf + f, dev)
+        small.append({"b": b, "h": h, "band": [g, tpf, f, w], **_compare_banded_bwd(*inputs, (g, tpf, w))})
+    emit({"phase": "kernel_banded_bwd_small", "cases": small})
+
+    b, s, h, d = TRAIN_SHAPE
+    geo = band_geometry(s, *BAND)
+    q, k, v, o, lse, do = _banded_bwd_inputs(b, h, s, BAND, 11, dev, layer_norm=True)
+    stats = _compare_banded_bwd(q, k, v, o, lse, do, BAND)
+    banded_flash_attention_bwd(q, k, v, o, lse, do, *BAND)  # warm-up
+    ms = cuda_ms(lambda: banded_flash_attention_bwd(q, k, v, o, lse, do, *BAND), 10)
+    delta = row_delta(o, do)
+    grads = [torch.empty_like(q) for _ in range(3)]
+    video_ms = cuda_ms(lambda: launch_banded_bwd(q, k, v, do, lse, delta, *grads, geo, d ** -0.5), 10)
+    plain_ms = cuda_ms(lambda: banded_flash_attention_bwd_reference(q, k, v, o, lse, do, *BAND), 2)
+    del grads, delta
+
+    def masked_sdpa_bwd(shape):
+        qt, kt, vt, mask = _masked_sdpa_args(*shape, geo, 11, dev, requires_grad=True)
+        out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+        gt = do[:, geo.global_len:, :shape[1]].transpose(1, 2)
+        return lambda: torch.autograd.grad(out, (qt, kt, vt), gt, retain_graph=True)
+
+    library_ms, library_shape, library_failed = _library_ms(
+        "masked SDPA backward over the video queries", masked_sdpa_bwd, [(b, h), (b, h // 2)])
+    pairs_vid, pairs_glob = geo.pairs()
+    flops_vid, flops_glob = 10 * b * h * d * pairs_vid, 10 * b * h * d * pairs_glob
+    # q, k, v, o, dO read and dq, dk, dv written once in bf16, plus the fp32 lse
+    bound_ms, bound_by = _bound(flops_vid + flops_glob, 8 * b * s * h * d * 2 + b * h * s * 4)
+    s_vid = s - geo.global_len
+    video_bound_ms, _ = _bound(flops_vid, (3 * s_vid + 4 * s) * b * h * d * 2 + 2 * b * h * s_vid * 4)
+    result = {"phase": "kernel_banded_bwd_main", "shape": list(TRAIN_SHAPE), "band": list(BAND), "grads": stats,
+              "ms": ms, "video_launch_ms": video_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+              "library_shape": library_shape, "library_not_run": library_failed, "bound_ms": bound_ms,
+              "bound_by": bound_by, "video_bound_ms": video_bound_ms,
+              "global_bound_ms": flops_glob / PEAK_BF16_FLOPS * 1e3, "video_tflops": flops_vid / video_ms / 1e9}
+    emit(result)
+    return result
+
+
 def phase_reference(dev):
     """A small bf16 pipeline with d=64 heads: the flash kernel path against
-    the plain fp32 attention path, on the same weights, inputs and noise."""
+    the plain fp32 attention path, on the same weights, inputs and noise;
+    then the windowed backend (B4, w = 1, 5 latent frames of 16 tokens)
+    against the gather path on the plain attention."""
     import torch
 
     from s2v_torch import S2VPipeline, TransformerConfig, VAEConfig
@@ -287,20 +517,64 @@ def phase_reference(dev):
     pipe = S2VPipeline(init_transformer_params_random(tcfg, seed=3, device=dev, scale=0.1), tcfg,
                        init_vae_params_random(vcfg, seed=4, device=dev), vcfg, device=dev)
     g = np.random.RandomState(0)
-    kw = dict(prompt_embeds=torch.from_numpy(g.randn(2, 16, 32).astype(np.float32)),
-              ref_image=np.clip(g.randn(32, 32, 3) * 0.5, -1, 1), height=32, width=32, num_frames=9,
-              num_inference_steps=2, guidance_scale=2.0, output_type="latent", seed=1)
-    pipe.attention_backend = "flash"
-    flash = pipe.generate(**kw).float()
-    pipe.attention_backend = "plain"
-    plain = pipe.generate(**kw).float()
-    err = (flash - plain).abs().max().item()
-    rel = err / plain.abs().max().item()
-    if not (torch.isfinite(flash).all() and rel < PIPELINE_REL_TOL):
-        raise AssertionError(f"small pipeline: flash vs plain max_abs_err {err}, relative {rel} "
-                             f"(tol {PIPELINE_REL_TOL})")
-    emit({"phase": "reference", "max_abs_err": err, "relative_err": rel, "rel_tol": PIPELINE_REL_TOL,
-          "shape": list(flash.shape)})
+    embeds = torch.from_numpy(g.randn(2, 16, 32).astype(np.float32))
+    result = {"phase": "reference", "rel_tol": PIPELINE_REL_TOL}
+    for name, size, frames, (kernel, plain) in [("flash", 32, 9, ("flash", "plain")),
+                                                ("windowed", 64, 17, ("windowed", "windowed_plain"))]:
+        kw = dict(prompt_embeds=embeds, ref_image=np.clip(g.randn(size, size, 3) * 0.5, -1, 1), height=size,
+                  width=size, num_frames=frames, num_inference_steps=2, guidance_scale=2.0, output_type="latent",
+                  seed=1)
+        pipe.set_attention(kernel, 1)
+        got = pipe.generate(**kw).float()
+        pipe.set_attention(plain, 1)
+        want = pipe.generate(**kw).float()
+        err = (got - want).abs().max().item()
+        rel = err / want.abs().max().item()
+        if not (torch.isfinite(got).all() and rel < PIPELINE_REL_TOL):
+            raise AssertionError(f"small pipeline: {kernel} vs {plain} max_abs_err {err}, relative {rel} "
+                                 f"(tol {PIPELINE_REL_TOL})")
+        result[name] = {"max_abs_err": err, "relative_err": rel, "shape": list(got.shape)}
+    emit(result)
+
+
+COUNTED = ("flash_attention", "flash_attention_bwd", "banded_flash_attention", "banded_flash_attention_bwd")
+
+
+def _counted_fns():
+    from s2v_torch.kernels.banded_attention import banded_flash_attention
+    from s2v_torch.kernels.banded_attention_bwd import banded_flash_attention_bwd
+    from s2v_torch.kernels.flash_attention import flash_attention
+    from s2v_torch.kernels.flash_attention_bwd import flash_attention_bwd
+
+    return dict(zip(COUNTED, (flash_attention, flash_attention_bwd, banded_flash_attention,
+                              banded_flash_attention_bwd)))
+
+
+def reset_counts():
+    """Every kernel's launch count (and B1's online re-runs) set to 0."""
+    fns = _counted_fns()
+    for fn in fns.values():
+        fn.launches = 0
+    fns["flash_attention"].reruns = 0
+
+
+def read_counts() -> dict:
+    fns = _counted_fns()
+    return {**{name: fn.launches for name, fn in fns.items()}, "reruns": fns["flash_attention"].reruns}
+
+
+def check_counts(counts: dict, backend: str, forwards: int, backwards: int) -> bool:
+    """The launches of ``forwards`` block forwards and ``backwards`` block
+    backwards with ``backend``: one B1 per forward (net of the bounded
+    mode's re-runs; the windowed backend's global queries run online, with
+    none) and one B2 per backward; the windowed backend adds one B4 per
+    forward and one B5 per backward."""
+    windowed = backend == "windowed"
+    want = {"flash_attention": forwards, "flash_attention_bwd": backwards,
+            "banded_flash_attention": forwards if windowed else 0,
+            "banded_flash_attention_bwd": backwards if windowed else 0}
+    got = {**counts, "flash_attention": counts["flash_attention"] - counts["reruns"]}
+    return all(got[k] == v for k, v in want.items()) and not (windowed and counts["reruns"])
 
 
 def build_full_pipe(dev):
@@ -334,40 +608,43 @@ def build_full_pipe(dev):
     return pipe
 
 
-def phase_e2e(dev, pipe, num_frames=49):
+def phase_e2e(dev, pipe, backend="flash", window=2, num_frames=49):
+    """``generate`` at 49x480x720, 2 steps, with ``backend`` (and the window
+    half-width of a windowed backend); the pipeline's backend is restored
+    after."""
     import torch
-
-    from s2v_torch.kernels.flash_attention import flash_attention
-    from s2v_torch.kernels.flash_attention_bwd import flash_attention_bwd
 
     tcfg = pipe.transformer_cfg
     image = np.clip(np.random.RandomState(42).randn(480, 720, 3).astype(np.float32) * 0.5, -1, 1)
+    saved = (pipe.attention_backend, pipe.transformer_cfg)
+    pipe.set_attention(backend, window)
     torch.cuda.reset_peak_memory_stats()
-
-    flash_attention.launches = 0
-    flash_attention.reruns = 0
-    flash_attention_bwd.launches = 0
-    t0 = time.perf_counter()
-    video = pipe.generate(prompt="a pig walking in the park", ref_image=image, height=480, width=720,
-                          num_frames=num_frames, num_inference_steps=2, guidance_scale=6.0, seed=42)
-    wall_s = time.perf_counter() - t0
-    launches, reruns, bwd_launches = flash_attention.launches, flash_attention.reruns, flash_attention_bwd.launches
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        video = pipe.generate(prompt="a pig walking in the park", ref_image=image, height=480, width=720,
+                              num_frames=num_frames, num_inference_steps=2, guidance_scale=6.0, seed=42)
+        wall_s = time.perf_counter() - t0
+        counts = read_counts()
+    finally:
+        pipe.attention_backend, pipe.transformer_cfg = saved
 
     expected = (1, num_frames, 480, 720, 3)
     if video.shape != expected or not np.isfinite(video).all() or video.min() < 0 or video.max() > 1:
         raise AssertionError(f"generate output {video.shape}, finite {np.isfinite(video).all()}, "
                              f"range [{video.min()}, {video.max()}]")
-    if launches - reruns != 2 * tcfg.num_layers or bwd_launches:
-        raise AssertionError(f"flash launches {launches} with {reruns} re-runs, {bwd_launches} backward; "
-                             f"expected {2 * tcfg.num_layers} and 0")
+    if not check_counts(counts, backend, 2 * tcfg.num_layers, 0):
+        raise AssertionError(f"{backend} generate launches {counts}; expected {2 * tcfg.num_layers} per "
+                             f"forward kernel and no backward")
     timings = pipe.timings
-    emit({"phase": "e2e", "num_frames": num_frames, "steps": 2, "output_shape": list(video.shape),
-          "flash_launches": launches, "online_reruns": reruns,
+    emit({"phase": "e2e" if backend == "flash" else f"e2e_{backend}", "backend": backend,
+          "window": window if backend == "windowed" else None, "num_frames": num_frames, "steps": 2,
+          "output_shape": list(video.shape), "launches": counts,
           "encode_prompt_s": timings["encode_prompt_s"], "encode_ref_s": timings["encode_ref_s"],
           "denoise_step_s": timings["denoise_step_s"], "decode_s": timings["decode_s"], "wall_s": wall_s,
           "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
           "output_mean": float(video.mean()), "output_std": float(video.std())})
-    return launches
+    return counts
 
 
 def train_steps(pipe, dev, height, width, num_frames, steps, spec, optimizer_spec, backend):
@@ -378,8 +655,6 @@ def train_steps(pipe, dev, height, width, num_frames, steps, spec, optimizer_spe
     runs on the CPU too (at a tiny size, where no kernel launches)."""
     import torch
 
-    from s2v_torch.kernels.flash_attention import flash_attention
-    from s2v_torch.kernels.flash_attention_bwd import flash_attention_bwd
     from s2v_torch.training.data import latent_batches
     from s2v_torch.training.lora import (
         export_lora_to_reference_format,
@@ -419,13 +694,12 @@ def train_steps(pipe, dev, height, width, num_frames, steps, spec, optimizer_spe
     gen = torch.Generator(device=dev).manual_seed(3)
     losses, step_s, counts, b_nonzero = [], [], [], []
     for _ in range(steps):
-        flash_attention.launches = flash_attention.reruns = flash_attention_bwd.launches = 0  # counts zeroed
+        reset_counts()
         t0 = time.perf_counter()
         lora, opt_state, loss = step(lora, opt_state, batch, gen)
         sync()
         step_s.append(time.perf_counter() - t0)
-        counts.append({"flash_attention": flash_attention.launches, "reruns": flash_attention.reruns,
-                       "flash_attention_bwd": flash_attention_bwd.launches})
+        counts.append(read_counts())
         losses.append(loss.item())
         b_nonzero.append(any(bool(ab["b"].any()) for ab in lora.values()))
     profiled = None
@@ -453,6 +727,8 @@ def train_steps(pipe, dev, height, width, num_frames, steps, spec, optimizer_spe
 
 # kernel families of a profiled step, by substrings of the kernel's name
 KERNEL_FAMILIES = (
+    ("banded_flash_attention (B4)", ("banded_fwd_kernel",)),
+    ("banded_flash_attention_bwd (B5)", ("banded_bwd_",)),
     ("flash_attention (B1)", ("flash_fwd_kernel",)),
     ("flash_attention_bwd (B2)", ("flash_bwd_",)),
     ("matmul (cuBLAS)", ("nvjet", "gemm", "xmma", "cutlass", "cublas")),
@@ -496,19 +772,19 @@ def _tensors(tree):
     return [tree]
 
 
-def phase_train(dev, pipe, steps=3):
+def phase_train(dev, pipe, backend="flash", steps=3):
     """Three LoRA train steps of the full-width DiT (rank 128, all seven
-    target families, flash attention both ways, remat) on one 49x480x720
-    clip, with the template optimizer (adamw, bf16 first moment, clip 1.0),
-    then a fourth under ``torch.profiler``: its device time by kernel family
-    and the device's idle share."""
+    target families, ``backend`` attention both ways, remat) on one
+    49x480x720 clip, with the template optimizer (adamw, bf16 first moment,
+    clip 1.0), then a fourth under ``torch.profiler``: its device time by
+    kernel family and the device's idle share."""
     from s2v_torch.training.lora import LoRASpec
     from s2v_torch.training.optim import OptimizerSpec
 
     spec = LoRASpec(rank=128, alpha=64.0)
     opt = OptimizerSpec(optimizer="adamw", learning_rate=1e-4, beta1=0.9, beta2=0.95, weight_decay=1e-4,
                         epsilon=1e-8, max_grad_norm=1.0, moment_dtype="bfloat16")
-    r = train_steps(pipe, dev, 480, 720, 49, steps, spec, opt, "flash")
+    r = train_steps(pipe, dev, 480, 720, 49, steps, spec, opt, backend)
     L = pipe.transformer_cfg.num_layers
     problems = []
     if r["batch_shape"] != [1, 13, 60, 90, 16]:
@@ -520,19 +796,132 @@ def phase_train(dev, pipe, steps=3):
     if not r["b_nonzero"][0]:
         problems.append("every b is still zero after step 1")
     for i, c in enumerate(r["launches"]):
-        # B1: the forward and the remat recompute of each block (+ re-runs); B2: one backward per block
-        if c["flash_attention"] - c["reruns"] != 2 * L or c["flash_attention_bwd"] != L:
+        # forward kernels: the forward and the remat recompute of each block; backward: one per block
+        if not check_counts(c, backend, 2 * L, L):
             problems.append(f"step {i} launches {c}")
     if r["export_keys"] != 2 * (7 * L + 2):
         problems.append(f"export keys {r['export_keys']}")
     if problems:
-        raise AssertionError(f"train: {problems}; {r}")
-    emit({"phase": "train", "steps": steps, **r})
+        raise AssertionError(f"train ({backend}): {problems}; {r}")
+    emit({"phase": "train" if backend == "flash" else f"train_{backend}", "backend": backend, "steps": steps, **r})
     return r
 
 
-PHASES = ("build", "kernel", "kernel_bwd", "reference", "e2e", "train")
-PHASE_FNS = {"kernel": phase_kernel, "kernel_bwd": phase_kernel_bwd, "reference": phase_reference}
+PHASES = ("build", "kernel", "kernel_bwd", "kernel_banded", "kernel_banded_bwd", "reference", "e2e",
+          "e2e_windowed", "train", "train_windowed")
+KERNEL_PHASES = {"kernel": phase_kernel, "kernel_bwd": phase_kernel_bwd, "kernel_banded": phase_kernel_banded,
+                 "kernel_banded_bwd": phase_kernel_banded_bwd, "reference": phase_reference}
+# the pipeline phases: the backend each runs
+PATH_PHASES = {"e2e": (phase_e2e, "flash"), "e2e_windowed": (phase_e2e, "windowed"),
+               "train": (phase_train, "flash"), "train_windowed": (phase_train, "windowed")}
+
+
+def _path_launches(results, kernel):
+    """A kernel's launches on each pipeline phase's run (summed over a
+    train phase's steps, the profiled step not included)."""
+    out = {}
+    for phase, r in results.items():
+        if phase.startswith("e2e"):
+            out[phase] = r[kernel]
+        elif phase.startswith("train"):
+            out[phase] = sum(c[kernel] for c in r["launches"])
+    return out
+
+
+def kernels_line(results):
+    """The kernels line: each kernel with its route, source, the TPU kernel
+    it replaces, its launches on its main path (and on every path), its
+    agreement with the plain version beside the limits, and its times."""
+    worst = lambda stats, key: max(v[key] for v in stats.values())  # noqa: E731
+    main, bwd = results["kernel"], results["kernel_bwd"]
+    banded, banded_bwd = results["kernel_banded"], results["kernel_banded_bwd"]
+    common = {"route": "cuda", "rel_l2_tol": OUT_L2_REL}
+    return [{
+        **common,
+        "name": "flash_attention",
+        "source": "s2v_torch/csrc/flash_attention.cu",
+        "replaces": "s2v_tpu/ops/pallas/flash_attention.py:222",
+        "launches": results["e2e"]["flash_attention"],
+        "launches_by_path": _path_launches(results, "flash_attention"),
+        # the worst mode at the main shape, beside what it was held to
+        "max_abs_err": worst(main["modes"], "max_abs_err"),
+        "max_abs_tol": main["modes"][MAIN_MODE]["max_abs_tol"],
+        "rel_l2": worst(main["modes"], "rel_l2"),
+        "ref_rms": main["modes"][MAIN_MODE]["ref_rms"],
+        "ms": main["modes"][MAIN_MODE]["ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"],
+        "library_ms": main["library_ms"],
+        "mode": MAIN_MODE,
+        "ms_by_mode": {m: v["ms"] for m, v in main["modes"].items()},
+        "shape": list(MAIN_SHAPE),
+    }, {
+        **common,
+        "name": "flash_attention_bwd",
+        "source": "s2v_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "s2v_tpu/ops/pallas/flash_attention_bwd.py:128",
+        "launches": sum(c["flash_attention_bwd"] for c in results["train"]["launches"]),
+        "launches_by_path": _path_launches(results, "flash_attention_bwd"),
+        # the worst of dq, dk, dv at the training shape, beside what it was held to
+        "max_abs_err": worst(bwd["grads"], "max_abs_err"),
+        "max_abs_tol": min(v["max_abs_tol"] for v in bwd["grads"].values()),
+        "rel_l2": worst(bwd["grads"], "rel_l2"),
+        "ms": bwd["ms"],
+        "plain_ms": bwd["plain_ms"],
+        "bound_ms": bwd["bound_ms"],
+        "bound_by": bwd["bound_by"],
+        "library_ms": bwd["library_ms"],
+        "shape": list(TRAIN_SHAPE),
+    }, {
+        **common,
+        "name": "banded_flash_attention",
+        "source": "s2v_torch/csrc/banded_attention.cu",
+        "replaces": "s2v_tpu/ops/pallas/banded_attention.py:155",
+        "launches": results["e2e_windowed"]["banded_flash_attention"],
+        "launches_by_path": _path_launches(results, "banded_flash_attention"),
+        "max_abs_err": banded["max_abs_err"],
+        "max_abs_tol": banded["max_abs_tol"],
+        "rel_l2": banded["rel_l2"],
+        "lse_err": banded["lse_err"],
+        "lse_tol": LSE_TOL,
+        # the whole function: the banded launch and the global queries' B1 call
+        "ms": banded["ms"],
+        "plain_ms": banded["plain_ms"],
+        "bound_ms": banded["bound_ms"],
+        "bound_by": banded["bound_by"],
+        # the video queries alone: the banded launch and the masked SDPA call
+        "video_launch_ms": banded["video_launch_ms"],
+        "video_bound_ms": banded["video_bound_ms"],
+        "library_ms": banded["library_ms"],
+        "library_shape": banded["library_shape"],
+        "library_covers": "video queries (masked SDPA)",
+        "gather_path_ms": banded["gather_path_ms"],
+        "shape": list(MAIN_SHAPE),
+        "band": list(BAND),
+    }, {
+        **common,
+        "name": "banded_flash_attention_bwd",
+        "source": "s2v_torch/csrc/banded_attention_bwd.cu",
+        "replaces": "s2v_tpu/ops/pallas/banded_attention_bwd.py:178",
+        "launches": sum(c["banded_flash_attention_bwd"] for c in results["train_windowed"]["launches"]),
+        "launches_by_path": _path_launches(results, "banded_flash_attention_bwd"),
+        "max_abs_err": worst(banded_bwd["grads"], "max_abs_err"),
+        "max_abs_tol": min(v["max_abs_tol"] for v in banded_bwd["grads"].values()),
+        "rel_l2": worst(banded_bwd["grads"], "rel_l2"),
+        # the whole function: the banded pair, the global queries' B2 call, D and the sums
+        "ms": banded_bwd["ms"],
+        "plain_ms": banded_bwd["plain_ms"],
+        "bound_ms": banded_bwd["bound_ms"],
+        "bound_by": banded_bwd["bound_by"],
+        "video_launch_ms": banded_bwd["video_launch_ms"],
+        "video_bound_ms": banded_bwd["video_bound_ms"],
+        "library_ms": banded_bwd["library_ms"],
+        "library_shape": banded_bwd["library_shape"],
+        "library_covers": "video queries (backward of masked SDPA)",
+        "shape": list(TRAIN_SHAPE),
+        "band": list(BAND),
+    }]
 
 
 def main(argv=None) -> int:
@@ -568,65 +957,20 @@ def main(argv=None) -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
     phase_build()  # always: every other phase needs the kernels
+    # the kernel phases first, while the card's memory is free; then the
+    # full-width pipeline, built once for every pipeline phase
+    results, pipe = {}, None
+    for phase in [p for p in PHASES if p in phases and p != "build"]:
+        if phase in KERNEL_PHASES:
+            results[phase] = KERNEL_PHASES[phase](dev)
+        else:
+            pipe = pipe or build_full_pipe(dev)
+            fn, backend = PATH_PHASES[phase]
+            results[phase] = fn(dev, pipe, backend)
     if phases != list(PHASES):
-        pipe = None
-        for name in phases:
-            if name in ("kernel", "kernel_bwd", "reference"):
-                PHASE_FNS[name](dev)
-            elif name == "e2e":
-                pipe = pipe or build_full_pipe(dev)
-                phase_e2e(dev, pipe)
-            elif name == "train":
-                pipe = pipe or build_full_pipe(dev)
-                phase_train(dev, pipe)
         print(smi, flush=True)
         return 0
-    main_kernel = phase_kernel(dev)
-    bwd_kernel = phase_kernel_bwd(dev)  # before the pipeline, while the card's memory is free
-    phase_reference(dev)
-    pipe = build_full_pipe(dev)
-    launches = phase_e2e(dev, pipe)
-    train = phase_train(dev, pipe)
-
-    worst = lambda stats, key: max(v[key] for v in stats.values())  # noqa: E731
-    emit({"kernels": [{
-        "name": "flash_attention",
-        "route": "cuda",
-        "source": "s2v_torch/csrc/flash_attention.cu",
-        "replaces": "s2v_tpu/ops/pallas/flash_attention.py:222",
-        "launches": launches,
-        "launches_train": sum(c["flash_attention"] for c in train["launches"]),
-        # the worst mode at the main shape, beside what it was held to
-        "max_abs_err": worst(main_kernel["modes"], "max_abs_err"),
-        "max_abs_tol": main_kernel["modes"][MAIN_MODE]["max_abs_tol"],
-        "rel_l2": worst(main_kernel["modes"], "rel_l2"),
-        "ref_rms": main_kernel["modes"][MAIN_MODE]["ref_rms"],
-        "ms": main_kernel["modes"][MAIN_MODE]["ms"],
-        "plain_ms": main_kernel["plain_ms"],
-        "bound_ms": main_kernel["bound_ms"],
-        "bound_by": main_kernel["bound_by"],
-        "library_ms": main_kernel["library_ms"],
-        "mode": MAIN_MODE,
-        "ms_by_mode": {m: v["ms"] for m, v in main_kernel["modes"].items()},
-        "shape": list(MAIN_SHAPE),
-    }, {
-        "name": "flash_attention_bwd",
-        "route": "cuda",
-        "source": "s2v_torch/csrc/flash_attention_bwd.cu",
-        "replaces": "s2v_tpu/ops/pallas/flash_attention_bwd.py:128",
-        "launches": sum(c["flash_attention_bwd"] for c in train["launches"]),
-        # the worst of dq, dk, dv at the training shape, beside what it was held to
-        "max_abs_err": worst(bwd_kernel["grads"], "max_abs_err"),
-        "max_abs_tol": min(v["max_abs_tol"] for v in bwd_kernel["grads"].values()),
-        "rel_l2": worst(bwd_kernel["grads"], "rel_l2"),
-        "rel_l2_tol": OUT_L2_REL,
-        "ms": bwd_kernel["ms"],
-        "plain_ms": bwd_kernel["plain_ms"],
-        "bound_ms": bwd_kernel["bound_ms"],
-        "bound_by": bwd_kernel["bound_by"],
-        "library_ms": bwd_kernel["library_ms"],
-        "shape": list(TRAIN_SHAPE),
-    }], "seconds": time.perf_counter() - t_start})
+    emit({"kernels": kernels_line(results), "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}})
     return 0

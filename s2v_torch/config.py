@@ -30,6 +30,9 @@ class TransformerConfig:
     flip_sin_to_cos: bool = True
     freq_shift: int = 0
     ff_mult: int = 4
+    # half-width in latent frames of the opt-in windowed attention backends
+    # (a 2w + 1-frame window)
+    attention_window_frames: int = 2
     dtype: torch.dtype = torch.bfloat16
 
     @property

@@ -101,6 +101,13 @@ def flash_attention_bwd_reference(
     first; for fp32 inputs the two differ only by rounding).  Returns dq,
     dk, dv in q's, k's and v's dtypes."""
     _check_shapes(q, k, v, o, lse, g)
+    return masked_bwd_reference(q, k, v, o, lse, g, scale)
+
+
+def masked_bwd_reference(q, k, v, o, lse, g, scale=None, mask_rows=None):
+    """The chunked fp32 backward of :func:`flash_attention_bwd_reference`,
+    with ``mask_rows(rows)`` -> ``[len(rows), Skv]`` bool (True where the
+    query attends the key) setting P to 0 outside the mask, or no mask."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     kf = k.float().transpose(1, 2)  # [B, H, Skv, d]
@@ -113,7 +120,13 @@ def flash_attention_bwd_reference(
         c1 = c0 + REFERENCE_CHUNK
         qc = q[:, c0:c1].float().transpose(1, 2)  # [B, H, chunk, d]
         gc = g[:, c0:c1].float().transpose(1, 2)
-        p = torch.exp(torch.matmul(qc, kf.transpose(-1, -2)) * scale - lse[:, :, c0:c1, None].float())
+        logits = torch.matmul(qc, kf.transpose(-1, -2)) * scale
+        if mask_rows is not None:
+            # -inf, not a product with the mask: the lse bounds only the
+            # attended logits, so a masked one may overflow exp
+            logits = logits.masked_fill(~mask_rows(torch.arange(c0, c0 + qc.shape[2], device=q.device)),
+                                        float("-inf"))
+        p = torch.exp(logits - lse[:, :, c0:c1, None].float())
         dv += torch.matmul(p.transpose(-1, -2), gc)
         ds = p * (torch.matmul(gc, vf.transpose(-1, -2)) - delta[:, :, c0:c1, None])
         dqs.append((torch.matmul(ds, kf) * scale).transpose(1, 2))

@@ -15,7 +15,7 @@ from torch.utils.checkpoint import checkpoint
 
 from s2v_torch.config import TransformerConfig
 from s2v_torch.ops.adaln import ada_layer_norm_out, ada_layer_norm_zero_3stream
-from s2v_torch.ops.attention import joint_attention
+from s2v_torch.ops.attention import WINDOWED_BACKENDS, joint_attention
 from s2v_torch.ops.norms import layer_norm
 from s2v_torch.ops.patchify import patchify_video, unpatchify_video
 from s2v_torch.ops.quant import dense
@@ -147,14 +147,28 @@ def block_forward(
     rope_sin: Optional[torch.Tensor],
     cfg: TransformerConfig,
     attention_backend: str = "plain",
+    tokens_per_frame: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One CogVideoX block; ``ref`` may be zero-width ``[B, 0, D]`` (T2V)."""
+    """One CogVideoX block; ``ref`` may be zero-width ``[B, 0, D]`` (T2V).
+
+    A windowed backend attends with text + ref as the global segment and
+    the video's frames of ``tokens_per_frame`` tokens: the ref's length when
+    a ref is present (one latent frame of the video's size), else the value
+    given (``transformer_forward`` derives it from the video)."""
     t_len = text.shape[1]
     r_len = ref.shape[1]
+    window = None
+    if attention_backend in WINDOWED_BACKENDS:
+        tpf = r_len if r_len > 0 else tokens_per_frame
+        if tpf <= 0:
+            raise ValueError("windowed attention needs tokens-per-frame; call through transformer_forward "
+                             "so it is derived from the video shape")
+        window = (t_len + r_len, tpf, cfg.attention_window_frames)
     v_n, t_n, r_n, g_v, g_t, g_r = ada_layer_norm_zero_3stream(p["norm1"], video, text, ref, temb, cfg.norm_eps)
     x = torch.cat([t_n, r_n, v_n], dim=1)
     attn = joint_attention(
-        p["attn"], x, cfg.num_attention_heads, rope_cos, rope_sin, cfg.qk_norm_eps, backend=attention_backend
+        p["attn"], x, cfg.num_attention_heads, rope_cos, rope_sin, cfg.qk_norm_eps, backend=attention_backend,
+        window=window,
     )
     video = video + g_v * attn[:, t_len + r_len:]
     text = text + g_t * attn[:, :t_len]
@@ -211,7 +225,8 @@ def transformer_forward(
     def run_block(layer, factors, video, text, ref):
         if factors is not None:
             layer = apply_runtime_lora_block(layer, factors)
-        return block_forward(layer, video, text, ref, temb, rope_cos, rope_sin, cfg, attention_backend)
+        return block_forward(layer, video, text, ref, temb, rope_cos, rope_sin, cfg, attention_backend,
+                             tokens_per_frame=(h // p) * (w // p))
 
     for layer, factors in zip(params["blocks"], layer_factors):
         if use_remat:

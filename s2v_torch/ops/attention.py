@@ -10,6 +10,13 @@ Backends:
   * ``plain`` — exact fp32 softmax attention in PyTorch ops (B1's plain
     version in the online mode, differentiated by autograd); the CPU
     analogue of the JAX ``xla`` backend.
+  * the windowed family (opt-in, approximate; ``window=(global_len,
+    tokens_per_frame, w)``, see ``s2v_torch/ops/windowed_attention.py``):
+    ``windowed`` — :func:`banded_attention_trainable`, kernel B4 forward and
+    B5 backward (``s2v_torch.kernels.banded_attention``/``_bwd``);
+    ``windowed_gather`` — the gather path on B1 (and B2 under autograd);
+    ``windowed_plain`` — the gather path on the plain fp32 attention, the
+    counterpart of JAX ``windowed_xla``.
 """
 
 from __future__ import annotations
@@ -18,13 +25,18 @@ from typing import Optional, Tuple
 
 import torch
 
+from s2v_torch.kernels.banded_attention import banded_flash_attention
+from s2v_torch.kernels.banded_attention_bwd import banded_flash_attention_bwd
 from s2v_torch.kernels.flash_attention import flash_attention, flash_attention_reference
 from s2v_torch.kernels.flash_attention_bwd import flash_attention_bwd
 from s2v_torch.ops.norms import layer_norm
 from s2v_torch.ops.quant import dense
 from s2v_torch.ops.rope import apply_rotary_emb
+from s2v_torch.ops.windowed_attention import windowed_attention
 
-ATTENTION_BACKENDS = ("auto", "flash", "plain")
+# backends that take the sliding temporal window (entry points configure its width)
+WINDOWED_BACKENDS = ("windowed", "windowed_gather", "windowed_plain")
+ATTENTION_BACKENDS = ("auto", "flash", "plain") + WINDOWED_BACKENDS
 FLASH_SOFTMAX_MODE = "bounded"
 
 
@@ -54,13 +66,44 @@ class _FlashAttention(torch.autograd.Function):
         return flash_attention_bwd(q, k, v, o, lse, g.contiguous())
 
 
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def flash_attention_trainable(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Differentiable flash attention, ``[B, S, H, d]`` in and out.  Without
     autograd (no input needs a grad, or grad mode is off) it is one B1 call
     without lse, exactly what inference runs."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+    if _needs_grad(q, k, v):
         return _FlashAttention.apply(q, k, v)
     return flash_attention(q, k, v, softmax_mode=FLASH_SOFTMAX_MODE)
+
+
+class _BandedAttention(torch.autograd.Function):
+    """Banded windowed attention both ways (``s2v_tpu/ops/attention.py:386-427``):
+    the forward is B4 with lse, saving q, k, v, o and lse; the backward is
+    B5, which recomputes P from the lse."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, global_len, tokens_per_frame, window_frames):
+        o, lse = banded_flash_attention(q, k, v, global_len, tokens_per_frame, window_frames, return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.window = (global_len, tokens_per_frame, window_frames)
+        return o
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, o, lse = ctx.saved_tensors
+        return (*banded_flash_attention_bwd(q, k, v, o, lse, g.contiguous(), *ctx.window), None, None, None)
+
+
+def banded_attention_trainable(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, global_len: int,
+                               tokens_per_frame: int, window_frames: int) -> torch.Tensor:
+    """Differentiable banded windowed attention, ``[B, S, H, d]`` in and out.
+    Without autograd it is one B4 call without lse, what inference runs."""
+    if _needs_grad(q, k, v):
+        return _BandedAttention.apply(q, k, v, global_len, tokens_per_frame, window_frames)
+    return banded_flash_attention(q, k, v, global_len, tokens_per_frame, window_frames)
 
 
 def qkv_projections(params: dict, x: torch.Tensor, num_heads: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -80,9 +123,11 @@ def joint_attention(
     rope_sin: Optional[torch.Tensor] = None,
     qk_norm_eps: float = 1e-6,
     backend: str = "plain",
+    window: Optional[Tuple[int, int, int]] = None,  # (global_len, tokens_per_frame, w)
 ) -> torch.Tensor:
     """Full-sequence self attention: fused qkv, fp32-statistics qk-LayerNorm,
-    segmented RoPE (``[S, d/2]`` tables, or None), attention, output linear."""
+    segmented RoPE (``[S, d/2]`` tables, or None), attention, output linear.
+    A windowed backend needs ``window``."""
     b, s, d = x.shape
     q, k, v = qkv_projections(params, x, num_heads)
     q = layer_norm(q, params["norm_q"]["weight"], params["norm_q"]["bias"], qk_norm_eps)
@@ -99,6 +144,14 @@ def joint_attention(
         out = flash_attention_trainable(q, k, v)
     elif backend == "plain":
         out = flash_attention_reference(q, k, v)
+    elif backend in WINDOWED_BACKENDS:
+        if window is None:
+            raise ValueError(f"attention backend {backend!r} needs window=(global_len, tokens_per_frame, w)")
+        if backend == "windowed":
+            out = banded_attention_trainable(q, k, v, *window)
+        else:
+            attn_fn = flash_attention_trainable if backend == "windowed_gather" else flash_attention_reference
+            out = windowed_attention(q, k, v, *window, attention_fn=attn_fn)
     else:
         raise ValueError(f"unresolved attention backend {backend!r}")
     if fp16_in:

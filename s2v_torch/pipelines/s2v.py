@@ -22,7 +22,7 @@ import torch
 from s2v_torch.config import PipelineConfig, SchedulerConfig, T5Config, TransformerConfig, VAEConfig
 from s2v_torch.models.t5 import t5_encode
 from s2v_torch.models.vae import gaussian_sample, vae_decode, vae_encode
-from s2v_torch.ops.attention import resolve_attention_backend
+from s2v_torch.ops.attention import WINDOWED_BACKENDS, resolve_attention_backend
 from s2v_torch.ops.rope import build_segmented_rope, prepare_video_and_ref_rope
 from s2v_torch.pipelines.denoise import DenoiseSchedule, denoise
 from s2v_torch.utils.device import resolve_device
@@ -46,7 +46,8 @@ class S2VPipeline:
     pipeline_cfg: PipelineConfig = field(default_factory=PipelineConfig)
     tokenizer: Optional[object] = None  # .encode(prompts, max_length) -> int ids
     device: Optional[Union[str, torch.device]] = None
-    # "auto": the flash kernel on CUDA, the plain fp32 attention on the CPU
+    # "auto": the flash kernel on CUDA, the plain fp32 attention on the CPU;
+    # set_attention selects a windowed backend and its width
     attention_backend: str = "auto"
     # "auto" tiles the VAE only when the frame exceeds the VAE's sample size
     # (so 480x720 decodes untiled, the exact decoder output); True / False force it
@@ -58,6 +59,15 @@ class S2VPipeline:
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
+
+    def set_attention(self, backend: str, window: Optional[int] = None) -> None:
+        """Set the attention backend (``auto`` resolves on this device) and,
+        for the windowed family, the window half-width in latent frames
+        (``s2v_tpu/pipelines/s2v.py:142-158``)."""
+        backend = resolve_attention_backend(backend, self.device)
+        self.attention_backend = backend
+        if backend in WINDOWED_BACKENDS and window is not None:
+            self.transformer_cfg = replace(self.transformer_cfg, attention_window_frames=window)
 
     def _resolve_tiling(self, height_px: int, width_px: int) -> bool:
         if self.vae_tiling == "auto":

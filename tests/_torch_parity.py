@@ -23,3 +23,24 @@ def rand(*shape, seed=0):
 
 def t(a):
     return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+# windowed-attention geometries of the banded kernels' tests: (B, H, G, tpf, F, w)
+BAND_GEOMETRIES = {
+    "tpf_20_clamped_w1": (1, 2, 24, 20, 5, 1),
+    "span_equals_F": (1, 2, 24, 20, 3, 2),
+    "w0": (1, 2, 24, 20, 4, 0),
+    "small_clip_F4_w1": (1, 2, 24, 20, 4, 1),
+    "batch2_heads3": (2, 3, 10, 16, 5, 1),
+    "minimal": (1, 2, 1, 8, 2, 0),
+    "global_longer_than_frames": (1, 2, 300, 24, 4, 1),
+    "tpf_just_over_128": (1, 2, 7, 130, 3, 2),
+    "clamp_both_edges": (1, 2, 129, 16, 7, 3),
+    "window_wider_than_clip": (1, 2, 50, 40, 5, 9),
+}
+
+
+def band_inputs(b, h, g, tpf, f, seed, d=16, n=4):
+    """q, k, v (and dO): seeded numpy, 0.5-scaled as the JAX tests' sweep."""
+    rng = np.random.RandomState(seed)
+    return tuple((rng.randn(b, g + f * tpf, h, d) * 0.5).astype(np.float32) for _ in range(n))

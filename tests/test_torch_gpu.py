@@ -1,6 +1,6 @@
-"""Kernels B1 and B2 on the card against their plain PyTorch versions, and
-the differentiable flash attention (B1 forward, B2 backward) against plain
-autograd.
+"""Kernels B1, B2, B4 and B5 on the card against their plain PyTorch
+versions, and the differentiable flash and banded attentions (B1/B2, B4/B5)
+against plain autograd.
 
 Marked ``gpu``; every test skips without a CUDA device (decided inside the
 fixture, so every worker collects the same tests).  On a machine with a card:
@@ -15,12 +15,15 @@ import numpy as np
 import pytest
 import torch
 
+from s2v_torch.kernels.banded_attention import banded_flash_attention, banded_flash_attention_reference
+from s2v_torch.kernels.banded_attention_bwd import banded_flash_attention_bwd, banded_flash_attention_bwd_reference
 from s2v_torch.kernels.flash_attention import (
     flash_attention,
     flash_attention_reference,
 )
 from s2v_torch.kernels.flash_attention_bwd import flash_attention_bwd, flash_attention_bwd_reference
-from s2v_torch.ops.attention import flash_attention_trainable
+from s2v_torch.ops.attention import banded_attention_trainable, flash_attention_trainable
+from s2v_torch.ops.windowed_attention import windowed_attention_reference
 
 pytestmark = pytest.mark.gpu
 
@@ -165,3 +168,77 @@ def test_bwd_unsupported_inputs_raise_before_launch(cuda):
     with pytest.raises(ValueError):
         flash_attention_bwd(q, k, v, o, lse, shifted)
     assert flash_attention_bwd.launches == before
+
+
+# B4 and B5 against their plain versions on the same bf16 inputs, held to
+# the bars of B1 and B2 above.  (G, tpf, F, w): ragged frames and globals,
+# clamped windows, w = 0, a small clip (edge key frames take every query
+# frame), a window wider than the clip, a frame of more than one query tile.
+BANDS = [(24, 20, 5, 1), (24, 20, 4, 0), (24, 20, 4, 1), (300, 24, 4, 1), (7, 130, 3, 2), (50, 40, 5, 9),
+         (129, 300, 4, 1)]
+
+
+def _band_qkv(g, tpf, f, seed, device):
+    q, k, v = _qkv(2, g + f * tpf, g + f * tpf, 3, seed, device)
+    return q, k, v
+
+
+@pytest.mark.parametrize("g,tpf,f,w", BANDS)
+def test_banded_kernel_matches_plain(cuda, g, tpf, f, w):
+    q, k, v = _band_qkv(g, tpf, f, 10, cuda)
+    before = banded_flash_attention.launches
+    o, lse = banded_flash_attention(q, k, v, g, tpf, w, return_lse=True)
+    o_ref, lse_ref = banded_flash_attention_reference(q, k, v, g, tpf, w, return_lse=True)
+    torch.cuda.synchronize()
+    assert banded_flash_attention.launches == before + 1
+    assert o.shape == q.shape and lse.shape == (2, 3, q.shape[1])
+    _assert_close(o, o_ref)
+    assert (lse - lse_ref).abs().max().item() < 1e-2
+
+
+@pytest.mark.parametrize("g,tpf,f,w", BANDS)
+def test_banded_bwd_kernel_matches_plain(cuda, g, tpf, f, w):
+    q, k, v = _band_qkv(g, tpf, f, 11, cuda)
+    o, lse = banded_flash_attention(q, k, v, g, tpf, w, return_lse=True)
+    do = torch.from_numpy(np.random.RandomState(12).randn(*q.shape).astype(np.float32)).to(cuda, torch.bfloat16)
+    before = (banded_flash_attention_bwd.launches, flash_attention_bwd.launches)
+    got = banded_flash_attention_bwd(q, k, v, o, lse, do, g, tpf, w)
+    want = banded_flash_attention_bwd_reference(q, k, v, o, lse, do, g, tpf, w)
+    torch.cuda.synchronize()
+    # the video queries' kernel pair and the global queries' B2
+    assert (banded_flash_attention_bwd.launches, flash_attention_bwd.launches) == (before[0] + 1, before[1] + 1)
+    for a, r, x in zip(got, want, (q, k, v)):
+        assert a.shape == x.shape and a.dtype == torch.bfloat16
+        _assert_close(a, r)
+
+
+def test_banded_trainable_grads_match_plain_autograd(cuda):
+    g, tpf, f, w = 40, 100, 5, 1
+    q, k, v = (x.requires_grad_() for x in _band_qkv(g, tpf, f, 13, cuda))
+    do = torch.from_numpy(np.random.RandomState(14).randn(*q.shape).astype(np.float32)).to(cuda, torch.bfloat16)
+    got = torch.autograd.grad(banded_attention_trainable(q, k, v, g, tpf, w), (q, k, v), do)
+    leaves = [x.detach().float().requires_grad_() for x in (q, k, v)]
+    want = torch.autograd.grad(windowed_attention_reference(*leaves, g, tpf, w), leaves, do.float())
+    torch.cuda.synchronize()
+    for a, r in zip(got, want):
+        _assert_close(a, r)
+
+
+def test_banded_unsupported_inputs_raise_before_launch(cuda):
+    q, k, v = _band_qkv(24, 20, 5, 15, cuda)
+    o, lse = banded_flash_attention(q, k, v, 24, 20, 1, return_lse=True)
+    before = (banded_flash_attention.launches, banded_flash_attention_bwd.launches)
+    with pytest.raises(ValueError):
+        banded_flash_attention(q.float(), k.float(), v.float(), 24, 20, 1)
+    with pytest.raises(ValueError):
+        banded_flash_attention(q[..., :32], k[..., :32], v[..., :32], 24, 20, 1)
+    with pytest.raises(ValueError):
+        banded_flash_attention(q, k, v, 24, 21, 1)
+    shifted = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda)[1:].view(q.shape)
+    with pytest.raises(ValueError):
+        banded_flash_attention(shifted, k, v, 24, 20, 1)
+    with pytest.raises(ValueError):
+        banded_flash_attention_bwd(q, k, v, o, lse.to(torch.bfloat16), o, 24, 20, 1)
+    with pytest.raises(ValueError):
+        banded_flash_attention_bwd(q, k, v, o, lse, shifted, 24, 20, 1)
+    assert (banded_flash_attention.launches, banded_flash_attention_bwd.launches) == before
