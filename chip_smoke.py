@@ -28,17 +28,31 @@ Phases, each printing one JSON line:
                 queries (a yardstick only);
   6. kernel_banded_bwd — kernel B5 (its backward; global queries through
                 B2) the same way at the training shape (B=1);
-  7. reference — a small bf16 pipeline on the card, flash kernel against
-                the plain fp32 attention on the same weights and noise, and
-                the same with the windowed backends (B4 against the gather
-                path on the plain attention);
-  8. e2e      — ``S2VPipeline.generate`` at full CogVideoX-5b width (42-block
+  7. kernel_int8 — kernel B3 (int8 q·kᵀ attention) against its plain
+                PyTorch version on the same int8 pre-pass: small ragged
+                shapes with Sq != Skv, negative-logit rows with a ragged key
+                tail, a B=2 batch whose halves differ in magnitude (one
+                shared scale), and the main shape, timed beside its bound,
+                the plain version and B1 online at the same shape (no
+                PyTorch call computes int8-QK attention);
+  8. reference — a small bf16 pipeline on the card, flash kernel against
+                the plain fp32 attention on the same weights and noise, the
+                same with the windowed backends (B4 against the gather path
+                on the plain attention), and with the int8 tree
+                (``flash_int8`` against the plain attention on the same
+                quantized tree; the int8-vs-bf16 latent RMS printed);
+  9. e2e      — ``S2VPipeline.generate`` at full CogVideoX-5b width (42-block
                 DiT, T5-XXL, the full VAE; random weights from fixed seeds):
                 49 frames at 480x720, 2 DDIM steps, batched CFG; the launch
-                counts are zeroed just before and read just after;
-  9. e2e_windowed — the same after ``set_attention("windowed", 2)``: per
+                counts are zeroed just before and read just after; then one
+                more denoise step under ``torch.profiler`` (device time by
+                kernel family);
+ 10. e2e_windowed — the same after ``set_attention("windowed", 2)``: per
                 step 42 B1 launches (global queries) and 42 B4 launches;
- 10. train    — on the same pipeline: one seeded 49x480x720 clip through
+ 11. e2e_int8 — the same on the int8 DiT (``quantize_transformer_params``,
+                timed) with ``set_attention("flash_int8")``: per step 42 B3
+                launches and no B1; the bf16 tree is restored after;
+ 12. train    — on the same pipeline: one seeded 49x480x720 clip through
                 ``latent_batches`` (RoPE tables added), then 3 LoRA train
                 steps (rank 128 on all seven target families, flash both
                 ways, remat, adamw with a bf16 first moment and clip 1.0);
@@ -46,8 +60,12 @@ Phases, each printing one JSON line:
                 twice per block (forward and recompute), B2 once per block;
                 then one more step under ``torch.profiler`` (device time by
                 kernel family, the device's idle share);
- 11. train_windowed — the same with ``attention_backend="windowed"``: per
-                step B1 and B4 twice per block, B2 and B5 once per block.
+ 13. train_windowed — the same with ``attention_backend="windowed"``: per
+                step B1 and B4 twice per block, B2 and B5 once per block;
+ 14. train_qlora — QLoRA: the same steps as ``train`` over the int8 base
+                (flash both ways): per step B1 twice and B2 once per block,
+                no B3; the int8 base unchanged; its first loss printed
+                beside the exact phase's (same batch, same draws).
 Then the kernels line, the nvidia-smi line, and the result line.  Any failed
 phase raises: the script exits non-zero and prints no result.  It needs a
 CUDA device and the repository beside it.  ``--phases a,b`` runs only those
@@ -75,8 +93,9 @@ BANDED_SMALL = [(2, 3, 24, 20, 5, 1), (1, 2, 24, 20, 3, 2), (1, 2, 24, 20, 4, 0)
                 (1, 2, 50, 40, 5, 9), (1, 3, 1576, 1350, 5, 2)]
 MODES = ("online", "bounded", "bounded_exp2")
 MAIN_MODE = "bounded"  # the softmax mode the DiT's attention uses
-# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, HBM3
+# H100 SXM peaks (NVIDIA data sheet, dense): bf16 and int8 tensor cores, HBM3
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_BYTES_PER_S = 3.35e12
 # bf16 inputs against an fp32 plain version on the same bf16 values: the
 # kernel rounds P to bf16 for P·V and writes a bf16 output, each a rounding
@@ -120,11 +139,12 @@ def phase_build():
     from s2v_torch.kernels.banded_attention_bwd import SOURCE as BANDED_BWD_SRC
     from s2v_torch.kernels.flash_attention import SOURCE as FLASH_SRC
     from s2v_torch.kernels.flash_attention_bwd import SOURCE as FLASH_BWD_SRC
+    from s2v_torch.kernels.int8_attention import SOURCE as INT8_SRC
     from s2v_torch.utils import native_build
     from s2v_torch.utils.sp_native import SOURCE as SP_SRC
 
     t0 = time.perf_counter()
-    kernels = (FLASH_SRC, FLASH_BWD_SRC, BANDED_SRC, BANDED_BWD_SRC)
+    kernels = (FLASH_SRC, FLASH_BWD_SRC, BANDED_SRC, BANDED_BWD_SRC, INT8_SRC)
     results = native_build.build([*kernels, SP_SRC])
     # per kernel: its registers, spills and shared memory
     ptxas = {src.stem: [ln.strip() for ln in results[src.stem]["log"].splitlines()
@@ -501,16 +521,90 @@ def phase_kernel_banded_bwd(dev):
     return result
 
 
+def _compare_int8(q, k, v):
+    from s2v_torch.kernels.int8_attention import flash_attention_qk_int8, flash_attention_qk_int8_reference
+
+    o = flash_attention_qk_int8(q, k, v)
+    o_ref = flash_attention_qk_int8_reference(q, k, v)
+    return _agreement(o, o_ref, f"flash_attention_qk_int8 {tuple(q.shape)}x{tuple(k.shape)}")
+
+
+def phase_kernel_int8(dev):
+    """Kernel B3 against its plain version (the same pre-pass; integer-exact
+    logits in both, so what differs is exp2 and the bf16 rounding of P and
+    of the output: B1's limits): small ragged shapes, negative-logit rows
+    with a ragged key tail, a batch whose halves differ in magnitude, then
+    the main shape, timed beside its bound, the plain version and B1 online
+    at the same shape."""
+    import torch
+
+    from s2v_torch.kernels.flash_attention import flash_attention
+    from s2v_torch.kernels.int8_attention import (
+        flash_attention_qk_int8,
+        flash_attention_qk_int8_reference,
+        int8_prepass,
+        launch_int8,
+    )
+
+    small = []
+    for (b, sq, skv, h) in [(2, 90, 90, 2), (1, 200, 77, 3), (2, 77, 333, 2), (2, 1000, 129, 2)]:
+        q, k, v = _qkv(b, sq, skv, h, sq + skv + 1, dev)
+        small.append({"q": [b, sq, h, 64], "skv": skv, **_compare_int8(q, k, v)})
+    # every real scaled logit about -128, 90 keys in tiles of 64: a zero-filled
+    # pad key taken as logit 0 would pin the max and zero the row
+    g = torch.Generator(device=dev).manual_seed(5)
+    q = torch.full((1, 90, 1, 64), 4.0, device=dev, dtype=torch.bfloat16)
+    k = (-4.0 + 0.01 * torch.randn(1, 90, 1, 64, device=dev, generator=g)).to(torch.bfloat16)
+    v = torch.randn(1, 90, 1, 64, device=dev, generator=g).to(torch.bfloat16)
+    negative = _compare_int8(q, k, v)
+    if not negative["ref_max"] > 0.01:
+        raise AssertionError(f"negative-logit rows: the plain version's output is zero {negative}")
+    # uncond/cond halves of different magnitudes share one scale
+    q, k, v = _qkv(2, 300, 300, 2, 9, dev)
+    q[1] *= 3.0
+    k[1] *= 0.25
+    halves = _compare_int8(q, k, v)
+    emit({"phase": "kernel_int8_small", "cases": small, "negative_logits": negative, "halves": halves})
+
+    b, s, h, d = MAIN_SHAPE
+    q, k, v = _ln_qkv(b, s, h, 7, dev)
+    stats = _compare_int8(q, k, v)
+    flash_attention_qk_int8(q, k, v)  # warm-up
+    ms = cuda_ms(lambda: flash_attention_qk_int8(q, k, v), 10)
+    prepass_ms = cuda_ms(lambda: int8_prepass(q, k, d ** -0.5), 10)
+    q_i8, k_i8, dq = int8_prepass(q, k, d ** -0.5)
+    o = torch.empty_like(q)
+    launch_ms = cuda_ms(lambda: launch_int8(q_i8, k_i8, v, o, dq), 10)
+    del q_i8, k_i8, o
+    plain_ms = cuda_ms(lambda: flash_attention_qk_int8_reference(q, k, v), 2)
+    flash_attention(q, k, v, softmax_mode="online")  # warm-up
+    b1_online_ms = cuda_ms(lambda: flash_attention(q, k, v, softmax_mode="online"), 10)
+    products = 2 * b * h * s * s * d  # each of q·kᵀ (int8) and P·V (bf16)
+    t_ops = products / PEAK_INT8_OPS + products / PEAK_BF16_FLOPS
+    # q, k, v read once and o written once in bf16
+    t_bytes = 4 * b * s * h * d * 2 / PEAK_BYTES_PER_S
+    result = {"phase": "kernel_int8_main", "shape": list(MAIN_SHAPE), **stats, "ms": ms, "launch_ms": launch_ms,
+              "prepass_ms": prepass_ms, "plain_ms": plain_ms, "library_ms": None, "b1_online_ms": b1_online_ms,
+              "bound_ms": max(t_ops, t_bytes) * 1e3, "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+              "launch_tops": 2 * products / launch_ms / 1e9}
+    emit(result)
+    return result
+
+
 def phase_reference(dev):
     """A small bf16 pipeline with d=64 heads: the flash kernel path against
     the plain fp32 attention path, on the same weights, inputs and noise;
-    then the windowed backend (B4, w = 1, 5 latent frames of 16 tokens)
-    against the gather path on the plain attention."""
+    the windowed backend (B4, w = 1, 5 latent frames of 16 tokens) against
+    the gather path on the plain attention; and the int8 tree with
+    ``flash_int8`` (B3) against the plain attention on the same int8 tree.
+    The int8 clip's relative RMS against the bf16 flash clip is printed
+    (the JAX package's test holds a DiT output to 0.10)."""
     import torch
 
     from s2v_torch import S2VPipeline, TransformerConfig, VAEConfig
     from s2v_torch.models.transformer import init_transformer_params_random
     from s2v_torch.models.vae import init_vae_params_random
+    from s2v_torch.ops.quant import quantize_transformer_params
 
     tcfg = TransformerConfig.tiny(num_attention_heads=2, attention_head_dim=64, dtype=torch.bfloat16)
     vcfg = VAEConfig.tiny(latent_channels=4, sample_height=64, sample_width=64, dtype=torch.bfloat16)
@@ -518,9 +612,13 @@ def phase_reference(dev):
                        init_vae_params_random(vcfg, seed=4, device=dev), vcfg, device=dev)
     g = np.random.RandomState(0)
     embeds = torch.from_numpy(g.randn(2, 16, 32).astype(np.float32))
+    bf16_params = pipe.transformer_params
+    int8_params = quantize_transformer_params(bf16_params)
     result = {"phase": "reference", "rel_tol": PIPELINE_REL_TOL}
     for name, size, frames, (kernel, plain) in [("flash", 32, 9, ("flash", "plain")),
-                                                ("windowed", 64, 17, ("windowed", "windowed_plain"))]:
+                                                ("windowed", 64, 17, ("windowed", "windowed_plain")),
+                                                ("int8", 32, 9, ("flash_int8", "plain"))]:
+        pipe.transformer_params = int8_params if name == "int8" else bf16_params
         kw = dict(prompt_embeds=embeds, ref_image=np.clip(g.randn(size, size, 3) * 0.5, -1, 1), height=size,
                   width=size, num_frames=frames, num_inference_steps=2, guidance_scale=2.0, output_type="latent",
                   seed=1)
@@ -534,10 +632,17 @@ def phase_reference(dev):
             raise AssertionError(f"small pipeline: {kernel} vs {plain} max_abs_err {err}, relative {rel} "
                                  f"(tol {PIPELINE_REL_TOL})")
         result[name] = {"max_abs_err": err, "relative_err": rel, "shape": list(got.shape)}
+    # the last case's int8 clip against the bf16 tree's flash clip on the
+    # same inputs: a finding, not a gate
+    pipe.transformer_params = bf16_params
+    pipe.set_attention("flash", 1)
+    bf16 = pipe.generate(**kw).float()
+    result["int8"]["rel_rms_vs_bf16"] = ((got - bf16).square().mean().sqrt() / bf16.square().mean().sqrt()).item()
     emit(result)
 
 
-COUNTED = ("flash_attention", "flash_attention_bwd", "banded_flash_attention", "banded_flash_attention_bwd")
+COUNTED = ("flash_attention", "flash_attention_bwd", "banded_flash_attention", "banded_flash_attention_bwd",
+           "flash_attention_qk_int8")
 
 
 def _counted_fns():
@@ -545,9 +650,10 @@ def _counted_fns():
     from s2v_torch.kernels.banded_attention_bwd import banded_flash_attention_bwd
     from s2v_torch.kernels.flash_attention import flash_attention
     from s2v_torch.kernels.flash_attention_bwd import flash_attention_bwd
+    from s2v_torch.kernels.int8_attention import flash_attention_qk_int8
 
     return dict(zip(COUNTED, (flash_attention, flash_attention_bwd, banded_flash_attention,
-                              banded_flash_attention_bwd)))
+                              banded_flash_attention_bwd, flash_attention_qk_int8)))
 
 
 def reset_counts():
@@ -568,11 +674,13 @@ def check_counts(counts: dict, backend: str, forwards: int, backwards: int) -> b
     backwards with ``backend``: one B1 per forward (net of the bounded
     mode's re-runs; the windowed backend's global queries run online, with
     none) and one B2 per backward; the windowed backend adds one B4 per
-    forward and one B5 per backward."""
-    windowed = backend == "windowed"
-    want = {"flash_attention": forwards, "flash_attention_bwd": backwards,
+    forward and one B5 per backward; the int8 backend runs one B3 per
+    forward instead of B1."""
+    windowed, int8 = backend == "windowed", backend == "flash_int8"
+    want = {"flash_attention": 0 if int8 else forwards, "flash_attention_bwd": backwards,
             "banded_flash_attention": forwards if windowed else 0,
-            "banded_flash_attention_bwd": backwards if windowed else 0}
+            "banded_flash_attention_bwd": backwards if windowed else 0,
+            "flash_attention_qk_int8": forwards if int8 else 0}
     got = {**counts, "flash_attention": counts["flash_attention"] - counts["reruns"]}
     return all(got[k] == v for k, v in want.items()) and not (windowed and counts["reruns"])
 
@@ -608,24 +716,33 @@ def build_full_pipe(dev):
     return pipe
 
 
-def phase_e2e(dev, pipe, backend="flash", window=2, num_frames=49):
+def phase_e2e(dev, pipe, backend="flash", window=2, num_frames=49, name=None, extra=None):
     """``generate`` at 49x480x720, 2 steps, with ``backend`` (and the window
-    half-width of a windowed backend); the pipeline's backend is restored
-    after."""
+    half-width of a windowed backend), then one more denoise step (a
+    1-step ``generate`` to latents) under ``torch.profiler``: its device
+    time by kernel family.  The pipeline's backend is restored after.
+    ``name`` and ``extra`` name the printed line and add to it."""
     import torch
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
 
     tcfg = pipe.transformer_cfg
     image = np.clip(np.random.RandomState(42).randn(480, 720, 3).astype(np.float32) * 0.5, -1, 1)
+    kw = dict(prompt="a pig walking in the park", ref_image=image, height=480, width=720, num_frames=num_frames,
+              guidance_scale=6.0, seed=42)
     saved = (pipe.attention_backend, pipe.transformer_cfg)
     pipe.set_attention(backend, window)
     torch.cuda.reset_peak_memory_stats()
     try:
         reset_counts()
         t0 = time.perf_counter()
-        video = pipe.generate(prompt="a pig walking in the park", ref_image=image, height=480, width=720,
-                              num_frames=num_frames, num_inference_steps=2, guidance_scale=6.0, seed=42)
+        video = pipe.generate(num_inference_steps=2, **kw)
         wall_s = time.perf_counter() - t0
         counts = read_counts()
+        timings = pipe.timings
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            pipe.generate(num_inference_steps=1, output_type="latent", **kw)
+        profiled = {"step_s": pipe.timings["denoise_step_s"][0], **device_breakdown(prof)}
     finally:
         pipe.attention_backend, pipe.transformer_cfg = saved
 
@@ -636,14 +753,13 @@ def phase_e2e(dev, pipe, backend="flash", window=2, num_frames=49):
     if not check_counts(counts, backend, 2 * tcfg.num_layers, 0):
         raise AssertionError(f"{backend} generate launches {counts}; expected {2 * tcfg.num_layers} per "
                              f"forward kernel and no backward")
-    timings = pipe.timings
-    emit({"phase": "e2e" if backend == "flash" else f"e2e_{backend}", "backend": backend,
+    emit({"phase": name or ("e2e" if backend == "flash" else f"e2e_{backend}"), "backend": backend, **(extra or {}),
           "window": window if backend == "windowed" else None, "num_frames": num_frames, "steps": 2,
           "output_shape": list(video.shape), "launches": counts,
           "encode_prompt_s": timings["encode_prompt_s"], "encode_ref_s": timings["encode_ref_s"],
           "denoise_step_s": timings["denoise_step_s"], "decode_s": timings["decode_s"], "wall_s": wall_s,
           "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
-          "output_mean": float(video.mean()), "output_std": float(video.std())})
+          "output_mean": float(video.mean()), "output_std": float(video.std()), "profiled_step": profiled})
     return counts
 
 
@@ -727,6 +843,8 @@ def train_steps(pipe, dev, height, width, num_frames, steps, spec, optimizer_spe
 
 # kernel families of a profiled step, by substrings of the kernel's name
 KERNEL_FAMILIES = (
+    ("flash_attention_qk_int8 (B3)", ("int8_fwd_kernel",)),
+    ("int8 matmul (cuBLASLt)", ("gemm_s8", "imma", "s8s8")),
     ("banded_flash_attention (B4)", ("banded_fwd_kernel",)),
     ("banded_flash_attention_bwd (B5)", ("banded_bwd_",)),
     ("flash_attention (B1)", ("flash_fwd_kernel",)),
@@ -772,12 +890,13 @@ def _tensors(tree):
     return [tree]
 
 
-def phase_train(dev, pipe, backend="flash", steps=3):
+def phase_train(dev, pipe, backend="flash", steps=3, name=None, extra=None):
     """Three LoRA train steps of the full-width DiT (rank 128, all seven
     target families, ``backend`` attention both ways, remat) on one
     49x480x720 clip, with the template optimizer (adamw, bf16 first moment,
     clip 1.0), then a fourth under ``torch.profiler``: its device time by
-    kernel family and the device's idle share."""
+    kernel family and the device's idle share.  ``name`` and ``extra`` name
+    the printed line and add to it."""
     from s2v_torch.training.lora import LoRASpec
     from s2v_torch.training.optim import OptimizerSpec
 
@@ -803,17 +922,73 @@ def phase_train(dev, pipe, backend="flash", steps=3):
         problems.append(f"export keys {r['export_keys']}")
     if problems:
         raise AssertionError(f"train ({backend}): {problems}; {r}")
-    emit({"phase": "train" if backend == "flash" else f"train_{backend}", "backend": backend, "steps": steps, **r})
+    emit({"phase": name or ("train" if backend == "flash" else f"train_{backend}"), "backend": backend,
+          "steps": steps, **(extra or {}), **r})
     return r
 
 
-PHASES = ("build", "kernel", "kernel_bwd", "kernel_banded", "kernel_banded_bwd", "reference", "e2e",
-          "e2e_windowed", "train", "train_windowed")
+def _quantized(pipe):
+    """The pipeline's DiT quantized on the card (int8 linears), and the
+    seconds it took."""
+    import torch
+
+    from s2v_torch.ops.quant import quantize_transformer_params
+
+    t0 = time.perf_counter()
+    params = quantize_transformer_params(pipe.transformer_params)
+    torch.cuda.synchronize()
+    return params, time.perf_counter() - t0
+
+
+def _weights_gb(params) -> float:
+    tensors = [t for layer in params["blocks"] for t in _tensors(layer)]
+    tensors += [t for k, v in params.items() if k != "blocks" for t in _tensors(v)]
+    return sum(t.numel() * t.element_size() for t in tensors) / 1e9
+
+
+def phase_e2e_int8(dev, pipe, backend="flash_int8"):
+    """``generate`` as ``e2e`` on the int8 DiT with int8-QK attention: per
+    step 42 B3 launches and no B1.  The bf16 tree is restored after."""
+    bf16_params = pipe.transformer_params
+    params, quantize_s = _quantized(pipe)
+    pipe.transformer_params = params
+    try:
+        return phase_e2e(dev, pipe, backend, name="e2e_int8",
+                         extra={"quantize_s": quantize_s, "weights_gb": _weights_gb(params)})
+    finally:
+        pipe.transformer_params = bf16_params
+
+
+def phase_train_qlora(dev, pipe, backend="flash"):
+    """QLoRA: the ``train`` phase's steps over the int8 base, flash both
+    ways (B3 has no backward).  The int8 q and scale must not change.  The
+    bf16 tree is restored after."""
+    import torch
+
+    from s2v_torch.ops.quant import QUANTIZED_LEAVES
+
+    bf16_params = pipe.transformer_params
+    params, quantize_s = _quantized(pipe)
+    pipe.transformer_params = params
+    try:
+        r = phase_train(dev, pipe, backend, name="train_qlora", extra={"quantize_s": quantize_s})
+    finally:
+        pipe.transformer_params = bf16_params
+    int8_leaves = [layer[g][n] for layer in params["blocks"] for g, n in QUANTIZED_LEAVES]
+    if not all(leaf["q"].dtype == torch.int8 and leaf["scale"].dtype == torch.float32 for leaf in int8_leaves):
+        raise AssertionError("train_qlora: an int8 leaf changed its dtype")
+    return r
+
+
+PHASES = ("build", "kernel", "kernel_bwd", "kernel_banded", "kernel_banded_bwd", "kernel_int8", "reference", "e2e",
+          "e2e_windowed", "e2e_int8", "train", "train_windowed", "train_qlora")
 KERNEL_PHASES = {"kernel": phase_kernel, "kernel_bwd": phase_kernel_bwd, "kernel_banded": phase_kernel_banded,
-                 "kernel_banded_bwd": phase_kernel_banded_bwd, "reference": phase_reference}
+                 "kernel_banded_bwd": phase_kernel_banded_bwd, "kernel_int8": phase_kernel_int8,
+                 "reference": phase_reference}
 # the pipeline phases: the backend each runs
 PATH_PHASES = {"e2e": (phase_e2e, "flash"), "e2e_windowed": (phase_e2e, "windowed"),
-               "train": (phase_train, "flash"), "train_windowed": (phase_train, "windowed")}
+               "e2e_int8": (phase_e2e_int8, "flash_int8"), "train": (phase_train, "flash"),
+               "train_windowed": (phase_train, "windowed"), "train_qlora": (phase_train_qlora, "flash")}
 
 
 def _path_launches(results, kernel):
@@ -835,6 +1010,7 @@ def kernels_line(results):
     worst = lambda stats, key: max(v[key] for v in stats.values())  # noqa: E731
     main, bwd = results["kernel"], results["kernel_bwd"]
     banded, banded_bwd = results["kernel_banded"], results["kernel_banded_bwd"]
+    int8 = results["kernel_int8"]
     common = {"route": "cuda", "rel_l2_tol": OUT_L2_REL}
     return [{
         **common,
@@ -921,6 +1097,28 @@ def kernels_line(results):
         "library_covers": "video queries (backward of masked SDPA)",
         "shape": list(TRAIN_SHAPE),
         "band": list(BAND),
+    }, {
+        **common,
+        "name": "flash_attention_qk_int8",
+        "source": "s2v_torch/csrc/int8_attention.cu",
+        "replaces": "s2v_tpu/ops/pallas/int8_attention.py:99",
+        "launches": results["e2e_int8"]["flash_attention_qk_int8"],
+        "launches_by_path": _path_launches(results, "flash_attention_qk_int8"),
+        "max_abs_err": int8["max_abs_err"],
+        "max_abs_tol": int8["max_abs_tol"],
+        "rel_l2": int8["rel_l2"],
+        # the whole function: the int8 pre-pass and the launch
+        "ms": int8["ms"],
+        "launch_ms": int8["launch_ms"],
+        "prepass_ms": int8["prepass_ms"],
+        "plain_ms": int8["plain_ms"],
+        "bound_ms": int8["bound_ms"],
+        "bound_by": int8["bound_by"],
+        "library_ms": None,
+        "library_note": f"no PyTorch call computes int8-QK attention; B1 online at the same shape: "
+                        f"{int8['b1_online_ms']:.2f} ms",
+        "b1_online_ms": int8["b1_online_ms"],
+        "shape": list(MAIN_SHAPE),
     }]
 
 
@@ -967,6 +1165,12 @@ def main(argv=None) -> int:
             pipe = pipe or build_full_pipe(dev)
             fn, backend = PATH_PHASES[phase]
             results[phase] = fn(dev, pipe, backend)
+    if "train" in results and "train_qlora" in results:
+        # a finding, not a gate: the JAX package's test holds the QLoRA loss
+        # to rtol 0.05 of the bf16-base loss on its tiny model
+        exact, qlora = results["train"]["losses"][0], results["train_qlora"]["losses"][0]
+        emit({"phase": "qlora_vs_exact", "first_loss_exact": exact, "first_loss_qlora": qlora,
+              "relative": abs(qlora / exact - 1), "jax_test_rtol": 0.05})
     if phases != list(PHASES):
         print(smi, flush=True)
         return 0

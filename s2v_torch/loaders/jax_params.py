@@ -8,7 +8,11 @@ port's parameter dict:
   * ``[in, out]`` linear kernels become ``weight [out, in]`` (``F.linear``);
   * ``DHWIO`` / ``HWIO`` conv kernels become ``OIDHW`` / ``OIHW``;
   * separate ``to_q``/``to_k``/``to_v`` kernels are fused into ``qkv``
-    (rows q | k | v), the layout the port's attention takes.
+    (rows q | k | v), the layout the port's attention takes;
+  * int8 linears (``quantize_transformer_params``' ``{"q" [in, out] int8,
+    "scale" [1, out] fp32, "bias"}``) become ``{"q" [out, in] int8, "scale"
+    [out] fp32, "bias"}``: q stays int8 and the scale fp32, whatever the
+    model dtype.
 """
 
 from __future__ import annotations
@@ -28,16 +32,30 @@ def _tensor(a, device, dtype) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32)).to(device=device, dtype=dtype)
 
 
+def _is_int8_leaf(tree: dict) -> bool:
+    q = tree.get("q")
+    return q is not None and not isinstance(q, dict) and np.asarray(q).dtype == np.int8
+
+
 def _convert(tree, device, dtype):
     """Recursively: ``{"kernel", "bias"?}`` -> ``{"weight", "bias"?}`` in torch
-    layout; other leaves as they are."""
+    layout, int8 ``{"q", "scale", "bias"?}`` likewise (see the module
+    docstring); other leaves as they are."""
     if isinstance(tree, (list, tuple)):
         return [_convert(t, device, dtype) for t in tree]
     if not isinstance(tree, dict):
         return _tensor(tree, device, dtype)
+    int8_leaf = _is_int8_leaf(tree)
     out = {}
     for key, val in tree.items():
-        if key == "kernel":
+        if int8_leaf and key == "q":
+            q = np.asarray(val)
+            if q.ndim != 2:
+                raise ValueError(f"an int8 linear's q must be [in, out], got shape {q.shape}")
+            out["q"] = torch.from_numpy(np.ascontiguousarray(q.T)).to(device)
+        elif int8_leaf and key == "scale":
+            out["scale"] = _tensor(np.asarray(val).reshape(-1), device, torch.float32)
+        elif key == "kernel":
             kernel = np.asarray(val)
             if kernel.ndim not in _KERNEL_PERM:
                 raise ValueError(f"no torch layout for a {kernel.ndim}-d kernel")

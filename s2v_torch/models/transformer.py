@@ -68,8 +68,8 @@ def _add_delta(leaf: dict, delta: torch.Tensor) -> dict:
 def _attach_factors(leaf: dict, pairs) -> dict:
     """Attach factor pairs for :func:`s2v_torch.ops.quant.dense` to apply
     after the linear.  A slotted q/k/v ``b`` is zero-padded to the fused
-    qkv's full output width."""
-    out_width = leaf["weight"].shape[0]
+    qkv's full output width (taken from ``q`` on an int8 leaf)."""
+    out_width = leaf["q" if "q" in leaf else "weight"].shape[0]
     attached = []
     for ab, slot in pairs:
         a, b = ab["a"], ab["b"]

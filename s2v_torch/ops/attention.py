@@ -10,6 +10,9 @@ Backends:
   * ``plain`` — exact fp32 softmax attention in PyTorch ops (B1's plain
     version in the online mode, differentiated by autograd); the CPU
     analogue of the JAX ``xla`` backend.
+  * ``flash_int8`` — :func:`int8_attention_inference_only`: kernel B3
+    (``s2v_torch.kernels.int8_attention``), per-tensor int8 q·kᵀ, for int8
+    serving (JAX ``pallas_int8``); inference only, its backward raises.
   * the windowed family (opt-in, approximate; ``window=(global_len,
     tokens_per_frame, w)``, see ``s2v_torch/ops/windowed_attention.py``):
     ``windowed`` — :func:`banded_attention_trainable`, kernel B4 forward and
@@ -29,6 +32,7 @@ from s2v_torch.kernels.banded_attention import banded_flash_attention
 from s2v_torch.kernels.banded_attention_bwd import banded_flash_attention_bwd
 from s2v_torch.kernels.flash_attention import flash_attention, flash_attention_reference
 from s2v_torch.kernels.flash_attention_bwd import flash_attention_bwd
+from s2v_torch.kernels.int8_attention import flash_attention_qk_int8
 from s2v_torch.ops.norms import layer_norm
 from s2v_torch.ops.quant import dense
 from s2v_torch.ops.rope import apply_rotary_emb
@@ -36,7 +40,7 @@ from s2v_torch.ops.windowed_attention import windowed_attention
 
 # backends that take the sliding temporal window (entry points configure its width)
 WINDOWED_BACKENDS = ("windowed", "windowed_gather", "windowed_plain")
-ATTENTION_BACKENDS = ("auto", "flash", "plain") + WINDOWED_BACKENDS
+ATTENTION_BACKENDS = ("auto", "flash", "plain", "flash_int8") + WINDOWED_BACKENDS
 FLASH_SOFTMAX_MODE = "bounded"
 
 
@@ -106,6 +110,30 @@ def banded_attention_trainable(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     return banded_flash_attention(q, k, v, global_len, tokens_per_frame, window_frames)
 
 
+class _Int8Attention(torch.autograd.Function):
+    """B3 for inference only (``s2v_tpu/ops/attention.py:319-341``): it has
+    no backward kernel, so differentiating it raises instead of training on
+    a wrong gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        return flash_attention_qk_int8(q, k, v)
+
+    @staticmethod
+    def backward(ctx, g):
+        raise NotImplementedError(
+            "the int8-QK attention backend ('flash_int8') is inference-only (no backward kernel); "
+            "train with 'flash' or 'windowed'")
+
+
+def int8_attention_inference_only(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """int8-QK attention, ``[B, S, H, d]`` in and out.  Without autograd it
+    is one B3 call."""
+    if _needs_grad(q, k, v):
+        return _Int8Attention.apply(q, k, v)
+    return flash_attention_qk_int8(q, k, v)
+
+
 def qkv_projections(params: dict, x: torch.Tensor, num_heads: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``[B, S, D]`` -> per-head q, k, v ``[B, S, H, d]`` through the fused
     ``qkv`` linear (weight ``[3D, D]``, rows q | k | v)."""
@@ -144,6 +172,8 @@ def joint_attention(
         out = flash_attention_trainable(q, k, v)
     elif backend == "plain":
         out = flash_attention_reference(q, k, v)
+    elif backend == "flash_int8":
+        out = int8_attention_inference_only(q, k, v)
     elif backend in WINDOWED_BACKENDS:
         if window is None:
             raise ValueError(f"attention backend {backend!r} needs window=(global_len, tokens_per_frame, w)")

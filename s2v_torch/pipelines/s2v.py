@@ -7,6 +7,11 @@ The pipeline is built from its components: parameter dicts in the port's
 layouts (random, or carried across with ``s2v_torch.loaders.jax_params``)
 and their configs.  Everything runs on ``device`` (CUDA unless the caller
 passes ``device="cpu"``).
+
+int8 serving: ``pipe.transformer_params =
+quantize_transformer_params(pipe.transformer_params)`` (int8 linears, see
+``s2v_torch/ops/quant.py``) and ``pipe.set_attention("flash_int8")`` (kernel
+B3); ``generate`` runs the int8 tree unchanged.
 """
 
 from __future__ import annotations
@@ -47,7 +52,7 @@ class S2VPipeline:
     tokenizer: Optional[object] = None  # .encode(prompts, max_length) -> int ids
     device: Optional[Union[str, torch.device]] = None
     # "auto": the flash kernel on CUDA, the plain fp32 attention on the CPU;
-    # set_attention selects a windowed backend and its width
+    # set_attention selects another backend (flash_int8, a windowed one and its width)
     attention_backend: str = "auto"
     # "auto" tiles the VAE only when the frame exceeds the VAE's sample size
     # (so 480x720 decodes untiled, the exact decoder output); True / False force it

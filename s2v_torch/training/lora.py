@@ -10,6 +10,12 @@ package's layout, per target ``{"a": [L, in, r], "b": [L, r, out]}`` (no
 layer inside the block loop through the runtime factor tree
 (``s2v_torch.models.transformer.RUNTIME_LORA_KEY``), so gradients reach only
 ``a`` and ``b`` and no second weight tree is built.
+
+QLoRA: on an int8 base (``s2v_torch.ops.quant.quantize_transformer_params``)
+the adapters ride the same runtime tree, applied after the frozen int8
+linears, whose straight-through backward carries the gradient to the layers
+below.  An int8 base cannot take a merge, so ``merge_lora_params`` and the
+disentangled mode refuse one.
 """
 
 from __future__ import annotations
@@ -59,9 +65,11 @@ def _leaf(tree: dict, path) -> dict:
 
 
 def _target_weight(base_params: dict, name: str) -> torch.Tensor:
-    """The target's weight (the first layer's for a per-layer target)."""
+    """The target's ``[out, in]`` weight, or its int8 ``q`` on a QLoRA base
+    (the first layer's for a per-layer target)."""
     path, per_layer = _TARGETS[name]
-    return _leaf(base_params["blocks"][0] if per_layer else base_params, path)["weight"]
+    leaf = _leaf(base_params["blocks"][0] if per_layer else base_params, path)
+    return leaf["q" if "q" in leaf else "weight"]
 
 
 def base_is_quantized(base_params: dict) -> bool:
@@ -71,10 +79,12 @@ def base_is_quantized(base_params: dict) -> bool:
 
 
 def _check_supported(base_params: dict, spec: LoRASpec) -> None:
+    if spec.disentangled and base_is_quantized(base_params):
+        raise ValueError(
+            "disentangled LoRA needs a bf16/fp32 base (it merges modulation kernels and keeps the pre-merge "
+            "base_linear beside them, which int8 kernels cannot express); train it on the unquantized tree")
     if spec.disentangled:
         raise NotImplementedError("disentangled LoRA needs the base_linear adaLN mode, which is not ported yet")
-    if base_is_quantized(base_params):
-        raise NotImplementedError("LoRA on an int8 base (QLoRA) is not ported yet")
 
 
 def init_lora_params(generator: torch.Generator, base_params: dict, spec: LoRASpec,
@@ -97,6 +107,10 @@ def init_lora_params(generator: torch.Generator, base_params: dict, spec: LoRASp
 def merge_lora_params(base_params: dict, lora_params: dict, spec: LoRASpec) -> dict:
     """A new tree with ``weight + (scale · a @ b)ᵀ`` at each target (the
     base tree is not modified; gradients reach a and b)."""
+    if base_is_quantized(base_params):
+        raise ValueError(
+            "merge_lora_params needs a bf16/fp32 base (int8 kernels cannot absorb a merge); QLoRA adapters are "
+            "applied after the linear through the runtime factor tree, see lora_loss_fn")
     _check_supported(base_params, spec)
     merged = dict(base_params)
     merged["blocks"] = [dict(layer) for layer in base_params["blocks"]]

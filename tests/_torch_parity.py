@@ -2,6 +2,7 @@
 
 import numpy as np
 import jax
+import jax.numpy as jnp
 import torch
 
 
@@ -15,6 +16,17 @@ def perturb(tree, seed, scale=0.1):
     of the JAX inits cannot hide a layout mistake."""
     rng = np.random.RandomState(seed)
     return jax.tree.map(lambda a: (np.asarray(a) + scale * rng.randn(*np.shape(a))).astype(np.float32), np_tree(tree))
+
+
+def quantized(tree):
+    """The JAX package's ``quantize_transformer_params`` of a numpy JAX tree
+    (e.g. from :func:`perturb`), jitted as in its pipelines (XLA computes
+    ``amax / 127.0`` as a multiply by the fp32 reciprocal, as the port
+    does), back as numpy with the int8 ``q`` leaves kept int8 and their
+    ``scale`` fp32."""
+    from s2v_tpu.ops.quant import quantize_transformer_params
+
+    return np_tree(jax.jit(quantize_transformer_params)(jax.tree.map(jnp.asarray, tree)))
 
 
 def rand(*shape, seed=0):

@@ -1,6 +1,7 @@
-"""Kernels B1, B2, B4 and B5 on the card against their plain PyTorch
-versions, and the differentiable flash and banded attentions (B1/B2, B4/B5)
-against plain autograd.
+"""Kernels B1, B2, B3, B4 and B5 on the card against their plain PyTorch
+versions, the differentiable flash and banded attentions (B1/B2, B4/B5)
+against plain autograd, and the int8 linears (``torch._int_mm``) against
+their CPU computation.
 
 Marked ``gpu``; every test skips without a CUDA device (decided inside the
 fixture, so every worker collects the same tests).  On a machine with a card:
@@ -22,6 +23,7 @@ from s2v_torch.kernels.flash_attention import (
     flash_attention_reference,
 )
 from s2v_torch.kernels.flash_attention_bwd import flash_attention_bwd, flash_attention_bwd_reference
+from s2v_torch.kernels.int8_attention import flash_attention_qk_int8, flash_attention_qk_int8_reference
 from s2v_torch.ops.attention import banded_attention_trainable, flash_attention_trainable
 from s2v_torch.ops.windowed_attention import windowed_attention_reference
 
@@ -242,3 +244,78 @@ def test_banded_unsupported_inputs_raise_before_launch(cuda):
     with pytest.raises(ValueError):
         banded_flash_attention_bwd(q, k, v, o, lse, shifted, 24, 20, 1)
     assert (banded_flash_attention.launches, banded_flash_attention_bwd.launches) == before
+
+
+# B3 against its plain version on the same bf16 inputs and the same int8
+# pre-pass: the logits are integer-exact in both, so what differs is exp2
+# and the bf16 rounding of P before P·V and of the output: B1's bars.
+@pytest.mark.parametrize("b,sq,skv,h", [(2, 200, 200, 3), (1, 77, 333, 2), (2, 1000, 129, 2), (1, 90, 90, 1)])
+def test_int8_kernel_matches_plain(cuda, b, sq, skv, h):
+    q, k, v = _qkv(b, sq, skv, h, 16, cuda)
+    before = flash_attention_qk_int8.launches
+    o = flash_attention_qk_int8(q, k, v)
+    o_ref = flash_attention_qk_int8_reference(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention_qk_int8.launches == before + 1
+    assert o.shape == q.shape and o.dtype == torch.bfloat16
+    _assert_close(o, o_ref)
+
+
+def test_int8_kernel_negative_logit_rows(cuda):
+    """Every real scaled logit is about -128 and the last key tile is
+    ragged (90 keys in tiles of 64): a zero-filled pad key taken as logit 0
+    would pin the running max and give an all-zero row."""
+    rng = np.random.RandomState(17)
+    q = torch.full((1, 90, 1, 64), 4.0, device=cuda, dtype=torch.bfloat16)
+    k = (-4.0 + 0.01 * torch.from_numpy(rng.randn(1, 90, 1, 64).astype(np.float32))).to(cuda, torch.bfloat16)
+    v = torch.from_numpy(rng.randn(1, 90, 1, 64).astype(np.float32)).to(cuda, torch.bfloat16)
+    o = flash_attention_qk_int8(q, k, v)
+    o_ref = flash_attention_qk_int8_reference(q, k, v)
+    torch.cuda.synchronize()
+    assert o_ref.float().abs().max().item() > 0.01
+    _assert_close(o, o_ref)
+
+
+def test_int8_unsupported_inputs_raise_before_launch(cuda):
+    q, k, v = _qkv(1, 64, 64, 1, 18, cuda)
+    before = flash_attention_qk_int8.launches
+    with pytest.raises(ValueError):
+        flash_attention_qk_int8(q.float(), k.float(), v.float())
+    with pytest.raises(ValueError):
+        flash_attention_qk_int8(q[..., :32], k[..., :32], v[..., :32])
+    shifted = torch.empty(v.numel() + 1, dtype=v.dtype, device=cuda)[1:].view(v.shape)
+    with pytest.raises(ValueError):
+        flash_attention_qk_int8(q, k, shifted)
+    with pytest.raises(ValueError):
+        flash_attention_qk_int8(q, k[:, :0], v[:, :0])
+    assert flash_attention_qk_int8.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [5, 16, 300])
+def test_int8_dense_on_cuda_matches_cpu(cuda, dtype, rows):
+    """``torch._int_mm`` on the card (rows <= 16 zero-padded) against the
+    CPU computation on the same inputs: the int32 products are exact and
+    the rescales are the same fp32 operations, so the forward agrees to the
+    last bit of fp32 (one bf16 ulp, 2^-7 of the value, in bf16).  The
+    backward's bf16 product accumulates and returns fp32 on both devices,
+    in another summation order: the same bars."""
+    from s2v_torch.ops.quant import int8_dense, quantize_weight_int8
+
+    rng = np.random.RandomState(19)
+    x = torch.from_numpy(rng.randn(1, rows, 256).astype(np.float32)).to(dtype)
+    w = torch.from_numpy(0.05 * rng.randn(384, 256).astype(np.float32))
+    b = torch.from_numpy(0.1 * rng.randn(384).astype(np.float32)).to(dtype)
+    g = torch.from_numpy(rng.randn(1, rows, 384).astype(np.float32)).to(dtype)
+    outs = []
+    for device in ("cpu", cuda):
+        wq = {k: t.to(device) for k, t in quantize_weight_int8(w).items()}
+        xd = x.to(device).requires_grad_()
+        y = int8_dense(xd, wq, b.to(device))
+        (dx,) = torch.autograd.grad(y, xd, g.to(device))
+        outs.append((y.detach().float().cpu(), dx.float().cpu()))
+    torch.cuda.synchronize()
+    for name, got, want in zip(("y", "dx"), outs[1], outs[0]):
+        bar = (1e-6 if dtype == torch.float32 else 2.0 ** -7) * want.abs() + 1e-6 * want.abs().max()
+        excess = ((got - want).abs() - bar).max().item()
+        assert excess <= 0, f"{name}: exceeds its bar by {excess}"

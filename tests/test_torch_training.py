@@ -331,9 +331,12 @@ def test_unported_lora_modes_raise():
     params = transformer_from_jax(base, TransformerConfig.tiny(), device="cpu")
     with pytest.raises(NotImplementedError):
         lora.init_lora_params(torch.Generator(), params, lora.LoRASpec(disentangled=True))
-    quantized = {**params, "blocks": [{**params["blocks"][0], "attn": {"qkv": {"q": None}}}]}
-    with pytest.raises(NotImplementedError):
-        lora.init_lora_params(torch.Generator(), quantized, lora.LoRASpec())
+    # QLoRA is ported (tests/test_torch_qlora.py); on an int8 base the
+    # disentangled mode is refused outright, as in the JAX package
+    from s2v_torch.ops.quant import quantize_transformer_params
+
+    with pytest.raises(ValueError, match="disentangled"):
+        lora.init_lora_params(torch.Generator(), quantize_transformer_params(params), lora.LoRASpec(disentangled=True))
 
 
 def test_init_and_merge_match_jax_layout():
