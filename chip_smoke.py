@@ -28,31 +28,51 @@ Phases, each printing one JSON line:
                 queries (a yardstick only);
   6. kernel_banded_bwd — kernel B5 (its backward; global queries through
                 B2) the same way at the training shape (B=1);
-  7. kernel_int8 — kernel B3 (int8 q·kᵀ attention) against its plain
+  7. kernel_banded_local — kernel B6 (banded attention for one
+                sequence-parallel shard of video-query frames at a runtime
+                frame offset, against the full K/V) against its plain
+                version: the small geometries at every offset of a 2- and a
+                4-rank ring, dummy frames included (a ring with more ranks
+                than frames is refused before the launch); then the main
+                band (B=2) for P = 1, 2, 4, the shards' rows and lse
+                stitched against B4's; timed at P = 1 and per shard at P = 4
+                beside the bound, the plain version and one masked SDPA call
+                over the shard's video queries (a yardstick only);
+  8. kernel_banded_local_bwd — kernel B7 (B6's backward: the shard's dq
+                and full-extent dk/dv partials) the same way at B=1: dq
+                stitched against B5's, the partials summed with the global
+                queries' B2 part against B5's dk/dv, and junk in the dummy
+                frames' rows changing nothing;
+  9. kernel_int8 — kernel B3 (int8 q·kᵀ attention) against its plain
                 PyTorch version on the same int8 pre-pass: small ragged
                 shapes with Sq != Skv, negative-logit rows with a ragged key
                 tail, a B=2 batch whose halves differ in magnitude (one
                 shared scale), and the main shape, timed beside its bound,
                 the plain version and B1 online at the same shape (no
                 PyTorch call computes int8-QK attention);
-  8. reference — a small bf16 pipeline on the card, flash kernel against
+  10. reference — a small bf16 pipeline on the card, flash kernel against
                 the plain fp32 attention on the same weights and noise, the
                 same with the windowed backends (B4 against the gather path
                 on the plain attention), and with the int8 tree
                 (``flash_int8`` against the plain attention on the same
                 quantized tree; the int8-vs-bf16 latent RMS printed);
-  9. e2e      — ``S2VPipeline.generate`` at full CogVideoX-5b width (42-block
+  11. e2e      — ``S2VPipeline.generate`` at full CogVideoX-5b width (42-block
                 DiT, T5-XXL, the full VAE; random weights from fixed seeds):
                 49 frames at 480x720, 2 DDIM steps, batched CFG; the launch
                 counts are zeroed just before and read just after; then one
                 more denoise step under ``torch.profiler`` (device time by
                 kernel family);
- 10. e2e_windowed — the same after ``set_attention("windowed", 2)``: per
+ 12. e2e_windowed — the same after ``set_attention("windowed", 2)``: per
                 step 42 B1 launches (global queries) and 42 B4 launches;
- 11. e2e_int8 — the same on the int8 DiT (``quantize_transformer_params``,
+ 13. e2e_sp_windowed — the same on a one-rank ``seq`` mesh (an NCCL
+                process group of world size 1 over a ``HashStore``, made
+                before the first SP phase) after ``set_attention("sp_windowed",
+                2)``: per step 42 B6 and 42 B1 launches, no B4; its 1-step
+                latents held against e2e_windowed's on the same seed;
+ 14. e2e_int8 — the same on the int8 DiT (``quantize_transformer_params``,
                 timed) with ``set_attention("flash_int8")``: per step 42 B3
                 launches and no B1; the bf16 tree is restored after;
- 12. train    — on the same pipeline: one seeded 49x480x720 clip through
+ 15. train    — on the same pipeline: one seeded 49x480x720 clip through
                 ``latent_batches`` (RoPE tables added), then 3 LoRA train
                 steps (rank 128 on all seven target families, flash both
                 ways, remat, adamw with a bf16 first moment and clip 1.0);
@@ -60,9 +80,13 @@ Phases, each printing one JSON line:
                 twice per block (forward and recompute), B2 once per block;
                 then one more step under ``torch.profiler`` (device time by
                 kernel family, the device's idle share);
- 13. train_windowed — the same with ``attention_backend="windowed"``: per
+ 16. train_windowed — the same with ``attention_backend="windowed"``: per
                 step B1 and B4 twice per block, B2 and B5 once per block;
- 14. train_qlora — QLoRA: the same steps as ``train`` over the int8 base
+ 17. train_sp_windowed — the same with ``"sp_windowed"`` under the mesh's
+                context: per step B6 and B1 twice per block, B7 and B2 once
+                per block, no B4 or B5; its first loss printed beside
+                train_windowed's;
+ 18. train_qlora — QLoRA: the same steps as ``train`` over the int8 base
                 (flash both ways): per step B1 twice and B2 once per block,
                 no B3; the int8 base unchanged; its first loss printed
                 beside the exact phase's (same batch, same draws).
@@ -521,6 +545,297 @@ def phase_kernel_banded_bwd(dev):
     return result
 
 
+SP_RINGS = (1, 2, 4)  # the seq rings whose shards the SP kernel phases launch, every offset of each
+
+
+def _agreement_or_zero(o, o_ref, what):
+    """:func:`_agreement`, except that an all-zero reference (a dk/dv partial
+    of a shard that no query of the band reaches) needs an all-zero output."""
+    if not o_ref.any():
+        err = o.float().abs().max().item()
+        if err != 0.0:
+            raise AssertionError(f"{what}: reference is zero, kernel max |x| {err}")
+        return {"max_abs_err": 0.0, "max_abs_tol": 0.0, "rel_l2": 0.0, "rel_l2_tol": OUT_L2_REL, "ref_max": 0.0,
+                "ref_rms": 0.0}
+    return _agreement(o, o_ref, what)
+
+
+def _shard_rows(x, geo, f_loc, off):
+    """A shard's video rows of ``x``: frames ``off .. off + f_loc - 1``, zero
+    past the clip, as the SP wrapper takes them."""
+    from s2v_torch.parallel.sp_attention import shard_rows
+
+    return shard_rows(x, geo.shard(off, f_loc))
+
+
+def _compact(stats):
+    """The numbers of a small case, for a short JSON line."""
+    keys = ("max_abs_err", "max_abs_tol", "rel_l2", "lse_err")
+    return {k: stats[k] for k in keys if k in stats}
+
+
+def phase_kernel_banded_local(dev):
+    """Kernel B6 (one SP shard of video-query frames at a runtime frame
+    offset, against the full K/V) against its plain version: the small
+    geometries at every offset of a 2- and a 4-rank ring, dummy frames
+    included (a ring with more ranks than frames is refused before the
+    launch, and that is checked); then the main band (B=2) for P = 1, 2, 4:
+    the shards' rows stitched against B4's output and lse.  Timed at P = 1
+    and per shard at P = 4, each beside its bound, the plain version and one
+    masked SDPA call over the shard's video queries (a yardstick only)."""
+    import torch
+    import torch.nn.functional as F
+
+    from s2v_torch.kernels.banded_attention import (
+        band_geometry,
+        band_mask,
+        banded_flash_attention,
+        banded_flash_attention_local,
+        banded_flash_attention_local_reference,
+        ring_shards,
+    )
+
+    def compare(q_loc, k, v, geo, off):
+        band = (geo.global_len, geo.tokens_per_frame, geo.window)
+        o, lse = banded_flash_attention_local(q_loc, k, v, *band, off, geo.n_frames, return_lse=True)
+        o_ref, lse_ref = banded_flash_attention_local_reference(q_loc, k, v, *band, off, geo.n_frames,
+                                                                return_lse=True)
+        what = f"banded_flash_attention_local {tuple(q_loc.shape)} band {band} offset {off}"
+        stats = _agreement(o, o_ref, what)
+        lse_err = (lse - lse_ref).abs().max().item()
+        if not lse_err < LSE_TOL:
+            raise AssertionError(f"{what}: lse max_abs_err {lse_err} (tol {LSE_TOL})")
+        return {**stats, "lse_err": lse_err}, o, lse
+
+    small, refused = [], []
+    for (b, h, g, tpf, f, w) in BANDED_SMALL:
+        geo = band_geometry(g + f * tpf, g, tpf, w)
+        q, k, v = _qkv(b, g + f * tpf, g + f * tpf, h, g + tpf + f + 3, dev)
+        for ring in (2, 4):
+            f_pad, f_loc = ring_shards(f, ring)
+            if ring > f:
+                try:
+                    banded_flash_attention_local(_shard_rows(q, geo, f_loc, (ring - 1) * f_loc), k, v, g, tpf, w,
+                                                 (ring - 1) * f_loc, f)
+                except ValueError:
+                    refused.append([g, tpf, f, w, ring])
+                    continue
+                raise AssertionError(f"a {ring}-rank ring over {f} frames was not refused")
+            for r in range(ring):
+                stats, _, _ = compare(_shard_rows(q, geo, f_loc, r * f_loc), k, v, geo, r * f_loc)
+                small.append({"band": [b, h, g, tpf, f, w], "ring": ring, "offset": r * f_loc,
+                              "dummy_frames": f_loc - geo.shard(r * f_loc, f_loc).real_frames(), **_compact(stats)})
+    emit({"phase": "kernel_banded_local_small", "cases": small, "refused_rings": refused})
+
+    b, s, h, d = MAIN_SHAPE
+    q, k, v = _ln_qkv(b, s, h, 7, dev)
+    geo = band_geometry(s, *BAND)
+    g_len, tpf, n_frames = geo.global_len, geo.tokens_per_frame, geo.n_frames
+    o4, lse4 = banded_flash_attention(q, k, v, *BAND, return_lse=True)
+    stitched, per_shard = {}, {}
+    for ring in SP_RINGS:
+        _, f_loc = ring_shards(n_frames, ring)
+        outs, lses = [], []
+        for r in range(ring):
+            q_loc = _shard_rows(q, geo, f_loc, r * f_loc)
+            if ring == 1:  # the shape the main path gives it: held against the plain version
+                stats, o_r, lse_r = compare(q_loc, k, v, geo, 0)
+                stitched["plain"] = stats
+            else:
+                o_r, lse_r = banded_flash_attention_local(q_loc, k, v, *BAND, r * f_loc, n_frames, return_lse=True)
+            outs.append(o_r)
+            lses.append(lse_r)
+        o_cat = torch.cat(outs, dim=1)[:, :n_frames * tpf]
+        lse_cat = torch.cat(lses, dim=-1)[..., :n_frames * tpf]
+        stats = _agreement(o_cat, o4[:, g_len:], f"B6 shards of a {ring}-rank ring against B4")
+        lse_err = (lse_cat - lse4[..., g_len:]).abs().max().item()
+        if not lse_err < LSE_TOL:
+            raise AssertionError(f"B6 shards of a {ring}-rank ring: lse max_abs_err {lse_err} against B4")
+        stitched[f"ring{ring}"] = {**_compact(stats), "lse_err": lse_err,
+                                   "bitwise_equal_to_b4": bool(torch.equal(o_cat, o4[:, g_len:]))}
+        del outs, lses, o_cat, lse_cat
+
+    def timed(ring, r):
+        """ms, plain_ms, bound and the masked-SDPA yardstick of one shard (inference call, no lse)."""
+        _, f_loc = ring_shards(n_frames, ring)
+        off = r * f_loc
+        shard = geo.shard(off, f_loc)
+        q_loc = _shard_rows(q, geo, f_loc, off)
+        banded_flash_attention_local(q_loc, k, v, *BAND, off, n_frames)  # warm-up
+        ms = cuda_ms(lambda: banded_flash_attention_local(q_loc, k, v, *BAND, off, n_frames), 10)
+        plain_ms = cuda_ms(lambda: banded_flash_attention_local_reference(q_loc, k, v, *BAND, off, n_frames),
+                           2 if ring == 1 else 1)
+        sq = q_loc.shape[1]
+        # q (the shard's rows), k, v read once and o written once in bf16
+        bound_ms, bound_by = _bound(4 * b * h * d * shard.shard_pairs(), (2 * sq + 2 * s) * b * h * d * 2)
+
+        def masked_sdpa(shape):
+            bb, hh = shape
+            rows = torch.arange(g_len + off * tpf, g_len + (off + f_loc) * tpf, device=dev)
+            qt = q_loc[:bb, :, :hh].transpose(1, 2)
+            kt, vt = k[:bb, :, :hh].transpose(1, 2), v[:bb, :, :hh].transpose(1, 2)
+            mask = band_mask(geo, rows, s)
+            return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+
+        library_ms, library_shape, library_failed = _library_ms(
+            "masked SDPA over the shard's video queries", masked_sdpa, [(b, h), (1, h), (1, h // 2)])
+        return {"ring": ring, "rank": r, "offset": off, "local_frames": f_loc,
+                "dummy_frames": f_loc - shard.real_frames(), "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": library_ms, "library_shape": library_shape,
+                "library_not_run": library_failed, "tflops": 4 * b * h * d * shard.shard_pairs() / ms / 1e9}
+
+    per_shard["ring1"] = timed(1, 0)
+    per_shard["ring4"] = [timed(4, r) for r in range(4)]
+    result = {"phase": "kernel_banded_local_main", "shape": list(MAIN_SHAPE), "band": list(BAND),
+              "q_shape_ring1": [b, n_frames * tpf, h, d], "stitched": stitched, "timed": per_shard,
+              # the worst small case, as a share of its limit
+              "small_worst_err_share": max(c["max_abs_err"] / c["max_abs_tol"] for c in small)}
+    emit(result)
+    return result
+
+
+def phase_kernel_banded_local_bwd(dev):
+    """Kernel B7 (the backward of B6 for one shard: its dq, and the
+    full-extent dk/dv partials from its queries) against its plain version:
+    the small geometries at every offset of a 2- and a 4-rank ring; then the
+    training band (B=1) for P = 1, 2, 4: dq stitched over the shards against
+    B5's video dq, the dk/dv partials summed over the shards plus the global
+    queries' B2 part against B5's dk/dv; dummy frames holding junk change
+    nothing.  Timed at P = 1 and per shard at P = 4 beside its bound, the
+    plain version and the backward of one masked SDPA call over the shard's
+    video queries (a yardstick only)."""
+    import torch
+    import torch.nn.functional as F
+
+    from s2v_torch.kernels.banded_attention import (
+        band_geometry,
+        band_mask,
+        banded_flash_attention_local,
+        ring_shards,
+    )
+    from s2v_torch.kernels.banded_attention_bwd import (
+        banded_flash_attention_bwd,
+        banded_flash_attention_local_bwd,
+        banded_flash_attention_local_bwd_reference,
+    )
+    from s2v_torch.kernels.flash_attention_bwd import flash_attention_bwd
+
+    def shard_inputs(q, k, v, do, geo, f_loc, off):
+        band = (geo.global_len, geo.tokens_per_frame, geo.window)
+        q_loc, do_loc = _shard_rows(q, geo, f_loc, off), _shard_rows(do, geo, f_loc, off)
+        o, lse = banded_flash_attention_local(q_loc, k, v, *band, off, geo.n_frames, return_lse=True)
+        return q_loc, k, v, o, lse, do_loc, *band, off, geo.n_frames
+
+    def compare(args):
+        got = banded_flash_attention_local_bwd(*args)
+        want = banded_flash_attention_local_bwd_reference(*args)
+        what = f"banded_flash_attention_local_bwd {tuple(args[0].shape)} offset {args[9]}"
+        return got, {n: _agreement_or_zero(a, r, f"{what} {n}") for n, a, r in zip(("dq", "dk", "dv"), got, want)}
+
+    small = []
+    for (b, h, g, tpf, f, w) in BANDED_SMALL:
+        geo = band_geometry(g + f * tpf, g, tpf, w)
+        q, k, v = _qkv(b, g + f * tpf, g + f * tpf, h, g + tpf + f + 5, dev)
+        do = torch.randn(q.shape, device=dev, generator=torch.Generator(device=dev).manual_seed(f)).to(q.dtype)
+        for ring in (2, 4):
+            _, f_loc = ring_shards(f, ring)
+            if ring > f:
+                continue  # refused before the launch (kernel_banded_local checks it)
+            for r in range(ring):
+                _, stats = compare(shard_inputs(q, k, v, do, geo, f_loc, r * f_loc))
+                small.append({"band": [b, h, g, tpf, f, w], "ring": ring, "offset": r * f_loc,
+                              **{n: _compact(st) for n, st in stats.items()}})
+    emit({"phase": "kernel_banded_local_bwd_small", "cases": small})
+
+    b, s, h, d = TRAIN_SHAPE
+    geo = band_geometry(s, *BAND)
+    g_len, tpf, n_frames = geo.global_len, geo.tokens_per_frame, geo.n_frames
+    q, k, v, o, lse, do = _banded_bwd_inputs(b, h, s, BAND, 11, dev, layer_norm=True)
+    dq5, dk5, dv5 = banded_flash_attention_bwd(q, k, v, o, lse, do, *BAND)
+    # the global queries' share of dk/dv (B2), as the SP wrapper adds it
+    _, dk_g, dv_g = flash_attention_bwd(q[:, :g_len], k, v, o[:, :g_len], lse[..., :g_len].contiguous(),
+                                        do[:, :g_len])
+    stitched = {}
+    for ring in SP_RINGS:
+        _, f_loc = ring_shards(n_frames, ring)
+        dqs, dk, dv = [], dk_g.float(), dv_g.float()
+        for r in range(ring):
+            args = shard_inputs(q, k, v, do, geo, f_loc, r * f_loc)
+            if ring == 1:
+                (dq_r, dk_r, dv_r), stats = compare(args)
+                stitched["plain"] = {n: _compact(st) for n, st in stats.items()}
+            else:
+                dq_r, dk_r, dv_r = banded_flash_attention_local_bwd(*args)
+            dqs.append(dq_r)
+            dk, dv = dk + dk_r.float(), dv + dv_r.float()
+        dq_cat = torch.cat(dqs, dim=1)[:, :n_frames * tpf]
+        what = f"B7 over a {ring}-rank ring against B5"
+        stitched[f"ring{ring}"] = {
+            "dq": _compact(_agreement(dq_cat, dq5[:, g_len:], f"{what} dq")),
+            "dk": _compact(_agreement(dk, dk5, f"{what} dk")),
+            "dv": _compact(_agreement(dv, dv5, f"{what} dv")),
+            "dq_bitwise_equal_to_b5": bool(torch.equal(dq_cat, dq5[:, g_len:]))}
+        del dqs, dk, dv, dq_cat
+
+    # dummy frames (the last rank of a 4-rank ring holds 1 real frame and 3
+    # dummies): junk in their q and dO rows leaves every real gradient as it was
+    _, f_loc = ring_shards(n_frames, 4)
+    off = 3 * f_loc
+    args = list(shard_inputs(q, k, v, do, geo, f_loc, off))
+    real = geo.shard(off, f_loc).real_frames() * tpf
+    clean = banded_flash_attention_local_bwd(*args)
+    junk = torch.randn(args[0].shape, device=dev, generator=torch.Generator(device=dev).manual_seed(5)).to(q.dtype)
+    for i in (0, 5):  # q, dO
+        args[i] = args[i].clone()
+        args[i][:, real:] = junk[:, real:]
+    dirty = banded_flash_attention_local_bwd(*args)
+    dummy = {"offset": off, "dummy_rows": f_loc * tpf - real,
+             "dq_real_rows_equal": bool(torch.equal(clean[0][:, :real], dirty[0][:, :real])),
+             "dq_dummy_rows_zero": not bool(dirty[0][:, real:].any()),
+             "dk_equal": bool(torch.equal(clean[1], dirty[1])), "dv_equal": bool(torch.equal(clean[2], dirty[2]))}
+    if not all(v for key, v in dummy.items() if key not in ("offset", "dummy_rows")):
+        raise AssertionError(f"B7: dummy frames contributed {dummy}")
+    del clean, dirty, junk, args
+
+    def timed(ring, r):
+        _, f_loc = ring_shards(n_frames, ring)
+        off = r * f_loc
+        shard = geo.shard(off, f_loc)
+        args = shard_inputs(q, k, v, do, geo, f_loc, off)
+        banded_flash_attention_local_bwd(*args)  # warm-up
+        ms = cuda_ms(lambda: banded_flash_attention_local_bwd(*args), 10)
+        plain_ms = cuda_ms(lambda: banded_flash_attention_local_bwd_reference(*args), 2 if ring == 1 else 1)
+        sq = args[0].shape[1]
+        # q, o, dO read and dq written at the shard's rows, k, v read and dk, dv
+        # written at every row, in bf16; the fp32 lse read
+        bound_ms, bound_by = _bound(10 * b * h * d * shard.shard_pairs(),
+                                    (4 * sq + 4 * s) * b * h * d * 2 + b * h * sq * 4)
+
+        def masked_sdpa_bwd(shape):
+            bb, hh = shape
+            rows = torch.arange(g_len + off * tpf, g_len + (off + f_loc) * tpf, device=dev)
+            qt, kt, vt = (x[:bb, :, :hh].transpose(1, 2).detach().requires_grad_() for x in (args[0], k, v))
+            out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band_mask(geo, rows, s))
+            gt = args[5][:bb, :, :hh].transpose(1, 2)
+            return lambda: torch.autograd.grad(out, (qt, kt, vt), gt, retain_graph=True)
+
+        library_ms, library_shape, library_failed = _library_ms(
+            "masked SDPA backward over the shard's video queries", masked_sdpa_bwd, [(b, h), (b, h // 2)])
+        return {"ring": ring, "rank": r, "offset": off, "local_frames": f_loc,
+                "dummy_frames": f_loc - shard.real_frames(), "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": library_ms, "library_shape": library_shape,
+                "library_not_run": library_failed, "tflops": 10 * b * h * d * shard.shard_pairs() / ms / 1e9}
+
+    per_shard = {"ring1": timed(1, 0), "ring4": [timed(4, r) for r in range(4)]}
+    result = {"phase": "kernel_banded_local_bwd_main", "shape": list(TRAIN_SHAPE), "band": list(BAND),
+              "stitched": stitched, "dummy_frames": dummy, "timed": per_shard,
+              # the worst small case (an all-zero partial has limit 0 and is held to exact zero)
+              "small_worst_err_share": max(st["max_abs_err"] / st["max_abs_tol"] for c in small
+                                           for n, st in c.items() if n in ("dq", "dk", "dv") and st["max_abs_tol"])}
+    emit(result)
+    return result
+
+
 def _compare_int8(q, k, v):
     from s2v_torch.kernels.int8_attention import flash_attention_qk_int8, flash_attention_qk_int8_reference
 
@@ -642,18 +957,19 @@ def phase_reference(dev):
 
 
 COUNTED = ("flash_attention", "flash_attention_bwd", "banded_flash_attention", "banded_flash_attention_bwd",
-           "flash_attention_qk_int8")
+           "flash_attention_qk_int8", "banded_flash_attention_local", "banded_flash_attention_local_bwd")
 
 
 def _counted_fns():
-    from s2v_torch.kernels.banded_attention import banded_flash_attention
-    from s2v_torch.kernels.banded_attention_bwd import banded_flash_attention_bwd
+    from s2v_torch.kernels.banded_attention import banded_flash_attention, banded_flash_attention_local
+    from s2v_torch.kernels.banded_attention_bwd import banded_flash_attention_bwd, banded_flash_attention_local_bwd
     from s2v_torch.kernels.flash_attention import flash_attention
     from s2v_torch.kernels.flash_attention_bwd import flash_attention_bwd
     from s2v_torch.kernels.int8_attention import flash_attention_qk_int8
 
     return dict(zip(COUNTED, (flash_attention, flash_attention_bwd, banded_flash_attention,
-                              banded_flash_attention_bwd, flash_attention_qk_int8)))
+                              banded_flash_attention_bwd, flash_attention_qk_int8, banded_flash_attention_local,
+                              banded_flash_attention_local_bwd)))
 
 
 def reset_counts():
@@ -672,17 +988,19 @@ def read_counts() -> dict:
 def check_counts(counts: dict, backend: str, forwards: int, backwards: int) -> bool:
     """The launches of ``forwards`` block forwards and ``backwards`` block
     backwards with ``backend``: one B1 per forward (net of the bounded
-    mode's re-runs; the windowed backend's global queries run online, with
+    mode's re-runs; the windowed backends' global queries run online, with
     none) and one B2 per backward; the windowed backend adds one B4 per
-    forward and one B5 per backward; the int8 backend runs one B3 per
-    forward instead of B1."""
-    windowed, int8 = backend == "windowed", backend == "flash_int8"
+    forward and one B5 per backward, sp_windowed (one rank) one B6 and one
+    B7 instead; the int8 backend runs one B3 per forward instead of B1."""
+    windowed, sp, int8 = backend == "windowed", backend == "sp_windowed", backend == "flash_int8"
     want = {"flash_attention": 0 if int8 else forwards, "flash_attention_bwd": backwards,
             "banded_flash_attention": forwards if windowed else 0,
             "banded_flash_attention_bwd": backwards if windowed else 0,
+            "banded_flash_attention_local": forwards if sp else 0,
+            "banded_flash_attention_local_bwd": backwards if sp else 0,
             "flash_attention_qk_int8": forwards if int8 else 0}
     got = {**counts, "flash_attention": counts["flash_attention"] - counts["reruns"]}
-    return all(got[k] == v for k, v in want.items()) and not (windowed and counts["reruns"])
+    return all(got[k] == v for k, v in want.items()) and not ((windowed or sp) and counts["reruns"])
 
 
 def build_full_pipe(dev):
@@ -741,7 +1059,7 @@ def phase_e2e(dev, pipe, backend="flash", window=2, num_frames=49, name=None, ex
         counts = read_counts()
         timings = pipe.timings
         with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            pipe.generate(num_inference_steps=1, output_type="latent", **kw)
+            latents = pipe.generate(num_inference_steps=1, output_type="latent", **kw)
         profiled = {"step_s": pipe.timings["denoise_step_s"][0], **device_breakdown(prof)}
     finally:
         pipe.attention_backend, pipe.transformer_cfg = saved
@@ -754,13 +1072,14 @@ def phase_e2e(dev, pipe, backend="flash", window=2, num_frames=49, name=None, ex
         raise AssertionError(f"{backend} generate launches {counts}; expected {2 * tcfg.num_layers} per "
                              f"forward kernel and no backward")
     emit({"phase": name or ("e2e" if backend == "flash" else f"e2e_{backend}"), "backend": backend, **(extra or {}),
-          "window": window if backend == "windowed" else None, "num_frames": num_frames, "steps": 2,
+          "window": window if backend in ("windowed", "sp_windowed") else None, "num_frames": num_frames, "steps": 2,
           "output_shape": list(video.shape), "launches": counts,
           "encode_prompt_s": timings["encode_prompt_s"], "encode_ref_s": timings["encode_ref_s"],
           "denoise_step_s": timings["denoise_step_s"], "decode_s": timings["decode_s"], "wall_s": wall_s,
           "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
           "output_mean": float(video.mean()), "output_std": float(video.std()), "profiled_step": profiled})
-    return counts
+    # the profiled 1-step generate's latents, for comparing backends on the same seed
+    return {**counts, "latents": latents.float().cpu()}
 
 
 def train_steps(pipe, dev, height, width, num_frames, steps, spec, optimizer_spec, backend):
@@ -845,8 +1164,10 @@ def train_steps(pipe, dev, height, width, num_frames, steps, spec, optimizer_spe
 KERNEL_FAMILIES = (
     ("flash_attention_qk_int8 (B3)", ("int8_fwd_kernel",)),
     ("int8 matmul (cuBLASLt)", ("gemm_s8", "imma", "s8s8")),
-    ("banded_flash_attention (B4)", ("banded_fwd_kernel",)),
-    ("banded_flash_attention_bwd (B5)", ("banded_bwd_",)),
+    # B6 and B7 run the same __global__ functions as B4 and B5
+    ("banded_flash_attention (B4, B6)", ("banded_fwd_kernel",)),
+    ("banded_flash_attention_bwd (B5, B7)", ("banded_bwd_",)),
+    ("collectives (NCCL)", ("nccl",)),
     ("flash_attention (B1)", ("flash_fwd_kernel",)),
     ("flash_attention_bwd (B2)", ("flash_bwd_",)),
     ("matmul (cuBLAS)", ("nvjet", "gemm", "xmma", "cutlass", "cublas")),
@@ -879,9 +1200,16 @@ def device_breakdown(prof) -> dict:
             end = hi
     window = spans[-1][1] - spans[0][0]
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    # the collectives' host-side calls (c10d / NCCL ops of the SP wrapper)
+    collectives = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA and (e.name.startswith("c10d::") or e.name.startswith("nccl:")):
+            calls, us = collectives.get(e.name, (0, 0.0))
+            collectives[e.name] = (calls + 1, us + e.time_range.elapsed_us())
     return {"device_ms_by_family": {k: v / 1e3 for k, v in sorted(by_family.items(), key=lambda kv: -kv[1])},
             "busy_ms": busy / 1e3, "window_ms": window / 1e3, "idle_share": 1.0 - busy / window,
-            "kernel_launches": len(kernels), "top_kernels_ms": {k[:80]: v / 1e3 for k, v in top}}
+            "kernel_launches": len(kernels), "top_kernels_ms": {k[:80]: v / 1e3 for k, v in top},
+            "collectives_host": {k: {"calls": c, "ms": us / 1e3} for k, (c, us) in collectives.items()}}
 
 
 def _tensors(tree):
@@ -959,6 +1287,55 @@ def phase_e2e_int8(dev, pipe, backend="flash_int8"):
         pipe.transformer_params = bf16_params
 
 
+_SP_MESH = []
+
+
+def sp_mesh():
+    """The one-rank ``seq`` mesh of the SP phases: an NCCL process group of
+    world size 1 over a ``HashStore`` (no network, no environment
+    variables), made on first use; one all_reduce runs at once, so a failed
+    NCCL start fails here.  No other backend stands in."""
+    if not _SP_MESH:
+        import torch
+        import torch.distributed as dist
+        from torch.distributed.device_mesh import init_device_mesh
+
+        t0 = time.perf_counter()
+        dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+        mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("seq",))
+        x = torch.ones(1, device="cuda")
+        dist.all_reduce(x, group=mesh.get_group("seq"))
+        torch.cuda.synchronize()
+        if x.item() != 1.0:
+            raise AssertionError(f"a one-rank all_reduce gave {x.item()}")
+        emit({"phase": "process_group", "backend": dist.get_backend(), "world_size": dist.get_world_size(),
+              "mesh_dims": list(mesh.mesh_dim_names), "nccl": ".".join(map(str, torch.cuda.nccl.version())),
+              "init_s": time.perf_counter() - t0})
+        _SP_MESH.append(mesh)
+    return _SP_MESH[0]
+
+
+def phase_e2e_sp_windowed(dev, pipe, backend="sp_windowed"):
+    """``generate`` as ``e2e_windowed`` (w = 2) on the one-rank seq mesh
+    with ``sp_windowed``: per step 42 B6 and 42 B1 (global queries), no B4.
+    The mesh is detached after."""
+    pipe.set_mesh(sp_mesh())
+    try:
+        return phase_e2e(dev, pipe, backend, name="e2e_sp_windowed", extra={"seq_ring": pipe._seq_ring()})
+    finally:
+        pipe.set_mesh(None)
+
+
+def phase_train_sp_windowed(dev, pipe, backend="sp_windowed"):
+    """The ``train`` phase's steps with ``sp_windowed`` under the one-rank
+    seq mesh's context: per step B6 and B1 twice per block, B7 and B2 once."""
+    from s2v_torch.parallel import default_logical_map, mesh_context
+
+    mesh = sp_mesh()
+    with mesh_context(mesh, default_logical_map(mesh)):
+        return phase_train(dev, pipe, backend, name="train_sp_windowed")
+
+
 def phase_train_qlora(dev, pipe, backend="flash"):
     """QLoRA: the ``train`` phase's steps over the int8 base, flash both
     ways (B3 has no backward).  The int8 q and scale must not change.  The
@@ -980,15 +1357,20 @@ def phase_train_qlora(dev, pipe, backend="flash"):
     return r
 
 
-PHASES = ("build", "kernel", "kernel_bwd", "kernel_banded", "kernel_banded_bwd", "kernel_int8", "reference", "e2e",
-          "e2e_windowed", "e2e_int8", "train", "train_windowed", "train_qlora")
+PHASES = ("build", "kernel", "kernel_bwd", "kernel_banded", "kernel_banded_bwd", "kernel_banded_local",
+          "kernel_banded_local_bwd", "kernel_int8", "reference", "e2e", "e2e_windowed", "e2e_sp_windowed", "e2e_int8",
+          "train", "train_windowed", "train_sp_windowed", "train_qlora")
 KERNEL_PHASES = {"kernel": phase_kernel, "kernel_bwd": phase_kernel_bwd, "kernel_banded": phase_kernel_banded,
-                 "kernel_banded_bwd": phase_kernel_banded_bwd, "kernel_int8": phase_kernel_int8,
+                 "kernel_banded_bwd": phase_kernel_banded_bwd, "kernel_banded_local": phase_kernel_banded_local,
+                 "kernel_banded_local_bwd": phase_kernel_banded_local_bwd, "kernel_int8": phase_kernel_int8,
                  "reference": phase_reference}
 # the pipeline phases: the backend each runs
 PATH_PHASES = {"e2e": (phase_e2e, "flash"), "e2e_windowed": (phase_e2e, "windowed"),
+               "e2e_sp_windowed": (phase_e2e_sp_windowed, "sp_windowed"),
                "e2e_int8": (phase_e2e_int8, "flash_int8"), "train": (phase_train, "flash"),
-               "train_windowed": (phase_train, "windowed"), "train_qlora": (phase_train_qlora, "flash")}
+               "train_windowed": (phase_train, "windowed"),
+               "train_sp_windowed": (phase_train_sp_windowed, "sp_windowed"),
+               "train_qlora": (phase_train_qlora, "flash")}
 
 
 def _path_launches(results, kernel):
@@ -1011,6 +1393,7 @@ def kernels_line(results):
     main, bwd = results["kernel"], results["kernel_bwd"]
     banded, banded_bwd = results["kernel_banded"], results["kernel_banded_bwd"]
     int8 = results["kernel_int8"]
+    local, local_bwd = results["kernel_banded_local"], results["kernel_banded_local_bwd"]
     common = {"route": "cuda", "rel_l2_tol": OUT_L2_REL}
     return [{
         **common,
@@ -1119,13 +1502,63 @@ def kernels_line(results):
                         f"{int8['b1_online_ms']:.2f} ms",
         "b1_online_ms": int8["b1_online_ms"],
         "shape": list(MAIN_SHAPE),
+    }, {
+        **common,
+        "name": "banded_flash_attention_local",
+        "source": "s2v_torch/csrc/banded_attention.cu",
+        "replaces": "s2v_tpu/ops/pallas/banded_attention.py:281",
+        "launches": results["e2e_sp_windowed"]["banded_flash_attention_local"],
+        "launches_by_path": _path_launches(results, "banded_flash_attention_local"),
+        # at the main path's shape (one rank: q the 17,550 video rows, k/v all 19,126)
+        "max_abs_err": local["stitched"]["plain"]["max_abs_err"],
+        "max_abs_tol": local["stitched"]["plain"]["max_abs_tol"],
+        "rel_l2": local["stitched"]["plain"]["rel_l2"],
+        "lse_err": local["stitched"]["plain"]["lse_err"],
+        "lse_tol": LSE_TOL,
+        # the worst small case over every offset of the 2- and 4-rank rings, as a share of its limit
+        "small_worst_err_share": local["small_worst_err_share"],
+        "stitched_vs_b4": {k: v for k, v in local["stitched"].items() if k != "plain"},
+        **_timed_fields(local["timed"]),
+        "library_covers": "the shard's video queries (masked SDPA)",
+        "q_shape": local["q_shape_ring1"],
+        "shape": list(MAIN_SHAPE),
+        "band": list(BAND),
+    }, {
+        **common,
+        "name": "banded_flash_attention_local_bwd",
+        "source": "s2v_torch/csrc/banded_attention_bwd.cu",
+        "replaces": "s2v_tpu/ops/pallas/banded_attention_bwd.py:375",
+        "launches": sum(c["banded_flash_attention_local_bwd"] for c in results["train_sp_windowed"]["launches"]),
+        "launches_by_path": _path_launches(results, "banded_flash_attention_local_bwd"),
+        "max_abs_err": worst(local_bwd["stitched"]["plain"], "max_abs_err"),
+        "max_abs_tol": min(v["max_abs_tol"] for v in local_bwd["stitched"]["plain"].values()),
+        "rel_l2": worst(local_bwd["stitched"]["plain"], "rel_l2"),
+        "small_worst_err_share": local_bwd["small_worst_err_share"],
+        "stitched_vs_b5": {k: v for k, v in local_bwd["stitched"].items() if k != "plain"},
+        "dummy_frames": local_bwd["dummy_frames"],
+        **_timed_fields(local_bwd["timed"]),
+        "library_covers": "the shard's video queries (backward of masked SDPA)",
+        "q_shape": [TRAIN_SHAPE[0], TRAIN_SHAPE[1] - BAND[0], *TRAIN_SHAPE[2:]],
+        "shape": list(TRAIN_SHAPE),
+        "band": list(BAND),
     }]
+
+
+def _timed_fields(timed):
+    """A SP kernel's times at one rank (its main-path shape) and per shard of
+    a 4-rank ring."""
+    one = timed["ring1"]
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library_shape")
+    return {**{k: one[k] for k in keys},
+            "per_shard_ring4": [{k: t[k] for k in ("rank", "offset", "dummy_frames", "ms", "plain_ms", "bound_ms",
+                                                     "library_ms")} for t in timed["ring4"]]}
 
 
 def main(argv=None) -> int:
     import argparse
 
     import torch
+    import torch.distributed
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--phases", default=",".join(PHASES),
@@ -1158,13 +1591,27 @@ def main(argv=None) -> int:
     # the kernel phases first, while the card's memory is free; then the
     # full-width pipeline, built once for every pipeline phase
     results, pipe = {}, None
-    for phase in [p for p in PHASES if p in phases and p != "build"]:
-        if phase in KERNEL_PHASES:
-            results[phase] = KERNEL_PHASES[phase](dev)
-        else:
-            pipe = pipe or build_full_pipe(dev)
-            fn, backend = PATH_PHASES[phase]
-            results[phase] = fn(dev, pipe, backend)
+    try:
+        for phase in [p for p in PHASES if p in phases and p != "build"]:
+            if phase in KERNEL_PHASES:
+                results[phase] = KERNEL_PHASES[phase](dev)
+            else:
+                pipe = pipe or build_full_pipe(dev)
+                fn, backend = PATH_PHASES[phase]
+                results[phase] = fn(dev, pipe, backend)
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+    if "e2e_windowed" in results and "e2e_sp_windowed" in results:
+        # the same seed through B4 and through B6 on one rank: the limits of a kernel against its plain version
+        sp, single = results["e2e_sp_windowed"]["latents"], results["e2e_windowed"]["latents"]
+        line = {"phase": "sp_windowed_vs_windowed",
+                "latents_1_step": {**_agreement(sp, single, "e2e_sp_windowed latents against e2e_windowed's"),
+                                   "bitwise_equal": bool(torch.equal(sp, single))}}
+        if "train_windowed" in results and "train_sp_windowed" in results:
+            line["first_loss_windowed"] = results["train_windowed"]["losses"][0]
+            line["first_loss_sp_windowed"] = results["train_sp_windowed"]["losses"][0]
+        emit(line)
     if "train" in results and "train_qlora" in results:
         # a finding, not a gate: the JAX package's test holds the QLoRA loss
         # to rtol 0.05 of the bf16-base loss on its tiny model

@@ -3,11 +3,19 @@
 //
 // Replaces the banded grid of the TPU kernel B4,
 // s2v_tpu/ops/pallas/banded_attention.py::banded_flash_attention (its
-// pallas_call of _flash_kernel over a frame-padded layout).  The sequence is
+// pallas_call of _flash_kernel over a frame-padded layout), and kernel B6,
+// ::banded_flash_attention_local (_flash_kernel_sp: the same band for one
+// sequence-parallel shard of video-query frames, at a runtime frame offset,
+// against the full K/V).  The sequence is
 // [global G (text | ref) | F frames of tpf tokens]; video query frame f
 // attends the global keys [0, G) and the frames ws(f) .. ws(f) + span - 1,
 //   ws(f) = clamp(f - w, 0, F - span),   span = min(2w + 1, F).
 // The global queries attend everything; the wrapper sends them to kernel B1.
+// B6's queries are a tensor of their own, [B, F_loc*tpf, H, d]: local frame fl
+// is global frame frame_offset + fl, clamped with the global F, and frames at
+// or past F (ring-padding dummy frames) take the last window.  One kernel
+// serves both: the query frames start at row q_row0 of q/o (G for B4, 0 for
+// B6) and at global frame frame_offset (0 for B4), both runtime arguments.
 //
 // It computes that contract, not the TPU layout: the window of frame f is one
 // contiguous key range [G + ws(f)*tpf, G + (ws(f) + span)*tpf) of the original
@@ -21,6 +29,8 @@
 // F=13, w=2, d=64): 17,550 video queries x 8,326 keys each, 4*B*H*d*pairs =
 // 3.59e12 operations, 3.63 ms at the 989 TFLOP/s bf16 tensor-core peak,
 // against ~0.24 GB of q/k/v/o traffic (0.07 ms at 3.35 TB/s): compute-bound.
+// B6 at world size 1 does the same work; a shard of a P-rank ring its real
+// frames' share (~1/P), and it computes its dummy frames too.
 //
 // Design (B1's online kernel on a band; simple and right first):
 //   * grid (F * ceil(tpf/128), B*H); 8 warps per block, 16 query rows per warp;
@@ -55,12 +65,15 @@ struct Params {
   const __nv_bfloat16* k;
   const __nv_bfloat16* v;
   __nv_bfloat16* o;
-  float* lse;  // [B, H, S] or null; written at the video rows only
+  float* lse;  // [B, H, stat_rows] or null; written at the query rows only
   long long q_sb, q_ss, q_sh;
   long long k_sb, k_ss, k_sh;
   long long v_sb, v_ss, v_sh;
   long long o_sb, o_ss, o_sh;
-  int H, S, G, tpf, n_frames, span, window;
+  int H, G, tpf, n_frames, span, window;
+  int q_row0;        // row of q/o/lse holding the first query frame's first token
+  int frame_offset;  // global frame of the first query frame
+  int stat_rows;     // rows of a (b, h) slice of lse
   int q_tiles;       // query tiles per frame, ceil(tpf / kBQ)
   float scale_log2;  // softmax scale * log2(e)
 };
@@ -120,8 +133,9 @@ __global__ void __launch_bounds__(kThreads, 2) banded_fwd_kernel(const Params p)
   const int t4 = lane & 3;  // thread within the group
   const int b = blockIdx.y / p.H;
   const int h = blockIdx.y % p.H;
-  const int f = blockIdx.x / p.q_tiles;  // this block's query frame
-  const int frame0 = p.G + f * p.tpf;
+  const int fl = blockIdx.x / p.q_tiles;  // this block's query frame in the call
+  const int f = p.frame_offset + fl;      // ... and in the clip (>= F: a dummy frame)
+  const int frame0 = p.q_row0 + fl * p.tpf;
   const int row_end = frame0 + p.tpf;  // rows of the frame: [frame0, row_end)
   const int row0 = frame0 + (blockIdx.x % p.q_tiles) * kBQ + warp * 16 + g;
   const int row1 = row0 + 8;
@@ -297,13 +311,45 @@ __global__ void __launch_bounds__(kThreads, 2) banded_fwd_kernel(const Params p)
       *reinterpret_cast<uint32_t*>(op + row * p.o_ss + nt * 8 + t4 * 2) = packed;
     }
     if (p.lse != nullptr && t4 == 0) {
-      p.lse[((long long)b * p.H + h) * p.S + row] = m_run[r] * kLn2 + logf(l);
+      p.lse[((long long)b * p.H + h) * p.stat_rows + row] = m_run[r] * kLn2 + logf(l);
     }
   }
 }
 
+// shared by the two entry points: q frames [0, q_frames) at rows q_row0 + fl*tpf
+int launch(const void* q, const void* k, const void* v, void* o, void* lse, int batch, int heads,
+           int global_len, int tokens_per_frame, int n_frames, int span, int window, int q_row0,
+           int frame_offset, int q_frames, int stat_rows, const long long* st, float scale_log2,
+           void* stream) {
+  Params p;
+  p.q = static_cast<const __nv_bfloat16*>(q);
+  p.k = static_cast<const __nv_bfloat16*>(k);
+  p.v = static_cast<const __nv_bfloat16*>(v);
+  p.o = static_cast<__nv_bfloat16*>(o);
+  p.lse = static_cast<float*>(lse);
+  p.q_sb = st[0]; p.q_ss = st[1]; p.q_sh = st[2];
+  p.k_sb = st[3]; p.k_ss = st[4]; p.k_sh = st[5];
+  p.v_sb = st[6]; p.v_ss = st[7]; p.v_sh = st[8];
+  p.o_sb = st[9]; p.o_ss = st[10]; p.o_sh = st[11];
+  p.H = heads;
+  p.G = global_len;
+  p.tpf = tokens_per_frame;
+  p.n_frames = n_frames;
+  p.span = span;
+  p.window = window;
+  p.q_row0 = q_row0;
+  p.frame_offset = frame_offset;
+  p.stat_rows = stat_rows;
+  p.q_tiles = (tokens_per_frame + kBQ - 1) / kBQ;
+  p.scale_log2 = scale_log2;
+  const dim3 grid(q_frames * p.q_tiles, batch * heads);
+  banded_fwd_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
+// B4: q, k, v, o all [B, S, H, d]; the video rows of o and lse ([B, H, S])
 extern "C" int s2v_banded_attention_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse,
     int batch, int heads, int seq, int global_len, int tokens_per_frame, int n_frames,
@@ -313,26 +359,23 @@ extern "C" int s2v_banded_attention_fwd(
     long long v_sb, long long v_ss, long long v_sh,
     long long o_sb, long long o_ss, long long o_sh,
     float scale_log2, void* stream) {
-  Params p;
-  p.q = static_cast<const __nv_bfloat16*>(q);
-  p.k = static_cast<const __nv_bfloat16*>(k);
-  p.v = static_cast<const __nv_bfloat16*>(v);
-  p.o = static_cast<__nv_bfloat16*>(o);
-  p.lse = static_cast<float*>(lse);
-  p.q_sb = q_sb; p.q_ss = q_ss; p.q_sh = q_sh;
-  p.k_sb = k_sb; p.k_ss = k_ss; p.k_sh = k_sh;
-  p.v_sb = v_sb; p.v_ss = v_ss; p.v_sh = v_sh;
-  p.o_sb = o_sb; p.o_ss = o_ss; p.o_sh = o_sh;
-  p.H = heads;
-  p.S = seq;
-  p.G = global_len;
-  p.tpf = tokens_per_frame;
-  p.n_frames = n_frames;
-  p.span = span;
-  p.window = window;
-  p.q_tiles = (tokens_per_frame + kBQ - 1) / kBQ;
-  p.scale_log2 = scale_log2;
-  const dim3 grid(n_frames * p.q_tiles, batch * heads);
-  banded_fwd_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  const long long st[12] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh};
+  return launch(q, k, v, o, lse, batch, heads, global_len, tokens_per_frame, n_frames, span, window,
+                global_len, 0, n_frames, seq, st, scale_log2, stream);
+}
+
+// B6: q and o [B, F_loc*tpf, H, d] (frames frame_offset .. frame_offset + F_loc - 1),
+// k and v the full [B, S, H, d]; lse [B, H, F_loc*tpf]
+extern "C" int s2v_banded_attention_local_fwd(
+    const void* q, const void* k, const void* v, void* o, void* lse,
+    int batch, int heads, int global_len, int tokens_per_frame, int n_frames,
+    int span, int window, int frame_offset, int local_frames,
+    long long q_sb, long long q_ss, long long q_sh,
+    long long k_sb, long long k_ss, long long k_sh,
+    long long v_sb, long long v_ss, long long v_sh,
+    long long o_sb, long long o_ss, long long o_sh,
+    float scale_log2, void* stream) {
+  const long long st[12] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh};
+  return launch(q, k, v, o, lse, batch, heads, global_len, tokens_per_frame, n_frames, span, window,
+                0, frame_offset, local_frames, local_frames * tokens_per_frame, st, scale_log2, stream);
 }

@@ -9,6 +9,18 @@
 // global keys <- video queries).  The global queries' part goes to kernel B2
 // in the wrapper, which adds the two parts of dk and dv.
 //
+// And those of kernel B7, ::banded_flash_attention_local_bwd (_dq_kernel_sp,
+// _dkv_banded_kernel_sp and the global-key sweep over the local frames): the
+// same gradients for one sequence-parallel shard of video-query frames, q, o,
+// dO, lse and D of its own length [B, F_loc*tpf, ...] at global frames
+// frame_offset + fl, against the full K/V.  dq has the local length; dk and dv
+// are the full-extent partials [B, S, H, d] from the local queries only (the
+// wrapper sums them over the ranks).  Frames at or past F (ring-padding dummy
+// frames) are absent: their dq rows are written as zero and the dk/dv walks
+// stop at the last real frame, so they contribute exactly nothing.  One pair of
+// kernels serves B5 and B7: the query frames start at row q_row0 of q/dO/dq (G
+// for B5, 0 for B7) and at global frame frame_offset (0 for B5).
+//
 // The band (as in banded_attention.cu): the sequence is [global G | F frames
 // of tpf tokens]; video query frame f attends [0, G) and the frames ws(f) ..
 // ws(f) + span - 1, ws(f) = clamp(f - w, 0, F - span), span = min(2w + 1, F).
@@ -30,7 +42,8 @@
 // Bound on an H100 SXM at the training shape (B=1, H=48, G=1,576, tpf=1,350,
 // F=13, w=2, d=64): 17,550 video queries x 8,326 keys each, 10*B*H*d*pairs =
 // 4.49e12 operations for the five products, 4.54 ms at the 989 TFLOP/s bf16
-// peak, against ~0.2 GB of traffic: compute-bound.
+// peak, against ~0.2 GB of traffic: compute-bound.  B7 at world size 1 does
+// the same work; a shard of a P-rank ring its real frames' share (~1/P).
 //
 // Design (B2's two deterministic kernels on the band; simple and right first):
 //   dq kernel  - one block per (b*h, 64-query tile inside one frame); walks
@@ -65,8 +78,8 @@ struct Params {
   const __nv_bfloat16* k;
   const __nv_bfloat16* v;
   const __nv_bfloat16* dout;
-  const float* lse;    // [B, H, S], natural log
-  const float* delta;  // [B, H, S], rowsum(dO * o)
+  const float* lse;    // [B, H, stat_rows], natural log
+  const float* delta;  // [B, H, stat_rows], rowsum(dO * o)
   __nv_bfloat16* dq;
   __nv_bfloat16* dk;
   __nv_bfloat16* dv;
@@ -77,8 +90,12 @@ struct Params {
   long long dq_sb, dq_ss, dq_sh;
   long long dk_sb, dk_ss, dk_sh;
   long long dv_sb, dv_ss, dv_sh;
-  int H, S, G, tpf, n_frames, span, window;
-  int frame_tiles;  // 64-row tiles per frame, ceil(tpf / 64)
+  int H, G, tpf, n_frames, span, window;
+  int q_row0;        // row of q/dO/dq holding the first query frame's first token
+  int frame_offset;  // global frame of the first query frame
+  int q_frames;      // query frames of the call (the clip, or a shard with its dummy frames)
+  int stat_rows;     // rows of a (b, h) slice of lse and D
+  int frame_tiles;   // 64-row tiles per frame, ceil(tpf / 64)
   float scale;
   float scale_log2;  // scale * log2(e)
 };
@@ -225,10 +242,18 @@ __global__ void __launch_bounds__(kThreads) banded_bwd_dq_kernel(const Params p)
   const int t4 = lane & 3;
   const int b = blockIdx.y / p.H;
   const int h = blockIdx.y % p.H;
-  const int f = blockIdx.x / p.frame_tiles;
-  const int frame0 = p.G + f * p.tpf;
+  const int fl = blockIdx.x / p.frame_tiles;  // query frame in the call
+  const int f = p.frame_offset + fl;          // ... and in the clip
+  const int frame0 = p.q_row0 + fl * p.tpf;
   const int row_end = frame0 + p.tpf;
   const int row0 = frame0 + (blockIdx.x % p.frame_tiles) * kBR + warp * 16 + g;  // rows row0, row0 + 8
+  __nv_bfloat16* dqp = p.dq + b * p.dq_sb + h * p.dq_sh;
+  float dq_acc[8][4];
+  zero_acc(dq_acc);
+  if (f >= p.n_frames) {  // a dummy frame (block-uniform): no gradient
+    store_rows(dqp, p.dq_ss, row0, row_end, dq_acc, 0.f, t4);
+    return;
+  }
 
   const int ws = min(max(f - p.window, 0), p.n_frames - p.span);
   const int win_lo = p.G + ws * p.tpf;
@@ -247,7 +272,7 @@ __global__ void __launch_bounds__(kThreads) banded_bwd_dq_kernel(const Params p)
   // lse in log2 units and D for the thread's two rows (0 outside the frame:
   // such rows have zero q and dO, so their dS is 0, and they are not written)
   float lse2[2], dlt[2];
-  const long long stat = ((long long)b * p.H + h) * p.S;
+  const long long stat = ((long long)b * p.H + h) * p.stat_rows;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + 8 * r;
@@ -279,9 +304,6 @@ __global__ void __launch_bounds__(kThreads) banded_bwd_dq_kernel(const Params p)
       cp_async16(&v_s[buf][r * kLds + ch], vp + kk * p.v_ss + ch, ok);
     }
   };
-
-  float dq_acc[8][4];
-  zero_acc(dq_acc);
 
   load_tile(0, 0);
   cp_async_commit();
@@ -317,13 +339,13 @@ __global__ void __launch_bounds__(kThreads) banded_bwd_dq_kernel(const Params p)
     __syncthreads();  // the next iteration's copy overwrites this buffer
   }
 
-  __nv_bfloat16* dqp = p.dq + b * p.dq_sb + h * p.dq_sh;
   store_rows(dqp, p.dq_ss, row0, row_end, dq_acc, p.scale, t4);
 }
 
 // dk, dv from the video queries: one block per (64 keys, b*h).  Blocks
-// [0, ceil(G/64)) own global key tiles and walk every video query; the rest
-// own tiles of one key frame and walk that frame's inverse band.
+// [0, ceil(G/64)) own global key tiles and walk every real query frame of the
+// call; the rest own tiles of one key frame and walk the call's query frames
+// in that frame's inverse band (an empty walk writes zeros).
 __global__ void __launch_bounds__(kThreads) banded_bwd_dkv_kernel(const Params p) {
   __shared__ __align__(16) __nv_bfloat16 q_s[2][kBT * kLds];
   __shared__ __align__(16) __nv_bfloat16 do_s[2][kBT * kLds];
@@ -339,12 +361,14 @@ __global__ void __launch_bounds__(kThreads) banded_bwd_dkv_kernel(const Params p
   const int h = blockIdx.y % p.H;
 
   const int glob_tiles = (p.G + kBR - 1) / kBR;
-  int tile0, key_end, q_lo, q_hi;
+  const int off = p.frame_offset;
+  int tile0, key_end, q_lo, q_hi;  // query rows [q_lo, q_hi) of q/dO/lse/D
   if ((int)blockIdx.x < glob_tiles) {
     tile0 = blockIdx.x * kBR;
     key_end = p.G;
-    q_lo = p.G;
-    q_hi = p.S;
+    const int real = max(0, min(p.q_frames, p.n_frames - off));
+    q_lo = p.q_row0;
+    q_hi = p.q_row0 + real * p.tpf;
   } else {
     const int i = blockIdx.x - glob_tiles;
     const int fk = i / p.frame_tiles;
@@ -352,8 +376,11 @@ __global__ void __launch_bounds__(kThreads) banded_bwd_dkv_kernel(const Params p
     key_end = p.G + (fk + 1) * p.tpf;
     const int f_lo = fk < p.span ? 0 : fk + p.window - p.span + 1;
     const int f_hi = fk >= p.n_frames - p.span ? p.n_frames - 1 : min(p.n_frames - 1, fk + p.window);
-    q_lo = p.G + f_lo * p.tpf;
-    q_hi = p.G + (f_hi + 1) * p.tpf;
+    // the inverse band's frames that the call holds (f_hi < F: real frames only)
+    const int lo = max(f_lo, off);
+    const int hi = min(f_hi, off + p.q_frames - 1);
+    q_lo = p.q_row0 + (lo - off) * p.tpf;
+    q_hi = hi >= lo ? p.q_row0 + (hi - off + 1) * p.tpf : q_lo;
   }
   const int key0 = tile0 + warp * 16 + g;  // this thread's keys: key0, key0 + 8
 
@@ -361,7 +388,7 @@ __global__ void __launch_bounds__(kThreads) banded_bwd_dkv_kernel(const Params p
   const __nv_bfloat16* vp = p.v + b * p.v_sb + h * p.v_sh;
   const __nv_bfloat16* qp = p.q + b * p.q_sb + h * p.q_sh;
   const __nv_bfloat16* dop = p.dout + b * p.do_sb + h * p.do_sh;
-  const long long stat = ((long long)b * p.H + h) * p.S;
+  const long long stat = ((long long)b * p.H + h) * p.stat_rows;
 
   uint32_t kf[4][4], vf[4][4];
   load_a_rows(kf, kp, p.k_ss, key0, key_end, t4);
@@ -393,8 +420,10 @@ __global__ void __launch_bounds__(kThreads) banded_bwd_dkv_kernel(const Params p
   zero_acc(dv_acc);
 
   const int n_tiles = (q_hi - q_lo + kBT - 1) / kBT;
-  load_tile(0, 0);
-  cp_async_commit();
+  if (n_tiles > 0) {
+    load_tile(0, 0);
+    cp_async_commit();
+  }
   for (int j = 0; j < n_tiles; ++j) {
     const int buf = j & 1;
     if (j + 1 < n_tiles) {
@@ -444,8 +473,53 @@ __global__ void __launch_bounds__(kThreads) banded_bwd_dkv_kernel(const Params p
   store_rows(dvp, p.dv_ss, key0, key_end, dv_acc, 1.f, t4);
 }
 
+// shared by the two entry points: query frames [0, q_frames) at rows q_row0 + fl*tpf
+int launch(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+           const void* delta, void* dq, void* dk, void* dv, int batch, int heads, int global_len,
+           int tokens_per_frame, int n_frames, int span, int window, int q_row0, int frame_offset,
+           int q_frames, int stat_rows, const long long* st, float scale, void* stream) {
+  Params p;
+  p.q = static_cast<const __nv_bfloat16*>(q);
+  p.k = static_cast<const __nv_bfloat16*>(k);
+  p.v = static_cast<const __nv_bfloat16*>(v);
+  p.dout = static_cast<const __nv_bfloat16*>(dout);
+  p.lse = static_cast<const float*>(lse);
+  p.delta = static_cast<const float*>(delta);
+  p.dq = static_cast<__nv_bfloat16*>(dq);
+  p.dk = static_cast<__nv_bfloat16*>(dk);
+  p.dv = static_cast<__nv_bfloat16*>(dv);
+  p.q_sb = st[0]; p.q_ss = st[1]; p.q_sh = st[2];
+  p.k_sb = st[3]; p.k_ss = st[4]; p.k_sh = st[5];
+  p.v_sb = st[6]; p.v_ss = st[7]; p.v_sh = st[8];
+  p.do_sb = st[9]; p.do_ss = st[10]; p.do_sh = st[11];
+  p.dq_sb = st[12]; p.dq_ss = st[13]; p.dq_sh = st[14];
+  p.dk_sb = st[15]; p.dk_ss = st[16]; p.dk_sh = st[17];
+  p.dv_sb = st[18]; p.dv_ss = st[19]; p.dv_sh = st[20];
+  p.H = heads;
+  p.G = global_len;
+  p.tpf = tokens_per_frame;
+  p.n_frames = n_frames;
+  p.span = span;
+  p.window = window;
+  p.q_row0 = q_row0;
+  p.frame_offset = frame_offset;
+  p.q_frames = q_frames;
+  p.stat_rows = stat_rows;
+  p.frame_tiles = (tokens_per_frame + kBR - 1) / kBR;
+  p.scale = scale;
+  p.scale_log2 = scale * kLog2e;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int glob_tiles = (global_len + kBR - 1) / kBR;
+  banded_bwd_dq_kernel<<<dim3(q_frames * p.frame_tiles, batch * heads), kThreads, 0, s>>>(p);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  banded_bwd_dkv_kernel<<<dim3(glob_tiles + n_frames * p.frame_tiles, batch * heads), kThreads, 0, s>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
+// B5: every tensor [B, S, H, d], lse and D [B, H, S]; dq at the video rows, dk/dv at all
 extern "C" int s2v_banded_attention_bwd(
     const void* q, const void* k, const void* v, const void* dout, const void* lse,
     const void* delta, void* dq, void* dk, void* dv,
@@ -459,38 +533,30 @@ extern "C" int s2v_banded_attention_bwd(
     long long dk_sb, long long dk_ss, long long dk_sh,
     long long dv_sb, long long dv_ss, long long dv_sh,
     float scale, void* stream) {
-  Params p;
-  p.q = static_cast<const __nv_bfloat16*>(q);
-  p.k = static_cast<const __nv_bfloat16*>(k);
-  p.v = static_cast<const __nv_bfloat16*>(v);
-  p.dout = static_cast<const __nv_bfloat16*>(dout);
-  p.lse = static_cast<const float*>(lse);
-  p.delta = static_cast<const float*>(delta);
-  p.dq = static_cast<__nv_bfloat16*>(dq);
-  p.dk = static_cast<__nv_bfloat16*>(dk);
-  p.dv = static_cast<__nv_bfloat16*>(dv);
-  p.q_sb = q_sb; p.q_ss = q_ss; p.q_sh = q_sh;
-  p.k_sb = k_sb; p.k_ss = k_ss; p.k_sh = k_sh;
-  p.v_sb = v_sb; p.v_ss = v_ss; p.v_sh = v_sh;
-  p.do_sb = do_sb; p.do_ss = do_ss; p.do_sh = do_sh;
-  p.dq_sb = dq_sb; p.dq_ss = dq_ss; p.dq_sh = dq_sh;
-  p.dk_sb = dk_sb; p.dk_ss = dk_ss; p.dk_sh = dk_sh;
-  p.dv_sb = dv_sb; p.dv_ss = dv_ss; p.dv_sh = dv_sh;
-  p.H = heads;
-  p.S = seq;
-  p.G = global_len;
-  p.tpf = tokens_per_frame;
-  p.n_frames = n_frames;
-  p.span = span;
-  p.window = window;
-  p.frame_tiles = (tokens_per_frame + kBR - 1) / kBR;
-  p.scale = scale;
-  p.scale_log2 = scale * kLog2e;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int glob_tiles = (global_len + kBR - 1) / kBR;
-  banded_bwd_dq_kernel<<<dim3(n_frames * p.frame_tiles, batch * heads), kThreads, 0, s>>>(p);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  banded_bwd_dkv_kernel<<<dim3(glob_tiles + n_frames * p.frame_tiles, batch * heads), kThreads, 0, s>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  const long long st[21] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, do_sb, do_ss,
+                            do_sh, dq_sb, dq_ss, dq_sh, dk_sb, dk_ss, dk_sh, dv_sb, dv_ss, dv_sh};
+  return launch(q, k, v, dout, lse, delta, dq, dk, dv, batch, heads, global_len, tokens_per_frame,
+                n_frames, span, window, global_len, 0, n_frames, seq, st, scale, stream);
+}
+
+// B7: q, dO, dq [B, F_loc*tpf, H, d] and lse, D [B, H, F_loc*tpf] of the shard at
+// frame_offset; k, v and the partial dk, dv the full [B, S, H, d]
+extern "C" int s2v_banded_attention_local_bwd(
+    const void* q, const void* k, const void* v, const void* dout, const void* lse,
+    const void* delta, void* dq, void* dk, void* dv,
+    int batch, int heads, int global_len, int tokens_per_frame, int n_frames,
+    int span, int window, int frame_offset, int local_frames,
+    long long q_sb, long long q_ss, long long q_sh,
+    long long k_sb, long long k_ss, long long k_sh,
+    long long v_sb, long long v_ss, long long v_sh,
+    long long do_sb, long long do_ss, long long do_sh,
+    long long dq_sb, long long dq_ss, long long dq_sh,
+    long long dk_sb, long long dk_ss, long long dk_sh,
+    long long dv_sb, long long dv_ss, long long dv_sh,
+    float scale, void* stream) {
+  const long long st[21] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, do_sb, do_ss,
+                            do_sh, dq_sb, dq_ss, dq_sh, dk_sb, dk_ss, dk_sh, dv_sb, dv_ss, dv_sh};
+  return launch(q, k, v, dout, lse, delta, dq, dk, dv, batch, heads, global_len, tokens_per_frame,
+                n_frames, span, window, 0, frame_offset, local_frames, local_frames * tokens_per_frame,
+                st, scale, stream);
 }

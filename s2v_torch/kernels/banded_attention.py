@@ -17,10 +17,24 @@ and bound with ``ctypes``.  CPU tensors take
 :func:`banded_flash_attention_reference`, the plain PyTorch version.
 ``banded_flash_attention.launches`` counts launches of the banded kernel.
 
+Kernel B6, :func:`banded_flash_attention_local`, replaces
+``s2v_tpu/ops/pallas/banded_attention.py::banded_flash_attention_local``:
+the same band for one sequence-parallel shard of video-query frames,
+``[B, F_loc·tpf, H, d]``, against the full K/V ``[B, G + F·tpf, H, d]``.
+The shard's first frame ``frame_offset`` is a runtime kernel argument (one
+build serves every rank); windows clamp to the global frame range, and
+frames at or past F (ring-padding dummy frames) attend the last window,
+giving rows the caller drops.  It shares the ``__global__`` kernel with B4
+through its own C entry point ``s2v_banded_attention_local_fwd``;
+:func:`banded_flash_attention_local_reference` is its plain version and
+``banded_flash_attention_local.launches`` its own count.
+
 Bound on an H100 SXM at the main-path shape (B=2, H=48, G=1,576, tpf=1,350,
 F=13, w=2, d=64): the banded launch does 4·B·H·d·(17,550 × 8,326) = 3.59·10¹²
 operations (3.63 ms at 989 TFLOP/s bf16), the global queries' B1 call
-4·B·H·d·(1,576 × 19,126) = 7.4·10¹¹ (0.75 ms); both compute-bound.
+4·B·H·d·(1,576 × 19,126) = 7.4·10¹¹ (0.75 ms); both compute-bound.  B6 at
+world size 1 does the banded launch's work; a shard of a P-rank ring does
+its real frames' share (:meth:`BandGeometry.shard_pairs`).
 """
 
 from __future__ import annotations
@@ -51,6 +65,9 @@ def _library():
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         fn.argtypes = [vp] * 5 + [i32] * 8 + [i64] * 12 + [ctypes.c_float, vp]
         fn.restype = i32
+        local = lib.s2v_banded_attention_local_fwd
+        local.argtypes = [vp] * 5 + [i32] * 9 + [i64] * 12 + [ctypes.c_float, vp]
+        local.restype = i32
         _lib = lib
     return _lib
 
@@ -63,6 +80,10 @@ class BandGeometry(NamedTuple):
     n_frames: int  # F
     window: int  # w: the half-width in frames
     span: int  # min(2w + 1, F): frames each video query attends
+    # the video-query frames a call computes: global frames frame_offset ..
+    # frame_offset + local_frames - 1 (the whole clip, or one SP shard)
+    frame_offset: int = 0
+    local_frames: int = 0
 
     def window_start(self, f: int) -> int:
         """ws(f): the first key frame of query frame f's window."""
@@ -84,6 +105,39 @@ class BandGeometry(NamedTuple):
         vid = self.n_frames * self.tokens_per_frame
         return vid * (self.global_len + self.span * self.tokens_per_frame), self.global_len * (self.global_len + vid)
 
+    def shard(self, frame_offset: int, local_frames: int) -> "BandGeometry":
+        """The geometry of one sequence-parallel shard of video-query frames,
+        ``local_frames`` frames from global frame ``frame_offset``.  Raises
+        unless the shard lies in the ring-padded clip of a ring of at most F
+        ranks: ``1 <= F_loc <= F``, ``0 <= frame_offset`` and ``frame_offset +
+        F_loc <= F·F_loc`` (the largest F_pad such a ring gives).  Frames at
+        or past F are ring-padding dummy frames."""
+        f = self.n_frames
+        if not 1 <= local_frames <= f:
+            raise ValueError(f"a shard holds 1 to F={f} frames, got {local_frames}")
+        if frame_offset < 0 or frame_offset + local_frames > f * local_frames:
+            raise ValueError(f"frame_offset {frame_offset} with {local_frames} local frames lies outside the "
+                             f"ring-padded clip [0, {f * local_frames}) of F={f} frames")
+        return self._replace(frame_offset=frame_offset, local_frames=local_frames)
+
+    def real_frames(self) -> int:
+        """How many of the shard's frames lie inside the clip."""
+        return max(0, min(self.local_frames, self.n_frames - self.frame_offset))
+
+    def shard_pairs(self) -> int:
+        """(query, key) pairs of the shard's real frames: its share of the
+        video queries' band."""
+        tpf = self.tokens_per_frame
+        return self.real_frames() * tpf * (self.global_len + self.span * tpf)
+
+
+def ring_shards(n_frames: int, ring: int) -> Tuple[int, int]:
+    """(F_pad, F_loc): the frame count padded to a multiple of the ring, and
+    the frames of each rank's shard (``s2v_tpu/parallel/sp_attention.py:248-249``);
+    rank r's shard starts at frame r·F_loc."""
+    f_pad = -(-n_frames // ring) * ring
+    return f_pad, f_pad // ring
+
 
 def band_geometry(seq_len: int, global_len: int, tokens_per_frame: int, window_frames: int) -> BandGeometry:
     """Raise on a geometry the windowed functions do not take: no global
@@ -99,7 +153,7 @@ def band_geometry(seq_len: int, global_len: int, tokens_per_frame: int, window_f
     if n_frames < 1 or global_len + n_frames * tokens_per_frame != seq_len:
         raise ValueError(f"ragged video segment: S={seq_len} is not G={global_len} + F x {tokens_per_frame}")
     return BandGeometry(global_len, tokens_per_frame, n_frames, window_frames,
-                        min(2 * window_frames + 1, n_frames))
+                        min(2 * window_frames + 1, n_frames), 0, n_frames)
 
 
 def band_mask(geo: BandGeometry, rows: torch.Tensor, seq_len: int) -> torch.Tensor:
@@ -228,3 +282,131 @@ def banded_flash_attention(
 
 
 banded_flash_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# B6: one sequence-parallel shard of video-query frames
+# ---------------------------------------------------------------------------
+
+
+def local_geometry(q_vid, k_full, v_full, global_len: int, tokens_per_frame: int, window_frames: int,
+                   frame_offset, n_frames_total: int) -> BandGeometry:
+    """The shard's geometry from the shapes; raises on what B6/B7 do not
+    take: a ragged local segment, K/V that are not the full sequence, a
+    shard outside the ring-padded clip (:meth:`BandGeometry.shard`)."""
+    if q_vid.dim() != 4 or k_full.dim() != 4 or k_full.shape != v_full.shape:
+        raise ValueError(f"q_vid must be [B, F_loc·tpf, H, d] and k, v one [B, S, H, d] shape; got "
+                         f"{tuple(q_vid.shape)}, {tuple(k_full.shape)}, {tuple(v_full.shape)}")
+    if q_vid.shape[0] != k_full.shape[0] or q_vid.shape[2:] != k_full.shape[2:]:
+        raise ValueError(f"q_vid {tuple(q_vid.shape)} does not match k {tuple(k_full.shape)}")
+    geo = band_geometry(k_full.shape[1], global_len, tokens_per_frame, window_frames)
+    if geo.n_frames != n_frames_total:
+        raise ValueError(f"k/v must be the full sequence G + {n_frames_total} x {tokens_per_frame}; "
+                         f"S={k_full.shape[1]}")
+    local_frames = q_vid.shape[1] // tokens_per_frame
+    if local_frames * tokens_per_frame != q_vid.shape[1]:
+        raise ValueError(f"ragged local video segment: {q_vid.shape[1]} rows, {tokens_per_frame} per frame")
+    return geo.shard(int(torch.as_tensor(frame_offset).reshape(-1)[0]), local_frames)
+
+
+def banded_flash_attention_local_reference(
+    q_vid: torch.Tensor,
+    k_full: torch.Tensor,
+    v_full: torch.Tensor,
+    global_len: int,
+    tokens_per_frame: int,
+    window_frames: int,
+    frame_offset,
+    n_frames_total: int,
+    scale: Optional[float] = None,
+    return_lse: bool = False,
+):
+    """The plain PyTorch version of B6: fp32 masked softmax chunked over the
+    shard's query rows, which sit at the global rows ``G + frame_offset·tpf +
+    i`` of :func:`band_mask` (dummy frames past F take the last window, as
+    the kernel's clamp does).  Returns o ``[B, F_loc·tpf, H, d]`` in q's
+    dtype (and the natural-log lse ``[B, H, F_loc·tpf]`` fp32)."""
+    geo = local_geometry(q_vid, k_full, v_full, global_len, tokens_per_frame, window_frames, frame_offset,
+                         n_frames_total)
+    b, sq, h, d = q_vid.shape
+    s = k_full.shape[1]
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    row0 = global_len + geo.frame_offset * tokens_per_frame
+    kf = k_full.float().permute(0, 2, 3, 1)  # [B, H, d, S]
+    vf = v_full.float().transpose(1, 2)  # [B, H, S, d]
+    outs, lses = [], []
+    for c0 in range(0, sq, REFERENCE_CHUNK):
+        rows = torch.arange(row0 + c0, row0 + min(c0 + REFERENCE_CHUNK, sq), device=q_vid.device)
+        qc = q_vid[:, c0:c0 + REFERENCE_CHUNK].float().transpose(1, 2)  # [B, H, chunk, d]
+        logits = (torch.matmul(qc, kf) * scale).masked_fill(~band_mask(geo, rows, s), float("-inf"))
+        m = logits.amax(-1, keepdim=True)
+        p = torch.exp(logits - m)
+        l = p.sum(-1, keepdim=True)
+        outs.append((torch.matmul(p, vf) / l).transpose(1, 2).to(q_vid.dtype))
+        lses.append((m + torch.log(l))[..., 0])
+    o = torch.cat(outs, dim=1)
+    return (o, torch.cat(lses, dim=-1)) if return_lse else o
+
+
+def launch_banded_local(q_vid, k, v, o, lse, geo: BandGeometry, scale: float) -> None:
+    """One launch of B6: the shard's rows of ``o`` (and of ``lse``, a
+    contiguous ``[B, H, F_loc·tpf]`` fp32 tensor, or None)."""
+    b, _, h, _ = q_vid.shape
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr() if t is not None else 0)  # noqa: E731
+    strides = [st for t in (q_vid, k, v, o) for st in t.stride()[:3]]
+    err = _library().s2v_banded_attention_local_fwd(
+        ptr(q_vid), ptr(k), ptr(v), ptr(o), ptr(lse), b, h, geo.global_len, geo.tokens_per_frame,
+        geo.n_frames, geo.span, geo.window, geo.frame_offset, geo.local_frames, *strides,
+        ctypes.c_float(scale * LOG2E), ctypes.c_void_p(torch.cuda.current_stream(q_vid.device).cuda_stream),
+    )
+    if err != 0:
+        raise RuntimeError(f"banded_flash_attention_local kernel launch failed: cudaError {err}")
+    banded_flash_attention_local.launches += 1
+
+
+def banded_flash_attention_local(
+    q_vid: torch.Tensor,
+    k_full: torch.Tensor,
+    v_full: torch.Tensor,
+    global_len: int,
+    tokens_per_frame: int,
+    window_frames: int,
+    frame_offset,
+    n_frames_total: int,
+    scale: Optional[float] = None,
+    return_lse: bool = False,
+):
+    """Banded attention for one shard of video-frame queries against the
+    full key sequence (the sequence-parallel building block).
+
+    ``q_vid`` ``[B, F_loc·tpf, H, d]``: the video rows of this shard's frames
+    only.  ``k_full``/``v_full`` ``[B, S, H, d]`` with ``S = global_len +
+    n_frames_total·tpf``.  ``frame_offset`` (an int, or a one-element
+    tensor as JAX passes it) is the shard's first global frame.  Returns
+    ``[B, F_loc·tpf, H, d]`` in q's dtype, plus the fp32 lse ``[B, H,
+    F_loc·tpf]`` when ``return_lse`` (the residual of
+    :func:`s2v_torch.kernels.banded_attention_bwd.banded_flash_attention_local_bwd`).
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel or
+    raise (bf16 and d = 64 only)."""
+    geo = local_geometry(q_vid, k_full, v_full, global_len, tokens_per_frame, window_frames, frame_offset,
+                         n_frames_total)
+    devices = {t.device.type for t in (q_vid, k_full, v_full)}
+    if devices == {"cpu"}:
+        return banded_flash_attention_local_reference(q_vid, k_full, v_full, global_len, tokens_per_frame,
+                                                      window_frames, geo.frame_offset, n_frames_total, scale,
+                                                      return_lse)
+    if devices != {"cuda"}:
+        raise ValueError(f"banded_flash_attention_local needs q, k, v all on the CPU or all on CUDA, got {devices}")
+    check_kernel_inputs(q_vid, k_full, v_full)
+    if k_full.device != q_vid.device or v_full.device != q_vid.device:
+        raise ValueError("q, k, v must be on one device")
+    b, sq, h, d = q_vid.shape
+    o = torch.empty((b, sq, h, d), dtype=q_vid.dtype, device=q_vid.device)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q_vid.device) if return_lse else None
+    launch_banded_local(q_vid, k_full, v_full, o, lse, geo, 1.0 / math.sqrt(d) if scale is None else scale)
+    return (o, lse) if return_lse else o
+
+
+banded_flash_attention_local.launches = 0

@@ -19,7 +19,18 @@ Backends:
     B5 backward (``s2v_torch.kernels.banded_attention``/``_bwd``);
     ``windowed_gather`` — the gather path on B1 (and B2 under autograd);
     ``windowed_plain`` — the gather path on the plain fp32 attention, the
-    counterpart of JAX ``windowed_xla``.
+    counterpart of JAX ``windowed_xla``;
+    ``sp_windowed`` — sequence-parallel banded attention over the ``seq``
+    dim of the active mesh (``s2v_torch.parallel``): kernel B6 per frame
+    shard and B1 for the global queries forward, B7 and B2 backward
+    (``s2v_torch/parallel/sp_attention.py``).  Without a mesh context it
+    raises.
+
+:func:`route_seq_backend` turns a single-card backend into its
+sequence-parallel form on a ``seq`` ring above 1.  Of the JAX package's
+sequence-parallel backends only ``sp_windowed`` is ported; ``sp_allgather``,
+``sp_int8``, ``sp_ulysses`` and ``ring`` raise ``NotImplementedError``
+(ROADMAP A.9), and no single-card backend stands in for them.
 """
 
 from __future__ import annotations
@@ -37,20 +48,74 @@ from s2v_torch.ops.norms import layer_norm
 from s2v_torch.ops.quant import dense
 from s2v_torch.ops.rope import apply_rotary_emb
 from s2v_torch.ops.windowed_attention import windowed_attention
+from s2v_torch.parallel.context import active_axis, active_mesh
+from s2v_torch.parallel.sp_attention import banded_allgather_attention_trainable
 
 # backends that take the sliding temporal window (entry points configure its width)
-WINDOWED_BACKENDS = ("windowed", "windowed_gather", "windowed_plain")
+WINDOWED_BACKENDS = ("windowed", "windowed_gather", "windowed_plain", "sp_windowed")
 ATTENTION_BACKENDS = ("auto", "flash", "plain", "flash_int8") + WINDOWED_BACKENDS
+# the JAX package's other sequence-parallel backends, not ported yet
+UNPORTED_SEQ_BACKENDS = ("ring", "sp_allgather", "sp_int8", "sp_ulysses")
 FLASH_SOFTMAX_MODE = "bounded"
+
+
+def _unported(backend: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"attention backend {backend!r} (sequence parallel) is not ported yet (ROADMAP A.9); of the "
+        f"sequence-parallel backends the port has 'sp_windowed'")
 
 
 def resolve_attention_backend(backend: str, device: torch.device) -> str:
     """``auto`` -> ``flash`` on CUDA, ``plain`` on the CPU."""
+    if backend in UNPORTED_SEQ_BACKENDS:
+        raise _unported(backend)
     if backend not in ATTENTION_BACKENDS:
         raise ValueError(f"unknown attention backend {backend!r}; expected one of {ATTENTION_BACKENDS}")
     if backend != "auto":
         return backend
     return "flash" if torch.device(device).type == "cuda" else "plain"
+
+
+def route_seq_backend(backend: str, num_heads: int, seq_ring: int, tp_size: int = 1):
+    """The sequence-parallel form of a backend on a mesh whose ``seq`` dim
+    has ``seq_ring`` ranks (``s2v_tpu/ops/attention.py:57-101``, in the
+    port's names: ``flash`` is JAX ``pallas``, ``flash_int8`` is
+    ``pallas_int8``).  Returns ``(backend, reason)``, ``reason`` a line
+    when a legality fallback rerouted the request, else None.
+
+    ``windowed`` -> ``sp_windowed``; ``windowed_gather`` has no SP form and
+    raises ``ValueError``; the routes to ``sp_allgather`` (from ``flash``
+    and an illegal ``sp_ulysses``), ``sp_int8`` (from ``flash_int8``) and
+    ``sp_ulysses`` raise ``NotImplementedError``: those wrappers are not
+    ported (ROADMAP A.9).  A ring of 1 leaves every backend as it is."""
+    if seq_ring <= 1:
+        return backend, None
+    reason = None
+    routed = {"flash": "sp_allgather", "flash_int8": "sp_int8", "windowed": "sp_windowed"}.get(backend, backend)
+    if backend == "windowed_gather":
+        raise ValueError(
+            "attention_backend='windowed_gather' has no sequence-parallel wrapper; under a seq mesh use "
+            "'windowed' (reroutes to the sp_windowed banded kernel) or 'windowed_plain'")
+    if backend == "sp_ulysses":
+        heads_local = num_heads // max(tp_size, 1)
+        if heads_local % seq_ring != 0:
+            routed = "sp_allgather"
+            reason = (f"sp_ulysses illegal on this mesh ({heads_local} heads per tp shard not divisible by seq "
+                      f"ring {seq_ring}) — falling back to sp_allgather (AG-KV has no divisibility constraint)")
+    if routed in UNPORTED_SEQ_BACKENDS:
+        raise _unported(routed)
+    return routed, reason
+
+
+def _sp_windowed(q, k, v, window):
+    """``sp_windowed`` on the active mesh's ``sp`` dim (``s2v_tpu/ops/attention.py:234-252``)."""
+    mesh, axis = active_mesh(), active_axis("sp")
+    if mesh is None or axis is None:
+        raise ValueError("sp_windowed needs an active mesh with an 'sp' axis (S2VPipeline.set_mesh, or "
+                         "s2v_torch.parallel.mesh_context)")
+    if active_axis("dp") is not None or active_axis("tp") is not None:
+        raise NotImplementedError("sp_windowed under a data or model mesh dim is not ported yet (ROADMAP A.9)")
+    return banded_allgather_attention_trainable(q, k, v, mesh, axis, *window)
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -179,6 +244,8 @@ def joint_attention(
             raise ValueError(f"attention backend {backend!r} needs window=(global_len, tokens_per_frame, w)")
         if backend == "windowed":
             out = banded_attention_trainable(q, k, v, *window)
+        elif backend == "sp_windowed":
+            out = _sp_windowed(q, k, v, window)
         else:
             attn_fn = flash_attention_trainable if backend == "windowed_gather" else flash_attention_reference
             out = windowed_attention(q, k, v, *window, attention_fn=attn_fn)

@@ -12,12 +12,20 @@ int8 serving: ``pipe.transformer_params =
 quantize_transformer_params(pipe.transformer_params)`` (int8 linears, see
 ``s2v_torch/ops/quant.py``) and ``pipe.set_attention("flash_int8")`` (kernel
 B3); ``generate`` runs the int8 tree unchanged.
+
+Sequence parallel: ``pipe.set_mesh(mesh)`` with a ``DeviceMesh`` whose one
+dim is named ``seq`` (every rank builds the same pipeline and calls
+``generate`` with the same arguments).  On a ring above 1 ``generate`` routes
+``windowed`` to ``sp_windowed`` (kernels B6/B7 per frame shard); an explicit
+``set_attention("sp_windowed", w)`` runs that path on a ring of 1 too.
+Outside attention every rank computes the whole model (replicated), the VAE
+decode included.
 """
 
 from __future__ import annotations
 
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from dataclasses import dataclass, field, replace
 from typing import Optional, Union
 
@@ -27,8 +35,9 @@ import torch
 from s2v_torch.config import PipelineConfig, SchedulerConfig, T5Config, TransformerConfig, VAEConfig
 from s2v_torch.models.t5 import t5_encode
 from s2v_torch.models.vae import gaussian_sample, vae_decode, vae_encode
-from s2v_torch.ops.attention import WINDOWED_BACKENDS, resolve_attention_backend
+from s2v_torch.ops.attention import WINDOWED_BACKENDS, resolve_attention_backend, route_seq_backend
 from s2v_torch.ops.rope import build_segmented_rope, prepare_video_and_ref_rope
+from s2v_torch.parallel.context import default_logical_map, mesh_context
 from s2v_torch.pipelines.denoise import DenoiseSchedule, denoise
 from s2v_torch.utils.device import resolve_device
 from s2v_torch.utils.video import denormalize_video
@@ -58,6 +67,8 @@ class S2VPipeline:
     # (so 480x720 decodes untiled, the exact decoder output); True / False force it
     vae_tiling: object = "auto"
     vae_slicing: bool = True
+    # a DeviceMesh with one dim "seq" (set_mesh), or None: one card
+    mesh: Optional[object] = None
     # host-clock seconds of the last generate()'s stages, each ended by a device sync
     timings: dict = field(default_factory=dict, repr=False)
     _prompt_embed_cache: dict = field(default_factory=dict, repr=False)
@@ -73,6 +84,35 @@ class S2VPipeline:
         self.attention_backend = backend
         if backend in WINDOWED_BACKENDS and window is not None:
             self.transformer_cfg = replace(self.transformer_cfg, attention_window_frames=window)
+
+    def set_mesh(self, mesh) -> None:
+        """Attach a ``torch.distributed.device_mesh.DeviceMesh`` whose one
+        dim is named ``seq`` (its process group already initialised), or
+        None (back to one card) (``s2v_tpu/pipelines/s2v.py:78``).  The
+        params stay whole on every rank.  A ``data`` or ``model`` dim raises
+        ``NotImplementedError``: TP/FSDP and data parallelism are not ported
+        (ROADMAP A.9)."""
+        if mesh is not None:
+            names = tuple(mesh.mesh_dim_names or ())
+            if names != ("seq",):
+                raise NotImplementedError(
+                    f"set_mesh takes a mesh with one dim named 'seq'; got dims {names} (data/model parallelism "
+                    f"is not ported yet, ROADMAP A.9)")
+            if mesh.device_type != self.device.type:
+                raise ValueError(f"the mesh is on {mesh.device_type}, the pipeline on {self.device.type}")
+        self.mesh = mesh
+
+    def _mesh_ctx(self):
+        """The mesh context the denoise loop runs under (``s2v_tpu/pipelines/s2v.py:127-134``)."""
+        if self.mesh is None:
+            return nullcontext()
+        return mesh_context(self.mesh, default_logical_map(self.mesh))
+
+    def _seq_ring(self) -> int:
+        """Ranks of the mesh's ``seq`` dim (1 without a mesh) (``:136-140``)."""
+        if self.mesh is None:
+            return 1
+        return self.mesh.size(list(self.mesh.mesh_dim_names).index("seq"))
 
     def _resolve_tiling(self, height_px: int, width_px: int) -> bool:
         if self.vae_tiling == "auto":
@@ -204,7 +244,8 @@ class S2VPipeline:
         height, width, num_frames = run.height, run.width, run.num_frames
         num_inference_steps, guidance_scale = run.num_inference_steps, run.guidance_scale
         cfg = self.transformer_cfg
-        backend = resolve_attention_backend(self.attention_backend, self.device)
+        backend, _ = route_seq_backend(resolve_attention_backend(self.attention_backend, self.device),
+                                       cfg.num_attention_heads, self._seq_ring())
 
         if num_frames > cfg.sample_frames and not cfg.use_rotary_positional_embeddings:
             raise ValueError(f"num_frames must be <= {cfg.sample_frames} (static positional embeddings)")
@@ -277,10 +318,11 @@ class S2VPipeline:
             step_times.append(now - t_step[0])
             t_step[0] = now
 
-        final = denoise(
-            self.transformer_params, cfg, schedule, latents, ref_latents, prompt_embeds, rope_cos, rope_sin,
-            do_cfg=do_cfg, attention_backend=backend, cfg_mode=cfg_mode, step_callback=on_step,
-        )
+        with self._mesh_ctx():
+            final = denoise(
+                self.transformer_params, cfg, schedule, latents, ref_latents, prompt_embeds, rope_cos, rope_sin,
+                do_cfg=do_cfg, attention_backend=backend, cfg_mode=cfg_mode, step_callback=on_step,
+            )
         self.timings["denoise_step_s"] = step_times
         if output_type == "latent":
             return final

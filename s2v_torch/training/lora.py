@@ -187,7 +187,11 @@ def make_lora_train_step(
     ``lora, opt_state, loss = train_step(lora, opt_state, batch, generator)``.
 
     ``attention_backend`` ``"auto"`` is ``flash`` on CUDA (B1 forward, B2
-    backward) and ``plain`` on the CPU.  ``remat`` (default on) checkpoints
+    backward) and ``plain`` on the CPU.  ``"sp_windowed"`` (B6/B1 forward,
+    B7/B2 backward) needs the step to run under a mesh context with a
+    ``seq`` dim (``s2v_torch.parallel.mesh_context``, as ``S2VPipeline``
+    enters it); every rank passes the same batch and draws and computes the
+    same loss and gradients.  ``remat`` (default on) checkpoints
     each block.  ``optimizer_spec`` selects the reference-template optimizer
     surface; without it, adamw at ``learning_rate`` with optax's defaults
     (b2 0.999, weight decay 1e-4).  The step updates the adapters and the

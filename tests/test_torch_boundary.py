@@ -47,7 +47,8 @@ def test_import_leaves_jax_out(tmp_path):
         "s2v_torch.kernels.flash_attention, s2v_torch.kernels.flash_attention_bwd, s2v_torch.utils.sp_native, "
         "s2v_torch.kernels.banded_attention, s2v_torch.kernels.banded_attention_bwd, "
         "s2v_torch.ops.windowed_attention, s2v_torch.kernels.int8_attention, s2v_torch.ops.quant, "
-        "s2v_torch.training.lora, s2v_torch.training.optim, s2v_torch.training.data, s2v_torch.training.full; "
+        "s2v_torch.training.lora, s2v_torch.training.optim, s2v_torch.training.data, s2v_torch.training.full, "
+        "s2v_torch.parallel, s2v_torch.parallel.context, s2v_torch.parallel.sp_attention, s2v_torch.ops.attention; "
         "bad = [m for m in set(sys.modules) - before if m.split('.')[0] in ('jax', 's2v_tpu')]; "
         "print(bad); sys.exit(1 if bad else 0)"
     )

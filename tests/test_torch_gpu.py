@@ -1,7 +1,8 @@
-"""Kernels B1, B2, B3, B4 and B5 on the card against their plain PyTorch
-versions, the differentiable flash and banded attentions (B1/B2, B4/B5)
-against plain autograd, and the int8 linears (``torch._int_mm``) against
-their CPU computation.
+"""Kernels B1-B7 on the card against their plain PyTorch versions (B6/B7,
+the sequence-parallel shard kernels, at every offset of 2- and 4-rank
+rings), the differentiable flash and banded attentions (B1/B2, B4/B5, and
+``sp_windowed`` on a one-rank NCCL group) against plain autograd, and the
+int8 linears (``torch._int_mm``) against their CPU computation.
 
 Marked ``gpu``; every test skips without a CUDA device (decided inside the
 fixture, so every worker collects the same tests).  On a machine with a card:
@@ -16,8 +17,20 @@ import numpy as np
 import pytest
 import torch
 
-from s2v_torch.kernels.banded_attention import banded_flash_attention, banded_flash_attention_reference
-from s2v_torch.kernels.banded_attention_bwd import banded_flash_attention_bwd, banded_flash_attention_bwd_reference
+from s2v_torch.kernels.banded_attention import (
+    band_geometry,
+    banded_flash_attention,
+    banded_flash_attention_local,
+    banded_flash_attention_local_reference,
+    banded_flash_attention_reference,
+    ring_shards,
+)
+from s2v_torch.kernels.banded_attention_bwd import (
+    banded_flash_attention_bwd,
+    banded_flash_attention_bwd_reference,
+    banded_flash_attention_local_bwd,
+    banded_flash_attention_local_bwd_reference,
+)
 from s2v_torch.kernels.flash_attention import (
     flash_attention,
     flash_attention_reference,
@@ -244,6 +257,145 @@ def test_banded_unsupported_inputs_raise_before_launch(cuda):
     with pytest.raises(ValueError):
         banded_flash_attention_bwd(q, k, v, o, lse, shifted, 24, 20, 1)
     assert (banded_flash_attention.launches, banded_flash_attention_bwd.launches) == before
+
+
+# B6 and B7 (one SP shard of video-query frames at a runtime frame offset)
+# against their plain versions at every offset of a 2- and a 4-rank ring,
+# dummy frames included, held to B4's and B5's bars
+def _shard(x, g, tpf, f, f_loc, off):
+    """The shard's video rows of x, zero past the clip (the SP wrapper's)."""
+    from s2v_torch.parallel.sp_attention import shard_rows
+
+    return shard_rows(x, band_geometry(g + f * tpf, g, tpf, 0).shard(off, f_loc))
+
+
+def _ring_shards(f):
+    for ring in (2, 4):
+        if ring <= f:  # more ranks than frames is refused
+            f_loc = ring_shards(f, ring)[1]
+            for r in range(ring):
+                yield f_loc, r * f_loc
+
+
+@pytest.mark.parametrize("g,tpf,f,w", BANDS)
+def test_banded_local_kernel_matches_plain(cuda, g, tpf, f, w):
+    q, k, v = _band_qkv(g, tpf, f, 20, cuda)
+    for f_loc, off in _ring_shards(f):
+        q_loc = _shard(q, g, tpf, f, f_loc, off)
+        before = banded_flash_attention_local.launches
+        o, lse = banded_flash_attention_local(q_loc, k, v, g, tpf, w, off, f, return_lse=True)
+        o_ref, lse_ref = banded_flash_attention_local_reference(q_loc, k, v, g, tpf, w, off, f, return_lse=True)
+        torch.cuda.synchronize()
+        assert banded_flash_attention_local.launches == before + 1
+        assert o.shape == q_loc.shape and lse.shape == (2, 3, q_loc.shape[1])
+        _assert_close(o, o_ref)
+        assert (lse - lse_ref).abs().max().item() < 1e-2
+
+
+@pytest.mark.parametrize("g,tpf,f,w", BANDS)
+def test_banded_local_bwd_kernel_matches_plain(cuda, g, tpf, f, w):
+    q, k, v = _band_qkv(g, tpf, f, 21, cuda)
+    do = torch.from_numpy(np.random.RandomState(22).randn(*q.shape).astype(np.float32)).to(cuda, torch.bfloat16)
+    for f_loc, off in _ring_shards(f):
+        q_loc, do_loc = _shard(q, g, tpf, f, f_loc, off), _shard(do, g, tpf, f, f_loc, off)
+        o, lse = banded_flash_attention_local(q_loc, k, v, g, tpf, w, off, f, return_lse=True)
+        before = banded_flash_attention_local_bwd.launches
+        got = banded_flash_attention_local_bwd(q_loc, k, v, o, lse, do_loc, g, tpf, w, off, f)
+        want = banded_flash_attention_local_bwd_reference(q_loc, k, v, o, lse, do_loc, g, tpf, w, off, f)
+        torch.cuda.synchronize()
+        assert banded_flash_attention_local_bwd.launches == before + 1
+        for a, r, x in zip(got, want, (q_loc, k, v)):
+            assert a.shape == x.shape and a.dtype == torch.bfloat16
+            if r.any():
+                _assert_close(a, r)
+            else:  # a partial that no query of the shard's band reaches
+                assert not a.any()
+
+
+def test_banded_local_shards_stitch_to_b4_and_b5(cuda):
+    """The shards of a 4-rank ring (F = 7: one dummy frame): B6's rows
+    stitched are B4's video rows bit for bit (one kernel, the same sums);
+    B7's dq stitched is B5's video dq, and its dk/dv partials summed with the
+    global queries' B2 part are B5's dk/dv within the bars."""
+    g, tpf, f, w = 50, 40, 7, 1
+    q, k, v = _band_qkv(g, tpf, f, 23, cuda)
+    do = torch.from_numpy(np.random.RandomState(24).randn(*q.shape).astype(np.float32)).to(cuda, torch.bfloat16)
+    o4, lse4 = banded_flash_attention(q, k, v, g, tpf, w, return_lse=True)
+    dq5, dk5, dv5 = banded_flash_attention_bwd(q, k, v, o4, lse4, do, g, tpf, w)
+    _, dk, dv = flash_attention_bwd(q[:, :g], k, v, o4[:, :g], lse4[..., :g].contiguous(), do[:, :g])
+    dk, dv = dk.float(), dv.float()
+    f_loc = ring_shards(f, 4)[1]
+    outs, dqs = [], []
+    for r in range(4):
+        q_loc, do_loc = _shard(q, g, tpf, f, f_loc, r * f_loc), _shard(do, g, tpf, f, f_loc, r * f_loc)
+        o, lse = banded_flash_attention_local(q_loc, k, v, g, tpf, w, r * f_loc, f, return_lse=True)
+        dq_r, dk_r, dv_r = banded_flash_attention_local_bwd(q_loc, k, v, o, lse, do_loc, g, tpf, w, r * f_loc, f)
+        outs.append(o)
+        dqs.append(dq_r)
+        dk, dv = dk + dk_r.float(), dv + dv_r.float()
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat(outs, dim=1)[:, :f * tpf], o4[:, g:])
+    assert torch.equal(torch.cat(dqs, dim=1)[:, :f * tpf], dq5[:, g:])
+    _assert_close(dk, dk5)
+    _assert_close(dv, dv5)
+
+
+def test_banded_local_unsupported_inputs_raise_before_launch(cuda):
+    g, tpf, f = 24, 20, 5
+    q, k, v = _band_qkv(g, tpf, f, 25, cuda)
+    q_loc = q[:, g:g + 2 * tpf]
+    o, lse = banded_flash_attention_local(q_loc, k, v, g, tpf, 1, 0, f, return_lse=True)
+    before = (banded_flash_attention_local.launches, banded_flash_attention_local_bwd.launches)
+    for bad_off in (-1, 9):
+        with pytest.raises(ValueError):
+            banded_flash_attention_local(q_loc, k, v, g, tpf, 1, bad_off, f)
+        with pytest.raises(ValueError):
+            banded_flash_attention_local_bwd(q_loc, k, v, o, lse, o, g, tpf, 1, bad_off, f)
+    with pytest.raises(ValueError):
+        banded_flash_attention_local(q_loc.float(), k.float(), v.float(), g, tpf, 1, 0, f)
+    with pytest.raises(ValueError):
+        banded_flash_attention_local(q_loc[..., :32], k[..., :32], v[..., :32], g, tpf, 1, 0, f)
+    with pytest.raises(ValueError):
+        banded_flash_attention_local(q_loc, k, v, g, tpf, 1, 0, f + 1)
+    with pytest.raises(ValueError):
+        banded_flash_attention_local_bwd(q_loc, k, v, o, lse.to(torch.bfloat16), o, g, tpf, 1, 0, f)
+    assert (banded_flash_attention_local.launches, banded_flash_attention_local_bwd.launches) == before
+
+
+def test_sp_windowed_on_one_rank_matches_plain_autograd(cuda):
+    """``sp_windowed`` on a one-rank NCCL group (a ``HashStore``, no network):
+    the output and the grads of its autograd Function (B6/B1 forward,
+    B7/B2 backward, the collectives) against plain autograd of the masked
+    reference."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from s2v_torch.ops.windowed_attention import windowed_attention_reference as reference
+    from s2v_torch.parallel.sp_attention import banded_allgather_attention_trainable
+
+    started = not dist.is_initialized()
+    if started:
+        dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("seq",))
+        g, tpf, f, w = 40, 100, 5, 1
+        q, k, v = (x.requires_grad_() for x in _band_qkv(g, tpf, f, 26, cuda))
+        do = torch.from_numpy(np.random.RandomState(27).randn(*q.shape).astype(np.float32)).to(cuda, torch.bfloat16)
+        before = (banded_flash_attention_local.launches, banded_flash_attention_local_bwd.launches)
+        o = banded_allgather_attention_trainable(q, k, v, mesh, "seq", g, tpf, w)
+        got = torch.autograd.grad(o, (q, k, v), do)
+        leaves = [x.detach().float().requires_grad_() for x in (q, k, v)]
+        o_ref = reference(*leaves, g, tpf, w)
+        want = torch.autograd.grad(o_ref, leaves, do.float())
+        torch.cuda.synchronize()
+        assert (banded_flash_attention_local.launches, banded_flash_attention_local_bwd.launches) == (
+            before[0] + 1, before[1] + 1)
+        _assert_close(o, o_ref)
+        for a, r in zip(got, want):
+            _assert_close(a, r)
+    finally:
+        if started:
+            dist.destroy_process_group()
 
 
 # B3 against its plain version on the same bf16 inputs and the same int8

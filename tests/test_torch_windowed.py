@@ -92,7 +92,9 @@ def _forward_case(with_ref, f=4):
     return params, (video, ref, text, ts, np.asarray(cs), np.asarray(sn)), np.asarray(want)
 
 
-@pytest.mark.parametrize("backend", WINDOWED_BACKENDS)
+# the single-card windowed backends; sp_windowed needs a process group
+# (tests/test_torch_sp_attention.py)
+@pytest.mark.parametrize("backend", [b for b in WINDOWED_BACKENDS if b != "sp_windowed"])
 @pytest.mark.parametrize("with_ref", [True, False], ids=["3stream", "no_ref"])
 def test_forward_matches_jax_windowed(with_ref, backend):
     params, (video, ref, text, ts, cs, sn), want = _forward_case(with_ref)
