@@ -9,16 +9,20 @@ Phases, each printing one JSON line:
                 process per source, all started together);
   3. kernel   — kernel B1 (flash attention) against its plain PyTorch version
                 on the card, in every softmax mode: small ragged / masked /
-                Sq != Skv shapes with lse, an input that forces the bounded
+                Sq != Skv shapes with lse (Skv below one key tile among
+                them), an input that forces the bounded
                 mode's online re-run, and the main-path shape B=2, H=48,
                 S=19,126, d=64, timed beside its bound, the plain version and
                 one ``F.scaled_dot_product_attention`` call (a yardstick only:
                 the port never calls it);
   4. kernel_bwd — kernel B2 (flash attention backward) against its plain
-                PyTorch version: small ragged shapes with Sq != Skv, and the
+                PyTorch version and against the emulation of its blocked
+                schedule: small ragged shapes with Sq != Skv, and the
                 training shape B=1, H=48, S=19,126, d=64 (q/k LayerNormed,
-                lse from B1, dO seeded), timed beside its bound, the plain
-                version and the backward of one SDPA call (a yardstick only);
+                lse from B1, dO seeded); two launches there must agree bit
+                for bit; timed beside its bound, the plain version and the
+                backward of one SDPA call (a yardstick only), with its time
+                split among its pre-pass, dq and dk/dv kernels;
   5. kernel_banded — kernel B4 (banded windowed attention; global queries
                 through B1) against its plain version: small ragged
                 geometries (clamped windows, w = 0, a window wider than the
@@ -216,11 +220,14 @@ def phase_kernel(dev):
     import torch
     import torch.nn.functional as F
 
+    from s2v_torch.kernels import flash_attention as fa_module
     from s2v_torch.kernels.flash_attention import flash_attention, flash_attention_reference
 
     small = []
     for mode in MODES:
-        for (b, sq, skv, h, masked) in [(2, 200, 200, 3, False), (1, 77, 333, 2, True), (2, 1000, 129, 2, False)]:
+        # ragged against the kernel's 128-query blocks and 128-key tiles, Skv below one tile
+        for (b, sq, skv, h, masked) in [(2, 200, 200, 3, False), (1, 77, 333, 2, True), (2, 1000, 129, 2, False),
+                                        (1, 130, 40, 2, False), (1, 300, 1000, 2, True)]:
             q, k, v = _qkv(b, sq, skv, h, sq + skv, dev)
             mask = None
             if masked:
@@ -268,9 +275,12 @@ def phase_kernel(dev):
     nbytes = 4 * b * s * h * d * 2 + b * h * s * 4
     bound_ms = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S) * 1e3
     bound_by = "operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_BYTES_PER_S else "bytes"
+    for mode in MODES:
+        main[mode]["tflops"] = flops / main[mode]["ms"] / 1e9
     result = {"phase": "kernel_main", "shape": list(MAIN_SHAPE), "modes": main, "plain_ms": plain_ms,
               "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-              "tflops": flops / main[MAIN_MODE]["ms"] / 1e9, "reruns": flash_attention.reruns}
+              "tflops": flops / main[MAIN_MODE]["ms"] / 1e9, "reruns": flash_attention.reruns,
+              "smem_bytes": fa_module._library().s2v_flash_attention_fwd_smem_bytes()}
     emit(result)
     return result
 
@@ -293,12 +303,25 @@ def _bwd_inputs(b, sq, skv, h, seed, dev, layer_norm=False):
 
 
 def _compare_bwd(q, k, v, o, lse, do):
-    from s2v_torch.kernels.flash_attention_bwd import flash_attention_bwd, flash_attention_bwd_reference
+    """B2 against its plain version, and against the emulation of its blocked
+    schedule (``flash_attention_bwd_blocked``) with the same limits."""
+    from s2v_torch.kernels.flash_attention_bwd import (
+        flash_attention_bwd,
+        flash_attention_bwd_blocked,
+        flash_attention_bwd_reference,
+    )
 
     got = flash_attention_bwd(q, k, v, o, lse, do)
     want = flash_attention_bwd_reference(q, k, v, o, lse, do)
     what = f"flash_attention_bwd {tuple(q.shape)}x{tuple(k.shape)}"
-    return {name: _agreement(a, r, f"{what} {name}") for name, a, r in zip(("dq", "dk", "dv"), got, want)}
+    stats = {name: _agreement(a, r, f"{what} {name}") for name, a, r in zip(("dq", "dk", "dv"), got, want)}
+    del want
+    emulated = flash_attention_bwd_blocked(q, k, v, o, lse, do)
+    for name, a, e in zip(("dq", "dk", "dv"), got, emulated):
+        schedule = _agreement(a, e, f"{what} {name} against the blocked schedule")
+        stats[name]["schedule_max_abs_err"] = schedule["max_abs_err"]
+        stats[name]["schedule_rel_l2"] = schedule["rel_l2"]
+    return stats
 
 
 def phase_kernel_bwd(dev):
@@ -309,21 +332,31 @@ def phase_kernel_bwd(dev):
     import torch
     import torch.nn.functional as F
 
+    from s2v_torch.kernels import flash_attention_bwd as fab
     from s2v_torch.kernels.flash_attention import flash_attention
     from s2v_torch.kernels.flash_attention_bwd import flash_attention_bwd, flash_attention_bwd_reference
 
     small = []
-    for (b, sq, skv, h) in [(2, 200, 200, 3), (1, 77, 333, 2), (2, 1000, 129, 2)]:
+    # ragged against the kernels' 128-row blocks and 64-row tiles, Skv below one tile
+    for (b, sq, skv, h) in [(2, 200, 200, 3), (1, 77, 333, 2), (2, 1000, 129, 2), (1, 130, 40, 2)]:
         small.append({"q": [b, sq, h, 64], "skv": skv, **_compare_bwd(*_bwd_inputs(b, sq, skv, h, sq + skv, dev))})
     emit({"phase": "kernel_bwd_small", "cases": small})
 
     b, s, h, d = TRAIN_SHAPE
     q, k, v, o, lse, do = _bwd_inputs(b, s, s, h, 11, dev, layer_norm=True)
     stats = _compare_bwd(q, k, v, o, lse, do)
+    # determinism: a second launch on the same inputs gives the same bits
+    first = flash_attention_bwd(q, k, v, o, lse, do)
+    second = flash_attention_bwd(q, k, v, o, lse, do)
+    deterministic = {name: bool(torch.equal(a, c)) for name, a, c in zip(("dq", "dk", "dv"), first, second)}
+    if not all(deterministic.values()):
+        raise AssertionError(f"flash_attention_bwd: two launches on the same inputs differ: {deterministic}")
+    del first, second
     # B1 as the train step calls it (with lse), at the same shape
     b1_ms = cuda_ms(lambda: flash_attention(q, k, v, return_lse=True, softmax_mode=MAIN_MODE), 10)
     flash_attention_bwd(q, k, v, o, lse, do)  # warm-up
     ms = cuda_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do), 10)
+    parts_ms = _bwd_parts_ms(q, k, v, o, lse, do)
     plain_ms = cuda_ms(lambda: flash_attention_bwd_reference(q, k, v, o, lse, do), 2)
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
     out = F.scaled_dot_product_attention(qt, kt, vt)
@@ -338,9 +371,30 @@ def phase_kernel_bwd(dev):
     bound_by = "operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_BYTES_PER_S else "bytes"
     result = {"phase": "kernel_bwd_main", "shape": list(TRAIN_SHAPE), "grads": stats, "ms": ms,
               "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-              "tflops": flops / ms / 1e9, "b1_with_lse_ms": b1_ms}
+              "tflops": flops / ms / 1e9, "parts_ms": parts_ms, "deterministic": deterministic,
+              "smem_bytes": fab._library().s2v_flash_attention_bwd_smem_bytes(),
+              "b1_with_lse_ms": b1_ms, "b1_with_lse_tflops": 4 * b * h * s * s * d / b1_ms / 1e9}
     emit(result)
     return result
+
+
+def _bwd_parts_ms(q, k, v, o, lse, do):
+    """B2's time split among its three kernels (pre-pass, dq, dk/dv), each
+    launched alone on a workspace that a whole call has filled."""
+    import torch
+
+    from s2v_torch.kernels import flash_attention_bwd as fab
+
+    ws = fab.bwd_workspace(q)
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    scale = q.shape[-1] ** -0.5
+    launch = lambda parts: fab._launch(q, k, v, o, do, lse, dq, dk, dv, scale, ws, parts)  # noqa: E731
+    launch(fab.ALL_PARTS)
+    out = {}
+    for name, part in (("prepass", fab.PART_PREPASS), ("dq", fab.PART_DQ), ("dkv", fab.PART_DKV)):
+        launch(part)  # warm-up
+        out[name] = cuda_ms(lambda: launch(part), 10)
+    return out
 
 
 def _bound(flops, nbytes):
@@ -1399,6 +1453,7 @@ def kernels_line(results):
         **common,
         "name": "flash_attention",
         "source": "s2v_torch/csrc/flash_attention.cu",
+        "headers": ["s2v_torch/csrc/hopper.cuh"],
         "replaces": "s2v_tpu/ops/pallas/flash_attention.py:222",
         "launches": results["e2e"]["flash_attention"],
         "launches_by_path": _path_launches(results, "flash_attention"),
@@ -1414,11 +1469,15 @@ def kernels_line(results):
         "library_ms": main["library_ms"],
         "mode": MAIN_MODE,
         "ms_by_mode": {m: v["ms"] for m, v in main["modes"].items()},
+        "tflops": main["tflops"],
+        "smem_bytes": main["smem_bytes"],
+        "with_lse_b1_ms": bwd["b1_with_lse_ms"],
         "shape": list(MAIN_SHAPE),
     }, {
         **common,
         "name": "flash_attention_bwd",
         "source": "s2v_torch/csrc/flash_attention_bwd.cu",
+        "headers": ["s2v_torch/csrc/hopper.cuh"],
         "replaces": "s2v_tpu/ops/pallas/flash_attention_bwd.py:128",
         "launches": sum(c["flash_attention_bwd"] for c in results["train"]["launches"]),
         "launches_by_path": _path_launches(results, "flash_attention_bwd"),
@@ -1431,6 +1490,11 @@ def kernels_line(results):
         "bound_ms": bwd["bound_ms"],
         "bound_by": bwd["bound_by"],
         "library_ms": bwd["library_ms"],
+        "tflops": bwd["tflops"],
+        "parts_ms": bwd["parts_ms"],
+        "smem_bytes": bwd["smem_bytes"],
+        "deterministic": bwd["deterministic"],
+        "schedule_max_abs_err": max(v["schedule_max_abs_err"] for v in bwd["grads"].values()),
         "shape": list(TRAIN_SHAPE),
     }, {
         **common,

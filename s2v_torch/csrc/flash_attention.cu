@@ -12,17 +12,34 @@
 // 4*B*H*S^2*d = 9.0e12 operations per call, 9.1 ms at the 989 TFLOP/s bf16
 // tensor-core peak, against ~0.94 GB of q/k/v/o traffic (0.28 ms at
 // 3.35 TB/s): the kernel is compute-bound.  The 3.5e10 exponentials per call
-// are a second ceiling of the same order on the SFUs, so the bounded mode
-// (no running max, no rescale of the accumulator) is the default.
+// are a second ceiling of the same size on the SFUs (16 ex2 a clock per SM,
+// ~9.5 ms), so the exponentials have to run while the tensor cores work.
 //
-// Design (simple and right first; wgmma, TMA and warp specialisation are later work):
-//   * grid (ceil(Sq/128), B*H); 8 warps per block, 16 query rows per warp;
-//   * K/V tiles of 64 keys double-buffered in shared memory with cp.async,
-//     rows padded to 72 elements so every fragment read is bank-conflict free;
-//   * mma.sync m16n8k16 bf16 products with fp32 accumulation; the S
-//     accumulator is re-packed in registers as the A operand of P.V;
-//   * softmax state (running max, row sum) and the output accumulator in fp32
-//     registers; exponentials as exp2 with log2(e) folded into the scale.
+// Design (the shared Hopper layer is hopper.cuh):
+//   * grid (ceil(Sq/128), B*H); 3 warpgroups per block: warpgroup 0 is the
+//     producer (one thread issues TMA, setmaxnreg gives its registers away),
+//     warpgroups 1 and 2 each own 64 query rows;
+//   * K and V stream in 128-key tiles (16 KB each, 128B-swizzled) through a
+//     ring of kStages stages, full/empty mbarriers per stage; the key pad
+//     mask, when given, comes with each tile (128 bytes, padded with
+//     "excluded" by the wrapper); rows past Skv arrive as zeros from TMA;
+//   * q stays in registers as the A operand (read once from device memory);
+//     S = q.K^T is wgmma m64n128k16 with K the K-major B operand;
+//   * the softmax runs in fp32 registers with ex2.approx; P is re-packed to
+//     bf16 registers as the A operand of O += P.V (wgmma m64n64k16, V read
+//     MN-major with the transpose bit);
+//   * overlap: the two consumer warpgroups run independently, so one's
+//     exponentials can run while the other's products use the tensor cores;
+//   * masking only where needed: on the last, ragged key tile and on tiles
+//     with a pad mask.
+// ptxas compiles the consumers within 168 registers a thread (the 384-thread
+// launch bound; setmaxnreg moves registers only at run time), which this
+// loop fits without spills.  Measured against it on the H100 and left out,
+// each no faster or slower (PERF.md §6): issuing S_j with P_{j-1}.V_{j-1}
+// and double-buffering P (it spills at 168 registers; a 256-thread block
+// without a producer warpgroup avoids the spills and is slower still), a
+// ping-pong of the two warpgroups on named barriers, bf16 packing by integer
+// ops, and a quarter of the exponentials on the FMA pipe.
 //
 // Modes (BOUNDED template flag):
 //   online  : running max and rescale, exact for all inputs; lse = m + log l.
@@ -32,244 +49,149 @@
 //             online kernel when min log l < -55 (fp32 underflow guard).
 // Rows whose keys are all masked give a zero output and a -1e30 log l.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kD = 64;             // head dim (CogVideoX 2b and 5b)
-constexpr int kBQ = 128;           // query rows per block
-constexpr int kBK = 64;            // keys per tile
-constexpr int kWarps = kBQ / 16;   // one m16 row slab per warp
-constexpr int kThreads = kWarps * 32;
-constexpr int kLds = kD + 8;       // padded shared-memory row, in elements
+using namespace hopper;
+
+constexpr int kD = 64;            // head dim (CogVideoX 2b and 5b)
+constexpr int kRowsPerWg = 64;    // query rows of one consumer warpgroup
+constexpr int kConsumers = 2;     // consumer warpgroups
+constexpr int kBQ = kRowsPerWg * kConsumers;
+constexpr int kBK = 128;          // keys per tile
+constexpr int kStages = 3;
+constexpr int kThreads = 128 * (kConsumers + 1);
+constexpr uint32_t kTileBytes = kBK * kD * 2;
 constexpr float kNegBig = -1e30f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-__device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000u); }
+struct Smem {
+  __nv_bfloat16 k[kStages][kBK * kD];  // each 16 KB, so 1024-aligned
+  __nv_bfloat16 v[kStages][kBK * kD];
+  uint8_t mask[kStages][kBK];
+  uint64_t full[kStages];
+  uint64_t empty[kStages];
+};
+constexpr int kSmemBytes = sizeof(Smem) + 1024;
 
 struct Params {
+  CUtensorMap k_map;  // box (64, kBK)
+  CUtensorMap v_map;
   const __nv_bfloat16* q;
-  const __nv_bfloat16* k;
-  const __nv_bfloat16* v;
   __nv_bfloat16* o;
   float* lse;               // [B, H, Sq] or null
-  const uint8_t* key_mask;  // [Skv], nonzero = key excluded, or null
+  const uint8_t* key_mask;  // [ceil(Skv / kBK) * kBK], nonzero = key excluded, or null
   const float* m0_log2;     // bounded mode: device scalar, the logit offset
   long long q_sb, q_ss, q_sh;
-  long long k_sb, k_ss, k_sh;
-  long long v_sb, v_ss, v_sh;
   long long o_sb, o_ss, o_sh;
   int H, Sq, Skv;
   float scale_log2;         // softmax scale * log2(e)
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte async copy; src_bytes == 0 zero-fills the destination.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const int src_bytes = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void mma_bf16_16816(float* c, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t load_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
+__device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000u); }
 
 template <bool BOUNDED>
-__global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(const Params p) {
-  __shared__ __align__(16) __nv_bfloat16 k_s[2][kBK * kLds];
-  __shared__ __align__(16) __nv_bfloat16 v_s[2][kBK * kLds];
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
+__device__ __forceinline__ void consumer(const Params& p, Smem& sm, int wg, int b, int h) {
+  const int tid = threadIdx.x & 127;
   const int lane = tid & 31;
-  const int g = lane >> 2;  // fragment row group
-  const int t4 = lane & 3;  // thread within the group
-  const int b = blockIdx.y / p.H;
-  const int h = blockIdx.y % p.H;
-  const int row0 = blockIdx.x * kBQ + warp * 16 + g;  // this thread's rows: row0, row0 + 8
-  const int row1 = row0 + 8;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int row0 = blockIdx.x * kBQ + wg * kRowsPerWg + (tid >> 5) * 16 + g;  // and row0 + 8
 
-  const __nv_bfloat16* qp = p.q + b * p.q_sb + h * p.q_sh;
-  const __nv_bfloat16* kp = p.k + b * p.k_sb + h * p.k_sh;
-  const __nv_bfloat16* vp = p.v + b * p.v_sb + h * p.v_sh;
+  uint32_t qa[4][4];
+  load_a_rows(qa, p.q + b * p.q_sb + h * p.q_sh, p.q_ss, row0, p.Sq, t);
 
-  // A fragments of the warp's 16 query rows, all 64 dims (4 k16 chunks).
-  uint32_t qf[4][4];
+  float o_acc[32];
 #pragma unroll
-  for (int kc = 0; kc < 4; ++kc) {
-    const int c = kc * 16 + t4 * 2;
-    qf[kc][0] = row0 < p.Sq ? load_u32(qp + row0 * p.q_ss + c) : 0u;
-    qf[kc][1] = row1 < p.Sq ? load_u32(qp + row1 * p.q_ss + c) : 0u;
-    qf[kc][2] = row0 < p.Sq ? load_u32(qp + row0 * p.q_ss + c + 8) : 0u;
-    qf[kc][3] = row1 < p.Sq ? load_u32(qp + row1 * p.q_ss + c + 8) : 0u;
-  }
-
-  auto load_tile = [&](int tile, int buf) {
-    const int kbase = tile * kBK;
-#pragma unroll
-    for (int i = tid; i < kBK * (kD / 8); i += kThreads) {
-      const int r = i >> 3;
-      const int ch = (i & 7) * 8;
-      const int key = kbase + r;
-      const bool ok = key < p.Skv;
-      const long long kk = ok ? key : 0;
-      cp_async16(&k_s[buf][r * kLds + ch], kp + kk * p.k_ss + ch, ok);
-      cp_async16(&v_s[buf][r * kLds + ch], vp + kk * p.v_ss + ch, ok);
-    }
-  };
-
-  float o_acc[8][4];
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-    o_acc[nt][0] = o_acc[nt][1] = o_acc[nt][2] = o_acc[nt][3] = 0.f;
-  }
+  for (int i = 0; i < 32; ++i) o_acc[i] = 0.f;
   float m_run[2] = {kNegBig, kNegBig};  // online: running max, log2 units
   float l_run[2] = {0.f, 0.f};          // this thread's share of the row sums
   const float m0 = BOUNDED ? *p.m0_log2 : 0.f;
+  const float c = p.scale_log2;
 
   const int n_tiles = (p.Skv + kBK - 1) / kBK;
-  load_tile(0, 0);
-  cp_async_commit();
-
+  float s[64];
   for (int j = 0; j < n_tiles; ++j) {
-    const int buf = j & 1;
-    if (j + 1 < n_tiles) {
-      load_tile(j + 1, buf ^ 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
+    const int st = j % kStages;
+    mbar_wait(&sm.full[st], (j / kStages) & 1);
 
-    // S = Q K^T: 16 rows x 64 keys per warp, 8 n8 tiles.
-    float s[8][4];
+    // S = q K^T: 64 rows x 128 keys
+    wgmma_fence();
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-      for (int kc = 0; kc < 4; ++kc) {
-        const __nv_bfloat16* kr = &k_s[buf][(nt * 8 + g) * kLds + kc * 16 + t4 * 2];
-        const uint32_t bf[2] = {load_u32(kr), load_u32(kr + 8)};
-        mma_bf16_16816(s[nt], qf[kc], bf);
-      }
-    }
+    for (int kk = 0; kk < 4; ++kk) mma_m64n128k16_rs<0>(s, qa[kk], desc_kmajor(sm.k[st], kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
 
-    // scale to log2 units; excluded keys (ragged tail, pad mask) get -inf
+    // excluded keys (ragged tail, pad mask) get -inf (online) or p = 0 (bounded)
     const int kbase = j * kBK;
-    const bool need_mask = (kbase + kBK > p.Skv) || (p.key_mask != nullptr);
+    const bool need_mask = p.key_mask != nullptr || kbase + kBK > p.Skv;
+    if (need_mask) {
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[nt][e] * p.scale_log2;
-        if (need_mask) {
-          const int key = kbase + nt * 8 + t4 * 2 + (e & 1);
-          const bool valid = key < p.Skv && (p.key_mask == nullptr || p.key_mask[key] == 0);
-          x = valid ? x : neg_inf();
-        }
-        s[nt][e] = x;
+      for (int i = 0; i < 64; ++i) {
+        const int col = (i >> 2) * 8 + t * 2 + (i & 1);
+        const bool valid = p.key_mask != nullptr ? sm.mask[st][col] == 0 : kbase + col < p.Skv;
+        s[i] = valid ? s[i] : neg_inf();
       }
     }
 
     if (BOUNDED) {
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[nt][e] = fast_exp2(s[nt][e] - m0);
-      }
+      for (int i = 0; i < 64; ++i) s[i] = fast_exp2(fmaf(s[i], c, -m0));
     } else {
-      float mx0 = m_run[0], mx1 = m_run[1];
+      float mx0 = neg_inf(), mx1 = neg_inf();
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
-        mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
+      for (int j8 = 0; j8 < 16; ++j8) {
+        mx0 = fmaxf(mx0, fmaxf(s[4 * j8], s[4 * j8 + 1]));
+        mx1 = fmaxf(mx1, fmaxf(s[4 * j8 + 2], s[4 * j8 + 3]));
       }
       mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
       mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
       mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
       mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-      const float a0 = fast_exp2(m_run[0] - mx0);
-      const float a1 = fast_exp2(m_run[1] - mx1);
-      m_run[0] = mx0;
-      m_run[1] = mx1;
+      // the max in log2 units (scale > 0); -inf (all excluded) keeps the old max
+      const float new0 = fmaxf(m_run[0], mx0 * c);
+      const float new1 = fmaxf(m_run[1], mx1 * c);
+      const float a0 = fast_exp2(m_run[0] - new0);
+      const float a1 = fast_exp2(m_run[1] - new1);
+      m_run[0] = new0;
+      m_run[1] = new1;
       l_run[0] *= a0;
       l_run[1] *= a1;
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        o_acc[nt][0] *= a0;
-        o_acc[nt][1] *= a0;
-        o_acc[nt][2] *= a1;
-        o_acc[nt][3] *= a1;
-        s[nt][0] = fast_exp2(s[nt][0] - mx0);
-        s[nt][1] = fast_exp2(s[nt][1] - mx0);
-        s[nt][2] = fast_exp2(s[nt][2] - mx1);
-        s[nt][3] = fast_exp2(s[nt][3] - mx1);
+      for (int j8 = 0; j8 < 8; ++j8) {
+        o_acc[4 * j8 + 0] *= a0;
+        o_acc[4 * j8 + 1] *= a0;
+        o_acc[4 * j8 + 2] *= a1;
+        o_acc[4 * j8 + 3] *= a1;
+      }
+#pragma unroll
+      for (int j8 = 0; j8 < 16; ++j8) {
+        s[4 * j8 + 0] = fast_exp2(fmaf(s[4 * j8 + 0], c, -new0));
+        s[4 * j8 + 1] = fast_exp2(fmaf(s[4 * j8 + 1], c, -new0));
+        s[4 * j8 + 2] = fast_exp2(fmaf(s[4 * j8 + 2], c, -new1));
+        s[4 * j8 + 3] = fast_exp2(fmaf(s[4 * j8 + 3], c, -new1));
       }
     }
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      l_run[0] += s[nt][0] + s[nt][1];
-      l_run[1] += s[nt][2] + s[nt][3];
+    for (int j8 = 0; j8 < 16; ++j8) {
+      l_run[0] += s[4 * j8] + s[4 * j8 + 1];
+      l_run[1] += s[4 * j8 + 2] + s[4 * j8 + 3];
     }
 
-    // O += P V: P re-packed from the S accumulator as bf16 A fragments.
+    // O += P V: P re-packed from the S accumulator as bf16 A fragments
+    uint32_t pa[8][4];
 #pragma unroll
-    for (int kc = 0; kc < 4; ++kc) {
-      const uint32_t pa[4] = {
-          pack_bf16x2(s[2 * kc][0], s[2 * kc][1]),
-          pack_bf16x2(s[2 * kc][2], s[2 * kc][3]),
-          pack_bf16x2(s[2 * kc + 1][0], s[2 * kc + 1][1]),
-          pack_bf16x2(s[2 * kc + 1][2], s[2 * kc + 1][3]),
-      };
-      const uint16_t* vr =
-          reinterpret_cast<const uint16_t*>(&v_s[buf][(kc * 16 + t4 * 2) * kLds + g]);
+    for (int kc = 0; kc < 8; ++kc) acc_to_a(pa[kc], s, kc);
+    wgmma_fence();
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const uint16_t* vc = vr + nt * 8;
-        const uint32_t bf[2] = {
-            uint32_t(vc[0]) | (uint32_t(vc[kLds]) << 16),
-            uint32_t(vc[8 * kLds]) | (uint32_t(vc[9 * kLds]) << 16),
-        };
-        mma_bf16_16816(o_acc[nt], pa, bf);
-      }
-    }
-    __syncthreads();  // the next iteration's copy overwrites this buffer
+    for (int kc = 0; kc < 8; ++kc) mma_m64n64k16_rs<1>(o_acc, pa[kc], desc_mnmajor(sm.v[st], kc), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o_acc);
+    fence_regs(pa);
+    if (lane == 0) mbar_arrive(&sm.empty[st]);  // this warp is done with the stage
   }
 
   // full row sums: reduce over the four threads that share a row
@@ -278,20 +200,15 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(const Params p) 
     l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
     l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
   }
-
-  __nv_bfloat16* op = p.o + b * p.o_sb + h * p.o_sh;
+  const float inv0 = l_run[0] > 0.f ? 1.f / l_run[0] : 0.f;
+  const float inv1 = l_run[1] > 0.f ? 1.f / l_run[1] : 0.f;
+  store_rows(p.o + b * p.o_sb + h * p.o_sh, p.o_ss, row0, p.Sq, o_acc, inv0, inv1, t);
+  if (p.lse != nullptr && t == 0) {
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = r == 0 ? row0 : row1;
-    if (row >= p.Sq) continue;
-    const float l = l_run[r];
-    const float inv = l > 0.f ? 1.f / l : 0.f;
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const uint32_t packed = pack_bf16x2(o_acc[nt][2 * r] * inv, o_acc[nt][2 * r + 1] * inv);
-      *reinterpret_cast<uint32_t*>(op + row * p.o_ss + nt * 8 + t4 * 2) = packed;
-    }
-    if (p.lse != nullptr && t4 == 0) {
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row >= p.Sq) continue;
+      const float l = l_run[r];
       float out = kNegBig;
       if (l > 0.f) out = BOUNDED ? logf(l) : m_run[r] * kLn2 + logf(l);
       p.lse[((long long)b * p.H + h) * p.Sq + row] = out;
@@ -299,8 +216,65 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(const Params p) 
   }
 }
 
+template <bool BOUNDED>
+__global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(const __grid_constant__ Params p) {
+  extern __shared__ uint8_t smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(align_1024(smem_raw));
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);  // warp-uniform
+  const int b = blockIdx.y / p.H;
+  const int h = blockIdx.y % p.H;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(&sm.full[st], 1);
+      mbar_init(&sm.empty[st], kConsumers * 4);  // one arrival per consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      prefetch_tensor_map(&p.k_map);
+      prefetch_tensor_map(&p.v_map);
+      const int n_tiles = (p.Skv + kBK - 1) / kBK;
+      const uint32_t bytes = 2 * kTileBytes + (p.key_mask != nullptr ? kBK : 0);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int st = j % kStages;
+        mbar_wait(&sm.empty[st], ((j / kStages) & 1) ^ 1);  // the first round passes at once
+        mbar_arrive_expect_tx(&sm.full[st], bytes);
+        tma_load_rows(sm.k[st], &p.k_map, &sm.full[st], j * kBK, h, b);
+        tma_load_rows(sm.v[st], &p.v_map, &sm.full[st], j * kBK, h, b);
+        if (p.key_mask != nullptr) bulk_load(sm.mask[st], p.key_mask + j * kBK, kBK, &sm.full[st]);
+      }
+    }
+  } else {
+    setmaxnreg_inc<232>();
+    consumer<BOUNDED>(p, sm, wg - 1, b, h);
+  }
+}
+
+template <bool BOUNDED>
+int launch(const Params& p, dim3 grid, cudaStream_t stream) {
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<BOUNDED>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
+  flash_fwd_kernel<BOUNDED><<<grid, kThreads, kSmemBytes, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
+// Dynamic shared memory a block of the kernel asks for, in bytes.
+extern "C" int s2v_flash_attention_fwd_smem_bytes() { return kSmemBytes; }
+
+// key_mask, when given, holds ceil(skv / 128) * 128 bytes (the wrapper pads
+// it with "excluded").
 extern "C" int s2v_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse, const void* key_mask,
     const void* m0_log2, int batch, int heads, int sq, int skv,
@@ -310,16 +284,16 @@ extern "C" int s2v_flash_attention_fwd(
     long long o_sb, long long o_ss, long long o_sh,
     float scale_log2, int bounded, void* stream) {
   Params p;
+  int err = make_bshd_map(&p.k_map, k, batch, skv, heads, k_sb, k_ss, k_sh, kBK);
+  if (err != 0) return err;
+  err = make_bshd_map(&p.v_map, v, batch, skv, heads, v_sb, v_ss, v_sh, kBK);
+  if (err != 0) return err;
   p.q = static_cast<const __nv_bfloat16*>(q);
-  p.k = static_cast<const __nv_bfloat16*>(k);
-  p.v = static_cast<const __nv_bfloat16*>(v);
   p.o = static_cast<__nv_bfloat16*>(o);
   p.lse = static_cast<float*>(lse);
   p.key_mask = static_cast<const uint8_t*>(key_mask);
   p.m0_log2 = static_cast<const float*>(m0_log2);
   p.q_sb = q_sb; p.q_ss = q_ss; p.q_sh = q_sh;
-  p.k_sb = k_sb; p.k_ss = k_ss; p.k_sh = k_sh;
-  p.v_sb = v_sb; p.v_ss = v_ss; p.v_sh = v_sh;
   p.o_sb = o_sb; p.o_ss = o_ss; p.o_sh = o_sh;
   p.H = heads;
   p.Sq = sq;
@@ -327,10 +301,5 @@ extern "C" int s2v_flash_attention_fwd(
   p.scale_log2 = scale_log2;
   const dim3 grid((sq + kBQ - 1) / kBQ, batch * heads);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bounded) {
-    flash_fwd_kernel<true><<<grid, kThreads, 0, s>>>(p);
-  } else {
-    flash_fwd_kernel<false><<<grid, kThreads, 0, s>>>(p);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return bounded ? launch<true>(p, grid, s) : launch<false>(p, grid, s);
 }

@@ -1,439 +1,452 @@
 // Non-causal flash attention backward for Hopper (sm_90a), bf16 in, fp32 math.
 //
 // Replaces the TPU kernel B2, s2v_tpu/ops/pallas/flash_attention_bwd.py::
-// flash_attention_bwd (_dq_kernel and _dkv_kernel).  Given q, k, v, dO, the
-// forward's log-sum-exp and D = rowsum(dO * o), it recomputes
+// flash_attention_bwd (_dq_kernel and _dkv_kernel).  Given q, k, v, o, dO
+// and the forward's log-sum-exp, it computes D = rowsum(dO * o) and
 //   P  = exp(scale * q k^T - lse)          (per tile, never stored)
 //   dV = P^T dO
 //   dS = P * (dO v^T - D)
 //   dQ = scale * dS k,   dK = scale * dS^T q
-// It computes that contract, not the Mosaic layout tricks: q/k/v/dO are read
-// in their [B, S, H, d] layout through strides (no [B*H, S, d] relayout, no
-// zero padding, no -1e30 column of q or pad-indicator row of K^T, no +inf lse
-// padding).  Keys past Skv get P = 0 through a predicate; queries past Sq
-// contribute nothing (their Q/dO rows load as zeros and their P is 0).
-// Sq != Skv is allowed.
+// It computes that contract, not the Mosaic layout tricks: q/k/v/o/dO are
+// read in their [B, S, H, d] layout through strides.  Keys past Skv get P = 0
+// through a predicate; queries past Sq contribute nothing (their q and dO
+// rows arrive as zeros from TMA and their lse is +inf).  Sq != Skv is allowed.
 //
 // Bound on an H100 SXM at the training shape (B=1, H=48, S=19,126, d=64):
 // the five products are 10*B*H*S^2*d = 1.12e13 operations, 11.4 ms at the
 // 989 TFLOP/s bf16 tensor-core peak, against ~0.95 GB of q/k/v/o/dO/dq/dk/dv
 // traffic (0.28 ms at 3.35 TB/s): compute-bound.
 //
-// Design (deterministic and simple first):
-//   * two kernels, no atomics, every output written by exactly one block:
-//       dq kernel  - one block per (b*h, 64-query tile); loops over key tiles:
-//                    S = q k^T, P, dP = dO v^T, dS, dq += dS k;
-//       dkv kernel - one block per (b*h, 64-key tile); loops over query tiles:
-//                    S^T = k q^T, P^T, dv += P^T dO, dP^T = v dO^T, dS^T,
-//                    dk += dS^T q;
-//     so q k^T and dO v^T are computed twice (7 products for the 5 of the
-//     bound): the gap between this kernel and its bound shows that cost;
-//   * 4 warps per block, 16 rows each; the streamed tiles (K/V in the dq
-//     kernel, Q/dO and the lse/D rows in the dkv kernel) are double-buffered
-//     in shared memory with cp.async, rows padded to 72 elements;
-//   * mma.sync m16n8k16 bf16 with fp32 accumulation; P and dS are re-packed
-//     to bf16 A fragments from the accumulators in registers; the B operands
-//     of the products with a transposed tile are gathered from shared memory
-//     two 16-bit values at a time;
-//   * exponentials as exp2 with log2(e) folded into the scale; the softmax
-//     scale of dq and dk is applied in fp32 once, at the end.
-// Left for later: wgmma and TMA, ldmatrix(.trans) fragment loads, and one
-// fused kernel (dk/dv per block, dq accumulated across blocks) that computes
-// q k^T and dO v^T once.
+// Design (the shared Hopper layer is hopper.cuh), three kernels on one stream:
+//   * prepass  - D = rowsum(dO * o) in fp32 and lse * log2(e), both into a
+//                [B*H, Sq_pad] workspace whose rows past Sq hold D = 0 and
+//                lse = +inf;
+//   * dq       - one block per (128-query tile, b*h): q and dO stay in
+//                registers, K/V stream in 64-key tiles; per tile
+//                S = q K^T, dP = dO V^T, P, dS, dq += dS K;
+//   * dkv      - one block per (128-key tile, b*h): K and V stay in
+//                shared memory, q/dO stream in 64-query tiles with their lse and
+//                D rows; per tile S^T = K q^T, dP^T = V dO^T, P^T, dS^T,
+//                dV += P^T dO, dK += dS^T q.
+//   Every output is written by exactly one block, so the result is the same
+//   bit for bit on every run, with no atomics and no workspace for dq; q k^T
+//   and dO v^T are computed twice (7 products for the 5 of the bound).
+//   Both main kernels: 3 warpgroups, warpgroup 0 the TMA producer (a ring of
+//   kStages stages behind full/empty mbarriers, setmaxnreg gives its
+//   registers away), warpgroups 1 and 2 each own 64 rows; every product is a
+//   wgmma m64n64k16 with A the resident operand (registers in the dq kernel,
+//   shared memory in the dkv kernel, which holds four accumulators) or P / dS
+//   re-packed from an accumulator in registers, and B a 128B-swizzled tile,
+//   read K-major for q.k^T-like products and MN-major (transposed) for the
+//   sums over rows.  The two consumer warpgroups run independently, so
+//   one's exponentials can run while the other's products use the tensor
+//   cores.
+//   Exponentials as exp2 with log2(e) folded into the scale; the softmax
+//   scale of dq and dk is applied in fp32 once, at the end.
+// Why not one kernel of 5 products: dq would be summed across the 150 key
+// blocks of a head, ~35 GB of fp32 partials at the training shape, and in a
+// fixed order (bit-for-bit results) only through a chain of per-tile
+// counters; the split costs two products of the seven instead.  The loop
+// variants tried on B1 were tried here too and left out the same way
+// (PERF.md §6).  Registers:
+// ptxas compiles the consumers within 168 a thread (the 384-thread launch
+// bound), so the dkv kernel keeps K and V in shared memory (SS products)
+// rather than in registers, where they spilled.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kD = 64;            // head dim (CogVideoX 2b and 5b)
-constexpr int kBR = 64;           // rows (queries or keys) a block owns
-constexpr int kBT = 64;           // rows of each streamed tile
-constexpr int kWarps = kBR / 16;  // one m16 row slab per warp
-constexpr int kThreads = kWarps * 32;
-constexpr int kLds = kD + 8;      // padded shared-memory row, in elements
+using namespace hopper;
+
+constexpr int kD = 64;           // head dim (CogVideoX 2b and 5b)
+constexpr int kRowsPerWg = 64;   // resident rows of one consumer warpgroup
+constexpr int kConsumers = 2;
+constexpr int kBR = kRowsPerWg * kConsumers;  // resident rows a block owns
+constexpr int kBT = 64;          // rows of each streamed tile
+constexpr int kStages = 3;
+constexpr int kThreads = 128 * (kConsumers + 1);
+constexpr uint32_t kTileBytes = kBT * kD * 2;  // 8 KB
 constexpr float kLog2e = 1.4426950408889634f;
 
+struct Smem {
+  __nv_bfloat16 a[kStages][kBT * kD];  // K (dq kernel) or q (dkv kernel); 8 KB each
+  __nv_bfloat16 b[kStages][kBT * kD];  // V (dq kernel) or dO (dkv kernel)
+  __nv_bfloat16 k_res[kBR * kD];       // dkv kernel: the block's resident K and V (16 KB each)
+  __nv_bfloat16 v_res[kBR * kD];
+  float lse2[kStages][kBT];            // dkv kernel: the tile's lse * log2(e)
+  float delta[kStages][kBT];           // dkv kernel: the tile's D
+  uint64_t full[kStages];
+  uint64_t empty[kStages];
+  uint64_t resident;                   // dkv kernel: K and V have arrived
+};
+constexpr int kSmemBytes = sizeof(Smem) + 1024;
+
 struct Params {
+  CUtensorMap k_map, v_map;   // box (64, kBT), over Skv
+  CUtensorMap q_map, do_map;  // box (64, kBT), over Sq
   const __nv_bfloat16* q;
   const __nv_bfloat16* k;
   const __nv_bfloat16* v;
+  const __nv_bfloat16* o;
   const __nv_bfloat16* dout;
-  const float* lse;    // [B, H, Sq], natural log
-  const float* delta;  // [B, H, Sq], rowsum(dO * o)
+  const float* lse;  // [B, H, Sq], natural log
+  float* lse2_ws;    // [B*H, Sq_pad]: lse * log2(e), +inf past Sq
+  float* delta_ws;   // [B*H, Sq_pad]: rowsum(dO * o), 0 past Sq
   __nv_bfloat16* dq;
   __nv_bfloat16* dk;
   __nv_bfloat16* dv;
   long long q_sb, q_ss, q_sh;
   long long k_sb, k_ss, k_sh;
   long long v_sb, v_ss, v_sh;
+  long long o_sb, o_ss, o_sh;
   long long do_sb, do_ss, do_sh;
   long long dq_sb, dq_ss, dq_sh;
   long long dk_sb, dk_ss, dk_sh;
   long long dv_sb, dv_ss, dv_sh;
-  int H, Sq, Skv;
+  int B, H, Sq, Skv, Sq_pad;
   float scale;
   float scale_log2;  // scale * log2(e)
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
+__device__ __forceinline__ float pos_inf() { return __int_as_float(0x7f800000u); }
 
-// 16-byte async copy; valid == false zero-fills the destination.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const int src_bytes = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
+// ------------------------------------------------------------------ prepass
 
-// 4-byte async copy (lse / D rows: no 16-byte alignment for an arbitrary Sq).
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
-  const int src_bytes = valid ? 4 : 0;
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
+// One row of 64 per 8 threads (16 bytes each); rows in [b*h][Sq_pad] order.
+constexpr int kPrepassThreads = 256;
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void mma_bf16_16816(float* c, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t load_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// A fragments of 16 rows x 64 dims straight from device memory (rows past
-// n_rows are zero): the operand a warp keeps in registers for the whole loop.
-__device__ __forceinline__ void load_a_rows(uint32_t (&f)[4][4], const __nv_bfloat16* base,
-                                            long long row_stride, int r0, int n_rows, int t4) {
-  const int r1 = r0 + 8;
+__global__ void __launch_bounds__(kPrepassThreads) flash_bwd_prepass_kernel(const __grid_constant__ Params p) {
+  const long long idx = (long long)blockIdx.x * (kPrepassThreads / 8) + (threadIdx.x >> 3);
+  const int part = threadIdx.x & 7;
+  const bool in_range = idx < (long long)p.B * p.H * p.Sq_pad;  // every lane reaches the shuffles
+  const int bh = int(idx / p.Sq_pad);
+  const int row = int(idx % p.Sq_pad);
+  const int b = bh / p.H;
+  const int h = bh % p.H;
+  float acc = 0.f;
+  if (in_range && row < p.Sq) {
+    const uint4 ov = *reinterpret_cast<const uint4*>(p.o + b * p.o_sb + row * p.o_ss + h * p.o_sh + part * 8);
+    const uint4 gv =
+        *reinterpret_cast<const uint4*>(p.dout + b * p.do_sb + row * p.do_ss + h * p.do_sh + part * 8);
+    const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+    const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&gv);
 #pragma unroll
-  for (int kc = 0; kc < 4; ++kc) {
-    const int c = kc * 16 + t4 * 2;
-    f[kc][0] = r0 < n_rows ? load_u32(base + r0 * row_stride + c) : 0u;
-    f[kc][1] = r1 < n_rows ? load_u32(base + r1 * row_stride + c) : 0u;
-    f[kc][2] = r0 < n_rows ? load_u32(base + r0 * row_stride + c + 8) : 0u;
-    f[kc][3] = r1 < n_rows ? load_u32(base + r1 * row_stride + c + 8) : 0u;
+    for (int i = 0; i < 4; ++i) {
+      const float2 of = __bfloat1622float2(o2[i]);
+      const float2 gf = __bfloat1622float2(g2[i]);
+      acc = fmaf(of.x, gf.x, acc);
+      acc = fmaf(of.y, gf.y, acc);
+    }
+  }
+  acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+  acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+  acc += __shfl_xor_sync(0xffffffffu, acc, 4);
+  if (in_range && part == 0) {
+    p.delta_ws[idx] = acc;
+    p.lse2_ws[idx] = row < p.Sq ? p.lse[(long long)bh * p.Sq + row] * kLog2e : pos_inf();
   }
 }
 
-// acc[16 x 64] += A[16 x 64 dims] . T^T, T a [64 rows x 64 dims] tile in
-// shared memory: the B operand is T's rows, read two dims at a time.
-__device__ __forceinline__ void mma_a_tt(float (&acc)[8][4], const uint32_t (&a)[4][4],
-                                         const __nv_bfloat16* tile, int g, int t4) {
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-    acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-#pragma unroll
-    for (int kc = 0; kc < 4; ++kc) {
-      const __nv_bfloat16* r = tile + (nt * 8 + g) * kLds + kc * 16 + t4 * 2;
-      const uint32_t bf[2] = {load_u32(r), load_u32(r + 8)};
-      mma_bf16_16816(acc[nt], a[kc], bf);
+// ------------------------------------------------------------ shared parts
+
+// Producer: streams n_tiles tiles of two operands (and, for the dkv kernel,
+// the lse / D rows of each tile) through the ring.
+template <bool WITH_ROWS>
+__device__ __forceinline__ void produce(const Params& p, Smem& sm, const CUtensorMap* map_a,
+                                        const CUtensorMap* map_b, int n_tiles, int b, int h) {
+  prefetch_tensor_map(map_a);
+  prefetch_tensor_map(map_b);
+  const long long ws_row = ((long long)b * p.H + h) * p.Sq_pad;
+  const uint32_t bytes = 2 * kTileBytes + (WITH_ROWS ? 2 * kBT * 4 : 0);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int st = j % kStages;
+    mbar_wait(&sm.empty[st], ((j / kStages) & 1) ^ 1);  // the first round passes at once
+    mbar_arrive_expect_tx(&sm.full[st], bytes);
+    tma_load_rows(sm.a[st], map_a, &sm.full[st], j * kBT, h, b);
+    tma_load_rows(sm.b[st], map_b, &sm.full[st], j * kBT, h, b);
+    if (WITH_ROWS) {
+      bulk_load(sm.lse2[st], p.lse2_ws + ws_row + j * kBT, kBT * 4, &sm.full[st]);
+      bulk_load(sm.delta[st], p.delta_ws + ws_row + j * kBT, kBT * 4, &sm.full[st]);
     }
   }
 }
 
-// out[16 x 64 dims] += X[16 x 64 tile rows] . T, X the fp32 accumulator of a
-// previous product (re-packed to bf16 A fragments), T a [64 rows x 64 dims]
-// tile in shared memory gathered as B fragments two 16-bit values at a time.
-__device__ __forceinline__ void mma_acc_t(float (&out)[8][4], const float (&x)[8][4],
-                                          const __nv_bfloat16* tile, int g, int t4) {
-#pragma unroll
-  for (int kc = 0; kc < 4; ++kc) {
-    const uint32_t pa[4] = {
-        pack_bf16x2(x[2 * kc][0], x[2 * kc][1]),
-        pack_bf16x2(x[2 * kc][2], x[2 * kc][3]),
-        pack_bf16x2(x[2 * kc + 1][0], x[2 * kc + 1][1]),
-        pack_bf16x2(x[2 * kc + 1][2], x[2 * kc + 1][3]),
-    };
-    const uint16_t* tr = reinterpret_cast<const uint16_t*>(tile + (kc * 16 + t4 * 2) * kLds + g);
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const uint16_t* tc = tr + nt * 8;
-      const uint32_t bf[2] = {
-          uint32_t(tc[0]) | (uint32_t(tc[kLds]) << 16),
-          uint32_t(tc[8 * kLds]) | (uint32_t(tc[9 * kLds]) << 16),
-      };
-      mma_bf16_16816(out[nt], pa, bf);
+__device__ __forceinline__ void init_ring(Smem& sm) {
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(&sm.full[st], 1);
+      mbar_init(&sm.empty[st], kConsumers * 4);  // one arrival per consumer warp
     }
+    mbar_init(&sm.resident, 1);
+    fence_barrier_init();
   }
+  __syncthreads();
 }
 
-// write 16 rows x 64 dims of an fp32 accumulator, times `mul`, as bf16
-__device__ __forceinline__ void store_rows(__nv_bfloat16* base, long long row_stride, int r0, int n_rows,
-                                           const float (&acc)[8][4], float mul, int t4) {
+__device__ __forceinline__ void zero(float (&acc)[32]) {
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = r0 + 8 * r;
-    if (row >= n_rows) continue;
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const uint32_t packed = pack_bf16x2(acc[nt][2 * r] * mul, acc[nt][2 * r + 1] * mul);
-      *reinterpret_cast<uint32_t*>(base + row * row_stride + nt * 8 + t4 * 2) = packed;
-    }
-  }
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
 }
 
-// dq: one block per (64 queries, b*h); loops over all key tiles.
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const Params p) {
-  __shared__ __align__(16) __nv_bfloat16 k_s[2][kBT * kLds];
-  __shared__ __align__(16) __nv_bfloat16 v_s[2][kBT * kLds];
+// --------------------------------------------------------------- dq kernel
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
+__device__ __forceinline__ void dq_consumer(const Params& p, Smem& sm, int wg, int b, int h) {
+  const int tid = threadIdx.x & 127;
   const int lane = tid & 31;
   const int g = lane >> 2;
-  const int t4 = lane & 3;
-  const int b = blockIdx.y / p.H;
-  const int h = blockIdx.y % p.H;
-  const int row0 = blockIdx.x * kBR + warp * 16 + g;  // this thread's rows: row0, row0 + 8
+  const int t = lane & 3;
+  const int row0 = blockIdx.x * kBR + wg * kRowsPerWg + (tid >> 5) * 16 + g;  // and row0 + 8
 
-  const __nv_bfloat16* qp = p.q + b * p.q_sb + h * p.q_sh;
-  const __nv_bfloat16* dop = p.dout + b * p.do_sb + h * p.do_sh;
-  const __nv_bfloat16* kp = p.k + b * p.k_sb + h * p.k_sh;
-  const __nv_bfloat16* vp = p.v + b * p.v_sb + h * p.v_sh;
+  uint32_t qa[4][4], da[4][4];
+  load_a_rows(qa, p.q + b * p.q_sb + h * p.q_sh, p.q_ss, row0, p.Sq, t);
+  load_a_rows(da, p.dout + b * p.do_sb + h * p.do_sh, p.do_ss, row0, p.Sq, t);
+  const long long ws_row = ((long long)b * p.H + h) * p.Sq_pad;
+  // rows past Sq: P = 0, so they add nothing (and are not written)
+  const float lse0 = row0 < p.Sq ? p.lse2_ws[ws_row + row0] : pos_inf();
+  const float lse1 = row0 + 8 < p.Sq ? p.lse2_ws[ws_row + row0 + 8] : pos_inf();
+  const float d0 = row0 < p.Sq ? p.delta_ws[ws_row + row0] : 0.f;
+  const float d1 = row0 + 8 < p.Sq ? p.delta_ws[ws_row + row0 + 8] : 0.f;
+  const float c = p.scale_log2;
 
-  uint32_t qf[4][4], dof[4][4];
-  load_a_rows(qf, qp, p.q_ss, row0, p.Sq, t4);
-  load_a_rows(dof, dop, p.do_ss, row0, p.Sq, t4);
-  // lse in log2 units and D for the thread's two rows (0 past Sq: such rows
-  // have zero q and dO, so their dS is 0 and they are never written)
-  float lse2[2], dlt[2];
-  const long long stat = ((long long)b * p.H + h) * p.Sq;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + 8 * r;
-    lse2[r] = row < p.Sq ? p.lse[stat + row] * kLog2e : 0.f;
-    dlt[r] = row < p.Sq ? p.delta[stat + row] : 0.f;
-  }
-
-  auto load_tile = [&](int tile, int buf) {
-    const int base = tile * kBT;
-#pragma unroll
-    for (int i = tid; i < kBT * (kD / 8); i += kThreads) {
-      const int r = i >> 3;
-      const int ch = (i & 7) * 8;
-      const int key = base + r;
-      const bool ok = key < p.Skv;
-      const long long kk = ok ? key : 0;
-      cp_async16(&k_s[buf][r * kLds + ch], kp + kk * p.k_ss + ch, ok);
-      cp_async16(&v_s[buf][r * kLds + ch], vp + kk * p.v_ss + ch, ok);
-    }
-  };
-
-  float dq_acc[8][4];
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt) dq_acc[nt][0] = dq_acc[nt][1] = dq_acc[nt][2] = dq_acc[nt][3] = 0.f;
-
+  float dq_acc[32];
+  zero(dq_acc);
+  float s[32], dp[32];
   const int n_tiles = (p.Skv + kBT - 1) / kBT;
-  load_tile(0, 0);
-  cp_async_commit();
   for (int j = 0; j < n_tiles; ++j) {
-    const int buf = j & 1;
-    if (j + 1 < n_tiles) {
-      load_tile(j + 1, buf ^ 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
+    const int st = j % kStages;
+    mbar_wait(&sm.full[st], (j / kStages) & 1);
 
-    float s[8][4], dp[8][4];
-    mma_a_tt(s, qf, k_s[buf], g, t4);    // S  = q k^T
-    mma_a_tt(dp, dof, v_s[buf], g, t4);  // dP = dO v^T
+    // S = q K^T, dP = dO V^T: 64 rows x 64 keys each
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) mma_m64n64k16_rs<0>(s, qa[kk], desc_kmajor(sm.a[st], kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) mma_m64n64k16_rs<0>(dp, da[kk], desc_kmajor(sm.b[st], kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
 
     const int kbase = j * kBT;
-    const bool tail = kbase + kBT > p.Skv;
+    const bool ragged = kbase + kBT > p.Skv;
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        float pr = fast_exp2(s[nt][e] * p.scale_log2 - lse2[r]);
-        if (tail && kbase + nt * 8 + t4 * 2 + (e & 1) >= p.Skv) pr = 0.f;
-        s[nt][e] = pr * (dp[nt][e] - dlt[r]);  // dS, in place of S
-      }
+    for (int i = 0; i < 32; ++i) {
+      const bool hi = (i & 2) != 0;
+      float pv = fast_exp2(fmaf(s[i], c, hi ? -lse1 : -lse0));
+      if (ragged && kbase + (i >> 2) * 8 + t * 2 + (i & 1) >= p.Skv) pv = 0.f;
+      s[i] = pv * (dp[i] - (hi ? d1 : d0));  // dS
     }
-    mma_acc_t(dq_acc, s, k_s[buf], g, t4);  // dq += dS k
-    __syncthreads();  // the next iteration's copy overwrites this buffer
-  }
 
-  __nv_bfloat16* dqp = p.dq + b * p.dq_sb + h * p.dq_sh;
-  store_rows(dqp, p.dq_ss, row0, p.Sq, dq_acc, p.scale, t4);
+    // dq += dS K
+    uint32_t dsa[4][4];
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) acc_to_a(dsa[kc], s, kc);
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) mma_m64n64k16_rs<1>(dq_acc, dsa[kc], desc_mnmajor(sm.a[st], kc), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dq_acc);
+    fence_regs(dsa);
+    if (lane == 0) mbar_arrive(&sm.empty[st]);
+  }
+  store_rows(p.dq + b * p.dq_sb + h * p.dq_sh, p.dq_ss, row0, p.Sq, dq_acc, p.scale, p.scale, t);
 }
 
-// dk, dv: one block per (64 keys, b*h); loops over all query tiles.
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(const Params p) {
-  __shared__ __align__(16) __nv_bfloat16 q_s[2][kBT * kLds];
-  __shared__ __align__(16) __nv_bfloat16 do_s[2][kBT * kLds];
-  __shared__ __align__(16) float lse_s[2][kBT];
-  __shared__ __align__(16) float dlt_s[2][kBT];
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t4 = lane & 3;
+__global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_kernel(const __grid_constant__ Params p) {
+  extern __shared__ uint8_t smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(align_1024(smem_raw));
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);  // warp-uniform
   const int b = blockIdx.y / p.H;
   const int h = blockIdx.y % p.H;
-  const int key0 = blockIdx.x * kBR + warp * 16 + g;  // this thread's keys: key0, key0 + 8
-
-  const __nv_bfloat16* kp = p.k + b * p.k_sb + h * p.k_sh;
-  const __nv_bfloat16* vp = p.v + b * p.v_sb + h * p.v_sh;
-  const __nv_bfloat16* qp = p.q + b * p.q_sb + h * p.q_sh;
-  const __nv_bfloat16* dop = p.dout + b * p.do_sb + h * p.do_sh;
-  const long long stat = ((long long)b * p.H + h) * p.Sq;
-
-  uint32_t kf[4][4], vf[4][4];
-  load_a_rows(kf, kp, p.k_ss, key0, p.Skv, t4);
-  load_a_rows(vf, vp, p.v_ss, key0, p.Skv, t4);
-
-  auto load_tile = [&](int tile, int buf) {
-    const int base = tile * kBT;
-#pragma unroll
-    for (int i = tid; i < kBT * (kD / 8); i += kThreads) {
-      const int r = i >> 3;
-      const int ch = (i & 7) * 8;
-      const int qrow = base + r;
-      const bool ok = qrow < p.Sq;
-      const long long qq = ok ? qrow : 0;
-      cp_async16(&q_s[buf][r * kLds + ch], qp + qq * p.q_ss + ch, ok);
-      cp_async16(&do_s[buf][r * kLds + ch], dop + qq * p.do_ss + ch, ok);
-    }
-    if (tid < kBT) {
-      const int qrow = base + tid;
-      const bool ok = qrow < p.Sq;
-      const long long qq = ok ? qrow : 0;
-      cp_async4(&lse_s[buf][tid], p.lse + stat + qq, ok);
-      cp_async4(&dlt_s[buf][tid], p.delta + stat + qq, ok);
-    }
-  };
-
-  float dk_acc[8][4], dv_acc[8][4];
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-    dk_acc[nt][0] = dk_acc[nt][1] = dk_acc[nt][2] = dk_acc[nt][3] = 0.f;
-    dv_acc[nt][0] = dv_acc[nt][1] = dv_acc[nt][2] = dv_acc[nt][3] = 0.f;
+  init_ring(sm);
+  if (wg == 0) {
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) produce<false>(p, sm, &p.k_map, &p.v_map, (p.Skv + kBT - 1) / kBT, b, h);
+  } else {
+    setmaxnreg_inc<232>();
+    dq_consumer(p, sm, wg - 1, b, h);
   }
+}
 
+// -------------------------------------------------------------- dkv kernel
+
+__device__ __forceinline__ void dkv_consumer(const Params& p, Smem& sm, int wg, int b, int h) {
+  const int tid = threadIdx.x & 127;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int key0 = blockIdx.x * kBR + wg * kRowsPerWg + (tid >> 5) * 16 + g;  // and key0 + 8
+
+  // this warpgroup's 64 resident keys (rows past Skv arrived as zeros)
+  const __nv_bfloat16* k_res = sm.k_res + wg * kRowsPerWg * kD;
+  const __nv_bfloat16* v_res = sm.v_res + wg * kRowsPerWg * kD;
+  mbar_wait(&sm.resident, 0);
+  const float c = p.scale_log2;
+
+  float dk_acc[32], dv_acc[32];
+  zero(dk_acc);
+  zero(dv_acc);
+  float s[32], dp[32];
   const int n_tiles = (p.Sq + kBT - 1) / kBT;
-  load_tile(0, 0);
-  cp_async_commit();
   for (int j = 0; j < n_tiles; ++j) {
-    const int buf = j & 1;
-    if (j + 1 < n_tiles) {
-      load_tile(j + 1, buf ^ 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
+    const int st = j % kStages;
+    mbar_wait(&sm.full[st], (j / kStages) & 1);
 
-    // P^T = exp(scale * k q^T - lse[query]): rows are keys, columns queries
-    float pt[8][4];
-    mma_a_tt(pt, kf, q_s[buf], g, t4);
-    const int qbase = j * kBT;
-    const bool tail = qbase + kBT > p.Sq;
+    // S^T = K q^T, dP^T = V dO^T: 64 keys x 64 queries each
+    wgmma_fence();
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = nt * 8 + t4 * 2 + (e & 1);
-        float pr = fast_exp2(pt[nt][e] * p.scale_log2 - lse_s[buf][col] * kLog2e);
-        if (tail && qbase + col >= p.Sq) pr = 0.f;
-        pt[nt][e] = pr;
-      }
+    for (int kk = 0; kk < 4; ++kk) {
+      mma_m64n64k16_ss<0>(s, desc_kmajor(k_res, kk), desc_kmajor(sm.a[st], kk), kk > 0);
     }
-    mma_acc_t(dv_acc, pt, do_s[buf], g, t4);  // dv += P^T dO
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      mma_m64n64k16_ss<0>(dp, desc_kmajor(v_res, kk), desc_kmajor(sm.b[st], kk), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
 
-    float dpt[8][4];
-    mma_a_tt(dpt, vf, do_s[buf], g, t4);  // dP^T = v dO^T
+    // columns are queries: their lse and D come with the tile
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = nt * 8 + t4 * 2 + (e & 1);
-        dpt[nt][e] = pt[nt][e] * (dpt[nt][e] - dlt_s[buf][col]);  // dS^T
-      }
+    for (int i = 0; i < 32; ++i) {
+      const int col = (i >> 2) * 8 + t * 2 + (i & 1);
+      s[i] = fast_exp2(fmaf(s[i], c, -sm.lse2[st][col]));       // P^T
+      dp[i] = s[i] * (dp[i] - sm.delta[st][col]);               // dS^T
     }
-    mma_acc_t(dk_acc, dpt, q_s[buf], g, t4);  // dk += dS^T q
-    __syncthreads();
+
+    // dV += P^T dO, dK += dS^T q
+    uint32_t pa[4][4], dsa[4][4];
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) {
+      acc_to_a(pa[kc], s, kc);
+      acc_to_a(dsa[kc], dp, kc);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) mma_m64n64k16_rs<1>(dv_acc, pa[kc], desc_mnmajor(sm.b[st], kc), 1);
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) mma_m64n64k16_rs<1>(dk_acc, dsa[kc], desc_mnmajor(sm.a[st], kc), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dv_acc);
+    fence_regs(dk_acc);
+    fence_regs(pa);
+    fence_regs(dsa);
+    if (lane == 0) mbar_arrive(&sm.empty[st]);
   }
+  store_rows(p.dk + b * p.dk_sb + h * p.dk_sh, p.dk_ss, key0, p.Skv, dk_acc, p.scale, p.scale, t);
+  store_rows(p.dv + b * p.dv_sb + h * p.dv_sh, p.dv_ss, key0, p.Skv, dv_acc, 1.f, 1.f, t);
+}
 
-  __nv_bfloat16* dkp = p.dk + b * p.dk_sb + h * p.dk_sh;
-  __nv_bfloat16* dvp = p.dv + b * p.dv_sb + h * p.dv_sh;
-  store_rows(dkp, p.dk_ss, key0, p.Skv, dk_acc, p.scale, t4);
-  store_rows(dvp, p.dv_ss, key0, p.Skv, dv_acc, 1.f, t4);
+__global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_kernel(const __grid_constant__ Params p) {
+  extern __shared__ uint8_t smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(align_1024(smem_raw));
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);  // warp-uniform
+  const int b = blockIdx.y / p.H;
+  const int h = blockIdx.y % p.H;
+  init_ring(sm);
+  if (wg == 0) {
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      // the block's 128 keys of K and V, once, then the q / dO ring
+      const int key0 = blockIdx.x * kBR;
+      mbar_arrive_expect_tx(&sm.resident, 4 * kTileBytes);
+      tma_load_rows(sm.k_res, &p.k_map, &sm.resident, key0, h, b);
+      tma_load_rows(sm.k_res + kBT * kD, &p.k_map, &sm.resident, key0 + kBT, h, b);
+      tma_load_rows(sm.v_res, &p.v_map, &sm.resident, key0, h, b);
+      tma_load_rows(sm.v_res + kBT * kD, &p.v_map, &sm.resident, key0 + kBT, h, b);
+      produce<true>(p, sm, &p.q_map, &p.do_map, (p.Sq + kBT - 1) / kBT, b, h);
+    }
+  } else {
+    setmaxnreg_inc<232>();
+    dkv_consumer(p, sm, wg - 1, b, h);
+  }
+}
+
+int configure() {
+  static bool done = false;
+  if (done) return 0;
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(flash_bwd_dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  done = true;
+  return 0;
 }
 
 }  // namespace
 
+// Dynamic shared memory a block of the dq or dkv kernel asks for, in bytes.
+extern "C" int s2v_flash_attention_bwd_smem_bytes() { return kSmemBytes; }
+
+// The parts to launch, a bit mask (the wrapper launches all three; the
+// smoke times them one at a time).
+constexpr int kPartPrepass = 1, kPartDq = 2, kPartDkv = 4;
+
+// lse2_ws and delta_ws: fp32 [B*H, Sq_pad] workspaces, Sq_pad = ceil(Sq / 64) * 64.
 extern "C" int s2v_flash_attention_bwd(
-    const void* q, const void* k, const void* v, const void* dout, const void* lse,
-    const void* delta, void* dq, void* dk, void* dv, int batch, int heads, int sq, int skv,
+    const void* q, const void* k, const void* v, const void* o, const void* dout, const void* lse,
+    void* lse2_ws, void* delta_ws, void* dq, void* dk, void* dv, int batch, int heads, int sq, int skv,
     long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh,
+    long long o_sb, long long o_ss, long long o_sh,
     long long do_sb, long long do_ss, long long do_sh,
     long long dq_sb, long long dq_ss, long long dq_sh,
     long long dk_sb, long long dk_ss, long long dk_sh,
     long long dv_sb, long long dv_ss, long long dv_sh,
-    float scale, void* stream) {
+    float scale, int parts, void* stream) {
+  int err = configure();
+  if (err != 0) return err;
   Params p;
+  if ((err = make_bshd_map(&p.k_map, k, batch, skv, heads, k_sb, k_ss, k_sh, kBT)) != 0) return err;
+  if ((err = make_bshd_map(&p.v_map, v, batch, skv, heads, v_sb, v_ss, v_sh, kBT)) != 0) return err;
+  if ((err = make_bshd_map(&p.q_map, q, batch, sq, heads, q_sb, q_ss, q_sh, kBT)) != 0) return err;
+  if ((err = make_bshd_map(&p.do_map, dout, batch, sq, heads, do_sb, do_ss, do_sh, kBT)) != 0) return err;
   p.q = static_cast<const __nv_bfloat16*>(q);
   p.k = static_cast<const __nv_bfloat16*>(k);
   p.v = static_cast<const __nv_bfloat16*>(v);
+  p.o = static_cast<const __nv_bfloat16*>(o);
   p.dout = static_cast<const __nv_bfloat16*>(dout);
   p.lse = static_cast<const float*>(lse);
-  p.delta = static_cast<const float*>(delta);
+  p.lse2_ws = static_cast<float*>(lse2_ws);
+  p.delta_ws = static_cast<float*>(delta_ws);
   p.dq = static_cast<__nv_bfloat16*>(dq);
   p.dk = static_cast<__nv_bfloat16*>(dk);
   p.dv = static_cast<__nv_bfloat16*>(dv);
   p.q_sb = q_sb; p.q_ss = q_ss; p.q_sh = q_sh;
   p.k_sb = k_sb; p.k_ss = k_ss; p.k_sh = k_sh;
   p.v_sb = v_sb; p.v_ss = v_ss; p.v_sh = v_sh;
+  p.o_sb = o_sb; p.o_ss = o_ss; p.o_sh = o_sh;
   p.do_sb = do_sb; p.do_ss = do_ss; p.do_sh = do_sh;
   p.dq_sb = dq_sb; p.dq_ss = dq_ss; p.dq_sh = dq_sh;
   p.dk_sb = dk_sb; p.dk_ss = dk_ss; p.dk_sh = dk_sh;
   p.dv_sb = dv_sb; p.dv_ss = dv_ss; p.dv_sh = dv_sh;
+  p.B = batch;
   p.H = heads;
   p.Sq = sq;
   p.Skv = skv;
+  p.Sq_pad = (sq + kBT - 1) / kBT * kBT;
   p.scale = scale;
   p.scale_log2 = scale * kLog2e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  flash_bwd_dq_kernel<<<dim3((sq + kBR - 1) / kBR, batch * heads), kThreads, 0, s>>>(p);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  flash_bwd_dkv_kernel<<<dim3((skv + kBR - 1) / kBR, batch * heads), kThreads, 0, s>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  if (parts & kPartPrepass) {
+    const long long rows = (long long)batch * heads * p.Sq_pad;
+    const int per_block = kPrepassThreads / 8;
+    flash_bwd_prepass_kernel<<<unsigned((rows + per_block - 1) / per_block), kPrepassThreads, 0, s>>>(p);
+    if ((err = static_cast<int>(cudaGetLastError())) != 0) return err;
+  }
+  if (parts & kPartDq) {
+    flash_bwd_dq_kernel<<<dim3((sq + kBR - 1) / kBR, batch * heads), kThreads, kSmemBytes, s>>>(p);
+    if ((err = static_cast<int>(cudaGetLastError())) != 0) return err;
+  }
+  if (parts & kPartDkv) {
+    flash_bwd_dkv_kernel<<<dim3((skv + kBR - 1) / kBR, batch * heads), kThreads, kSmemBytes, s>>>(p);
+    if ((err = static_cast<int>(cudaGetLastError())) != 0) return err;
+  }
+  return 0;
 }

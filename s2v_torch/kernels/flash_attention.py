@@ -2,15 +2,21 @@
 
 Replaces ``s2v_tpu/ops/pallas/flash_attention.py::flash_attention`` (the
 Pallas kernels ``_flash_kernel`` and ``_flash_kernel_bounded``).  The CUDA
-source is ``s2v_torch/csrc/flash_attention.cu``; it is compiled with ``nvcc``
-for ``sm_90a`` into ``build/`` on the first CUDA call and bound with
-``ctypes``.
+source is ``s2v_torch/csrc/flash_attention.cu`` (with the shared Hopper
+layer ``csrc/hopper.cuh``); it is compiled with ``nvcc`` for ``sm_90a`` into
+``build/`` on the first CUDA call and bound with ``ctypes``.
 
 Bound on an H100 SXM at the main-path shape (B=2, H=48, S=19,126, d=64):
 4·B·H·S²·d = 9.0 TFLOP per call, about 9.1 ms at 989 TFLOP/s bf16, against
 about 0.94 GB of q/k/v/o traffic (0.28 ms at 3.35 TB/s): compute-bound.  The
-3.5·10¹⁰ exponentials per call are a second ceiling of the same order on the
+3.5·10¹⁰ exponentials per call are a second ceiling of the same size on the
 SFUs, which is why the bounded softmax mode (no running max) is the default.
+
+The kernel is warp-specialised: per block of 128 query rows a producer
+warpgroup (one thread of it) streams 128-key K/V tiles with TMA through an
+mbarrier ring, and two consumer warpgroups run ``wgmma`` (q·kᵀ and P·V, A
+from registers) and the softmax, so one warpgroup's exponentials can
+overlap the other's products.
 
 ``flash_attention`` dispatches on the device of its inputs: CPU tensors go to
 :func:`flash_attention_reference`, the plain PyTorch version; CUDA tensors
@@ -37,6 +43,8 @@ LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
 SOFTMAX_MODES = ("online", "bounded", "bounded_exp2")
 KERNEL_HEAD_DIM = 64
+# keys per tile of the kernel: the key pad mask is handed over padded to whole tiles
+KERNEL_KEY_TILE = 128
 # below this headroom of fp32 (underflow at ~-87 nats, minus 16 e-folds of
 # entries that still matter relatively at 1e-7) the bounded result could have
 # lost softmax mass: re-run with the online kernel
@@ -80,7 +88,7 @@ def _check_shapes(q, k, v, key_pad_mask) -> None:
 def check_kernel_tensor(name: str, t: torch.Tensor) -> None:
     """Raise unless the kernels take ``t`` as a ``[B, S, H, d]`` operand:
     bf16, d = 64, rows contiguous and 16-byte aligned (base pointer and
-    strides: rows are loaded with 16-byte ``cp.async``)."""
+    strides: TMA tensor maps and 16-byte loads need both)."""
     if t.dtype != torch.bfloat16:
         raise ValueError(f"flash_attention kernels take bf16; {name} is {t.dtype}")
     if t.shape[-1] != KERNEL_HEAD_DIM:
@@ -95,7 +103,7 @@ def check_kernel_inputs(q, k, v, key_pad_mask=None) -> None:
     """Raise unless the CUDA kernel takes these tensors (see
     :func:`check_kernel_tensor`).  Reads only metadata, so it is checked
     before any launch (and testable on CPU or meta tensors).  The mask is
-    read byte by byte and needs no alignment."""
+    copied into a padded byte buffer and needs no alignment."""
     _check_shapes(q, k, v, key_pad_mask)
     for name, t in (("q", q), ("k", k), ("v", v)):
         check_kernel_tensor(name, t)
@@ -189,7 +197,7 @@ def _launch(q, k, v, o, lse, mask, m0_log2, scale_log2: float, bounded: bool) ->
         ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream),
     )
     if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"flash_attention kernel launch failed: {native_build.launch_error(err)}")
     flash_attention.launches += 1
 
 
@@ -203,7 +211,11 @@ def _flash_attention_cuda(q, k, v, scale, return_lse, key_pad_mask, softmax_mode
         scale = 1.0 / math.sqrt(d)
     mask = None
     if key_pad_mask is not None:
-        mask = key_pad_mask.to(device=q.device, dtype=torch.uint8).contiguous()
+        # whole key tiles, the padding excluded: the kernel copies one tile of mask bytes with each K/V tile
+        skv = k.shape[1]
+        padded = -(-skv // KERNEL_KEY_TILE) * KERNEL_KEY_TILE
+        mask = torch.ones(padded, dtype=torch.uint8, device=q.device)
+        mask[:skv] = key_pad_mask.to(device=q.device, dtype=torch.uint8)
     o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     scale_log2 = scale * LOG2E
 

@@ -1,14 +1,14 @@
-"""Kernel B2: the backward of non-causal flash attention, a CUDA C++ kernel
+"""Kernel B2: the backward of non-causal flash attention, CUDA C++ kernels
 for Hopper.
 
 Replaces ``s2v_tpu/ops/pallas/flash_attention_bwd.py::flash_attention_bwd``
 (the Pallas kernels ``_dq_kernel`` and ``_dkv_kernel``).  The CUDA source is
-``s2v_torch/csrc/flash_attention_bwd.cu``: two deterministic kernels (dq per
-query tile; dk and dv per key tile), compiled with ``nvcc`` for ``sm_90a``
-into ``build/`` on the first CUDA call and bound with ``ctypes``.
+``s2v_torch/csrc/flash_attention_bwd.cu`` (with the shared Hopper layer
+``csrc/hopper.cuh``), compiled with ``nvcc`` for ``sm_90a`` into ``build/``
+on the first CUDA call and bound with ``ctypes``.
 
 Given the forward's q, k, v, o, its log-sum-exp ``lse`` (natural log,
-``[B, H, Sq]``) and dO, with ``D = rowsum(dO ∘ o)`` (computed here, in fp32):
+``[B, H, Sq]``) and dO, with ``D = rowsum(dO ∘ o)`` in fp32:
 
     P  = exp(scale·q·kᵀ − lse)     dV = Pᵀ·dO
     dS = P ∘ (dO·vᵀ − D)           dQ = scale·dS·k     dK = scale·dSᵀ·q
@@ -16,12 +16,21 @@ Given the forward's q, k, v, o, its log-sum-exp ``lse`` (natural log,
 Bound on an H100 SXM at the training shape (B=1, S=19,126, H=48, d=64): the
 five products are 10·B·H·S²·d = 1.12·10¹³ operations, 11.4 ms at 989 TFLOP/s
 bf16, against ~0.95 GB of traffic (0.28 ms at 3.35 TB/s): compute-bound.
-The two-kernel design computes q·kᵀ and dO·vᵀ twice (7 products).
+
+One call launches three kernels on the current stream: a pre-pass (D and
+lse·log2 e into a padded fp32 workspace the wrapper allocates), a dq kernel
+(one block per 128 queries, K/V streamed) and a dk/dv kernel (one block per
+128 keys, q/dO streamed), both warp-specialised with TMA, mbarriers and
+``wgmma``.  Every output is written by one block, so results are the same
+bit for bit on every run; q·kᵀ and dO·vᵀ are computed in both kernels (7
+products for the bound's 5).  :func:`flash_attention_bwd_blocked` emulates
+that schedule on any device (tile order, bf16 rounding of P and dS, fp32
+sums in tile order).
 
 ``flash_attention_bwd`` dispatches on the device of its inputs: CPU tensors
 go to :func:`flash_attention_bwd_reference`, the plain PyTorch version; CUDA
-tensors launch the kernel or raise.  ``flash_attention_bwd.launches`` counts
-calls that launched the kernel pair.
+tensors launch the kernels or raise.  ``flash_attention_bwd.launches`` counts
+calls that launched them.
 """
 
 from __future__ import annotations
@@ -32,10 +41,21 @@ from typing import Optional, Tuple
 
 import torch
 
-from s2v_torch.kernels.flash_attention import REFERENCE_CHUNK, check_kernel_inputs, check_kernel_tensor
+from s2v_torch.kernels.flash_attention import (
+    LOG2E,
+    REFERENCE_CHUNK,
+    check_kernel_inputs,
+    check_kernel_tensor,
+)
 from s2v_torch.utils import native_build
 
 SOURCE = native_build.CSRC_DIR / "flash_attention_bwd.cu"
+# rows of each tile the kernels stream (keys in the dq kernel, queries in
+# the dk/dv kernel); a block owns 128 resident rows
+KERNEL_TILE_ROWS = 64
+# the parts of one call, a bit mask of the C entry point
+PART_PREPASS, PART_DQ, PART_DKV = 1, 2, 4
+ALL_PARTS = PART_PREPASS | PART_DQ | PART_DKV
 _lib = None
 
 
@@ -45,7 +65,7 @@ def _library():
         lib = ctypes.CDLL(str(native_build.build_one(SOURCE)))
         fn = lib.s2v_flash_attention_bwd
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [vp] * 9 + [i32] * 4 + [i64] * 21 + [ctypes.c_float, vp]
+        fn.argtypes = [vp] * 11 + [i32] * 4 + [i64] * 24 + [ctypes.c_float, i32, vp]
         fn.restype = i32
         _lib = lib
     return _lib
@@ -69,20 +89,19 @@ def row_delta(o: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return (g.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
 
 
-def check_bwd_kernel_inputs(q, k, v, o, lse, g, delta) -> None:
-    """Raise unless the CUDA kernel takes these tensors: q/k/v/o/dO as
-    :func:`check_kernel_inputs` requires, lse and D fp32, contiguous
-    ``[B, H, Sq]``.  Reads only metadata (testable on meta tensors)."""
+def check_bwd_kernel_inputs(q, k, v, o, lse, g) -> None:
+    """Raise unless the CUDA kernels take these tensors: q/k/v/o/dO as
+    :func:`check_kernel_inputs` requires, lse fp32, contiguous ``[B, H, Sq]``
+    (the kernels compute D themselves).  Reads only metadata (testable on
+    meta tensors)."""
     _check_shapes(q, k, v, o, lse, g)
     check_kernel_inputs(q, k, v)
     check_kernel_tensor("o", o)
     check_kernel_tensor("dO", g)
-    for name, t in (("lse", lse), ("D", delta)):
-        if t.dtype != torch.float32:
-            raise ValueError(f"flash_attention_bwd kernel takes an fp32 {name}; got {t.dtype}")
-        if tuple(t.shape) != tuple(lse.shape) or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous [B, H, Sq] tensor; shape {tuple(t.shape)}, "
-                             f"strides {t.stride()}")
+    if lse.dtype != torch.float32:
+        raise ValueError(f"flash_attention_bwd kernel takes an fp32 lse; got {lse.dtype}")
+    if not lse.is_contiguous():
+        raise ValueError(f"lse must be a contiguous [B, H, Sq] tensor; strides {lse.stride()}")
 
 
 def flash_attention_bwd_reference(
@@ -135,24 +154,71 @@ def masked_bwd_reference(q, k, v, o, lse, g, scale=None, mask_rows=None):
     return (dq.to(q.dtype), (dk * scale).transpose(1, 2).to(k.dtype), dv.transpose(1, 2).to(v.dtype))
 
 
-def _launch(q, k, v, g, lse, delta, dq, dk, dv, scale: float) -> None:
+def flash_attention_bwd_blocked(q, k, v, o, lse, g, scale=None):
+    """The CUDA kernels' schedule, emulated in PyTorch on any device: the dq
+    kernel's walk over 64-key tiles (dq summed in fp32 in key-tile order)
+    and the dk/dv kernel's walk over 64-query tiles (dk, dv summed in fp32
+    in query-tile order), with P and dS rounded to bf16 where the kernels
+    feed them to ``wgmma``, and the logits in log2 units against
+    ``lse·log2 e``.  Same signature and contract as
+    :func:`flash_attention_bwd_reference`; the card tests and the smoke hold
+    the kernels to it, the CPU tests hold it to the plain version and to
+    JAX."""
+    _check_shapes(q, k, v, o, lse, g)
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    c = scale * LOG2E
+    tile = KERNEL_TILE_ROWS
+    qf, kf, vf, gf = (x.float().transpose(1, 2) for x in (q, k, v, g))  # [B, H, S, d]
+    delta = row_delta(o, g)  # [B, H, Sq], the pre-pass
+    lse2 = lse.float() * LOG2E
+    bf16 = lambda x: x.to(torch.bfloat16).float()  # noqa: E731
+
+    dq = torch.zeros_like(qf)
+    for k0 in range(0, kf.shape[2], tile):  # the dq kernel: key tiles in order
+        kt, vt = kf[:, :, k0:k0 + tile], vf[:, :, k0:k0 + tile]
+        p = torch.exp2(torch.matmul(qf, kt.transpose(-1, -2)) * c - lse2[..., None])
+        dp = torch.matmul(gf, vt.transpose(-1, -2))
+        dq += torch.matmul(bf16(p * (dp - delta[..., None])), kt)
+
+    dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+    for q0 in range(0, qf.shape[2], tile):  # the dk/dv kernel: query tiles in order
+        qt, gt = qf[:, :, q0:q0 + tile], gf[:, :, q0:q0 + tile]
+        pt = torch.exp2(torch.matmul(kf, qt.transpose(-1, -2)) * c - lse2[:, :, None, q0:q0 + tile])
+        dpt = torch.matmul(vf, gt.transpose(-1, -2))
+        dv += torch.matmul(bf16(pt), gt)
+        dk += torch.matmul(bf16(pt * (dpt - delta[:, :, None, q0:q0 + tile])), qt)
+    return ((dq * scale).transpose(1, 2).to(q.dtype), (dk * scale).transpose(1, 2).to(k.dtype),
+            dv.transpose(1, 2).to(v.dtype))
+
+
+def bwd_workspace(q: torch.Tensor) -> torch.Tensor:
+    """The kernels' fp32 workspace ``[2, B·H, Sq_pad]`` (lse·log2 e and D,
+    rows padded to whole 64-row tiles), written by the pre-pass."""
+    b, sq, h, _ = q.shape
+    sq_pad = -(-sq // KERNEL_TILE_ROWS) * KERNEL_TILE_ROWS
+    return torch.empty((2, b * h, sq_pad), dtype=torch.float32, device=q.device)
+
+
+def _launch(q, k, v, o, g, lse, dq, dk, dv, scale: float, workspace, parts: int = ALL_PARTS) -> None:
+    """Launch ``parts`` of one backward (all three for a call; the smoke
+    times them one at a time on a workspace a full launch has filled)."""
     b, sq, h, _ = q.shape
     skv = k.shape[1]
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
-    strides = [s for t in (q, k, v, g, dq, dk, dv) for s in t.stride()[:3]]
+    strides = [s for t in (q, k, v, o, g, dq, dk, dv) for s in t.stride()[:3]]
     err = _library().s2v_flash_attention_bwd(
-        ptr(q), ptr(k), ptr(v), ptr(g), ptr(lse), ptr(delta), ptr(dq), ptr(dk), ptr(dv),
-        b, h, sq, skv, *strides, ctypes.c_float(scale),
+        ptr(q), ptr(k), ptr(v), ptr(o), ptr(g), ptr(lse), ptr(workspace[0]), ptr(workspace[1]),
+        ptr(dq), ptr(dk), ptr(dv), b, h, sq, skv, *strides, ctypes.c_float(scale), int(parts),
         ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream),
     )
     if err != 0:
-        raise RuntimeError(f"flash_attention_bwd kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"flash_attention_bwd kernel launch failed: {native_build.launch_error(err)}")
     flash_attention_bwd.launches += 1
 
 
 def _flash_attention_bwd_cuda(q, k, v, o, lse, g, scale):
-    delta = row_delta(o, g)
-    check_bwd_kernel_inputs(q, k, v, o, lse, g, delta)
+    check_bwd_kernel_inputs(q, k, v, o, lse, g)
     for t in (k, v, o, lse, g):
         if t.device != q.device:
             raise ValueError("q, k, v, o, lse, dO must be on one device")
@@ -161,7 +227,7 @@ def _flash_attention_bwd_cuda(q, k, v, o, lse, g, scale):
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dk = torch.empty(k.shape, dtype=k.dtype, device=q.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=q.device)
-    _launch(q, k, v, g, lse, delta, dq, dk, dv, scale)
+    _launch(q, k, v, o, g, lse, dq, dk, dv, scale, bwd_workspace(q))
     return dq, dk, dv
 
 
@@ -178,7 +244,7 @@ def flash_attention_bwd(
     ``[B, Sq, H, d]``, k/v ``[B, Skv, H, d]`` (Skv may differ from Sq), lse
     ``[B, H, Sq]`` fp32 (the forward's, natural log).
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel or
+    CPU tensors take the plain version; CUDA tensors launch the kernels or
     raise (bf16 and d = 64 only)."""
     devices = {t.device.type for t in (q, k, v, o, lse, g)}
     if devices == {"cpu"}:

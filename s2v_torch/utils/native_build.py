@@ -1,8 +1,9 @@
 """Build the port's native sources into ``<repo>/build`` at first use.
 
 Each source is compiled into a shared library with a plain C interface,
-loaded with ``ctypes``.  The library name carries a hash of the source and
-the command, so an edited source is rebuilt and a stale one never loads.
+loaded with ``ctypes``.  The library name carries a hash of the source, of
+the local headers it includes (``csrc/hopper.cuh``) and of the command, so
+an edited source or header is rebuilt and a stale build never loads.
 Compilers run only when a kernel is first needed on a machine that has them;
 importing this module starts nothing.
 """
@@ -11,6 +12,7 @@ from __future__ import annotations
 
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -44,9 +46,32 @@ def _command(src: Path, out: Path) -> List[str]:
     return ["g++", *GXX_FLAGS, "-o", str(out), str(src)]
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def local_includes(src: Path) -> List[Path]:
+    """The files ``src`` names in ``#include "..."`` lines, found beside the
+    file that names them, and theirs in turn (each once, in first-seen
+    order); system headers (``<...>``) are not followed."""
+    seen: List[Path] = []
+    todo = [Path(src)]
+    while todo:
+        current = todo.pop(0)
+        for name in _INCLUDE.findall(current.read_bytes()):
+            header = current.parent / name.decode()
+            if header.is_file() and header not in seen:
+                seen.append(header)
+                todo.append(header)
+    return seen
+
+
 def library_path(src: Path) -> Path:
-    """Where the build of ``src`` lives; the name changes with its content."""
+    """Where the build of ``src`` lives; the name changes with its content
+    and with the content of every local header it includes."""
     digest = hashlib.sha256(src.read_bytes())
+    for header in local_includes(src):
+        digest.update(header.name.encode())
+        digest.update(header.read_bytes())
     flags = NVCC_FLAGS if src.suffix == ".cu" else GXX_FLAGS
     digest.update(" ".join(flags).encode())
     return BUILD_DIR / f"lib{src.stem}-{digest.hexdigest()[:12]}.so"
@@ -78,6 +103,17 @@ def build(sources: Sequence[Path]) -> Dict[str, dict]:
         os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
         results[src.stem] = {"path": out, "seconds": seconds, "log": log}
     return results
+
+
+def launch_error(code: int) -> str:
+    """Names an error code of a C entry point: a cudaError_t, or one of the
+    TMA codes of ``csrc/hopper.cuh`` (10000: no tensor-map encoder in
+    libcuda; 20000 + CUresult: a tensor map cuTensorMapEncodeTiled refused)."""
+    if code == 10000:
+        return "cuTensorMapEncodeTiled not found in libcuda"
+    if code >= 20000:
+        return f"TMA tensor map refused (CUresult {code - 20000})"
+    return f"cudaError {code}"
 
 
 def build_one(src: Path) -> Path:

@@ -99,20 +99,20 @@ def _meta(*shape, dtype=torch.bfloat16):
 def test_kernel_input_checks():
     """The CUDA branch's checks read metadata only: run them on meta tensors."""
     q, k, v = _meta(2, 40, 3, 64), _meta(2, 50, 3, 64), _meta(2, 50, 3, 64)
-    lse, delta = _meta(2, 3, 40, dtype=torch.float32), _meta(2, 3, 40, dtype=torch.float32)
-    check_bwd_kernel_inputs(q, k, v, q, lse, q, delta)
+    lse = _meta(2, 3, 40, dtype=torch.float32)
+    check_bwd_kernel_inputs(q, k, v, q, lse, q)
     bad = [
         dict(o=_meta(2, 40, 3, 64, dtype=torch.float32)),  # o not bf16
         dict(g=_meta(2, 40, 3, 128)),  # dO with another head dim
         dict(g=_meta(2, 41, 3, 64)),  # dO not q's shape
         dict(lse=_meta(2, 3, 40, dtype=torch.bfloat16)),  # lse not fp32
         dict(lse=_meta(2, 40, 3, dtype=torch.float32)),  # lse not [B, H, Sq]
-        dict(delta=_meta(2, 3, 80, dtype=torch.float32)[..., ::2]),  # D not contiguous
+        dict(lse=_meta(2, 3, 80, dtype=torch.float32)[..., ::2]),  # lse not contiguous
         dict(q=_meta(2, 40, 3, 32), o=_meta(2, 40, 3, 32), g=_meta(2, 40, 3, 32)),  # d != 64
         dict(k=_meta(2, 50, 3, 64, dtype=torch.float16)),
     ]
     for case in bad:
-        args = dict(q=q, k=k, v=v, o=q, lse=lse, g=q, delta=delta)
+        args = dict(q=q, k=k, v=v, o=q, lse=lse, g=q)
         args.update(case)
         with pytest.raises(ValueError):
             check_bwd_kernel_inputs(**args)

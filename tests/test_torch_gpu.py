@@ -1,4 +1,5 @@
-"""Kernels B1-B7 on the card against their plain PyTorch versions (B6/B7,
+"""Kernels B1-B7 on the card against their plain PyTorch versions (B2 also
+against the emulation of its blocked schedule, and twice for determinism; B6/B7,
 the sequence-parallel shard kernels, at every offset of 2- and 4-rank
 rings), the differentiable flash and banded attentions (B1/B2, B4/B5, and
 ``sp_windowed`` on a one-rank NCCL group) against plain autograd, and the
@@ -35,7 +36,11 @@ from s2v_torch.kernels.flash_attention import (
     flash_attention,
     flash_attention_reference,
 )
-from s2v_torch.kernels.flash_attention_bwd import flash_attention_bwd, flash_attention_bwd_reference
+from s2v_torch.kernels.flash_attention_bwd import (
+    flash_attention_bwd,
+    flash_attention_bwd_blocked,
+    flash_attention_bwd_reference,
+)
 from s2v_torch.kernels.int8_attention import flash_attention_qk_int8, flash_attention_qk_int8_reference
 from s2v_torch.ops.attention import banded_attention_trainable, flash_attention_trainable
 from s2v_torch.ops.windowed_attention import windowed_attention_reference
@@ -183,6 +188,71 @@ def test_bwd_unsupported_inputs_raise_before_launch(cuda):
     with pytest.raises(ValueError):
         flash_attention_bwd(q, k, v, o, lse, shifted)
     assert flash_attention_bwd.launches == before
+
+
+# B1 and B2 as Hopper kernels (TMA tiles behind mbarrier rings, wgmma):
+# lengths that are not whole tiles (B1: 128 queries a block, 128-key tiles;
+# B2: 128 resident rows a block, 64-row streamed tiles), fewer keys than one
+# tile, a masked key run across a tile boundary, and the strided views of a
+# fused qkv tensor; held to the bars above.
+RAGGED_FWD = [(129, 127), (64, 1), (250, 385), (1, 300)]
+RAGGED_BWD = [(129, 127), (65, 20), (250, 385), (1, 300)]
+
+
+@pytest.mark.parametrize("mode", ["online", "bounded", "bounded_exp2"])
+@pytest.mark.parametrize("sq,skv", RAGGED_FWD)
+def test_kernel_ragged_tiles_match_plain(cuda, mode, sq, skv):
+    q, k, v = _qkv(1, sq, skv, 2, 3 * sq + skv, cuda)
+    o, lse = flash_attention(q, k, v, return_lse=True, softmax_mode=mode)
+    o_ref, lse_ref = flash_attention_reference(q, k, v, return_lse=True, softmax_mode=mode)
+    torch.cuda.synchronize()
+    _assert_close(o, o_ref)
+    assert (lse - lse_ref).abs().max().item() < 1e-2
+
+
+@pytest.mark.parametrize("mode", ["online", "bounded", "bounded_exp2"])
+def test_kernel_masked_run_on_strided_views(cuda, mode):
+    qkv = torch.from_numpy(np.random.RandomState(12).randn(2, 333, 3, 2, 64).astype(np.float32)).to(cuda, torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    mask = torch.zeros(333, dtype=torch.bool, device=cuda)
+    mask[100:260] = True  # across the boundary of the first two 128-key tiles
+    mask[-5:] = True
+    o, lse = flash_attention(q, k, v, return_lse=True, key_pad_mask=mask, softmax_mode=mode)
+    dense = [x.contiguous() for x in (q, k, v)]
+    o_dense, lse_dense = flash_attention(*dense, return_lse=True, key_pad_mask=mask, softmax_mode=mode)
+    o_ref, lse_ref = flash_attention_reference(*dense, return_lse=True, key_pad_mask=mask, softmax_mode=mode)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o_dense) and torch.equal(lse, lse_dense)
+    _assert_close(o, o_ref)
+    assert (lse - lse_ref).abs().max().item() < 1e-2
+
+
+@pytest.mark.parametrize("sq,skv", RAGGED_BWD)
+def test_bwd_kernel_ragged_tiles_match_plain_and_schedule(cuda, sq, skv):
+    q, k, v = _qkv(1, sq, skv, 2, 5 * sq + skv, cuda)
+    o, lse = flash_attention(q, k, v, return_lse=True, softmax_mode="bounded")
+    do = torch.from_numpy(np.random.RandomState(sq).randn(*q.shape).astype(np.float32)).to(cuda, torch.bfloat16)
+    got = flash_attention_bwd(q, k, v, o, lse, do)
+    want = flash_attention_bwd_reference(q, k, v, o, lse, do)
+    emulated = flash_attention_bwd_blocked(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    for a, w, e in zip(got, want, emulated):
+        _assert_close(a, w)
+        _assert_close(a, e)
+
+
+def test_bwd_kernel_is_deterministic(cuda):
+    """Two launches on the same inputs (strided views of a fused qkv) give
+    the same gradients bit for bit: every output has one writer."""
+    qkv = torch.from_numpy(np.random.RandomState(13).randn(1, 700, 3, 3, 64).astype(np.float32)).to(cuda, torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    o, lse = flash_attention(q, k, v, return_lse=True, softmax_mode="bounded")
+    do = torch.from_numpy(np.random.RandomState(14).randn(1, 700, 3, 64).astype(np.float32)).to(cuda, torch.bfloat16)
+    first = flash_attention_bwd(q, k, v, o, lse, do)
+    second = flash_attention_bwd(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 # B4 and B5 against their plain versions on the same bf16 inputs, held to
