@@ -24,14 +24,18 @@ Phases, each printing one JSON line:
                 backward of one SDPA call (a yardstick only), with its time
                 split among its pre-pass, dq and dk/dv kernels;
   5. kernel_banded — kernel B4 (banded windowed attention; global queries
-                through B1) against its plain version: small ragged
+                through B1) against its plain version and, on the small
+                cases, the emulation of its schedule: small ragged
                 geometries (clamped windows, w = 0, a window wider than the
-                clip), and the main shape B=2, G=1,576, tpf=1,350, F=13, w=2,
-                timed beside its bound, the plain version, the gather path on
-                B1, and one SDPA call with a boolean band mask over the video
-                queries (a yardstick only);
+                clip, the main shape's remainders mod 128), and the main
+                shape B=2, G=1,576, tpf=1,350, F=13, w=2, timed (with the
+                banded launch's TFLOP/s) beside its bound, the plain version,
+                the gather path on B1, and one SDPA call with a boolean band
+                mask over the video queries (a yardstick only);
   6. kernel_banded_bwd — kernel B5 (its backward; global queries through
-                B2) the same way at the training shape (B=1);
+                B2) the same way at the training shape (B=1); two launches
+                there must agree bit for bit, and the banded launch's time is
+                split among its pre-pass, dq and dk/dv kernels;
   7. kernel_banded_local — kernel B6 (banded attention for one
                 sequence-parallel shard of video-query frames at a runtime
                 frame offset, against the full K/V) against its plain
@@ -41,12 +45,14 @@ Phases, each printing one JSON line:
                 band (B=2) for P = 1, 2, 4, the shards' rows and lse
                 stitched against B4's; timed at P = 1 and per shard at P = 4
                 beside the bound, the plain version and one masked SDPA call
-                over the shard's video queries (a yardstick only);
+                over the shard's video queries (a yardstick only); the small
+                cases also against the emulation of B6's schedule;
   8. kernel_banded_local_bwd — kernel B7 (B6's backward: the shard's dq
                 and full-extent dk/dv partials) the same way at B=1: dq
                 stitched against B5's, the partials summed with the global
                 queries' B2 part against B5's dk/dv, and junk in the dummy
-                frames' rows changing nothing;
+                frames' rows changing nothing; at one rank two launches must
+                agree bit for bit, and the time is split among its kernels;
   9. kernel_int8 — kernel B3 (int8 q·kᵀ attention) against its plain
                 PyTorch version on the same int8 pre-pass: small ragged
                 shapes with Sq != Skv, negative-logit rows with a ragged key
@@ -115,10 +121,12 @@ TRAIN_SHAPE = (1, 19126, 48, 64)  # the LoRA train step: one clip, no CFG
 BAND = (1576, 1350, 2)  # global_len, tokens_per_frame, window_frames
 # (B, H, G, tpf, F, w): ragged frames and globals, clamped windows at both
 # edges, w = 0, a small clip (span - 1 >= F - span: edge key frames take
-# every query frame), a window wider than the clip, full-size frames
+# every query frame), a window wider than the clip, the main shape's
+# remainders (168 and 198 are 40 and 70 mod 128, as 1,576 and 1,350 are), a
+# frame of exactly three query tiles, full-size frames
 BANDED_SMALL = [(2, 3, 24, 20, 5, 1), (1, 2, 24, 20, 3, 2), (1, 2, 24, 20, 4, 0), (1, 2, 24, 20, 4, 1),
                 (1, 2, 1, 8, 2, 0), (1, 2, 300, 24, 4, 1), (1, 2, 7, 130, 3, 2), (1, 2, 129, 16, 7, 3),
-                (1, 2, 50, 40, 5, 9), (1, 3, 1576, 1350, 5, 2)]
+                (1, 2, 50, 40, 5, 9), (1, 2, 168, 198, 5, 2), (1, 2, 40, 384, 3, 1), (1, 3, 1576, 1350, 5, 2)]
 MODES = ("online", "bounded", "bounded_exp2")
 MAIN_MODE = "bounded"  # the softmax mode the DiT's attention uses
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 and int8 tensor cores, HBM3
@@ -446,8 +454,22 @@ def _masked_sdpa_args(b, h, geo, seed, dev, requires_grad=False):
     return qt, kt, vt, band_mask(geo, torch.arange(geo.global_len, s, device=dev), s)
 
 
-def _compare_banded(q, k, v, band):
-    from s2v_torch.kernels.banded_attention import banded_flash_attention, banded_flash_attention_reference
+def _schedule_stats(got, emulated, what):
+    """A kernel's output against the emulation of its schedule, with the
+    limits of its plain version; the numbers the JSON lines print."""
+    stats = _agreement(got, emulated, f"{what} against the emulation of its schedule")
+    return {"schedule_max_abs_err": stats["max_abs_err"], "schedule_max_abs_tol": stats["max_abs_tol"],
+            "schedule_rel_l2": stats["rel_l2"]}
+
+
+def _compare_banded(q, k, v, band, schedule=False):
+    """B4 against its plain version (and, on the small cases, against
+    ``banded_flash_attention_blocked``, the emulation of its schedule)."""
+    from s2v_torch.kernels.banded_attention import (
+        banded_flash_attention,
+        banded_flash_attention_blocked,
+        banded_flash_attention_reference,
+    )
 
     o, lse = banded_flash_attention(q, k, v, *band, return_lse=True)
     o_ref, lse_ref = banded_flash_attention_reference(q, k, v, *band, return_lse=True)
@@ -456,7 +478,13 @@ def _compare_banded(q, k, v, band):
     lse_err = (lse - lse_ref).abs().max().item()
     if not lse_err < LSE_TOL:
         raise AssertionError(f"{what}: lse max_abs_err {lse_err} (tol {LSE_TOL})")
-    return {**stats, "lse_err": lse_err, "lse_tol": LSE_TOL}
+    stats = {**stats, "lse_err": lse_err, "lse_tol": LSE_TOL}
+    if schedule:
+        o_emu, lse_emu = banded_flash_attention_blocked(q, k, v, *band, return_lse=True)
+        stats.update(_schedule_stats(o, o_emu, what), schedule_lse_err=(lse - lse_emu).abs().max().item())
+        if not stats["schedule_lse_err"] < LSE_TOL:
+            raise AssertionError(f"{what}: lse against the emulation {stats['schedule_lse_err']} (tol {LSE_TOL})")
+    return stats
 
 
 def phase_kernel_banded(dev):
@@ -467,6 +495,7 @@ def phase_kernel_banded(dev):
     import torch
     import torch.nn.functional as F
 
+    from s2v_torch.kernels import banded_attention as ba
     from s2v_torch.kernels.banded_attention import (
         band_geometry,
         banded_flash_attention,
@@ -478,7 +507,8 @@ def phase_kernel_banded(dev):
     small = []
     for (b, h, g, tpf, f, w) in BANDED_SMALL:
         q, k, v = _qkv(b, g + f * tpf, g + f * tpf, h, g + tpf + f, dev)
-        small.append({"b": b, "h": h, "band": [g, tpf, f, w], **_compare_banded(q, k, v, (g, tpf, w))})
+        small.append({"b": b, "h": h, "band": [g, tpf, f, w],
+                      **_compare_banded(q, k, v, (g, tpf, w), schedule=True)})
     emit({"phase": "kernel_banded_small", "cases": small})
 
     b, s, h, d = MAIN_SHAPE
@@ -512,7 +542,9 @@ def phase_kernel_banded(dev):
               "plain_ms": plain_ms, "library_ms": library_ms, "library_shape": library_shape,
               "library_not_run": library_failed, "bound_ms": bound_ms, "bound_by": bound_by,
               "video_bound_ms": video_bound_ms, "global_bound_ms": flops_glob / PEAK_BF16_FLOPS * 1e3,
-              "video_tflops": flops_vid / video_ms / 1e9}
+              "video_tflops": flops_vid / video_ms / 1e9,
+              "small_worst_schedule_share": max(c["schedule_max_abs_err"] / c["schedule_max_abs_tol"] for c in small),
+              "smem_bytes": ba._library().s2v_banded_attention_fwd_smem_bytes()}
     emit(result)
     return result
 
@@ -530,16 +562,51 @@ def _banded_bwd_inputs(b, h, s, band, seed, dev, layer_norm=False):
     return q, k, v, o, lse, do
 
 
-def _compare_banded_bwd(q, k, v, o, lse, do, band):
+def _compare_banded_bwd(q, k, v, o, lse, do, band, schedule=False):
+    """B5 against its plain version (and, on the small cases, against
+    ``banded_flash_attention_bwd_blocked``, the emulation of its schedule)."""
     from s2v_torch.kernels.banded_attention_bwd import (
         banded_flash_attention_bwd,
+        banded_flash_attention_bwd_blocked,
         banded_flash_attention_bwd_reference,
     )
 
     got = banded_flash_attention_bwd(q, k, v, o, lse, do, *band)
     want = banded_flash_attention_bwd_reference(q, k, v, o, lse, do, *band)
     what = f"banded_flash_attention_bwd {tuple(q.shape)} band {band}"
-    return {name: _agreement(a, r, f"{what} {name}") for name, a, r in zip(("dq", "dk", "dv"), got, want)}
+    stats = {name: _agreement(a, r, f"{what} {name}") for name, a, r in zip(("dq", "dk", "dv"), got, want)}
+    if schedule:
+        emulated = banded_flash_attention_bwd_blocked(q, k, v, o, lse, do, *band)
+        for name, a, e in zip(("dq", "dk", "dv"), got, emulated):
+            stats[name].update(_schedule_stats(a, e, f"{what} {name}"))
+    return stats
+
+
+def _determinism(fn, args, what):
+    """Two launches on the same inputs must give the same gradients bit for
+    bit (every output has one writer); raises otherwise."""
+    import torch
+
+    first, second = fn(*args), fn(*args)
+    same = {name: bool(torch.equal(a, c)) for name, a, c in zip(("dq", "dk", "dv"), first, second)}
+    if not all(same.values()):
+        raise AssertionError(f"{what}: two launches on the same inputs differ: {same}")
+    return same
+
+
+def _banded_bwd_parts_ms(launch, workspace_rows, q):
+    """A banded backward's time split among its three kernels (pre-pass, dq,
+    dk/dv), each launched alone on a workspace that a whole launch has
+    filled; ``launch(workspace, parts)`` launches the parts."""
+    from s2v_torch.kernels import banded_attention_bwd as bab
+
+    ws = bab.banded_bwd_workspace(q, workspace_rows)
+    launch(ws, bab.ALL_PARTS)
+    out = {}
+    for name, part in (("prepass", bab.PART_PREPASS), ("dq", bab.PART_DQ), ("dkv", bab.PART_DKV)):
+        launch(ws, part)  # warm-up
+        out[name] = cuda_ms(lambda: launch(ws, part), 10)
+    return out
 
 
 def phase_kernel_banded_bwd(dev):
@@ -550,31 +617,36 @@ def phase_kernel_banded_bwd(dev):
     import torch
     import torch.nn.functional as F
 
+    from s2v_torch.kernels import banded_attention_bwd as bab
     from s2v_torch.kernels.banded_attention import band_geometry
     from s2v_torch.kernels.banded_attention_bwd import (
         banded_flash_attention_bwd,
         banded_flash_attention_bwd_reference,
         launch_banded_bwd,
     )
-    from s2v_torch.kernels.flash_attention_bwd import row_delta
 
     small = []
     for (b, h, g, tpf, f, w) in BANDED_SMALL:
         inputs = _banded_bwd_inputs(b, h, g + f * tpf, (g, tpf, w), g + tpf + f, dev)
-        small.append({"b": b, "h": h, "band": [g, tpf, f, w], **_compare_banded_bwd(*inputs, (g, tpf, w))})
+        small.append({"b": b, "h": h, "band": [g, tpf, f, w],
+                      **_compare_banded_bwd(*inputs, (g, tpf, w), schedule=True)})
     emit({"phase": "kernel_banded_bwd_small", "cases": small})
 
     b, s, h, d = TRAIN_SHAPE
     geo = band_geometry(s, *BAND)
     q, k, v, o, lse, do = _banded_bwd_inputs(b, h, s, BAND, 11, dev, layer_norm=True)
     stats = _compare_banded_bwd(q, k, v, o, lse, do, BAND)
+    deterministic = _determinism(banded_flash_attention_bwd, (q, k, v, o, lse, do, *BAND), "banded_flash_attention_bwd")
     banded_flash_attention_bwd(q, k, v, o, lse, do, *BAND)  # warm-up
     ms = cuda_ms(lambda: banded_flash_attention_bwd(q, k, v, o, lse, do, *BAND), 10)
-    delta = row_delta(o, do)
     grads = [torch.empty_like(q) for _ in range(3)]
-    video_ms = cuda_ms(lambda: launch_banded_bwd(q, k, v, do, lse, delta, *grads, geo, d ** -0.5), 10)
+    rows = geo.n_frames * geo.tokens_per_frame
+    ws = bab.banded_bwd_workspace(q, rows)
+    video_ms = cuda_ms(lambda: launch_banded_bwd(q, k, v, o, do, lse, *grads, geo, d ** -0.5, ws), 10)
+    parts_ms = _banded_bwd_parts_ms(
+        lambda ws_, parts: launch_banded_bwd(q, k, v, o, do, lse, *grads, geo, d ** -0.5, ws_, parts), rows, q)
     plain_ms = cuda_ms(lambda: banded_flash_attention_bwd_reference(q, k, v, o, lse, do, *BAND), 2)
-    del grads, delta
+    del grads, ws
 
     def masked_sdpa_bwd(shape):
         qt, kt, vt, mask = _masked_sdpa_args(*shape, geo, 11, dev, requires_grad=True)
@@ -594,7 +666,11 @@ def phase_kernel_banded_bwd(dev):
               "ms": ms, "video_launch_ms": video_ms, "plain_ms": plain_ms, "library_ms": library_ms,
               "library_shape": library_shape, "library_not_run": library_failed, "bound_ms": bound_ms,
               "bound_by": bound_by, "video_bound_ms": video_bound_ms,
-              "global_bound_ms": flops_glob / PEAK_BF16_FLOPS * 1e3, "video_tflops": flops_vid / video_ms / 1e9}
+              "global_bound_ms": flops_glob / PEAK_BF16_FLOPS * 1e3, "video_tflops": flops_vid / video_ms / 1e9,
+              "video_parts_ms": parts_ms, "deterministic": deterministic,
+              "small_worst_schedule_share": max(c[n]["schedule_max_abs_err"] / c[n]["schedule_max_abs_tol"]
+                                                for c in small for n in ("dq", "dk", "dv")),
+              "smem_bytes": bab._library().s2v_banded_attention_bwd_smem_bytes()}
     emit(result)
     return result
 
@@ -644,12 +720,13 @@ def phase_kernel_banded_local(dev):
         band_geometry,
         band_mask,
         banded_flash_attention,
+        banded_flash_attention_blocked,
         banded_flash_attention_local,
         banded_flash_attention_local_reference,
         ring_shards,
     )
 
-    def compare(q_loc, k, v, geo, off):
+    def compare(q_loc, k, v, geo, off, schedule=False):
         band = (geo.global_len, geo.tokens_per_frame, geo.window)
         o, lse = banded_flash_attention_local(q_loc, k, v, *band, off, geo.n_frames, return_lse=True)
         o_ref, lse_ref = banded_flash_attention_local_reference(q_loc, k, v, *band, off, geo.n_frames,
@@ -659,7 +736,14 @@ def phase_kernel_banded_local(dev):
         lse_err = (lse - lse_ref).abs().max().item()
         if not lse_err < LSE_TOL:
             raise AssertionError(f"{what}: lse max_abs_err {lse_err} (tol {LSE_TOL})")
-        return {**stats, "lse_err": lse_err}, o, lse
+        stats = {**stats, "lse_err": lse_err}
+        if schedule:
+            o_emu, lse_emu = banded_flash_attention_blocked(q_loc, k, v, *band, return_lse=True, frame_offset=off,
+                                                            n_frames_total=geo.n_frames)
+            stats.update(_schedule_stats(o, o_emu, what), schedule_lse_err=(lse - lse_emu).abs().max().item())
+            if not stats["schedule_lse_err"] < LSE_TOL:
+                raise AssertionError(f"{what}: lse against the emulation {stats['schedule_lse_err']}")
+        return stats, o, lse
 
     small, refused = [], []
     for (b, h, g, tpf, f, w) in BANDED_SMALL:
@@ -676,9 +760,10 @@ def phase_kernel_banded_local(dev):
                     continue
                 raise AssertionError(f"a {ring}-rank ring over {f} frames was not refused")
             for r in range(ring):
-                stats, _, _ = compare(_shard_rows(q, geo, f_loc, r * f_loc), k, v, geo, r * f_loc)
+                stats, _, _ = compare(_shard_rows(q, geo, f_loc, r * f_loc), k, v, geo, r * f_loc, schedule=True)
                 small.append({"band": [b, h, g, tpf, f, w], "ring": ring, "offset": r * f_loc,
-                              "dummy_frames": f_loc - geo.shard(r * f_loc, f_loc).real_frames(), **_compact(stats)})
+                              "dummy_frames": f_loc - geo.shard(r * f_loc, f_loc).real_frames(), **_compact(stats),
+                              "schedule_share": stats["schedule_max_abs_err"] / stats["schedule_max_abs_tol"]})
     emit({"phase": "kernel_banded_local_small", "cases": small, "refused_rings": refused})
 
     b, s, h, d = MAIN_SHAPE
@@ -742,8 +827,9 @@ def phase_kernel_banded_local(dev):
     per_shard["ring4"] = [timed(4, r) for r in range(4)]
     result = {"phase": "kernel_banded_local_main", "shape": list(MAIN_SHAPE), "band": list(BAND),
               "q_shape_ring1": [b, n_frames * tpf, h, d], "stitched": stitched, "timed": per_shard,
-              # the worst small case, as a share of its limit
-              "small_worst_err_share": max(c["max_abs_err"] / c["max_abs_tol"] for c in small)}
+              # the worst small case, as a share of its limit (against the plain version, the emulation)
+              "small_worst_err_share": max(c["max_abs_err"] / c["max_abs_tol"] for c in small),
+              "small_worst_schedule_share": max(c["schedule_share"] for c in small)}
     emit(result)
     return result
 
@@ -769,8 +855,10 @@ def phase_kernel_banded_local_bwd(dev):
     )
     from s2v_torch.kernels.banded_attention_bwd import (
         banded_flash_attention_bwd,
+        banded_flash_attention_bwd_blocked,
         banded_flash_attention_local_bwd,
         banded_flash_attention_local_bwd_reference,
+        launch_banded_local_bwd,
     )
     from s2v_torch.kernels.flash_attention_bwd import flash_attention_bwd
 
@@ -780,11 +868,17 @@ def phase_kernel_banded_local_bwd(dev):
         o, lse = banded_flash_attention_local(q_loc, k, v, *band, off, geo.n_frames, return_lse=True)
         return q_loc, k, v, o, lse, do_loc, *band, off, geo.n_frames
 
-    def compare(args):
+    def compare(args, schedule=False):
         got = banded_flash_attention_local_bwd(*args)
         want = banded_flash_attention_local_bwd_reference(*args)
         what = f"banded_flash_attention_local_bwd {tuple(args[0].shape)} offset {args[9]}"
-        return got, {n: _agreement_or_zero(a, r, f"{what} {n}") for n, a, r in zip(("dq", "dk", "dv"), got, want)}
+        stats = {n: _agreement_or_zero(a, r, f"{what} {n}") for n, a, r in zip(("dq", "dk", "dv"), got, want)}
+        if schedule:
+            emulated = banded_flash_attention_bwd_blocked(*args[:9], frame_offset=args[9], n_frames_total=args[10])
+            for n, a, e in zip(("dq", "dk", "dv"), got, emulated):
+                st = _agreement_or_zero(a, e, f"{what} {n} against the emulation of its schedule")
+                stats[n]["schedule_share"] = st["max_abs_err"] / st["max_abs_tol"] if st["max_abs_tol"] else 0.0
+        return got, stats
 
     small = []
     for (b, h, g, tpf, f, w) in BANDED_SMALL:
@@ -796,9 +890,10 @@ def phase_kernel_banded_local_bwd(dev):
             if ring > f:
                 continue  # refused before the launch (kernel_banded_local checks it)
             for r in range(ring):
-                _, stats = compare(shard_inputs(q, k, v, do, geo, f_loc, r * f_loc))
+                _, stats = compare(shard_inputs(q, k, v, do, geo, f_loc, r * f_loc), schedule=True)
                 small.append({"band": [b, h, g, tpf, f, w], "ring": ring, "offset": r * f_loc,
-                              **{n: _compact(st) for n, st in stats.items()}})
+                              **{n: {**_compact(st), "schedule_share": st["schedule_share"]}
+                                 for n, st in stats.items()}})
     emit({"phase": "kernel_banded_local_bwd_small", "cases": small})
 
     b, s, h, d = TRAIN_SHAPE
@@ -851,6 +946,17 @@ def phase_kernel_banded_local_bwd(dev):
         raise AssertionError(f"B7: dummy frames contributed {dummy}")
     del clean, dirty, junk, args
 
+    # at one rank (the main path's shape): two launches agree bit for bit;
+    # the time split among the three kernels
+    args = shard_inputs(q, k, v, do, geo, n_frames, 0)
+    deterministic = _determinism(banded_flash_attention_local_bwd, args, "banded_flash_attention_local_bwd")
+    one = geo.shard(0, n_frames)
+    grads = [torch.empty_like(args[0]), torch.empty_like(k), torch.empty_like(v)]
+    parts_ms = _banded_bwd_parts_ms(
+        lambda ws, parts: launch_banded_local_bwd(args[0], k, v, args[3], args[5], args[4], *grads, one, d ** -0.5,
+                                                  ws, parts), n_frames * tpf, args[0])
+    del args, grads
+
     def timed(ring, r):
         _, f_loc = ring_shards(n_frames, ring)
         off = r * f_loc
@@ -882,7 +988,9 @@ def phase_kernel_banded_local_bwd(dev):
 
     per_shard = {"ring1": timed(1, 0), "ring4": [timed(4, r) for r in range(4)]}
     result = {"phase": "kernel_banded_local_bwd_main", "shape": list(TRAIN_SHAPE), "band": list(BAND),
-              "stitched": stitched, "dummy_frames": dummy, "timed": per_shard,
+              "stitched": stitched, "dummy_frames": dummy, "timed": per_shard, "deterministic": deterministic,
+              "parts_ms_ring1": parts_ms,
+              "small_worst_schedule_share": max(c[n]["schedule_share"] for c in small for n in ("dq", "dk", "dv")),
               # the worst small case (an all-zero partial has limit 0 and is held to exact zero)
               "small_worst_err_share": max(st["max_abs_err"] / st["max_abs_tol"] for c in small
                                            for n, st in c.items() if n in ("dq", "dk", "dv") and st["max_abs_tol"])}
@@ -1500,6 +1608,7 @@ def kernels_line(results):
         **common,
         "name": "banded_flash_attention",
         "source": "s2v_torch/csrc/banded_attention.cu",
+        "headers": ["s2v_torch/csrc/hopper.cuh", "s2v_torch/csrc/band.cuh"],
         "replaces": "s2v_tpu/ops/pallas/banded_attention.py:155",
         "launches": results["e2e_windowed"]["banded_flash_attention"],
         "launches_by_path": _path_launches(results, "banded_flash_attention"),
@@ -1516,6 +1625,9 @@ def kernels_line(results):
         # the video queries alone: the banded launch and the masked SDPA call
         "video_launch_ms": banded["video_launch_ms"],
         "video_bound_ms": banded["video_bound_ms"],
+        "video_tflops": banded["video_tflops"],
+        "smem_bytes": banded["smem_bytes"],
+        "small_worst_schedule_share": banded["small_worst_schedule_share"],
         "library_ms": banded["library_ms"],
         "library_shape": banded["library_shape"],
         "library_covers": "video queries (masked SDPA)",
@@ -1526,6 +1638,7 @@ def kernels_line(results):
         **common,
         "name": "banded_flash_attention_bwd",
         "source": "s2v_torch/csrc/banded_attention_bwd.cu",
+        "headers": ["s2v_torch/csrc/hopper.cuh", "s2v_torch/csrc/band.cuh"],
         "replaces": "s2v_tpu/ops/pallas/banded_attention_bwd.py:178",
         "launches": sum(c["banded_flash_attention_bwd"] for c in results["train_windowed"]["launches"]),
         "launches_by_path": _path_launches(results, "banded_flash_attention_bwd"),
@@ -1539,6 +1652,11 @@ def kernels_line(results):
         "bound_by": banded_bwd["bound_by"],
         "video_launch_ms": banded_bwd["video_launch_ms"],
         "video_bound_ms": banded_bwd["video_bound_ms"],
+        "video_tflops": banded_bwd["video_tflops"],
+        "video_parts_ms": banded_bwd["video_parts_ms"],
+        "deterministic": banded_bwd["deterministic"],
+        "smem_bytes": banded_bwd["smem_bytes"],
+        "small_worst_schedule_share": banded_bwd["small_worst_schedule_share"],
         "library_ms": banded_bwd["library_ms"],
         "library_shape": banded_bwd["library_shape"],
         "library_covers": "video queries (backward of masked SDPA)",
@@ -1570,6 +1688,7 @@ def kernels_line(results):
         **common,
         "name": "banded_flash_attention_local",
         "source": "s2v_torch/csrc/banded_attention.cu",
+        "headers": ["s2v_torch/csrc/hopper.cuh", "s2v_torch/csrc/band.cuh"],
         "replaces": "s2v_tpu/ops/pallas/banded_attention.py:281",
         "launches": results["e2e_sp_windowed"]["banded_flash_attention_local"],
         "launches_by_path": _path_launches(results, "banded_flash_attention_local"),
@@ -1581,6 +1700,8 @@ def kernels_line(results):
         "lse_tol": LSE_TOL,
         # the worst small case over every offset of the 2- and 4-rank rings, as a share of its limit
         "small_worst_err_share": local["small_worst_err_share"],
+        "small_worst_schedule_share": local["small_worst_schedule_share"],
+        "tflops": local["timed"]["ring1"]["tflops"],
         "stitched_vs_b4": {k: v for k, v in local["stitched"].items() if k != "plain"},
         **_timed_fields(local["timed"]),
         "library_covers": "the shard's video queries (masked SDPA)",
@@ -1591,6 +1712,7 @@ def kernels_line(results):
         **common,
         "name": "banded_flash_attention_local_bwd",
         "source": "s2v_torch/csrc/banded_attention_bwd.cu",
+        "headers": ["s2v_torch/csrc/hopper.cuh", "s2v_torch/csrc/band.cuh"],
         "replaces": "s2v_tpu/ops/pallas/banded_attention_bwd.py:375",
         "launches": sum(c["banded_flash_attention_local_bwd"] for c in results["train_sp_windowed"]["launches"]),
         "launches_by_path": _path_launches(results, "banded_flash_attention_local_bwd"),
@@ -1598,6 +1720,10 @@ def kernels_line(results):
         "max_abs_tol": min(v["max_abs_tol"] for v in local_bwd["stitched"]["plain"].values()),
         "rel_l2": worst(local_bwd["stitched"]["plain"], "rel_l2"),
         "small_worst_err_share": local_bwd["small_worst_err_share"],
+        "small_worst_schedule_share": local_bwd["small_worst_schedule_share"],
+        "tflops": local_bwd["timed"]["ring1"]["tflops"],
+        "parts_ms": local_bwd["parts_ms_ring1"],
+        "deterministic": local_bwd["deterministic"],
         "stitched_vs_b5": {k: v for k, v in local_bwd["stitched"].items() if k != "plain"},
         "dummy_frames": local_bwd["dummy_frames"],
         **_timed_fields(local_bwd["timed"]),

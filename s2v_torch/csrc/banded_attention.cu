@@ -6,69 +6,93 @@
 // pallas_call of _flash_kernel over a frame-padded layout), and kernel B6,
 // ::banded_flash_attention_local (_flash_kernel_sp: the same band for one
 // sequence-parallel shard of video-query frames, at a runtime frame offset,
-// against the full K/V).  The sequence is
-// [global G (text | ref) | F frames of tpf tokens]; video query frame f
-// attends the global keys [0, G) and the frames ws(f) .. ws(f) + span - 1,
-//   ws(f) = clamp(f - w, 0, F - span),   span = min(2w + 1, F).
-// The global queries attend everything; the wrapper sends them to kernel B1.
-// B6's queries are a tensor of their own, [B, F_loc*tpf, H, d]: local frame fl
-// is global frame frame_offset + fl, clamped with the global F, and frames at
-// or past F (ring-padding dummy frames) take the last window.  One kernel
-// serves both: the query frames start at row q_row0 of q/o (G for B4, 0 for
-// B6) and at global frame frame_offset (0 for B4), both runtime arguments.
+// against the full K/V).  The band is band.cuh's: video query frame f attends
+// the global keys [0, G) and the frames ws(f) .. ws(f) + span - 1.  The global
+// queries attend everything; the wrapper sends them to kernel B1.  B6's
+// queries are a tensor of their own, [B, F_loc*tpf, H, d]: local frame fl is
+// global frame frame_offset + fl, and frames at or past F (ring-padding dummy
+// frames) take the last window.  One __global__ serves both: the query frames
+// start at row q_row0 of q/o (G for B4, 0 for B6) and at global frame
+// frame_offset (0 for B4), both runtime arguments, so B6 at one rank computes
+// B4's video rows bit for bit.
 //
-// It computes that contract, not the TPU layout: the window of frame f is one
-// contiguous key range [G + ws(f)*tpf, G + (ws(f) + span)*tpf) of the original
-// [B, S, H, d] order, so q/k/v are read through strides and each block walks
-// two key ranges (no frame padding to 128 lanes, no -1e30 mask column, no
-// pad-indicator row, no ones column).  A query tile never crosses a frame
-// boundary, so a block has one window; the ragged ends of the query tile and
-// of both key ranges are predicates.
+// It computes that contract, not the TPU layout: a frame's window is one
+// contiguous key range of the original [B, S, H, d] order, so q/k/v are read
+// through strides (TMA maps) and each block walks two key ranges (no frame
+// padding to 128 lanes, no -1e30 mask column, no pad-indicator row).
 //
 // Bound on an H100 SXM at the main-path shape (B=2, H=48, G=1,576, tpf=1,350,
 // F=13, w=2, d=64): 17,550 video queries x 8,326 keys each, 4*B*H*d*pairs =
 // 3.59e12 operations, 3.63 ms at the 989 TFLOP/s bf16 tensor-core peak,
-// against ~0.24 GB of q/k/v/o traffic (0.07 ms at 3.35 TB/s): compute-bound.
+// against ~0.24 GB of q/k/v/o traffic (0.07 ms at 3.35 TB/s): compute-bound,
+// with the exponentials (1.4e10) a second ceiling of ~3.8 ms on the SFUs.
 // B6 at world size 1 does the same work; a shard of a P-rank ring its real
 // frames' share (~1/P), and it computes its dummy frames too.
 //
-// Design (B1's online kernel on a band; simple and right first):
-//   * grid (F * ceil(tpf/128), B*H); 8 warps per block, 16 query rows per warp;
-//   * K/V tiles of 64 keys double-buffered in shared memory with cp.async,
-//     rows padded to 72 elements; tile j < ceil(G/64) is global, the rest walk
-//     the window; keys past the end of their range read as zeros and get a
-//     -inf logit;
-//   * mma.sync m16n8k16 bf16 with fp32 accumulation; P re-packed in registers;
-//   * online softmax (running max, rescale) in fp32; logits scaled in fp32
-//     after the product, exponentials as exp2 with log2(e) in the scale.
-// Output in bf16, plus the natural-log lse [B, H, S] at the video rows.
+// Design: kernel B1's (flash_attention.cu, on hopper.cuh) on a band.
+//   * grid (F_loc * ceil(tpf/128), B*H): a block owns 128 query rows of one
+//     frame; 3 warpgroups: warpgroup 0 is the producer (one thread issues
+//     TMA, setmaxnreg gives its registers away), warpgroups 1 and 2 each own
+//     64 query rows;
+//   * q: one TMA load of the block's 128 rows (16 KB, 128B-swizzled) through
+//     a map over q's own tensor, kept in shared memory as the A operand of
+//     S = q.K^T (wgmma m64n128k16, both operands from shared memory: the 16
+//     registers of a q fragment stay free);
+//   * K and V stream in 128-key tiles through a ring of kStages stages with
+//     full/empty mbarriers, in the order of band::key_walk: the global range,
+//     then the window (one range when ws = 0);
+//   * the softmax runs online in fp32 registers with ex2.approx; P is
+//     re-packed to bf16 registers as the A operand of O += P.V (wgmma
+//     m64n64k16, V read MN-major with the transpose bit); the two consumer
+//     warpgroups run independently, so one's exponentials overlap the
+//     other's products.
+// What differs from B1, and is handled here:
+//   * two key ranges, and TMA masks neither: a tile that runs past the end of
+//     its range brings the next range's real keys (at the main shape the last
+//     global tile holds 88 video keys, the last window tile 34 keys of the
+//     next frame).  Every tile whose range ends inside it gets -inf logits
+//     past kend: at most two tiles a block;
+//   * the query tile ends at the frame, not at the tensor (tpf = 10*128 + 70):
+//     the last tile's TMA box reads the next frame's rows (or zeros past the
+//     tensor), whose results are never stored; o and lse writes are
+//     predicated on the frame's end;
+//   * B6's dummy frames take the last window, as the TPU kernel does.
+// Output in bf16, plus the natural-log lse [B, H, stat_rows] at the query rows.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "band.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kD = 64;             // head dim (CogVideoX 2b and 5b)
-constexpr int kBQ = 128;           // query rows per block
-constexpr int kBK = 64;            // keys per tile
-constexpr int kWarps = kBQ / 16;   // one m16 row slab per warp
-constexpr int kThreads = kWarps * 32;
-constexpr int kLds = kD + 8;       // padded shared-memory row, in elements
+using namespace hopper;
+
+constexpr int kD = 64;            // head dim (CogVideoX 2b and 5b)
+constexpr int kRowsPerWg = 64;    // query rows of one consumer warpgroup
+constexpr int kConsumers = 2;     // consumer warpgroups
+constexpr int kBQ = kRowsPerWg * kConsumers;
+constexpr int kBK = 128;          // keys per tile
+constexpr int kStages = 3;
+constexpr int kThreads = 128 * (kConsumers + 1);
+constexpr uint32_t kTileBytes = kBK * kD * 2;
 constexpr float kNegBig = -1e30f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-__device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000u); }
+struct Smem {
+  __nv_bfloat16 q[kBQ * kD];           // 16 KB, so every tile below stays 1024-aligned
+  __nv_bfloat16 k[kStages][kBK * kD];
+  __nv_bfloat16 v[kStages][kBK * kD];
+  uint64_t full[kStages];
+  uint64_t empty[kStages];
+  uint64_t q_full;
+};
+constexpr int kSmemBytes = sizeof(Smem) + 1024;
 
 struct Params {
-  const __nv_bfloat16* q;
-  const __nv_bfloat16* k;
-  const __nv_bfloat16* v;
+  CUtensorMap q_map;  // box (64, kBQ), over q's own tensor
+  CUtensorMap k_map;  // box (64, kBK)
+  CUtensorMap v_map;
   __nv_bfloat16* o;
   float* lse;  // [B, H, stat_rows] or null; written at the query rows only
-  long long q_sb, q_ss, q_sh;
-  long long k_sb, k_ss, k_sh;
-  long long v_sb, v_ss, v_sh;
   long long o_sb, o_ss, o_sh;
   int H, G, tpf, n_frames, span, window;
   int q_row0;        // row of q/o/lse holding the first query frame's first token
@@ -78,217 +102,116 @@ struct Params {
   float scale_log2;  // softmax scale * log2(e)
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
+__device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000u); }
 
-// 16-byte async copy; valid == false zero-fills the destination.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const int src_bytes = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
+// The block's query frame: its rows [frame0, frame0 + tpf) of q/o, the first
+// row of its tile, and its key walk.
+struct Block {
+  int frame0;
+  int tile_row;
+  band::KeyWalk walk;
+};
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void mma_bf16_16816(float* c, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t load_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__global__ void __launch_bounds__(kThreads, 2) banded_fwd_kernel(const Params p) {
-  __shared__ __align__(16) __nv_bfloat16 k_s[2][kBK * kLds];
-  __shared__ __align__(16) __nv_bfloat16 v_s[2][kBK * kLds];
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;  // fragment row group
-  const int t4 = lane & 3;  // thread within the group
-  const int b = blockIdx.y / p.H;
-  const int h = blockIdx.y % p.H;
-  const int fl = blockIdx.x / p.q_tiles;  // this block's query frame in the call
+__device__ __forceinline__ Block block_of(const Params& p) {
+  const int fl = blockIdx.x / p.q_tiles;  // query frame in the call
   const int f = p.frame_offset + fl;      // ... and in the clip (>= F: a dummy frame)
-  const int frame0 = p.q_row0 + fl * p.tpf;
-  const int row_end = frame0 + p.tpf;  // rows of the frame: [frame0, row_end)
-  const int row0 = frame0 + (blockIdx.x % p.q_tiles) * kBQ + warp * 16 + g;
-  const int row1 = row0 + 8;
+  Block blk;
+  blk.frame0 = p.q_row0 + fl * p.tpf;
+  blk.tile_row = blk.frame0 + (blockIdx.x % p.q_tiles) * kBQ;
+  blk.walk = band::key_walk<kBK>(p.G, p.tpf, band::window_start(f, p.window, p.n_frames, p.span), p.span);
+  return blk;
+}
 
-  // the frame's window: one contiguous key range after the global keys
-  const int ws = min(max(f - p.window, 0), p.n_frames - p.span);
-  const int win_lo = p.G + ws * p.tpf;
-  const int win_hi = win_lo + p.span * p.tpf;
-  const int glob_tiles = (p.G + kBK - 1) / kBK;
-  const int n_tiles = glob_tiles + (p.span * p.tpf + kBK - 1) / kBK;
+__device__ __forceinline__ void consumer(const Params& p, Smem& sm, const Block& blk, int wg, int b, int h) {
+  const int tid = threadIdx.x & 127;
+  const int lane = tid & 31;
+  const int t = lane & 3;
+  const int row0 = blk.tile_row + wg * kRowsPerWg + (tid >> 5) * 16 + (lane >> 2);  // and row0 + 8
+  const int row_end = blk.frame0 + p.tpf;
+  const __nv_bfloat16* q_s = sm.q + wg * kRowsPerWg * kD;  // this warpgroup's 64 rows
 
-  const __nv_bfloat16* qp = p.q + b * p.q_sb + h * p.q_sh;
-  const __nv_bfloat16* kp = p.k + b * p.k_sb + h * p.k_sh;
-  const __nv_bfloat16* vp = p.v + b * p.v_sb + h * p.v_sh;
-
-  // A fragments of the warp's 16 query rows, all 64 dims (4 k16 chunks).
-  uint32_t qf[4][4];
+  float o_acc[32];
 #pragma unroll
-  for (int kc = 0; kc < 4; ++kc) {
-    const int c = kc * 16 + t4 * 2;
-    qf[kc][0] = row0 < row_end ? load_u32(qp + row0 * p.q_ss + c) : 0u;
-    qf[kc][1] = row1 < row_end ? load_u32(qp + row1 * p.q_ss + c) : 0u;
-    qf[kc][2] = row0 < row_end ? load_u32(qp + row0 * p.q_ss + c + 8) : 0u;
-    qf[kc][3] = row1 < row_end ? load_u32(qp + row1 * p.q_ss + c + 8) : 0u;
-  }
-
-  // tile j -> its first key and the end of its key range
-  auto tile_range = [&](int j, int& kbase, int& kend) {
-    if (j < glob_tiles) {
-      kbase = j * kBK;
-      kend = p.G;
-    } else {
-      kbase = win_lo + (j - glob_tiles) * kBK;
-      kend = win_hi;
-    }
-  };
-
-  auto load_tile = [&](int j, int buf) {
-    int kbase, kend;
-    tile_range(j, kbase, kend);
-#pragma unroll
-    for (int i = tid; i < kBK * (kD / 8); i += kThreads) {
-      const int r = i >> 3;
-      const int ch = (i & 7) * 8;
-      const int key = kbase + r;
-      const bool ok = key < kend;
-      const long long kk = ok ? key : 0;
-      cp_async16(&k_s[buf][r * kLds + ch], kp + kk * p.k_ss + ch, ok);
-      cp_async16(&v_s[buf][r * kLds + ch], vp + kk * p.v_ss + ch, ok);
-    }
-  };
-
-  float o_acc[8][4];
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-    o_acc[nt][0] = o_acc[nt][1] = o_acc[nt][2] = o_acc[nt][3] = 0.f;
-  }
+  for (int i = 0; i < 32; ++i) o_acc[i] = 0.f;
   float m_run[2] = {kNegBig, kNegBig};  // running max, log2 units
   float l_run[2] = {0.f, 0.f};          // this thread's share of the row sums
+  const float c = p.scale_log2;
+  mbar_wait(&sm.q_full, 0);
 
-  load_tile(0, 0);
-  cp_async_commit();
+  float s[64];
+  for (int j = 0; j < blk.walk.n_tiles; ++j) {
+    const int st = j % kStages;
+    mbar_wait(&sm.full[st], (j / kStages) & 1);
 
-  for (int j = 0; j < n_tiles; ++j) {
-    const int buf = j & 1;
-    if (j + 1 < n_tiles) {
-      load_tile(j + 1, buf ^ 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-
-    // S = Q K^T: 16 rows x 64 keys per warp, 8 n8 tiles.
-    float s[8][4];
+    // S = q K^T: 64 rows x 128 keys
+    wgmma_fence();
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-      for (int kc = 0; kc < 4; ++kc) {
-        const __nv_bfloat16* kr = &k_s[buf][(nt * 8 + g) * kLds + kc * 16 + t4 * 2];
-        const uint32_t bf[2] = {load_u32(kr), load_u32(kr + 8)};
-        mma_bf16_16816(s[nt], qf[kc], bf);
-      }
+    for (int kk = 0; kk < 4; ++kk) {
+      mma_m64n128k16_ss<0>(s, desc_kmajor(q_s, kk), desc_kmajor(sm.k[st], kk), kk > 0);
     }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
 
-    // scale to log2 units; keys past the end of the tile's range get -inf
+    // keys past the end of the tile's range (the next range's, or zeros) get -inf
     int kbase, kend;
-    tile_range(j, kbase, kend);
-    const bool need_mask = kbase + kBK > kend;
+    band::tile_keys<kBK>(blk.walk, j, kbase, kend);
+    if (kbase + kBK > kend) {
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[nt][e] * p.scale_log2;
-        if (need_mask && kbase + nt * 8 + t4 * 2 + (e & 1) >= kend) x = neg_inf();
-        s[nt][e] = x;
+      for (int i = 0; i < 64; ++i) {
+        const int col = (i >> 2) * 8 + t * 2 + (i & 1);
+        if (kbase + col >= kend) s[i] = neg_inf();
       }
     }
 
-    float mx0 = m_run[0], mx1 = m_run[1];
+    float mx0 = neg_inf(), mx1 = neg_inf();
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
+    for (int j8 = 0; j8 < 16; ++j8) {
+      mx0 = fmaxf(mx0, fmaxf(s[4 * j8], s[4 * j8 + 1]));
+      mx1 = fmaxf(mx1, fmaxf(s[4 * j8 + 2], s[4 * j8 + 3]));
     }
     mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
     mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
     mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
     mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-    const float a0 = fast_exp2(m_run[0] - mx0);
-    const float a1 = fast_exp2(m_run[1] - mx1);
-    m_run[0] = mx0;
-    m_run[1] = mx1;
+    // the max in log2 units (scale > 0); every tile holds a key of its range
+    const float new0 = fmaxf(m_run[0], mx0 * c);
+    const float new1 = fmaxf(m_run[1], mx1 * c);
+    const float a0 = fast_exp2(m_run[0] - new0);
+    const float a1 = fast_exp2(m_run[1] - new1);
+    m_run[0] = new0;
+    m_run[1] = new1;
     l_run[0] *= a0;
     l_run[1] *= a1;
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      o_acc[nt][0] *= a0;
-      o_acc[nt][1] *= a0;
-      o_acc[nt][2] *= a1;
-      o_acc[nt][3] *= a1;
-      s[nt][0] = fast_exp2(s[nt][0] - mx0);
-      s[nt][1] = fast_exp2(s[nt][1] - mx0);
-      s[nt][2] = fast_exp2(s[nt][2] - mx1);
-      s[nt][3] = fast_exp2(s[nt][3] - mx1);
-      l_run[0] += s[nt][0] + s[nt][1];
-      l_run[1] += s[nt][2] + s[nt][3];
+    for (int j8 = 0; j8 < 8; ++j8) {
+      o_acc[4 * j8 + 0] *= a0;
+      o_acc[4 * j8 + 1] *= a0;
+      o_acc[4 * j8 + 2] *= a1;
+      o_acc[4 * j8 + 3] *= a1;
+    }
+#pragma unroll
+    for (int j8 = 0; j8 < 16; ++j8) {
+      s[4 * j8 + 0] = fast_exp2(fmaf(s[4 * j8 + 0], c, -new0));
+      s[4 * j8 + 1] = fast_exp2(fmaf(s[4 * j8 + 1], c, -new0));
+      s[4 * j8 + 2] = fast_exp2(fmaf(s[4 * j8 + 2], c, -new1));
+      s[4 * j8 + 3] = fast_exp2(fmaf(s[4 * j8 + 3], c, -new1));
+      l_run[0] += s[4 * j8] + s[4 * j8 + 1];
+      l_run[1] += s[4 * j8 + 2] + s[4 * j8 + 3];
     }
 
-    // O += P V: P re-packed from the S accumulator as bf16 A fragments.
+    // O += P V: P re-packed from the S accumulator as bf16 A fragments
+    uint32_t pa[8][4];
 #pragma unroll
-    for (int kc = 0; kc < 4; ++kc) {
-      const uint32_t pa[4] = {
-          pack_bf16x2(s[2 * kc][0], s[2 * kc][1]),
-          pack_bf16x2(s[2 * kc][2], s[2 * kc][3]),
-          pack_bf16x2(s[2 * kc + 1][0], s[2 * kc + 1][1]),
-          pack_bf16x2(s[2 * kc + 1][2], s[2 * kc + 1][3]),
-      };
-      const uint16_t* vr =
-          reinterpret_cast<const uint16_t*>(&v_s[buf][(kc * 16 + t4 * 2) * kLds + g]);
+    for (int kc = 0; kc < 8; ++kc) acc_to_a(pa[kc], s, kc);
+    wgmma_fence();
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const uint16_t* vc = vr + nt * 8;
-        const uint32_t bf[2] = {
-            uint32_t(vc[0]) | (uint32_t(vc[kLds]) << 16),
-            uint32_t(vc[8 * kLds]) | (uint32_t(vc[9 * kLds]) << 16),
-        };
-        mma_bf16_16816(o_acc[nt], pa, bf);
-      }
-    }
-    __syncthreads();  // the next iteration's copy overwrites this buffer
+    for (int kc = 0; kc < 8; ++kc) mma_m64n64k16_rs<1>(o_acc, pa[kc], desc_mnmajor(sm.v[st], kc), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o_acc);
+    fence_regs(pa);
+    if (lane == 0) mbar_arrive(&sm.empty[st]);  // this warp is done with the stage
   }
 
   // full row sums: reduce over the four threads that share a row
@@ -297,39 +220,78 @@ __global__ void __launch_bounds__(kThreads, 2) banded_fwd_kernel(const Params p)
     l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
     l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
   }
-
-  __nv_bfloat16* op = p.o + b * p.o_sb + h * p.o_sh;
+  // l > 0: every row sees at least one global key
+  store_rows(p.o + b * p.o_sb + h * p.o_sh, p.o_ss, row0, row_end, o_acc, 1.f / l_run[0], 1.f / l_run[1], t);
+  if (p.lse != nullptr && t == 0) {
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = r == 0 ? row0 : row1;
-    if (row >= row_end) continue;
-    const float l = l_run[r];  // > 0: every row sees at least one global key
-    const float inv = 1.f / l;
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const uint32_t packed = pack_bf16x2(o_acc[nt][2 * r] * inv, o_acc[nt][2 * r + 1] * inv);
-      *reinterpret_cast<uint32_t*>(op + row * p.o_ss + nt * 8 + t4 * 2) = packed;
-    }
-    if (p.lse != nullptr && t4 == 0) {
-      p.lse[((long long)b * p.H + h) * p.stat_rows + row] = m_run[r] * kLn2 + logf(l);
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row < row_end) p.lse[((long long)b * p.H + h) * p.stat_rows + row] = m_run[r] * kLn2 + logf(l_run[r]);
     }
   }
 }
 
+__global__ void __launch_bounds__(kThreads, 1) banded_fwd_kernel(const __grid_constant__ Params p) {
+  extern __shared__ uint8_t smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(align_1024(smem_raw));
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);  // warp-uniform
+  const int b = blockIdx.y / p.H;
+  const int h = blockIdx.y % p.H;
+  const Block blk = block_of(p);
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(&sm.full[st], 1);
+      mbar_init(&sm.empty[st], kConsumers * 4);  // one arrival per consumer warp
+    }
+    mbar_init(&sm.q_full, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      prefetch_tensor_map(&p.q_map);
+      prefetch_tensor_map(&p.k_map);
+      prefetch_tensor_map(&p.v_map);
+      mbar_arrive_expect_tx(&sm.q_full, kBQ * kD * 2);
+      tma_load_rows(sm.q, &p.q_map, &sm.q_full, blk.tile_row, h, b);
+      for (int j = 0; j < blk.walk.n_tiles; ++j) {
+        const int st = j % kStages;
+        int kbase, kend;
+        band::tile_keys<kBK>(blk.walk, j, kbase, kend);
+        mbar_wait(&sm.empty[st], ((j / kStages) & 1) ^ 1);  // the first round passes at once
+        mbar_arrive_expect_tx(&sm.full[st], 2 * kTileBytes);
+        tma_load_rows(sm.k[st], &p.k_map, &sm.full[st], kbase, h, b);
+        tma_load_rows(sm.v[st], &p.v_map, &sm.full[st], kbase, h, b);
+      }
+    }
+  } else {
+    setmaxnreg_inc<232>();
+    consumer(p, sm, blk, wg - 1, b, h);
+  }
+}
+
 // shared by the two entry points: q frames [0, q_frames) at rows q_row0 + fl*tpf
-int launch(const void* q, const void* k, const void* v, void* o, void* lse, int batch, int heads,
-           int global_len, int tokens_per_frame, int n_frames, int span, int window, int q_row0,
-           int frame_offset, int q_frames, int stat_rows, const long long* st, float scale_log2,
-           void* stream) {
+// of a q tensor of q_len rows
+int launch(const void* q, const void* k, const void* v, void* o, void* lse, int batch, int heads, int q_len,
+           int seq, int global_len, int tokens_per_frame, int n_frames, int span, int window, int q_row0,
+           int frame_offset, int q_frames, int stat_rows, const long long* st, float scale_log2, void* stream) {
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(banded_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
   Params p;
-  p.q = static_cast<const __nv_bfloat16*>(q);
-  p.k = static_cast<const __nv_bfloat16*>(k);
-  p.v = static_cast<const __nv_bfloat16*>(v);
+  int err = make_bshd_map(&p.q_map, q, batch, q_len, heads, st[0], st[1], st[2], kBQ);
+  if (err != 0) return err;
+  if ((err = make_bshd_map(&p.k_map, k, batch, seq, heads, st[3], st[4], st[5], kBK)) != 0) return err;
+  if ((err = make_bshd_map(&p.v_map, v, batch, seq, heads, st[6], st[7], st[8], kBK)) != 0) return err;
   p.o = static_cast<__nv_bfloat16*>(o);
   p.lse = static_cast<float*>(lse);
-  p.q_sb = st[0]; p.q_ss = st[1]; p.q_sh = st[2];
-  p.k_sb = st[3]; p.k_ss = st[4]; p.k_sh = st[5];
-  p.v_sb = st[6]; p.v_ss = st[7]; p.v_sh = st[8];
   p.o_sb = st[9]; p.o_ss = st[10]; p.o_sh = st[11];
   p.H = heads;
   p.G = global_len;
@@ -343,11 +305,14 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse, int 
   p.q_tiles = (tokens_per_frame + kBQ - 1) / kBQ;
   p.scale_log2 = scale_log2;
   const dim3 grid(q_frames * p.q_tiles, batch * heads);
-  banded_fwd_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  banded_fwd_kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
+
+// Dynamic shared memory a block of the kernel asks for, in bytes.
+extern "C" int s2v_banded_attention_fwd_smem_bytes() { return kSmemBytes; }
 
 // B4: q, k, v, o all [B, S, H, d]; the video rows of o and lse ([B, H, S])
 extern "C" int s2v_banded_attention_fwd(
@@ -360,7 +325,7 @@ extern "C" int s2v_banded_attention_fwd(
     long long o_sb, long long o_ss, long long o_sh,
     float scale_log2, void* stream) {
   const long long st[12] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh};
-  return launch(q, k, v, o, lse, batch, heads, global_len, tokens_per_frame, n_frames, span, window,
+  return launch(q, k, v, o, lse, batch, heads, seq, seq, global_len, tokens_per_frame, n_frames, span, window,
                 global_len, 0, n_frames, seq, st, scale_log2, stream);
 }
 
@@ -376,6 +341,8 @@ extern "C" int s2v_banded_attention_local_fwd(
     long long o_sb, long long o_ss, long long o_sh,
     float scale_log2, void* stream) {
   const long long st[12] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh};
-  return launch(q, k, v, o, lse, batch, heads, global_len, tokens_per_frame, n_frames, span, window,
-                0, frame_offset, local_frames, local_frames * tokens_per_frame, st, scale_log2, stream);
+  const int q_len = local_frames * tokens_per_frame;
+  return launch(q, k, v, o, lse, batch, heads, q_len, global_len + n_frames * tokens_per_frame, global_len,
+                tokens_per_frame, n_frames, span, window, 0, frame_offset, local_frames, q_len, st, scale_log2,
+                stream);
 }

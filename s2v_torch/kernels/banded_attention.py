@@ -11,9 +11,17 @@ frames); the global queries attend the whole sequence.  Same semantics as
 
 On CUDA the global queries go through one B1 call in the online softmax mode
 (``s2v_torch.kernels.flash_attention``; the TPU function does the same) and
-the video queries through one launch of ``s2v_torch/csrc/banded_attention.cu``,
-compiled with ``nvcc`` for ``sm_90a`` into ``build/`` on the first CUDA call
-and bound with ``ctypes``.  CPU tensors take
+the video queries through one launch of ``s2v_torch/csrc/banded_attention.cu``
+(on ``csrc/hopper.cuh`` and ``csrc/band.cuh``), compiled with ``nvcc`` for
+``sm_90a`` into ``build/`` on the first CUDA call and bound with ``ctypes``.
+It is B1's design on the band: per block of 128 query rows of one frame, a
+producer warpgroup loads q once and streams 128-key K/V tiles with TMA
+through an mbarrier ring, over the global range and then the frame's
+window, and two consumer warpgroups run ``wgmma`` (q·kᵀ from shared memory,
+P·V with P in registers) and the online softmax; the keys of a tile that lie
+past its range's end, and the query rows past the frame's end, are
+predicated.  :func:`banded_flash_attention_blocked` emulates that schedule
+in PyTorch on any device.  CPU tensors take
 :func:`banded_flash_attention_reference`, the plain PyTorch version.
 ``banded_flash_attention.launches`` counts launches of the banded kernel.
 
@@ -41,19 +49,25 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
 from s2v_torch.kernels.flash_attention import (
+    LN2,
     LOG2E,
     REFERENCE_CHUNK,
     check_kernel_inputs,
     flash_attention,
+    flash_attention_reference,
 )
 from s2v_torch.utils import native_build
 
 SOURCE = native_build.CSRC_DIR / "banded_attention.cu"
+# a block of the kernel owns KERNEL_QUERY_TILE query rows of one frame and
+# streams K/V in tiles of KERNEL_KEY_TILE keys
+KERNEL_QUERY_TILE = 128
+KERNEL_KEY_TILE = 128
 _lib = None
 
 
@@ -98,6 +112,19 @@ class BandGeometry(NamedTuple):
         f_lo = 0 if fk < span else fk + w - span + 1
         f_hi = f - 1 if fk >= f - span else min(f - 1, fk + w)
         return f_lo, f_hi
+
+    def key_tiles(self, f: int, tile: int) -> List[Tuple[int, int]]:
+        """``(kbase, kend)`` of each key tile of query frame f, in the order
+        the kernels' producers issue them (``csrc/band.cuh``): the global
+        range, then the window, walked as one range when they touch (ws = 0).
+        A tile holds keys ``[kbase, min(kbase + tile, kend))`` of its range;
+        the kernel's tile runs on past kend, and those keys are predicated
+        out.  Frames at or past F take the last window."""
+        g, tpf = self.global_len, self.tokens_per_frame
+        win_lo = g + self.window_start(f) * tpf
+        win_hi = win_lo + self.span * tpf
+        ranges = [(0, win_hi)] if win_lo == g else [(0, g), (win_lo, win_hi)]
+        return [(kb, end) for lo, end in ranges for kb in range(lo, end, tile)]
 
     def pairs(self) -> Tuple[int, int]:
         """(query, key) pairs the function computes: (video queries' band,
@@ -228,7 +255,7 @@ def launch_banded(q, k, v, o, lse, geo: BandGeometry, scale: float) -> None:
         ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream),
     )
     if err != 0:
-        raise RuntimeError(f"banded_flash_attention kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"banded_flash_attention kernel launch failed: {native_build.launch_error(err)}")
     banded_flash_attention.launches += 1
 
 
@@ -361,7 +388,7 @@ def launch_banded_local(q_vid, k, v, o, lse, geo: BandGeometry, scale: float) ->
         ctypes.c_float(scale * LOG2E), ctypes.c_void_p(torch.cuda.current_stream(q_vid.device).cuda_stream),
     )
     if err != 0:
-        raise RuntimeError(f"banded_flash_attention_local kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"banded_flash_attention_local kernel launch failed: {native_build.launch_error(err)}")
     banded_flash_attention_local.launches += 1
 
 
@@ -410,3 +437,79 @@ def banded_flash_attention_local(
 
 
 banded_flash_attention_local.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernel's schedule, emulated
+# ---------------------------------------------------------------------------
+
+
+def _banded_fwd_schedule(q_rows, k, v, geo: BandGeometry, scale: float):
+    """The banded kernel on the query rows ``q_rows`` ``[B, F_loc·tpf, H, d]``
+    of frames ``geo.frame_offset ..``: per 128-row query tile inside a frame,
+    the key tiles of :meth:`BandGeometry.key_tiles` in order, with the
+    kernel's online softmax in log2 units (running max, rescale), P rounded to
+    bf16 for P·V and the row sums of the unrounded P.  Returns o ``[B, H,
+    rows, d]`` and the natural-log lse ``[B, H, rows]``, fp32."""
+    c = scale * LOG2E
+    qf = q_rows.float().transpose(1, 2)  # [B, H, rows, d]
+    kf, vf = k.float().transpose(1, 2), v.float().transpose(1, 2)  # [B, H, S, d]
+    tpf = geo.tokens_per_frame
+    outs, lses = [], []
+    for fl in range(geo.local_frames):
+        tiles = geo.key_tiles(geo.frame_offset + fl, KERNEL_KEY_TILE)
+        frame_end = (fl + 1) * tpf
+        for r0 in range(fl * tpf, frame_end, KERNEL_QUERY_TILE):
+            qt = qf[:, :, r0:min(r0 + KERNEL_QUERY_TILE, frame_end)]
+            m = qt.new_full(qt.shape[:-1], -1e30)
+            l = qt.new_zeros(qt.shape[:-1])
+            o = torch.zeros_like(qt)
+            for kb, kend in tiles:
+                ke = min(kb + KERNEL_KEY_TILE, kend)
+                s = torch.matmul(qt, kf[:, :, kb:ke].transpose(-1, -2))
+                m_new = torch.maximum(m, s.amax(-1) * c)
+                alpha = torch.exp2(m - m_new)
+                p = torch.exp2(s * c - m_new[..., None])
+                l = l * alpha + p.sum(-1)
+                o = o * alpha[..., None] + torch.matmul(p.to(torch.bfloat16).float(), vf[:, :, kb:ke])
+                m = m_new
+            outs.append(o / l[..., None])
+            lses.append(m * LN2 + torch.log(l))
+    return torch.cat(outs, dim=2), torch.cat(lses, dim=-1)
+
+
+def banded_flash_attention_blocked(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    global_len: int,
+    tokens_per_frame: int,
+    window_frames: int,
+    scale: Optional[float] = None,
+    return_lse: bool = False,
+    frame_offset=None,
+    n_frames_total: Optional[int] = None,
+):
+    """The CUDA kernel's schedule, emulated in PyTorch on any device (see
+    :func:`_banded_fwd_schedule`).  Without ``frame_offset``, B4's contract
+    (:func:`banded_flash_attention`; the global queries through B1's plain
+    version in the online mode, as the CUDA path sends them to B1); with it,
+    B6's (:func:`banded_flash_attention_local`, ``q`` the shard's video rows).
+    The card tests and the smoke hold the kernel to it; the CPU tests hold it
+    to the plain versions and to JAX.  Nothing on the main path calls it."""
+    d = q.shape[-1]
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    if frame_offset is None:
+        _check_qkv(q, k, v)
+        geo = band_geometry(q.shape[1], global_len, tokens_per_frame, window_frames)
+        g_len = geo.global_len
+        o_vid, lse_vid = _banded_fwd_schedule(q[:, g_len:], k, v, geo, scale)
+        o_glob, lse_glob = flash_attention_reference(q[:, :g_len], k, v, scale=scale, return_lse=True)
+        o = torch.cat([o_glob, o_vid.transpose(1, 2).to(q.dtype)], dim=1)
+        lse = torch.cat([lse_glob, lse_vid], dim=-1)
+    else:
+        geo = local_geometry(q, k, v, global_len, tokens_per_frame, window_frames, frame_offset, n_frames_total)
+        o, lse = _banded_fwd_schedule(q, k, v, geo, scale)
+        o = o.transpose(1, 2).to(q.dtype)
+    return (o, lse) if return_lse else o

@@ -64,8 +64,8 @@ def _meta(*shape, dtype=torch.bfloat16):
 def test_kernel_input_checks():
     """The CUDA branch's checks read metadata only: run them on meta tensors."""
     x = _meta(2, 124, 3, 64)
-    lse, delta = _meta(2, 3, 124, dtype=torch.float32), _meta(2, 3, 124, dtype=torch.float32)
-    check_banded_bwd_kernel_inputs(x, x, x, x, lse, x, delta)
+    lse = _meta(2, 3, 124, dtype=torch.float32)
+    check_banded_bwd_kernel_inputs(x, x, x, x, lse, x)
     bad = [
         dict(o=_meta(2, 124, 3, 64, dtype=torch.float32)),  # o not bf16
         dict(g=_meta(2, 124, 3, 32)),  # dO with another head dim
@@ -73,10 +73,10 @@ def test_kernel_input_checks():
         dict(k=_meta(2, 124, 3, 64, dtype=torch.float16)),
         dict(lse=_meta(2, 3, 124, dtype=torch.bfloat16)),  # lse not fp32
         dict(lse=_meta(2, 124, 3, dtype=torch.float32)),  # lse not [B, H, S]
-        dict(delta=_meta(2, 3, 248, dtype=torch.float32)[..., ::2]),  # D not contiguous
+        dict(lse=_meta(2, 3, 248, dtype=torch.float32)[..., ::2]),  # lse not contiguous
     ]
     for case in bad:
-        args = dict(q=x, k=x, v=x, o=x, lse=lse, g=x, delta=delta)
+        args = dict(q=x, k=x, v=x, o=x, lse=lse, g=x)
         args.update(case)
         with pytest.raises(ValueError):
             check_banded_bwd_kernel_inputs(**args)

@@ -1,5 +1,6 @@
-"""Kernels B1-B7 on the card against their plain PyTorch versions (B2 also
-against the emulation of its blocked schedule, and twice for determinism; B6/B7,
+"""Kernels B1-B7 on the card against their plain PyTorch versions (B2 and
+B4-B7 also against the emulations of their schedules, and B2, B5 and B7 twice
+for determinism; B6/B7,
 the sequence-parallel shard kernels, at every offset of 2- and 4-rank
 rings), the differentiable flash and banded attentions (B1/B2, B4/B5, and
 ``sp_windowed`` on a one-rank NCCL group) against plain autograd, and the
@@ -21,6 +22,7 @@ import torch
 from s2v_torch.kernels.banded_attention import (
     band_geometry,
     banded_flash_attention,
+    banded_flash_attention_blocked,
     banded_flash_attention_local,
     banded_flash_attention_local_reference,
     banded_flash_attention_reference,
@@ -28,6 +30,7 @@ from s2v_torch.kernels.banded_attention import (
 )
 from s2v_torch.kernels.banded_attention_bwd import (
     banded_flash_attention_bwd,
+    banded_flash_attention_bwd_blocked,
     banded_flash_attention_bwd_reference,
     banded_flash_attention_local_bwd,
     banded_flash_attention_local_bwd_reference,
@@ -258,9 +261,11 @@ def test_bwd_kernel_is_deterministic(cuda):
 # B4 and B5 against their plain versions on the same bf16 inputs, held to
 # the bars of B1 and B2 above.  (G, tpf, F, w): ragged frames and globals,
 # clamped windows, w = 0, a small clip (edge key frames take every query
-# frame), a window wider than the clip, a frame of more than one query tile.
+# frame), a window wider than the clip, frames of more than one query tile,
+# the main shape's remainders (G = 168 and tpf = 198 are 40 and 70 mod 128, as
+# 1,576 and 1,350 are), a frame of exactly three query tiles.
 BANDS = [(24, 20, 5, 1), (24, 20, 4, 0), (24, 20, 4, 1), (300, 24, 4, 1), (7, 130, 3, 2), (50, 40, 5, 9),
-         (129, 300, 4, 1)]
+         (129, 300, 4, 1), (168, 198, 5, 2), (40, 384, 3, 1)]
 
 
 def _band_qkv(g, tpf, f, seed, device):
@@ -290,11 +295,47 @@ def test_banded_bwd_kernel_matches_plain(cuda, g, tpf, f, w):
     got = banded_flash_attention_bwd(q, k, v, o, lse, do, g, tpf, w)
     want = banded_flash_attention_bwd_reference(q, k, v, o, lse, do, g, tpf, w)
     torch.cuda.synchronize()
-    # the video queries' kernel pair and the global queries' B2
+    # the video queries' banded kernels and the global queries' B2
     assert (banded_flash_attention_bwd.launches, flash_attention_bwd.launches) == (before[0] + 1, before[1] + 1)
     for a, r, x in zip(got, want, (q, k, v)):
         assert a.shape == x.shape and a.dtype == torch.bfloat16
         _assert_close(a, r)
+
+
+@pytest.mark.parametrize("g,tpf,f,w", BANDS)
+def test_banded_kernels_match_schedule(cuda, g, tpf, f, w):
+    """B4 and B5 against the emulations of their schedules (the same tile
+    walks, P and dS rounded to bf16 where the kernels round them)."""
+    q, k, v = _band_qkv(g, tpf, f, 16, cuda)
+    o, lse = banded_flash_attention(q, k, v, g, tpf, w, return_lse=True)
+    o_emu, lse_emu = banded_flash_attention_blocked(q, k, v, g, tpf, w, return_lse=True)
+    do = torch.from_numpy(np.random.RandomState(17).randn(*q.shape).astype(np.float32)).to(cuda, torch.bfloat16)
+    got = banded_flash_attention_bwd(q, k, v, o, lse, do, g, tpf, w)
+    emulated = banded_flash_attention_bwd_blocked(q, k, v, o, lse, do, g, tpf, w)
+    torch.cuda.synchronize()
+    _assert_close(o, o_emu)
+    assert (lse - lse_emu).abs().max().item() < 1e-2
+    for a, e in zip(got, emulated):
+        _assert_close(a, e)
+
+
+def test_banded_bwd_kernels_are_deterministic(cuda):
+    """Two launches of B5, and of B7 on a shard with a dummy frame, on the
+    same inputs give the same gradients bit for bit: every output has one
+    writer."""
+    g, tpf, f, w = 168, 198, 5, 2
+    q, k, v = _band_qkv(g, tpf, f, 18, cuda)
+    do = torch.from_numpy(np.random.RandomState(19).randn(*q.shape).astype(np.float32)).to(cuda, torch.bfloat16)
+    o, lse = banded_flash_attention(q, k, v, g, tpf, w, return_lse=True)
+    f_loc = ring_shards(f, 2)[1]
+    q_loc, do_loc = _shard(q, g, tpf, f, f_loc, f_loc), _shard(do, g, tpf, f, f_loc, f_loc)
+    o_loc, lse_loc = banded_flash_attention_local(q_loc, k, v, g, tpf, w, f_loc, f, return_lse=True)
+    for fn, args in ((banded_flash_attention_bwd, (q, k, v, o, lse, do, g, tpf, w)),
+                     (banded_flash_attention_local_bwd, (q_loc, k, v, o_loc, lse_loc, do_loc, g, tpf, w, f_loc, f))):
+        first, second = fn(*args), fn(*args)
+        torch.cuda.synchronize()
+        for a, b in zip(first, second):
+            assert torch.equal(a, b)
 
 
 def test_banded_trainable_grads_match_plain_autograd(cuda):
@@ -378,6 +419,30 @@ def test_banded_local_bwd_kernel_matches_plain(cuda, g, tpf, f, w):
             assert a.shape == x.shape and a.dtype == torch.bfloat16
             if r.any():
                 _assert_close(a, r)
+            else:  # a partial that no query of the shard's band reaches
+                assert not a.any()
+
+
+@pytest.mark.parametrize("g,tpf,f,w", BANDS)
+def test_banded_local_kernels_match_schedule(cuda, g, tpf, f, w):
+    """B6 and B7 against the emulations of their schedules at every offset
+    of a 2- and a 4-rank ring, dummy frames included."""
+    q, k, v = _band_qkv(g, tpf, f, 26, cuda)
+    do = torch.from_numpy(np.random.RandomState(27).randn(*q.shape).astype(np.float32)).to(cuda, torch.bfloat16)
+    for f_loc, off in _ring_shards(f):
+        q_loc, do_loc = _shard(q, g, tpf, f, f_loc, off), _shard(do, g, tpf, f, f_loc, off)
+        o, lse = banded_flash_attention_local(q_loc, k, v, g, tpf, w, off, f, return_lse=True)
+        o_emu, lse_emu = banded_flash_attention_blocked(q_loc, k, v, g, tpf, w, return_lse=True, frame_offset=off,
+                                                        n_frames_total=f)
+        got = banded_flash_attention_local_bwd(q_loc, k, v, o, lse, do_loc, g, tpf, w, off, f)
+        emulated = banded_flash_attention_bwd_blocked(q_loc, k, v, o, lse, do_loc, g, tpf, w, frame_offset=off,
+                                                      n_frames_total=f)
+        torch.cuda.synchronize()
+        _assert_close(o, o_emu)
+        assert (lse - lse_emu).abs().max().item() < 1e-2
+        for a, e in zip(got, emulated):
+            if e.any():
+                _assert_close(a, e)
             else:  # a partial that no query of the shard's band reaches
                 assert not a.any()
 

@@ -168,12 +168,12 @@ def test_shard_and_kernel_input_checks():
     # Sq != S is the shard's normal case; the kernel checks are B4's per tensor
     check_banded_kernel_inputs(k, k, k)
     lse = torch.empty(2, 3, 2 * tpf, device="meta")
-    check_banded_local_bwd_kernel_inputs(q, k, k, q, lse, q, lse)
+    check_banded_local_bwd_kernel_inputs(q, k, k, q, lse, q)
     for bad in (dict(q=_meta(2, 2 * tpf, 3, 64, dtype=torch.float32)), dict(k=_meta(2, g + f * tpf, 3, 32)),
                 dict(lse=lse.to(torch.bfloat16)), dict(o=_meta(2, 2 * tpf, 3, 128)[..., ::2])):
         args = dict(q=q, k=k, o=q, lse=lse)
         args.update(bad)
         with pytest.raises(ValueError):
-            check_banded_local_bwd_kernel_inputs(args["q"], args["k"], args["k"], args["o"], args["lse"], q, lse)
+            check_banded_local_bwd_kernel_inputs(args["q"], args["k"], args["k"], args["o"], args["lse"], q)
     with pytest.raises(ValueError, match="lse must be"):
         banded_flash_attention_local_bwd(q, k, k, q, torch.empty(2, 3, 7, device="meta"), q, g, tpf, 1, 0, f)
