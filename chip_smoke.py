@@ -53,13 +53,20 @@ Phases, each printing one JSON line:
                 queries' B2 part against B5's dk/dv, and junk in the dummy
                 frames' rows changing nothing; at one rank two launches must
                 agree bit for bit, and the time is split among its kernels;
-  9. kernel_int8 — kernel B3 (int8 q·kᵀ attention) against its plain
-                PyTorch version on the same int8 pre-pass: small ragged
-                shapes with Sq != Skv, negative-logit rows with a ragged key
-                tail, a B=2 batch whose halves differ in magnitude (one
-                shared scale), and the main shape, timed beside its bound,
-                the plain version and B1 online at the same shape (no
-                PyTorch call computes int8-QK attention);
+  9. kernel_int8 — kernel B3 (int8 q·kᵀ attention): first one s8 wgmma
+                tile through its 64-byte-swizzle layer against an integer
+                matmul; then against its plain PyTorch version on the same
+                int8 pre-pass, with its pre-pass kernels equal to the plain
+                pre-pass bit for bit: small ragged shapes with Sq != Skv,
+                negative-logit rows with a ragged key tail, a B=2 batch
+                whose halves differ in magnitude (one shared scale), all
+                also against the emulation of its schedule; and the main
+                shape, where two launches must agree bit for bit, timed
+                (pre-pass kernels, main launch, whole function) beside the
+                torch pre-pass, its bound (the larger of the tensor cores'
+                time, the exponentials' on the SFUs and the bytes'), the
+                plain version and B1 online at the same shape (no PyTorch
+                call computes int8-QK attention);
   10. reference — a small bf16 pipeline on the card, flash kernel against
                 the plain fp32 attention on the same weights and noise, the
                 same with the windowed backends (B4 against the gather path
@@ -81,7 +88,8 @@ Phases, each printing one JSON line:
                 latents held against e2e_windowed's on the same seed;
  14. e2e_int8 — the same on the int8 DiT (``quantize_transformer_params``,
                 timed) with ``set_attention("flash_int8")``: per step 42 B3
-                launches and no B1; the bf16 tree is restored after;
+                launches (and 42 of its pre-pass) and no B1; the bf16 tree
+                is restored after;
  15. train    — on the same pipeline: one seeded 49x480x720 clip through
                 ``latent_batches`` (RoPE tables added), then 3 LoRA train
                 steps (rank 128 on all seven target families, flash both
@@ -133,6 +141,8 @@ MAIN_MODE = "bounded"  # the softmax mode the DiT's attention uses
 PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 PEAK_BYTES_PER_S = 3.35e12
+# the SFUs' ex2 rate per SM and clock (Hopper: 16), the exponentials' ceiling
+SFU_EX2_PER_CLOCK = 16
 # bf16 inputs against an fp32 plain version on the same bf16 values: the
 # kernel rounds P to bf16 for P·V and writes a bf16 output, each a rounding
 # of at most 2^-8 relative.  The limits scale with the reference, because the
@@ -998,21 +1008,81 @@ def phase_kernel_banded_local_bwd(dev):
     return result
 
 
-def _compare_int8(q, k, v):
-    from s2v_torch.kernels.int8_attention import flash_attention_qk_int8, flash_attention_qk_int8_reference
+def _prepass_equal(q, k, what):
+    """B3's pre-pass kernels against ``int8_prepass`` on the same CUDA
+    tensors: q_i8, k_i8 and dq equal bit for bit, or raise."""
+    import torch
 
+    from s2v_torch.kernels.int8_attention import int8_prepass, launch_int8_prepass
+
+    scale = q.shape[-1] ** -0.5
+    got, want = launch_int8_prepass(q, k, scale), int8_prepass(q, k, scale)
+    same = {name: bool(torch.equal(a, b)) for name, a, b in zip(("q_i8", "k_i8", "dq"), got, want)}
+    if not all(same.values()):
+        raise AssertionError(f"{what}: the pre-pass kernels differ from int8_prepass: {same}")
+    return True
+
+
+def _compare_int8(q, k, v, schedule=False):
+    """B3 against its plain version (and, on the small cases, against
+    ``flash_attention_qk_int8_blocked``, the emulation of its schedule), and
+    its pre-pass kernels against ``int8_prepass`` bit for bit."""
+    from s2v_torch.kernels.int8_attention import (
+        flash_attention_qk_int8,
+        flash_attention_qk_int8_blocked,
+        flash_attention_qk_int8_reference,
+    )
+
+    what = f"flash_attention_qk_int8 {tuple(q.shape)}x{tuple(k.shape)}"
     o = flash_attention_qk_int8(q, k, v)
-    o_ref = flash_attention_qk_int8_reference(q, k, v)
-    return _agreement(o, o_ref, f"flash_attention_qk_int8 {tuple(q.shape)}x{tuple(k.shape)}")
+    stats = _agreement(o, flash_attention_qk_int8_reference(q, k, v), what)
+    if schedule:
+        stats.update(_schedule_stats(o, flash_attention_qk_int8_blocked(q, k, v), what))
+    return {**stats, "prepass_bit_equal": _prepass_equal(q, k, what)}
+
+
+def _wgmma_s8_tile(dev):
+    """One s8 ``wgmma`` tile through B3's 64-byte-swizzle TMA maps and
+    descriptors against an integer matmul, equal or raise."""
+    import torch
+
+    from s2v_torch.kernels.int8_attention import int8_qk_tile
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    q = torch.randint(-127, 128, (64, 64), generator=g, device=dev, dtype=torch.int8)
+    k = torch.randint(-127, 128, (128, 64), generator=g, device=dev, dtype=torch.int8)
+    q[0], k[0] = 127, -127  # the extremes
+    got = int8_qk_tile(q, k).cpu().long()
+    want = q.cpu().long() @ k.cpu().long().T
+    if not torch.equal(got, want):
+        bad = (got != want).nonzero()
+        raise AssertionError(f"s8 wgmma tile: {bad.shape[0]} of 8192 entries differ, first at {bad[:4].tolist()}")
+    return {"entries": got.numel(), "equal": True, "max_abs": int(want.abs().max())}
+
+
+def _sfu_exp_ms(n_exp):
+    """``n_exp`` exponentials over the SFUs' rate: SMs x 16 ex2 a clock x the
+    card's maximum SM clock (nvidia-smi); the time and what it used."""
+    import torch
+
+    mhz = float(subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                               capture_output=True, text=True, check=True).stdout.strip())
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return n_exp / (sms * SFU_EX2_PER_CLOCK * mhz * 1e6) * 1e3, {"sms": sms, "max_sm_clock_mhz": mhz}
 
 
 def phase_kernel_int8(dev):
     """Kernel B3 against its plain version (the same pre-pass; integer-exact
     logits in both, so what differs is exp2 and the bf16 rounding of P and
-    of the output: B1's limits): small ragged shapes, negative-logit rows
-    with a ragged key tail, a batch whose halves differ in magnitude, then
-    the main shape, timed beside its bound, the plain version and B1 online
-    at the same shape."""
+    of the output: B1's limits) and, on the small cases, against the
+    emulation of its schedule; its pre-pass kernels against
+    ``int8_prepass`` bit for bit everywhere; one s8 ``wgmma`` tile against
+    an integer matmul first.  Small ragged shapes, negative-logit rows with
+    a ragged key tail, a batch whose halves differ in magnitude, then the
+    main shape: two launches equal bit for bit, and the pre-pass kernels,
+    the main launch and the whole function timed beside the torch
+    pre-pass, the bound (tensor cores, exponentials on the SFUs, bytes),
+    the plain version and B1 online at the same shape."""
     import torch
 
     from s2v_torch.kernels.flash_attention import flash_attention
@@ -1020,36 +1090,47 @@ def phase_kernel_int8(dev):
         flash_attention_qk_int8,
         flash_attention_qk_int8_reference,
         int8_prepass,
+        kernel_smem_bytes,
         launch_int8,
+        launch_int8_prepass,
     )
 
+    tile = _wgmma_s8_tile(dev)
     small = []
-    for (b, sq, skv, h) in [(2, 90, 90, 2), (1, 200, 77, 3), (2, 77, 333, 2), (2, 1000, 129, 2)]:
+    # ragged against the 128-row query blocks and 128-key tiles (54 = 19,126 mod 128), Sq != Skv both ways,
+    # a single key tile
+    for (b, sq, skv, h) in [(2, 90, 90, 2), (1, 200, 77, 3), (2, 77, 333, 2), (2, 1000, 129, 2), (1, 310, 438, 2)]:
         q, k, v = _qkv(b, sq, skv, h, sq + skv + 1, dev)
-        small.append({"q": [b, sq, h, 64], "skv": skv, **_compare_int8(q, k, v)})
-    # every real scaled logit about -128, 90 keys in tiles of 64: a zero-filled
-    # pad key taken as logit 0 would pin the max and zero the row
+        small.append({"q": [b, sq, h, 64], "skv": skv, **_compare_int8(q, k, v, schedule=True)})
+    # every real scaled logit about -128, 90 keys in one ragged tile: a
+    # zero-filled pad key taken as logit 0 would pin the max and zero the row
     g = torch.Generator(device=dev).manual_seed(5)
     q = torch.full((1, 90, 1, 64), 4.0, device=dev, dtype=torch.bfloat16)
     k = (-4.0 + 0.01 * torch.randn(1, 90, 1, 64, device=dev, generator=g)).to(torch.bfloat16)
     v = torch.randn(1, 90, 1, 64, device=dev, generator=g).to(torch.bfloat16)
-    negative = _compare_int8(q, k, v)
+    negative = _compare_int8(q, k, v, schedule=True)
     if not negative["ref_max"] > 0.01:
         raise AssertionError(f"negative-logit rows: the plain version's output is zero {negative}")
     # uncond/cond halves of different magnitudes share one scale
     q, k, v = _qkv(2, 300, 300, 2, 9, dev)
     q[1] *= 3.0
     k[1] *= 0.25
-    halves = _compare_int8(q, k, v)
-    emit({"phase": "kernel_int8_small", "cases": small, "negative_logits": negative, "halves": halves})
+    halves = _compare_int8(q, k, v, schedule=True)
+    emit({"phase": "kernel_int8_small", "wgmma_s8_tile": tile, "cases": small, "negative_logits": negative,
+          "halves": halves})
 
     b, s, h, d = MAIN_SHAPE
     q, k, v = _ln_qkv(b, s, h, 7, dev)
     stats = _compare_int8(q, k, v)
+    first, second = flash_attention_qk_int8(q, k, v), flash_attention_qk_int8(q, k, v)
+    if not torch.equal(first, second):
+        raise AssertionError("flash_attention_qk_int8: two launches on the same inputs differ")
+    del first, second
     flash_attention_qk_int8(q, k, v)  # warm-up
     ms = cuda_ms(lambda: flash_attention_qk_int8(q, k, v), 10)
-    prepass_ms = cuda_ms(lambda: int8_prepass(q, k, d ** -0.5), 10)
-    q_i8, k_i8, dq = int8_prepass(q, k, d ** -0.5)
+    prepass_ms = cuda_ms(lambda: launch_int8_prepass(q, k, d ** -0.5), 10)
+    torch_prepass_ms = cuda_ms(lambda: int8_prepass(q, k, d ** -0.5), 10)
+    q_i8, k_i8, dq = launch_int8_prepass(q, k, d ** -0.5)
     o = torch.empty_like(q)
     launch_ms = cuda_ms(lambda: launch_int8(q_i8, k_i8, v, o, dq), 10)
     del q_i8, k_i8, o
@@ -1057,15 +1138,24 @@ def phase_kernel_int8(dev):
     flash_attention(q, k, v, softmax_mode="online")  # warm-up
     b1_online_ms = cuda_ms(lambda: flash_attention(q, k, v, softmax_mode="online"), 10)
     products = 2 * b * h * s * s * d  # each of q·kᵀ (int8) and P·V (bf16)
-    t_ops = products / PEAK_INT8_OPS + products / PEAK_BF16_FLOPS
+    tensor_ms = (products / PEAK_INT8_OPS + products / PEAK_BF16_FLOPS) * 1e3
+    exp_ms, sfu = _sfu_exp_ms(b * h * s * s)
     # q, k, v read once and o written once in bf16
-    t_bytes = 4 * b * s * h * d * 2 / PEAK_BYTES_PER_S
-    result = {"phase": "kernel_int8_main", "shape": list(MAIN_SHAPE), **stats, "ms": ms, "launch_ms": launch_ms,
-              "prepass_ms": prepass_ms, "plain_ms": plain_ms, "library_ms": None, "b1_online_ms": b1_online_ms,
-              "bound_ms": max(t_ops, t_bytes) * 1e3, "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-              "launch_tops": 2 * products / launch_ms / 1e9}
+    bytes_ms = 4 * b * s * h * d * 2 / PEAK_BYTES_PER_S * 1e3
+    bound_ms, set_by = max((tensor_ms, "tensor cores"), (exp_ms, "exponentials (SFU)"), (bytes_ms, "bytes"))
+    # the pre-pass: q and k read once in bf16, q_i8 and k_i8 written once
+    prepass_bound_ms = 6 * b * s * h * d / PEAK_BYTES_PER_S * 1e3
+    result = {"phase": "kernel_int8_main", "shape": list(MAIN_SHAPE), **stats, "deterministic": True,
+              "ms": ms, "launch_ms": launch_ms, "prepass_ms": prepass_ms, "torch_prepass_ms": torch_prepass_ms,
+              "prepass_bound_ms": prepass_bound_ms, "plain_ms": plain_ms, "library_ms": None,
+              "b1_online_ms": b1_online_ms, "bound_ms": bound_ms,
+              "bound_by": "bytes" if set_by == "bytes" else "operations", "bound_set_by": set_by,
+              "bound_parts_ms": {"tensor_cores": tensor_ms, "exponentials": exp_ms, "bytes": bytes_ms, **sfu},
+              "launch_tops": 2 * products / launch_ms / 1e9, "launch_bound_share": bound_ms / launch_ms,
+              "bound_share": bound_ms / ms, "smem_bytes": kernel_smem_bytes()}
     emit(result)
-    return result
+    return {**result, "small_worst_schedule_share": max(
+        c["schedule_max_abs_err"] / c["schedule_max_abs_tol"] for c in [*small, negative, halves])}
 
 
 def phase_reference(dev):
@@ -1135,16 +1225,19 @@ def _counted_fns():
 
 
 def reset_counts():
-    """Every kernel's launch count (and B1's online re-runs) set to 0."""
+    """Every kernel's launch count (and B1's online re-runs, B3's pre-pass
+    launches) set to 0."""
     fns = _counted_fns()
     for fn in fns.values():
         fn.launches = 0
     fns["flash_attention"].reruns = 0
+    fns["flash_attention_qk_int8"].prepass_launches = 0
 
 
 def read_counts() -> dict:
     fns = _counted_fns()
-    return {**{name: fn.launches for name, fn in fns.items()}, "reruns": fns["flash_attention"].reruns}
+    return {**{name: fn.launches for name, fn in fns.items()}, "reruns": fns["flash_attention"].reruns,
+            "flash_attention_qk_int8_prepass": fns["flash_attention_qk_int8"].prepass_launches}
 
 
 def check_counts(counts: dict, backend: str, forwards: int, backwards: int) -> bool:
@@ -1153,14 +1246,16 @@ def check_counts(counts: dict, backend: str, forwards: int, backwards: int) -> b
     mode's re-runs; the windowed backends' global queries run online, with
     none) and one B2 per backward; the windowed backend adds one B4 per
     forward and one B5 per backward, sp_windowed (one rank) one B6 and one
-    B7 instead; the int8 backend runs one B3 per forward instead of B1."""
+    B7 instead; the int8 backend runs one B3 (its pre-pass kernels and its
+    main kernel) per forward instead of B1."""
     windowed, sp, int8 = backend == "windowed", backend == "sp_windowed", backend == "flash_int8"
     want = {"flash_attention": 0 if int8 else forwards, "flash_attention_bwd": backwards,
             "banded_flash_attention": forwards if windowed else 0,
             "banded_flash_attention_bwd": backwards if windowed else 0,
             "banded_flash_attention_local": forwards if sp else 0,
             "banded_flash_attention_local_bwd": backwards if sp else 0,
-            "flash_attention_qk_int8": forwards if int8 else 0}
+            "flash_attention_qk_int8": forwards if int8 else 0,
+            "flash_attention_qk_int8_prepass": forwards if int8 else 0}
     got = {**counts, "flash_attention": counts["flash_attention"] - counts["reruns"]}
     return all(got[k] == v for k, v in want.items()) and not ((windowed or sp) and counts["reruns"])
 
@@ -1324,7 +1419,9 @@ def train_steps(pipe, dev, height, width, num_frames, steps, spec, optimizer_spe
 
 # kernel families of a profiled step, by substrings of the kernel's name
 KERNEL_FAMILIES = (
-    ("flash_attention_qk_int8 (B3)", ("int8_fwd_kernel",)),
+    # B3's kernels share a prefix no library kernel has
+    ("flash_attention_qk_int8 pre-pass (B3)", ("s2v_i8attn_amax", "s2v_i8attn_quantize")),
+    ("flash_attention_qk_int8 (B3)", ("s2v_i8attn_fwd",)),
     ("int8 matmul (cuBLASLt)", ("gemm_s8", "imma", "s8s8")),
     # B6 and B7 run the same __global__ functions as B4 and B5
     ("banded_flash_attention (B4, B6)", ("banded_fwd_kernel",)),
@@ -1666,19 +1763,31 @@ def kernels_line(results):
         **common,
         "name": "flash_attention_qk_int8",
         "source": "s2v_torch/csrc/int8_attention.cu",
+        "headers": ["s2v_torch/csrc/hopper.cuh"],
         "replaces": "s2v_tpu/ops/pallas/int8_attention.py:99",
         "launches": results["e2e_int8"]["flash_attention_qk_int8"],
         "launches_by_path": _path_launches(results, "flash_attention_qk_int8"),
+        "prepass_launches": results["e2e_int8"]["flash_attention_qk_int8_prepass"],
         "max_abs_err": int8["max_abs_err"],
         "max_abs_tol": int8["max_abs_tol"],
         "rel_l2": int8["rel_l2"],
-        # the whole function: the int8 pre-pass and the launch
+        "prepass_bit_equal": int8["prepass_bit_equal"],
+        "deterministic": int8["deterministic"],
+        "small_worst_schedule_share": int8["small_worst_schedule_share"],
+        # the whole function: the pre-pass kernels and the main launch
         "ms": int8["ms"],
         "launch_ms": int8["launch_ms"],
         "prepass_ms": int8["prepass_ms"],
+        "prepass_bound_ms": int8["prepass_bound_ms"],
+        "torch_prepass_ms": int8["torch_prepass_ms"],
         "plain_ms": int8["plain_ms"],
         "bound_ms": int8["bound_ms"],
         "bound_by": int8["bound_by"],
+        "bound_set_by": int8["bound_set_by"],
+        "bound_parts_ms": int8["bound_parts_ms"],
+        "launch_tops": int8["launch_tops"],
+        "launch_bound_share": int8["launch_bound_share"],
+        "smem_bytes": int8["smem_bytes"],
         "library_ms": None,
         "library_note": f"no PyTorch call computes int8-QK attention; B1 online at the same shape: "
                         f"{int8['b1_online_ms']:.2f} ms",

@@ -1,15 +1,24 @@
 // Hopper (sm_90a) building blocks shared by the port's attention kernels.
 //
 // Raw PTX, no library: TMA tensor maps over the port's strided [B, S, H, 64]
-// bf16 layout (host), mbarrier rings, wgmma shared-memory descriptors for the
-// 128-byte-swizzled tiles TMA writes, the m64nNk16 bf16 -> fp32 wgmma with A
-// from registers or shared memory, and setmaxnreg for warp-specialised blocks.
+// bf16 and int8 layouts (host), mbarrier rings, wgmma shared-memory
+// descriptors for the 128-byte- (bf16) and 64-byte-swizzled (int8) tiles TMA
+// writes, the m64nNk16 bf16 -> fp32 wgmma with A from registers or shared
+// memory, the m64n128k32 s8 -> s32 wgmma from shared memory, and setmaxnreg
+// for warp-specialised blocks.
 //
 // Layout facts the kernels rely on:
 //  * d = 64 in bf16 is one 128-byte row, exactly one 128B swizzle atom wide.
 //    TMA with CU_TENSOR_MAP_SWIZZLE_128B stores row r's 16-byte chunk c at
 //    r * 128 + ((c ^ (r % 8)) * 16) inside a 1024-byte-aligned tile, which
 //    is the layout a wgmma descriptor with swizzle mode 1 reads.
+//  * d = 64 in int8 is one 64-byte row, one 64B swizzle atom wide.  TMA with
+//    CU_TENSOR_MAP_SWIZZLE_64B stores row r's 16-byte chunk c at
+//    r * 64 + ((c ^ ((r / 2) % 4)) * 16) inside a 512-byte-aligned tile,
+//    the layout a descriptor with swizzle mode 2 reads; 8-row groups are 512
+//    bytes apart (SBO) and the k32 step of an s8 wgmma advances the start
+//    address by 32 bytes.  8-bit wgmma operands are K-major only, which q
+//    [row, d] and K [key, d] both are.
 //  * A tile [rows][64] used as B of D = A * B with the reduction over d
 //    ("K-major", e.g. K in q.k^T): rows are B's N; 8-row groups are 1024
 //    bytes apart (SBO); the k16 step advances the start address by 32 bytes.
@@ -61,12 +70,14 @@ inline EncodeTiledFn tensor_map_encoder() {
   return encode;
 }
 
-// A TMA map over a [B, S, H, 64] bf16 tensor with element strides (sb, ss, sh),
-// seen as the 4-D tensor (d, S, H, B); the box is (64, box_rows, 1, 1), so one
-// load brings box_rows consecutive rows of one (b, h), 128B-swizzled.  Rows
-// past S are zero-filled by the TMA unit.  Returns 0 or an error code.
-inline int make_bshd_map(CUtensorMap* map, const void* base, int batch, int seq, int heads, long long sb,
-                         long long ss, long long sh, int box_rows) {
+// A TMA map over a [B, S, H, 64] tensor of `elem_bytes`-byte elements with
+// element strides (sb, ss, sh), seen as the 4-D tensor (d, S, H, B); the box
+// is (64, box_rows, 1, 1), so one load brings box_rows consecutive rows of one
+// (b, h), swizzled as `swizzle` says.  Rows past S are zero-filled by the TMA
+// unit.  Returns 0 or an error code.
+inline int make_bshd_map_typed(CUtensorMap* map, const void* base, CUtensorMapDataType dtype, int elem_bytes,
+                               CUtensorMapSwizzle swizzle, int batch, int seq, int heads, long long sb, long long ss,
+                               long long sh, int box_rows) {
   const EncodeTiledFn encode = tensor_map_encoder();
   if (encode == nullptr) return kErrNoEncoder;
   // The encoder needs a current context on the calling thread, and a thread
@@ -78,17 +89,32 @@ inline int make_bshd_map(CUtensorMap* map, const void* base, int batch, int seq,
   if (bound == cudaSuccess) bound = cudaSetDevice(device);
   if (bound != cudaSuccess) return static_cast<int>(bound);
   // a dimension of size 1 is only ever at coordinate 0: any legal stride will do
-  auto bytes = [](long long stride, int size) -> cuuint64_t {
-    return size == 1 ? cuuint64_t(128) : cuuint64_t(stride) * 2u;
+  auto bytes = [elem_bytes](long long stride, int size) -> cuuint64_t {
+    return size == 1 ? cuuint64_t(128) : cuuint64_t(stride) * cuuint64_t(elem_bytes);
   };
   const cuuint64_t dims[4] = {64, cuuint64_t(seq), cuuint64_t(heads), cuuint64_t(batch)};
   const cuuint64_t strides[3] = {bytes(ss, seq), bytes(sh, heads), bytes(sb, batch)};
   const cuuint32_t box[4] = {64, cuuint32_t(box_rows), 1, 1};
   const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
-                            elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const CUresult r = encode(map, dtype, 4, const_cast<void*>(base), dims, strides, box, elem_strides,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kErrEncodeBase + int(r);
+}
+
+// bf16 [B, S, H, 64]: a row is 128 bytes, one 128B swizzle atom
+inline int make_bshd_map(CUtensorMap* map, const void* base, int batch, int seq, int heads, long long sb,
+                         long long ss, long long sh, int box_rows) {
+  return make_bshd_map_typed(map, base, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, CU_TENSOR_MAP_SWIZZLE_128B, batch, seq,
+                             heads, sb, ss, sh, box_rows);
+}
+
+// int8 [B, S, H, 64]: a row is 64 bytes, one 64B swizzle atom (strides in
+// elements, which are bytes here)
+inline int make_bshd_map_s8(CUtensorMap* map, const void* base, int batch, int seq, int heads, long long sb,
+                            long long ss, long long sh, int box_rows) {
+  return make_bshd_map_typed(map, base, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, CU_TENSOR_MAP_SWIZZLE_64B, batch, seq,
+                             heads, sb, ss, sh, box_rows);
 }
 
 // -------------------------------------------------------------- device side
@@ -191,6 +217,20 @@ __device__ __forceinline__ uint64_t desc_mnmajor(const __nv_bfloat16* tile, int 
   return desc_sw128(tile + kk * 16 * 64, 16, 1024);
 }
 
+// Descriptor of a 64B-swizzled operand tile (swizzle mode 2 in bits 62-63):
+// an int8 [rows][64] tile, K-major, 8-row groups 512 bytes apart (SBO); the
+// swizzle repeats every 512 bytes, so tiles start on 512-byte boundaries.
+__device__ __forceinline__ uint64_t desc_sw64(const void* tile, uint32_t sbo_bytes) {
+  const uint32_t addr = smem_u32(tile);
+  return uint64_t((addr >> 4) & 0x3FFF) | (uint64_t(1) << 16) | (uint64_t((sbo_bytes >> 4) & 0x3FFF) << 32) |
+         (2ull << 62);
+}
+
+// A or B = int8 tile[rows][64] with the reduction over d (K-major); k32 step kk of 2
+__device__ __forceinline__ uint64_t desc_kmajor_s8(const int8_t* tile, int kk) {
+  return desc_sw64(tile + kk * 32, 512);
+}
+
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
 
 __device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
@@ -206,6 +246,13 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// the s32 accumulator of an integer wgmma (the f32 fragment layout)
+template <int N>
+__device__ __forceinline__ void fence_regs(int (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
 template <int N>
@@ -367,6 +414,32 @@ __device__ __forceinline__ void mma_m64n128k16_ss(float (&d)[64], uint64_t desc_
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TRANS_B));
+}
+
+// D[64 x 128] (+)= A[64 x 32] * B[32 x 128], int8 x int8 -> int32, both
+// from K-major 64B-swizzled shared-memory tiles (descriptors).  The integer
+// form takes no negate or transpose immediates: 8-bit operands are K-major
+// only.  The s32 accumulator has the f32 fragment layout; sums are exact
+// (no .satfinite needed while |D| < 2^31).
+__device__ __forceinline__ void mma_m64n128k32_s8_ss(int (&d)[64], uint64_t desc_a, uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
 }  // namespace hopper

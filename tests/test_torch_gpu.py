@@ -1,6 +1,8 @@
-"""Kernels B1-B7 on the card against their plain PyTorch versions (B2 and
-B4-B7 also against the emulations of their schedules, and B2, B5 and B7 twice
-for determinism; B6/B7,
+"""Kernels B1-B7 on the card against their plain PyTorch versions (B2,
+B3 and B4-B7 also against the emulations of their schedules, and B2, B3, B5
+and B7 twice for determinism; B3's pre-pass kernels bit for bit against the
+plain pre-pass, and one s8 wgmma tile of its 64-byte-swizzle layer against
+an integer matmul; B6/B7,
 the sequence-parallel shard kernels, at every offset of 2- and 4-rank
 rings), the differentiable flash and banded attentions (B1/B2, B4/B5, and
 ``sp_windowed`` on a one-rank NCCL group) against plain autograd, and the
@@ -44,7 +46,14 @@ from s2v_torch.kernels.flash_attention_bwd import (
     flash_attention_bwd_blocked,
     flash_attention_bwd_reference,
 )
-from s2v_torch.kernels.int8_attention import flash_attention_qk_int8, flash_attention_qk_int8_reference
+from s2v_torch.kernels.int8_attention import (
+    flash_attention_qk_int8,
+    flash_attention_qk_int8_blocked,
+    flash_attention_qk_int8_reference,
+    int8_prepass,
+    int8_qk_tile,
+    launch_int8_prepass,
+)
 from s2v_torch.ops.attention import banded_attention_trainable, flash_attention_trainable
 from s2v_torch.ops.windowed_attention import windowed_attention_reference
 
@@ -549,9 +558,9 @@ def test_int8_kernel_matches_plain(cuda, b, sq, skv, h):
 
 
 def test_int8_kernel_negative_logit_rows(cuda):
-    """Every real scaled logit is about -128 and the last key tile is
-    ragged (90 keys in tiles of 64): a zero-filled pad key taken as logit 0
-    would pin the running max and give an all-zero row."""
+    """Every real scaled logit is about -128 and the one key tile is
+    ragged (90 keys in a tile of 128): a zero-filled pad key taken as logit
+    0 would pin the running max and give an all-zero row."""
     rng = np.random.RandomState(17)
     q = torch.full((1, 90, 1, 64), 4.0, device=cuda, dtype=torch.bfloat16)
     k = (-4.0 + 0.01 * torch.from_numpy(rng.randn(1, 90, 1, 64).astype(np.float32))).to(cuda, torch.bfloat16)
@@ -576,6 +585,82 @@ def test_int8_unsupported_inputs_raise_before_launch(cuda):
     with pytest.raises(ValueError):
         flash_attention_qk_int8(q, k[:, :0], v[:, :0])
     assert flash_attention_qk_int8.launches == before
+
+
+def test_int8_wgmma_s8_tile_matches_integer_matmul(cuda):
+    """One m64n128k32 s8 wgmma pair (d = 64) through B3's int8 TMA maps
+    (64-byte swizzle) and descriptors, against an integer matmul: equal."""
+    rng = np.random.RandomState(21)
+    q = torch.from_numpy(rng.randint(-127, 128, (64, 64)).astype(np.int8))
+    k = torch.from_numpy(rng.randint(-127, 128, (128, 64)).astype(np.int8))
+    q[0], k[0] = 127, -127
+    got = int8_qk_tile(q.to(cuda), k.to(cuda)).cpu().long()
+    assert torch.equal(got, q.long() @ k.long().T)
+
+
+def _tie_values(rng, shape, e):
+    """bf16 values (n + 0.5)·2^e with one element at the amax 127·2^e:
+    with that amax the int8 scale is 2^e exactly (fp32), so every element
+    divides to an exact .5 and rounds half to even."""
+    n = rng.randint(-127, 127, shape).astype(np.float32)
+    x = (n + 0.5) * 2.0 ** e
+    x.reshape(-1)[0] = 127 * 2.0 ** e
+    return torch.from_numpy(x).to(torch.bfloat16)
+
+
+def _prepass_case(name, cuda):
+    rng = np.random.RandomState(22)
+    if name == "ties":
+        # q is scaled by 1/8 first: its amax 127·2^-3 · 8 gives the scale 2^-3
+        return _tie_values(rng, (1, 70, 2, 64), 0).to(cuda), _tie_values(rng, (1, 90, 2, 64), -2).to(cuda)
+    q, k, _ = _qkv(2, 130, 77, 3, 23, cuda)
+    if name == "zero_k":
+        k = torch.zeros_like(k)
+    elif name == "halves":
+        q[1] *= 3.0
+        k[1] *= 0.25
+    elif name == "strided":
+        q, k = (torch.cat([x, x], dim=2)[:, :, ::2] for x in (q, k))
+    return q, k
+
+
+@pytest.mark.parametrize("name", ["random", "ties", "zero_k", "halves", "strided"])
+def test_int8_prepass_kernels_equal_plain_prepass(cuda, name):
+    """The pre-pass kernels against ``int8_prepass`` on the same tensors,
+    bit for bit: half-to-even ties, an all-zero k (scale 1), CFG halves of
+    different magnitudes sharing one scale, and strided views."""
+    q, k = _prepass_case(name, cuda)
+    before = flash_attention_qk_int8.prepass_launches
+    got = launch_int8_prepass(q, k, 0.125)
+    want = int8_prepass(q, k, 0.125)
+    torch.cuda.synchronize()
+    assert flash_attention_qk_int8.prepass_launches == before + 1
+    assert got[0].is_contiguous() and got[1].is_contiguous()
+    for a, w in zip(got, want):
+        assert a.dtype == w.dtype and torch.equal(a, w.reshape(a.shape))
+    if name == "ties":
+        assert {0, 2, -2}.issubset(set(got[1].unique().tolist()))
+    if name == "zero_k":
+        assert not got[1].any()
+
+
+# B3 against the emulation of its schedule (128-row query tiles, 128-key
+# tiles, exp2 with the ragged tail at -inf, P rounded to bf16): what differs
+# is ex2.approx and the summation order, so the plain version's bars hold.
+@pytest.mark.parametrize("b,sq,skv,h", [(2, 200, 182, 3), (1, 77, 333, 2), (1, 300, 54, 2), (2, 129, 128, 1)])
+def test_int8_kernel_matches_schedule(cuda, b, sq, skv, h):
+    q, k, v = _qkv(b, sq, skv, h, 24, cuda)
+    o = flash_attention_qk_int8(q, k, v)
+    emulated = flash_attention_qk_int8_blocked(q, k, v)
+    torch.cuda.synchronize()
+    _assert_close(o, emulated)
+
+
+def test_int8_kernel_is_deterministic(cuda):
+    """Every output element has one writer and the pre-pass's maxima do not
+    depend on order: two calls agree bit for bit."""
+    q, k, v = _qkv(2, 1000, 1000, 2, 25, cuda)
+    assert torch.equal(flash_attention_qk_int8(q, k, v), flash_attention_qk_int8(q, k, v))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
