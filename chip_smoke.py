@@ -107,17 +107,39 @@ Phases, each printing one JSON line:
  18. train_qlora — QLoRA: the same steps as ``train`` over the int8 base
                 (flash both ways): per step B1 twice and B2 once per block,
                 no B3; the int8 base unchanged; its first loss printed
-                beside the exact phase's (same batch, same draws).
-Then the kernels line, the nvidia-smi line, and the result line.  Any failed
+                beside the exact phase's (same batch, same draws);
+ 19. pretrained — the way users start the system: the full-width pipeline
+                written as a bf16 diffusers snapshot into
+                ``build/smoke_snapshot/`` (``save_pretrained``; the free
+                disk checked first) and a seeded rank-128 LoRA checkpoint
+                over the 9 target families into ``build/smoke_lora/``;
+                ``from_pretrained`` of the snapshot (timed), its tensors
+                equal to the in-memory pipeline's bit for bit, and its
+                1-step latents too, with 42 B1 launches; ``load_lora`` in
+                merge and then runtime mode (each timed), their 1-step
+                latents within ``LORA_MERGE_RUNTIME_TOL``; then, with both
+                pipelines freed, ``python3 -m s2v_torch.cli`` in a
+                subprocess on the snapshot, the LoRA and a 720x480 PNG
+                (written here without PIL) at 49x480x720, 2 steps: exit 0
+                and a non-empty clip, with the writer that made it and the
+                CLI's B1 launches.  The snapshot and the LoRA are deleted
+                at the end.
+Then the kernels line, the nvidia-smi line, and the result line.  The
+pipeline phases share one pipeline; ``pretrained`` empties it, so it runs
+last.  Any failed
 phase raises: the script exits non-zero and prints no result.  It needs a
 CUDA device and the repository beside it.  ``--phases a,b`` runs only those
 phases (after the build), for a short check of one part.
 """
 
 import json
+import os
+import shutil
+import struct
 import subprocess
 import sys
 import time
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -162,6 +184,24 @@ LSE_TOL = 1e-3
 # (2^-8) through 2 blocks x 2 steps, amplified up to 2g - 1 = 3x by the
 # guidance mix at g = 2
 PIPELINE_REL_TOL = 5e-2
+# merge against runtime LoRA, 1-step latents of the full-width bf16 DiT.  The
+# JAX package's check of the same thing (tests/test_runtime_lora.py:117-130)
+# holds fp32 2-step latents to atol = rtol = 2e-5; scaled to bf16 by the
+# ratio of the two formats' unit roundoffs, 2^-8 / 2^-24 = 2^16:
+# |merge - runtime| <= 1.31 + 1.31 |runtime|, per element
+LORA_MERGE_RUNTIME_TOL = 2e-5 * 2.0 ** 16
+# That bound alone would pass a runtime tree that applied nothing.  So the
+# relative L2 difference must also stay within this multiple of the bf16
+# noise of the same model in the same run (the merged pipeline's latents
+# under the plain fp32 attention against B1's: rounding that guidance 6
+# multiplies by up to 2g - 1 = 11), and the adapter's own effect (merged
+# against base) must exceed that limit
+LORA_NOISE_MULT = 2.0
+LORA_RANK = 128
+SMOKE_SPIECE = REPO / "build" / "smoke_spiece.model"  # the full-width pipeline's tokenizer
+# the LoRA factors' std: B·A moves a weight by ~11% of the DiT's 0.02 init
+# std, ~60x its bf16 rounding
+LORA_STD = 0.02
 
 
 def emit(obj):
@@ -1274,7 +1314,7 @@ def build_full_pipe(dev):
 
     t0 = time.perf_counter()
     tcfg, t5cfg, vcfg = TransformerConfig(), T5Config(), VAEConfig()
-    spiece = REPO / "build" / "smoke_spiece.model"
+    spiece = SMOKE_SPIECE
     write_spiece_model(spiece, [
         ("<pad>", 0.0, 3), ("</s>", 0.0, 3), ("<unk>", 0.0, 2), ("▁", -4.0, 1), ("▁a", -2.0, 1),
         ("▁pig", -1.0, 1), ("▁walk", -1.5, 1), ("ing", -1.2, 1), ("▁in", -2.0, 1), ("▁the", -2.0, 1),
@@ -1474,6 +1514,8 @@ def device_breakdown(prof) -> dict:
 def _tensors(tree):
     if isinstance(tree, dict):
         return [t for v in tree.values() for t in _tensors(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _tensors(v)]
     return [tree]
 
 
@@ -1616,9 +1658,230 @@ def phase_train_qlora(dev, pipe, backend="flash"):
     return r
 
 
+def write_png(path: Path, rgb: np.ndarray) -> None:
+    """An 8-bit RGB PNG (no filtering) with the standard library only."""
+    h, w, _ = rgb.shape
+
+    def chunk(kind, body):
+        return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF)
+
+    raw = b"".join(b"\x00" + np.ascontiguousarray(rgb[y], np.uint8).tobytes() for y in range(h))
+    path.write_bytes(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                     + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+
+
+def smoke_lora_checkpoint(tcfg, rank=LORA_RANK, seed=7, std=LORA_STD) -> dict:
+    """A seeded LoRA state dict with the diffusers keys over the reference's
+    9 target families at the config's width, the k=2 conv patch embed
+    included (the layout of ``tools/make_tiny_snapshot.py::lora_checkpoint``),
+    fp32 CPU tensors."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    d, p = tcfg.inner_dim, tcfg.patch_size
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen) * std
+
+    sd = {"transformer.patch_embed.proj.lora.down.weight": normal(rank, tcfg.in_channels, p, p),
+          "transformer.patch_embed.proj.lora.up.weight": normal(d, rank, 1, 1)}
+
+    def pair(module, in_dim, out_dim):
+        sd[f"transformer.{module}.lora.down.weight"] = normal(rank, in_dim)
+        sd[f"transformer.{module}.lora.up.weight"] = normal(out_dim, rank)
+
+    pair("patch_embed.text_proj", tcfg.text_embed_dim, d)
+    for i in range(tcfg.num_layers):
+        pre = f"transformer_blocks.{i}"
+        for n in ("to_q", "to_k", "to_v", "to_out.0"):
+            pair(f"{pre}.attn1.{n}", d, d)
+        pair(f"{pre}.norm1.linear", tcfg.time_embed_dim, 6 * d)
+        pair(f"{pre}.norm2.linear", tcfg.time_embed_dim, 6 * d)
+        pair(f"{pre}.ff.net.2", tcfg.ff_inner_dim, d)
+    return sd
+
+
+def _dir_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
+def _trees_equal(a, b) -> bool:
+    import torch
+
+    if isinstance(a, dict):
+        return isinstance(b, dict) and sorted(a) == sorted(b) and all(_trees_equal(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_trees_equal(x, y) for x, y in zip(a, b))
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+
+
+def _run_cli(args, env) -> dict:
+    """``python3 -m s2v_torch.cli`` in a subprocess (run as ``-m`` runs it),
+    which then prints its net B1 launches on one JSON line."""
+    code = ("import json, runpy, sys; sys.argv = ['s2v_torch.cli'] + sys.argv[1:]; "
+            "runpy.run_module('s2v_torch.cli', run_name='__main__'); "
+            "from s2v_torch.kernels.flash_attention import flash_attention as f; "
+            "print(json.dumps({'cli_flash_attention_launches': f.launches - f.reruns}))")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code, *args], cwd=str(REPO), env=env, capture_output=True,
+                          text=True, timeout=900)
+    return {"rc": proc.returncode, "seconds": time.perf_counter() - t0, "stdout": proc.stdout, "stderr": proc.stderr}
+
+
+def phase_pretrained(dev, pipe, backend="flash", height=480, width=720, num_frames=49):
+    """The ``pretrained`` phase (see the module doc): snapshot and LoRA
+    written, loaded back and checked, then the CLI on them.  It leaves
+    ``pipe`` without weights, so it runs after every other pipeline phase.
+    On the CPU (a rehearsal at a tiny size) it skips the memory figures, and
+    the launch counts stay 0."""
+    import gc
+
+    import torch
+
+    from s2v_torch import S2VPipeline
+    from s2v_torch.loaders.safetensors_io import save_safetensors
+
+    t_phase = time.perf_counter()
+    build = REPO / "build"
+    snap, lora_dir, cli_out = build / "smoke_snapshot", build / "smoke_lora", build / "smoke_cli"
+    for d in (snap, lora_dir, cli_out):
+        shutil.rmtree(d, ignore_errors=True)
+    trees = (pipe.transformer_params, pipe.vae_params, pipe.t5_params)
+    snapshot_bytes = sum(t.numel() * 2 for tree in trees for t in _tensors(tree))  # bf16 on disk
+    lora_sd = smoke_lora_checkpoint(pipe.transformer_cfg)
+    lora_params = sum(t.numel() for t in lora_sd.values())
+    need, free = snapshot_bytes + 4 * lora_params + 2**30, shutil.disk_usage(build).free
+    if free < need:
+        raise RuntimeError(f"pretrained: {need} bytes needed under {build} for the snapshot and the LoRA, "
+                           f"{free} free")
+    out = {"phase": "pretrained", "lora_rank": LORA_RANK, "lora_params": lora_params}
+    image = np.clip(np.random.RandomState(42).randn(480, 720, 3).astype(np.float32) * 0.5, -1, 1)
+    kw = dict(prompt="a pig walking in the park", ref_image=image[:height, :width], height=height, width=width,
+              num_frames=num_frames, guidance_scale=6.0, seed=42, num_inference_steps=1, output_type="latent")
+    cuda = dev.type == "cuda"
+
+    def memory_gb(fn):
+        return fn() / 1e9 if cuda else None
+
+    try:
+        t0 = time.perf_counter()
+        pipe.save_pretrained(str(snap), dtype="bfloat16")
+        write_s = time.perf_counter() - t0
+        # save_pretrained copies tokenizer files only from a snapshot the
+        # pipeline was loaded from; this one's tokenizer is its spiece.model
+        (snap / "tokenizer").mkdir()
+        shutil.copy(SMOKE_SPIECE, snap / "tokenizer" / "spiece.model")
+        written = _dir_bytes(snap)
+        lora_dir.mkdir(parents=True)
+        t0 = time.perf_counter()
+        save_safetensors(lora_sd, str(lora_dir / "pytorch_lora_weights.safetensors"))
+        out["snapshot"] = {"gb": written / 1e9, "write_s": write_s, "write_gb_per_s": written / 1e9 / write_s,
+                           "lora_gb": _dir_bytes(lora_dir) / 1e9, "lora_write_s": time.perf_counter() - t0,
+                           "disk_free_gb": free / 1e9}
+        del lora_sd
+
+        base = pipe.generate(**kw).float()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        before = memory_gb(torch.cuda.memory_allocated)
+        t0 = time.perf_counter()
+        loaded = S2VPipeline.from_pretrained(str(snap), device=dev)
+        if cuda:
+            torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        weights = sum(_dir_bytes(snap / s) for s in ("transformer", "vae", "text_encoder"))
+        out["load"] = {"load_s": load_s, "gb_read": weights / 1e9, "gb_per_s": weights / 1e9 / load_s,
+                       "weights_gb": memory_gb(torch.cuda.memory_allocated) - before if cuda else None,
+                       "max_memory_allocated_gb": memory_gb(torch.cuda.max_memory_allocated),
+                       "tokenizer": type(loaded.tokenizer).__name__}
+        for name in ("transformer_params", "vae_params", "t5_params"):
+            if not _trees_equal(getattr(loaded, name), getattr(pipe, name)):
+                raise AssertionError(f"pretrained: the loaded {name} differ from the in-memory pipeline's")
+        out["load"]["tensors_bitwise_equal"] = True
+
+        reset_counts()
+        got = loaded.generate(**kw).float()
+        counts = read_counts()
+        if not torch.equal(got, base):
+            raise AssertionError(f"pretrained: 1-step latents differ from the in-memory pipeline's: "
+                                 f"{_agreement(got, base, 'loaded against in-memory')}")
+        if cuda and not check_counts(counts, backend, pipe.transformer_cfg.num_layers, 0):
+            raise AssertionError(f"pretrained: 1-step generate launches {counts}; expected "
+                                 f"{pipe.transformer_cfg.num_layers} B1 and nothing else")
+        out.update(latents_bitwise_equal=True, launches=counts)
+
+        # the in-memory pipeline is done with: its weights go (the CLI needs the card)
+        pipe.transformer_params = pipe.vae_params = pipe.t5_params = None
+        pipe._prompt_embed_cache.clear()
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+
+        def rel_l2(a, b):
+            return ((a - b).square().sum() / b.square().sum()).sqrt().item()
+
+        lora = {}
+        for mode in ("merge", "runtime"):
+            t0 = time.perf_counter()
+            loaded.load_lora(str(lora_dir), mode=mode)
+            if cuda:
+                torch.cuda.synchronize()
+            lora[f"{mode}_s"] = time.perf_counter() - t0
+            lora[mode] = loaded.generate(**kw).float()
+            if mode == "merge":  # the noise floor: the same merged weights under the plain attention
+                loaded.set_attention("plain")
+                lora["merge_plain"] = loaded.generate(**kw).float()
+                loaded.set_attention("auto")
+        merged, runtime, merged_plain = lora.pop("merge"), lora.pop("runtime"), lora.pop("merge_plain")
+        diff = (merged - runtime).abs()
+        noise, effect, rel = rel_l2(merged_plain, merged), rel_l2(got, merged), rel_l2(runtime, merged)
+        within_tol = bool((diff <= LORA_MERGE_RUNTIME_TOL * (1 + runtime.abs())).all())
+        ok = within_tol and rel <= LORA_NOISE_MULT * noise < effect
+        out["lora"] = {**lora, "max_abs_diff": diff.max().item(), "tol_atol_rtol": LORA_MERGE_RUNTIME_TOL,
+                       "within_tol": within_tol, "rel_l2": rel, "noise_rel_l2_plain_vs_b1": noise,
+                       "noise_mult": LORA_NOISE_MULT, "adapter_effect_rel_l2": effect, "agree": ok}
+        if not ok:
+            raise AssertionError(f"pretrained: merge and runtime LoRA latents disagree: {out['lora']}")
+        del loaded, got, base, merged, runtime, merged_plain, diff
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+        out["card_free_gb_for_cli"] = memory_gb(lambda: torch.cuda.mem_get_info(dev)[0])
+
+        png = build / "smoke_ref.png"
+        write_png(png, (np.random.RandomState(3).rand(height, width, 3) * 255).astype(np.uint8))
+        env = dict(os.environ, PYTHONPATH=str(REPO))
+        cli = _run_cli(["--pretrained_model_name_or_path", str(snap), "--checkpoint_path", str(lora_dir),
+                        "--ref_img_path", str(png), "--prompt", "<cls> a pig walking in the park",
+                        "--height", str(height), "--width", str(width), "--max_num_frames", str(num_frames),
+                        "--num_inference_steps", "2", "--output_dir", str(cli_out), "--device", dev.type], env)
+        lines = cli["stdout"].splitlines()
+        if cli["rc"] != 0:
+            raise AssertionError(f"pretrained: the CLI exited {cli['rc']}:\n{cli['stdout'][-3000:]}\n"
+                                 f"{cli['stderr'][-3000:]}")
+        wrote = [ln.split("[s2v_torch] wrote ", 1)[1] for ln in lines if ln.startswith("[s2v_torch] wrote ")]
+        if len(wrote) != 1 or not Path(wrote[0]).is_file() or Path(wrote[0]).stat().st_size == 0:
+            raise AssertionError(f"pretrained: the CLI's clip is missing or empty: {wrote}")
+        clip = Path(wrote[0])
+        writer = ("npy" if clip.suffix == ".npy" else "cv2" if "with OpenCV" in cli["stderr"] else "mp4_native")
+        launches = json.loads(lines[-1])["cli_flash_attention_launches"]
+        out["cli"] = {"rc": cli["rc"], "seconds": cli["seconds"], "clip": str(clip.relative_to(REPO)),
+                      "clip_bytes": clip.stat().st_size, "writer": writer, "flash_attention_launches": launches,
+                      "lines": [ln for ln in lines[:-1] if ln.startswith("[s2v_torch]")],
+                      "stderr_tail": cli["stderr"].splitlines()[-5:]}
+        if cuda and launches != 2 * pipe.transformer_cfg.num_layers:
+            raise AssertionError(f"pretrained: the CLI's 2 steps launched B1 {launches} times")
+    finally:
+        shutil.rmtree(snap, ignore_errors=True)
+        shutil.rmtree(lora_dir, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    return {**counts, "cli_flash_attention": launches}
+
+
 PHASES = ("build", "kernel", "kernel_bwd", "kernel_banded", "kernel_banded_bwd", "kernel_banded_local",
           "kernel_banded_local_bwd", "kernel_int8", "reference", "e2e", "e2e_windowed", "e2e_sp_windowed", "e2e_int8",
-          "train", "train_windowed", "train_sp_windowed", "train_qlora")
+          "train", "train_windowed", "train_sp_windowed", "train_qlora", "pretrained")
 KERNEL_PHASES = {"kernel": phase_kernel, "kernel_bwd": phase_kernel_bwd, "kernel_banded": phase_kernel_banded,
                  "kernel_banded_bwd": phase_kernel_banded_bwd, "kernel_banded_local": phase_kernel_banded_local,
                  "kernel_banded_local_bwd": phase_kernel_banded_local_bwd, "kernel_int8": phase_kernel_int8,
@@ -1629,7 +1892,7 @@ PATH_PHASES = {"e2e": (phase_e2e, "flash"), "e2e_windowed": (phase_e2e, "windowe
                "e2e_int8": (phase_e2e_int8, "flash_int8"), "train": (phase_train, "flash"),
                "train_windowed": (phase_train, "windowed"),
                "train_sp_windowed": (phase_train_sp_windowed, "sp_windowed"),
-               "train_qlora": (phase_train_qlora, "flash")}
+               "train_qlora": (phase_train_qlora, "flash"), "pretrained": (phase_pretrained, "flash")}
 
 
 def _path_launches(results, kernel):
@@ -1637,7 +1900,7 @@ def _path_launches(results, kernel):
     train phase's steps, the profiled step not included)."""
     out = {}
     for phase, r in results.items():
-        if phase.startswith("e2e"):
+        if phase.startswith("e2e") or phase == "pretrained":
             out[phase] = r[kernel]
         elif phase.startswith("train"):
             out[phase] = sum(c[kernel] for c in r["launches"])
@@ -1661,7 +1924,9 @@ def kernels_line(results):
         "headers": ["s2v_torch/csrc/hopper.cuh"],
         "replaces": "s2v_tpu/ops/pallas/flash_attention.py:222",
         "launches": results["e2e"]["flash_attention"],
-        "launches_by_path": _path_launches(results, "flash_attention"),
+        "launches_by_path": {**_path_launches(results, "flash_attention"),
+                             **({"pretrained_cli": results["pretrained"]["cli_flash_attention"]}
+                                if "pretrained" in results else {})},
         # the worst mode at the main shape, beside what it was held to
         "max_abs_err": worst(main["modes"], "max_abs_err"),
         "max_abs_tol": main["modes"][MAIN_MODE]["max_abs_tol"],

@@ -1,0 +1,197 @@
+"""Inference CLI of the port, flag for flag the JAX package's
+(``s2v_tpu/cli.py``, itself the reference inference script's flags):
+
+    python -m s2v_torch.cli \\
+        --pretrained_model_name_or_path /path/to/CogVideoX-5b-snapshot \\
+        --checkpoint_path /path/to/s2v_lora_ckpt \\
+        --ref_img_path ./samples/pig.png \\
+        --prompt "<cls> A pig walking on a beach" \\
+        --output_dir ./out
+
+It loads the snapshot (merging the LoRA checkpoint), generates one clip on
+the CUDA card and writes ``<output_dir>/output.mp4``.  ``--device cpu``, the
+port's own flag, runs on the CPU instead; without a card and without it the
+CLI raises.  ``--attention_backend`` takes the JAX names: ``auto`` is the
+flash kernel on CUDA and the plain attention on the CPU, ``pallas`` is
+``flash``, ``pallas_int8`` ``flash_int8``, ``xla`` ``plain``,
+``windowed_xla`` ``windowed_plain``.  Flags of paths the port does not have
+yet raise ``NotImplementedError`` naming their ROADMAP item:
+``--use_dpm``, ``--adaptive_threshold``, ``--cfg_skip_threshold``,
+``--segment_steps`` and ``--progress`` (A.2), ``--attention_backend
+chunked`` (A.5), ``--pipeline t2v`` and ``--disentangled_modulation``
+(A.7), ``--mesh``, ``--text_encoder_device mesh`` and the
+sequence-parallel backends (A.9).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+
+from s2v_torch.cli_utils import (
+    ATTENTION_BACKEND_CHOICES,
+    BACKEND_NAMES,
+    UNPORTED_BACKENDS,
+    str2bool as _str2bool,
+    tiling_policy as _tiling_policy,
+)
+
+
+def get_args(argv=None):
+    p = argparse.ArgumentParser(description="Disentangled subject-to-video inference (PyTorch/CUDA)")
+    p.add_argument("--pretrained_model_name_or_path", type=str, default="THUDM/CogVideoX-5b",
+                   help="Local HF snapshot dir with transformer/ vae/ text_encoder/ tokenizer/ scheduler/, "
+                        "or a hub repo id")
+    p.add_argument("--cache_dir", type=str, default=None)
+    p.add_argument("--dataset_name", type=str, default="customization")
+    p.add_argument("--dataloader_num_workers", type=int, default=16)
+    p.add_argument("--ref_img_path", type=str, default=None,
+                   help="subject reference image (required unless --pipeline t2v)")
+    p.add_argument("--pipeline", type=str, default="s2v", choices=("s2v", "t2v"),
+                   help="s2v = subject-conditioned; t2v (not ported yet, ROADMAP A.7)")
+    p.add_argument("--guidance_scale", type=float, default=6.0)
+    p.add_argument("--use_dynamic_cfg", action="store_true", default=False)
+    p.add_argument("--seed", type=int, default=420)
+    p.add_argument("--rank", type=int, default=128)
+    p.add_argument("--lora_alpha", type=float, default=64)
+    p.add_argument("--output_dir", type=str, default="cogvideox-lora")
+    p.add_argument("--height", type=int, default=480)
+    p.add_argument("--width", type=int, default=720)
+    p.add_argument("--fps", type=int, default=8)
+    p.add_argument("--max_num_frames", type=int, default=49)
+    p.add_argument("--skip_frames_start", type=int, default=0)
+    p.add_argument("--skip_frames_end", type=int, default=0)
+    p.add_argument("--enable_slicing", type=_str2bool, default=True)
+    p.add_argument("--enable_tiling", type=_tiling_policy, default="auto",
+                   help="true | false | auto (default: tile only above the VAE's native size)")
+    p.add_argument("--hub_model_id", type=str, default=None)
+    p.add_argument("--local_reference_scale", type=float, default=1.0)  # inert in the reference too
+    p.add_argument("--checkpoint_path", type=str, default=None, help="S2V LoRA checkpoint dir")
+    p.add_argument("--prompt", type=str, default="")
+    p.add_argument("--num_inference_steps", type=int, default=50)
+    p.add_argument("--use_dpm", action="store_true", default=False, help="not ported yet (ROADMAP A.2)")
+    p.add_argument("--attention_backend", type=str, default="auto", choices=ATTENTION_BACKEND_CHOICES,
+                   help="auto = the flash kernel on CUDA, plain attention on the CPU (JAX names, see the module doc)")
+    p.add_argument("--attention_window", type=int, default=2,
+                   help="half-width (latent frames) for --attention_backend windowed")
+    p.add_argument("--quantize_int8", action="store_true", default=False,
+                   help="int8 linears in the DiT (pair with --attention_backend pallas_int8 for int8-QK attention)")
+    p.add_argument("--text_encoder_device", type=str, default="auto", choices=["auto", "device", "host", "mesh"],
+                   help="host keeps T5 on the CPU in fp32; mesh is not ported yet (ROADMAP A.9)")
+    p.add_argument("--disentangled_modulation", action="store_true", default=False,
+                   help="not ported yet (ROADMAP A.7)")
+    p.add_argument("--dtype", type=str, default="bfloat16", choices=["bfloat16", "float16", "float32"],
+                   help="the CUDA kernels take bfloat16 (ROADMAP C.1)")
+    p.add_argument("--adaptive_threshold", type=float, default=0.0, help="not ported yet (ROADMAP A.2); 0 only")
+    p.add_argument("--cfg_skip_threshold", type=float, default=0.0, help="not ported yet (ROADMAP A.2); 0 only")
+    p.add_argument("--segment_steps", type=int, default=0, help="not ported yet (ROADMAP A.2); 0 only")
+    p.add_argument("--mesh", type=str, default=None, help="not ported yet (ROADMAP A.9)")
+    p.add_argument("--progress", action="store_true", default=False, help="not ported yet (ROADMAP A.2)")
+    p.add_argument("--profile_dir", type=str, default=None,
+                   help="write a torch.profiler trace of the generate call (trace.json) here")
+    p.add_argument("--save_merged_dir", type=str, default=None,
+                   help="also export the loaded (LoRA-merged) weights as an HF-layout snapshot to this dir "
+                        "(save_pretrained)")
+    p.add_argument("--compilation_cache_dir", type=str, default="auto",
+                   help="accepted for the JAX CLI's command lines and ignored: the port compiles no XLA programs")
+    p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
+    return p.parse_args(argv)
+
+
+def check_ported(args) -> None:
+    """Raise ``NotImplementedError`` naming the ROADMAP item for any flag
+    whose path the port does not have yet."""
+    unported = [
+        (args.use_dpm, "--use_dpm (DPM-Solver)", "A.2"),
+        (args.adaptive_threshold != 0.0, "--adaptive_threshold (adaptive denoise)", "A.2"),
+        (args.cfg_skip_threshold != 0.0, "--cfg_skip_threshold (cfg-skip)", "A.2"),
+        (args.segment_steps != 0, "--segment_steps (segmented denoise)", "A.2"),
+        (args.progress, "--progress", "A.2"),
+        (args.pipeline == "t2v", "--pipeline t2v", "A.7"),
+        (args.disentangled_modulation, "--disentangled_modulation", "A.7"),
+        (args.mesh is not None, "--mesh", "A.9"),
+        (args.text_encoder_device == "mesh", "--text_encoder_device mesh", "A.9"),
+        (args.attention_backend in UNPORTED_BACKENDS, f"--attention_backend {args.attention_backend}",
+         UNPORTED_BACKENDS.get(args.attention_backend)),
+    ]
+    for hit, what, item in unported:
+        if hit:
+            raise NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
+
+
+def main(argv=None):
+    args = argv if isinstance(argv, argparse.Namespace) else get_args(argv)
+    check_ported(args)
+    if not args.ref_img_path:
+        raise SystemExit("--ref_img_path is required")
+    os.makedirs(args.output_dir, exist_ok=True)
+
+    import torch
+
+    from s2v_torch.pipelines.s2v import S2VPipeline
+    from s2v_torch.utils.device import resolve_device
+    from s2v_torch.utils.video import export_to_video, to_uint8_frames
+
+    device = resolve_device(args.device)
+    t0 = time.perf_counter()
+    pipe = S2VPipeline.from_pretrained(
+        os.path.expanduser(args.pretrained_model_name_or_path),
+        lora_checkpoint=args.checkpoint_path,
+        lora_alpha=args.lora_alpha,
+        attention_backend=BACKEND_NAMES[args.attention_backend],
+        quantize_int8=args.quantize_int8,
+        text_encoder_device=args.text_encoder_device,
+        dtype=getattr(torch, args.dtype),
+        cache_dir=os.path.expanduser(args.cache_dir) if args.cache_dir else None,
+        device=device,
+    )
+    pipe.vae_tiling = args.enable_tiling
+    pipe.vae_slicing = bool(args.enable_slicing)
+    pipe.set_attention(BACKEND_NAMES[args.attention_backend], args.attention_window)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    where = f"{device} ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else str(device)
+    print(f"[s2v_torch] models loaded in {time.perf_counter() - t0:.1f}s on {where}", flush=True)
+
+    if args.save_merged_dir:
+        pipe.save_pretrained(os.path.expanduser(args.save_merged_dir))
+        print(f"[s2v_torch] merged snapshot written to {args.save_merged_dir}")
+
+    profiler = None
+    if args.profile_dir:
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
+        profiler = profile(activities=activities)
+        profiler.start()
+    t1 = time.perf_counter()
+    video = pipe.generate(
+        prompt=args.prompt,
+        ref_image=args.ref_img_path,
+        height=args.height,
+        width=args.width,
+        num_frames=args.max_num_frames,
+        num_inference_steps=args.num_inference_steps,
+        guidance_scale=args.guidance_scale,
+        use_dynamic_cfg=args.use_dynamic_cfg,
+        seed=args.seed,
+    )
+    dt = time.perf_counter() - t1
+    if profiler is not None:
+        profiler.stop()
+        os.makedirs(args.profile_dir, exist_ok=True)
+        profiler.export_chrome_trace(os.path.join(args.profile_dir, "trace.json"))
+    print(f"[s2v_torch] generated {video.shape} in {dt:.1f}s "
+          f"({args.num_inference_steps / dt:.2f} steps/s incl. VAE)")
+    print(f"[s2v_torch] stage seconds {json.dumps(pipe.timings)}")
+
+    out_path = os.path.join(args.output_dir, "output.mp4")
+    written = export_to_video(to_uint8_frames(video[0]), out_path, fps=args.fps)
+    print(f"[s2v_torch] wrote {written}")
+    print("Inference completed", flush=True)
+
+
+if __name__ == "__main__":
+    main()

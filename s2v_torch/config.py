@@ -4,10 +4,23 @@ torch dtypes.  Defaults are the CogVideoX-5b / T5-XXL / CogVideoX VAE values;
 
 from __future__ import annotations
 
+import dataclasses
+import json
 from dataclasses import dataclass
 from typing import Tuple
 
 import torch
+
+
+def _from_hf_config(cls, path: str, overrides: dict):
+    """A config from a HF ``config.json``: its keys that name a field of
+    ``cls`` (lists as tuples), then ``overrides`` (e.g. ``dtype``)
+    (``s2v_tpu/config.py:116``)."""
+    with open(path) as f:
+        raw = json.load(f)
+    raw.update(overrides)
+    names = {f.name for f in dataclasses.fields(cls)}
+    return cls(**{k: tuple(v) if isinstance(v, list) else v for k, v in raw.items() if k in names})
 
 
 @dataclass(frozen=True)
@@ -59,6 +72,10 @@ class TransformerConfig:
         )
         base.update(overrides)
         return cls(**base)
+
+    @classmethod
+    def from_hf_config(cls, path: str, **overrides) -> "TransformerConfig":
+        return _from_hf_config(cls, path, overrides)
 
 
 @dataclass(frozen=True)
@@ -115,6 +132,10 @@ class VAEConfig:
         base.update(overrides)
         return cls(**base)
 
+    @classmethod
+    def from_hf_config(cls, path: str, **overrides) -> "VAEConfig":
+        return _from_hf_config(cls, path, overrides)
+
 
 @dataclass(frozen=True)
 class SchedulerConfig:
@@ -130,6 +151,10 @@ class SchedulerConfig:
     timestep_spacing: str = "trailing"
     rescale_betas_zero_snr: bool = True
     snr_shift_scale: float = 1.0
+
+    @classmethod
+    def from_hf_config(cls, path: str, **overrides) -> "SchedulerConfig":
+        return _from_hf_config(cls, path, overrides)
 
 
 @dataclass(frozen=True)
@@ -160,6 +185,10 @@ class T5Config:
         )
         base.update(overrides)
         return cls(**base)
+
+    @classmethod
+    def from_hf_config(cls, path: str, **overrides) -> "T5Config":
+        return _from_hf_config(cls, path, overrides)
 
 
 @dataclass(frozen=True)

@@ -1,1 +1,1 @@
-"""Parameter conversion into the port's layouts."""
+"""Loading and saving: safetensors, diffusers snapshots, LoRA checkpoints, parameter layouts."""

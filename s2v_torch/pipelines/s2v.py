@@ -3,10 +3,18 @@
 
 T5 prompt encode (cond + uncond) -> VAE encode of the subject image ->
 segmented RoPE tables -> the CFG denoise loop -> VAE decode -> postprocess.
-The pipeline is built from its components: parameter dicts in the port's
-layouts (random, or carried across with ``s2v_torch.loaders.jax_params``)
-and their configs.  Everything runs on ``device`` (CUDA unless the caller
-passes ``device="cpu"``).
+``S2VPipeline.from_pretrained`` loads a diffusers-layout CogVideoX snapshot
+(and merges a subject LoRA checkpoint); the pipeline can also be built from
+its components: parameter dicts in the port's layouts (random, or carried
+across with ``s2v_torch.loaders.jax_params``) and their configs.  Everything
+runs on ``device`` (CUDA unless the caller passes ``device="cpu"``), except
+a T5 the caller placed on the host (``text_encoder_device="host"``).
+
+Subject adapters: ``load_lora(path)`` re-merges the base weights with
+another checkpoint, ``load_lora(path, mode="runtime")`` attaches its
+low-rank factors instead (the DiT applies them per layer); ``None``
+restores the base weights.  ``save_pretrained`` writes a diffusers-layout
+snapshot.
 
 int8 serving: ``pipe.transformer_params =
 quantize_transformer_params(pipe.transformer_params)`` (int8 linears, see
@@ -24,6 +32,7 @@ decode included.
 
 from __future__ import annotations
 
+import os
 import time
 from contextlib import contextmanager, nullcontext
 from dataclasses import dataclass, field, replace
@@ -33,16 +42,49 @@ import numpy as np
 import torch
 
 from s2v_torch.config import PipelineConfig, SchedulerConfig, T5Config, TransformerConfig, VAEConfig
+from s2v_torch.loaders.hf import convert_t5_state_dict, convert_transformer_state_dict, convert_vae_state_dict
+from s2v_torch.loaders.lora import load_and_merge_lora, load_runtime_lora
+from s2v_torch.loaders.resolve import resolve_model_dir
+from s2v_torch.loaders.safetensors_io import load_sharded_safetensors
 from s2v_torch.models.t5 import t5_encode
+from s2v_torch.models.transformer import RUNTIME_LORA_KEY
 from s2v_torch.models.vae import gaussian_sample, vae_decode, vae_encode
 from s2v_torch.ops.attention import WINDOWED_BACKENDS, resolve_attention_backend, route_seq_backend
 from s2v_torch.ops.rope import build_segmented_rope, prepare_video_and_ref_rope
 from s2v_torch.parallel.context import default_logical_map, mesh_context
 from s2v_torch.pipelines.denoise import DenoiseSchedule, denoise
 from s2v_torch.utils.device import resolve_device
-from s2v_torch.utils.video import denormalize_video
+from s2v_torch.utils.video import denormalize_video, load_image, to_uint8_frames
 
 PROMPT_CACHE_SIZE = 32
+# runtime adapters kept on the host for re-selection, least recently used out
+RUNTIME_LORA_CACHE_SIZE = 4
+OUTPUT_TYPES = ("np", "pil", "pt", "latent")
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def _to(tree, device: torch.device):
+    """A tree of tensors moved to ``device`` in one pass."""
+    return _tree_map(lambda t: t.to(device), tree)
+
+
+def _has_int8(tree) -> bool:
+    if isinstance(tree, dict):
+        return any(_has_int8(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return any(_has_int8(v) for v in tree)
+    return getattr(tree, "dtype", None) == torch.int8
+
+
+def _unported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
 
 
 @dataclass
@@ -69,12 +111,197 @@ class S2VPipeline:
     vae_slicing: bool = True
     # a DeviceMesh with one dim "seq" (set_mesh), or None: one card
     mesh: Optional[object] = None
+    # the resolved snapshot dir of from_pretrained: load_lora re-reads the
+    # base weights from it, save_pretrained copies its tokenizer files
+    model_dir: Optional[str] = None
+    # True: T5 runs in fp32 on the CPU (text_encoder_device="host"); its
+    # embeddings move to the device
+    t5_on_host: bool = False
     # host-clock seconds of the last generate()'s stages, each ended by a device sync
     timings: dict = field(default_factory=dict, repr=False)
     _prompt_embed_cache: dict = field(default_factory=dict, repr=False)
+    # the pre-merge transformer state dict (host, memory-mapped), kept by
+    # load_lora(cache_base=True) so that later swaps skip the snapshot read
+    _base_transformer_sd: Optional[dict] = field(default=None, repr=False)
+    # (realpath, alpha) of the adapter merged into the weights, or None
+    _merged_lora: Optional[tuple] = field(default=None, repr=False)
+    # (realpath, alpha) -> runtime factor tree on the host, LRU order
+    _runtime_lora_cache: dict = field(default_factory=dict, repr=False)
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
+
+    # ------------------------------------------------------------------
+    # loading
+    # ------------------------------------------------------------------
+
+    @classmethod
+    def from_pretrained(
+        cls,
+        model_dir: str,
+        lora_checkpoint: Optional[str] = None,
+        lora_alpha: float = 64.0,
+        dtype: torch.dtype = torch.bfloat16,
+        attention_backend: str = "auto",
+        quantize_int8: bool = False,
+        text_encoder_device: str = "auto",
+        disentangled_modulation: bool = False,
+        mesh=None,
+        cache_dir: Optional[str] = None,
+        device: Optional[Union[str, torch.device]] = None,
+    ) -> "S2VPipeline":
+        """Load a CogVideoX snapshot (a local diffusers-layout dir with
+        transformer/ vae/ [text_encoder/ tokenizer/ scheduler/], or a hub
+        repo id, see ``loaders/resolve.py``), merging a subject LoRA
+        checkpoint into the DiT if given (``s2v_tpu/pipelines/s2v.py:199``).
+
+        ``text_encoder_device``: ``"auto"``/``"device"`` put T5 on
+        ``device``; ``"host"`` keeps it on the CPU in fp32.  ``"mesh"``,
+        ``mesh`` and ``disentangled_modulation=True`` raise
+        ``NotImplementedError`` (ROADMAP A.9, A.9, A.7)."""
+        if disentangled_modulation:
+            raise _unported("disentangled_modulation (the base_linear adaLN mode)", "A.7")
+        if mesh is not None or text_encoder_device == "mesh":
+            raise _unported("loading onto a mesh (mesh=, text_encoder_device='mesh')", "A.9")
+        if text_encoder_device not in ("auto", "device", "host"):
+            raise ValueError(f"text_encoder_device must be auto | device | host, got {text_encoder_device!r}")
+        device = resolve_device(device)
+        model_dir = resolve_model_dir(model_dir, cache_dir=cache_dir)
+
+        t_cfg = TransformerConfig.from_hf_config(os.path.join(model_dir, "transformer", "config.json"), dtype=dtype)
+        sd = load_sharded_safetensors(os.path.join(model_dir, "transformer"))
+        if lora_checkpoint is not None:
+            sd, _ = load_and_merge_lora(sd, lora_checkpoint, alpha=lora_alpha)
+        transformer_params = _to(convert_transformer_state_dict(sd, t_cfg, quantize_int8=quantize_int8), device)
+        del sd
+
+        v_cfg = VAEConfig.from_hf_config(os.path.join(model_dir, "vae", "config.json"), dtype=dtype)
+        vae_params = _to(convert_vae_state_dict(load_sharded_safetensors(os.path.join(model_dir, "vae")), v_cfg),
+                         device)
+
+        t5_dir = os.path.join(model_dir, "text_encoder")
+        t5_params = t5_cfg = tokenizer = None
+        t5_on_host = text_encoder_device == "host"
+        if os.path.isdir(t5_dir):
+            # on the host T5 runs in fp32: CPUs emulate bf16
+            t5_cfg = T5Config.from_hf_config(os.path.join(t5_dir, "config.json"),
+                                             dtype=torch.float32 if t5_on_host else dtype)
+            t5_params = _to(convert_t5_state_dict(load_sharded_safetensors(t5_dir), t5_cfg),
+                            torch.device("cpu") if t5_on_host else device)
+            tokenizer = _load_tokenizer(model_dir)
+
+        sched_path = os.path.join(model_dir, "scheduler", "scheduler_config.json")
+        scheduler_cfg = SchedulerConfig.from_hf_config(sched_path) if os.path.exists(sched_path) else SchedulerConfig()
+        pipe = cls(
+            transformer_params=transformer_params, transformer_cfg=t_cfg, vae_params=vae_params, vae_cfg=v_cfg,
+            t5_params=t5_params, t5_cfg=t5_cfg, scheduler_cfg=scheduler_cfg, tokenizer=tokenizer, device=device,
+            attention_backend=resolve_attention_backend(attention_backend, device), model_dir=model_dir,
+            t5_on_host=t5_on_host and t5_params is not None,
+        )
+        if lora_checkpoint is not None:
+            pipe._merged_lora = (os.path.realpath(lora_checkpoint), float(lora_alpha))
+        return pipe
+
+    def load_lora(self, lora_checkpoint: Optional[str], lora_alpha: float = 64.0, cache_base: bool = True,
+                  mode: str = "merge") -> None:
+        """Swap the subject LoRA adapter without reloading the pipeline
+        (``s2v_tpu/pipelines/s2v.py:339-452``).
+
+        ``mode="merge"``: the base transformer weights (re-read from
+        ``model_dir``, or the host copy kept by an earlier call with
+        ``cache_base=True``) merged with the new adapter (``None``: the base
+        weights), converted on the host (an int8 DiT stays int8), and moved
+        to the device after the old tree is dropped, so two trees are never
+        on the card at once.  A bad checkpoint raises before anything
+        changes.
+
+        ``mode="runtime"``: the base weights stay and the adapter's factors
+        ride under ``transformer_params[RUNTIME_LORA_KEY]``; the DiT applies
+        them per layer.  Factor trees are kept on the host for the last
+        ``RUNTIME_LORA_CACHE_SIZE`` adapters, so re-selecting one costs one
+        copy to the device.  The checkpoint is read before a merged adapter
+        is unwound: a bad one leaves the pipeline as it was.  ``None``
+        detaches the factors."""
+        if mode not in ("merge", "runtime"):
+            raise ValueError(f"lora mode must be 'merge' or 'runtime', got {mode!r}")
+        if mode == "runtime":
+            tree = self._resolve_runtime_lora(lora_checkpoint, lora_alpha)
+            if self._merged_lora is not None:
+                self.load_lora(None, cache_base=cache_base, mode="merge")
+            self._attach_runtime_lora(tree)
+            return
+        self.set_runtime_lora(None)  # merge mode owns the kernels
+        if lora_checkpoint is None and self._merged_lora is None:
+            return  # the base weights are already in place
+
+        base = self._base_transformer_sd
+        if base is None:
+            if not self.model_dir:
+                raise ValueError("load_lora needs the source snapshot (pipeline was not built by "
+                                 "from_pretrained); reload with from_pretrained")
+            base = load_sharded_safetensors(os.path.join(self.model_dir, "transformer"))
+            if cache_base:
+                self._base_transformer_sd = base
+        sd = dict(base)
+        if lora_checkpoint is not None:
+            sd, _ = load_and_merge_lora(sd, lora_checkpoint, alpha=lora_alpha)
+        host_params = convert_transformer_state_dict(sd, self.transformer_cfg,
+                                                     quantize_int8=_has_int8(self.transformer_params))
+        del sd
+        self.transformer_params = None  # the old tree goes before the new one reaches the device
+        self.transformer_params = _to(host_params, self.device)
+        self._merged_lora = (None if lora_checkpoint is None
+                             else (os.path.realpath(lora_checkpoint), float(lora_alpha)))
+
+    def set_runtime_lora(self, tree: Optional[dict]) -> None:
+        """Attach (or detach, ``None``) a runtime LoRA factor tree in the
+        layout of ``loaders.lora.runtime_lora_tree`` (host or device
+        tensors); ``load_lora(path, mode="runtime")`` is the checkpoint
+        front end."""
+        if tree is not None and self._merged_lora is not None:
+            raise ValueError(
+                "a merged LoRA adapter is folded into the base kernels; runtime factors would stack on top of it "
+                "— reset with load_lora(None) first, or use load_lora(path, mode='runtime') which unwinds the "
+                "merge automatically")
+        self._attach_runtime_lora(None if tree is None else self._place_runtime_tree(tree))
+
+    def _place_runtime_tree(self, tree: dict) -> dict:
+        return _tree_map(lambda t: t.to(self.device, self.transformer_cfg.dtype), tree)
+
+    def _resolve_runtime_lora(self, lora_checkpoint: Optional[str], lora_alpha: float) -> Optional[dict]:
+        """The placed factor tree of a checkpoint (host cache hit or a read),
+        without touching the pipeline's weights."""
+        if lora_checkpoint is None:
+            return None
+        key = (os.path.realpath(lora_checkpoint), float(lora_alpha))
+        host = self._runtime_lora_cache.pop(key, None)
+        if host is None:
+            host = load_runtime_lora(lora_checkpoint, self.transformer_cfg.num_layers, alpha=lora_alpha)
+            while len(self._runtime_lora_cache) >= RUNTIME_LORA_CACHE_SIZE:
+                self._runtime_lora_cache.pop(next(iter(self._runtime_lora_cache)))
+        self._runtime_lora_cache[key] = host  # (re-)inserted last: most recently used
+        return self._place_runtime_tree(host)
+
+    def _attach_runtime_lora(self, tree: Optional[dict]) -> None:
+        if tree is None:
+            self.transformer_params.pop(RUNTIME_LORA_KEY, None)
+        else:
+            self.transformer_params[RUNTIME_LORA_KEY] = tree
+
+    def save_pretrained(self, out_dir: str, dtype: Optional[str] = None) -> str:
+        """Write the current weights (a merged adapter included) as a
+        diffusers-layout snapshot that ``from_pretrained`` loads, here or in
+        the JAX package (``s2v_tpu/pipelines/s2v.py:527``).  ``dtype``: the
+        on-disk dtype (``"bfloat16"`` halves the 5b snapshot); None keeps
+        fp32.  Refuses while a runtime adapter is attached."""
+        from s2v_torch.loaders.export_hf import save_pipeline_snapshot
+
+        if RUNTIME_LORA_KEY in self.transformer_params:
+            raise ValueError(
+                "save_pretrained with a runtime LoRA attached would export only the base weights; reload the "
+                "adapter with load_lora(path, mode='merge') to export fused weights, or set_runtime_lora(None) "
+                "to export the base model")
+        return save_pipeline_snapshot(self, out_dir, dtype=dtype)
 
     def set_attention(self, backend: str, window: Optional[int] = None) -> None:
         """Set the attention backend (``auto`` resolves on this device) and,
@@ -157,8 +384,9 @@ class S2VPipeline:
         ``PROMPT_CACHE_SIZE`` entries; never evicts what this call needs)."""
         missing = list(dict.fromkeys(t for t in texts if (t, max_length) not in self._prompt_embed_cache))
         if missing:
-            ids = torch.as_tensor(self.tokenizer.encode(missing, max_length), device=self.device)
-            emb = t5_encode(self.t5_params, self.t5_cfg, ids)
+            t5_device = torch.device("cpu") if self.t5_on_host else self.device
+            ids = torch.as_tensor(self.tokenizer.encode(missing, max_length), device=t5_device)
+            emb = t5_encode(self.t5_params, self.t5_cfg, ids).to(self.device)
             needed = {(t, max_length) for t in texts}
             for key in list(self._prompt_embed_cache):
                 if len(self._prompt_embed_cache) + len(missing) <= PROMPT_CACHE_SIZE:
@@ -170,9 +398,11 @@ class S2VPipeline:
         return torch.stack([self._prompt_embed_cache[(t, max_length)] for t in texts], dim=0)
 
     def encode_ref_image(self, image, generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """``[H, W, 3]`` image in [-1, 1] -> scaled ref latents ``[1, 1, h, w, C]``:
-        a posterior sample (noise from the CPU ``generator``) or, without a
-        generator, the posterior mean."""
+        """An image path, or an ``[H, W, 3]`` image in [-1, 1] -> scaled ref
+        latents ``[1, 1, h, w, C]``: a posterior sample (noise from the CPU
+        ``generator``) or, without a generator, the posterior mean."""
+        if isinstance(image, str):
+            image = load_image(image)
         x = torch.as_tensor(np.asarray(image, np.float32)).to(self.device, self.vae_cfg.dtype)[None, None]
         moments = vae_encode(
             self.vae_params, self.vae_cfg, x,
@@ -205,10 +435,19 @@ class S2VPipeline:
         return denormalize_video(frames.float().cpu().numpy())
 
     def postprocess_video(self, video01: np.ndarray, output_type: str):
-        """``np``: the float array ``[B, T, H, W, 3]`` in [0, 1]."""
+        """``np``: the float array ``[B, T, H, W, 3]`` in [0, 1]; ``pil``: per
+        clip a list of PIL images; ``pt``: a CPU tensor ``[B, T, 3, H, W]``."""
         if output_type == "np":
             return video01
-        raise ValueError(f"unknown output_type {output_type!r} (np | latent)")
+        if output_type == "pil":
+            try:
+                from PIL import Image
+            except ImportError as e:
+                raise ImportError("output_type='pil' needs the PIL package (Pillow), which is not installed") from e
+            return [[Image.fromarray(f) for f in to_uint8_frames(clip)] for clip in video01]
+        if output_type == "pt":
+            return torch.from_numpy(np.ascontiguousarray(video01)).permute(0, 1, 4, 2, 3)
+        raise ValueError(f"unknown output_type {output_type!r} ({' | '.join(OUTPUT_TYPES)})")
 
     # ------------------------------------------------------------------
     # end to end
@@ -234,8 +473,10 @@ class S2VPipeline:
         output_type: str = "np",
         cfg_mode: str = "auto",  # auto: batched, except a batch > 1 -> sequential
     ):
-        """Generate a clip: ``[B, T, H, W, 3]`` float in [0, 1] (``np``) or the
-        final latents (``latent``).  The latents and the ref posterior noise
+        """Generate a clip: ``[B, T, H, W, 3]`` float in [0, 1] (``np``), PIL
+        frames (``pil``), ``[B, T, 3, H, W]`` (``pt``) or the final latents
+        (``latent``); ``ref_image`` is a path or an ``[H, W, 3]`` array in
+        [-1, 1].  The latents and the ref posterior noise
         are drawn from CPU ``torch.Generator``s seeded from ``seed``.  An
         argument left at None takes its value from ``self.pipeline_cfg``."""
         given = dict(height=height, width=width, num_frames=num_frames, num_inference_steps=num_inference_steps,
@@ -271,8 +512,8 @@ class S2VPipeline:
             raise ValueError("num_inference_steps must be >= 1")
         if num_frames < 1:
             raise ValueError("num_frames must be >= 1")
-        if output_type not in ("np", "latent"):
-            raise ValueError(f"unknown output_type {output_type!r} (np | latent)")
+        if output_type not in OUTPUT_TYPES:
+            raise ValueError(f"unknown output_type {output_type!r} ({' | '.join(OUTPUT_TYPES)})")
 
         self.timings = {}
         seeds = torch.randint(2**62, (2,), generator=torch.Generator().manual_seed(run.seed))
@@ -328,3 +569,19 @@ class S2VPipeline:
             return final
         with self._timed("decode_s"):
             return self.postprocess_video(self.decode_latents(final), output_type)
+
+
+def _load_tokenizer(model_dir: str):
+    """``tokenizer.json`` through ``tokenizers`` first, then the native
+    sentencepiece tokenizer on ``tokenizer/spiece.model``, else None
+    (``s2v_tpu/pipelines/s2v.py:296-310``)."""
+    from s2v_torch.utils.sp_native import NativeSPTokenizer
+    from s2v_torch.utils.tokenizer import T5CLSTokenizer
+
+    if any(os.path.exists(os.path.join(model_dir, *p, "tokenizer.json")) for p in (("tokenizer",), ())):
+        try:
+            return T5CLSTokenizer.from_checkpoint_dir(model_dir)
+        except ImportError:
+            pass  # no `tokenizers` package: the native tokenizer reads spiece.model
+    spiece = os.path.join(model_dir, "tokenizer", "spiece.model")
+    return NativeSPTokenizer(spiece) if os.path.exists(spiece) else None

@@ -28,6 +28,8 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 GXX_FLAGS = ["-std=c++17", "-O2", "-shared", "-fPIC"]
+# libraries a source links, by its stem (after the source on the command line)
+LINK_LIBS = {"mp4_muxer": ["-lavformat", "-lavcodec", "-lavutil", "-lswscale"]}
 
 
 def nvcc_path() -> str:
@@ -43,7 +45,7 @@ def nvcc_path() -> str:
 def _command(src: Path, out: Path) -> List[str]:
     if src.suffix == ".cu":
         return [nvcc_path(), *NVCC_FLAGS, "-o", str(out), str(src)]
-    return ["g++", *GXX_FLAGS, "-o", str(out), str(src)]
+    return ["g++", *GXX_FLAGS, "-o", str(out), str(src), *LINK_LIBS.get(src.stem, [])]
 
 
 _INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
@@ -72,7 +74,7 @@ def library_path(src: Path) -> Path:
     for header in local_includes(src):
         digest.update(header.name.encode())
         digest.update(header.read_bytes())
-    flags = NVCC_FLAGS if src.suffix == ".cu" else GXX_FLAGS
+    flags = NVCC_FLAGS if src.suffix == ".cu" else GXX_FLAGS + LINK_LIBS.get(src.stem, [])
     digest.update(" ".join(flags).encode())
     return BUILD_DIR / f"lib{src.stem}-{digest.hexdigest()[:12]}.so"
 

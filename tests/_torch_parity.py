@@ -56,3 +56,78 @@ def band_inputs(b, h, g, tpf, f, seed, d=16, n=4):
     """q, k, v (and dO): seeded numpy, 0.5-scaled as the JAX tests' sweep."""
     rng = np.random.RandomState(seed)
     return tuple((rng.randn(b, g + f * tpf, h, d) * 0.5).astype(np.float32) for _ in range(n))
+
+
+def seeded_params(init_fn, cfg, seed):
+    """Seeded numpy params in the tree of a JAX init function, without
+    running it (its eager init of the tiny VAE takes seconds):
+    ``kernel``/``embedding`` leaves normal / sqrt(fan-in), norm ``weight``s
+    1 + 0.1·normal, biases and the rest 0.1·normal, so zero biases and unit
+    norms hide no layout mistake."""
+    rng = np.random.RandomState(seed)
+    shapes = jax.eval_shape(lambda k: init_fn(k, cfg), jax.random.PRNGKey(0))
+
+    def fill(path, leaf):
+        name, shape = path[-1].key, leaf.shape
+        x = rng.randn(*shape).astype(np.float32)
+        if name in ("kernel", "embedding"):
+            return x / np.sqrt(max(1, int(np.prod(shape[:-1])) if name == "kernel" else shape[-1]))
+        return x * 0.1 + (1.0 if name == "weight" else 0.0)
+
+    return jax.tree_util.tree_map_with_path(fill, shapes)
+
+
+def write_tiny_snapshot(root):
+    """A tiny CogVideoX snapshot in the diffusers layout, written by the JAX
+    package's ``save_pipeline_snapshot`` (fp32) from :func:`seeded_params`,
+    with a ``tokenizer.json``, and a LoRA checkpoint over all 9 target
+    families (``tools/make_tiny_snapshot.py::lora_checkpoint``, rank 2, the
+    diffusers ``.lora.down``/``.lora.up`` keys).  Returns (snapshot, lora) dirs."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
+    from make_tiny_snapshot import lora_checkpoint, write_tokenizer
+
+    from s2v_tpu.config import T5Config, TransformerConfig, VAEConfig
+    from s2v_tpu.loaders.export_hf import save_pipeline_snapshot
+    from s2v_tpu.loaders.safetensors_io import save_safetensors
+    from s2v_tpu.models.t5 import init_t5_params
+    from s2v_tpu.models.transformer import init_transformer_params
+    from s2v_tpu.models.vae import init_vae_params
+    from s2v_tpu.pipelines.s2v import S2VPipeline
+    from s2v_tpu.utils.tokenizer import T5CLSTokenizer
+
+    tcfg = TransformerConfig.tiny()
+    vcfg = VAEConfig.tiny(latent_channels=tcfg.in_channels, sample_height=64, sample_width=64)
+    t5cfg = T5Config.tiny(d_model=tcfg.text_embed_dim)
+    tok_json = os.path.join(str(root), "tokenizer.json")
+    write_tokenizer(tok_json, t5cfg.vocab_size)
+    dev = lambda tree: jax.tree.map(jnp.asarray, tree)  # noqa: E731
+    pipe = S2VPipeline(
+        transformer_params=dev(seeded_params(init_transformer_params, tcfg, 1)), transformer_cfg=tcfg,
+        vae_params=dev(seeded_params(init_vae_params, vcfg, 2)), vae_cfg=vcfg,
+        t5_params=dev(seeded_params(init_t5_params, t5cfg, 3)), t5_cfg=t5cfg,
+        tokenizer=T5CLSTokenizer(tok_json),
+    )
+    snap, lora = os.path.join(str(root), "snapshot"), os.path.join(str(root), "lora")
+    save_pipeline_snapshot(pipe, snap)
+    os.makedirs(lora)
+    save_safetensors(lora_checkpoint(tcfg), os.path.join(lora, "pytorch_lora_weights_transformer.safetensors"))
+    return snap, lora
+
+
+def assert_trees_equal(got, want, path="params"):
+    """Two trees of tensors: the same structure, and every leaf equal in
+    dtype, shape and value (``torch.equal``)."""
+    if isinstance(want, dict):
+        assert isinstance(got, dict) and sorted(got) == sorted(want), f"{path}: {sorted(got)} vs {sorted(want)}"
+        for k in want:
+            assert_trees_equal(got[k], want[k], f"{path}.{k}")
+    elif isinstance(want, (list, tuple)):
+        assert len(got) == len(want), f"{path}: {len(got)} vs {len(want)} entries"
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert_trees_equal(g, w, f"{path}[{i}]")
+    else:
+        assert got.dtype == want.dtype and got.shape == want.shape, f"{path}: {got.dtype} {got.shape} vs {want.dtype} {want.shape}"
+        assert torch.equal(got, want), f"{path}: values differ"

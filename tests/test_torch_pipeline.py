@@ -137,7 +137,7 @@ def test_generate_from_ref_image_is_seeded(pipelines):
         dict(prompt_embeds=np.zeros((2, 16, 32), np.float32), negative_prompt="y"),
         dict(prompt="x", height=30),
         dict(prompt="x", num_inference_steps=0),
-        dict(prompt="x", output_type="pil"),
+        dict(prompt="x", output_type="gif"),
         dict(prompt=["x", 3]),
     ],
     ids=["prompt_and_embeds", "no_prompt", "negative_with_embeds", "bad_height", "zero_steps", "output_type", "prompt_list"],
