@@ -73,6 +73,11 @@ Phases, each printing one JSON line:
                 on the plain attention), and with the int8 tree
                 (``flash_int8`` against the plain attention on the same
                 quantized tree; the int8-vs-bf16 latent RMS printed);
+      chunked  — the ``chunked`` backend (PyTorch ops, no kernel) at the
+                training shape B=1, S=19,126, H=48, d=64: forward and autograd
+                backward against B1 and B2 on the same inputs, within the
+                kernels' limits; seconds, and the peak memory against one
+                1,024-row block's fp32 probabilities (at most 8 of them);
   11. e2e      — ``S2VPipeline.generate`` at full CogVideoX-5b width (42-block
                 DiT, T5-XXL, the full VAE; random weights from fixed seeds):
                 49 frames at 480x720, 2 DDIM steps, batched CFG; the launch
@@ -90,6 +95,19 @@ Phases, each printing one JSON line:
                 timed) with ``set_attention("flash_int8")``: per step 42 B3
                 launches (and 42 of its pre-pass) and no B1; the bf16 tree
                 is restored after;
+      e2e_options — the rest of ``generate`` with ``flash``, 2 steps each: a
+                DPM clip (84 B1 launches); the whole loop's latents against
+                ``segment_steps=1``'s, bit for bit; a callback that stops the
+                run after its first segment (one step, 42 launches); a cfg-skip
+                run (dynamic guidance, threshold 0.02: 42 B1 launches at B=2
+                and 42 at B=1); then the latents decoded untiled and in
+                quarter-size tiles: seconds, peak memory, frame PSNR;
+      turbo    — two 50-step clips, dynamic guidance, seed 42, T5 in each:
+                exact (B1) and the JAX package's turbo knobs (int8 linears,
+                ``windowed`` w = 1, cfg-skip 0.02, adaptive 0.05, segments of
+                6): seconds per clip, step times, peak memory, skip counts
+                (the cfg-skipped count equal to the guidance table's),
+                launches by batch, and turbo's frame PSNR against exact;
  15. train    — on the same pipeline: one seeded 49x480x720 clip through
                 ``latent_batches`` (RoPE tables added), then 3 LoRA train
                 steps (rank 128 on all seven target families, flash both
@@ -122,11 +140,17 @@ Phases, each printing one JSON line:
                 subprocess on the snapshot, the LoRA and a 720x480 PNG
                 (written here without PIL) at 49x480x720, 2 steps: exit 0
                 and a non-empty clip, with the writer that made it and the
-                CLI's B1 launches.  The snapshot and the LoRA are deleted
-                at the end.
+                CLI's B1 launches;
+      serve    — ``python3 -m s2v_torch.serve`` in a subprocess on that
+                snapshot and LoRA (merged), on the card, then over its socket:
+                ping, warmup without an image, a 2-step generate to an mp4,
+                the same with DPM, segments of 1 and cfg-skip, a runtime
+                ``load_lora`` and a generate, stats, shutdown; every answer
+                ``"status": "ok"``; start, request and swap seconds.  The
+                snapshot and the LoRA are deleted when the script ends.
 Then the kernels line, the nvidia-smi line, and the result line.  The
-pipeline phases share one pipeline; ``pretrained`` empties it, so it runs
-last.  Any failed
+pipeline phases share one pipeline; ``pretrained`` empties it, so it and
+``serve`` run last.  Any failed
 phase raises: the script exits non-zero and prints no result.  It needs a
 CUDA device and the repository beside it.  ``--phases a,b`` runs only those
 phases (after the build), for a short check of one part.
@@ -202,6 +226,11 @@ SMOKE_SPIECE = REPO / "build" / "smoke_spiece.model"  # the full-width pipeline'
 # the LoRA factors' std: B·A moves a weight by ~11% of the DiT's 0.02 init
 # std, ~60x its bf16 rounding
 LORA_STD = 0.02
+# the chunked backend's query block (JAX's default), and the most its
+# backward's peak may be in fp32 probabilities of one block (the whole S²
+# is 18.7 blocks at the training shape)
+CHUNKED_BLOCK_Q = 1024
+CHUNKED_PEAK_BLOCKS = 8
 
 
 def emit(obj):
@@ -1270,6 +1299,7 @@ def reset_counts():
     fns = _counted_fns()
     for fn in fns.values():
         fn.launches = 0
+    fns["flash_attention"].launches_by_batch = {}
     fns["flash_attention"].reruns = 0
     fns["flash_attention_qk_int8"].prepass_launches = 0
 
@@ -1277,7 +1307,8 @@ def reset_counts():
 def read_counts() -> dict:
     fns = _counted_fns()
     return {**{name: fn.launches for name, fn in fns.items()}, "reruns": fns["flash_attention"].reruns,
-            "flash_attention_qk_int8_prepass": fns["flash_attention_qk_int8"].prepass_launches}
+            "flash_attention_qk_int8_prepass": fns["flash_attention_qk_int8"].prepass_launches,
+            "flash_attention_by_batch": {str(b): n for b, n in fns["flash_attention"].launches_by_batch.items()}}
 
 
 def check_counts(counts: dict, backend: str, forwards: int, backwards: int) -> bool:
@@ -1565,7 +1596,8 @@ def _quantized(pipe):
 
     t0 = time.perf_counter()
     params = quantize_transformer_params(pipe.transformer_params)
-    torch.cuda.synchronize()
+    if pipe.device.type == "cuda":
+        torch.cuda.synchronize()
     return params, time.perf_counter() - t0
 
 
@@ -1728,6 +1760,53 @@ def _run_cli(args, env) -> dict:
     return {"rc": proc.returncode, "seconds": time.perf_counter() - t0, "stdout": proc.stdout, "stderr": proc.stderr}
 
 
+def write_smoke_snapshot(pipe) -> dict:
+    """The full-width pipeline as a bf16 diffusers snapshot in
+    ``build/smoke_snapshot`` (``save_pretrained``, its tokenizer the smoke's
+    ``spiece.model``) and a seeded rank-128 LoRA checkpoint in
+    ``build/smoke_lora``, after a check of the free disk; returns their
+    sizes and write seconds."""
+    from s2v_torch.loaders.safetensors_io import save_safetensors
+
+    build = REPO / "build"
+    snap, lora_dir = build / "smoke_snapshot", build / "smoke_lora"
+    remove_smoke_files()
+    trees = (pipe.transformer_params, pipe.vae_params, pipe.t5_params)
+    snapshot_bytes = sum(t.numel() * 2 for tree in trees for t in _tensors(tree))  # bf16 on disk
+    lora_sd = smoke_lora_checkpoint(pipe.transformer_cfg)
+    lora_params = sum(t.numel() for t in lora_sd.values())
+    need, free = snapshot_bytes + 4 * lora_params + 2**30, shutil.disk_usage(build).free
+    if free < need:
+        raise RuntimeError(f"{need} bytes needed under {build} for the snapshot and the LoRA, {free} free")
+    t0 = time.perf_counter()
+    pipe.save_pretrained(str(snap), dtype="bfloat16")
+    write_s = time.perf_counter() - t0
+    # save_pretrained copies tokenizer files only from a snapshot the
+    # pipeline was loaded from; this one's tokenizer is its spiece.model
+    (snap / "tokenizer").mkdir()
+    shutil.copy(SMOKE_SPIECE, snap / "tokenizer" / "spiece.model")
+    written = _dir_bytes(snap)
+    lora_dir.mkdir(parents=True)
+    t0 = time.perf_counter()
+    save_safetensors(lora_sd, str(lora_dir / "pytorch_lora_weights.safetensors"))
+    return {"gb": written / 1e9, "write_s": write_s, "write_gb_per_s": written / 1e9 / write_s,
+            "lora_gb": _dir_bytes(lora_dir) / 1e9, "lora_write_s": time.perf_counter() - t0,
+            "disk_free_gb": free / 1e9, "lora_params": lora_params}
+
+
+def release_pipe(pipe, dev) -> None:
+    """Drop the in-memory pipeline's weights (another process or pipeline needs the card)."""
+    import gc
+
+    import torch
+
+    pipe.transformer_params = pipe.vae_params = pipe.t5_params = None
+    pipe._prompt_embed_cache.clear()
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
 def phase_pretrained(dev, pipe, backend="flash", height=480, width=720, num_frames=49):
     """The ``pretrained`` phase (see the module doc): snapshot and LoRA
     written, loaded back and checked, then the CLI on them.  It leaves
@@ -1739,22 +1818,12 @@ def phase_pretrained(dev, pipe, backend="flash", height=480, width=720, num_fram
     import torch
 
     from s2v_torch import S2VPipeline
-    from s2v_torch.loaders.safetensors_io import save_safetensors
 
     t_phase = time.perf_counter()
     build = REPO / "build"
     snap, lora_dir, cli_out = build / "smoke_snapshot", build / "smoke_lora", build / "smoke_cli"
-    for d in (snap, lora_dir, cli_out):
-        shutil.rmtree(d, ignore_errors=True)
-    trees = (pipe.transformer_params, pipe.vae_params, pipe.t5_params)
-    snapshot_bytes = sum(t.numel() * 2 for tree in trees for t in _tensors(tree))  # bf16 on disk
-    lora_sd = smoke_lora_checkpoint(pipe.transformer_cfg)
-    lora_params = sum(t.numel() for t in lora_sd.values())
-    need, free = snapshot_bytes + 4 * lora_params + 2**30, shutil.disk_usage(build).free
-    if free < need:
-        raise RuntimeError(f"pretrained: {need} bytes needed under {build} for the snapshot and the LoRA, "
-                           f"{free} free")
-    out = {"phase": "pretrained", "lora_rank": LORA_RANK, "lora_params": lora_params}
+    shutil.rmtree(cli_out, ignore_errors=True)
+    out = {"phase": "pretrained", "lora_rank": LORA_RANK}
     image = np.clip(np.random.RandomState(42).randn(480, 720, 3).astype(np.float32) * 0.5, -1, 1)
     kw = dict(prompt="a pig walking in the park", ref_image=image[:height, :width], height=height, width=width,
               num_frames=num_frames, guidance_scale=6.0, seed=42, num_inference_steps=1, output_type="latent")
@@ -1763,136 +1832,450 @@ def phase_pretrained(dev, pipe, backend="flash", height=480, width=720, num_fram
     def memory_gb(fn):
         return fn() / 1e9 if cuda else None
 
-    try:
-        t0 = time.perf_counter()
-        pipe.save_pretrained(str(snap), dtype="bfloat16")
-        write_s = time.perf_counter() - t0
-        # save_pretrained copies tokenizer files only from a snapshot the
-        # pipeline was loaded from; this one's tokenizer is its spiece.model
-        (snap / "tokenizer").mkdir()
-        shutil.copy(SMOKE_SPIECE, snap / "tokenizer" / "spiece.model")
-        written = _dir_bytes(snap)
-        lora_dir.mkdir(parents=True)
-        t0 = time.perf_counter()
-        save_safetensors(lora_sd, str(lora_dir / "pytorch_lora_weights.safetensors"))
-        out["snapshot"] = {"gb": written / 1e9, "write_s": write_s, "write_gb_per_s": written / 1e9 / write_s,
-                           "lora_gb": _dir_bytes(lora_dir) / 1e9, "lora_write_s": time.perf_counter() - t0,
-                           "disk_free_gb": free / 1e9}
-        del lora_sd
+    out["snapshot"] = write_smoke_snapshot(pipe)
+    out["lora_params"] = out["snapshot"].pop("lora_params")
 
-        base = pipe.generate(**kw).float()
-        if cuda:
-            torch.cuda.reset_peak_memory_stats()
-        before = memory_gb(torch.cuda.memory_allocated)
+    base = pipe.generate(**kw).float()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    before = memory_gb(torch.cuda.memory_allocated)
+    t0 = time.perf_counter()
+    loaded = S2VPipeline.from_pretrained(str(snap), device=dev)
+    if cuda:
+        torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    weights = sum(_dir_bytes(snap / s) for s in ("transformer", "vae", "text_encoder"))
+    out["load"] = {"load_s": load_s, "gb_read": weights / 1e9, "gb_per_s": weights / 1e9 / load_s,
+                   "weights_gb": memory_gb(torch.cuda.memory_allocated) - before if cuda else None,
+                   "max_memory_allocated_gb": memory_gb(torch.cuda.max_memory_allocated),
+                   "tokenizer": type(loaded.tokenizer).__name__}
+    for name in ("transformer_params", "vae_params", "t5_params"):
+        if not _trees_equal(getattr(loaded, name), getattr(pipe, name)):
+            raise AssertionError(f"pretrained: the loaded {name} differ from the in-memory pipeline's")
+    out["load"]["tensors_bitwise_equal"] = True
+
+    reset_counts()
+    got = loaded.generate(**kw).float()
+    counts = read_counts()
+    if not torch.equal(got, base):
+        raise AssertionError(f"pretrained: 1-step latents differ from the in-memory pipeline's: "
+                             f"{_agreement(got, base, 'loaded against in-memory')}")
+    if cuda and not check_counts(counts, backend, pipe.transformer_cfg.num_layers, 0):
+        raise AssertionError(f"pretrained: 1-step generate launches {counts}; expected "
+                             f"{pipe.transformer_cfg.num_layers} B1 and nothing else")
+    out.update(latents_bitwise_equal=True, launches=counts)
+
+    # the in-memory pipeline is done with: its weights go (the CLI needs the card)
+    release_pipe(pipe, dev)
+
+    def rel_l2(a, b):
+        return ((a - b).square().sum() / b.square().sum()).sqrt().item()
+
+    lora = {}
+    for mode in ("merge", "runtime"):
         t0 = time.perf_counter()
-        loaded = S2VPipeline.from_pretrained(str(snap), device=dev)
+        loaded.load_lora(str(lora_dir), mode=mode)
         if cuda:
             torch.cuda.synchronize()
-        load_s = time.perf_counter() - t0
-        weights = sum(_dir_bytes(snap / s) for s in ("transformer", "vae", "text_encoder"))
-        out["load"] = {"load_s": load_s, "gb_read": weights / 1e9, "gb_per_s": weights / 1e9 / load_s,
-                       "weights_gb": memory_gb(torch.cuda.memory_allocated) - before if cuda else None,
-                       "max_memory_allocated_gb": memory_gb(torch.cuda.max_memory_allocated),
-                       "tokenizer": type(loaded.tokenizer).__name__}
-        for name in ("transformer_params", "vae_params", "t5_params"):
-            if not _trees_equal(getattr(loaded, name), getattr(pipe, name)):
-                raise AssertionError(f"pretrained: the loaded {name} differ from the in-memory pipeline's")
-        out["load"]["tensors_bitwise_equal"] = True
+        lora[f"{mode}_s"] = time.perf_counter() - t0
+        lora[mode] = loaded.generate(**kw).float()
+        if mode == "merge":  # the noise floor: the same merged weights under the plain attention
+            loaded.set_attention("plain")
+            lora["merge_plain"] = loaded.generate(**kw).float()
+            loaded.set_attention("auto")
+    merged, runtime, merged_plain = lora.pop("merge"), lora.pop("runtime"), lora.pop("merge_plain")
+    diff = (merged - runtime).abs()
+    noise, effect, rel = rel_l2(merged_plain, merged), rel_l2(got, merged), rel_l2(runtime, merged)
+    within_tol = bool((diff <= LORA_MERGE_RUNTIME_TOL * (1 + runtime.abs())).all())
+    ok = within_tol and rel <= LORA_NOISE_MULT * noise < effect
+    out["lora"] = {**lora, "max_abs_diff": diff.max().item(), "tol_atol_rtol": LORA_MERGE_RUNTIME_TOL,
+                   "within_tol": within_tol, "rel_l2": rel, "noise_rel_l2_plain_vs_b1": noise,
+                   "noise_mult": LORA_NOISE_MULT, "adapter_effect_rel_l2": effect, "agree": ok}
+    if not ok:
+        raise AssertionError(f"pretrained: merge and runtime LoRA latents disagree: {out['lora']}")
+    del loaded, got, base, merged, runtime, merged_plain, diff
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    out["card_free_gb_for_cli"] = memory_gb(lambda: torch.cuda.mem_get_info(dev)[0])
 
-        reset_counts()
-        got = loaded.generate(**kw).float()
-        counts = read_counts()
-        if not torch.equal(got, base):
-            raise AssertionError(f"pretrained: 1-step latents differ from the in-memory pipeline's: "
-                                 f"{_agreement(got, base, 'loaded against in-memory')}")
-        if cuda and not check_counts(counts, backend, pipe.transformer_cfg.num_layers, 0):
-            raise AssertionError(f"pretrained: 1-step generate launches {counts}; expected "
-                                 f"{pipe.transformer_cfg.num_layers} B1 and nothing else")
-        out.update(latents_bitwise_equal=True, launches=counts)
-
-        # the in-memory pipeline is done with: its weights go (the CLI needs the card)
-        pipe.transformer_params = pipe.vae_params = pipe.t5_params = None
-        pipe._prompt_embed_cache.clear()
-        gc.collect()
-        if cuda:
-            torch.cuda.empty_cache()
-
-        def rel_l2(a, b):
-            return ((a - b).square().sum() / b.square().sum()).sqrt().item()
-
-        lora = {}
-        for mode in ("merge", "runtime"):
-            t0 = time.perf_counter()
-            loaded.load_lora(str(lora_dir), mode=mode)
-            if cuda:
-                torch.cuda.synchronize()
-            lora[f"{mode}_s"] = time.perf_counter() - t0
-            lora[mode] = loaded.generate(**kw).float()
-            if mode == "merge":  # the noise floor: the same merged weights under the plain attention
-                loaded.set_attention("plain")
-                lora["merge_plain"] = loaded.generate(**kw).float()
-                loaded.set_attention("auto")
-        merged, runtime, merged_plain = lora.pop("merge"), lora.pop("runtime"), lora.pop("merge_plain")
-        diff = (merged - runtime).abs()
-        noise, effect, rel = rel_l2(merged_plain, merged), rel_l2(got, merged), rel_l2(runtime, merged)
-        within_tol = bool((diff <= LORA_MERGE_RUNTIME_TOL * (1 + runtime.abs())).all())
-        ok = within_tol and rel <= LORA_NOISE_MULT * noise < effect
-        out["lora"] = {**lora, "max_abs_diff": diff.max().item(), "tol_atol_rtol": LORA_MERGE_RUNTIME_TOL,
-                       "within_tol": within_tol, "rel_l2": rel, "noise_rel_l2_plain_vs_b1": noise,
-                       "noise_mult": LORA_NOISE_MULT, "adapter_effect_rel_l2": effect, "agree": ok}
-        if not ok:
-            raise AssertionError(f"pretrained: merge and runtime LoRA latents disagree: {out['lora']}")
-        del loaded, got, base, merged, runtime, merged_plain, diff
-        gc.collect()
-        if cuda:
-            torch.cuda.empty_cache()
-        out["card_free_gb_for_cli"] = memory_gb(lambda: torch.cuda.mem_get_info(dev)[0])
-
-        png = build / "smoke_ref.png"
-        write_png(png, (np.random.RandomState(3).rand(height, width, 3) * 255).astype(np.uint8))
-        env = dict(os.environ, PYTHONPATH=str(REPO))
-        cli = _run_cli(["--pretrained_model_name_or_path", str(snap), "--checkpoint_path", str(lora_dir),
-                        "--ref_img_path", str(png), "--prompt", "<cls> a pig walking in the park",
-                        "--height", str(height), "--width", str(width), "--max_num_frames", str(num_frames),
-                        "--num_inference_steps", "2", "--output_dir", str(cli_out), "--device", dev.type], env)
-        lines = cli["stdout"].splitlines()
-        if cli["rc"] != 0:
-            raise AssertionError(f"pretrained: the CLI exited {cli['rc']}:\n{cli['stdout'][-3000:]}\n"
-                                 f"{cli['stderr'][-3000:]}")
-        wrote = [ln.split("[s2v_torch] wrote ", 1)[1] for ln in lines if ln.startswith("[s2v_torch] wrote ")]
-        if len(wrote) != 1 or not Path(wrote[0]).is_file() or Path(wrote[0]).stat().st_size == 0:
-            raise AssertionError(f"pretrained: the CLI's clip is missing or empty: {wrote}")
-        clip = Path(wrote[0])
-        writer = ("npy" if clip.suffix == ".npy" else "cv2" if "with OpenCV" in cli["stderr"] else "mp4_native")
-        launches = json.loads(lines[-1])["cli_flash_attention_launches"]
-        out["cli"] = {"rc": cli["rc"], "seconds": cli["seconds"], "clip": str(clip.relative_to(REPO)),
-                      "clip_bytes": clip.stat().st_size, "writer": writer, "flash_attention_launches": launches,
-                      "lines": [ln for ln in lines[:-1] if ln.startswith("[s2v_torch]")],
-                      "stderr_tail": cli["stderr"].splitlines()[-5:]}
-        if cuda and launches != 2 * pipe.transformer_cfg.num_layers:
-            raise AssertionError(f"pretrained: the CLI's 2 steps launched B1 {launches} times")
-    finally:
-        shutil.rmtree(snap, ignore_errors=True)
-        shutil.rmtree(lora_dir, ignore_errors=True)
+    png = build / "smoke_ref.png"
+    write_png(png, (np.random.RandomState(3).rand(height, width, 3) * 255).astype(np.uint8))
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    cli = _run_cli(["--pretrained_model_name_or_path", str(snap), "--checkpoint_path", str(lora_dir),
+                    "--ref_img_path", str(png), "--prompt", "<cls> a pig walking in the park",
+                    "--height", str(height), "--width", str(width), "--max_num_frames", str(num_frames),
+                    "--num_inference_steps", "2", "--output_dir", str(cli_out), "--device", dev.type], env)
+    lines = cli["stdout"].splitlines()
+    if cli["rc"] != 0:
+        raise AssertionError(f"pretrained: the CLI exited {cli['rc']}:\n{cli['stdout'][-3000:]}\n"
+                             f"{cli['stderr'][-3000:]}")
+    wrote = [ln.split("[s2v_torch] wrote ", 1)[1] for ln in lines if ln.startswith("[s2v_torch] wrote ")]
+    if len(wrote) != 1 or not Path(wrote[0]).is_file() or Path(wrote[0]).stat().st_size == 0:
+        raise AssertionError(f"pretrained: the CLI's clip is missing or empty: {wrote}")
+    clip = Path(wrote[0])
+    writer = ("npy" if clip.suffix == ".npy" else "cv2" if "with OpenCV" in cli["stderr"] else "mp4_native")
+    launches = json.loads(lines[-1])["cli_flash_attention_launches"]
+    out["cli"] = {"rc": cli["rc"], "seconds": cli["seconds"], "clip": str(clip.relative_to(REPO)),
+                  "clip_bytes": clip.stat().st_size, "writer": writer, "flash_attention_launches": launches,
+                  "lines": [ln for ln in lines[:-1] if ln.startswith("[s2v_torch]")],
+                  "stderr_tail": cli["stderr"].splitlines()[-5:]}
+    if cuda and launches != 2 * pipe.transformer_cfg.num_layers:
+        raise AssertionError(f"pretrained: the CLI's 2 steps launched B1 {launches} times")
     out["seconds"] = time.perf_counter() - t_phase
     emit(out)
     return {**counts, "cli_flash_attention": launches}
 
 
+def remove_smoke_files() -> None:
+    """The snapshot and the LoRA that ``pretrained`` (or ``serve``) writes
+    and ``serve`` reads; deleted when the script ends, whatever failed."""
+    for name in ("smoke_snapshot", "smoke_lora"):
+        shutil.rmtree(REPO / "build" / name, ignore_errors=True)
+
+
+def phase_chunked(dev):
+    """The ``chunked`` backend (PyTorch ops, no kernel) at the training
+    shape (B=1, S=19,126, H=48, d=64, bf16, q/k LayerNormed): its forward and
+    autograd backward against B1 and B2 (``flash_attention_trainable``) on
+    the same inputs and dO, within the kernels' limits; its seconds, and its
+    peak memory beside one query block's fp32 probabilities and the whole S²."""
+    import torch
+
+    from s2v_torch.ops.attention import chunked_attention, flash_attention_trainable
+
+    b, s, h, _ = TRAIN_SHAPE
+    q, k, v = (x.requires_grad_() for x in _ln_qkv(b, s, h, 60, dev))
+    do = torch.randn(q.shape, device=dev, generator=torch.Generator(device=dev).manual_seed(61)).to(torch.bfloat16)
+    o_ref = flash_attention_trainable(q, k, v)
+    grads_ref = torch.autograd.grad(o_ref, (q, k, v), do)
+    o_ref = o_ref.detach()
+    seconds = []
+    for _ in range(2):  # the first pass also pays cuBLAS's and autograd's first-call costs
+        o = grads = None
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        o = chunked_attention(q, k, v, block_q=CHUNKED_BLOCK_Q)
+        torch.cuda.synchronize()
+        forward_s = time.perf_counter() - t0
+        grads = torch.autograd.grad(o, (q, k, v), do)
+        torch.cuda.synchronize()
+        seconds.append({"forward_s": forward_s, "forward_backward_s": time.perf_counter() - t0})
+        peak_gb = (torch.cuda.max_memory_allocated() - before) / 1e9
+    block_gb, s2_gb = b * h * CHUNKED_BLOCK_Q * s * 4 / 1e9, b * h * s * s * 4 / 1e9
+    agreement = {"o_vs_b1": _agreement(o, o_ref, "chunked forward against B1")}
+    for name, a, r in zip(("dq", "dk", "dv"), grads, grads_ref):
+        agreement[f"{name}_vs_b2"] = _agreement(a, r, f"chunked {name} against B2")
+    line = {"phase": "chunked", "shape": list(TRAIN_SHAPE), "block_q": CHUNKED_BLOCK_Q, **seconds[1],
+            "first_pass": seconds[0], "peak_gb_above_inputs": peak_gb, "one_block_fp32_probs_gb": block_gb,
+            "whole_s2_fp32_probs_gb": s2_gb, "peak_in_blocks": peak_gb / block_gb,
+            "peak_limit_blocks": CHUNKED_PEAK_BLOCKS, **agreement}
+    if not peak_gb <= CHUNKED_PEAK_BLOCKS * block_gb:
+        raise AssertionError(f"chunked: the backward's peak is not bounded by its query block: {line}")
+    emit(line)
+    return line
+
+
+def _clip_checks(video, shape, what):
+    if list(video.shape) != list(shape) or not np.isfinite(video).all() or video.min() < 0 or video.max() > 1:
+        raise AssertionError(f"{what}: output {video.shape}, finite {np.isfinite(video).all()}, "
+                             f"range [{video.min()}, {video.max()}]")
+
+
+def phase_e2e_options(dev, pipe, backend="flash", height=480, width=720, num_frames=49):
+    """The rest of ``generate`` at 49x480x720 on the full-width pipeline with
+    ``backend``, 2 steps each: a DPM clip (B1 twice per block forward); the
+    whole loop's latents against ``segment_steps=1``'s, bit for bit; a
+    callback that stops after the first segment (one step run); a cfg-skip
+    run (dynamic guidance, threshold 0.02: step 1 is cfg-skipped, so half of
+    its B1 launches run at B=1); then the whole loop's latents decoded
+    untiled and in quarter-size tiles (``_decode_lean_tiles``): seconds,
+    peak memory, and the frame PSNR of lean against untiled (a finding).
+    Runs on the CPU at a tiny size too (no launches, no memory figures)."""
+    import torch
+
+    from s2v_torch.pipelines.denoise import guidance_schedule
+    from s2v_torch.utils.video import denormalize_video, psnr
+
+    cuda, layers = dev.type == "cuda", pipe.transformer_cfg.num_layers
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def peak_gb():
+        return torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+
+    def reset_peak():
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+
+    image = np.clip(np.random.RandomState(42).randn(height, width, 3).astype(np.float32) * 0.5, -1, 1)
+    kw = dict(prompt="a pig walking in the park", ref_image=image, height=height, width=width,
+              num_frames=num_frames, guidance_scale=6.0, seed=42, num_inference_steps=2)
+    saved = (pipe.attention_backend, pipe.transformer_cfg)
+    pipe.set_attention(backend)
+    out = {"phase": "e2e_options", "backend": backend, "num_frames": num_frames, "steps": 2}
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        video = pipe.generate(use_dpm=True, **kw)
+        wall_s = time.perf_counter() - t0
+        dpm_counts = read_counts()
+        _clip_checks(video, (1, num_frames, height, width, 3), "e2e_options dpm")
+        if cuda and not check_counts(dpm_counts, backend, 2 * layers, 0):
+            raise AssertionError(f"e2e_options dpm launches {dpm_counts}")
+        out["dpm"] = {"wall_s": wall_s, "denoise_step_s": pipe.timings["denoise_step_s"],
+                      "decode_s": pipe.timings["decode_s"], "launches": dpm_counts,
+                      "output_mean": float(video.mean()), "output_std": float(video.std())}
+
+        fused = pipe.generate(output_type="latent", **kw)
+        fused_steps = pipe.timings["denoise_step_s"]
+        reset_counts()
+        segmented = pipe.generate(output_type="latent", segment_steps=1, **kw)
+        seg_counts = read_counts()
+        if not torch.equal(segmented, fused):
+            raise AssertionError(f"e2e_options: segment_steps=1 latents differ from the whole loop's: "
+                                 f"{(segmented.float() - fused.float()).abs().max().item()}")
+        out["segmented"] = {"bitwise_equal": True, "whole_step_s": fused_steps,
+                            "segmented_step_s": pipe.timings["denoise_step_s"],
+                            "flash_attention_launches": seg_counts["flash_attention"]}
+
+        seen = []
+
+        def stop(step, _latents):
+            seen.append(step)
+            return False
+
+        reset_counts()
+        stopped = pipe.generate(output_type="latent", segment_steps=1, callback_on_segment_end=stop, **kw)
+        stop_counts = read_counts()
+        if seen != [1] or pipe.stats["steps_run"] != 1 or not torch.isfinite(stopped.float()).all():
+            raise AssertionError(f"e2e_options: the stopping callback saw {seen}, ran {pipe.stats}")
+        if cuda and not check_counts(stop_counts, backend, layers, 0):
+            raise AssertionError(f"e2e_options: the stopped run's launches {stop_counts}")
+        out["callback_stop"] = {"segments_seen": seen, "steps_run": pipe.stats["steps_run"],
+                                "flash_attention_launches": stop_counts["flash_attention"]}
+
+        threshold = 0.02
+        host = int(np.sum(guidance_schedule(6.0, 2, True) - np.float32(1.0) < np.float32(threshold)))
+        reset_counts()
+        pipe.generate(output_type="latent", use_dynamic_cfg=True, cfg_skip_threshold=threshold, **kw)
+        skip_counts = read_counts()
+        want_by_batch = {k: v for k, v in (("1", layers * host), ("2", layers * (2 - host))) if v}
+        if pipe.stats["cfg_skipped_steps"] != host or host != 1:
+            raise AssertionError(f"e2e_options cfg-skip: {pipe.stats} against {host} from the guidance table")
+        if cuda and (skip_counts["flash_attention_by_batch"] != want_by_batch or skip_counts["reruns"]):
+            raise AssertionError(f"e2e_options cfg-skip launches {skip_counts}; expected by batch {want_by_batch}")
+        out["cfg_skip"] = {"threshold": threshold, "skipped_steps": host, "denoise_step_s": pipe.timings["denoise_step_s"],
+                           "flash_attention_by_batch": skip_counts["flash_attention_by_batch"]}
+
+        reset_peak()
+        t0 = time.perf_counter()
+        untiled = pipe.decode_latents(fused)
+        untiled_s, untiled_peak = time.perf_counter() - t0, peak_gb()
+        reset_peak()
+        t0 = time.perf_counter()
+        z = fused.to(pipe.vae_cfg.dtype) / pipe.vae_cfg.scaling_factor
+        lean = denormalize_video(pipe._decode_lean_tiles(z).float().cpu().numpy())
+        lean_s, lean_peak = time.perf_counter() - t0, peak_gb()
+        _clip_checks(lean, untiled.shape, "e2e_options lean decode")
+        out["lean_decode"] = {"untiled_s": untiled_s, "untiled_peak_gb": untiled_peak, "lean_s": lean_s,
+                              "lean_peak_gb": lean_peak, "psnr_db_vs_untiled": psnr(lean, untiled),
+                              "max_abs_diff": float(np.abs(lean - untiled).max())}
+    finally:
+        pipe.attention_backend, pipe.transformer_cfg = saved
+    emit(out)
+    return dpm_counts
+
+
+def phase_turbo(dev, pipe, backend="flash", height=480, width=720, num_frames=49, steps=50):
+    """The first timed 50-step clips of the port: two ``generate`` calls,
+    dynamic guidance 6, seed 42 (the same latents and ref draws), T5 run in
+    each (the prompt cache cleared first): exact (``backend``, B1), and the
+    JAX package's turbo knobs (``BENCH_r05.json`` ``parsed.turbo.knobs``):
+    int8 linears (quantized on the card), ``windowed`` w = 1 (B4, with B1
+    online for the global queries), cfg-skip 0.02, adaptive 0.05 and
+    segments of 6 steps.  Each clip's seconds (T5 + ref encode + steps +
+    decode), step times, peak memory, skip counts and launches; the frame
+    PSNR of turbo against exact (a finding on random weights, beside the
+    JAX package's 35 dB gate).  Runs on the CPU at a tiny size too."""
+    import torch
+
+    from s2v_torch.pipelines.denoise import guidance_schedule
+    from s2v_torch.utils.video import psnr
+
+    cuda, layers = dev.type == "cuda", pipe.transformer_cfg.num_layers
+    image = np.clip(np.random.RandomState(42).randn(height, width, 3).astype(np.float32) * 0.5, -1, 1)
+    kw = dict(prompt="a pig walking in the park", ref_image=image, height=height, width=width,
+              num_frames=num_frames, num_inference_steps=steps, guidance_scale=6.0, use_dynamic_cfg=True, seed=42)
+    cfg_skip, adaptive, segment = 0.02, 0.05, 6
+    host_skips = int(np.sum(guidance_schedule(6.0, steps, True) - np.float32(1.0) < np.float32(cfg_skip)))
+
+    def clip(name, **extra):
+        pipe._prompt_embed_cache.clear()  # the clip's time includes T5
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        video = pipe.generate(**kw, **extra)
+        seconds = time.perf_counter() - t0
+        counts, t = read_counts(), pipe.timings
+        _clip_checks(video, (1, num_frames, height, width, 3), f"turbo: the {name} clip")
+        return video, {"seconds": seconds, "encode_prompt_s": t["encode_prompt_s"], "encode_ref_s": t["encode_ref_s"],
+                       "denoise_s": sum(t["denoise_step_s"]), "denoise_step_s": t["denoise_step_s"],
+                       "decode_s": t["decode_s"], **pipe.stats, "launches": counts,
+                       "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9 if cuda else None,
+                       "output_mean": float(video.mean()), "output_std": float(video.std())}
+
+    saved = (pipe.attention_backend, pipe.transformer_cfg, pipe.transformer_params)
+    try:
+        pipe.set_attention(backend)
+        exact, exact_line = clip("exact")
+        pipe.transformer_params, quantize_s = _quantized(pipe)
+        pipe.set_attention("windowed", 1)
+        turbo, turbo_line = clip("turbo", cfg_skip_threshold=cfg_skip, adaptive_threshold=adaptive,
+                                 segment_steps=segment)
+    finally:
+        pipe.attention_backend, pipe.transformer_cfg, pipe.transformer_params = saved
+        if cuda:
+            # the int8 tree and the B=1 and B=2 activations leave the allocator's cache
+            # fragmented: without this the next phase's train steps wait on its
+            # reorganisation (a quarter of a profiled exact train step idle on an H100)
+            torch.cuda.empty_cache()
+    problems = []
+    if turbo_line["cfg_skipped_steps"] != host_skips:
+        problems.append(f"cfg-skipped steps {turbo_line['cfg_skipped_steps']}, the guidance table has {host_skips}")
+    if cuda:
+        if not check_counts(exact_line["launches"], backend, layers * steps, 0):
+            problems.append(f"exact launches {exact_line['launches']}")
+        c = turbo_line["launches"]
+        computed = steps - turbo_line["adaptive_skipped_steps"]
+        by_batch = {b: n // layers for b, n in c["flash_attention_by_batch"].items()}
+        if not (c["banded_flash_attention"] == c["flash_attention"] == layers * computed and not c["reruns"]
+                and sum(by_batch.values()) == computed and by_batch.get("1", 0) <= host_skips
+                and by_batch.get("2", 0) <= steps - host_skips):
+            problems.append(f"turbo launches {c} for {computed} computed steps")
+        turbo_line["computed_steps_by_batch"] = by_batch
+    if problems:
+        raise AssertionError(f"turbo: {problems}")
+    line = {"phase": "turbo", "steps": steps, "num_frames": num_frames,
+            "knobs": {"linears": "int8", "attention": "windowed", "window": 1, "cfg_skip_threshold": cfg_skip,
+                      "adaptive_threshold": adaptive, "segment_steps": segment},
+            "host_cfg_skip_steps": host_skips, "quantize_s": quantize_s, "exact": exact_line, "turbo": turbo_line,
+            "speedup": exact_line["seconds"] / turbo_line["seconds"],
+            "frame_psnr_db_turbo_vs_exact": psnr(turbo, exact), "jax_psnr_gate_db": 35.0}
+    emit(line)
+    return {"exact": exact_line["launches"], "turbo": turbo_line["launches"]}
+
+
+def _tail(path: Path, n: int = 40) -> str:
+    return "\n".join(path.read_text(errors="replace").splitlines()[-n:]) if path.exists() else ""
+
+
+def phase_serve(dev, pipe, backend="flash", height=480, width=720, num_frames=49):
+    """The serving daemon as users run it: ``python3 -m s2v_torch.serve`` in
+    a subprocess on the snapshot and the LoRA (merged) that ``pretrained``
+    wrote, on the card, then over its socket: ``ping``; ``warmup`` without
+    an image; a 2-step ``generate`` to an mp4; the same with ``use_dpm``,
+    ``segment_steps`` 1 and cfg-skip; ``load_lora`` in runtime mode and a
+    ``generate``; ``stats``; ``shutdown``.  Every response must say
+    ``"status": "ok"`` and the daemon must exit 0.  The daemon's start
+    seconds, each request's seconds, the swap seconds and the latencies
+    ``stats`` reports.  Run without ``pretrained``, it writes them itself
+    from ``pipe``; either way it leaves ``pipe`` without weights."""
+    from s2v_torch.serving.client import request
+
+    build = REPO / "build"
+    snap, lora_dir, out_dir = build / "smoke_snapshot", build / "smoke_lora", build / "smoke_serve"
+    written = None
+    if not (snap.is_dir() and lora_dir.is_dir()):
+        written = write_smoke_snapshot(pipe)
+    release_pipe(pipe, dev)  # the daemon needs the card
+    sock, ready, log = build / "smoke_serve.sock", build / "smoke_serve.ready", build / "smoke_serve.log"
+    for path in (sock, ready):
+        path.unlink(missing_ok=True)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    png = out_dir / "ref.png"
+    write_png(png, (np.random.RandomState(5).rand(height, width, 3) * 255).astype(np.uint8))
+    cmd = [sys.executable, "-m", "s2v_torch.serve", "--pretrained_model_name_or_path", str(snap),
+           "--checkpoint_path", str(lora_dir), "--socket", str(sock), "--ready_file", str(ready),
+           "--device", dev.type]
+    geo = dict(height=height, width=width, num_frames=num_frames, num_inference_steps=2)
+    gen = {"op": "generate", "prompt": "<cls> a pig walking in the park", "ref_img_path": str(png), "seed": 7, **geo}
+    requests = [
+        ("ping", {"op": "ping"}),
+        ("warmup", {"op": "warmup", **geo}),
+        ("generate", {**gen, "output_path": str(out_dir / "merged.mp4")}),
+        ("generate_options", {**gen, "output_path": str(out_dir / "options.mp4"), "use_dpm": True,
+                              "segment_steps": 1, "use_dynamic_cfg": True, "cfg_skip_threshold": 0.02}),
+        ("load_lora_runtime", {"op": "load_lora", "checkpoint_path": str(lora_dir), "lora_mode": "runtime"}),
+        ("generate_runtime_lora", {**gen, "output_path": str(out_dir / "runtime.mp4")}),
+        ("stats", {"op": "stats"}),
+        ("shutdown", {"op": "shutdown"}),
+    ]
+    t_phase = time.perf_counter()
+    with open(log, "w") as logf:
+        proc = subprocess.Popen(cmd, cwd=str(REPO), env=dict(os.environ, PYTHONPATH=str(REPO)), stdout=logf,
+                                stderr=subprocess.STDOUT)
+    answers = {}
+    try:
+        while not ready.exists():
+            if proc.poll() is not None or time.perf_counter() - t_phase > 600:
+                raise AssertionError(f"serve: the daemon did not start (exit {proc.poll()}):\n{_tail(log)}")
+            time.sleep(0.2)
+        start_s = time.perf_counter() - t_phase
+        for name, req in requests:
+            t0 = time.perf_counter()
+            resp = request(str(sock), req, timeout=900)
+            seconds = time.perf_counter() - t0
+            if resp.get("status") != "ok":
+                raise AssertionError(f"serve: {name} answered {resp}\n{_tail(log)}")
+            resp.pop("traceback", None)
+            answers[name] = {"client_s": seconds, **resp}
+            if "outputs" in resp:
+                clip = Path(resp["outputs"][0])
+                if resp["shape"] != [1, num_frames, height, width, 3] or not clip.is_file() or not clip.stat().st_size:
+                    raise AssertionError(f"serve: {name} wrote {resp}")
+                answers[name]["clip_bytes"] = clip.stat().st_size
+        rc = proc.wait(timeout=120)
+        if rc != 0:
+            raise AssertionError(f"serve: the daemon exited {rc}:\n{_tail(log)}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        for path in (sock, ready):
+            path.unlink(missing_ok=True)
+    line = {"phase": "serve", "snapshot_written_here": written, "start_s": start_s, "requests": answers,
+            "swap_s": answers["load_lora_runtime"]["seconds"],
+            "generate_latency_s": answers["stats"]["generate_latency_s"],
+            "seconds": time.perf_counter() - t_phase, "log_tail": _tail(log, 6).splitlines()}
+    emit(line)
+    return line
+
+
 PHASES = ("build", "kernel", "kernel_bwd", "kernel_banded", "kernel_banded_bwd", "kernel_banded_local",
-          "kernel_banded_local_bwd", "kernel_int8", "reference", "e2e", "e2e_windowed", "e2e_sp_windowed", "e2e_int8",
-          "train", "train_windowed", "train_sp_windowed", "train_qlora", "pretrained")
+          "kernel_banded_local_bwd", "kernel_int8", "reference", "chunked", "e2e", "e2e_windowed", "e2e_sp_windowed",
+          "e2e_int8", "e2e_options", "turbo", "train", "train_windowed", "train_sp_windowed", "train_qlora",
+          "pretrained", "serve")
 KERNEL_PHASES = {"kernel": phase_kernel, "kernel_bwd": phase_kernel_bwd, "kernel_banded": phase_kernel_banded,
                  "kernel_banded_bwd": phase_kernel_banded_bwd, "kernel_banded_local": phase_kernel_banded_local,
                  "kernel_banded_local_bwd": phase_kernel_banded_local_bwd, "kernel_int8": phase_kernel_int8,
-                 "reference": phase_reference}
+                 "reference": phase_reference, "chunked": phase_chunked}
 # the pipeline phases: the backend each runs
 PATH_PHASES = {"e2e": (phase_e2e, "flash"), "e2e_windowed": (phase_e2e, "windowed"),
                "e2e_sp_windowed": (phase_e2e_sp_windowed, "sp_windowed"),
-               "e2e_int8": (phase_e2e_int8, "flash_int8"), "train": (phase_train, "flash"),
+               "e2e_int8": (phase_e2e_int8, "flash_int8"), "e2e_options": (phase_e2e_options, "flash"),
+               "turbo": (phase_turbo, "flash"), "train": (phase_train, "flash"),
                "train_windowed": (phase_train, "windowed"),
                "train_sp_windowed": (phase_train_sp_windowed, "sp_windowed"),
-               "train_qlora": (phase_train_qlora, "flash"), "pretrained": (phase_pretrained, "flash")}
+               "train_qlora": (phase_train_qlora, "flash"), "pretrained": (phase_pretrained, "flash"),
+               "serve": (phase_serve, "flash")}
 
 
 def _path_launches(results, kernel):
@@ -1902,6 +2285,8 @@ def _path_launches(results, kernel):
     for phase, r in results.items():
         if phase.startswith("e2e") or phase == "pretrained":
             out[phase] = r[kernel]
+        elif phase == "turbo":
+            out["turbo_exact"], out["turbo"] = r["exact"][kernel], r["turbo"][kernel]
         elif phase.startswith("train"):
             out[phase] = sum(c[kernel] for c in r["launches"])
     return out
@@ -2164,6 +2549,7 @@ def main(argv=None) -> int:
                 fn, backend = PATH_PHASES[phase]
                 results[phase] = fn(dev, pipe, backend)
     finally:
+        remove_smoke_files()
         if torch.distributed.is_initialized():
             torch.distributed.destroy_process_group()
     if "e2e_windowed" in results and "e2e_sp_windowed" in results:

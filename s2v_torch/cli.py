@@ -14,13 +14,13 @@ port's own flag, runs on the CPU instead; without a card and without it the
 CLI raises.  ``--attention_backend`` takes the JAX names: ``auto`` is the
 flash kernel on CUDA and the plain attention on the CPU, ``pallas`` is
 ``flash``, ``pallas_int8`` ``flash_int8``, ``xla`` ``plain``,
-``windowed_xla`` ``windowed_plain``.  Flags of paths the port does not have
+``windowed_xla`` ``windowed_plain``, ``chunked`` ``chunked``.  With
+``--segment_steps N`` the loop runs in host-stepped segments and a line
+``[s2v_torch] denoise i/n steps (+Ns)`` is printed after each; ``--progress``
+writes a per-step line on stderr.  Flags of paths the port does not have
 yet raise ``NotImplementedError`` naming their ROADMAP item:
-``--use_dpm``, ``--adaptive_threshold``, ``--cfg_skip_threshold``,
-``--segment_steps`` and ``--progress`` (A.2), ``--attention_backend
-chunked`` (A.5), ``--pipeline t2v`` and ``--disentangled_modulation``
-(A.7), ``--mesh``, ``--text_encoder_device mesh`` and the
-sequence-parallel backends (A.9).
+``--pipeline t2v`` and ``--disentangled_modulation`` (A.7), ``--mesh``,
+``--text_encoder_device mesh`` and the sequence-parallel backends (A.9).
 """
 
 from __future__ import annotations
@@ -71,7 +71,8 @@ def get_args(argv=None):
     p.add_argument("--checkpoint_path", type=str, default=None, help="S2V LoRA checkpoint dir")
     p.add_argument("--prompt", type=str, default="")
     p.add_argument("--num_inference_steps", type=int, default=50)
-    p.add_argument("--use_dpm", action="store_true", default=False, help="not ported yet (ROADMAP A.2)")
+    p.add_argument("--use_dpm", action="store_true", default=False,
+                   help="DPM-Solver++(2M)-style stochastic sampler instead of DDIM")
     p.add_argument("--attention_backend", type=str, default="auto", choices=ATTENTION_BACKEND_CHOICES,
                    help="auto = the flash kernel on CUDA, plain attention on the CPU (JAX names, see the module doc)")
     p.add_argument("--attention_window", type=int, default=2,
@@ -84,11 +85,15 @@ def get_args(argv=None):
                    help="not ported yet (ROADMAP A.7)")
     p.add_argument("--dtype", type=str, default="bfloat16", choices=["bfloat16", "float16", "float32"],
                    help="the CUDA kernels take bfloat16 (ROADMAP C.1)")
-    p.add_argument("--adaptive_threshold", type=float, default=0.0, help="not ported yet (ROADMAP A.2); 0 only")
-    p.add_argument("--cfg_skip_threshold", type=float, default=0.0, help="not ported yet (ROADMAP A.2); 0 only")
-    p.add_argument("--segment_steps", type=int, default=0, help="not ported yet (ROADMAP A.2); 0 only")
+    p.add_argument("--adaptive_threshold", type=float, default=0.0,
+                   help="opt-in step skipping (bounded-difference criterion); 0 = the exact loop. Try 0.01-0.02")
+    p.add_argument("--cfg_skip_threshold", type=float, default=0.0,
+                   help="opt-in cfg-skip: skip the uncond forward once the dynamic guidance scale has decayed to "
+                        "g - 1 < threshold (error bounded by (g - 1)·|cond - uncond|); 0 = off. Try 0.01")
+    p.add_argument("--segment_steps", type=int, default=0,
+                   help=">0: run the denoise loop in host-stepped segments of N steps, with a progress line after each")
     p.add_argument("--mesh", type=str, default=None, help="not ported yet (ROADMAP A.9)")
-    p.add_argument("--progress", action="store_true", default=False, help="not ported yet (ROADMAP A.2)")
+    p.add_argument("--progress", action="store_true", default=False, help="a per-step progress line on stderr")
     p.add_argument("--profile_dir", type=str, default=None,
                    help="write a torch.profiler trace of the generate call (trace.json) here")
     p.add_argument("--save_merged_dir", type=str, default=None,
@@ -104,11 +109,6 @@ def check_ported(args) -> None:
     """Raise ``NotImplementedError`` naming the ROADMAP item for any flag
     whose path the port does not have yet."""
     unported = [
-        (args.use_dpm, "--use_dpm (DPM-Solver)", "A.2"),
-        (args.adaptive_threshold != 0.0, "--adaptive_threshold (adaptive denoise)", "A.2"),
-        (args.cfg_skip_threshold != 0.0, "--cfg_skip_threshold (cfg-skip)", "A.2"),
-        (args.segment_steps != 0, "--segment_steps (segmented denoise)", "A.2"),
-        (args.progress, "--progress", "A.2"),
         (args.pipeline == "t2v", "--pipeline t2v", "A.7"),
         (args.disentangled_modulation, "--disentangled_modulation", "A.7"),
         (args.mesh is not None, "--mesh", "A.9"),
@@ -167,6 +167,15 @@ def main(argv=None):
         profiler = profile(activities=activities)
         profiler.start()
     t1 = time.perf_counter()
+    progress = None
+    if args.segment_steps > 0:
+        last = [t1]
+
+        def progress(i, _latents):
+            now = time.perf_counter()
+            print(f"[s2v_torch] denoise {i}/{args.num_inference_steps} steps (+{now - last[0]:.0f}s)", flush=True)
+            last[0] = now
+
     video = pipe.generate(
         prompt=args.prompt,
         ref_image=args.ref_img_path,
@@ -176,7 +185,13 @@ def main(argv=None):
         num_inference_steps=args.num_inference_steps,
         guidance_scale=args.guidance_scale,
         use_dynamic_cfg=args.use_dynamic_cfg,
+        use_dpm=args.use_dpm,
         seed=args.seed,
+        adaptive_threshold=args.adaptive_threshold,
+        cfg_skip_threshold=args.cfg_skip_threshold,
+        segment_steps=args.segment_steps,
+        callback_on_segment_end=progress,
+        progress=args.progress,
     )
     dt = time.perf_counter() - t1
     if profiler is not None:

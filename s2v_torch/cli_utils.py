@@ -16,11 +16,11 @@ ATTENTION_BACKEND_CHOICES = [
 ]
 # JAX name -> the port's backend (s2v_torch/ops/attention.py)
 BACKEND_NAMES = {
-    "auto": "auto", "pallas": "flash", "pallas_int8": "flash_int8", "xla": "plain",
+    "auto": "auto", "pallas": "flash", "pallas_int8": "flash_int8", "xla": "plain", "chunked": "chunked",
     "windowed": "windowed", "windowed_gather": "windowed_gather", "windowed_xla": "windowed_plain",
 }
 # JAX names with no port backend yet -> the ROADMAP item that ports them
-UNPORTED_BACKENDS = {"chunked": "A.5", "ring": "A.9", "sp_allgather": "A.9", "sp_int8": "A.9",
+UNPORTED_BACKENDS = {"ring": "A.9", "sp_allgather": "A.9", "sp_int8": "A.9",
                      "sp_ulysses": "A.9", "sp_windowed": "A.9"}
 
 

@@ -21,8 +21,9 @@ overlap the other's products.
 ``flash_attention`` dispatches on the device of its inputs: CPU tensors go to
 :func:`flash_attention_reference`, the plain PyTorch version; CUDA tensors
 launch the kernel or raise.  ``flash_attention.launches`` counts kernel
-launches and ``flash_attention.reruns`` the bounded calls that fell back to
-the online kernel.
+launches (``flash_attention.launches_by_batch`` the same by batch size) and
+``flash_attention.reruns`` the bounded calls that fell back to the online
+kernel.
 
 Bounded mode needs one host sync per call (the ``min log l < -55`` check
 that decides the online re-run): 42 per denoise step on the main path.
@@ -199,6 +200,7 @@ def _launch(q, k, v, o, lse, mask, m0_log2, scale_log2: float, bounded: bool) ->
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: {native_build.launch_error(err)}")
     flash_attention.launches += 1
+    flash_attention.launches_by_batch[b] = flash_attention.launches_by_batch.get(b, 0) + 1
 
 
 def _flash_attention_cuda(q, k, v, scale, return_lse, key_pad_mask, softmax_mode):
@@ -269,4 +271,5 @@ def flash_attention(
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_batch = {}  # batch size -> launches (a cfg-skipped step runs B, not 2B)
 flash_attention.reruns = 0

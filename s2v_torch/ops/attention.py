@@ -10,6 +10,10 @@ Backends:
   * ``plain`` — exact fp32 softmax attention in PyTorch ops (B1's plain
     version in the online mode, differentiated by autograd); the CPU
     analogue of the JAX ``xla`` backend.
+  * ``chunked`` — :func:`chunked_attention`: exact attention blocked over
+    queries in PyTorch ops, each block under ``torch.utils.checkpoint``, so
+    its backward keeps one block's fp32 probabilities at a time (JAX
+    ``chunked``, likewise no kernel).
   * ``flash_int8`` — :func:`int8_attention_inference_only`: kernel B3
     (``s2v_torch.kernels.int8_attention``), per-tensor int8 q·kᵀ, for int8
     serving (JAX ``pallas_int8``); inference only, its backward raises.
@@ -38,6 +42,7 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from s2v_torch.kernels.banded_attention import banded_flash_attention
 from s2v_torch.kernels.banded_attention_bwd import banded_flash_attention_bwd
@@ -53,7 +58,7 @@ from s2v_torch.parallel.sp_attention import banded_allgather_attention_trainable
 
 # backends that take the sliding temporal window (entry points configure its width)
 WINDOWED_BACKENDS = ("windowed", "windowed_gather", "windowed_plain", "sp_windowed")
-ATTENTION_BACKENDS = ("auto", "flash", "plain", "flash_int8") + WINDOWED_BACKENDS
+ATTENTION_BACKENDS = ("auto", "flash", "plain", "chunked", "flash_int8") + WINDOWED_BACKENDS
 # the JAX package's other sequence-parallel backends, not ported yet
 UNPORTED_SEQ_BACKENDS = ("ring", "sp_allgather", "sp_int8", "sp_ulysses")
 FLASH_SOFTMAX_MODE = "bounded"
@@ -199,6 +204,31 @@ def int8_attention_inference_only(q: torch.Tensor, k: torch.Tensor, v: torch.Ten
     return flash_attention_qk_int8(q, k, v)
 
 
+def _attention_block(q_blk: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
+    logits = torch.einsum("bqhd,bkhd->bhqk", q_blk.float(), k.float())
+    # scaled in place: the product's backward needs its inputs, not its output
+    w = torch.softmax(logits.mul_(scale), dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", w.to(v.dtype), v)
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, block_q: int = 1024) -> torch.Tensor:
+    """Exact attention over query blocks of ``block_q`` rows
+    (``s2v_tpu/ops/attention.py:430-461``): fp32 logits and softmax, P cast
+    to v's dtype for P·V; ``[B, S, H, d]`` in and out.  Under autograd each
+    block runs in ``torch.utils.checkpoint``, so the backward recomputes one
+    block's probabilities at a time instead of keeping all S² of them."""
+    scale = 1.0 / (q.shape[-1] ** 0.5)
+    grad = _needs_grad(q, k, v)
+    outs = []
+    for i in range(0, q.shape[1], block_q):
+        q_blk = q[:, i:i + block_q]
+        if grad:
+            outs.append(torch.utils.checkpoint.checkpoint(_attention_block, q_blk, k, v, scale, use_reentrant=False))
+        else:
+            outs.append(_attention_block(q_blk, k, v, scale))
+    return torch.cat(outs, dim=1)
+
+
 def qkv_projections(params: dict, x: torch.Tensor, num_heads: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``[B, S, D]`` -> per-head q, k, v ``[B, S, H, d]`` through the fused
     ``qkv`` linear (weight ``[3D, D]``, rows q | k | v)."""
@@ -237,6 +267,8 @@ def joint_attention(
         out = flash_attention_trainable(q, k, v)
     elif backend == "plain":
         out = flash_attention_reference(q, k, v)
+    elif backend == "chunked":
+        out = chunked_attention(q, k, v)
     elif backend == "flash_int8":
         out = int8_attention_inference_only(q, k, v)
     elif backend in WINDOWED_BACKENDS:

@@ -32,6 +32,7 @@ decode included.
 
 from __future__ import annotations
 
+import gc
 import os
 import time
 from contextlib import contextmanager, nullcontext
@@ -52,14 +53,25 @@ from s2v_torch.models.vae import gaussian_sample, vae_decode, vae_encode
 from s2v_torch.ops.attention import WINDOWED_BACKENDS, resolve_attention_backend, route_seq_backend
 from s2v_torch.ops.rope import build_segmented_rope, prepare_video_and_ref_rope
 from s2v_torch.parallel.context import default_logical_map, mesh_context
-from s2v_torch.pipelines.denoise import DenoiseSchedule, denoise
+from s2v_torch.pipelines.denoise import (
+    DenoiseSchedule,
+    DPMNoise,
+    adaptive_init_carry,
+    cfg_skip_steps,
+    make_segmented_denoise,
+)
 from s2v_torch.utils.device import resolve_device
+from s2v_torch.utils.logging import get_logger, phase
 from s2v_torch.utils.video import denormalize_video, load_image, to_uint8_frames
 
 PROMPT_CACHE_SIZE = 32
 # runtime adapters kept on the host for re-selection, least recently used out
 RUNTIME_LORA_CACHE_SIZE = 4
 OUTPUT_TYPES = ("np", "pil", "pt", "latent")
+# free device bytes below which the untiled decode is not tried: tiled
+# below DECODE_UNTILED_MIN_FREE, quarter-size tiles below DECODE_TILED_MIN_FREE
+DECODE_UNTILED_MIN_FREE = 5.5e9
+DECODE_TILED_MIN_FREE = 2.5e9
 
 
 def _tree_map(fn, tree):
@@ -119,6 +131,11 @@ class S2VPipeline:
     t5_on_host: bool = False
     # host-clock seconds of the last generate()'s stages, each ended by a device sync
     timings: dict = field(default_factory=dict, repr=False)
+    # counts of the last generate(): steps run, cfg-skipped and adaptive-skipped steps
+    stats: dict = field(default_factory=dict, repr=False)
+    # the DPM noise source, noise(i, shape, device) -> (n1, n2); None draws
+    # from pipelines.denoise.DPMNoise seeded from generate()'s seed
+    dpm_noise: Optional[object] = field(default=None, repr=False)
     _prompt_embed_cache: dict = field(default_factory=dict, repr=False)
     # the pre-merge transformer state dict (host, memory-mapped), kept by
     # load_lora(cache_base=True) so that later swaps skip the snapshot read
@@ -127,6 +144,8 @@ class S2VPipeline:
     _merged_lora: Optional[tuple] = field(default=None, repr=False)
     # (realpath, alpha) -> runtime factor tree on the host, LRU order
     _runtime_lora_cache: dict = field(default_factory=dict, repr=False)
+    # set once only the quarter-tile decode fits: later decodes go straight there
+    _decode_lean: bool = field(default=False, repr=False)
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -425,14 +444,73 @@ class S2VPipeline:
         return build_segmented_rope(cfg.max_text_seq_length, rc, rs, vc, vs, device=self.device)
 
     def decode_latents(self, latents: torch.Tensor) -> np.ndarray:
-        """Latents ``[B, F, h, w, C]`` -> frames ``[B, T, H, W, 3]`` float32 in [0, 1]."""
+        """Latents ``[B, F, h, w, C]`` -> frames ``[B, T, H, W, 3]`` float32 in [0, 1].
+
+        Resident serving keeps the DiT, T5 and adapters on the card, so the
+        untiled decode may not fit (``s2v_tpu/pipelines/s2v.py:708-772``):
+        with less than ``DECODE_UNTILED_MIN_FREE`` bytes free it decodes
+        tiled, with less than ``DECODE_TILED_MIN_FREE`` in quarter-size tiles
+        (:meth:`_decode_lean_tiles`).  A decode that runs out of memory is
+        retried once in quarter-size tiles on the same card, and later
+        decodes go there directly."""
         z = latents.to(self.vae_cfg.dtype) / self.vae_cfg.scaling_factor
         sc = self.vae_cfg.spatial_compression_ratio
-        frames = vae_decode(
-            self.vae_params, self.vae_cfg, z,
-            use_tiling=self._resolve_tiling(z.shape[2] * sc, z.shape[3] * sc), use_slicing=self.vae_slicing,
-        )
+        tiled = self._resolve_tiling(z.shape[2] * sc, z.shape[3] * sc)
+        log = get_logger("s2v_torch.pipeline")
+        if not self._decode_lean and not tiled:
+            free = self._device_free_bytes()
+            if free is not None and free < DECODE_UNTILED_MIN_FREE:
+                lean = free < DECODE_TILED_MIN_FREE
+                log.info("decode: %.1f GB free on the card with the serving stack resident — using %s instead of the "
+                         "untiled decode", free / 2**30, "quarter-size tiles" if lean else "reference-style tiling")
+                self._decode_lean = lean
+                tiled = not lean
+        if self._decode_lean:
+            return denormalize_video(self._decode_lean_tiles(z).float().cpu().numpy())
+        oom = False
+        try:
+            frames = vae_decode(self.vae_params, self.vae_cfg, z, use_tiling=tiled, use_slicing=self.vae_slicing)
+        except torch.cuda.OutOfMemoryError:
+            oom = True  # retried below, once the exception no longer pins the failed call's tensors
+        if oom:
+            log.warning("VAE decode ran out of device memory with the serving stack resident — retrying with "
+                        "quarter-size spatial tiles; later requests take that path directly")
+            self._decode_lean = True
+            gc.collect()
+            if self.device.type == "cuda":
+                torch.cuda.empty_cache()
+            frames = self._decode_lean_tiles(z)
         return denormalize_video(frames.float().cpu().numpy())
+
+    def _device_free_bytes(self) -> Optional[int]:
+        """Bytes the decode can still get on the card (free device memory
+        plus what PyTorch's allocator holds unused); None on the CPU."""
+        if self.device.type != "cuda":
+            return None
+        free, _ = torch.cuda.mem_get_info(self.device)
+        return int(free + torch.cuda.memory_reserved(self.device) - torch.cuda.memory_allocated(self.device))
+
+    def _decode_lean_tiles(self, z: torch.Tensor) -> torch.Tensor:
+        """The tiled decode at about quarter-size tiles: scaled latents in,
+        ``[B, T, H, W, 3]`` in [-1, 1] out.
+
+        Each latent tile side is half the VAE's (floor 8), rounded down to a
+        multiple of 1 / overlap factor (6 high, 5 wide at the CogVideoX
+        factors), at least one multiple, so that a tile's step and its
+        blended crop are whole pixels and the tiles cover the frame exactly:
+        at 480x720, 12 x 20 latent tiles.  The JAX package halves the sample
+        size without that rounding (``s2v_tpu/pipelines/s2v.py:805-823``),
+        which at 480x720 gives 15 x 22 tiles whose crops overrun their steps:
+        a 496x760 frame (ROADMAP C.13)."""
+        cfg, sc = self.vae_cfg, self.vae_cfg.spatial_compression_ratio
+
+        def side(latent_tile: int, factor: float) -> int:
+            m = round(1.0 / factor)
+            return max(m * (max(latent_tile // 2, 8) // m), m)
+
+        lean_cfg = replace(cfg, sample_height=2 * sc * side(cfg.tile_latent_min_height, cfg.tile_overlap_factor_height),
+                           sample_width=2 * sc * side(cfg.tile_latent_min_width, cfg.tile_overlap_factor_width))
+        return vae_decode(self.vae_params, lean_cfg, z, use_tiling=True, use_slicing=self.vae_slicing)
 
     def postprocess_video(self, video01: np.ndarray, output_type: str):
         """``np``: the float array ``[B, T, H, W, 3]`` in [0, 1]; ``pil``: per
@@ -465,6 +543,7 @@ class S2VPipeline:
         num_inference_steps: Optional[int] = None,
         guidance_scale: Optional[float] = None,
         use_dynamic_cfg: Optional[bool] = None,
+        use_dpm: bool = False,
         num_videos_per_prompt: int = 1,
         seed: Optional[int] = None,
         latents: Optional[torch.Tensor] = None,
@@ -472,13 +551,24 @@ class S2VPipeline:
         ref_latents: Optional[torch.Tensor] = None,
         output_type: str = "np",
         cfg_mode: str = "auto",  # auto: batched, except a batch > 1 -> sequential
+        adaptive_threshold: float = 0.0,  # > 0: opt-in step skipping
+        cfg_skip_threshold: float = 0.0,  # > 0: skip the uncond forward once g - 1 < threshold
+        segment_steps: int = 0,  # > 0: host-stepped segments of this many steps
+        callback_on_segment_end=None,  # f(step, latents) -> None | False (stop) | new latents
+        progress: bool = False,  # the per-step progress line on stderr
     ):
         """Generate a clip: ``[B, T, H, W, 3]`` float in [0, 1] (``np``), PIL
         frames (``pil``), ``[B, T, 3, H, W]`` (``pt``) or the final latents
         (``latent``); ``ref_image`` is a path or an ``[H, W, 3]`` array in
-        [-1, 1].  The latents and the ref posterior noise
-        are drawn from CPU ``torch.Generator``s seeded from ``seed``.  An
-        argument left at None takes its value from ``self.pipeline_cfg``."""
+        [-1, 1].  The latents, the ref posterior noise and the DPM noise seed
+        are drawn from CPU ``torch.Generator``s seeded from ``seed`` (the DPM
+        draws from ``self.dpm_noise`` when it is set).  An argument left at
+        None takes its value from ``self.pipeline_cfg``.
+
+        ``segment_steps > 0`` runs the loop in segments of that many steps;
+        after each, ``callback_on_segment_end(step, latents)`` may return
+        False (or a 0-d bool tensor that is false) to stop, or a tensor of
+        the latents' shape to replace them; anything else is ignored."""
         given = dict(height=height, width=width, num_frames=num_frames, num_inference_steps=num_inference_steps,
                      guidance_scale=guidance_scale, use_dynamic_cfg=use_dynamic_cfg, seed=seed)
         run = replace(self.pipeline_cfg, **{k: v for k, v in given.items() if v is not None})
@@ -514,15 +604,21 @@ class S2VPipeline:
             raise ValueError("num_frames must be >= 1")
         if output_type not in OUTPUT_TYPES:
             raise ValueError(f"unknown output_type {output_type!r} ({' | '.join(OUTPUT_TYPES)})")
+        if callback_on_segment_end is not None and segment_steps <= 0:
+            raise ValueError("callback_on_segment_end needs segment_steps > 0 (the whole loop has no host hooks; "
+                             "use progress=True for a step line)")
 
         self.timings = {}
-        seeds = torch.randint(2**62, (2,), generator=torch.Generator().manual_seed(run.seed))
+        seed_gen = torch.Generator().manual_seed(run.seed)
+        seeds = torch.randint(2**62, (2,), generator=seed_gen)
         gen_latents = torch.Generator().manual_seed(int(seeds[0]))
         gen_ref = torch.Generator().manual_seed(int(seeds[1]))
+        # drawn after the two above, so the latents and ref draws stay what they were
+        dpm_seed = int(torch.randint(2**62, (1,), generator=seed_gen))
 
         do_cfg = guidance_scale > 1.0
         if prompt_embeds is None:
-            with self._timed("encode_prompt_s"):
+            with phase("encode-prompt"), self._timed("encode_prompt_s"):
                 prompt_embeds = self.encode_prompt(prompt, negative_prompt, do_cfg=do_cfg)
         prompt_embeds = prompt_embeds.to(self.device, cfg.dtype)
         if num_videos_per_prompt > 1:
@@ -532,7 +628,7 @@ class S2VPipeline:
         if ref_latents is None:
             if ref_image is None:
                 raise ValueError("need ref_image or ref_latents")
-            with self._timed("encode_ref_s"):
+            with phase("encode-ref-image"), self._timed("encode_ref_s"):
                 ref_latents = self.encode_ref_image(ref_image, gen_ref)
         ref_latents = ref_latents.to(self.device, cfg.dtype)
         if ref_latents.shape[0] == 1 and batch > 1:
@@ -545,9 +641,16 @@ class S2VPipeline:
         latents = latents.to(self.device, cfg.dtype)
 
         rope_cos, rope_sin = self.prepare_rope(height, width, f_lat)
-        schedule = DenoiseSchedule.create(self.scheduler_cfg, num_inference_steps, guidance_scale, run.use_dynamic_cfg)
+        schedule = DenoiseSchedule.create(self.scheduler_cfg, num_inference_steps, guidance_scale,
+                                          run.use_dynamic_cfg, use_dpm)
         if cfg_mode == "auto":
             cfg_mode = "sequential" if batch > 1 else "batched"
+        log = get_logger("s2v_torch.pipeline")
+        n_cfg_skip = int(cfg_skip_steps(schedule, cfg_skip_threshold).sum()) if do_cfg else 0
+        if do_cfg and cfg_skip_threshold > 0.0:
+            log.info("cfg-skip: uncond forward skipped on %d/%d steps", n_cfg_skip, num_inference_steps)
+        noise = self.dpm_noise if self.dpm_noise is not None else DPMNoise(dpm_seed)
+        adaptive = adaptive_threshold > 0.0
 
         step_times = []
         t_step = [time.perf_counter()]
@@ -559,15 +662,37 @@ class S2VPipeline:
             step_times.append(now - t_step[0])
             t_step[0] = now
 
-        with self._mesh_ctx():
-            final = denoise(
-                self.transformer_params, cfg, schedule, latents, ref_latents, prompt_embeds, rope_cos, rope_sin,
-                do_cfg=do_cfg, attention_backend=backend, cfg_mode=cfg_mode, step_callback=on_step,
-            )
+        # the whole loop is one segment: segments run the same step function, bit for bit
+        run_steps = make_segmented_denoise(
+            self.transformer_params, cfg, schedule, rope_cos, rope_sin, do_cfg=do_cfg, dpm_noise=noise,
+            attention_backend=backend, cfg_mode=cfg_mode, cfg_skip_threshold=cfg_skip_threshold,
+            adaptive_threshold=adaptive_threshold, progress=progress, step_callback=on_step)
+        carry = adaptive_init_carry(latents) if adaptive else (latents, torch.zeros_like(latents))
+        segment = segment_steps if segment_steps > 0 else num_inference_steps
+        with phase("denoise", log=True), self._mesh_ctx():
+            for i0 in range(0, num_inference_steps, segment):
+                i1 = min(i0 + segment, num_inference_steps)
+                carry = run_steps(None, carry, ref_latents, prompt_embeds, None, i0, i1)
+                if callback_on_segment_end is None:
+                    continue
+                cb = callback_on_segment_end(i1, carry[0])
+                if isinstance(cb, (bool, np.bool_)) or (
+                        getattr(cb, "shape", None) == () and getattr(cb, "dtype", None) in (torch.bool, np.bool_)):
+                    if not bool(cb):
+                        break  # cooperative interrupt (a 0-d bool tensor, e.g. torch.all(...), counts too)
+                elif getattr(cb, "shape", None) == carry[0].shape:
+                    # a same-shape tensor replaces the trajectory's latents
+                    carry = (torch.as_tensor(cb).to(self.device, carry[0].dtype),) + tuple(carry[1:])
+        final = carry[0]
+        n_adaptive = carry[5] if adaptive else None
+        if adaptive:
+            log.info("adaptive denoise skipped %d/%d forwards", n_adaptive, num_inference_steps)
         self.timings["denoise_step_s"] = step_times
+        self.stats = {"steps_run": len(step_times), "cfg_skipped_steps": n_cfg_skip,
+                      "adaptive_skipped_steps": n_adaptive}
         if output_type == "latent":
             return final
-        with self._timed("decode_s"):
+        with phase("vae-decode", log=True), self._timed("decode_s"):
             return self.postprocess_video(self.decode_latents(final), output_type)
 
 

@@ -4,20 +4,23 @@
 
 The native path applies no nmt_nfkc normalization.  A prompt that
 normalization could change (any non-ASCII character, or ASCII that NFKC
-rewrites) raises, as it does in the JAX package without a fallback
-``tokenizer.json`` (the port has no ``tokenizer.json`` route yet).
+rewrites) goes to ``s2v_torch.utils.tokenizer.T5CLSTokenizer`` on a
+``tokenizer.json`` (by default the one next to the ``spiece.model``), as in
+the JAX package; without such a file it raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 import struct
 from pathlib import Path
-from typing import Iterable, List, Sequence, Tuple, Union
+from typing import Iterable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
 from s2v_torch.utils import native_build
+from s2v_torch.utils.logging import get_logger
 
 SOURCE = native_build.REPO_ROOT / "native" / "sp_tokenizer.cc"
 _lib = None
@@ -77,9 +80,12 @@ def write_spiece_model(path: Union[str, Path], pieces: Iterable[Tuple[str, float
 class NativeSPTokenizer:
     """T5-style tokenizer over a raw ``spiece.model``: unigram Viterbi in C++,
     ``<cls>`` as the first id past the vocab, EOS appended, padded to
-    ``max_length``."""
+    ``max_length``.  A prompt nmt_nfkc could change goes to
+    ``T5CLSTokenizer`` on ``fallback_tokenizer_json`` (default: a
+    ``tokenizer.json`` next to the ``spiece.model``, if there is one)."""
 
-    def __init__(self, spiece_model_path: Union[str, Path], cls_token: str = "<cls>"):
+    def __init__(self, spiece_model_path: Union[str, Path], cls_token: str = "<cls>",
+                 fallback_tokenizer_json: Optional[str] = None):
         self._lib = _library()
         self._h = self._lib.sp_load(str(spiece_model_path).encode())
         if not self._h:
@@ -89,6 +95,18 @@ class NativeSPTokenizer:
         self.unk_id = 2
         self.cls_token = cls_token
         self.cls_id = self._lib.sp_vocab_size(self._h)
+        if fallback_tokenizer_json is None:
+            candidate = os.path.join(os.path.dirname(os.path.abspath(spiece_model_path)), "tokenizer.json")
+            fallback_tokenizer_json = candidate if os.path.exists(candidate) else None
+        self._fallback_json = fallback_tokenizer_json
+        self._fallback = None  # made on the first prompt that needs it
+
+    def _fallback_tokenizer(self):
+        if self._fallback is None and self._fallback_json:
+            from s2v_torch.utils.tokenizer import T5CLSTokenizer
+
+            self._fallback = T5CLSTokenizer(self._fallback_json, self.cls_token)
+        return self._fallback
 
     def __len__(self) -> int:
         return self._lib.sp_vocab_size(self._h) + 1
@@ -116,14 +134,26 @@ class NativeSPTokenizer:
             prompts = [prompts]
         bad = [p for p in prompts if _needs_nmt_nfkc(p)]
         if bad:
+            fallback = self._fallback_tokenizer()
+            if fallback is not None:
+                get_logger("s2v_torch.tokenizer").info(
+                    "non-ASCII prompt: routing to the tokenizers backend (the native sentencepiece path skips "
+                    "nmt_nfkc normalization)")
+                return fallback.encode(prompts, max_length)
             raise ValueError(
                 "the native tokenizer applies no nmt_nfkc normalization, so the ids of "
-                f"{bad[0]!r} could differ from sentencepiece's; tokenize it with a "
-                "tokenizer.json-backed tokenizer"
+                f"{bad[0]!r} could differ from sentencepiece's; put a tokenizer.json next to the "
+                "spiece.model (used automatically) or tokenize with s2v_torch.utils.tokenizer.T5CLSTokenizer"
             )
         out = np.full((len(prompts), max_length), self.pad_id, np.int32)
         for i, p in enumerate(prompts):
-            ids = self._encode_one(p)[: max_length - 1] + [self.eos_id]
+            ids = self._encode_one(p)
+            if len(ids) > max_length - 1:
+                # the native library has no detokenizer: the warning gives the span's size
+                get_logger("s2v_torch.tokenizer").warning(
+                    "Input truncated because `max_sequence_length` is set to %d tokens: %d trailing tokens removed",
+                    max_length, len(ids) - (max_length - 1))
+            ids = ids[: max_length - 1] + [self.eos_id]
             out[i, : len(ids)] = ids
         return out
 

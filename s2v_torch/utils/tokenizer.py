@@ -14,11 +14,12 @@ with only ``spiece.model`` go through ``s2v_torch.utils.sp_native``.
 
 from __future__ import annotations
 
-import logging
 import os
 from typing import Sequence, Union
 
 import numpy as np
+
+from s2v_torch.utils.logging import get_logger
 
 
 class T5CLSTokenizer:
@@ -54,7 +55,7 @@ class T5CLSTokenizer:
         for i, p in enumerate(prompts):
             ids = self._tok.encode(p, add_special_tokens=False).ids
             if len(ids) > max_length - 1:
-                logging.getLogger("s2v_torch.tokenizer").warning(
+                get_logger("s2v_torch.tokenizer").warning(
                     "The following part of your input was truncated because "
                     "`max_sequence_length` is set to %d tokens: %s",
                     max_length, self._tok.decode(ids[max_length - 1:]),

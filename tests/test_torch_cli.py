@@ -1,7 +1,8 @@
 """The port's CLI (``python -m s2v_torch.cli``) against the JAX package's:
 the same flags and defaults, a ``NotImplementedError`` naming its ROADMAP
-item for every flag whose path is not ported, and an end-to-end run on a
-tiny snapshot with its LoRA on the CPU that writes a 9-frame, 8-fps mp4."""
+item for every flag whose path is not ported, and end-to-end runs on a
+tiny snapshot with its LoRA on the CPU that write a 9-frame, 8-fps mp4 (at
+the defaults, and once per denoise flag)."""
 
 import argparse
 import os
@@ -52,11 +53,6 @@ def test_get_args_has_every_flag_and_default_of_jax():
 
 
 UNPORTED = {
-    "use_dpm": (["--use_dpm"], "A.2"),
-    "adaptive": (["--adaptive_threshold", "0.05"], "A.2"),
-    "cfg_skip": (["--cfg_skip_threshold", "0.02"], "A.2"),
-    "segments": (["--segment_steps", "5"], "A.2"),
-    "progress": (["--progress"], "A.2"),
     "t2v": (["--pipeline", "t2v"], "A.7"),
     "disentangled": (["--disentangled_modulation"], "A.7"),
     "mesh": (["--mesh", "sp4"], "A.9"),
@@ -110,6 +106,34 @@ def test_main_on_the_cpu_writes_a_9_frame_8_fps_mp4(tiny, tmp_path, capsys):
     cap.release()
     assert os.path.getsize(tmp_path / "prof" / "trace.json") > 0
     assert os.path.exists(tmp_path / "merged" / "transformer" / "diffusion_pytorch_model.safetensors")
+
+
+DENOISE_FLAGS = {
+    "use_dpm": ["--use_dpm"],
+    "adaptive": ["--adaptive_threshold", "0.05", "--num_inference_steps", "4"],
+    "cfg_skip": ["--cfg_skip_threshold", "0.02", "--use_dynamic_cfg"],
+    "segments": ["--segment_steps", "1"],
+    "progress": ["--progress"],
+    "backend_chunked": ["--attention_backend", "chunked"],
+}
+
+
+@pytest.mark.parametrize("case", sorted(DENOISE_FLAGS))
+def test_main_on_the_cpu_with_denoise_flags(case, tiny, tmp_path, capsys):
+    """Each denoise flag, and the chunked backend, runs on the tiny snapshot to its clip."""
+    cli.main(_argv(tiny, tmp_path / "out", *DENOISE_FLAGS[case]))
+    captured = capsys.readouterr()
+    path = str(tmp_path / "out" / "output.mp4")
+    assert f"[s2v_torch] wrote {path}" in captured.out and "Inference completed" in captured.out
+    cap = cv2.VideoCapture(path)
+    assert int(cap.get(cv2.CAP_PROP_FRAME_COUNT)) == 9
+    cap.release()
+    if case == "segments":
+        assert "[s2v_torch] denoise 1/2 steps (+" in captured.out and "[s2v_torch] denoise 2/2 steps (+" in captured.out
+    if case == "progress":
+        assert "\r[s2v_torch] denoise step 2/2\n" in captured.err
+    if case == "cfg_skip":
+        assert "cfg-skip: uncond forward skipped on 1/2 steps" in captured.err
 
 
 def test_main_as_a_module_with_jax_backend_names(tiny, tmp_path):

@@ -5,8 +5,10 @@ plain pre-pass, and one s8 wgmma tile of its 64-byte-swizzle layer against
 an integer matmul; B6/B7,
 the sequence-parallel shard kernels, at every offset of 2- and 4-rank
 rings), the differentiable flash and banded attentions (B1/B2, B4/B5, and
-``sp_windowed`` on a one-rank NCCL group) against plain autograd, and the
-int8 linears (``torch._int_mm``) against their CPU computation.
+``sp_windowed`` on a one-rank NCCL group) against plain autograd, the
+``chunked`` backend against B1/B2, a small pipeline's segmented ``generate``
+against its whole loop, and the int8 linears (``torch._int_mm``) against
+their CPU computation.
 
 Marked ``gpu``; every test skips without a CUDA device (decided inside the
 fixture, so every worker collects the same tests).  On a machine with a card:
@@ -540,6 +542,58 @@ def test_sp_windowed_on_one_rank_matches_plain_autograd(cuda):
     finally:
         if started:
             dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("sq,block_q", [(300, 128), (77, 1024)])
+def test_chunked_matches_b1_b2_and_plain_autograd(cuda, sq, block_q):
+    """The ``chunked`` backend (PyTorch ops, per-block checkpoint) on bf16
+    inputs: its output and autograd grads against B1/B2
+    (``flash_attention_trainable``) and against plain fp32 autograd."""
+    from s2v_torch.ops.attention import chunked_attention
+
+    q, k, v = (x.requires_grad_() for x in _qkv(1, sq, sq, 3, 30, cuda))
+    do = torch.from_numpy(np.random.RandomState(31).randn(*q.shape).astype(np.float32)).to(cuda, torch.bfloat16)
+    o = chunked_attention(q, k, v, block_q=block_q)
+    got = torch.autograd.grad(o, (q, k, v), do)
+    before = (flash_attention.launches, flash_attention_bwd.launches)
+    o_kernel = flash_attention_trainable(q, k, v)
+    kernel = torch.autograd.grad(o_kernel, (q, k, v), do)
+    leaves = [x.detach().float().requires_grad_() for x in (q, k, v)]
+    o_ref = flash_attention_reference(*leaves)
+    want = torch.autograd.grad(o_ref, leaves, do.float())
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_attention_bwd.launches) == (before[0] + 1, before[1] + 1)
+    _assert_close(o, o_ref)
+    _assert_close(o, o_kernel)
+    for a, b, r in zip(got, kernel, want):
+        _assert_close(a, r)
+        _assert_close(a, b)
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(use_dpm=True), dict(adaptive_threshold=1e9),
+                                dict(use_dynamic_cfg=True, cfg_skip_threshold=0.05)],
+                         ids=["ddim", "dpm", "adaptive", "cfg_skip"])
+def test_segmented_generate_equals_the_whole_loop(cuda, kw):
+    """A small bf16 pipeline with d = 64 heads on the card (B1 in every
+    forward): segments of 1 and 2 steps give the whole loop's latents bit
+    for bit."""
+    from s2v_torch import S2VPipeline, TransformerConfig, VAEConfig
+    from s2v_torch.models.transformer import init_transformer_params_random
+    from s2v_torch.models.vae import init_vae_params_random
+
+    tcfg = TransformerConfig.tiny(num_attention_heads=2, attention_head_dim=64, dtype=torch.bfloat16)
+    vcfg = VAEConfig.tiny(latent_channels=4, sample_height=64, sample_width=64, dtype=torch.bfloat16)
+    pipe = S2VPipeline(init_transformer_params_random(tcfg, seed=3, device=cuda, scale=0.1), tcfg,
+                       init_vae_params_random(vcfg, seed=4, device=cuda), vcfg, device=cuda)
+    embeds = torch.from_numpy(np.random.RandomState(0).randn(2, 16, 32).astype(np.float32))
+    args = dict(prompt_embeds=embeds, ref_latents=torch.zeros(1, 1, 4, 4, 4), height=32, width=32, num_frames=9,
+                num_inference_steps=4, output_type="latent", seed=1, **kw)
+    before = flash_attention.launches
+    whole = pipe.generate(**args)
+    assert flash_attention.launches > before
+    for seg in (1, 2):
+        assert torch.equal(pipe.generate(segment_steps=seg, **args), whole), seg
+    assert torch.isfinite(whole.float()).all()
 
 
 # B3 against its plain version on the same bf16 inputs and the same int8

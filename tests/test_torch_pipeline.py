@@ -6,61 +6,13 @@ packages draw different random numbers), or the prompt goes through T5."""
 import numpy as np
 import jax
 import pytest
-import torch
 
-from _torch_parity import perturb, rand, t
-from s2v_tpu.config import SchedulerConfig as JSchedulerConfig
-from s2v_tpu.config import T5Config as JT5Config
-from s2v_tpu.config import TransformerConfig as JTransformerConfig
-from s2v_tpu.config import VAEConfig as JVAEConfig
-from s2v_tpu.models.t5 import init_t5_params
-from s2v_tpu.models.transformer import init_transformer_params
-from s2v_tpu.models.vae import init_vae_params
-from s2v_tpu.pipelines.s2v import S2VPipeline as JS2VPipeline
-from s2v_torch.config import T5Config, TransformerConfig, VAEConfig
-from s2v_torch.loaders.jax_params import t5_from_jax, transformer_from_jax, vae_from_jax
-from s2v_torch.pipelines.s2v import S2VPipeline
-
-# fp32 through 2 steps x 2 DiT blocks, then the VAE decoder
-LATENT_ATOL = 2e-4
-FRAME_ATOL = 2e-4
-
-
-class _FakeTokenizer:
-    def encode(self, prompts, max_length=226):
-        out = np.zeros((len(prompts), max_length), np.int32)
-        for i, p in enumerate(prompts):
-            ids = [(hash(w) % 100) + 2 for w in p.split()][: max_length - 1] + [1]
-            out[i, : len(ids)] = ids
-        return out
-
-
-VAE_KW = dict(latent_channels=4, sample_height=64, sample_width=64)
+from _torch_parity import FRAME_ATOL, LATENT_ATOL, rand, t, tiny_pipelines
 
 
 @pytest.fixture(scope="module")
 def pipelines():
-    tok = _FakeTokenizer()
-    tcfg_j = JTransformerConfig.tiny()
-    vcfg_j = JVAEConfig.tiny(**VAE_KW)
-    t5cfg_j = JT5Config.tiny(d_model=tcfg_j.text_embed_dim)
-    tp = perturb(init_transformer_params(jax.random.PRNGKey(0), tcfg_j), seed=1, scale=0.05)
-    vp = perturb(init_vae_params(jax.random.PRNGKey(1), vcfg_j), seed=2, scale=0.05)
-    t5p = perturb(init_t5_params(jax.random.PRNGKey(2), t5cfg_j), seed=3, scale=0.05)
-    jax_pipe = JS2VPipeline(
-        transformer_params=jax.tree.map(jax.numpy.asarray, tp), transformer_cfg=tcfg_j,
-        vae_params=jax.tree.map(jax.numpy.asarray, vp), vae_cfg=vcfg_j,
-        t5_params=jax.tree.map(jax.numpy.asarray, t5p), t5_cfg=t5cfg_j,
-        scheduler_cfg=JSchedulerConfig(), tokenizer=tok,
-    )
-    tcfg, vcfg, t5cfg = TransformerConfig.tiny(), VAEConfig.tiny(**VAE_KW), T5Config.tiny(d_model=32)
-    port = S2VPipeline(
-        transformer_params=transformer_from_jax(tp, tcfg, device="cpu"), transformer_cfg=tcfg,
-        vae_params=vae_from_jax(vp, vcfg, device="cpu"), vae_cfg=vcfg,
-        t5_params=t5_from_jax(t5p, t5cfg, device="cpu"), t5_cfg=t5cfg,
-        tokenizer=tok, device="cpu",
-    )
-    return jax_pipe, port
+    return tiny_pipelines()
 
 
 def _inputs():

@@ -90,3 +90,64 @@ def test_native_tokenizer_rejects_what_it_cannot_normalize(tok, prompt):
                 t.encode(prompt)
         return
     np.testing.assert_array_equal(tok.encode(prompt, max_length=8), theirs.encode(prompt, max_length=8))
+
+
+@pytest.fixture(scope="module")
+def tok_with_json(tmp_path_factory):
+    """The tiny spiece.model with a tokenizer.json beside it (the tiny
+    WordLevel tokenizer of ``tools/make_tiny_snapshot.py``)."""
+    if shutil.which("g++") is None:
+        pytest.skip("no C++ toolchain")
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
+    from make_tiny_snapshot import write_tokenizer
+
+    from s2v_torch.utils.sp_native import write_spiece_model
+
+    d = tmp_path_factory.mktemp("sp_json")
+    write_spiece_model(d / "spiece.model", PIECES)
+    write_tokenizer(str(d / "tokenizer.json"), 64)
+    return d
+
+
+@pytest.mark.parametrize("prompt", ["café", "a café pig", ["a pig", "un café"]], ids=["word", "sentence", "batch"])
+def test_native_tokenizer_reroutes_to_tokenizer_json(tok_with_json, prompt):
+    """A prompt nmt_nfkc could change goes to T5CLSTokenizer on the
+    tokenizer.json next to the spiece.model, in both packages, to the same ids."""
+    from s2v_tpu.utils.sp_native import NativeSPTokenizer as JNativeSPTokenizer
+    from s2v_torch.utils.sp_native import NativeSPTokenizer
+
+    model = str(tok_with_json / "spiece.model")
+    mine, theirs = NativeSPTokenizer(model), JNativeSPTokenizer(model)
+    got, want = mine.encode(prompt, max_length=12), theirs.encode(prompt, max_length=12)
+    np.testing.assert_array_equal(got, want)
+    assert mine._fallback is not None  # the reroute ran, not the native path
+    # ASCII stays on the native path, equal in both
+    np.testing.assert_array_equal(mine.encode("a pig", max_length=6), theirs.encode("a pig", max_length=6))
+    assert list(mine.encode("a pig", max_length=6)[0]) == [4, 5, 1, 0, 0, 0]
+    # an explicit fallback file is taken too
+    explicit = NativeSPTokenizer(model, fallback_tokenizer_json=str(tok_with_json / "tokenizer.json"))
+    np.testing.assert_array_equal(explicit.encode(prompt, max_length=12), want)
+
+
+def test_native_tokenizer_logs_truncation(tok):
+    import logging
+
+    from s2v_torch.utils.logging import get_logger
+
+    records = []
+    handler = logging.Handler()
+    handler.emit = records.append
+    logger = get_logger("s2v_torch.tokenizer")
+    logger.addHandler(handler)
+    try:
+        ids = tok.encode("a pig walking a pig walking", max_length=4)
+        tok.encode("a pig", max_length=4)  # fits: no warning
+    finally:
+        logger.removeHandler(handler)
+    assert list(ids[0]) == [4, 5, 6, 1]
+    assert [r.levelname for r in records] == ["WARNING"]
+    assert records[0].getMessage() == ("Input truncated because `max_sequence_length` is set to 4 tokens: "
+                                       "5 trailing tokens removed")  # a pig walk ing a pig walk ing: 8 ids, 3 kept
