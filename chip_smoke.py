@@ -23,6 +23,17 @@ Phases, each printing one JSON line:
                 for bit; timed beside its bound, the plain version and the
                 backward of one SDPA call (a yardstick only), with its time
                 split among its pre-pass, dq and dk/dv kernels;
+      kernel_fp16, kernel_bwd_fp16 — B1 and B2 in fp16 (the 2b family)
+                against their plain versions with the same limits (B2 also
+                against its schedule's emulation, two launches bit for bit):
+                small ragged shapes, then B1 at the 2b shapes [2, 19,126,
+                30, 64] (s2v) and [2, 17,776, 30, 64] (t2v) in both softmax
+                modes and B2 at [1, 19,126, 30, 64], timed beside their
+                bounds at 989 TFLOP/s dense fp16 and fp16 SDPA (forward,
+                backward); B1 with one q row x4 (rows far below M0 must
+                re-run online), no re-run allowed in the timed bounded
+                mode; B2 also at dO 2^-10, where fp16 would flush an
+                unscaled dS (zero shares and dS shares printed);
   5. kernel_banded — kernel B4 (banded windowed attention; global queries
                 through B1) against its plain version and, on the small
                 cases, the emulation of its schedule: small ragged
@@ -126,6 +137,14 @@ Phases, each printing one JSON line:
                 (flash both ways): per step B1 twice and B2 once per block,
                 no B3; the int8 base unchanged; its first loss printed
                 beside the exact phase's (same batch, same draws);
+      variants — on the same pipeline, 2 steps each at 49x480x720:
+                ``generate_i2v`` and ``generate_fun_control`` on an I2V
+                transformer (a seeded 32-channel ``patch_embed.proj``),
+                ``generate_v2v`` at strength 0.8 on a seeded 49-frame video,
+                and ``generate`` with disentangled modulation (seeded adapted
+                norm linears, the old ones as ``base_linear``): the clips'
+                gates, B1's launches, seconds split into encode, steps and
+                decode;
  19. pretrained — the way users start the system: the full-width pipeline
                 written as a bf16 diffusers snapshot into
                 ``build/smoke_snapshot/`` (``save_pretrained``; the free
@@ -147,10 +166,22 @@ Phases, each printing one JSON line:
                 the same with DPM, segments of 1 and cfg-skip, a runtime
                 ``load_lora`` and a generate, stats, shutdown; every answer
                 ``"status": "ok"``; start, request and swap seconds.  The
-                snapshot and the LoRA are deleted when the script ends.
-Then the kernels line, the nvidia-smi line, and the result line.  The
+                snapshot and the LoRA are deleted when the script ends;
+      e2e_2b   — with the 5b pipeline released, the CogVideoX-2b pipeline
+                (``TransformerConfig.cogvideox_2b()``, T5-XXL and the VAE,
+                all fp16, seeded; T5's fp16 embeddings checked finite, else
+                T5 on the host in fp32, said so): ``generate_t2v`` and
+                ``generate`` at 49x480x720, 2 steps each, 30 fp16 B1 a step;
+                one more t2v step under ``torch.profiler``;
+      train_2b — the LoRA step of ``train`` on the 2b pipeline (the batch
+                carries the sincos table): losses finite, base unchanged,
+                fp16 B1 60 and B2 30 a step; B2 held to its plain version
+                at step 0's own dO (the last block's attention), with the
+                shares of gradients and dS that fp16 flushes.
+Then the kernels line, the nvidia-smi line, and the result line.  The 5b
 pipeline phases share one pipeline; ``pretrained`` empties it, so it and
-``serve`` run last.  Any failed
+``serve`` run last of them; the 2b phases share a pipeline of their own,
+freed after.  Any failed
 phase raises: the script exits non-zero and prints no result.  It needs a
 CUDA device and the repository beside it.  ``--phases a,b`` runs only those
 phases (after the build), for a short check of one part.
@@ -181,10 +212,17 @@ BAND = (1576, 1350, 2)  # global_len, tokens_per_frame, window_frames
 BANDED_SMALL = [(2, 3, 24, 20, 5, 1), (1, 2, 24, 20, 3, 2), (1, 2, 24, 20, 4, 0), (1, 2, 24, 20, 4, 1),
                 (1, 2, 1, 8, 2, 0), (1, 2, 300, 24, 4, 1), (1, 2, 7, 130, 3, 2), (1, 2, 129, 16, 7, 3),
                 (1, 2, 50, 40, 5, 9), (1, 2, 168, 198, 5, 2), (1, 2, 40, 384, 3, 1), (1, 3, 1576, 1350, 5, 2)]
+# the 2b family (CogVideoX-2b: 30 heads of 64, fp16): batched CFG over
+# [text 226 | ref 1350 | video 17550] in s2v and [text 226 | video 17550] in
+# t2v; the LoRA train step at B=1
+SHAPES_2B = {"s2v": (2, 19126, 30, 64), "t2v": (2, 17776, 30, 64)}
+TRAIN_SHAPE_2B = (1, 19126, 30, 64)
+MODES_2B = ("online", "bounded")
 MODES = ("online", "bounded", "bounded_exp2")
 MAIN_MODE = "bounded"  # the softmax mode the DiT's attention uses
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 and int8 tensor cores, HBM3
 PEAK_BF16_FLOPS = 989e12
+PEAK_FP16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 PEAK_BYTES_PER_S = 3.35e12
 # the SFUs' ex2 rate per SM and clock (Hopper: 16), the exponentials' ceiling
@@ -203,6 +241,11 @@ OUT_MAX_REL = 2.0 ** -6
 OUT_L2_REL = 1e-2
 # lse is accumulated in fp32 in both; ex2.approx and the summation order differ
 LSE_TOL = 1e-3
+# an fp16 output is no finer than its subnormal spacing: where gradients
+# themselves are subnormal (a training step's), both limits allow one such
+# step per element (the max error at least this, the relative L2 this much
+# more than 1e-2 over the reference's RMS)
+FP16_SUBNORMAL_ULP = 2.0 ** -24
 # the whole small pipeline in bf16 (weights, activations) against the same
 # pipeline with fp32 attention, relative to the largest latent: bf16 rounding
 # (2^-8) through 2 blocks x 2 steps, amplified up to 2g - 1 = 3x by the
@@ -269,23 +312,26 @@ def phase_build():
           "per_source_s": {k: v["seconds"] for k, v in results.items()}, "ptxas": ptxas})
 
 
-def _qkv(b, sq, skv, h, seed, dev):
+def _qkv(b, sq, skv, h, seed, dev, dtype=None):
     import torch
 
     g = torch.Generator(device=dev).manual_seed(seed)
-    return tuple(torch.randn(b, s, h, 64, device=dev, generator=g).to(torch.bfloat16) for s in (sq, skv, skv))
+    return tuple(torch.randn(b, s, h, 64, device=dev, generator=g).to(dtype or torch.bfloat16) for s in (sq, skv, skv))
 
 
-def _agreement(o, o_ref, what):
+def _agreement(o, o_ref, what, floor=0.0):
     """Hold a kernel output against its plain version with the limits
-    above; returns the numbers the JSON lines print."""
+    above, each widened by an output step of ``floor`` per element (the
+    max error at least ``floor``, the relative L2 ``floor`` / RMS more);
+    returns the numbers the JSON lines print."""
     o_ref = o_ref.float()
     diff = o.float() - o_ref
     ref_max = o_ref.abs().max().item()
-    stats = {"max_abs_err": diff.abs().max().item(), "max_abs_tol": OUT_MAX_REL * ref_max,
-             "rel_l2": (diff.norm() / o_ref.norm()).item(), "rel_l2_tol": OUT_L2_REL,
-             "ref_max": ref_max, "ref_rms": o_ref.square().mean().sqrt().item()}
-    if not (stats["max_abs_err"] <= stats["max_abs_tol"] and stats["rel_l2"] < OUT_L2_REL):
+    ref_rms = o_ref.square().mean().sqrt().item()
+    stats = {"max_abs_err": diff.abs().max().item(), "max_abs_tol": max(OUT_MAX_REL * ref_max, floor),
+             "rel_l2": (diff.norm() / o_ref.norm()).item(), "rel_l2_tol": OUT_L2_REL + floor / ref_rms,
+             "ref_max": ref_max, "ref_rms": ref_rms}
+    if not (stats["max_abs_err"] <= stats["max_abs_tol"] and stats["rel_l2"] < stats["rel_l2_tol"]):
         raise AssertionError(f"{what}: {stats}")
     return stats
 
@@ -372,20 +418,21 @@ def phase_kernel(dev):
     return result
 
 
-def _bwd_inputs(b, sq, skv, h, seed, dev, layer_norm=False):
+def _bwd_inputs(b, sq, skv, h, seed, dev, layer_norm=False, dtype=None):
     """q, k, v, o, lse (B1 in the train path's softmax mode) and a seeded dO."""
     import torch
     import torch.nn.functional as F
 
     from s2v_torch.kernels.flash_attention import flash_attention
 
-    q, k, v = _qkv(b, sq, skv, h, seed, dev)
+    dtype = dtype or torch.bfloat16
+    q, k, v = _qkv(b, sq, skv, h, seed, dev, dtype)
     if layer_norm:
-        q = F.layer_norm(q.float(), (64,)).to(torch.bfloat16)
-        k = F.layer_norm(k.float(), (64,)).to(torch.bfloat16)
+        q = F.layer_norm(q.float(), (64,)).to(dtype)
+        k = F.layer_norm(k.float(), (64,)).to(dtype)
     o, lse = flash_attention(q, k, v, return_lse=True, softmax_mode=MAIN_MODE)
     g = torch.Generator(device=dev).manual_seed(seed + 1)
-    do = torch.randn(q.shape, device=dev, generator=g).to(torch.bfloat16)
+    do = torch.randn(q.shape, device=dev, generator=g).to(dtype)
     return q, k, v, o, lse, do
 
 
@@ -463,6 +510,184 @@ def phase_kernel_bwd(dev):
               "b1_with_lse_ms": b1_ms, "b1_with_lse_tflops": 4 * b * h * s * s * d / b1_ms / 1e9}
     emit(result)
     return result
+
+
+def phase_kernel_fp16(dev):
+    """Kernel B1 in fp16 (the 2b family) against its plain version (fp32
+    from the same fp16 values), held to the bf16 limits: small ragged and
+    masked shapes in every mode, then the 2b shapes of s2v and t2v in
+    both softmax modes, each timed beside its bound at 989 TFLOP/s dense
+    fp16, the plain version and one fp16 ``F.scaled_dot_product_attention``
+    call (a yardstick only)."""
+    import torch
+    import torch.nn.functional as F
+
+    from s2v_torch.kernels.flash_attention import flash_attention, flash_attention_reference
+
+    fp16 = torch.float16
+    small = []
+    for mode in MODES:
+        for (b, sq, skv, h, masked) in [(2, 200, 200, 3, False), (1, 77, 333, 2, True), (1, 130, 40, 2, False)]:
+            q, k, v = _qkv(b, sq, skv, h, sq + skv, dev, fp16)
+            mask = None
+            if masked:
+                mask = torch.zeros(skv, dtype=torch.bool, device=dev)
+                mask[5:40] = True
+            before = flash_attention.reruns
+            stats = _compare(q, k, v, mode, mask)
+            small.append({"mode": mode, "q": [b, sq, h, 64], "skv": skv, "masked": masked,
+                          "reruns": flash_attention.reruns - before, **stats})
+    emit({"phase": "kernel_fp16_small", "cases": small})
+
+    # one q row scaled x4 puts M0 ~40 nats above every other row's largest
+    # logit: rounded to fp16 there, their P would flush to zero, so the
+    # kernel flags those rows and the guard re-runs the call online
+    far = {}
+    for mode in ("bounded", "bounded_exp2"):
+        q, k, v = _qkv(1, 300, 300, 2, 31, dev, fp16)
+        q[:, 0] *= 4
+        before = flash_attention.reruns
+        stats = _compare(q, k, v, mode)
+        if flash_attention.reruns != before + 1:
+            raise AssertionError(f"flash_attention fp16 [{mode}]: rows far below M0 did not re-run online")
+        far[mode] = {"reruns": flash_attention.reruns - before, **stats}
+    emit({"phase": "kernel_fp16_far_rows", "cases": far})
+
+    shapes = {}
+    for name, (b, s, h, d) in SHAPES_2B.items():
+        q, k, v = _qkv(b, s, s, h, 17, dev, fp16)
+        q = F.layer_norm(q.float(), (d,)).to(fp16)
+        k = F.layer_norm(k.float(), (d,)).to(fp16)
+        modes = {}
+        for mode in MODES_2B:
+            before = flash_attention.reruns
+            stats = _compare(q, k, v, mode)
+            if flash_attention.reruns != before:  # the time below would be two launches
+                raise AssertionError(f"flash_attention fp16 [{mode}] at the {name} shape re-ran online")
+            flash_attention(q, k, v, softmax_mode=mode)  # warm-up
+            modes[mode] = {**stats, "ms": cuda_ms(lambda: flash_attention(q, k, v, softmax_mode=mode), 10)}
+        plain_ms = cuda_ms(lambda: flash_attention_reference(q, k, v, softmax_mode=MAIN_MODE), 2)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        F.scaled_dot_product_attention(qt, kt, vt)
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), 10)
+        flops = 4 * b * h * s * s * d
+        nbytes = 4 * b * s * h * d * 2 + b * h * s * 4
+        bound_ms = max(flops / PEAK_FP16_FLOPS, nbytes / PEAK_BYTES_PER_S) * 1e3
+        bound_by = "operations" if flops / PEAK_FP16_FLOPS >= nbytes / PEAK_BYTES_PER_S else "bytes"
+        for mode in MODES_2B:
+            modes[mode]["tflops"] = flops / modes[mode]["ms"] / 1e9
+        shapes[name] = {"shape": [b, s, h, d], "modes": modes, "plain_ms": plain_ms, "library_ms": library_ms,
+                        "bound_ms": bound_ms, "bound_by": bound_by}
+        del q, k, v, qt, kt, vt
+    result = {"phase": "kernel_fp16_main", "dtype": "float16", "shapes": shapes, "far_rows": far}
+    emit(result)
+    return result
+
+
+def phase_kernel_bwd_fp16(dev):
+    """Kernel B2 in fp16 against its plain version and the emulation of its
+    schedule (P and dS rounded to fp16): small ragged shapes, then the 2b
+    training shape B=1, S=19,126, H=30, where two launches must agree bit
+    for bit; timed beside its bound, the plain version and the backward of
+    one fp16 SDPA call (a yardstick only)."""
+    import torch
+    import torch.nn.functional as F
+
+    from s2v_torch.kernels.flash_attention_bwd import flash_attention_bwd, flash_attention_bwd_reference
+
+    fp16 = torch.float16
+    small = []
+    for (b, sq, skv, h) in [(2, 200, 200, 3), (1, 77, 333, 2), (1, 130, 40, 2)]:
+        small.append({"q": [b, sq, h, 64], "skv": skv,
+                      **_compare_bwd(*_bwd_inputs(b, sq, skv, h, sq + skv, dev, dtype=fp16))})
+    emit({"phase": "kernel_bwd_fp16_small", "cases": small})
+
+    b, s, h, d = TRAIN_SHAPE_2B
+    q, k, v, o, lse, do = _bwd_inputs(b, s, s, h, 19, dev, layer_norm=True, dtype=fp16)
+    stats = _compare_bwd(q, k, v, o, lse, do)
+    first = flash_attention_bwd(q, k, v, o, lse, do)
+    second = flash_attention_bwd(q, k, v, o, lse, do)
+    deterministic = {name: bool(torch.equal(a, c)) for name, a, c in zip(("dq", "dk", "dv"), first, second)}
+    if not all(deterministic.values()):
+        raise AssertionError(f"flash_attention_bwd fp16: two launches on the same inputs differ: {deterministic}")
+    finite = all(bool(torch.isfinite(x).all()) for x in first)
+    if not finite:
+        raise AssertionError("flash_attention_bwd fp16: a gradient is not finite")
+    del first, second
+    # dO at 2^-10 of unit normal: over 19,126 keys dS then sits near fp16's
+    # flush point (2^-25), where rounding it unscaled moves dq and dk by a
+    # few percent
+    small_do = _bwd_at_small_do(q, k, v, o, lse, (do.float() * 2.0 ** -10).to(fp16),
+                                "flash_attention_bwd fp16 at dO 2^-10")
+    flash_attention_bwd(q, k, v, o, lse, do)  # warm-up
+    ms = cuda_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do), 10)
+    parts_ms = _bwd_parts_ms(q, k, v, o, lse, do)
+    plain_ms = cuda_ms(lambda: flash_attention_bwd_reference(q, k, v, o, lse, do), 2)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt)
+    gt = do.transpose(1, 2)
+    torch.autograd.grad(out, (qt, kt, vt), gt, retain_graph=True)
+    library_ms = cuda_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), gt, retain_graph=True), 10)
+    del out, qt, kt, vt
+    flops = 10 * b * h * s * s * d
+    nbytes = 8 * b * s * h * d * 2 + b * h * s * 4
+    bound_ms = max(flops / PEAK_FP16_FLOPS, nbytes / PEAK_BYTES_PER_S) * 1e3
+    bound_by = "operations" if flops / PEAK_FP16_FLOPS >= nbytes / PEAK_BYTES_PER_S else "bytes"
+    result = {"phase": "kernel_bwd_fp16_main", "dtype": "float16", "shape": list(TRAIN_SHAPE_2B), "grads": stats,
+              "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+              "tflops": flops / ms / 1e9, "parts_ms": parts_ms, "deterministic": deterministic,
+              "small_do": small_do}
+    emit(result)
+    return result
+
+
+def _bwd_at_small_do(q, k, v, o, lse, do, what):
+    """fp16 B2 against its plain version at a small dO, held to the kernel
+    limits (the max error at least one fp16 subnormal step), with what fp16
+    does there: per gradient the share of entries the kernel leaves at zero
+    where the plain version's fp16 output is not, and the plain version's
+    own share of zeros; and over head 0 of the first batch row, the share of
+    the fp32 dS that is nonzero, and of that, the share below fp16's flush
+    point (2^-25) and below its normal range (2^-14), unscaled and scaled by
+    the kernels' 2^e."""
+    import torch
+
+    from s2v_torch.kernels.flash_attention_bwd import (
+        ds_exponent,
+        flash_attention_bwd,
+        flash_attention_bwd_reference,
+        row_delta,
+    )
+
+    got = flash_attention_bwd(q, k, v, o, lse, do)
+    want = flash_attention_bwd_reference(q, k, v, o, lse, do)
+    e = int(ds_exponent(v, do))
+    out = {"do_max_abs": do.float().abs().max().item(), "do_rms": do.float().square().mean().sqrt().item(),
+           "ds_exp": e}
+    for name, a, r in zip(("dq", "dk", "dv"), got, want):
+        out[name] = {**_agreement_or_zero(a, r, f"{what} {name}", FP16_SUBNORMAL_ULP),
+                     "zero_share": ((a == 0) & (r != 0)).float().mean().item(),
+                     "ref_zero_share": (r == 0).float().mean().item()}
+    del got, want
+    qh, kh, vh, gh = (x[0, :, 0].float() for x in (q, k, v, do))
+    delta = row_delta(o, do)[0, 0]
+    tallies = torch.zeros(6, dtype=torch.float64, device=q.device)  # all, nonzero, 4 shares' counts
+    ds_max = 0.0
+    for r0 in range(0, qh.shape[0], 2048):
+        p = torch.exp(qh[r0:r0 + 2048] @ kh.T * q.shape[-1] ** -0.5 - lse[0, 0, r0:r0 + 2048, None])
+        ds = (p * (gh[r0:r0 + 2048] @ vh.T - delta[r0:r0 + 2048, None])).abs()
+        nz = ds > 0
+        ds_max = max(ds_max, ds.max().item())
+        tallies += torch.stack([torch.tensor(float(ds.numel()), device=q.device), nz.sum(),
+                                (nz & (ds < 2.0 ** -25)).sum(), (nz & (ds < 2.0 ** -14)).sum(),
+                                (nz & (ds * 2.0 ** e < 2.0 ** -25)).sum(),
+                                (nz & (ds * 2.0 ** e < 2.0 ** -14)).sum()]).double()
+    n_all, n_nz, *counts = tallies.tolist()
+    share = lambda c: c / n_nz if n_nz else None  # noqa: E731
+    out["ds_head0"] = {"max_abs": ds_max, "nonzero_share": n_nz / n_all, "flush_share": share(counts[0]),
+                       "subnormal_share": share(counts[1]), "flush_share_scaled": share(counts[2]),
+                       "subnormal_share_scaled": share(counts[3])}
+    return out
 
 
 def _bwd_parts_ms(q, k, v, o, lse, do):
@@ -757,16 +982,17 @@ def phase_kernel_banded_bwd(dev):
 SP_RINGS = (1, 2, 4)  # the seq rings whose shards the SP kernel phases launch, every offset of each
 
 
-def _agreement_or_zero(o, o_ref, what):
+def _agreement_or_zero(o, o_ref, what, floor=0.0):
     """:func:`_agreement`, except that an all-zero reference (a dk/dv partial
-    of a shard that no query of the band reaches) needs an all-zero output."""
+    of a shard that no query of the band reaches, or a gradient that fp16
+    flushes) needs an output no larger than ``floor``."""
     if not o_ref.any():
         err = o.float().abs().max().item()
-        if err != 0.0:
+        if err > floor:
             raise AssertionError(f"{what}: reference is zero, kernel max |x| {err}")
         return {"max_abs_err": 0.0, "max_abs_tol": 0.0, "rel_l2": 0.0, "rel_l2_tol": OUT_L2_REL, "ref_max": 0.0,
                 "ref_rms": 0.0}
-    return _agreement(o, o_ref, what)
+    return _agreement(o, o_ref, what, floor)
 
 
 def _shard_rows(x, geo, f_loc, off):
@@ -1300,6 +1526,8 @@ def reset_counts():
     for fn in fns.values():
         fn.launches = 0
     fns["flash_attention"].launches_by_batch = {}
+    fns["flash_attention"].launches_by_dtype = {}
+    fns["flash_attention_bwd"].launches_by_dtype = {}
     fns["flash_attention"].reruns = 0
     fns["flash_attention_qk_int8"].prepass_launches = 0
 
@@ -1308,7 +1536,9 @@ def read_counts() -> dict:
     fns = _counted_fns()
     return {**{name: fn.launches for name, fn in fns.items()}, "reruns": fns["flash_attention"].reruns,
             "flash_attention_qk_int8_prepass": fns["flash_attention_qk_int8"].prepass_launches,
-            "flash_attention_by_batch": {str(b): n for b, n in fns["flash_attention"].launches_by_batch.items()}}
+            "flash_attention_by_batch": {str(b): n for b, n in fns["flash_attention"].launches_by_batch.items()},
+            "flash_attention_by_dtype": dict(fns["flash_attention"].launches_by_dtype),
+            "flash_attention_bwd_by_dtype": dict(fns["flash_attention_bwd"].launches_by_dtype)}
 
 
 def check_counts(counts: dict, backend: str, forwards: int, backwards: int) -> bool:
@@ -1341,25 +1571,30 @@ def build_full_pipe(dev):
     from s2v_torch.models.t5 import init_t5_params_random
     from s2v_torch.models.transformer import init_transformer_params_random
     from s2v_torch.models.vae import init_vae_params_random
-    from s2v_torch.utils.sp_native import NativeSPTokenizer, write_spiece_model
 
     t0 = time.perf_counter()
     tcfg, t5cfg, vcfg = TransformerConfig(), T5Config(), VAEConfig()
-    spiece = SMOKE_SPIECE
-    write_spiece_model(spiece, [
-        ("<pad>", 0.0, 3), ("</s>", 0.0, 3), ("<unk>", 0.0, 2), ("▁", -4.0, 1), ("▁a", -2.0, 1),
-        ("▁pig", -1.0, 1), ("▁walk", -1.5, 1), ("ing", -1.2, 1), ("▁in", -2.0, 1), ("▁the", -2.0, 1),
-        ("▁park", -2.0, 1),
-    ])
     pipe = S2VPipeline(
         transformer_params=init_transformer_params_random(tcfg, seed=0, device=dev), transformer_cfg=tcfg,
         vae_params=init_vae_params_random(vcfg, seed=2, device=dev), vae_cfg=vcfg,
         t5_params=init_t5_params_random(t5cfg, seed=1, device=dev), t5_cfg=t5cfg,
-        tokenizer=NativeSPTokenizer(spiece), device=dev,
+        tokenizer=smoke_tokenizer(), device=dev,
     )
     torch.cuda.synchronize()
     emit({"phase": "init", "init_s": time.perf_counter() - t0, "weights_gb": torch.cuda.memory_allocated() / 1e9})
     return pipe
+
+
+def smoke_tokenizer():
+    """A tokenizer over a tiny ``spiece.model`` written into ``build/``."""
+    from s2v_torch.utils.sp_native import NativeSPTokenizer, write_spiece_model
+
+    write_spiece_model(SMOKE_SPIECE, [
+        ("<pad>", 0.0, 3), ("</s>", 0.0, 3), ("<unk>", 0.0, 2), ("▁", -4.0, 1), ("▁a", -2.0, 1),
+        ("▁pig", -1.0, 1), ("▁walk", -1.5, 1), ("ing", -1.2, 1), ("▁in", -2.0, 1), ("▁the", -2.0, 1),
+        ("▁park", -2.0, 1),
+    ])
+    return NativeSPTokenizer(SMOKE_SPIECE)
 
 
 def phase_e2e(dev, pipe, backend="flash", window=2, num_frames=49, name=None, extra=None):
@@ -1437,6 +1672,9 @@ def train_steps(pipe, dev, height, width, num_frames, steps, spec, optimizer_spe
     # the RoPE tables, as the JAX on-chip train probe adds them (the JAX
     # trainer CLI's batches carry none)
     batch["rope_cos"], batch["rope_sin"] = pipe.prepare_rope(height, width, f_lat)
+    pos_embedding = pipe.prepare_pos_embedding(height, width, num_frames)
+    if pos_embedding is not None:  # a sincos (2b) model: its table, which the JAX trainer never adds (C.19)
+        batch["pos_embedding"] = pos_embedding
     sync()
     encode_s = time.perf_counter() - t0
 
@@ -1465,6 +1703,7 @@ def train_steps(pipe, dev, height, width, num_frames, steps, spec, optimizer_spe
         counts.append(read_counts())
         losses.append(loss.item())
         b_nonzero.append(any(bool(ab["b"].any()) for ab in lora.values()))
+        b_zero_targets = sorted(name for name, ab in lora.items() if not bool(ab["b"].any()))
     profiled = None
     if dev.type == "cuda":
         from torch.profiler import ProfilerActivity
@@ -1478,7 +1717,7 @@ def train_steps(pipe, dev, height, width, num_frames, steps, spec, optimizer_spe
         profiled = {"host_s": host_s, "loss": loss.item(), **device_breakdown(prof)}
     return {
         "batch_shape": list(batch["video_latents"].shape), "encode_s": encode_s, "losses": losses,
-        "step_s": step_s, "launches": counts, "b_nonzero": b_nonzero,
+        "step_s": step_s, "launches": counts, "b_nonzero": b_nonzero, "b_zero_targets_last_step": b_zero_targets,
         "base_unchanged": bool(torch.equal(before, checksum())),
         "lora_params": sum(t.numel() for t in lora_leaves(lora)), "lora_bytes": lora_bytes,
         "opt_state_bytes": state_bytes,
@@ -2172,6 +2411,229 @@ def phase_turbo(dev, pipe, backend="flash", height=480, width=720, num_frames=49
     return {"exact": exact_line["launches"], "turbo": turbo_line["launches"]}
 
 
+def _variant_clip(name, pipe, fn, steps_run, shape, *args, **kw):
+    """One variant's clip: the clip's gates (``shape``, finite, in [0, 1]),
+    B1's launches (one per block and step run, all at B=2 in the model's
+    type) and its seconds split into encode, steps and decode.  On the CPU
+    (a rehearsal at a tiny size) no kernel launches and no memory is read."""
+    import torch
+
+    cuda = pipe.device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    video = fn(pipe, *args, **kw)
+    wall_s = time.perf_counter() - t0
+    counts = read_counts()
+    _clip_checks(video, shape, name)
+    layers = pipe.transformer_cfg.num_layers
+    dtype = str(pipe.transformer_cfg.dtype).replace("torch.", "")
+    if cuda and (not check_counts(counts, "flash", steps_run * layers, 0) or counts["flash_attention_by_dtype"] != {
+            dtype: steps_run * layers + counts["reruns"]}):
+        raise AssertionError(f"{name}: launches {counts}; expected {steps_run * layers} B1 ({dtype})")
+    if len(pipe.timings["denoise_step_s"]) != steps_run:
+        raise AssertionError(f"{name}: ran {len(pipe.timings['denoise_step_s'])} steps, expected {steps_run}")
+    t = pipe.timings
+    encode_s = t.get("encode_prompt_s", 0.0) + t.get("encode_s", 0.0) + t.get("encode_ref_s", 0.0)
+    return {"wall_s": wall_s, "encode_s": encode_s, "denoise_step_s": t["denoise_step_s"],
+            "steps_s": sum(t["denoise_step_s"]), "decode_s": t["decode_s"], "launches": counts,
+            "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9 if cuda else None,
+            "output_mean": float(video.mean()), "output_std": float(video.std())}
+
+
+def phase_variants(dev, pipe, backend="flash", height=480, width=720, num_frames=49, steps=2):
+    """The pipeline variants on the full-width 5b pipeline at 49x480x720,
+    each ``steps`` steps run: ``generate_i2v`` and ``generate_fun_control``
+    on an I2V transformer (the 5b one with a seeded 32-channel
+    ``patch_embed.proj``, the only tensor ``in_channels`` changes; out 16,
+    as CogVideoX-5b-I2V publishes), ``generate_v2v`` at strength 0.8 on a
+    seeded 49-frame video (``steps`` + 1 scheduled, the last ``steps`` run),
+    and ``generate`` with disentangled modulation (each block's norm1/norm2
+    linear moved by a seeded rank-128 delta, the old one kept as
+    ``base_linear``).  Runs before ``pretrained`` empties the pipeline; on
+    the CPU at a tiny size too (the adapter's rank capped by the width)."""
+    import dataclasses
+
+    import torch
+
+    from s2v_torch.pipelines import generate_fun_control, generate_i2v, generate_v2v
+
+    cfg = pipe.transformer_cfg
+    rng = np.random.RandomState(43)
+    image = np.clip(rng.randn(height, width, 3).astype(np.float32) * 0.5, -1, 1)
+    video = np.clip(rng.randn(num_frames, height, width, 3).astype(np.float32) * 0.5, -1, 1)
+    shape = (1, num_frames, height, width, 3)
+    size = dict(height=height, width=width, num_frames=num_frames)
+    prompt = "a pig walking in the park"
+    saved = pipe.attention_backend
+    pipe.set_attention(backend)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    # (noise | condition): twice the VAE's latent channels, 32 for the CogVideoX VAE
+    d, pp, c_in = cfg.inner_dim, cfg.patch_size ** 2, 2 * pipe.vae_cfg.latent_channels
+    params = pipe.transformer_params
+    proj = {"weight": torch.empty((d, pp * c_in), dtype=cfg.dtype, device=dev).normal_(0.0, 0.02, generator=gen),
+            "bias": torch.zeros(d, dtype=cfg.dtype, device=dev)}
+    i2v_pipe = dataclasses.replace(
+        pipe, transformer_params={**params, "patch_embed": {**params["patch_embed"], "proj": proj}},
+        transformer_cfg=dataclasses.replace(cfg, in_channels=c_in))
+    out = {"phase": "variants", "backend": backend, "num_frames": num_frames, "steps": steps}
+    try:
+        out["i2v"] = _variant_clip("variants i2v", i2v_pipe, generate_i2v, steps, shape, prompt, image,
+                                   num_inference_steps=steps, seed=42, **size)
+        out["fun_control"] = _variant_clip("variants fun_control", i2v_pipe, generate_fun_control, steps, shape,
+                                           prompt, video, num_inference_steps=steps, seed=42)
+        del i2v_pipe, proj
+        out["v2v"] = _variant_clip("variants v2v", pipe, generate_v2v, steps, shape, prompt, video, strength=0.8,
+                                   num_inference_steps=steps + 1, seed=42)
+        rank = min(LORA_RANK, cfg.time_embed_dim)
+
+        def adapted(linear):
+            a = torch.empty((rank, linear["weight"].shape[1]), device=dev).normal_(0.0, LORA_STD, generator=gen)
+            b = torch.empty((linear["weight"].shape[0], rank), device=dev).normal_(0.0, LORA_STD, generator=gen)
+            return {"weight": (linear["weight"].float() + 0.5 * (b @ a)).to(linear["weight"].dtype),
+                    "bias": linear["bias"]}
+
+        blocks = [{**layer, **{n: {**layer[n], "base_linear": layer[n]["linear"], "linear": adapted(layer[n]["linear"])}
+                               for n in ("norm1", "norm2")}} for layer in params["blocks"]]
+        dis_pipe = dataclasses.replace(pipe, transformer_params={**params, "blocks": blocks},
+                                       transformer_cfg=dataclasses.replace(cfg, disentangled_modulation=True))
+        out["disentangled"] = _variant_clip(
+            "variants disentangled generate", dis_pipe, lambda p, **kw: p.generate(**kw), steps, shape, prompt=prompt,
+            ref_image=image, num_inference_steps=steps, seed=42, **size)
+        del dis_pipe, blocks
+    finally:
+        pipe.attention_backend = saved
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    emit(out)
+    return out
+
+
+def build_2b_pipe(dev):
+    """The CogVideoX-2b pipeline (``TransformerConfig.cogvideox_2b()``: 30
+    blocks, 30 heads x 64, sincos positions) with T5-XXL and the CogVideoX
+    VAE, all fp16, random weights from fixed seeds.  T5's fp16 prompt
+    embeddings are checked: if they overflow (the port, like the JAX
+    package, has no activation clamp), T5 is rebuilt on the host in fp32
+    (``text_encoder_device="host"``) and the line says so."""
+    import torch
+
+    from s2v_torch import S2VPipeline, T5Config, TransformerConfig, VAEConfig
+    from s2v_torch.models.t5 import init_t5_params_random
+    from s2v_torch.models.transformer import init_transformer_params_random
+    from s2v_torch.models.vae import init_vae_params_random
+
+    fp16 = torch.float16
+    t0 = time.perf_counter()
+    tcfg = TransformerConfig.cogvideox_2b()
+    pipe = S2VPipeline(
+        transformer_params=init_transformer_params_random(tcfg, seed=10, device=dev), transformer_cfg=tcfg,
+        vae_params=init_vae_params_random(VAEConfig(dtype=fp16), seed=12, device=dev), vae_cfg=VAEConfig(dtype=fp16),
+        t5_params=init_t5_params_random(T5Config(dtype=fp16), seed=11, device=dev), t5_cfg=T5Config(dtype=fp16),
+        tokenizer=smoke_tokenizer(), device=dev,
+    )
+    emb = pipe.encode_prompt("a pig walking in the park")
+    line = {"phase": "init_2b", "config": "cogvideox_2b", "dtype": "float16", "num_layers": tcfg.num_layers,
+            "heads": tcfg.num_attention_heads, "use_rotary_positional_embeddings": tcfg.use_rotary_positional_embeddings,
+            "t5_fp16_finite": bool(torch.isfinite(emb).all()), "t5_fp16_max_abs": float(emb.float().abs().max())}
+    if not line["t5_fp16_finite"]:
+        pipe.t5_params = init_t5_params_random(T5Config(dtype=torch.float32), seed=11, device="cpu")
+        pipe.t5_cfg, pipe.t5_on_host = T5Config(dtype=torch.float32), True
+        pipe._prompt_embed_cache.clear()
+        line["text_encoder_device"] = "host"
+    torch.cuda.synchronize()
+    line.update(init_s=time.perf_counter() - t0, weights_gb=torch.cuda.memory_allocated() / 1e9)
+    emit(line)
+    return pipe
+
+
+def phase_e2e_2b(dev, pipe, backend="flash", height=480, width=720, num_frames=49):
+    """The 2b family at 49x480x720, 2 steps each: ``generate_t2v`` (the
+    sincos table over [text | video]) and ``generate`` (s2v; the table over
+    [text | video], none for the ref), fp16 B1 30 per step at B=2; then one
+    more t2v step under ``torch.profiler`` (on CUDA; the CPU rehearses the
+    rest at a tiny size)."""
+    import torch
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    from s2v_torch.pipelines import generate_t2v
+
+    pipe.set_attention(backend)
+    image = np.clip(np.random.RandomState(42).randn(height, width, 3).astype(np.float32) * 0.5, -1, 1)
+    prompt = "a pig walking in the park"
+    size = dict(height=height, width=width, num_frames=num_frames)
+    shape = (1, num_frames, height, width, 3)
+    out = {"phase": "e2e_2b", "backend": backend, "config": "cogvideox_2b",
+           "dtype": str(pipe.transformer_cfg.dtype).replace("torch.", ""),
+           "steps": 2}
+    out["t2v"] = _variant_clip("e2e_2b t2v", pipe, generate_t2v, 2, shape, prompt, num_inference_steps=2, seed=42,
+                               **size)
+    out["s2v"] = _variant_clip("e2e_2b s2v", pipe, lambda p, **kw: p.generate(**kw), 2, shape, prompt=prompt,
+                               ref_image=image, num_inference_steps=2, seed=42, **size)
+    if dev.type == "cuda":
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            generate_t2v(pipe, prompt, num_inference_steps=1, seed=42, output_type="latent", **size)
+        out["profiled_t2v_step"] = {"step_s": pipe.timings["denoise_step_s"][0], **device_breakdown(prof)}
+    emit(out)
+    runs = (out["t2v"]["launches"], out["s2v"]["launches"])
+    by_dtype = {}
+    for run in runs:
+        for dtype, n in run["flash_attention_by_dtype"].items():
+            by_dtype[dtype] = by_dtype.get(dtype, 0) + n
+    return {**{k: sum(run[k] for run in runs) for k in COUNTED}, "flash_attention_by_dtype": by_dtype}
+
+
+def phase_train_2b(dev, pipe, backend="flash", steps=3):
+    """The LoRA step of ``train`` on the 2b pipeline (rank 128 on the seven
+    target families, fp16 model, fp32 adapters and adamw state): losses
+    finite, base weights unchanged, per step fp16 B1 60 (forward and remat
+    recompute) and fp16 B2 30.  The batch carries the sincos table.  A
+    gradient that underflows in fp16 (no loss scaler, as in the JAX
+    package) shows as adapters whose b stays zero: printed, not gated.
+    The first backward of step 0 (the last block's attention) keeps its
+    inputs; after the steps, B2 is held to its plain version at that dO,
+    with the shares of gradients and of dS that fp16 flushes."""
+    from s2v_torch.ops import attention as attention_module
+    from s2v_torch.training.lora import LoRASpec
+    from s2v_torch.training.optim import OptimizerSpec
+
+    opt = OptimizerSpec(optimizer="adamw", learning_rate=1e-4, beta1=0.9, beta2=0.95, weight_decay=1e-4,
+                        epsilon=1e-8, max_grad_norm=1.0, moment_dtype="bfloat16")
+    bwd, kept = attention_module.flash_attention_bwd, []
+
+    def keep_first(*args):
+        if not kept:
+            kept.extend(a.detach().clone() for a in args)
+        return bwd(*args)
+
+    attention_module.flash_attention_bwd = keep_first
+    try:
+        r = train_steps(pipe, dev, 480, 720, 49, steps, LoRASpec(rank=128, alpha=64.0), opt, backend)
+    finally:
+        attention_module.flash_attention_bwd = bwd
+    L = pipe.transformer_cfg.num_layers
+    problems = []
+    if r["batch_shape"] != [1, 13, 60, 90, 16]:
+        problems.append(f"batch {r['batch_shape']}")
+    if not all(np.isfinite(r["losses"])):
+        problems.append(f"losses {r['losses']}")
+    if not r["base_unchanged"]:
+        problems.append("a base parameter changed")
+    for i, c in enumerate(r["launches"]):
+        if (not check_counts(c, backend, 2 * L, L) or c["flash_attention_by_dtype"] != {"float16": 2 * L + c["reruns"]}
+                or c["flash_attention_bwd_by_dtype"] != {"float16": L}):
+            problems.append(f"step {i} launches {c}")
+    if problems:
+        raise AssertionError(f"train_2b: {problems}; {r}")
+    if dev.type == "cuda":
+        r["step_do"] = _bwd_at_small_do(*kept, "train_2b: B2 at the step's own dO")
+    del kept
+    emit({"phase": "train_2b", "backend": backend, "config": "cogvideox_2b", "dtype": "float16", "steps": steps, **r})
+    return r
+
+
 def _tail(path: Path, n: int = 40) -> str:
     return "\n".join(path.read_text(errors="replace").splitlines()[-n:]) if path.exists() else ""
 
@@ -2259,11 +2721,12 @@ def phase_serve(dev, pipe, backend="flash", height=480, width=720, num_frames=49
     return line
 
 
-PHASES = ("build", "kernel", "kernel_bwd", "kernel_banded", "kernel_banded_bwd", "kernel_banded_local",
+PHASES = ("build", "kernel", "kernel_bwd", "kernel_fp16", "kernel_bwd_fp16", "kernel_banded", "kernel_banded_bwd", "kernel_banded_local",
           "kernel_banded_local_bwd", "kernel_int8", "reference", "chunked", "e2e", "e2e_windowed", "e2e_sp_windowed",
           "e2e_int8", "e2e_options", "turbo", "train", "train_windowed", "train_sp_windowed", "train_qlora",
-          "pretrained", "serve")
-KERNEL_PHASES = {"kernel": phase_kernel, "kernel_bwd": phase_kernel_bwd, "kernel_banded": phase_kernel_banded,
+          "variants", "pretrained", "serve", "e2e_2b", "train_2b")
+KERNEL_PHASES = {"kernel": phase_kernel, "kernel_bwd": phase_kernel_bwd, "kernel_fp16": phase_kernel_fp16,
+                 "kernel_bwd_fp16": phase_kernel_bwd_fp16, "kernel_banded": phase_kernel_banded,
                  "kernel_banded_bwd": phase_kernel_banded_bwd, "kernel_banded_local": phase_kernel_banded_local,
                  "kernel_banded_local_bwd": phase_kernel_banded_local_bwd, "kernel_int8": phase_kernel_int8,
                  "reference": phase_reference, "chunked": phase_chunked}
@@ -2274,21 +2737,31 @@ PATH_PHASES = {"e2e": (phase_e2e, "flash"), "e2e_windowed": (phase_e2e, "windowe
                "turbo": (phase_turbo, "flash"), "train": (phase_train, "flash"),
                "train_windowed": (phase_train, "windowed"),
                "train_sp_windowed": (phase_train_sp_windowed, "sp_windowed"),
-               "train_qlora": (phase_train_qlora, "flash"), "pretrained": (phase_pretrained, "flash"),
-               "serve": (phase_serve, "flash")}
+               "train_qlora": (phase_train_qlora, "flash"), "variants": (phase_variants, "flash"),
+               "pretrained": (phase_pretrained, "flash"), "serve": (phase_serve, "flash"),
+               "e2e_2b": (phase_e2e_2b, "flash"), "train_2b": (phase_train_2b, "flash")}
+# the phases on the CogVideoX-2b pipeline, built after the 5b phases (whose
+# pipeline is released first) and freed after
+PHASES_2B = ("e2e_2b", "train_2b")
 
 
-def _path_launches(results, kernel):
+def _path_launches(results, kernel, skip=()):
     """A kernel's launches on each pipeline phase's run (summed over a
-    train phase's steps, the profiled step not included)."""
+    train phase's steps, the profiled step not included), the phases in
+    ``skip`` left out."""
     out = {}
     for phase, r in results.items():
+        if phase in skip:
+            continue
         if phase.startswith("e2e") or phase == "pretrained":
             out[phase] = r[kernel]
         elif phase == "turbo":
             out["turbo_exact"], out["turbo"] = r["exact"][kernel], r["turbo"][kernel]
         elif phase.startswith("train"):
             out[phase] = sum(c[kernel] for c in r["launches"])
+        elif phase == "variants":
+            out.update({f"variants_{k}": r[k]["launches"][kernel] for k in ("i2v", "fun_control", "v2v",
+                                                                             "disentangled")})
     return out
 
 
@@ -2301,6 +2774,9 @@ def kernels_line(results):
     banded, banded_bwd = results["kernel_banded"], results["kernel_banded_bwd"]
     int8 = results["kernel_int8"]
     local, local_bwd = results["kernel_banded_local"], results["kernel_banded_local_bwd"]
+    fp16, bwd16 = results["kernel_fp16"], results["kernel_bwd_fp16"]
+    small_do = (("dO 2^-10", bwd16["small_do"]), ("train_2b dO", results["train_2b"]["step_do"]))
+    s2v16 = fp16["shapes"]["s2v"]
     common = {"route": "cuda", "rel_l2_tol": OUT_L2_REL}
     return [{
         **common,
@@ -2309,7 +2785,7 @@ def kernels_line(results):
         "headers": ["s2v_torch/csrc/hopper.cuh"],
         "replaces": "s2v_tpu/ops/pallas/flash_attention.py:222",
         "launches": results["e2e"]["flash_attention"],
-        "launches_by_path": {**_path_launches(results, "flash_attention"),
+        "launches_by_path": {**_path_launches(results, "flash_attention", skip=PHASES_2B),
                              **({"pretrained_cli": results["pretrained"]["cli_flash_attention"]}
                                 if "pretrained" in results else {})},
         # the worst mode at the main shape, beside what it was held to
@@ -2328,6 +2804,33 @@ def kernels_line(results):
         "smem_bytes": main["smem_bytes"],
         "with_lse_b1_ms": bwd["b1_with_lse_ms"],
         "shape": list(MAIN_SHAPE),
+        "dtype": "bfloat16",
+    }, {
+        **common,
+        "name": "flash_attention_fp16",
+        "dtype": "float16",
+        "source": "s2v_torch/csrc/flash_attention.cu",
+        "headers": ["s2v_torch/csrc/hopper.cuh"],
+        "replaces": "s2v_tpu/ops/pallas/flash_attention.py:222",
+        # the 2b path: t2v and s2v, 2 steps each, 30 blocks
+        "launches": results["e2e_2b"]["flash_attention_by_dtype"].get("float16", 0),
+        "launches_by_path": {"e2e_2b": results["e2e_2b"]["flash_attention_by_dtype"].get("float16", 0),
+                             "train_2b": sum(c["flash_attention_by_dtype"].get("float16", 0)
+                                             for c in results["train_2b"]["launches"])},
+        "max_abs_err": max(v["max_abs_err"] for sh in fp16["shapes"].values() for v in sh["modes"].values()),
+        "max_abs_tol": min(v["max_abs_tol"] for sh in fp16["shapes"].values() for v in sh["modes"].values()),
+        "rel_l2": max(v["rel_l2"] for sh in fp16["shapes"].values() for v in sh["modes"].values()),
+        "ms": s2v16["modes"][MAIN_MODE]["ms"],
+        "plain_ms": s2v16["plain_ms"],
+        "bound_ms": s2v16["bound_ms"],
+        "bound_by": s2v16["bound_by"],
+        "library_ms": s2v16["library_ms"],
+        "mode": MAIN_MODE,
+        "ms_by_shape_and_mode": {n: {m: v["ms"] for m, v in sh["modes"].items()} for n, sh in fp16["shapes"].items()},
+        "bound_ms_by_shape": {n: sh["bound_ms"] for n, sh in fp16["shapes"].items()},
+        "library_ms_by_shape": {n: sh["library_ms"] for n, sh in fp16["shapes"].items()},
+        "tflops": s2v16["modes"][MAIN_MODE]["tflops"],
+        "shape": s2v16["shape"],
     }, {
         **common,
         "name": "flash_attention_bwd",
@@ -2335,7 +2838,7 @@ def kernels_line(results):
         "headers": ["s2v_torch/csrc/hopper.cuh"],
         "replaces": "s2v_tpu/ops/pallas/flash_attention_bwd.py:128",
         "launches": sum(c["flash_attention_bwd"] for c in results["train"]["launches"]),
-        "launches_by_path": _path_launches(results, "flash_attention_bwd"),
+        "launches_by_path": _path_launches(results, "flash_attention_bwd", skip=PHASES_2B),
         # the worst of dq, dk, dv at the training shape, beside what it was held to
         "max_abs_err": worst(bwd["grads"], "max_abs_err"),
         "max_abs_tol": min(v["max_abs_tol"] for v in bwd["grads"].values()),
@@ -2351,6 +2854,32 @@ def kernels_line(results):
         "deterministic": bwd["deterministic"],
         "schedule_max_abs_err": max(v["schedule_max_abs_err"] for v in bwd["grads"].values()),
         "shape": list(TRAIN_SHAPE),
+        "dtype": "bfloat16",
+    }, {
+        **common,
+        "name": "flash_attention_bwd_fp16",
+        "dtype": "float16",
+        "source": "s2v_torch/csrc/flash_attention_bwd.cu",
+        "headers": ["s2v_torch/csrc/hopper.cuh"],
+        "replaces": "s2v_tpu/ops/pallas/flash_attention_bwd.py:128",
+        "launches": sum(c["flash_attention_bwd_by_dtype"].get("float16", 0) for c in results["train_2b"]["launches"]),
+        "launches_by_path": {"train_2b": sum(c["flash_attention_bwd_by_dtype"].get("float16", 0)
+                                             for c in results["train_2b"]["launches"])},
+        "max_abs_err": worst(bwd16["grads"], "max_abs_err"),
+        "max_abs_tol": min(v["max_abs_tol"] for v in bwd16["grads"].values()),
+        "rel_l2": worst(bwd16["grads"], "rel_l2"),
+        "ms": bwd16["ms"],
+        "plain_ms": bwd16["plain_ms"],
+        "bound_ms": bwd16["bound_ms"],
+        "bound_by": bwd16["bound_by"],
+        "library_ms": bwd16["library_ms"],
+        "tflops": bwd16["tflops"],
+        "parts_ms": bwd16["parts_ms"],
+        "deterministic": bwd16["deterministic"],
+        "schedule_max_abs_err": max(v["schedule_max_abs_err"] for v in bwd16["grads"].values()),
+        "small_do_rel_l2": {src: {g: d[g]["rel_l2"] for g in ("dq", "dk", "dv")} for src, d in small_do},
+        "small_do_zero_share": {src: {g: d[g]["zero_share"] for g in ("dq", "dk", "dv")} for src, d in small_do},
+        "shape": list(TRAIN_SHAPE_2B),
     }, {
         **common,
         "name": "banded_flash_attention",
@@ -2539,15 +3068,24 @@ def main(argv=None) -> int:
     phase_build()  # always: every other phase needs the kernels
     # the kernel phases first, while the card's memory is free; then the
     # full-width pipeline, built once for every pipeline phase
-    results, pipe = {}, None
+    results, pipe, pipe_2b = {}, None, None
     try:
         for phase in [p for p in PHASES if p in phases and p != "build"]:
             if phase in KERNEL_PHASES:
                 results[phase] = KERNEL_PHASES[phase](dev)
+                continue
+            fn, backend = PATH_PHASES[phase]
+            if phase in PHASES_2B:
+                if pipe is not None:
+                    release_pipe(pipe, dev)
+                    pipe = None
+                pipe_2b = pipe_2b or build_2b_pipe(dev)
+                results[phase] = fn(dev, pipe_2b, backend)
             else:
                 pipe = pipe or build_full_pipe(dev)
-                fn, backend = PATH_PHASES[phase]
                 results[phase] = fn(dev, pipe, backend)
+        if pipe_2b is not None:
+            release_pipe(pipe_2b, dev)
     finally:
         remove_smoke_files()
         if torch.distributed.is_initialized():

@@ -17,10 +17,14 @@ flash kernel on CUDA and the plain attention on the CPU, ``pallas`` is
 ``windowed_xla`` ``windowed_plain``, ``chunked`` ``chunked``.  With
 ``--segment_steps N`` the loop runs in host-stepped segments and a line
 ``[s2v_torch] denoise i/n steps (+Ns)`` is printed after each; ``--progress``
-writes a per-step line on stderr.  Flags of paths the port does not have
-yet raise ``NotImplementedError`` naming their ROADMAP item:
-``--pipeline t2v`` and ``--disentangled_modulation`` (A.7), ``--mesh``,
-``--text_encoder_device mesh`` and the sequence-parallel backends (A.9).
+writes a per-step line on stderr.  ``--pipeline t2v`` generates from the
+prompt alone (no subject image; ``pipelines/variants.py::generate_t2v``),
+``--disentangled_modulation`` keeps the pre-merge adaLN linears for the
+video and text streams, and ``--dtype float16`` (the 2b family's published
+type) runs on the card through the fp16 kernels B1/B2.  Flags of paths the
+port does not have yet raise ``NotImplementedError`` naming their ROADMAP
+item: ``--mesh``, ``--text_encoder_device mesh`` and the sequence-parallel
+backends (A.9).
 """
 
 from __future__ import annotations
@@ -50,7 +54,7 @@ def get_args(argv=None):
     p.add_argument("--ref_img_path", type=str, default=None,
                    help="subject reference image (required unless --pipeline t2v)")
     p.add_argument("--pipeline", type=str, default="s2v", choices=("s2v", "t2v"),
-                   help="s2v = subject-conditioned; t2v (not ported yet, ROADMAP A.7)")
+                   help="s2v = subject-conditioned; t2v = text-to-video, no subject image")
     p.add_argument("--guidance_scale", type=float, default=6.0)
     p.add_argument("--use_dynamic_cfg", action="store_true", default=False)
     p.add_argument("--seed", type=int, default=420)
@@ -82,9 +86,10 @@ def get_args(argv=None):
     p.add_argument("--text_encoder_device", type=str, default="auto", choices=["auto", "device", "host", "mesh"],
                    help="host keeps T5 on the CPU in fp32; mesh is not ported yet (ROADMAP A.9)")
     p.add_argument("--disentangled_modulation", action="store_true", default=False,
-                   help="not ported yet (ROADMAP A.7)")
+                   help="video/text modulated by the pre-merge adaLN linears, the ref stream by the LoRA-merged ones")
     p.add_argument("--dtype", type=str, default="bfloat16", choices=["bfloat16", "float16", "float32"],
-                   help="the CUDA kernels take bfloat16 (ROADMAP C.1)")
+                   help="model dtype; on the card the flash kernels take bfloat16 and float16, the int8 and "
+                        "windowed kernels bfloat16 only (ROADMAP C.1)")
     p.add_argument("--adaptive_threshold", type=float, default=0.0,
                    help="opt-in step skipping (bounded-difference criterion); 0 = the exact loop. Try 0.01-0.02")
     p.add_argument("--cfg_skip_threshold", type=float, default=0.0,
@@ -109,8 +114,6 @@ def check_ported(args) -> None:
     """Raise ``NotImplementedError`` naming the ROADMAP item for any flag
     whose path the port does not have yet."""
     unported = [
-        (args.pipeline == "t2v", "--pipeline t2v", "A.7"),
-        (args.disentangled_modulation, "--disentangled_modulation", "A.7"),
         (args.mesh is not None, "--mesh", "A.9"),
         (args.text_encoder_device == "mesh", "--text_encoder_device mesh", "A.9"),
         (args.attention_backend in UNPORTED_BACKENDS, f"--attention_backend {args.attention_backend}",
@@ -124,8 +127,8 @@ def check_ported(args) -> None:
 def main(argv=None):
     args = argv if isinstance(argv, argparse.Namespace) else get_args(argv)
     check_ported(args)
-    if not args.ref_img_path:
-        raise SystemExit("--ref_img_path is required")
+    if args.pipeline != "t2v" and not args.ref_img_path:
+        raise SystemExit("--ref_img_path is required (or use --pipeline t2v)")
     os.makedirs(args.output_dir, exist_ok=True)
 
     import torch
@@ -143,6 +146,7 @@ def main(argv=None):
         attention_backend=BACKEND_NAMES[args.attention_backend],
         quantize_int8=args.quantize_int8,
         text_encoder_device=args.text_encoder_device,
+        disentangled_modulation=args.disentangled_modulation,
         dtype=getattr(torch, args.dtype),
         cache_dir=os.path.expanduser(args.cache_dir) if args.cache_dir else None,
         device=device,
@@ -176,23 +180,38 @@ def main(argv=None):
             print(f"[s2v_torch] denoise {i}/{args.num_inference_steps} steps (+{now - last[0]:.0f}s)", flush=True)
             last[0] = now
 
-    video = pipe.generate(
-        prompt=args.prompt,
-        ref_image=args.ref_img_path,
-        height=args.height,
-        width=args.width,
-        num_frames=args.max_num_frames,
-        num_inference_steps=args.num_inference_steps,
-        guidance_scale=args.guidance_scale,
-        use_dynamic_cfg=args.use_dynamic_cfg,
-        use_dpm=args.use_dpm,
-        seed=args.seed,
-        adaptive_threshold=args.adaptive_threshold,
-        cfg_skip_threshold=args.cfg_skip_threshold,
-        segment_steps=args.segment_steps,
-        callback_on_segment_end=progress,
-        progress=args.progress,
-    )
+    if args.pipeline == "t2v":
+        from s2v_torch.pipelines.variants import generate_t2v
+
+        video = generate_t2v(
+            pipe,
+            prompt=args.prompt,
+            height=args.height,
+            width=args.width,
+            num_frames=args.max_num_frames,
+            num_inference_steps=args.num_inference_steps,
+            guidance_scale=args.guidance_scale,
+            use_dynamic_cfg=args.use_dynamic_cfg,
+            seed=args.seed,
+        )
+    else:
+        video = pipe.generate(
+            prompt=args.prompt,
+            ref_image=args.ref_img_path,
+            height=args.height,
+            width=args.width,
+            num_frames=args.max_num_frames,
+            num_inference_steps=args.num_inference_steps,
+            guidance_scale=args.guidance_scale,
+            use_dynamic_cfg=args.use_dynamic_cfg,
+            use_dpm=args.use_dpm,
+            seed=args.seed,
+            adaptive_threshold=args.adaptive_threshold,
+            cfg_skip_threshold=args.cfg_skip_threshold,
+            segment_steps=args.segment_steps,
+            callback_on_segment_end=progress,
+            progress=args.progress,
+        )
     dt = time.perf_counter() - t1
     if profiler is not None:
         profiler.stop()

@@ -25,7 +25,8 @@ def _from_hf_config(cls, path: str, overrides: dict):
 
 @dataclass(frozen=True)
 class TransformerConfig:
-    """CogVideoX 3D transformer (defaults: CogVideoX-5b)."""
+    """CogVideoX 3D transformer (defaults: CogVideoX-5b; ``cogvideox_2b()``
+    the 2b family: 30 heads and layers, sincos positions, fp16)."""
 
     num_attention_heads: int = 48
     attention_head_dim: int = 64
@@ -34,15 +35,29 @@ class TransformerConfig:
     time_embed_dim: int = 512
     text_embed_dim: int = 4096
     num_layers: int = 42
+    # no port code reads it (nor JAX code); kept so configs round-trip
+    attention_bias: bool = True
+    # the positional table's sample size in latent pixels (the sincos path)
+    sample_width: int = 90
+    sample_height: int = 60
     sample_frames: int = 49
     patch_size: int = 2
+    temporal_compression_ratio: int = 4
     max_text_seq_length: int = 226
     norm_eps: float = 1e-5
     qk_norm_eps: float = 1e-6
+    spatial_interpolation_scale: float = 1.875
+    temporal_interpolation_scale: float = 1.0
     use_rotary_positional_embeddings: bool = True
+    # no port code reads it (nor JAX code); kept so configs round-trip
+    use_learned_positional_embeddings: bool = False
     flip_sin_to_cos: bool = True
     freq_shift: int = 0
     ff_mult: int = 4
+    # the reference's intended enable_lora semantics: video and text are
+    # modulated by the pre-merge adaLN linears (``base_linear`` beside each
+    # block's norm1/norm2 ``linear``), the ref stream by the merged ones
+    disentangled_modulation: bool = False
     # half-width in latent frames of the opt-in windowed attention backends
     # (a 2w + 1-frame window)
     attention_window_frames: int = 2
@@ -57,6 +72,24 @@ class TransformerConfig:
         return self.inner_dim * self.ff_mult
 
     @classmethod
+    def cogvideox_5b(cls, **overrides) -> "TransformerConfig":
+        return cls(**overrides)
+
+    @classmethod
+    def cogvideox_2b(cls, **overrides) -> "TransformerConfig":
+        """CogVideoX-2b (``s2v_tpu/config.py:82-92``): 30 heads of 64, 30
+        layers, sincos positions, fp16."""
+        base = dict(
+            num_attention_heads=30,
+            num_layers=30,
+            attention_bias=True,
+            use_rotary_positional_embeddings=False,
+            dtype=torch.float16,
+        )
+        base.update(overrides)
+        return cls(**base)
+
+    @classmethod
     def tiny(cls, **overrides) -> "TransformerConfig":
         base = dict(
             num_attention_heads=4,
@@ -66,6 +99,8 @@ class TransformerConfig:
             time_embed_dim=16,
             text_embed_dim=32,
             num_layers=2,
+            sample_width=8,
+            sample_height=8,
             sample_frames=9,
             max_text_seq_length=16,
             dtype=torch.float32,
@@ -87,11 +122,14 @@ class VAEConfig:
     latent_channels: int = 16
     block_out_channels: Tuple[int, ...] = (128, 256, 256, 512)
     layers_per_block: int = 3
+    # no port code reads these two (nor JAX code); kept so configs round-trip
+    norm_eps: float = 1e-6
     norm_num_groups: int = 32
     temporal_compression_ratio: int = 4
     sample_height: int = 480
     sample_width: int = 720
     scaling_factor: float = 1.15258426
+    invert_scale_latents: bool = False
     num_latent_frames_batch_size: int = 2
     num_sample_frames_batch_size: int = 8
     tile_overlap_factor_height: float = 1.0 / 6.0

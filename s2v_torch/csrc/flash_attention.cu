@@ -1,4 +1,4 @@
-// Non-causal flash attention forward for Hopper (sm_90a), bf16 in, fp32 softmax.
+// Non-causal flash attention forward for Hopper (sm_90a), bf16 or fp16 in, fp32 softmax.
 //
 // Replaces the TPU kernel B1, s2v_tpu/ops/pallas/flash_attention.py::flash_attention
 // (_flash_kernel, online softmax, and _flash_kernel_bounded, the bounded softmax),
@@ -48,6 +48,22 @@
 //             max.  Emits log l; the wrapper adds m0 back and re-runs the
 //             online kernel when min log l < -55 (fp32 underflow guard).
 // Rows whose keys are all masked give a zero output and a -1e30 log l.
+//
+// fp16 in bounded mode: P is rounded to fp16 for P.V, whose normal range ends
+// at 2^-14 and which flushes below 2^-24, so a row whose largest logit lies
+// far below m0 would lose its P (and o = P.V / l would shrink to zero while l,
+// summed in fp32, does not).  So the fp16 kernel offsets by m0 - 15 bits:
+// P = 2^15 at the bound (fp16 tops out at 65,504), and every row whose
+// largest P is at least 1 (largest logit within 15 bits of m0) rounds P as
+// finely as the online kernel does.  A row whose largest P stays below 1
+// reports log l = -1e30, so the wrapper's guard re-runs the call online.
+//
+// Element type (E template parameter, hopper.cuh): bf16 (the 5b models) or
+// fp16 (the 2b family, s2v_torch entry s2v_flash_attention_fwd_f16), the
+// same design on the same tile layouts; the products are .f32.f16.f16
+// wgmma and P is rounded to fp16 for P.V (bounded mode: see above).  fp16 has the same tensor-core
+// rate (989 TFLOP/s dense), so the bound is the same count of operations.
+// The bf16 instantiation is the kernel as it was before fp16 came.
 
 #include "hopper.cuh"
 
@@ -65,21 +81,25 @@ constexpr int kThreads = 128 * (kConsumers + 1);
 constexpr uint32_t kTileBytes = kBK * kD * 2;
 constexpr float kNegBig = -1e30f;
 constexpr float kLn2 = 0.6931471805599453f;
+constexpr float kF16Shift = 15.f;  // fp16 bounded mode: P = 2^15 at the bound
 
+template <typename E>
 struct Smem {
-  __nv_bfloat16 k[kStages][kBK * kD];  // each 16 KB, so 1024-aligned
-  __nv_bfloat16 v[kStages][kBK * kD];
+  E k[kStages][kBK * kD];  // each 16 KB, so 1024-aligned
+  E v[kStages][kBK * kD];
   uint8_t mask[kStages][kBK];
   uint64_t full[kStages];
   uint64_t empty[kStages];
 };
-constexpr int kSmemBytes = sizeof(Smem) + 1024;
+constexpr int kSmemBytes = sizeof(Smem<__nv_bfloat16>) + 1024;
+static_assert(sizeof(Smem<__half>) == sizeof(Smem<__nv_bfloat16>), "one layout for both types");
 
+template <typename E>
 struct Params {
   CUtensorMap k_map;  // box (64, kBK)
   CUtensorMap v_map;
-  const __nv_bfloat16* q;
-  __nv_bfloat16* o;
+  const E* q;
+  E* o;
   float* lse;               // [B, H, Sq] or null
   const uint8_t* key_mask;  // [ceil(Skv / kBK) * kBK], nonzero = key excluded, or null
   const float* m0_log2;     // bounded mode: device scalar, the logit offset
@@ -91,8 +111,8 @@ struct Params {
 
 __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000u); }
 
-template <bool BOUNDED>
-__device__ __forceinline__ void consumer(const Params& p, Smem& sm, int wg, int b, int h) {
+template <typename E, bool BOUNDED>
+__device__ __forceinline__ void consumer(const Params<E>& p, Smem<E>& sm, int wg, int b, int h) {
   const int tid = threadIdx.x & 127;
   const int lane = tid & 31;
   const int g = lane >> 2;
@@ -107,7 +127,11 @@ __device__ __forceinline__ void consumer(const Params& p, Smem& sm, int wg, int 
   for (int i = 0; i < 32; ++i) o_acc[i] = 0.f;
   float m_run[2] = {kNegBig, kNegBig};  // online: running max, log2 units
   float l_run[2] = {0.f, 0.f};          // this thread's share of the row sums
-  const float m0 = BOUNDED ? *p.m0_log2 : 0.f;
+  // fp16 bounded mode: the offset lowered by kF16Shift, and each row's largest P
+  constexpr bool kGuardP = BOUNDED && is_f16<E>();
+  float m0 = BOUNDED ? *p.m0_log2 : 0.f;
+  if constexpr (kGuardP) m0 -= kF16Shift;
+  float p_max[2] = {0.f, 0.f};
   const float c = p.scale_log2;
 
   const int n_tiles = (p.Skv + kBK - 1) / kBK;
@@ -119,7 +143,7 @@ __device__ __forceinline__ void consumer(const Params& p, Smem& sm, int wg, int 
     // S = q K^T: 64 rows x 128 keys
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) mma_m64n128k16_rs<0>(s, qa[kk], desc_kmajor(sm.k[st], kk), kk > 0);
+    for (int kk = 0; kk < 4; ++kk) mma_m64n128k16_rs<0, E>(s, qa[kk], desc_kmajor(sm.k[st], kk), kk > 0);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(s);
@@ -139,6 +163,13 @@ __device__ __forceinline__ void consumer(const Params& p, Smem& sm, int wg, int 
     if (BOUNDED) {
 #pragma unroll
       for (int i = 0; i < 64; ++i) s[i] = fast_exp2(fmaf(s[i], c, -m0));
+      if constexpr (kGuardP) {
+#pragma unroll
+        for (int j8 = 0; j8 < 16; ++j8) {
+          p_max[0] = fmaxf(p_max[0], fmaxf(s[4 * j8], s[4 * j8 + 1]));
+          p_max[1] = fmaxf(p_max[1], fmaxf(s[4 * j8 + 2], s[4 * j8 + 3]));
+        }
+      }
     } else {
       float mx0 = neg_inf(), mx1 = neg_inf();
 #pragma unroll
@@ -180,13 +211,13 @@ __device__ __forceinline__ void consumer(const Params& p, Smem& sm, int wg, int 
       l_run[1] += s[4 * j8 + 2] + s[4 * j8 + 3];
     }
 
-    // O += P V: P re-packed from the S accumulator as bf16 A fragments
+    // O += P V: P re-packed from the S accumulator as A fragments of E
     uint32_t pa[8][4];
 #pragma unroll
-    for (int kc = 0; kc < 8; ++kc) acc_to_a(pa[kc], s, kc);
+    for (int kc = 0; kc < 8; ++kc) acc_to_a<E>(pa[kc], s, kc);
     wgmma_fence();
 #pragma unroll
-    for (int kc = 0; kc < 8; ++kc) mma_m64n64k16_rs<1>(o_acc, pa[kc], desc_mnmajor(sm.v[st], kc), 1);
+    for (int kc = 0; kc < 8; ++kc) mma_m64n64k16_rs<1, E>(o_acc, pa[kc], desc_mnmajor(sm.v[st], kc), 1);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(o_acc);
@@ -199,6 +230,10 @@ __device__ __forceinline__ void consumer(const Params& p, Smem& sm, int wg, int 
   for (int r = 0; r < 2; ++r) {
     l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
     l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
+    if constexpr (kGuardP) {
+      p_max[r] = fmaxf(p_max[r], __shfl_xor_sync(0xffffffffu, p_max[r], 1));
+      p_max[r] = fmaxf(p_max[r], __shfl_xor_sync(0xffffffffu, p_max[r], 2));
+    }
   }
   const float inv0 = l_run[0] > 0.f ? 1.f / l_run[0] : 0.f;
   const float inv1 = l_run[1] > 0.f ? 1.f / l_run[1] : 0.f;
@@ -211,15 +246,16 @@ __device__ __forceinline__ void consumer(const Params& p, Smem& sm, int wg, int 
       const float l = l_run[r];
       float out = kNegBig;
       if (l > 0.f) out = BOUNDED ? logf(l) : m_run[r] * kLn2 + logf(l);
+      if constexpr (kGuardP) out = p_max[r] >= 1.f ? out - kF16Shift * kLn2 : kNegBig;
       p.lse[((long long)b * p.H + h) * p.Sq + row] = out;
     }
   }
 }
 
-template <bool BOUNDED>
-__global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(const __grid_constant__ Params p) {
+template <typename E, bool BOUNDED>
+__global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(const __grid_constant__ Params<E> p) {
   extern __shared__ uint8_t smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(align_1024(smem_raw));
+  Smem<E>& sm = *reinterpret_cast<Smem<E>*>(align_1024(smem_raw));
   const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);  // warp-uniform
   const int b = blockIdx.y / p.H;
   const int h = blockIdx.y % p.H;
@@ -251,45 +287,38 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(const __grid_con
     }
   } else {
     setmaxnreg_inc<232>();
-    consumer<BOUNDED>(p, sm, wg - 1, b, h);
+    consumer<E, BOUNDED>(p, sm, wg - 1, b, h);
   }
 }
 
-template <bool BOUNDED>
-int launch(const Params& p, dim3 grid, cudaStream_t stream) {
+template <typename E, bool BOUNDED>
+int launch(const Params<E>& p, dim3 grid, cudaStream_t stream) {
   static bool configured = false;
   if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<BOUNDED>,
+    const cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<E, BOUNDED>,
                                                  cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
-  flash_fwd_kernel<BOUNDED><<<grid, kThreads, kSmemBytes, stream>>>(p);
+  flash_fwd_kernel<E, BOUNDED><<<grid, kThreads, kSmemBytes, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-// Dynamic shared memory a block of the kernel asks for, in bytes.
-extern "C" int s2v_flash_attention_fwd_smem_bytes() { return kSmemBytes; }
-
-// key_mask, when given, holds ceil(skv / 128) * 128 bytes (the wrapper pads
-// it with "excluded").
-extern "C" int s2v_flash_attention_fwd(
-    const void* q, const void* k, const void* v, void* o, void* lse, const void* key_mask,
-    const void* m0_log2, int batch, int heads, int sq, int skv,
-    long long q_sb, long long q_ss, long long q_sh,
-    long long k_sb, long long k_ss, long long k_sh,
-    long long v_sb, long long v_ss, long long v_sh,
-    long long o_sb, long long o_ss, long long o_sh,
-    float scale_log2, int bounded, void* stream) {
-  Params p;
-  int err = make_bshd_map(&p.k_map, k, batch, skv, heads, k_sb, k_ss, k_sh, kBK);
+template <typename E>
+int forward(const void* q, const void* k, const void* v, void* o, void* lse, const void* key_mask,
+            const void* m0_log2, int batch, int heads, int sq, int skv,
+            long long q_sb, long long q_ss, long long q_sh,
+            long long k_sb, long long k_ss, long long k_sh,
+            long long v_sb, long long v_ss, long long v_sh,
+            long long o_sb, long long o_ss, long long o_sh,
+            float scale_log2, int bounded, void* stream) {
+  Params<E> p;
+  int err = make_bshd_map<E>(&p.k_map, k, batch, skv, heads, k_sb, k_ss, k_sh, kBK);
   if (err != 0) return err;
-  err = make_bshd_map(&p.v_map, v, batch, skv, heads, v_sb, v_ss, v_sh, kBK);
+  err = make_bshd_map<E>(&p.v_map, v, batch, skv, heads, v_sb, v_ss, v_sh, kBK);
   if (err != 0) return err;
-  p.q = static_cast<const __nv_bfloat16*>(q);
-  p.o = static_cast<__nv_bfloat16*>(o);
+  p.q = static_cast<const E*>(q);
+  p.o = static_cast<E*>(o);
   p.lse = static_cast<float*>(lse);
   p.key_mask = static_cast<const uint8_t*>(key_mask);
   p.m0_log2 = static_cast<const float*>(m0_log2);
@@ -301,5 +330,37 @@ extern "C" int s2v_flash_attention_fwd(
   p.scale_log2 = scale_log2;
   const dim3 grid((sq + kBQ - 1) / kBQ, batch * heads);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bounded ? launch<true>(p, grid, s) : launch<false>(p, grid, s);
+  return bounded ? launch<E, true>(p, grid, s) : launch<E, false>(p, grid, s);
+}
+
+}  // namespace
+
+// Dynamic shared memory a block of the kernel asks for, in bytes.
+extern "C" int s2v_flash_attention_fwd_smem_bytes() { return kSmemBytes; }
+
+// key_mask, when given, holds ceil(skv / 128) * 128 bytes (the wrapper pads
+// it with "excluded").  q, k, v and o are bf16.
+extern "C" int s2v_flash_attention_fwd(
+    const void* q, const void* k, const void* v, void* o, void* lse, const void* key_mask,
+    const void* m0_log2, int batch, int heads, int sq, int skv,
+    long long q_sb, long long q_ss, long long q_sh,
+    long long k_sb, long long k_ss, long long k_sh,
+    long long v_sb, long long v_ss, long long v_sh,
+    long long o_sb, long long o_ss, long long o_sh,
+    float scale_log2, int bounded, void* stream) {
+  return forward<__nv_bfloat16>(q, k, v, o, lse, key_mask, m0_log2, batch, heads, sq, skv, q_sb, q_ss, q_sh,
+                                k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh, scale_log2, bounded, stream);
+}
+
+// The same with q, k, v and o in fp16.
+extern "C" int s2v_flash_attention_fwd_f16(
+    const void* q, const void* k, const void* v, void* o, void* lse, const void* key_mask,
+    const void* m0_log2, int batch, int heads, int sq, int skv,
+    long long q_sb, long long q_ss, long long q_sh,
+    long long k_sb, long long k_ss, long long k_sh,
+    long long v_sb, long long v_ss, long long v_sh,
+    long long o_sb, long long o_ss, long long o_sh,
+    float scale_log2, int bounded, void* stream) {
+  return forward<__half>(q, k, v, o, lse, key_mask, m0_log2, batch, heads, sq, skv, q_sb, q_ss, q_sh,
+                         k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh, scale_log2, bounded, stream);
 }

@@ -1,11 +1,18 @@
 // Hopper (sm_90a) building blocks shared by the port's attention kernels.
 //
 // Raw PTX, no library: TMA tensor maps over the port's strided [B, S, H, 64]
-// bf16 and int8 layouts (host), mbarrier rings, wgmma shared-memory
-// descriptors for the 128-byte- (bf16) and 64-byte-swizzled (int8) tiles TMA
-// writes, the m64nNk16 bf16 -> fp32 wgmma with A from registers or shared
-// memory, the m64n128k32 s8 -> s32 wgmma from shared memory, and setmaxnreg
-// for warp-specialised blocks.
+// bf16, fp16 and int8 layouts (host), mbarrier rings, wgmma shared-memory
+// descriptors for the 128-byte- (bf16, fp16) and 64-byte-swizzled (int8)
+// tiles TMA writes, the m64nNk16 bf16 or fp16 -> fp32 wgmma with A from
+// registers or shared memory, the m64n128k32 s8 -> s32 wgmma from shared
+// memory, and setmaxnreg for warp-specialised blocks.
+//
+// The 16-bit element type E (__nv_bfloat16, the default, or __half) is a
+// template parameter of the helpers that depend on it: fp16 has bf16's
+// element size, so its tiles have the same shapes, layouts and swizzles;
+// only the TMA data type, the rounding from fp32 and the wgmma type suffix
+// differ.  The bf16 instantiations are the code the helpers had before
+// fp16 was added.
 //
 // Layout facts the kernels rely on:
 //  * d = 64 in bf16 is one 128-byte row, exactly one 128B swizzle atom wide.
@@ -38,10 +45,32 @@
 
 #include <cuda.h>  // CUtensorMap and its enums only: the encoder comes through the runtime
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace hopper {
+
+// the TMA data type of a 16-bit element type
+template <typename E>
+struct ElemTraits;
+template <>
+struct ElemTraits<__nv_bfloat16> {
+  static constexpr CUtensorMapDataType kTma = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+};
+template <>
+struct ElemTraits<__half> {
+  static constexpr CUtensorMapDataType kTma = CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+};
+
+template <typename E>
+__host__ __device__ constexpr bool is_f16() {
+  static_assert(std::is_same<E, __nv_bfloat16>::value || std::is_same<E, __half>::value,
+                "the 16-bit kernels take __nv_bfloat16 or __half");
+  return std::is_same<E, __half>::value;
+}
 
 // ---------------------------------------------------------------- host side
 
@@ -102,11 +131,12 @@ inline int make_bshd_map_typed(CUtensorMap* map, const void* base, CUtensorMapDa
   return r == CUDA_SUCCESS ? 0 : kErrEncodeBase + int(r);
 }
 
-// bf16 [B, S, H, 64]: a row is 128 bytes, one 128B swizzle atom
+// bf16 or fp16 [B, S, H, 64]: a row is 128 bytes, one 128B swizzle atom
+template <typename E = __nv_bfloat16>
 inline int make_bshd_map(CUtensorMap* map, const void* base, int batch, int seq, int heads, long long sb,
                          long long ss, long long sh, int box_rows) {
-  return make_bshd_map_typed(map, base, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, CU_TENSOR_MAP_SWIZZLE_128B, batch, seq,
-                             heads, sb, ss, sh, box_rows);
+  return make_bshd_map_typed(map, base, ElemTraits<E>::kTma, 2, CU_TENSOR_MAP_SWIZZLE_128B, batch, seq, heads, sb,
+                             ss, sh, box_rows);
 }
 
 // int8 [B, S, H, 64]: a row is 64 bytes, one 64B swizzle atom (strides in
@@ -208,12 +238,16 @@ __device__ __forceinline__ uint64_t desc_sw128(const void* tile, uint32_t lbo_by
 }
 
 // A or B = tile[rows][64] with the reduction over d (K-major); k16 step kk of 4
-__device__ __forceinline__ uint64_t desc_kmajor(const __nv_bfloat16* tile, int kk) {
+template <typename E>
+__device__ __forceinline__ uint64_t desc_kmajor(const E* tile, int kk) {
+  static_assert(sizeof(E) == 2, "a 16-bit tile");
   return desc_sw128(tile + kk * 16, 16, 1024);
 }
 
 // B = tile[rows][64] with the reduction over rows (MN-major, transposed); k16 step kk
-__device__ __forceinline__ uint64_t desc_mnmajor(const __nv_bfloat16* tile, int kk) {
+template <typename E>
+__device__ __forceinline__ uint64_t desc_mnmajor(const E* tile, int kk) {
+  static_assert(sizeof(E) == 2, "a 16-bit tile");
   return desc_sw128(tile + kk * 16 * 64, 16, 1024);
 }
 
@@ -282,6 +316,31 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+__device__ __forceinline__ uint32_t pack_f16x2(float lo, float hi) {
+  __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// two fp32 values rounded to the element type E, packed as one A-fragment register
+template <typename E>
+__device__ __forceinline__ uint32_t pack_x2(float lo, float hi) {
+  if constexpr (is_f16<E>()) {
+    return pack_f16x2(lo, hi);
+  } else {
+    return pack_bf16x2(lo, hi);
+  }
+}
+
+// two packed elements of E widened to fp32
+template <typename E>
+__device__ __forceinline__ float2 unpack_x2(uint32_t packed) {
+  if constexpr (is_f16<E>()) {
+    return __half22float2(*reinterpret_cast<const __half2*>(&packed));
+  } else {
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&packed));
+  }
+}
+
 __device__ __forceinline__ float fast_exp2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
@@ -289,10 +348,11 @@ __device__ __forceinline__ float fast_exp2(float x) {
 }
 
 // The A fragments (4 k16 steps over d = 64) of this thread's two rows of a
-// [S, 64] bf16 matrix at `base` with row stride `ss` elements; rows at or
+// [S, 64] 16-bit matrix at `base` with row stride `ss` elements; rows at or
 // past `rows` read as zeros.
-__device__ __forceinline__ void load_a_rows(uint32_t (&a)[4][4], const __nv_bfloat16* base, long long ss, int row0,
-                                            int rows, int t) {
+template <typename E>
+__device__ __forceinline__ void load_a_rows(uint32_t (&a)[4][4], const E* base, long long ss, int row0, int rows,
+                                            int t) {
   const int row1 = row0 + 8;
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
@@ -304,19 +364,20 @@ __device__ __forceinline__ void load_a_rows(uint32_t (&a)[4][4], const __nv_bflo
   }
 }
 
-// An m64nNk16 accumulator's k16 chunk kc re-packed as a bf16 A fragment.
-template <int NACC>
+// An m64nNk16 accumulator's k16 chunk kc re-packed as an A fragment of E.
+template <typename E = __nv_bfloat16, int NACC>
 __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&acc)[NACC], int kc) {
-  a[0] = pack_bf16x2(acc[8 * kc + 0], acc[8 * kc + 1]);
-  a[1] = pack_bf16x2(acc[8 * kc + 2], acc[8 * kc + 3]);
-  a[2] = pack_bf16x2(acc[8 * kc + 4], acc[8 * kc + 5]);
-  a[3] = pack_bf16x2(acc[8 * kc + 6], acc[8 * kc + 7]);
+  a[0] = pack_x2<E>(acc[8 * kc + 0], acc[8 * kc + 1]);
+  a[1] = pack_x2<E>(acc[8 * kc + 2], acc[8 * kc + 3]);
+  a[2] = pack_x2<E>(acc[8 * kc + 4], acc[8 * kc + 5]);
+  a[3] = pack_x2<E>(acc[8 * kc + 6], acc[8 * kc + 7]);
 }
 
 // Writes this thread's share of a 64-column fp32 accumulator (32 registers)
-// scaled by `scale` as bf16 rows of a [S, 64] matrix; rows past `rows` skipped.
-__device__ __forceinline__ void store_rows(__nv_bfloat16* base, long long ss, int row0, int rows,
-                                           const float (&acc)[32], float scale0, float scale1, int t) {
+// scaled by `scale` as rows of E of a [S, 64] matrix; rows past `rows` skipped.
+template <typename E>
+__device__ __forceinline__ void store_rows(E* base, long long ss, int row0, int rows, const float (&acc)[32],
+                                           float scale0, float scale1, int t) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + 8 * r;
@@ -325,96 +386,131 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* base, long long ss, in
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       *reinterpret_cast<uint32_t*>(base + row * ss + j * 8 + t * 2) =
-          pack_bf16x2(acc[4 * j + 2 * r] * s, acc[4 * j + 2 * r + 1] * s);
+          pack_x2<E>(acc[4 * j + 2 * r] * s, acc[4 * j + 2 * r + 1] * s);
     }
   }
 }
 
-// The m64nNk16 bf16 -> fp32 products, A from registers (RS) or from a
+// The m64nNk16 16-bit -> fp32 products, A from registers (RS) or from a
 // K-major shared-memory tile (SS), B from shared memory (TRANS_B = 1: B is
-// MN-major).  `accumulate` = 0 overwrites D.
-// D[64 x 64] (+)= A[64 x 16] (bf16 registers) * B[16 x 64] (shared memory, descriptor)
-template <int TRANS_B>
+// MN-major); E picks the .bf16 or the .f16 form, which take the same
+// operands.  `accumulate` = 0 overwrites D.  The macros write one asm
+// statement per type suffix (the suffix is part of the instruction text).
+#define S2V_WGMMA_M64N64K16_RS(AB) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." AB "." AB " " \
+      "{" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31" \
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate), "n"(TRANS_B))
+
+#define S2V_WGMMA_M64N128K16_RS(AB) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." AB "." AB " " \
+      "{" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63" \
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate), "n"(TRANS_B))
+
+#define S2V_WGMMA_M64N64K16_SS(AB) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." AB "." AB " " \
+      "{" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31" \
+      "}, %32, %33, p, 1, 1, 0, %35;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]) \
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TRANS_B))
+
+#define S2V_WGMMA_M64N128K16_SS(AB) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." AB "." AB " " \
+      "{" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63" \
+      "}, %64, %65, p, 1, 1, 0, %67;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]) \
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TRANS_B))
+
+// D[64 x 64] (+)= A[64 x 16] (registers) * B[16 x 64] (shared memory, descriptor)
+template <int TRANS_B, typename E = __nv_bfloat16>
 __device__ __forceinline__ void mma_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b,
                                                  int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate), "n"(TRANS_B));
+  if constexpr (is_f16<E>()) {
+    S2V_WGMMA_M64N64K16_RS("f16");
+  } else {
+    S2V_WGMMA_M64N64K16_RS("bf16");
+  }
 }
 
-// D[64 x 128] (+)= A[64 x 16] (bf16 registers) * B[16 x 128] (shared memory, descriptor)
-template <int TRANS_B>
+// D[64 x 128] (+)= A[64 x 16] (registers) * B[16 x 128] (shared memory, descriptor)
+template <int TRANS_B, typename E = __nv_bfloat16>
 __device__ __forceinline__ void mma_m64n128k16_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t desc_b,
-                                                 int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate), "n"(TRANS_B));
+                                                  int accumulate) {
+  if constexpr (is_f16<E>()) {
+    S2V_WGMMA_M64N128K16_RS("f16");
+  } else {
+    S2V_WGMMA_M64N128K16_RS("bf16");
+  }
 }
 
 // D[64 x 64] (+)= A[64 x 16] * B[16 x 64], both from shared memory (descriptors; A K-major)
-template <int TRANS_B>
+template <int TRANS_B, typename E = __nv_bfloat16>
 __device__ __forceinline__ void mma_m64n64k16_ss(float (&d)[32], uint64_t desc_a, uint64_t desc_b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TRANS_B));
+  if constexpr (is_f16<E>()) {
+    S2V_WGMMA_M64N64K16_SS("f16");
+  } else {
+    S2V_WGMMA_M64N64K16_SS("bf16");
+  }
 }
 
 // D[64 x 128] (+)= A[64 x 16] * B[16 x 128], both from shared memory (descriptors; A K-major)
-template <int TRANS_B>
+template <int TRANS_B, typename E = __nv_bfloat16>
 __device__ __forceinline__ void mma_m64n128k16_ss(float (&d)[64], uint64_t desc_a, uint64_t desc_b,
                                                   int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TRANS_B));
+  if constexpr (is_f16<E>()) {
+    S2V_WGMMA_M64N128K16_SS("f16");
+  } else {
+    S2V_WGMMA_M64N128K16_SS("bf16");
+  }
 }
+
+#undef S2V_WGMMA_M64N64K16_RS
+#undef S2V_WGMMA_M64N128K16_RS
+#undef S2V_WGMMA_M64N64K16_SS
+#undef S2V_WGMMA_M64N128K16_SS
 
 // D[64 x 128] (+)= A[64 x 32] * B[32 x 128], int8 x int8 -> int32, both
 // from K-major 64B-swizzled shared-memory tiles (descriptors).  The integer

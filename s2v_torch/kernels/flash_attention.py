@@ -21,12 +21,24 @@ overlap the other's products.
 ``flash_attention`` dispatches on the device of its inputs: CPU tensors go to
 :func:`flash_attention_reference`, the plain PyTorch version; CUDA tensors
 launch the kernel or raise.  ``flash_attention.launches`` counts kernel
-launches (``flash_attention.launches_by_batch`` the same by batch size) and
+launches (``launches_by_batch`` and ``launches_by_dtype`` the same by batch
+size and by element type) and
 ``flash_attention.reruns`` the bounded calls that fell back to the online
 kernel.
 
 Bounded mode needs one host sync per call (the ``min log l < -55`` check
 that decides the online re-run): 42 per denoise step on the main path.
+
+Element types: bf16 (the 5b models) and fp16 (the 2b family), one kernel
+templated on the type, two C entry points.  From fp16 inputs the kernel
+computes what the JAX package computes after its fp32 upcast (the same
+products, fp32 accumulation), except that P is rounded to fp16 for P·V
+(ROADMAP C.1); the other kernels (B3-B7) take bf16 only.  fp16 has no
+normal values below 2⁻¹⁴, so in bounded mode the fp16 kernel offsets the
+logits by M0 less 15 bits (P = 2¹⁵ at the bound) and reports log l = -1e30
+for a row whose largest P stays below 1 (its largest logit more than 15
+bits below M0): the guard then re-runs the call online, where P is rounded
+against each row's running max.
 """
 
 from __future__ import annotations
@@ -54,7 +66,13 @@ BOUNDED_MIN_LOG_L = -55.0
 # fp32 is 3.8 GB of logits, which fits beside the model on an 80 GB card
 REFERENCE_CHUNK = 512
 
+# the element types of kernels B1 and B2; B3-B7 take bf16 only (ROADMAP C.1)
+FLASH_DTYPES = (torch.bfloat16, torch.float16)
+BF16_ONLY = (torch.bfloat16,)
+
 SOURCE = native_build.CSRC_DIR / "flash_attention.cu"
+# the C entry point of each element type
+ENTRY = {torch.bfloat16: "s2v_flash_attention_fwd", torch.float16: "s2v_flash_attention_fwd_f16"}
 _lib = None
 
 
@@ -62,10 +80,11 @@ def _library():
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(native_build.build_one(SOURCE)))
-        fn = lib.s2v_flash_attention_fwd
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [vp] * 7 + [i32] * 4 + [i64] * 12 + [ctypes.c_float, i32, vp]
-        fn.restype = i32
+        for name in ENTRY.values():
+            fn = getattr(lib, name)
+            fn.argtypes = [vp] * 7 + [i32] * 4 + [i64] * 12 + [ctypes.c_float, i32, vp]
+            fn.restype = i32
         _lib = lib
     return _lib
 
@@ -86,12 +105,15 @@ def _check_shapes(q, k, v, key_pad_mask) -> None:
         raise ValueError(f"key_pad_mask must be [Skv={k.shape[1]}], got {tuple(key_pad_mask.shape)}")
 
 
-def check_kernel_tensor(name: str, t: torch.Tensor) -> None:
-    """Raise unless the kernels take ``t`` as a ``[B, S, H, d]`` operand:
-    bf16, d = 64, rows contiguous and 16-byte aligned (base pointer and
-    strides: TMA tensor maps and 16-byte loads need both)."""
-    if t.dtype != torch.bfloat16:
-        raise ValueError(f"flash_attention kernels take bf16; {name} is {t.dtype}")
+def check_kernel_tensor(name: str, t: torch.Tensor, dtypes=BF16_ONLY) -> None:
+    """Raise unless the kernels take ``t`` as a ``[B, S, H, d]`` operand: one
+    of ``dtypes`` (bf16 for every kernel, fp16 too for B1 and B2), d = 64,
+    rows contiguous and 16-byte aligned (base pointer and strides: TMA
+    tensor maps and 16-byte loads need both)."""
+    if t.dtype not in dtypes:
+        names = " or ".join(str(d).replace("torch.", "") for d in dtypes)
+        raise ValueError(f"this attention kernel takes {names}; {name} is {t.dtype} (ROADMAP C.1: fp16 reaches "
+                         f"only kernels B1 and B2, fp32 none)")
     if t.shape[-1] != KERNEL_HEAD_DIM:
         raise ValueError(f"flash_attention kernels take d={KERNEL_HEAD_DIM}; {name} has d={t.shape[-1]}")
     if t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:-1]):
@@ -100,25 +122,31 @@ def check_kernel_tensor(name: str, t: torch.Tensor) -> None:
         raise ValueError(f"{name} must start on a 16-byte boundary; its storage offset is {t.storage_offset()}")
 
 
-def check_kernel_inputs(q, k, v, key_pad_mask=None) -> None:
+def check_kernel_inputs(q, k, v, key_pad_mask=None, dtypes=BF16_ONLY) -> None:
     """Raise unless the CUDA kernel takes these tensors (see
-    :func:`check_kernel_tensor`).  Reads only metadata, so it is checked
-    before any launch (and testable on CPU or meta tensors).  The mask is
-    copied into a padded byte buffer and needs no alignment."""
+    :func:`check_kernel_tensor`; q, k and v of one type).  Reads only
+    metadata, so it is checked before any launch (and testable on CPU or
+    meta tensors).  The mask is copied into a padded byte buffer and needs
+    no alignment."""
     _check_shapes(q, k, v, key_pad_mask)
     for name, t in (("q", q), ("k", k), ("v", v)):
-        check_kernel_tensor(name, t)
+        check_kernel_tensor(name, t, dtypes)
+    if not q.dtype == k.dtype == v.dtype:
+        raise ValueError(f"q, k, v must have one dtype; got {q.dtype}, {k.dtype}, {v.dtype}")
     if q.shape[0] * q.shape[2] > 65535:
         raise ValueError("B * H must be at most 65535 (grid y)")
 
 
 def _bound_m0(q, k, scale: float) -> torch.Tensor:
     """Per-call logit bound M0 = max‖scale·q‖ · max‖k‖ (Cauchy-Schwarz), in
-    fp32, rounded to k's dtype: the lse add-back must be the exact value the
-    kernel applied (s2v_tpu flash_attention.py:364-367)."""
+    fp32, rounded to the dtype of the JAX package's k: the lse add-back must
+    be the exact value the kernel applied (s2v_tpu flash_attention.py:364-367).
+    That is k's dtype, except fp16, which JAX upcasts to fp32 before any
+    attention backend (``s2v_tpu/ops/attention.py:208-214``)."""
     qmax = q.float().square().sum(-1).amax().sqrt() * scale
     kmax = k.float().square().sum(-1).amax().sqrt()
-    return (qmax * kmax).to(k.dtype).float()
+    m0 = qmax * kmax
+    return m0 if k.dtype == torch.float16 else m0.to(k.dtype).float()
 
 
 def flash_attention_reference(
@@ -192,7 +220,7 @@ def _launch(q, k, v, o, lse, mask, m0_log2, scale_log2: float, bounded: bool) ->
     skv = k.shape[1]
     ptr = lambda t: ctypes.c_void_p(t.data_ptr() if t is not None else 0)  # noqa: E731
     strides = [s for t in (q, k, v, o) for s in t.stride()[:3]]
-    err = _library().s2v_flash_attention_fwd(
+    err = getattr(_library(), ENTRY[q.dtype])(
         ptr(q), ptr(k), ptr(v), ptr(o), ptr(lse), ptr(mask), ptr(m0_log2),
         b, h, sq, skv, *strides, ctypes.c_float(scale_log2), int(bounded),
         ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream),
@@ -201,10 +229,12 @@ def _launch(q, k, v, o, lse, mask, m0_log2, scale_log2: float, bounded: bool) ->
         raise RuntimeError(f"flash_attention kernel launch failed: {native_build.launch_error(err)}")
     flash_attention.launches += 1
     flash_attention.launches_by_batch[b] = flash_attention.launches_by_batch.get(b, 0) + 1
+    dtype = str(q.dtype).replace("torch.", "")
+    flash_attention.launches_by_dtype[dtype] = flash_attention.launches_by_dtype.get(dtype, 0) + 1
 
 
 def _flash_attention_cuda(q, k, v, scale, return_lse, key_pad_mask, softmax_mode):
-    check_kernel_inputs(q, k, v, key_pad_mask)
+    check_kernel_inputs(q, k, v, key_pad_mask, FLASH_DTYPES)
     for t in (k, v):
         if t.device != q.device:
             raise ValueError("q, k, v must be on one device")
@@ -235,7 +265,8 @@ def _flash_attention_cuda(q, k, v, scale, return_lse, key_pad_mask, softmax_mode
     m0_log2 = (m0 if use_exp2 else m0 * LOG2E).reshape(1).contiguous()
     logl = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     _launch(q, k, v, o, logl, mask, m0_log2, scale_log2, bounded=True)
-    # the one host sync of the call: the underflow guard
+    # the one host sync of the call: the underflow guard (fp16: also the
+    # rows whose largest logit lies more than 15 bits below M0)
     if float(logl.amin()) < BOUNDED_MIN_LOG_L:
         flash_attention.reruns += 1
         lse = online(return_lse)
@@ -260,7 +291,7 @@ def flash_attention(
     ``bounded`` or ``bounded_exp2`` (see the module docstring).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel or
-    raise (bf16 and d = 64 only)."""
+    raise (bf16 or fp16, and d = 64 only)."""
     _check_mode(softmax_mode)
     devices = {t.device.type for t in (q, k, v)}
     if devices == {"cpu"}:
@@ -272,4 +303,5 @@ def flash_attention(
 
 flash_attention.launches = 0
 flash_attention.launches_by_batch = {}  # batch size -> launches (a cfg-skipped step runs B, not 2B)
+flash_attention.launches_by_dtype = {}  # "bfloat16" / "float16" -> launches
 flash_attention.reruns = 0

@@ -17,6 +17,14 @@ Bound on an H100 SXM at the training shape (B=1, S=19,126, H=48, d=64): the
 five products are 10·B·H·S²·d = 1.12·10¹³ operations, 11.4 ms at 989 TFLOP/s
 bf16, against ~0.95 GB of traffic (0.28 ms at 3.35 TB/s): compute-bound.
 
+Element types: bf16 and fp16 (the 2b family), one set of kernels templated
+on the type, two C entry points; P and dS are rounded to the input type
+before their products (ROADMAP C.1).  fp16 has no normal values below
+2⁻¹⁴, and dS takes dO's scale, which a training step with no loss scaler
+puts near 10⁻⁶: in fp16 the kernels scale dS by 2^e before its rounding
+and dq, dk by 2^-e after (:func:`ds_exponent`), so dq and dk keep their
+entries where the JAX package's fp32 dS keeps them.
+
 One call launches three kernels on the current stream: a pre-pass (D and
 lse·log2 e into a padded fp32 workspace the wrapper allocates), a dq kernel
 (one block per 128 queries, K/V streamed) and a dk/dv kernel (one block per
@@ -30,7 +38,7 @@ sums in tile order).
 ``flash_attention_bwd`` dispatches on the device of its inputs: CPU tensors
 go to :func:`flash_attention_bwd_reference`, the plain PyTorch version; CUDA
 tensors launch the kernels or raise.  ``flash_attention_bwd.launches`` counts
-calls that launched them.
+calls that launched them (``launches_by_dtype`` the same by element type).
 """
 
 from __future__ import annotations
@@ -42,6 +50,7 @@ from typing import Optional, Tuple
 import torch
 
 from s2v_torch.kernels.flash_attention import (
+    FLASH_DTYPES,
     LOG2E,
     REFERENCE_CHUNK,
     check_kernel_inputs,
@@ -50,9 +59,13 @@ from s2v_torch.kernels.flash_attention import (
 from s2v_torch.utils import native_build
 
 SOURCE = native_build.CSRC_DIR / "flash_attention_bwd.cu"
+# the C entry point of each element type
+ENTRY = {torch.bfloat16: "s2v_flash_attention_bwd", torch.float16: "s2v_flash_attention_bwd_f16"}
 # rows of each tile the kernels stream (keys in the dq kernel, queries in
 # the dk/dv kernel); a block owns 128 resident rows
 KERNEL_TILE_ROWS = 64
+# fp16: the scaled dS stays under this power of two (fp16 tops out at 65,504)
+DS_BOUND_LOG2 = 14
 # the parts of one call, a bit mask of the C entry point
 PART_PREPASS, PART_DQ, PART_DKV = 1, 2, 4
 ALL_PARTS = PART_PREPASS | PART_DQ | PART_DKV
@@ -63,10 +76,11 @@ def _library():
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(native_build.build_one(SOURCE)))
-        fn = lib.s2v_flash_attention_bwd
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [vp] * 11 + [i32] * 4 + [i64] * 24 + [ctypes.c_float, i32, vp]
-        fn.restype = i32
+        for name in ENTRY.values():
+            fn = getattr(lib, name)
+            fn.argtypes = [vp] * 12 + [i32] * 4 + [i64] * 24 + [ctypes.c_float, i32, vp]
+            fn.restype = i32
         _lib = lib
     return _lib
 
@@ -84,6 +98,17 @@ def _check_shapes(q, k, v, o, lse, g) -> None:
         raise ValueError(f"lse must be [B, H, Sq] = {(b, h, sq)}, got {tuple(lse.shape)}")
 
 
+def ds_exponent(v: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The fp16 kernels' dS exponent e, an int32 device scalar ``[1]``: dS is
+    multiplied by 2^e before its fp16 rounding and dq, dk by 2^-e after
+    (exact: powers of two).  |dS_ij| = P_ij·|dO_i·v_j − dO_i·o_i| is at most
+    2·max‖dO_i‖·max‖v_j‖ (P ≤ 1, o a convex combination of v's rows); e is
+    the largest that keeps this bound under 2^DS_BOUND_LOG2."""
+    norm = lambda x: torch.linalg.vector_norm(x, dim=-1, dtype=torch.float32).amax()  # noqa: E731
+    _, exp = torch.frexp(2 * norm(g) * norm(v))  # bound = m·2^exp, m in [0.5, 1)
+    return (DS_BOUND_LOG2 - exp).clamp(-100, 100).to(torch.int32).reshape(1)
+
+
 def row_delta(o: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """D = rowsum(dO ∘ o) in fp32, ``[B, H, Sq]`` contiguous."""
     return (g.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
@@ -91,13 +116,15 @@ def row_delta(o: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 
 def check_bwd_kernel_inputs(q, k, v, o, lse, g) -> None:
     """Raise unless the CUDA kernels take these tensors: q/k/v/o/dO as
-    :func:`check_kernel_inputs` requires, lse fp32, contiguous ``[B, H, Sq]``
-    (the kernels compute D themselves).  Reads only metadata (testable on
-    meta tensors)."""
+    :func:`check_kernel_inputs` requires (bf16 or fp16, all of one type), lse
+    fp32, contiguous ``[B, H, Sq]`` (the kernels compute D themselves).
+    Reads only metadata (testable on meta tensors)."""
     _check_shapes(q, k, v, o, lse, g)
-    check_kernel_inputs(q, k, v)
-    check_kernel_tensor("o", o)
-    check_kernel_tensor("dO", g)
+    check_kernel_inputs(q, k, v, dtypes=FLASH_DTYPES)
+    check_kernel_tensor("o", o, FLASH_DTYPES)
+    check_kernel_tensor("dO", g, FLASH_DTYPES)
+    if not q.dtype == o.dtype == g.dtype:
+        raise ValueError(f"o and dO must have q's dtype {q.dtype}; got {o.dtype}, {g.dtype}")
     if lse.dtype != torch.float32:
         raise ValueError(f"flash_attention_bwd kernel takes an fp32 lse; got {lse.dtype}")
     if not lse.is_contiguous():
@@ -158,7 +185,8 @@ def flash_attention_bwd_blocked(q, k, v, o, lse, g, scale=None):
     """The CUDA kernels' schedule, emulated in PyTorch on any device: the dq
     kernel's walk over 64-key tiles (dq summed in fp32 in key-tile order)
     and the dk/dv kernel's walk over 64-query tiles (dk, dv summed in fp32
-    in query-tile order), with P and dS rounded to bf16 where the kernels
+    in query-tile order), with P and dS rounded to bf16 (fp16 for fp16
+    inputs, dS scaled by 2^e of :func:`ds_exponent` first) where the kernels
     feed them to ``wgmma``, and the logits in log2 units against
     ``lse·log2 e``.  Same signature and contract as
     :func:`flash_attention_bwd_reference`; the card tests and the smoke hold
@@ -172,14 +200,16 @@ def flash_attention_bwd_blocked(q, k, v, o, lse, g, scale=None):
     qf, kf, vf, gf = (x.float().transpose(1, 2) for x in (q, k, v, g))  # [B, H, S, d]
     delta = row_delta(o, g)  # [B, H, Sq], the pre-pass
     lse2 = lse.float() * LOG2E
-    bf16 = lambda x: x.to(torch.bfloat16).float()  # noqa: E731
+    low = torch.float16 if q.dtype == torch.float16 else torch.bfloat16
+    bf16 = lambda x: x.to(low).float()  # noqa: E731
+    ds_up = 2.0 ** int(ds_exponent(v, g)) if q.dtype == torch.float16 else 1.0
 
     dq = torch.zeros_like(qf)
     for k0 in range(0, kf.shape[2], tile):  # the dq kernel: key tiles in order
         kt, vt = kf[:, :, k0:k0 + tile], vf[:, :, k0:k0 + tile]
         p = torch.exp2(torch.matmul(qf, kt.transpose(-1, -2)) * c - lse2[..., None])
         dp = torch.matmul(gf, vt.transpose(-1, -2))
-        dq += torch.matmul(bf16(p * (dp - delta[..., None])), kt)
+        dq += torch.matmul(bf16(p * (dp - delta[..., None]) * ds_up), kt)
 
     dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
     for q0 in range(0, qf.shape[2], tile):  # the dk/dv kernel: query tiles in order
@@ -187,8 +217,9 @@ def flash_attention_bwd_blocked(q, k, v, o, lse, g, scale=None):
         pt = torch.exp2(torch.matmul(kf, qt.transpose(-1, -2)) * c - lse2[:, :, None, q0:q0 + tile])
         dpt = torch.matmul(vf, gt.transpose(-1, -2))
         dv += torch.matmul(bf16(pt), gt)
-        dk += torch.matmul(bf16(pt * (dpt - delta[:, :, None, q0:q0 + tile])), qt)
-    return ((dq * scale).transpose(1, 2).to(q.dtype), (dk * scale).transpose(1, 2).to(k.dtype),
+        dk += torch.matmul(bf16(pt * (dpt - delta[:, :, None, q0:q0 + tile]) * ds_up), qt)
+    out_scale = scale / ds_up
+    return ((dq * out_scale).transpose(1, 2).to(q.dtype), (dk * out_scale).transpose(1, 2).to(k.dtype),
             dv.transpose(1, 2).to(v.dtype))
 
 
@@ -205,16 +236,19 @@ def _launch(q, k, v, o, g, lse, dq, dk, dv, scale: float, workspace, parts: int 
     times them one at a time on a workspace a full launch has filled)."""
     b, sq, h, _ = q.shape
     skv = k.shape[1]
-    ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr() if t is not None else 0)  # noqa: E731
     strides = [s for t in (q, k, v, o, g, dq, dk, dv) for s in t.stride()[:3]]
-    err = _library().s2v_flash_attention_bwd(
-        ptr(q), ptr(k), ptr(v), ptr(o), ptr(g), ptr(lse), ptr(workspace[0]), ptr(workspace[1]),
+    ds_exp = ds_exponent(v, g) if q.dtype == torch.float16 else None
+    err = getattr(_library(), ENTRY[q.dtype])(
+        ptr(q), ptr(k), ptr(v), ptr(o), ptr(g), ptr(lse), ptr(ds_exp), ptr(workspace[0]), ptr(workspace[1]),
         ptr(dq), ptr(dk), ptr(dv), b, h, sq, skv, *strides, ctypes.c_float(scale), int(parts),
         ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream),
     )
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd kernel launch failed: {native_build.launch_error(err)}")
     flash_attention_bwd.launches += 1
+    dtype = str(q.dtype).replace("torch.", "")
+    flash_attention_bwd.launches_by_dtype[dtype] = flash_attention_bwd.launches_by_dtype.get(dtype, 0) + 1
 
 
 def _flash_attention_bwd_cuda(q, k, v, o, lse, g, scale):
@@ -245,7 +279,7 @@ def flash_attention_bwd(
     ``[B, H, Sq]`` fp32 (the forward's, natural log).
 
     CPU tensors take the plain version; CUDA tensors launch the kernels or
-    raise (bf16 and d = 64 only)."""
+    raise (bf16 or fp16, and d = 64 only)."""
     devices = {t.device.type for t in (q, k, v, o, lse, g)}
     if devices == {"cpu"}:
         return flash_attention_bwd_reference(q, k, v, o, lse, g, scale)
@@ -255,3 +289,4 @@ def flash_attention_bwd(
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.launches_by_dtype = {}  # "bfloat16" / "float16" -> launches

@@ -77,6 +77,12 @@ def convert_transformer_state_dict(
             "norm2": {"linear": _wb(sd, f"{pre}.norm2.linear", dt), "norm": _wb(sd, f"{pre}.norm2.norm", dt)},
             "ff": {},
         }
+        # the pre-merge modulation linears of the disentangled mode, when the
+        # state dict carries them (S2VPipeline.from_pretrained adds them
+        # before a LoRA merge; s2v_tpu/loaders/hf.py:135-139)
+        if f"{pre}.norm1.base_linear.weight" in sd:
+            for n in ("norm1", "norm2"):
+                layer[n]["base_linear"] = _wb(sd, f"{pre}.{n}.base_linear", dt)
         for (group, name), wb in linears.items():
             # int8 from the checkpoint's own values, as the JAX loader
             # quantizes the fp32 kernel before any cast to the model dtype

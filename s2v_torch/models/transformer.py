@@ -158,13 +158,17 @@ def block_forward(
     t_len = text.shape[1]
     r_len = ref.shape[1]
     window = None
+    # the disentangled mode reads the pre-merge modulation linears beside the
+    # merged ones (s2v_tpu/models/transformer.py:331-373)
+    disent = cfg.disentangled_modulation
     if attention_backend in WINDOWED_BACKENDS:
         tpf = r_len if r_len > 0 else tokens_per_frame
         if tpf <= 0:
             raise ValueError("windowed attention needs tokens-per-frame; call through transformer_forward "
                              "so it is derived from the video shape")
         window = (t_len + r_len, tpf, cfg.attention_window_frames)
-    v_n, t_n, r_n, g_v, g_t, g_r = ada_layer_norm_zero_3stream(p["norm1"], video, text, ref, temb, cfg.norm_eps)
+    v_n, t_n, r_n, g_v, g_t, g_r = ada_layer_norm_zero_3stream(
+        p["norm1"], video, text, ref, temb, cfg.norm_eps, base_linear=p["norm1"].get("base_linear") if disent else None)
     x = torch.cat([t_n, r_n, v_n], dim=1)
     attn = joint_attention(
         p["attn"], x, cfg.num_attention_heads, rope_cos, rope_sin, cfg.qk_norm_eps, backend=attention_backend,
@@ -174,7 +178,8 @@ def block_forward(
     text = text + g_t * attn[:, :t_len]
     ref = ref + g_r * attn[:, t_len:t_len + r_len]
 
-    v_n, t_n, r_n, g_v, g_t, g_r = ada_layer_norm_zero_3stream(p["norm2"], video, text, ref, temb, cfg.norm_eps)
+    v_n, t_n, r_n, g_v, g_t, g_r = ada_layer_norm_zero_3stream(
+        p["norm2"], video, text, ref, temb, cfg.norm_eps, base_linear=p["norm2"].get("base_linear") if disent else None)
     ff = _feed_forward(p["ff"], torch.cat([t_n, r_n, v_n], dim=1))
     video = video + g_v * ff[:, t_len + r_len:]
     text = text + g_t * ff[:, :t_len]
@@ -193,8 +198,13 @@ def transformer_forward(
     rope_sin: Optional[torch.Tensor] = None,
     attention_backend: str = "plain",
     remat: Union[bool, str] = False,
+    pos_embedding: Optional[torch.Tensor] = None,  # [S_text + S_video, D] sincos (2b)
 ) -> torch.Tensor:
     """Predict the denoising target ``[B, F, H, W, out_channels]``.
+
+    ``pos_embedding`` (a model without RoPE, the 2b family) is added over
+    ``[text | video]`` after the patch embedding; the ref stream gets none
+    (``s2v_tpu/models/transformer.py:439-444``).
 
     A runtime factor tree under ``params[RUNTIME_LORA_KEY]`` is applied per
     layer inside the block loop.  ``remat`` True/``"full"`` checkpoints each
@@ -221,6 +231,10 @@ def transformer_forward(
         ref = video[:, :0]
     else:
         ref = patchify_video(ref_latents.to(dt), pe["proj"]["weight"], pe["proj"]["bias"], p)
+    if pos_embedding is not None and not cfg.use_rotary_positional_embeddings:
+        t_len = text.shape[1]
+        joint = torch.cat([text, video], dim=1) + pos_embedding.to(device=video.device, dtype=dt)[None]
+        text, video = joint[:, :t_len], joint[:, t_len:]
 
     def run_block(layer, factors, video, text, ref):
         if factors is not None:

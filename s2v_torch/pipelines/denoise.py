@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import math
 import sys
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Callable, Optional
 
 import numpy as np
@@ -90,6 +90,27 @@ class DenoiseSchedule:
             use_dynamic_cfg=use_dynamic_cfg,
         )
 
+    def truncate(self, strength: float) -> "DenoiseSchedule":
+        """The last ``strength`` fraction of the steps, for video-to-video
+        (``s2v_tpu/pipelines/denoise.py:95-110``): the dynamic guidance is
+        recomputed over the kept steps, and DPM's first kept step has no
+        previous x0 (``has_back`` 0)."""
+        n = len(self.timesteps)
+        t_start = max(n - min(int(n * strength), n), 0)
+        dpm_mults = None
+        if self.dpm_mults:
+            dpm_mults = {k: v[t_start:].copy() for k, v in self.dpm_mults.items()}
+            if len(dpm_mults["has_back"]):
+                dpm_mults["has_back"][0] = 0.0
+        return replace(
+            self,
+            timesteps=self.timesteps[t_start:],
+            alpha_t=self.alpha_t[t_start:],
+            alpha_prev=self.alpha_prev[t_start:],
+            guidance=guidance_schedule(self.guidance_scale, n - t_start, self.use_dynamic_cfg),
+            dpm_mults=dpm_mults,
+        )
+
 
 def cfg_skip_steps(schedule: DenoiseSchedule, threshold: float) -> np.ndarray:
     """The steps whose uncond forward cfg-skip drops: ``g - 1 < threshold``
@@ -131,11 +152,16 @@ def _build_eps_update_fns(
     attention_backend: str,
     cfg_mode: str,
     cfg_skip_threshold: float = 0.0,
+    pos_embedding: Optional[torch.Tensor] = None,
+    cond_latents: Optional[torch.Tensor] = None,
 ):
     """The step split into ``eps_fn(i, latents) -> noise_pred`` (the
     CFG-mixed transformer forward, fp32) and ``update_fn(i, latents, old_x0,
     noise_pred) -> (new_latents, x0)`` (the scheduler update), so the
-    adaptive loop can skip the forward and still step."""
+    adaptive loop can skip the forward and still step.  ``cond_latents``
+    (image- or control-conditioned variants) are concatenated to the
+    latents on the channel axis in every forward, doubled when the forward
+    is (``s2v_tpu/pipelines/denoise.py:210-214``)."""
     if cfg_mode not in CFG_MODES:
         raise ValueError(f"unknown cfg_mode {cfg_mode!r}; expected one of {CFG_MODES}")
     batched = do_cfg and cfg_mode == "batched"
@@ -152,8 +178,14 @@ def _build_eps_update_fns(
         # mode is a B-sized forward with the un-doubled ref latents)
         ref = ref_in if ref_in is None or ref_in.shape[0] == lat_in.shape[0] else ref_latents
         ts = torch.full((lat_in.shape[0],), int(schedule.timesteps[i]), dtype=torch.int32, device=lat_in.device)
+        if cond_latents is not None:
+            cond = cond_latents
+            if lat_in.shape[0] != cond.shape[0]:
+                cond = torch.cat([cond, cond], dim=0)
+            lat_in = torch.cat([lat_in, cond.to(lat_in.dtype)], dim=-1)
         return transformer_forward(
-            params, cfg, lat_in, ref, emb, ts, rope_cos, rope_sin, attention_backend=attention_backend
+            params, cfg, lat_in, ref, emb, ts, rope_cos, rope_sin, attention_backend=attention_backend,
+            pos_embedding=pos_embedding,
         ).float()
 
     def eps_fn(i, latents):
@@ -203,7 +235,8 @@ def adaptive_init_carry(latents: torch.Tensor) -> tuple:
 
 
 def _build_adaptive_step_fn(params, cfg, schedule, ref_latents, prompt_embeds, rope_cos, rope_sin, threshold,
-                            do_cfg, dpm_noise, attention_backend, cfg_mode, cfg_skip_threshold=0.0):
+                            do_cfg, dpm_noise, attention_backend, cfg_mode, cfg_skip_threshold=0.0,
+                            pos_embedding=None, cond_latents=None):
     """One step of the adaptive loop over the carry of
     :func:`adaptive_init_carry`.  The forward is skipped, and the previous
     prediction reused, when ``mean|Δ²x| < threshold · mean|Δx|`` over the
@@ -212,7 +245,7 @@ def _build_adaptive_step_fn(params, cfg, schedule, ref_latents, prompt_embeds, r
     n = len(schedule.timesteps)
     eps_fn, update_fn = _build_eps_update_fns(
         params, cfg, schedule, ref_latents, prompt_embeds, rope_cos, rope_sin, do_cfg, dpm_noise,
-        attention_backend, cfg_mode, cfg_skip_threshold)
+        attention_backend, cfg_mode, cfg_skip_threshold, pos_embedding, cond_latents)
     thr = float(np.float32(threshold))
 
     def step(i, carry):
@@ -261,13 +294,15 @@ def denoise(
     progress: bool = False,
     dpm_noise: Optional[NoiseSource] = None,
     step_callback=None,
+    pos_embedding: Optional[torch.Tensor] = None,  # the sincos table (2b models)
+    cond_latents: Optional[torch.Tensor] = None,  # channel-concatenated condition (i2v, fun-control)
 ) -> torch.Tensor:
     """Run the denoise loop; returns the final latents ``[B, F, h, w, C]``.
     ``progress`` writes the per-step line on stderr; ``step_callback(i)``,
     when given, is called after each step; ``dpm_noise`` is the DPM noise
     source (default :class:`DPMNoise` of seed 0)."""
     step = _build_step_fn(params, cfg, schedule, ref_latents, prompt_embeds, rope_cos, rope_sin, do_cfg, dpm_noise,
-                          attention_backend, cfg_mode, cfg_skip_threshold)
+                          attention_backend, cfg_mode, cfg_skip_threshold, pos_embedding, cond_latents)
     n = len(schedule.timesteps)
     final, _ = _run_steps(step, (latents, torch.zeros_like(latents)), 0, n, n, progress, step_callback)
     return final
@@ -290,12 +325,15 @@ def denoise_adaptive(
     progress: bool = False,
     dpm_noise: Optional[NoiseSource] = None,
     step_callback=None,
+    pos_embedding: Optional[torch.Tensor] = None,
+    cond_latents: Optional[torch.Tensor] = None,
 ):
     """Training-free adaptive step skipping (opt-in; not the reference
     algorithm, which is :func:`denoise`): see
     :func:`_build_adaptive_step_fn`.  Returns ``(final_latents, n_skipped)``."""
     step = _build_adaptive_step_fn(params, cfg, schedule, ref_latents, prompt_embeds, rope_cos, rope_sin, threshold,
-                                   do_cfg, dpm_noise, attention_backend, cfg_mode, cfg_skip_threshold)
+                                   do_cfg, dpm_noise, attention_backend, cfg_mode, cfg_skip_threshold, pos_embedding,
+                                   cond_latents)
     n = len(schedule.timesteps)
     carry = _run_steps(step, adaptive_init_carry(latents), 0, n, n, progress, step_callback)
     return carry[0], carry[5]
@@ -315,6 +353,8 @@ def make_segmented_denoise(
     adaptive_threshold: float = 0.0,
     progress: bool = False,
     step_callback=None,
+    pos_embedding: Optional[torch.Tensor] = None,
+    cond_latents: Optional[torch.Tensor] = None,
 ):
     """Host-steppable denoise: returns ``run(params, carry, ref_latents,
     prompt_embeds, rng, i0, i1)``, which runs steps ``[i0, i1)`` and returns
@@ -331,10 +371,10 @@ def make_segmented_denoise(
         if adaptive_threshold > 0.0:
             step = _build_adaptive_step_fn(p, cfg, schedule, ref_latents, prompt_embeds, rope_cos, rope_sin,
                                            adaptive_threshold, do_cfg, rng, attention_backend, cfg_mode,
-                                           cfg_skip_threshold)
+                                           cfg_skip_threshold, pos_embedding, cond_latents)
         else:
             step = _build_step_fn(p, cfg, schedule, ref_latents, prompt_embeds, rope_cos, rope_sin, do_cfg, rng,
-                                  attention_backend, cfg_mode, cfg_skip_threshold)
+                                  attention_backend, cfg_mode, cfg_skip_threshold, pos_embedding, cond_latents)
         return _run_steps(step, carry, i0, i1, n, progress, step_callback)
 
     return run

@@ -10,6 +10,11 @@ across with ``s2v_torch.loaders.jax_params``) and their configs.  Everything
 runs on ``device`` (CUDA unless the caller passes ``device="cpu"``), except
 a T5 the caller placed on the host (``text_encoder_device="host"``).
 
+Positions: RoPE tables for the 5b family, the sincos ``[text | video]``
+table for a model without RoPE (the 2b family, ``prepare_pos_embedding``).
+``pipelines/variants.py`` holds t2v, i2v, fun-control and v2v on the same
+components.
+
 Subject adapters: ``load_lora(path)`` re-merges the base weights with
 another checkpoint, ``load_lora(path, mode="runtime")`` attaches its
 low-rank factors instead (the DiT applies them per layer); ``None``
@@ -37,7 +42,7 @@ import os
 import time
 from contextlib import contextmanager, nullcontext
 from dataclasses import dataclass, field, replace
-from typing import Optional, Union
+from typing import Callable, Optional, Union
 
 import numpy as np
 import torch
@@ -52,6 +57,7 @@ from s2v_torch.models.transformer import RUNTIME_LORA_KEY
 from s2v_torch.models.vae import gaussian_sample, vae_decode, vae_encode
 from s2v_torch.ops.attention import WINDOWED_BACKENDS, resolve_attention_backend, route_seq_backend
 from s2v_torch.ops.rope import build_segmented_rope, prepare_video_and_ref_rope
+from s2v_torch.ops.sincos import joint_text_video_pos_embedding
 from s2v_torch.parallel.context import default_logical_map, mesh_context
 from s2v_torch.pipelines.denoise import (
     DenoiseSchedule,
@@ -136,6 +142,9 @@ class S2VPipeline:
     # the DPM noise source, noise(i, shape, device) -> (n1, n2); None draws
     # from pipelines.denoise.DPMNoise seeded from generate()'s seed
     dpm_noise: Optional[object] = field(default=None, repr=False)
+    # the variants' noise source (pipelines/variants.py), noise(name, shape)
+    # -> a CPU fp32 tensor; None draws from generators seeded from the seed
+    variant_noise: Optional[object] = field(default=None, repr=False)
     _prompt_embed_cache: dict = field(default_factory=dict, repr=False)
     # the pre-merge transformer state dict (host, memory-mapped), kept by
     # load_lora(cache_base=True) so that later swaps skip the snapshot read
@@ -175,11 +184,11 @@ class S2VPipeline:
         checkpoint into the DiT if given (``s2v_tpu/pipelines/s2v.py:199``).
 
         ``text_encoder_device``: ``"auto"``/``"device"`` put T5 on
-        ``device``; ``"host"`` keeps it on the CPU in fp32.  ``"mesh"``,
-        ``mesh`` and ``disentangled_modulation=True`` raise
-        ``NotImplementedError`` (ROADMAP A.9, A.9, A.7)."""
-        if disentangled_modulation:
-            raise _unported("disentangled_modulation (the base_linear adaLN mode)", "A.7")
+        ``device``; ``"host"`` keeps it on the CPU in fp32.  ``"mesh"`` and
+        ``mesh`` raise ``NotImplementedError`` (ROADMAP A.9).
+        ``disentangled_modulation=True`` keeps each block's pre-merge adaLN
+        linears beside the merged ones (video and text are modulated by
+        the base weights, the ref stream by the adapted ones)."""
         if mesh is not None or text_encoder_device == "mesh":
             raise _unported("loading onto a mesh (mesh=, text_encoder_device='mesh')", "A.9")
         if text_encoder_device not in ("auto", "device", "host"):
@@ -189,6 +198,9 @@ class S2VPipeline:
 
         t_cfg = TransformerConfig.from_hf_config(os.path.join(model_dir, "transformer", "config.json"), dtype=dtype)
         sd = load_sharded_safetensors(os.path.join(model_dir, "transformer"))
+        if disentangled_modulation:
+            t_cfg = replace(t_cfg, disentangled_modulation=True)
+            _add_base_linears(sd, t_cfg.num_layers)
         if lora_checkpoint is not None:
             sd, _ = load_and_merge_lora(sd, lora_checkpoint, alpha=lora_alpha)
         transformer_params = _to(convert_transformer_state_dict(sd, t_cfg, quantize_int8=quantize_int8), device)
@@ -259,6 +271,8 @@ class S2VPipeline:
                 raise ValueError("load_lora needs the source snapshot (pipeline was not built by "
                                  "from_pretrained); reload with from_pretrained")
             base = load_sharded_safetensors(os.path.join(self.model_dir, "transformer"))
+            if self.transformer_cfg.disentangled_modulation:
+                _add_base_linears(base, self.transformer_cfg.num_layers)
             if cache_base:
                 self._base_transformer_sd = base
         sd = dict(base)
@@ -373,6 +387,26 @@ class S2VPipeline:
             torch.cuda.synchronize(self.device)
         self.timings[name] = time.perf_counter() - t0
 
+    def _step_timer(self) -> Callable[[int], None]:
+        """A denoise step callback that waits for the card and appends each
+        step's seconds to a new ``timings["denoise_step_s"]``."""
+        step_times = self.timings["denoise_step_s"] = []
+        t_step = [time.perf_counter()]
+
+        def on_step(_i):
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            now = time.perf_counter()
+            step_times.append(now - t_step[0])
+            t_step[0] = now
+
+        return on_step
+
+    def _decode_timed(self, latents: torch.Tensor) -> np.ndarray:
+        """:meth:`decode_latents` with its seconds in ``timings["decode_s"]``."""
+        with phase("vae-decode", log=True), self._timed("decode_s"):
+            return self.decode_latents(latents)
+
     # ------------------------------------------------------------------
     # stages
     # ------------------------------------------------------------------
@@ -422,15 +456,24 @@ class S2VPipeline:
         ``generator``) or, without a generator, the posterior mean."""
         if isinstance(image, str):
             image = load_image(image)
-        x = torch.as_tensor(np.asarray(image, np.float32)).to(self.device, self.vae_cfg.dtype)[None, None]
-        moments = vae_encode(
-            self.vae_params, self.vae_cfg, x,
-            use_tiling=self._resolve_tiling(x.shape[2], x.shape[3]), use_slicing=self.vae_slicing,
-        )
-        noise = None
+        x = torch.as_tensor(np.asarray(image, np.float32))[None, None]
+        draw = None
         if generator is not None:
-            shape = moments.shape[:-1] + (moments.shape[-1] // 2,)
-            noise = torch.randn(shape, generator=generator, dtype=torch.float32).to(self.device, moments.dtype)
+            draw = lambda shape: torch.randn(shape, generator=generator, dtype=torch.float32)  # noqa: E731
+        return self.encode_pixels(x, draw)
+
+    def encode_pixels(self, x, draw=None, use_tiling: Optional[bool] = None) -> torch.Tensor:
+        """Frames ``[B, T, H, W, 3]`` in [-1, 1] -> scaled latents ``[B, F, h,
+        w, C]``: a posterior sample whose noise is ``draw(shape)`` (a CPU fp32
+        tensor), or without ``draw`` the posterior mean.  ``use_tiling`` None
+        follows ``vae_tiling``."""
+        x = torch.as_tensor(x).to(self.device, self.vae_cfg.dtype)
+        if use_tiling is None:
+            use_tiling = self._resolve_tiling(x.shape[2], x.shape[3])
+        moments = vae_encode(self.vae_params, self.vae_cfg, x, use_tiling=use_tiling, use_slicing=self.vae_slicing)
+        noise = None
+        if draw is not None:
+            noise = draw(tuple(moments.shape[:-1]) + (moments.shape[-1] // 2,)).to(self.device, moments.dtype)
         return gaussian_sample(moments, noise) * self.vae_cfg.scaling_factor
 
     def prepare_rope(self, height: int, width: int, num_latent_frames: int):
@@ -442,6 +485,29 @@ class S2VPipeline:
             self.vae_cfg.spatial_compression_ratio,
         )
         return build_segmented_rope(cfg.max_text_seq_length, rc, rs, vc, vs, device=self.device)
+
+    def prepare_pos_embedding(self, height: int, width: int, num_frames: int) -> Optional[torch.Tensor]:
+        """The fp32 sincos table ``[text + video tokens, D]`` of a model
+        without RoPE (the 2b family) for a clip of ``num_frames`` pixel
+        frames at ``height`` x ``width``, as JAX's ``generate`` builds it
+        (``s2v_tpu/pipelines/s2v.py:990-1003``); None for a RoPE model."""
+        cfg = self.transformer_cfg
+        if cfg.use_rotary_positional_embeddings:
+            return None
+        sc = self.vae_cfg.spatial_compression_ratio
+        table = joint_text_video_pos_embedding(
+            cfg.inner_dim, height // sc, width // sc, num_frames, cfg.patch_size,
+            self.vae_cfg.temporal_compression_ratio, cfg.max_text_seq_length,
+            cfg.spatial_interpolation_scale, cfg.temporal_interpolation_scale,
+        )
+        return torch.from_numpy(table).to(self.device)
+
+    def check_frames(self, num_frames: int) -> None:
+        """A model without RoPE has a positional table of ``sample_frames``
+        frames at most (``s2v_tpu/pipelines/s2v.py:907``)."""
+        cfg = self.transformer_cfg
+        if num_frames > cfg.sample_frames and not cfg.use_rotary_positional_embeddings:
+            raise ValueError(f"num_frames must be <= {cfg.sample_frames} (static positional embeddings)")
 
     def decode_latents(self, latents: torch.Tensor) -> np.ndarray:
         """Latents ``[B, F, h, w, C]`` -> frames ``[B, T, H, W, 3]`` float32 in [0, 1].
@@ -578,8 +644,7 @@ class S2VPipeline:
         backend, _ = route_seq_backend(resolve_attention_backend(self.attention_backend, self.device),
                                        cfg.num_attention_heads, self._seq_ring())
 
-        if num_frames > cfg.sample_frames and not cfg.use_rotary_positional_embeddings:
-            raise ValueError(f"num_frames must be <= {cfg.sample_frames} (static positional embeddings)")
+        self.check_frames(num_frames)
         sc_total = self.vae_cfg.spatial_compression_ratio * cfg.patch_size
         if height % sc_total or width % sc_total:
             raise ValueError(f"height/width must be divisible by {sc_total}")
@@ -641,6 +706,7 @@ class S2VPipeline:
         latents = latents.to(self.device, cfg.dtype)
 
         rope_cos, rope_sin = self.prepare_rope(height, width, f_lat)
+        pos_embedding = self.prepare_pos_embedding(height, width, num_frames)
         schedule = DenoiseSchedule.create(self.scheduler_cfg, num_inference_steps, guidance_scale,
                                           run.use_dynamic_cfg, use_dpm)
         if cfg_mode == "auto":
@@ -652,21 +718,13 @@ class S2VPipeline:
         noise = self.dpm_noise if self.dpm_noise is not None else DPMNoise(dpm_seed)
         adaptive = adaptive_threshold > 0.0
 
-        step_times = []
-        t_step = [time.perf_counter()]
-
-        def on_step(_i):
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            now = time.perf_counter()
-            step_times.append(now - t_step[0])
-            t_step[0] = now
-
+        on_step = self._step_timer()
         # the whole loop is one segment: segments run the same step function, bit for bit
         run_steps = make_segmented_denoise(
             self.transformer_params, cfg, schedule, rope_cos, rope_sin, do_cfg=do_cfg, dpm_noise=noise,
             attention_backend=backend, cfg_mode=cfg_mode, cfg_skip_threshold=cfg_skip_threshold,
-            adaptive_threshold=adaptive_threshold, progress=progress, step_callback=on_step)
+            adaptive_threshold=adaptive_threshold, progress=progress, step_callback=on_step,
+            pos_embedding=pos_embedding)
         carry = adaptive_init_carry(latents) if adaptive else (latents, torch.zeros_like(latents))
         segment = segment_steps if segment_steps > 0 else num_inference_steps
         with phase("denoise", log=True), self._mesh_ctx():
@@ -687,13 +745,21 @@ class S2VPipeline:
         n_adaptive = carry[5] if adaptive else None
         if adaptive:
             log.info("adaptive denoise skipped %d/%d forwards", n_adaptive, num_inference_steps)
-        self.timings["denoise_step_s"] = step_times
-        self.stats = {"steps_run": len(step_times), "cfg_skipped_steps": n_cfg_skip,
+        self.stats = {"steps_run": len(self.timings["denoise_step_s"]), "cfg_skipped_steps": n_cfg_skip,
                       "adaptive_skipped_steps": n_adaptive}
         if output_type == "latent":
             return final
-        with phase("vae-decode", log=True), self._timed("decode_s"):
-            return self.postprocess_video(self.decode_latents(final), output_type)
+        return self.postprocess_video(self._decode_timed(final), output_type)
+
+
+def _add_base_linears(sd: dict, num_layers: int) -> None:
+    """The pre-merge adaLN linears of the disentangled mode, added to a
+    transformer state dict before any LoRA merge (``norm{1,2}.base_linear``
+    beside ``norm{1,2}.linear``; ``s2v_tpu/pipelines/s2v.py:236-246``)."""
+    for i in range(num_layers):
+        for n in ("norm1", "norm2"):
+            for wb in ("weight", "bias"):
+                sd[f"transformer_blocks.{i}.{n}.base_linear.{wb}"] = sd[f"transformer_blocks.{i}.{n}.linear.{wb}"]
 
 
 def _load_tokenizer(model_dir: str):

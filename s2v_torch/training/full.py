@@ -39,7 +39,11 @@ def vpred_loss(
     """v-prediction MSE on noised video latents (the CogVideoX objective).
 
     batch: ``video_latents [B, F, h, w, C]``, ``ref_latents [B, 1, h, w, C]``,
-    ``text_embeds [B, T, txt]``, optional ``rope_cos``/``rope_sin``.  One
+    ``text_embeds [B, T, txt]``, optional ``rope_cos``/``rope_sin``, and for
+    a model without RoPE (the 2b family) an optional ``pos_embedding``, the
+    sincos table of ``S2VPipeline.prepare_pos_embedding`` (the JAX
+    package's loss reads no table, so its 2b training runs without
+    positions: ROADMAP C.19).  One
     timestep per batch row from ``[0, len(alphas_cumprod))`` and the noise
     are drawn on the latents' device from ``generator`` (a generator of that
     device), timesteps first; ``timesteps=``/``noise=`` hand them in
@@ -64,5 +68,6 @@ def vpred_loss(
     pred = transformer_forward(
         params, cfg, noisy, batch["ref_latents"], batch["text_embeds"], timesteps,
         batch.get("rope_cos"), batch.get("rope_sin"), attention_backend=attention_backend, remat=remat,
+        pos_embedding=batch.get("pos_embedding"),
     )
     return torch.mean(torch.square(pred.float() - target.float()))

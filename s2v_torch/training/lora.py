@@ -16,11 +16,17 @@ the adapters ride the same runtime tree, applied after the frozen int8
 linears, whose straight-through backward carries the gradient to the layers
 below.  An int8 base cannot take a merge, so ``merge_lora_params`` and the
 disentangled mode refuse one.
+
+Disentangled LoRA (``LoRASpec.disentangled``, the reference's intended
+``enable_lora`` semantics): the loss merges the adapters into a functional
+copy of the weights and keeps each block's pre-merge adaLN linears beside
+the adapted ones (``base_linear``), so the modulation adapters act on the
+ref stream only (``s2v_tpu/training/lora.py:134-141, 239-249``).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
@@ -49,8 +55,9 @@ class LoRASpec:
     rank: int = 128
     alpha: float = 64.0
     targets: Tuple[str, ...] = tuple(_TARGETS.keys())
-    # the intended enable_lora semantics (modulation adapters on the ref
-    # stream only) need the disentangled adaLN mode, which is not ported yet
+    # the intended enable_lora semantics: the norm1/norm2 modulation adapters
+    # apply to the ref stream only, video and text keep the base modulation
+    # (the model runs with disentangled_modulation)
     disentangled: bool = False
 
     @property
@@ -83,8 +90,6 @@ def _check_supported(base_params: dict, spec: LoRASpec) -> None:
         raise ValueError(
             "disentangled LoRA needs a bf16/fp32 base (it merges modulation kernels and keeps the pre-merge "
             "base_linear beside them, which int8 kernels cannot express); train it on the unquantized tree")
-    if spec.disentangled:
-        raise NotImplementedError("disentangled LoRA needs the base_linear adaLN mode, which is not ported yet")
 
 
 def init_lora_params(generator: torch.Generator, base_params: dict, spec: LoRASpec,
@@ -106,7 +111,9 @@ def init_lora_params(generator: torch.Generator, base_params: dict, spec: LoRASp
 
 def merge_lora_params(base_params: dict, lora_params: dict, spec: LoRASpec) -> dict:
     """A new tree with ``weight + (scale · a @ b)ᵀ`` at each target (the
-    base tree is not modified; gradients reach a and b)."""
+    base tree is not modified; gradients reach a and b).  With
+    ``spec.disentangled`` each adapted norm1/norm2 ``linear`` gets its
+    pre-merge weights beside it as ``base_linear``."""
     if base_is_quantized(base_params):
         raise ValueError(
             "merge_lora_params needs a bf16/fp32 base (int8 kernels cannot absorb a merge); QLoRA adapters are "
@@ -123,6 +130,8 @@ def merge_lora_params(base_params: dict, lora_params: dict, spec: LoRASpec) -> d
             leaf = owner[group][leaf_name]
             delta = (a @ b) * spec.scale
             owner[group][leaf_name] = {**leaf, "weight": leaf["weight"] + delta.T.to(leaf["weight"].dtype)}
+            if spec.disentangled and name in ("norm1.linear", "norm2.linear"):
+                owner[group]["base_linear"] = {"weight": leaf["weight"], "bias": leaf["bias"]}
     return merged
 
 
@@ -156,14 +165,20 @@ def lora_loss_fn(
     noise: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """v-prediction MSE with the adapters applied through the runtime factor
-    tree, factors cast to ``cfg.dtype`` inside the loss.  ``timesteps`` and
-    ``noise`` are the test hooks of :func:`vpred_loss`."""
+    tree, factors cast to ``cfg.dtype`` inside the loss; with
+    ``spec.disentangled`` through :func:`merge_lora_params` instead (the
+    pre-merge modulation linears beside the merged ones; ``cfg`` needs
+    ``disentangled_modulation``, which :func:`make_lora_train_step` sets).
+    ``timesteps`` and ``noise`` are the test hooks of :func:`vpred_loss`."""
     from s2v_torch.models.transformer import RUNTIME_LORA_KEY
     from s2v_torch.training.full import vpred_loss
 
     _check_supported(base_params, spec)
-    params = dict(base_params)
-    params[RUNTIME_LORA_KEY] = _runtime_tree(lora_params, spec, cfg.dtype)
+    if spec.disentangled:
+        params = merge_lora_params(base_params, lora_params, spec)
+    else:
+        params = dict(base_params)
+        params[RUNTIME_LORA_KEY] = _runtime_tree(lora_params, spec, cfg.dtype)
     return vpred_loss(params, cfg, batch, alphas_cumprod, generator, attention_backend=attention_backend,
                       remat=remat, timesteps=timesteps, noise=noise)
 
@@ -197,8 +212,11 @@ def make_lora_train_step(
     (b2 0.999, weight decay 1e-4).  The step updates the adapters and the
     optimizer state in place and returns them; the base params get no
     gradient and do not change.  ``train_step`` also takes ``timesteps=``
-    and ``noise=`` (the test hooks of :func:`vpred_loss`)."""
+    and ``noise=`` (the test hooks of :func:`vpred_loss`).  A disentangled
+    ``spec`` runs the model with ``disentangled_modulation``."""
     _check_supported(base_params, spec)
+    if spec.disentangled and not cfg.disentangled_modulation:
+        cfg = replace(cfg, disentangled_modulation=True)
     device = _target_weight(base_params, "qkv").device
     backend = resolve_attention_backend(attention_backend, device)
     alphas = torch.as_tensor(compute_alphas_cumprod(scheduler_cfg or SchedulerConfig()), device=device)

@@ -147,9 +147,12 @@ class FakeTokenizer:
         return out
 
 
-def tiny_pipelines():
+def tiny_pipelines(**tcfg_overrides):
     """The tiny ``S2VPipeline`` of the JAX package and the port's, on the
-    same perturbed fp32 weights carried across, with one fake tokenizer."""
+    same perturbed fp32 weights carried across, with one fake tokenizer.
+    ``tcfg_overrides`` go to both packages' ``TransformerConfig.tiny`` (e.g.
+    ``use_rotary_positional_embeddings=False`` for a sincos model,
+    ``in_channels=8`` for an i2v one)."""
     from s2v_tpu.config import SchedulerConfig as JSchedulerConfig
     from s2v_tpu.config import T5Config as JT5Config
     from s2v_tpu.config import TransformerConfig as JTransformerConfig
@@ -164,7 +167,7 @@ def tiny_pipelines():
 
     vae_kw = dict(latent_channels=4, sample_height=64, sample_width=64)
     tok = FakeTokenizer()
-    tcfg_j = JTransformerConfig.tiny()
+    tcfg_j = JTransformerConfig.tiny(**tcfg_overrides)
     vcfg_j = JVAEConfig.tiny(**vae_kw)
     t5cfg_j = JT5Config.tiny(d_model=tcfg_j.text_embed_dim)
     tp = perturb(init_transformer_params(jax.random.PRNGKey(0), tcfg_j), seed=1, scale=0.05)
@@ -176,7 +179,7 @@ def tiny_pipelines():
         t5_params=jax.tree.map(jnp.asarray, t5p), t5_cfg=t5cfg_j,
         scheduler_cfg=JSchedulerConfig(), tokenizer=tok,
     )
-    tcfg, vcfg, t5cfg = TransformerConfig.tiny(), VAEConfig.tiny(**vae_kw), T5Config.tiny(d_model=32)
+    tcfg, vcfg, t5cfg = TransformerConfig.tiny(**tcfg_overrides), VAEConfig.tiny(**vae_kw), T5Config.tiny(d_model=32)
     port = S2VPipeline(
         transformer_params=transformer_from_jax(tp, tcfg, device="cpu"), transformer_cfg=tcfg,
         vae_params=vae_from_jax(vp, vcfg, device="cpu"), vae_cfg=vcfg,

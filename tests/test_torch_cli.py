@@ -53,8 +53,6 @@ def test_get_args_has_every_flag_and_default_of_jax():
 
 
 UNPORTED = {
-    "t2v": (["--pipeline", "t2v"], "A.7"),
-    "disentangled": (["--disentangled_modulation"], "A.7"),
     "mesh": (["--mesh", "sp4"], "A.9"),
     "t5_on_mesh": (["--text_encoder_device", "mesh"], "A.9"),
     **{f"backend_{b}": (["--attention_backend", b], item) for b, item in UNPORTED_BACKENDS.items()},
@@ -157,3 +155,45 @@ def test_main_without_a_card_raises_unless_asked_for_the_cpu(tiny, tmp_path, mon
     argv = _argv(tiny, tmp_path / "out")[:-2]  # no --device: cuda
     with pytest.raises(RuntimeError, match="CUDA"):
         cli.main(argv)
+
+
+@pytest.mark.parametrize("case", ["t2v", "disentangled"])
+def test_main_on_the_cpu_t2v_and_disentangled(case, tiny, tmp_path, capsys):
+    """``--pipeline t2v`` (no subject image needed) and
+    ``--disentangled_modulation`` run on the tiny snapshot to their clips,
+    and the clip's latents are JAX's: the same flags through the JAX CLI's
+    model assembly give the same frames."""
+    import jax
+    import jax.numpy as jnp
+
+    from s2v_tpu.pipelines.s2v import S2VPipeline as JS2VPipeline
+    from s2v_tpu.pipelines.variants import generate_t2v as j_generate_t2v
+    from s2v_torch.pipelines.s2v import S2VPipeline
+    from s2v_torch.pipelines.variants import generate_t2v
+
+    flags = ["--pipeline", "t2v"] if case == "t2v" else ["--disentangled_modulation"]
+    argv = _argv(tiny, tmp_path / "out", *flags, "--dtype", "float32")
+    if case == "t2v":
+        i = argv.index("--ref_img_path")
+        argv = argv[:i] + argv[i + 2:]
+    cli.main(argv)
+    printed = capsys.readouterr().out
+    path = str(tmp_path / "out" / "output.mp4")
+    assert f"[s2v_torch] wrote {path}" in printed and "[s2v_torch] generated (1, 9, 32, 32, 3)" in printed
+    cap = cv2.VideoCapture(path)
+    assert int(cap.get(cv2.CAP_PROP_FRAME_COUNT)) == 9
+    cap.release()
+    if case == "t2v":
+        snap, lora, _ = tiny
+        jpipe = JS2VPipeline.from_pretrained(snap, lora_checkpoint=lora, dtype=jnp.float32)
+        kw = dict(height=32, width=32, num_frames=9, num_inference_steps=2, guidance_scale=6.0, seed=420,
+                  output_type="latent")
+        want = np.asarray(j_generate_t2v(jpipe, "<cls> a pig walking", **kw))
+        pipe = S2VPipeline.from_pretrained(snap, lora_checkpoint=lora, dtype=torch.float32, device="cpu")
+        keys = {"latents": jax.random.PRNGKey(420)}
+        pipe.variant_noise = lambda name, shape: torch.from_numpy(
+            np.array(jax.random.normal(keys[name], tuple(shape), jnp.float32)))
+        np.testing.assert_allclose(generate_t2v(pipe, "<cls> a pig walking", **kw).numpy(), want, atol=1e-4,
+                                   rtol=1e-4)
+    with pytest.raises(SystemExit, match="ref_img_path"):
+        cli.main([a for a in _argv(tiny, tmp_path / "out2") if a not in (tiny[2], "--ref_img_path")])

@@ -8,6 +8,7 @@ import torch
 
 from s2v_tpu.ops.pallas.flash_attention import flash_attention as jax_flash_attention
 from s2v_torch.kernels.flash_attention import (
+    FLASH_DTYPES,
     SOFTMAX_MODES,
     check_kernel_inputs,
     flash_attention,
@@ -84,16 +85,46 @@ def test_fully_masked_keys_give_zero_rows():
 
 @pytest.mark.parametrize(
     "dtype,d,ok",
-    [(torch.bfloat16, 64, True), (torch.float32, 64, False), (torch.float16, 64, False), (torch.bfloat16, 128, False)],
+    [(torch.bfloat16, 64, True), (torch.float32, 64, False), (torch.float16, 64, True), (torch.bfloat16, 128, False)],
 )
 def test_kernel_input_checks(dtype, d, ok):
-    """The CUDA branch's checks read metadata only: run them on meta tensors."""
+    """The CUDA branch's checks read metadata only: run them on meta tensors.
+    B1 and B2 take bf16 and fp16 (the 2b family)."""
     q, k, v = (torch.empty(2, s, 3, d, dtype=dtype, device="meta") for s in (40, 50, 50))
     if ok:
-        check_kernel_inputs(q, k, v)
+        check_kernel_inputs(q, k, v, dtypes=FLASH_DTYPES)
     else:
         with pytest.raises(ValueError):
-            check_kernel_inputs(q, k, v)
+            check_kernel_inputs(q, k, v, dtypes=FLASH_DTYPES)
+
+
+def test_bf16_only_kernels_refuse_fp16_naming_c1():
+    """B3-B7 take bf16 only (their default check): fp16 and fp32 are refused
+    with ROADMAP C.1 in the message; mixed types are refused for B1/B2."""
+    for dtype in (torch.float16, torch.float32):
+        q = torch.empty(2, 40, 3, 64, dtype=dtype, device="meta")
+        with pytest.raises(ValueError, match="ROADMAP C.1"):
+            check_kernel_inputs(q, q, q)
+    bf, hf = (torch.empty(2, 40, 3, 64, dtype=d, device="meta") for d in (torch.bfloat16, torch.float16))
+    with pytest.raises(ValueError, match="one dtype"):
+        check_kernel_inputs(bf, hf, hf, dtypes=FLASH_DTYPES)
+
+
+@pytest.mark.parametrize("mode", ["online", "bounded", "bounded_exp2"])
+def test_fp16_inputs_match_jax_upcast(mode):
+    """fp16 q/k/v on the CPU (B1's plain version, as the flash backend gives
+    it to B1 on the card) against JAX's path for fp16, which upcasts to fp32
+    before the kernel: the same fp32 arithmetic and the bounded mode's M0
+    rounded to fp32 (JAX's k is fp32 there), so the lse agrees to fp32
+    rounding and the output to one fp16 rounding (2^-11 relative)."""
+    q, k, v = _inputs(2, 70, 90, 2, seed=5)
+    q16, k16, v16 = (torch.from_numpy(x).half() for x in (q, k, v))
+    (o_j, lse_j), _ = _both(*(x.float().numpy() for x in (q16, k16, v16)), None, mode)
+    o_t, lse_t = flash_attention(q16, k16, v16, return_lse=True, softmax_mode=mode)
+    assert o_t.dtype == torch.float16
+    np.testing.assert_allclose(o_t.float().numpy(), np.asarray(o_j).astype(np.float16).astype(np.float32),
+                               atol=2.0 ** -11, rtol=2.0 ** -10)
+    np.testing.assert_allclose(lse_t.numpy(), lse_j, atol=1e-5, rtol=1e-5)
 
 
 def test_kernel_input_checks_layout():

@@ -3,7 +3,8 @@
 tiles in order for dk/dv, P and dS rounded to bf16 where the kernels feed
 them to wgmma), against the plain version and the JAX Pallas backward in
 interpret mode, at ragged shapes: Sq != Skv, lengths that are not whole
-tiles, and fewer keys than one tile.  The card holds the kernels to the
+tiles, and fewer keys than one tile; and in fp16 at a small dO, where the
+kernels scale dS by a power of two before its rounding.  The card holds the kernels to the
 same emulation (tests/test_torch_gpu.py, chip_smoke.py)."""
 
 import numpy as np
@@ -14,7 +15,13 @@ import torch
 from s2v_tpu.ops.pallas import flash_attention as j_fa_mod
 from s2v_tpu.ops.pallas import flash_attention_bwd as j_fab_mod
 from s2v_torch.kernels.flash_attention import flash_attention
-from s2v_torch.kernels.flash_attention_bwd import flash_attention_bwd_blocked, flash_attention_bwd_reference
+from s2v_torch.kernels.flash_attention_bwd import (
+    DS_BOUND_LOG2,
+    ds_exponent,
+    flash_attention_bwd_blocked,
+    flash_attention_bwd_reference,
+    row_delta,
+)
 
 # fp32 inputs; the emulation rounds P and dS to bf16 (relative 2^-9 each,
 # 2^-8 after the product), so it is held to the card's limits for a kernel
@@ -71,3 +78,51 @@ def test_blocked_schedule_sums_in_tile_order():
         acc += ds @ kt
     assert torch.equal(dq[0, :, 0], acc * scale)
     assert not torch.equal(dq, flash_attention_bwd_reference(q, k, v, o, lse, g)[0])
+
+
+def _layer_norm(x):
+    return (x - x.mean(-1, keepdims=True)) / np.sqrt(x.var(-1, keepdims=True) + 1e-6)
+
+
+def test_blocked_schedule_fp16_keeps_small_gradients():
+    """fp16 inputs with dO at 2^-14 of unit normal (a training step's dO is
+    small: the loss is a mean over ~10^6 latents, with no loss scaler).
+    Over 1,000 keys the fp32 dS then sits near fp16's flush point (2^-25);
+    the schedule scales it by 2^e (``ds_exponent``) before its fp16
+    rounding, and dq, dk, dv stay within the limits of the plain version
+    and of the JAX package's path for fp16 (the Pallas backward on the fp32
+    upcast, its gradients cast back to fp16).  Rounded unscaled, dS moves
+    dq and dk by about 2e-2 in relative L2, past the limit."""
+    rng = np.random.RandomState(3)
+    q, k, v = (rng.randn(1, 1000, 2, 64).astype(np.float32) for _ in range(3))
+    q, k = _layer_norm(q), _layer_norm(k)
+    q, k, v = (x.astype(np.float16) for x in (q, k, v))
+    g = (rng.randn(1, 1000, 2, 64) * 2.0 ** -14).astype(np.float16)
+    tq, tk, tv, tg = (torch.from_numpy(x) for x in (q, k, v, g))
+    o, lse = flash_attention(tq, tk, tv, return_lse=True, softmax_mode="bounded")
+    got = flash_attention_bwd_blocked(tq, tk, tv, o, lse, tg)
+    want = flash_attention_bwd_reference(tq, tk, tv, o, lse, tg)
+    f32 = [jnp.asarray(x.astype(np.float32)) for x in (q, k, v, g)]
+    o_j, lse_j = j_fa_mod.flash_attention(*f32[:3], block_q=64, block_k=64, interpret=True, return_lse=True)
+    want_jax = j_fab_mod.flash_attention_bwd(*f32[:3], o_j, lse_j, f32[3], block_q=64, block_k=64, interpret=True)
+    for a, w, wj in zip(got, want, want_jax):
+        assert a.dtype == torch.float16 and bool((a != 0).any())
+        _assert_close(a.float().numpy(), w.float().numpy())
+        _assert_close(a.float().numpy(), np.asarray(wj).astype(np.float16).astype(np.float32))
+
+
+@pytest.mark.parametrize("log2_scale", [0, -20, 8])
+def test_ds_exponent_bounds_the_scaled_ds(log2_scale):
+    """The fp16 kernels' dS exponent e keeps 2^e·|dS| (fp32 dS of the plain
+    backward) under 2^14, fp16 tops out at 65,504, and follows dO's scale
+    exactly (a power of two)."""
+    rng = np.random.RandomState(11)
+    q, k, v, g = (torch.from_numpy(rng.randn(1, 150, 2, 64).astype(np.float32)) for _ in range(4))
+    g = g * 2.0 ** log2_scale
+    o, lse = flash_attention(q, k, v, return_lse=True)
+    e = int(ds_exponent(v, g))
+    assert e == int(ds_exponent(v, g * 2.0 ** -log2_scale)) - log2_scale
+    qt, kt, vt, gt = (x.transpose(1, 2) for x in (q, k, v, g))
+    p = torch.exp(qt @ kt.transpose(-1, -2) / 8.0 - lse[..., None])
+    ds = p * (gt @ vt.transpose(-1, -2) - row_delta(o, g)[..., None])
+    assert ds.abs().max().item() * 2.0 ** e <= 2.0 ** DS_BOUND_LOG2

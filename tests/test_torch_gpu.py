@@ -2,7 +2,8 @@
 B3 and B4-B7 also against the emulations of their schedules, and B2, B3, B5
 and B7 twice for determinism; B3's pre-pass kernels bit for bit against the
 plain pre-pass, and one s8 wgmma tile of its 64-byte-swizzle layer against
-an integer matmul; B6/B7,
+an integer matmul; B1 and B2 in fp16 too, with a q row far above the others
+and at a small dO; B6/B7,
 the sequence-parallel shard kernels, at every offset of 2- and 4-rank
 rings), the differentiable flash and banded attentions (B1/B2, B4/B5, and
 ``sp_windowed`` on a one-rank NCCL group) against plain autograd, the
@@ -745,3 +746,148 @@ def test_int8_dense_on_cuda_matches_cpu(cuda, dtype, rows):
         bar = (1e-6 if dtype == torch.float32 else 2.0 ** -7) * want.abs() + 1e-6 * want.abs().max()
         excess = ((got - want).abs() - bar).max().item()
         assert excess <= 0, f"{name}: exceeds its bar by {excess}"
+
+
+# ---- fp16 (the 2b family): B1 and B2 take fp16 as they take bf16 ----
+# fp16 inputs against the same fp32 plain versions; the kernels round P (and
+# dS) to fp16 (relative 2^-11, finer than bf16's 2^-8), so the bf16 bars hold.
+
+
+def _qkv16(b, sq, skv, h, seed, device):
+    return tuple(x.to(torch.float16) for x in _qkv(b, sq, skv, h, seed, device))
+
+
+@pytest.mark.parametrize("mode", ["online", "bounded", "bounded_exp2"])
+@pytest.mark.parametrize("sq,skv,masked", [(200, 200, False), (77, 333, True), (1000, 129, False)])
+def test_kernel_fp16_matches_plain(cuda, mode, sq, skv, masked):
+    q, k, v = _qkv16(2, sq, skv, 3, 20, cuda)
+    mask = None
+    if masked:
+        mask = torch.zeros(skv, dtype=torch.bool, device=cuda)
+        mask[3:30] = True
+    before, reruns = dict(flash_attention.launches_by_dtype), flash_attention.reruns
+    o, lse = flash_attention(q, k, v, return_lse=True, key_pad_mask=mask, softmax_mode=mode)
+    o_ref, lse_ref = flash_attention_reference(q, k, v, return_lse=True, key_pad_mask=mask, softmax_mode=mode)
+    torch.cuda.synchronize()
+    # one launch, and one more if the bounded guard re-ran the call online
+    launched = flash_attention.launches_by_dtype["float16"] - before.get("float16", 0)
+    assert o.dtype == torch.float16 and launched == 1 + flash_attention.reruns - reruns
+    _assert_close(o, o_ref)
+    assert (lse - lse_ref).abs().max().item() < 1e-3
+
+
+@pytest.mark.parametrize("sq,skv", [(200, 200), (77, 333), (1000, 129)])
+def test_bwd_kernel_fp16_matches_plain_and_schedule(cuda, sq, skv):
+    q, k, v = _qkv16(2, sq, skv, 3, 21, cuda)
+    o, lse = flash_attention(q, k, v, return_lse=True, softmax_mode="bounded")
+    do = torch.from_numpy(np.random.RandomState(22).randn(*q.shape).astype(np.float32)).to(cuda, torch.float16)
+    got = flash_attention_bwd(q, k, v, o, lse, do)
+    again = flash_attention_bwd(q, k, v, o, lse, do)
+    want = flash_attention_bwd_reference(q, k, v, o, lse, do)
+    emulated = flash_attention_bwd_blocked(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    for a, b, w, e, x in zip(got, again, want, emulated, (q, k, v)):
+        assert a.shape == x.shape and a.dtype == torch.float16 and torch.equal(a, b)
+        _assert_close(a, w)
+        _assert_close(a, e)
+
+
+@pytest.mark.parametrize("mode", ["bounded", "bounded_exp2"])
+@pytest.mark.parametrize("sq,skv", [(200, 200), (77, 333), (1000, 129)])
+def test_kernel_fp16_bounded_without_rerun(cuda, mode, sq, skv):
+    """Layer-normed q and k, as after the DiT's qk-norm: M0 is 8 nats and
+    every row's largest logit lies within 15 bits of it, so the bounded
+    fp16 kernel's own result stands (no online re-run)."""
+    q, k, v = _qkv16(2, sq, skv, 3, 29, cuda)
+    q, k = (torch.nn.functional.layer_norm(x.float(), (64,)).half() for x in (q, k))
+    reruns = flash_attention.reruns
+    o, lse = flash_attention(q, k, v, return_lse=True, softmax_mode=mode)
+    o_ref, lse_ref = flash_attention_reference(q, k, v, return_lse=True, softmax_mode=mode)
+    torch.cuda.synchronize()
+    assert flash_attention.reruns == reruns
+    _assert_close(o, o_ref)
+    assert (lse - lse_ref).abs().max().item() < 1e-3
+
+
+@pytest.mark.parametrize("mode", ["bounded", "bounded_exp2"])
+def test_kernel_fp16_bounded_rows_far_below_m0(cuda, mode):
+    """One q row scaled x4 puts M0 ~40 nats above every other row's largest
+    logit: rounded to fp16 there, those rows' P would flush to zero and
+    their output shrink to it.  The fp16 kernel flags the rows, and the
+    guard re-runs the call online."""
+    q, k, v = _qkv16(1, 300, 300, 2, 26, cuda)
+    q[:, 0] *= 4
+    before = flash_attention.reruns
+    o, lse = flash_attention(q, k, v, return_lse=True, softmax_mode=mode)
+    o_ref, lse_ref = flash_attention_reference(q, k, v, return_lse=True, softmax_mode=mode)
+    torch.cuda.synchronize()
+    assert flash_attention.reruns == before + 1
+    _assert_close(o, o_ref)
+    assert (lse - lse_ref).abs().max().item() < 1e-3
+
+
+def test_bwd_kernel_fp16_small_do(cuda):
+    """fp16 B2 at dO 2^-14 of unit normal over 1,000 layer-normed keys,
+    where the fp32 dS sits near fp16's flush point: the kernels' dS, scaled
+    by a power of two before its rounding, keeps dq and dk within the limits
+    of the plain version (fp16 outputs, near fp16's normal range) and of the
+    emulation of the schedule."""
+    q, k, v = _qkv16(1, 1000, 1000, 2, 27, cuda)
+    q, k = (torch.nn.functional.layer_norm(x.float(), (64,)).half() for x in (q, k))
+    o, lse = flash_attention(q, k, v, return_lse=True, softmax_mode="bounded")
+    do = (torch.from_numpy(np.random.RandomState(28).randn(*q.shape).astype(np.float32)) * 2.0 ** -14).to(
+        cuda, torch.float16)
+    got = flash_attention_bwd(q, k, v, o, lse, do)
+    want = flash_attention_bwd_reference(q, k, v, o, lse, do)
+    emulated = flash_attention_bwd_blocked(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    for a, w, e in zip(got, want, emulated):
+        assert a.dtype == torch.float16 and bool((a != 0).any())
+        scale = w.float().abs().max().item()
+        for ref in (w, e):
+            diff = a.float() - ref.float()
+            assert diff.abs().max().item() <= 2.0 ** -6 * scale
+            assert (diff.norm() / ref.float().norm()).item() < L2_REL
+
+
+def test_flash_trainable_fp16_matches_autograd(cuda):
+    """The flash backend's autograd pair (B1 forward, B2 backward) in fp16
+    against plain autograd in fp32 on the same fp16 values."""
+    q, k, v = (x.requires_grad_() for x in _qkv16(1, 300, 300, 2, 23, cuda))
+    do = torch.from_numpy(np.random.RandomState(24).randn(*q.shape).astype(np.float32)).to(cuda, torch.float16)
+    out = flash_attention_trainable(q, k, v)
+    grads = torch.autograd.grad(out, (q, k, v), do)
+    qf, kf, vf = (x.detach().float().requires_grad_() for x in (q, k, v))
+    ref = flash_attention_reference(qf, kf, vf)
+    ref_grads = torch.autograd.grad(ref, (qf, kf, vf), do.float())
+    assert out.dtype == torch.float16
+    _assert_close(out, ref)
+    for g, r in zip(grads, ref_grads):
+        assert g.dtype == torch.float16
+        _assert_close(g, r)
+
+
+def test_bf16_only_kernels_refuse_fp16_on_the_card(cuda):
+    """No fallback: fp16 reaching B3 or B4 raises naming ROADMAP C.1, and
+    the flash_int8/windowed backends hand fp16 to them uncast on the card."""
+    from s2v_torch.ops.attention import joint_attention
+
+    q, k, v = _qkv16(1, 200, 200, 2, 25, cuda)
+    with pytest.raises(ValueError, match="ROADMAP C.1"):
+        flash_attention_qk_int8(q, k, v)
+    with pytest.raises(ValueError, match="ROADMAP C.1"):
+        banded_flash_attention(q, k, v, 40, 40, 1)
+    d = 2 * 64
+    params = {"qkv": {"weight": torch.randn(3 * d, d, device=cuda, dtype=torch.float16) * 0.05,
+                      "bias": torch.zeros(3 * d, device=cuda, dtype=torch.float16)},
+              "norm_q": {"weight": torch.ones(64, device=cuda, dtype=torch.float16),
+                         "bias": torch.zeros(64, device=cuda, dtype=torch.float16)},
+              "norm_k": {"weight": torch.ones(64, device=cuda, dtype=torch.float16),
+                         "bias": torch.zeros(64, device=cuda, dtype=torch.float16)},
+              "to_out": {"weight": torch.randn(d, d, device=cuda, dtype=torch.float16) * 0.05,
+                         "bias": torch.zeros(d, device=cuda, dtype=torch.float16)}}
+    x = torch.randn(1, 200, d, device=cuda, dtype=torch.float16)
+    for backend, window in (("flash_int8", None), ("windowed", (40, 40, 1))):
+        with pytest.raises(ValueError, match="ROADMAP C.1"):
+            joint_attention(params, x, 2, backend=backend, window=window)
+    assert joint_attention(params, x, 2, backend="flash").dtype == torch.float16

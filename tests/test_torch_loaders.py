@@ -5,6 +5,7 @@ package), the real 5b key inventory on the meta device, snapshot
 resolution, the parameter cache and the tokenizer.  All exact
 (``torch.equal``): the conversions move and cast values, nothing else."""
 
+import dataclasses
 import json
 import os
 
@@ -127,6 +128,38 @@ def test_save_pretrained_loads_in_jax_to_its_own_tree(snap, tmp_path):
             assert x.dtype == y.dtype and np.array_equal(x, y)
     with open(os.path.join(out, "model_index.json")) as f:
         assert json.load(f)["tokenizer"] == ["transformers", "T5TokenizerFast"]
+
+
+def test_save_pretrained_keeps_the_2b_config_fields(snap, tmp_path):
+    """C.9: the exported configs carry the sincos path's fields, so the tiny
+    snapshot's sample_width 8 comes back as 8 (not the 5b default 90), in
+    the port and in the JAX package; the 2b family's config round-trips."""
+    pipe = S2VPipeline.from_pretrained(snap, dtype=torch.float32, device="cpu")
+    assert pipe.transformer_cfg.sample_width == 8
+    pipe.transformer_cfg = tcfg.TransformerConfig.cogvideox_2b(
+        num_layers=pipe.transformer_cfg.num_layers, num_attention_heads=4, attention_head_dim=16, in_channels=4,
+        out_channels=4, time_embed_dim=16, text_embed_dim=32, sample_width=8, sample_height=8, sample_frames=9,
+        max_text_seq_length=16, spatial_interpolation_scale=1.5, temporal_interpolation_scale=0.5,
+        use_learned_positional_embeddings=True, dtype=torch.float32)
+    pipe.vae_cfg = dataclasses.replace(pipe.vae_cfg, norm_eps=1e-5, invert_scale_latents=True)
+    out = pipe.save_pretrained(str(tmp_path / "exported"))
+    for sub, cls in (("transformer", "TransformerConfig"), ("vae", "VAEConfig")):
+        path = os.path.join(out, sub, "config.json")
+        back = getattr(tcfg, cls).from_hf_config(path, **F32)
+        assert back == dataclasses.replace(getattr(pipe, f"{sub}_cfg"), dtype=torch.float32)
+        ref = getattr(jcfg, cls).from_hf_config(path)
+        for field in back.__dataclass_fields__:
+            if field != "dtype":
+                assert getattr(back, field) == getattr(ref, field), field
+    back = tcfg.TransformerConfig.from_hf_config(os.path.join(out, "transformer", "config.json"))
+    assert (back.sample_width, back.use_rotary_positional_embeddings, back.spatial_interpolation_scale) == (8, False, 1.5)
+    assert tcfg.TransformerConfig.cogvideox_2b() == dataclasses.replace(
+        tcfg.TransformerConfig(), num_attention_heads=30, num_layers=30, use_rotary_positional_embeddings=False,
+        dtype=torch.float16)
+    j2b = jcfg.TransformerConfig.cogvideox_2b()
+    for field in tcfg.TransformerConfig.__dataclass_fields__:
+        if field != "dtype":
+            assert getattr(tcfg.TransformerConfig.cogvideox_2b(), field) == getattr(j2b, field), field
 
 
 def test_save_pretrained_bf16_and_int8_refused(snap, tmp_path):

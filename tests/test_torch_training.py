@@ -254,6 +254,53 @@ def test_lora_loss_fn_value_and_grads_match_jax(backend):
         _close_to_max(g.numpy(), np.asarray(grads_j[name][k]))
 
 
+@pytest.mark.parametrize("targets", ["all", "no_norm_linears"])
+def test_disentangled_lora_loss_and_grads_match_jax(targets):
+    """Disentangled LoRA: the adapters merged into a functional copy, the
+    pre-merge norm1/norm2 linears kept beside the adapted ones, the model
+    run with disentangled modulation (s2v_tpu/training/lora.py:134-141,
+    :239-249); loss and grads against JAX's, and the loss differs from the
+    merged-modulation loss on the same adapters."""
+    cfg_j, base = _base()
+    batch = _batch(cfg_j)
+    names = j_lora.LoRASpec().targets
+    if targets != "all":
+        names = tuple(n for n in names if n not in ("norm1.linear", "norm2.linear"))
+    spec_j = j_lora.LoRASpec(rank=4, alpha=8.0, targets=names, disentangled=True)
+    tree = _lora(base, spec_j, seed=5, b_scale=0.1)
+    rng = jax.random.PRNGKey(13)
+    cfg_jd = JTransformerConfig.tiny(disentangled_modulation=True)
+    loss_j, grads_j = jax.value_and_grad(j_lora.lora_loss_fn)(
+        jax.tree.map(jnp.asarray, tree), base, cfg_jd, spec_j, _jax_batch(batch), jnp.asarray(ALPHAS), rng, "xla",
+        True)
+    ts, noise = _jax_draws(rng, batch["video_latents"].shape)
+    cfg = TransformerConfig.tiny(disentangled_modulation=True)
+    spec = lora.LoRASpec(rank=4, alpha=8.0, targets=names, disentangled=True)
+    params = transformer_from_jax(base, cfg, device="cpu")
+    mine = lora_from_jax(tree, device="cpu")
+    leaves = lora.lora_leaves(mine)
+    for x in leaves:
+        x.requires_grad_(True)
+    loss = lora.lora_loss_fn(mine, params, cfg, spec, _torch_batch(batch), torch.from_numpy(ALPHAS), None, "plain",
+                             True, timesteps=ts, noise=noise)
+    grads = dict(zip([(n, k) for n in sorted(mine) for k in ("a", "b")], torch.autograd.grad(loss, leaves)))
+    _close_to_max(loss.item(), float(loss_j))
+    for (name, k), g in grads.items():
+        _close_to_max(g.numpy(), np.asarray(grads_j[name][k]))
+    merged_loss = lora.lora_loss_fn(mine, params, TransformerConfig.tiny(), lora.LoRASpec(rank=4, alpha=8.0, targets=names),
+                                    _torch_batch(batch), torch.from_numpy(ALPHAS), None, "plain", True, timesteps=ts,
+                                    noise=noise)
+    assert (abs(merged_loss.item() - loss.item()) > 1e-6) == (targets == "all")
+    # the train step sets the model's flag itself and leaves the base as it was
+    init_opt, step = lora.make_lora_train_step(params, TransformerConfig.tiny(), spec, attention_backend="plain")
+    before = params["blocks"][0]["norm1"]["linear"]["weight"].clone()
+    _, _, step_loss = step(lora_from_jax(tree, device="cpu"), init_opt(lora_from_jax(tree, device="cpu")),
+                           _torch_batch(batch), timesteps=ts, noise=noise)
+    _close_to_max(step_loss.item(), float(loss_j))
+    assert torch.equal(params["blocks"][0]["norm1"]["linear"]["weight"], before)
+    assert "base_linear" not in params["blocks"][0]["norm1"]
+
+
 SPECS = {
     "adamw": dict(),
     "adamw_bf16_moments": dict(moment_dtype="bfloat16"),
@@ -329,8 +376,9 @@ def test_optimizer_spec_validation():
 def test_unported_lora_modes_raise():
     cfg_j, base = _base()
     params = transformer_from_jax(base, TransformerConfig.tiny(), device="cpu")
-    with pytest.raises(NotImplementedError):
-        lora.init_lora_params(torch.Generator(), params, lora.LoRASpec(disentangled=True))
+    # the disentangled mode is ported (test_disentangled_lora_loss_and_grads_match_jax)
+    tree = lora.init_lora_params(torch.Generator(), params, lora.LoRASpec(rank=4, disentangled=True))
+    assert sorted(tree) == sorted(lora.LoRASpec().targets)
     # QLoRA is ported (tests/test_torch_qlora.py); on an int8 base the
     # disentangled mode is refused outright, as in the JAX package
     from s2v_torch.ops.quant import quantize_transformer_params

@@ -84,3 +84,57 @@ def test_entry_points_need_a_device():
         init_transformer_params_random(TransformerConfig.tiny())
     with pytest.raises(RuntimeError):
         S2VPipeline({}, TransformerConfig.tiny(), {}, None)
+
+
+def _with_base_linears(params, seed):
+    """The JAX tree with a pre-merge ``base_linear`` (its own perturbed
+    values) beside each block's norm1/norm2 ``linear``."""
+    rng = np.random.RandomState(seed)
+    for n in ("norm1", "norm2"):
+        lin = params["blocks"][n]["linear"]
+        params["blocks"][n]["base_linear"] = {
+            k: (v + 0.1 * rng.randn(*v.shape)).astype(np.float32) for k, v in lin.items()}
+    return params
+
+
+@pytest.mark.parametrize("with_ref", [True, False], ids=["3stream", "no_ref"])
+def test_forward_with_disentangled_modulation_matches_jax(with_ref):
+    """Video and text modulated by ``base_linear``, the ref stream by
+    ``linear`` (s2v_tpu/ops/adaln.py:44-60); without the config flag the
+    base linears are ignored, as in JAX."""
+    params, (video, ref, text, ts, cs, sn), plain_want = _case(with_ref)
+    params = _with_base_linears(params, seed=5)
+    cfg_j = JTransformerConfig.tiny(disentangled_modulation=True)
+    want = j_forward(params, cfg_j, jnp.asarray(video), None if ref is None else jnp.asarray(ref), jnp.asarray(text),
+                     jnp.asarray(ts), jnp.asarray(cs), jnp.asarray(sn), attention_backend="xla")
+    cfg = TransformerConfig.tiny(disentangled_modulation=True)
+    params_t = transformer_from_jax(params, cfg, device="cpu")
+    args = (t(video), None if ref is None else t(ref), t(text), torch.from_numpy(ts), t(cs), t(sn))
+    got = transformer_forward(params_t, cfg, *args, attention_backend="plain")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=RTOL)
+    assert np.abs(got.numpy() - plain_want).max() > 100 * ATOL  # the base linears moved it
+    ignored = transformer_forward(params_t, TransformerConfig.tiny(), *args, attention_backend="plain")
+    np.testing.assert_allclose(ignored.numpy(), plain_want, atol=ATOL, rtol=RTOL)
+
+
+# fp16 storage on both sides: the port's flash backend gives B1's plain
+# version the fp16 q/k/v (fp32 inside, cast back once), JAX upcasts them to
+# fp32 before attention and casts back (s2v_tpu/ops/attention.py:208-214);
+# every other op rounds to fp16 in both, in possibly another order, so the
+# bar is a few fp16 ulps (2^-11 relative) of outputs of O(1) through 2 blocks
+FP16_ATOL, FP16_RTOL = 2e-2, 2e-2
+
+
+@pytest.mark.parametrize("backend", ["flash", "plain"])
+def test_forward_in_fp16_matches_jax(backend):
+    cfg_j = JTransformerConfig.tiny(dtype=jnp.float16, param_dtype=jnp.float16)
+    params, (video, ref, text, ts, cs, sn), _ = _case(True)
+    jparams = jax.tree.map(lambda a: jnp.asarray(a, jnp.float16), params)
+    want = j_forward(jparams, cfg_j, jnp.asarray(video), jnp.asarray(ref), jnp.asarray(text), jnp.asarray(ts),
+                     jnp.asarray(cs), jnp.asarray(sn), attention_backend="xla")
+    assert want.dtype == jnp.float16
+    cfg = TransformerConfig.tiny(dtype=torch.float16)
+    got = transformer_forward(transformer_from_jax(params, cfg, device="cpu"), cfg, t(video), t(ref), t(text),
+                              torch.from_numpy(ts), t(cs), t(sn), attention_backend=backend)
+    assert got.dtype == torch.float16 and torch.isfinite(got).all()
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), atol=FP16_ATOL, rtol=FP16_RTOL)
