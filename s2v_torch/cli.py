@@ -88,8 +88,8 @@ def get_args(argv=None):
     p.add_argument("--disentangled_modulation", action="store_true", default=False,
                    help="video/text modulated by the pre-merge adaLN linears, the ref stream by the LoRA-merged ones")
     p.add_argument("--dtype", type=str, default="bfloat16", choices=["bfloat16", "float16", "float32"],
-                   help="model dtype; on the card the flash kernels take bfloat16 and float16, the int8 and "
-                        "windowed kernels bfloat16 only (ROADMAP C.1)")
+                   help="model dtype; on the card the attention kernels take bfloat16 and float16, none "
+                        "float32 (ROADMAP C.1)")
     p.add_argument("--adaptive_threshold", type=float, default=0.0,
                    help="opt-in step skipping (bounded-difference criterion); 0 = the exact loop. Try 0.01-0.02")
     p.add_argument("--cfg_skip_threshold", type=float, default=0.0,

@@ -1,5 +1,5 @@
 // Banded (sliding temporal window) flash attention forward for Hopper (sm_90a),
-// bf16 in, fp32 softmax: the video queries of windowed attention.
+// bf16 or fp16 in, fp32 softmax: the video queries of windowed attention.
 //
 // Replaces the banded grid of the TPU kernel B4,
 // s2v_tpu/ops/pallas/banded_attention.py::banded_flash_attention (its
@@ -57,7 +57,16 @@
 //     tensor), whose results are never stored; o and lse writes are
 //     predicated on the frame's end;
 //   * B6's dummy frames take the last window, as the TPU kernel does.
-// Output in bf16, plus the natural-log lse [B, H, stat_rows] at the query rows.
+// Output in the input type, plus the natural-log lse [B, H, stat_rows] at the
+// query rows.
+//
+// Element type (E template parameter, hopper.cuh): bf16 (the 5b models) or fp16
+// (the 2b family; entries s2v_banded_attention_fwd_f16 and
+// s2v_banded_attention_local_fwd_f16), B1's templating: the same tiles and
+// swizzles, .f16 wgmma forms, P rounded to fp16 for P.V.  The softmax is online
+// only, so P <= 1 against each row's running max and needs no offset (B1's
+// fp16 bounded mode does).  The bf16 instantiation is the kernel as it was
+// before fp16 came.
 
 #include "band.cuh"
 #include "hopper.cuh"
@@ -77,21 +86,24 @@ constexpr uint32_t kTileBytes = kBK * kD * 2;
 constexpr float kNegBig = -1e30f;
 constexpr float kLn2 = 0.6931471805599453f;
 
+template <typename E>
 struct Smem {
-  __nv_bfloat16 q[kBQ * kD];           // 16 KB, so every tile below stays 1024-aligned
-  __nv_bfloat16 k[kStages][kBK * kD];
-  __nv_bfloat16 v[kStages][kBK * kD];
+  E q[kBQ * kD];           // 16 KB, so every tile below stays 1024-aligned
+  E k[kStages][kBK * kD];
+  E v[kStages][kBK * kD];
   uint64_t full[kStages];
   uint64_t empty[kStages];
   uint64_t q_full;
 };
-constexpr int kSmemBytes = sizeof(Smem) + 1024;
+constexpr int kSmemBytes = sizeof(Smem<__nv_bfloat16>) + 1024;
+static_assert(sizeof(Smem<__half>) == sizeof(Smem<__nv_bfloat16>), "one layout for both types");
 
+template <typename E>
 struct Params {
   CUtensorMap q_map;  // box (64, kBQ), over q's own tensor
   CUtensorMap k_map;  // box (64, kBK)
   CUtensorMap v_map;
-  __nv_bfloat16* o;
+  E* o;
   float* lse;  // [B, H, stat_rows] or null; written at the query rows only
   long long o_sb, o_ss, o_sh;
   int H, G, tpf, n_frames, span, window;
@@ -112,7 +124,8 @@ struct Block {
   band::KeyWalk walk;
 };
 
-__device__ __forceinline__ Block block_of(const Params& p) {
+template <typename E>
+__device__ __forceinline__ Block block_of(const Params<E>& p) {
   const int fl = blockIdx.x / p.q_tiles;  // query frame in the call
   const int f = p.frame_offset + fl;      // ... and in the clip (>= F: a dummy frame)
   Block blk;
@@ -122,13 +135,14 @@ __device__ __forceinline__ Block block_of(const Params& p) {
   return blk;
 }
 
-__device__ __forceinline__ void consumer(const Params& p, Smem& sm, const Block& blk, int wg, int b, int h) {
+template <typename E>
+__device__ __forceinline__ void consumer(const Params<E>& p, Smem<E>& sm, const Block& blk, int wg, int b, int h) {
   const int tid = threadIdx.x & 127;
   const int lane = tid & 31;
   const int t = lane & 3;
   const int row0 = blk.tile_row + wg * kRowsPerWg + (tid >> 5) * 16 + (lane >> 2);  // and row0 + 8
   const int row_end = blk.frame0 + p.tpf;
-  const __nv_bfloat16* q_s = sm.q + wg * kRowsPerWg * kD;  // this warpgroup's 64 rows
+  const E* q_s = sm.q + wg * kRowsPerWg * kD;  // this warpgroup's 64 rows
 
   float o_acc[32];
 #pragma unroll
@@ -147,7 +161,7 @@ __device__ __forceinline__ void consumer(const Params& p, Smem& sm, const Block&
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
-      mma_m64n128k16_ss<0>(s, desc_kmajor(q_s, kk), desc_kmajor(sm.k[st], kk), kk > 0);
+      mma_m64n128k16_ss<0, E>(s, desc_kmajor(q_s, kk), desc_kmajor(sm.k[st], kk), kk > 0);
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -200,13 +214,13 @@ __device__ __forceinline__ void consumer(const Params& p, Smem& sm, const Block&
       l_run[1] += s[4 * j8 + 2] + s[4 * j8 + 3];
     }
 
-    // O += P V: P re-packed from the S accumulator as bf16 A fragments
+    // O += P V: P re-packed from the S accumulator as A fragments of E
     uint32_t pa[8][4];
 #pragma unroll
-    for (int kc = 0; kc < 8; ++kc) acc_to_a(pa[kc], s, kc);
+    for (int kc = 0; kc < 8; ++kc) acc_to_a<E>(pa[kc], s, kc);
     wgmma_fence();
 #pragma unroll
-    for (int kc = 0; kc < 8; ++kc) mma_m64n64k16_rs<1>(o_acc, pa[kc], desc_mnmajor(sm.v[st], kc), 1);
+    for (int kc = 0; kc < 8; ++kc) mma_m64n64k16_rs<1, E>(o_acc, pa[kc], desc_mnmajor(sm.v[st], kc), 1);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(o_acc);
@@ -231,9 +245,10 @@ __device__ __forceinline__ void consumer(const Params& p, Smem& sm, const Block&
   }
 }
 
-__global__ void __launch_bounds__(kThreads, 1) banded_fwd_kernel(const __grid_constant__ Params p) {
+template <typename E>
+__global__ void __launch_bounds__(kThreads, 1) banded_fwd_kernel(const __grid_constant__ Params<E> p) {
   extern __shared__ uint8_t smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(align_1024(smem_raw));
+  Smem<E>& sm = *reinterpret_cast<Smem<E>*>(align_1024(smem_raw));
   const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);  // warp-uniform
   const int b = blockIdx.y / p.H;
   const int h = blockIdx.y % p.H;
@@ -269,28 +284,29 @@ __global__ void __launch_bounds__(kThreads, 1) banded_fwd_kernel(const __grid_co
     }
   } else {
     setmaxnreg_inc<232>();
-    consumer(p, sm, blk, wg - 1, b, h);
+    consumer<E>(p, sm, blk, wg - 1, b, h);
   }
 }
 
 // shared by the two entry points: q frames [0, q_frames) at rows q_row0 + fl*tpf
 // of a q tensor of q_len rows
+template <typename E>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse, int batch, int heads, int q_len,
            int seq, int global_len, int tokens_per_frame, int n_frames, int span, int window, int q_row0,
            int frame_offset, int q_frames, int stat_rows, const long long* st, float scale_log2, void* stream) {
   static bool configured = false;
   if (!configured) {
     const cudaError_t err =
-        cudaFuncSetAttribute(banded_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+        cudaFuncSetAttribute(banded_fwd_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
-  Params p;
-  int err = make_bshd_map(&p.q_map, q, batch, q_len, heads, st[0], st[1], st[2], kBQ);
+  Params<E> p;
+  int err = make_bshd_map<E>(&p.q_map, q, batch, q_len, heads, st[0], st[1], st[2], kBQ);
   if (err != 0) return err;
-  if ((err = make_bshd_map(&p.k_map, k, batch, seq, heads, st[3], st[4], st[5], kBK)) != 0) return err;
-  if ((err = make_bshd_map(&p.v_map, v, batch, seq, heads, st[6], st[7], st[8], kBK)) != 0) return err;
-  p.o = static_cast<__nv_bfloat16*>(o);
+  if ((err = make_bshd_map<E>(&p.k_map, k, batch, seq, heads, st[3], st[4], st[5], kBK)) != 0) return err;
+  if ((err = make_bshd_map<E>(&p.v_map, v, batch, seq, heads, st[6], st[7], st[8], kBK)) != 0) return err;
+  p.o = static_cast<E*>(o);
   p.lse = static_cast<float*>(lse);
   p.o_sb = st[9]; p.o_ss = st[10]; p.o_sh = st[11];
   p.H = heads;
@@ -305,8 +321,26 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse, int 
   p.q_tiles = (tokens_per_frame + kBQ - 1) / kBQ;
   p.scale_log2 = scale_log2;
   const dim3 grid(q_frames * p.q_tiles, batch * heads);
-  banded_fwd_kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(p);
+  banded_fwd_kernel<E><<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename E>
+int forward(const void* q, const void* k, const void* v, void* o, void* lse, int batch, int heads, int seq,
+            int global_len, int tokens_per_frame, int n_frames, int span, int window, const long long* st,
+            float scale_log2, void* stream) {
+  return launch<E>(q, k, v, o, lse, batch, heads, seq, seq, global_len, tokens_per_frame, n_frames, span, window,
+                   global_len, 0, n_frames, seq, st, scale_log2, stream);
+}
+
+template <typename E>
+int forward_local(const void* q, const void* k, const void* v, void* o, void* lse, int batch, int heads,
+                  int global_len, int tokens_per_frame, int n_frames, int span, int window, int frame_offset,
+                  int local_frames, const long long* st, float scale_log2, void* stream) {
+  const int q_len = local_frames * tokens_per_frame;
+  return launch<E>(q, k, v, o, lse, batch, heads, q_len, global_len + n_frames * tokens_per_frame, global_len,
+                   tokens_per_frame, n_frames, span, window, 0, frame_offset, local_frames, q_len, st, scale_log2,
+                   stream);
 }
 
 }  // namespace
@@ -314,35 +348,45 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse, int 
 // Dynamic shared memory a block of the kernel asks for, in bytes.
 extern "C" int s2v_banded_attention_fwd_smem_bytes() { return kSmemBytes; }
 
-// B4: q, k, v, o all [B, S, H, d]; the video rows of o and lse ([B, H, S])
-extern "C" int s2v_banded_attention_fwd(
-    const void* q, const void* k, const void* v, void* o, void* lse,
-    int batch, int heads, int seq, int global_len, int tokens_per_frame, int n_frames,
-    int span, int window,
-    long long q_sb, long long q_ss, long long q_sh,
-    long long k_sb, long long k_ss, long long k_sh,
-    long long v_sb, long long v_ss, long long v_sh,
-    long long o_sb, long long o_ss, long long o_sh,
-    float scale_log2, void* stream) {
-  const long long st[12] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh};
-  return launch(q, k, v, o, lse, batch, heads, seq, seq, global_len, tokens_per_frame, n_frames, span, window,
-                global_len, 0, n_frames, seq, st, scale_log2, stream);
+#define S2V_BANDED_FWD_ARGS                                                                          \
+  const void *q, const void *k, const void *v, void *o, void *lse, int batch, int heads, int seq,   \
+      int global_len, int tokens_per_frame, int n_frames, int span, int window, long long q_sb,     \
+      long long q_ss, long long q_sh, long long k_sb, long long k_ss, long long k_sh, long long v_sb, \
+      long long v_ss, long long v_sh, long long o_sb, long long o_ss, long long o_sh, float scale_log2, \
+      void *stream
+#define S2V_BANDED_LOCAL_FWD_ARGS                                                                    \
+  const void *q, const void *k, const void *v, void *o, void *lse, int batch, int heads,            \
+      int global_len, int tokens_per_frame, int n_frames, int span, int window, int frame_offset,   \
+      int local_frames, long long q_sb, long long q_ss, long long q_sh, long long k_sb, long long k_ss, \
+      long long k_sh, long long v_sb, long long v_ss, long long v_sh, long long o_sb, long long o_ss, \
+      long long o_sh, float scale_log2, void *stream
+#define S2V_STRIDES {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh}
+
+// B4: q, k, v, o all [B, S, H, d] in bf16; the video rows of o and lse ([B, H, S])
+extern "C" int s2v_banded_attention_fwd(S2V_BANDED_FWD_ARGS) {
+  const long long st[12] = S2V_STRIDES;
+  return forward<__nv_bfloat16>(q, k, v, o, lse, batch, heads, seq, global_len, tokens_per_frame, n_frames, span,
+                                window, st, scale_log2, stream);
+}
+
+// The same in fp16.
+extern "C" int s2v_banded_attention_fwd_f16(S2V_BANDED_FWD_ARGS) {
+  const long long st[12] = S2V_STRIDES;
+  return forward<__half>(q, k, v, o, lse, batch, heads, seq, global_len, tokens_per_frame, n_frames, span, window,
+                         st, scale_log2, stream);
 }
 
 // B6: q and o [B, F_loc*tpf, H, d] (frames frame_offset .. frame_offset + F_loc - 1),
-// k and v the full [B, S, H, d]; lse [B, H, F_loc*tpf]
-extern "C" int s2v_banded_attention_local_fwd(
-    const void* q, const void* k, const void* v, void* o, void* lse,
-    int batch, int heads, int global_len, int tokens_per_frame, int n_frames,
-    int span, int window, int frame_offset, int local_frames,
-    long long q_sb, long long q_ss, long long q_sh,
-    long long k_sb, long long k_ss, long long k_sh,
-    long long v_sb, long long v_ss, long long v_sh,
-    long long o_sb, long long o_ss, long long o_sh,
-    float scale_log2, void* stream) {
-  const long long st[12] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh};
-  const int q_len = local_frames * tokens_per_frame;
-  return launch(q, k, v, o, lse, batch, heads, q_len, global_len + n_frames * tokens_per_frame, global_len,
-                tokens_per_frame, n_frames, span, window, 0, frame_offset, local_frames, q_len, st, scale_log2,
-                stream);
+// k and v the full [B, S, H, d], all bf16; lse [B, H, F_loc*tpf]
+extern "C" int s2v_banded_attention_local_fwd(S2V_BANDED_LOCAL_FWD_ARGS) {
+  const long long st[12] = S2V_STRIDES;
+  return forward_local<__nv_bfloat16>(q, k, v, o, lse, batch, heads, global_len, tokens_per_frame, n_frames, span,
+                                      window, frame_offset, local_frames, st, scale_log2, stream);
+}
+
+// The same in fp16.
+extern "C" int s2v_banded_attention_local_fwd_f16(S2V_BANDED_LOCAL_FWD_ARGS) {
+  const long long st[12] = S2V_STRIDES;
+  return forward_local<__half>(q, k, v, o, lse, batch, heads, global_len, tokens_per_frame, n_frames, span, window,
+                               frame_offset, local_frames, st, scale_log2, stream);
 }

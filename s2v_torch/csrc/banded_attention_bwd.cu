@@ -1,5 +1,5 @@
 // Banded (sliding temporal window) flash attention backward for Hopper
-// (sm_90a), bf16 in, fp32 math: the gradients that the video queries of
+// (sm_90a), bf16 or fp16 in, fp32 math: the gradients that the video queries of
 // windowed attention send back.
 //
 // Replaces the banded kernels of the TPU kernel B5,
@@ -78,6 +78,17 @@
 //     (64-148 tiles): the dkv grid is 1-D with the global key tiles of every
 //     (b, h) at the lowest block indices, so they start first rather than
 //     form the tail.
+//
+// Element type (E template parameter, hopper.cuh): bf16 (the 5b models) or fp16
+// (the 2b family; entries s2v_banded_attention_bwd_f16 and
+// s2v_banded_attention_local_bwd_f16), kernel B2's templating: the same tiles,
+// .f16 wgmma forms, P and dS rounded to fp16 before their products.  fp16 has
+// no normal values below 2^-14 and flushes below 2^-25, and dS takes dO's
+// scale, which a training step with no loss scaler puts near 1e-7: as in B2,
+// the fp16 kernels multiply dS by 2^ds_exp before its rounding and dq, dk by
+// 2^-ds_exp after (both exact), ds_exp a device int the wrapper computes
+// (|dS| <= 2 max|dO_i| max|v_j| under 2^14).  The bf16 instantiation is the
+// kernel as it was before fp16 came; its entries ignore ds_exp.
 
 #include "band.cuh"
 #include "hopper.cuh"
@@ -97,31 +108,35 @@ constexpr uint32_t kTileBytes = kBT * kD * 2;  // 8 KB
 constexpr int kRowSpan = kBT + 4;  // lse/D floats a tile's copy brings (272 bytes)
 constexpr float kLog2e = 1.4426950408889634f;
 
+template <typename E>
 struct Smem {
-  __nv_bfloat16 a[kStages][kBT * kD];  // K (dq kernel) or q (dkv kernel); 8 KB each
-  __nv_bfloat16 b[kStages][kBT * kD];  // V (dq kernel) or dO (dkv kernel)
-  __nv_bfloat16 k_res[kBR * kD];       // dkv kernel: the block's resident K and V (16 KB each)
-  __nv_bfloat16 v_res[kBR * kD];
+  E a[kStages][kBT * kD];  // K (dq kernel) or q (dkv kernel); 8 KB each
+  E b[kStages][kBT * kD];  // V (dq kernel) or dO (dkv kernel)
+  E k_res[kBR * kD];       // dkv kernel: the block's resident K and V (16 KB each)
+  E v_res[kBR * kD];
   float lse2[kStages][kRowSpan];       // dkv kernel: the tile's lse * log2(e), from its aligned start
   float delta[kStages][kRowSpan];      // dkv kernel: the tile's D
   uint64_t full[kStages];
   uint64_t empty[kStages];
   uint64_t resident;                   // dkv kernel: K and V have arrived
 };
-constexpr int kSmemBytes = sizeof(Smem) + 1024;
+constexpr int kSmemBytes = sizeof(Smem<__nv_bfloat16>) + 1024;
+static_assert(sizeof(Smem<__half>) == sizeof(Smem<__nv_bfloat16>), "one layout for both types");
 
+template <typename E>
 struct Params {
   CUtensorMap k_map, v_map;   // box (64, kBT), over S
   CUtensorMap q_map, do_map;  // box (64, kBT), over the q tensor's q_len rows
-  const __nv_bfloat16* q;
-  const __nv_bfloat16* o;
-  const __nv_bfloat16* dout;
+  const E* q;
+  const E* o;
+  const E* dout;
   const float* lse;  // [B, H, stat_rows], natural log
+  const int* ds_exp; // fp16: dS is scaled by 2^ds_exp before its rounding (null for bf16)
   float* lse2_ws;    // [B*H, ws_rows]: lse * log2(e) of query row q_row0 + i at i
   float* delta_ws;   // [B*H, ws_rows]: rowsum(dO * o)
-  __nv_bfloat16* dq;
-  __nv_bfloat16* dk;
-  __nv_bfloat16* dv;
+  E* dq;
+  E* dk;
+  E* dv;
   long long q_sb, q_ss, q_sh;
   long long o_sb, o_ss, o_sh;
   long long do_sb, do_ss, do_sh;
@@ -143,6 +158,19 @@ struct Params {
 
 __device__ __forceinline__ float pos_inf() { return __int_as_float(0x7f800000u); }
 
+// The factor on dS before its rounding, and the one on the dq / dk sums
+// (the softmax scale, and in fp16 the inverse of the first).
+template <typename E>
+__device__ __forceinline__ void ds_scales(const Params<E>& p, float& ds_up, float& out_scale) {
+  ds_up = 1.f;
+  out_scale = p.scale;
+  if constexpr (is_f16<E>()) {
+    const int e = *p.ds_exp;
+    ds_up = scalbnf(1.f, e);
+    out_scale = scalbnf(p.scale, -e);
+  }
+}
+
 __device__ __forceinline__ void zero(float (&acc)[32]) {
 #pragma unroll
   for (int i = 0; i < 32; ++i) acc[i] = 0.f;
@@ -153,7 +181,8 @@ __device__ __forceinline__ void zero(float (&acc)[32]) {
 // One row of 64 per 8 threads (16 bytes each); rows in [b*h][ws_rows] order.
 constexpr int kPrepassThreads = 256;
 
-__global__ void __launch_bounds__(kPrepassThreads) banded_bwd_prepass_kernel(const __grid_constant__ Params p) {
+template <typename E>
+__global__ void __launch_bounds__(kPrepassThreads) banded_bwd_prepass_kernel(const __grid_constant__ Params<E> p) {
   const long long idx = (long long)blockIdx.x * (kPrepassThreads / 8) + (threadIdx.x >> 3);
   const int part = threadIdx.x & 7;
   const bool in_range = idx < (long long)p.B * p.H * p.ws_rows;  // every lane reaches the shuffles
@@ -168,12 +197,12 @@ __global__ void __launch_bounds__(kPrepassThreads) banded_bwd_prepass_kernel(con
     const uint4 ov = *reinterpret_cast<const uint4*>(p.o + b * p.o_sb + row * p.o_ss + h * p.o_sh + part * 8);
     const uint4 gv =
         *reinterpret_cast<const uint4*>(p.dout + b * p.do_sb + row * p.do_ss + h * p.do_sh + part * 8);
-    const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
-    const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&gv);
+    const uint32_t* o2 = reinterpret_cast<const uint32_t*>(&ov);
+    const uint32_t* g2 = reinterpret_cast<const uint32_t*>(&gv);
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const float2 of = __bfloat1622float2(o2[e]);
-      const float2 gf = __bfloat1622float2(g2[e]);
+      const float2 of = unpack_x2<E>(o2[e]);
+      const float2 gf = unpack_x2<E>(g2[e]);
       acc = fmaf(of.x, gf.x, acc);
       acc = fmaf(of.y, gf.y, acc);
     }
@@ -189,7 +218,8 @@ __global__ void __launch_bounds__(kPrepassThreads) banded_bwd_prepass_kernel(con
 
 // ------------------------------------------------------------ shared parts
 
-__device__ __forceinline__ void init_ring(Smem& sm) {
+template <typename E>
+__device__ __forceinline__ void init_ring(Smem<E>& sm) {
   if (threadIdx.x == 0) {
     for (int st = 0; st < kStages; ++st) {
       mbar_init(&sm.full[st], 1);
@@ -203,8 +233,9 @@ __device__ __forceinline__ void init_ring(Smem& sm) {
 
 // --------------------------------------------------------------- dq kernel
 
-__device__ __forceinline__ void dq_consumer(const Params& p, Smem& sm, const band::KeyWalk& walk, int b, int h,
-                                            int row0, int row_end) {
+template <typename E>
+__device__ __forceinline__ void dq_consumer(const Params<E>& p, Smem<E>& sm, const band::KeyWalk& walk, int b,
+                                            int h, int row0, int row_end) {
   const int lane = threadIdx.x & 31;
   const int t = lane & 3;
   uint32_t qa[4][4], da[4][4];
@@ -217,6 +248,8 @@ __device__ __forceinline__ void dq_consumer(const Params& p, Smem& sm, const ban
   const float d0 = row0 < row_end ? p.delta_ws[ws_row + row0] : 0.f;
   const float d1 = row0 + 8 < row_end ? p.delta_ws[ws_row + row0 + 8] : 0.f;
   const float c = p.scale_log2;
+  float ds_up, out_scale;
+  ds_scales(p, ds_up, out_scale);
 
   float dq_acc[32];
   zero(dq_acc);
@@ -228,9 +261,9 @@ __device__ __forceinline__ void dq_consumer(const Params& p, Smem& sm, const ban
     // S = q K^T, dP = dO V^T: 64 rows x 64 keys each
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) mma_m64n64k16_rs<0>(s, qa[kk], desc_kmajor(sm.a[st], kk), kk > 0);
+    for (int kk = 0; kk < 4; ++kk) mma_m64n64k16_rs<0, E>(s, qa[kk], desc_kmajor(sm.a[st], kk), kk > 0);
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) mma_m64n64k16_rs<0>(dp, da[kk], desc_kmajor(sm.b[st], kk), kk > 0);
+    for (int kk = 0; kk < 4; ++kk) mma_m64n64k16_rs<0, E>(dp, da[kk], desc_kmajor(sm.b[st], kk), kk > 0);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(s);
@@ -246,27 +279,29 @@ __device__ __forceinline__ void dq_consumer(const Params& p, Smem& sm, const ban
       float pv = fast_exp2(fmaf(s[i], c, hi ? -lse1 : -lse0));
       if (ragged && kbase + (i >> 2) * 8 + t * 2 + (i & 1) >= kend) pv = 0.f;
       s[i] = pv * (dp[i] - (hi ? d1 : d0));  // dS
+      if constexpr (is_f16<E>()) s[i] *= ds_up;
     }
 
     // dq += dS K
     uint32_t dsa[4][4];
 #pragma unroll
-    for (int kc = 0; kc < 4; ++kc) acc_to_a(dsa[kc], s, kc);
+    for (int kc = 0; kc < 4; ++kc) acc_to_a<E>(dsa[kc], s, kc);
     wgmma_fence();
 #pragma unroll
-    for (int kc = 0; kc < 4; ++kc) mma_m64n64k16_rs<1>(dq_acc, dsa[kc], desc_mnmajor(sm.a[st], kc), 1);
+    for (int kc = 0; kc < 4; ++kc) mma_m64n64k16_rs<1, E>(dq_acc, dsa[kc], desc_mnmajor(sm.a[st], kc), 1);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(dq_acc);
     fence_regs(dsa);
     if (lane == 0) mbar_arrive(&sm.empty[st]);
   }
-  store_rows(p.dq + b * p.dq_sb + h * p.dq_sh, p.dq_ss, row0, row_end, dq_acc, p.scale, p.scale, t);
+  store_rows(p.dq + b * p.dq_sb + h * p.dq_sh, p.dq_ss, row0, row_end, dq_acc, out_scale, out_scale, t);
 }
 
-__global__ void __launch_bounds__(kThreads, 1) banded_bwd_dq_kernel(const __grid_constant__ Params p) {
+template <typename E>
+__global__ void __launch_bounds__(kThreads, 1) banded_bwd_dq_kernel(const __grid_constant__ Params<E> p) {
   extern __shared__ uint8_t smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(align_1024(smem_raw));
+  Smem<E>& sm = *reinterpret_cast<Smem<E>*>(align_1024(smem_raw));
   const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);  // warp-uniform
   const int b = blockIdx.y / p.H;
   const int h = blockIdx.y % p.H;
@@ -287,7 +322,7 @@ __global__ void __launch_bounds__(kThreads, 1) banded_bwd_dq_kernel(const __grid
   }
   const band::KeyWalk walk =
       band::key_walk<kBT>(p.G, p.tpf, band::window_start(f, p.window, p.n_frames, p.span), p.span);
-  init_ring(sm);
+  init_ring<E>(sm);
   if (wg == 0) {
     setmaxnreg_dec<40>();
     if (threadIdx.x == 0) {
@@ -305,7 +340,7 @@ __global__ void __launch_bounds__(kThreads, 1) banded_bwd_dq_kernel(const __grid
     }
   } else {
     setmaxnreg_inc<232>();
-    dq_consumer(p, sm, walk, b, h, row0, row_end);
+    dq_consumer<E>(p, sm, walk, b, h, row0, row_end);
   }
 }
 
@@ -321,7 +356,8 @@ struct KeyTile {
 
 // Blocks [0, glob_tiles * B*H) own global key tiles, the rest tiles of one
 // key frame each.
-__device__ __forceinline__ KeyTile key_tile_of(const Params& p) {
+template <typename E>
+__device__ __forceinline__ KeyTile key_tile_of(const Params<E>& p) {
   KeyTile kt;
   const int glob_blocks = p.glob_tiles * p.B * p.H;
   const int idx = blockIdx.x;
@@ -352,7 +388,8 @@ __device__ __forceinline__ KeyTile key_tile_of(const Params& p) {
   return kt;
 }
 
-__device__ __forceinline__ void dkv_consumer(const Params& p, Smem& sm, const KeyTile& kt, int wg) {
+template <typename E>
+__device__ __forceinline__ void dkv_consumer(const Params<E>& p, Smem<E>& sm, const KeyTile& kt, int wg) {
   const int tid = threadIdx.x & 127;
   const int lane = tid & 31;
   const int t = lane & 3;
@@ -361,10 +398,12 @@ __device__ __forceinline__ void dkv_consumer(const Params& p, Smem& sm, const Ke
   const int h = kt.bh % p.H;
 
   // this warpgroup's 64 resident keys (rows past its range are computed, not written)
-  const __nv_bfloat16* k_res = sm.k_res + wg * kRowsPerWg * kD;
-  const __nv_bfloat16* v_res = sm.v_res + wg * kRowsPerWg * kD;
+  const E* k_res = sm.k_res + wg * kRowsPerWg * kD;
+  const E* v_res = sm.v_res + wg * kRowsPerWg * kD;
   mbar_wait(&sm.resident, 0);
   const float c = p.scale_log2;
+  float ds_up, out_scale;
+  ds_scales(p, ds_up, out_scale);
 
   float dk_acc[32], dv_acc[32];
   zero(dk_acc);
@@ -379,11 +418,11 @@ __device__ __forceinline__ void dkv_consumer(const Params& p, Smem& sm, const Ke
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
-      mma_m64n64k16_ss<0>(s, desc_kmajor(k_res, kk), desc_kmajor(sm.a[st], kk), kk > 0);
+      mma_m64n64k16_ss<0, E>(s, desc_kmajor(k_res, kk), desc_kmajor(sm.a[st], kk), kk > 0);
     }
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
-      mma_m64n64k16_ss<0>(dp, desc_kmajor(v_res, kk), desc_kmajor(sm.b[st], kk), kk > 0);
+      mma_m64n64k16_ss<0, E>(dp, desc_kmajor(v_res, kk), desc_kmajor(sm.b[st], kk), kk > 0);
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -399,7 +438,8 @@ __device__ __forceinline__ void dkv_consumer(const Params& p, Smem& sm, const Ke
     for (int i = 0; i < 32; ++i) {
       const int col = (i >> 2) * 8 + t * 2 + (i & 1);
       const float pv = fast_exp2(fmaf(s[i], c, -sm.lse2[st][lead + col]));  // P^T
-      const float ds = pv * (dp[i] - sm.delta[st][lead + col]);             // dS^T
+      float ds = pv * (dp[i] - sm.delta[st][lead + col]);                   // dS^T
+      if constexpr (is_f16<E>()) ds *= ds_up;
       const bool keep = !ragged || qbase + col < kt.q_hi;
       s[i] = keep ? pv : 0.f;
       dp[i] = keep ? ds : 0.f;
@@ -409,14 +449,14 @@ __device__ __forceinline__ void dkv_consumer(const Params& p, Smem& sm, const Ke
     uint32_t pa[4][4], dsa[4][4];
 #pragma unroll
     for (int kc = 0; kc < 4; ++kc) {
-      acc_to_a(pa[kc], s, kc);
-      acc_to_a(dsa[kc], dp, kc);
+      acc_to_a<E>(pa[kc], s, kc);
+      acc_to_a<E>(dsa[kc], dp, kc);
     }
     wgmma_fence();
 #pragma unroll
-    for (int kc = 0; kc < 4; ++kc) mma_m64n64k16_rs<1>(dv_acc, pa[kc], desc_mnmajor(sm.b[st], kc), 1);
+    for (int kc = 0; kc < 4; ++kc) mma_m64n64k16_rs<1, E>(dv_acc, pa[kc], desc_mnmajor(sm.b[st], kc), 1);
 #pragma unroll
-    for (int kc = 0; kc < 4; ++kc) mma_m64n64k16_rs<1>(dk_acc, dsa[kc], desc_mnmajor(sm.a[st], kc), 1);
+    for (int kc = 0; kc < 4; ++kc) mma_m64n64k16_rs<1, E>(dk_acc, dsa[kc], desc_mnmajor(sm.a[st], kc), 1);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(dv_acc);
@@ -425,16 +465,17 @@ __device__ __forceinline__ void dkv_consumer(const Params& p, Smem& sm, const Ke
     fence_regs(dsa);
     if (lane == 0) mbar_arrive(&sm.empty[st]);
   }
-  store_rows(p.dk + b * p.dk_sb + h * p.dk_sh, p.dk_ss, key0, kt.key_end, dk_acc, p.scale, p.scale, t);
+  store_rows(p.dk + b * p.dk_sb + h * p.dk_sh, p.dk_ss, key0, kt.key_end, dk_acc, out_scale, out_scale, t);
   store_rows(p.dv + b * p.dv_sb + h * p.dv_sh, p.dv_ss, key0, kt.key_end, dv_acc, 1.f, 1.f, t);
 }
 
-__global__ void __launch_bounds__(kThreads, 1) banded_bwd_dkv_kernel(const __grid_constant__ Params p) {
+template <typename E>
+__global__ void __launch_bounds__(kThreads, 1) banded_bwd_dkv_kernel(const __grid_constant__ Params<E> p) {
   extern __shared__ uint8_t smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(align_1024(smem_raw));
+  Smem<E>& sm = *reinterpret_cast<Smem<E>*>(align_1024(smem_raw));
   const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);  // warp-uniform
   const KeyTile kt = key_tile_of(p);
-  init_ring(sm);
+  init_ring<E>(sm);
   if (wg == 0) {
     setmaxnreg_dec<40>();
     if (threadIdx.x == 0) {
@@ -465,17 +506,18 @@ __global__ void __launch_bounds__(kThreads, 1) banded_bwd_dkv_kernel(const __gri
     }
   } else {
     setmaxnreg_inc<232>();
-    dkv_consumer(p, sm, kt, wg - 1);
+    dkv_consumer<E>(p, sm, kt, wg - 1);
   }
 }
 
+template <typename E>
 int configure() {
   static bool done = false;
   if (done) return 0;
   cudaError_t err =
-      cudaFuncSetAttribute(banded_bwd_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+      cudaFuncSetAttribute(banded_bwd_dq_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute(banded_bwd_dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+    err = cudaFuncSetAttribute(banded_bwd_dkv_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   done = true;
@@ -489,8 +531,9 @@ constexpr int kPartPrepass = 1, kPartDq = 2, kPartDkv = 4;
 // shared by the two entry points: query frames [0, q_frames) at rows q_row0 +
 // fl*tpf of q/o/dO/dq, which have q_len rows; st holds the strides of q, k, v,
 // o, dO, dq, dk, dv
+template <typename E>
 int launch(const void* q, const void* k, const void* v, const void* o, const void* dout, const void* lse,
-           void* lse2_ws, void* delta_ws, int ws_rows, void* dq, void* dk, void* dv, int batch, int heads,
+           const void* ds_exp, void* lse2_ws, void* delta_ws, int ws_rows, void* dq, void* dk, void* dv, int batch, int heads,
            int q_len, int global_len, int tokens_per_frame, int n_frames, int span, int window, int q_row0,
            int frame_offset, int q_frames, int stat_rows, const long long* st, float scale, int parts,
            void* stream) {
@@ -498,23 +541,24 @@ int launch(const void* q, const void* k, const void* v, const void* o, const voi
   if (ws_rows % 4 != 0 || ws_rows < q_frames * tokens_per_frame + kRowSpan) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  int err = configure();
+  int err = configure<E>();
   if (err != 0) return err;
   const int seq = global_len + n_frames * tokens_per_frame;
-  Params p;
-  if ((err = make_bshd_map(&p.q_map, q, batch, q_len, heads, st[0], st[1], st[2], kBT)) != 0) return err;
-  if ((err = make_bshd_map(&p.k_map, k, batch, seq, heads, st[3], st[4], st[5], kBT)) != 0) return err;
-  if ((err = make_bshd_map(&p.v_map, v, batch, seq, heads, st[6], st[7], st[8], kBT)) != 0) return err;
-  if ((err = make_bshd_map(&p.do_map, dout, batch, q_len, heads, st[12], st[13], st[14], kBT)) != 0) return err;
-  p.q = static_cast<const __nv_bfloat16*>(q);
-  p.o = static_cast<const __nv_bfloat16*>(o);
-  p.dout = static_cast<const __nv_bfloat16*>(dout);
+  Params<E> p;
+  if ((err = make_bshd_map<E>(&p.q_map, q, batch, q_len, heads, st[0], st[1], st[2], kBT)) != 0) return err;
+  if ((err = make_bshd_map<E>(&p.k_map, k, batch, seq, heads, st[3], st[4], st[5], kBT)) != 0) return err;
+  if ((err = make_bshd_map<E>(&p.v_map, v, batch, seq, heads, st[6], st[7], st[8], kBT)) != 0) return err;
+  if ((err = make_bshd_map<E>(&p.do_map, dout, batch, q_len, heads, st[12], st[13], st[14], kBT)) != 0) return err;
+  p.q = static_cast<const E*>(q);
+  p.o = static_cast<const E*>(o);
+  p.dout = static_cast<const E*>(dout);
   p.lse = static_cast<const float*>(lse);
+  p.ds_exp = static_cast<const int*>(ds_exp);
   p.lse2_ws = static_cast<float*>(lse2_ws);
   p.delta_ws = static_cast<float*>(delta_ws);
-  p.dq = static_cast<__nv_bfloat16*>(dq);
-  p.dk = static_cast<__nv_bfloat16*>(dk);
-  p.dv = static_cast<__nv_bfloat16*>(dv);
+  p.dq = static_cast<E*>(dq);
+  p.dk = static_cast<E*>(dk);
+  p.dv = static_cast<E*>(dv);
   p.q_sb = st[0]; p.q_ss = st[1]; p.q_sh = st[2];
   p.o_sb = st[9]; p.o_ss = st[10]; p.o_sh = st[11];
   p.do_sb = st[12]; p.do_ss = st[13]; p.do_sh = st[14];
@@ -542,19 +586,40 @@ int launch(const void* q, const void* k, const void* v, const void* o, const voi
   if (parts & kPartPrepass) {
     const long long rows = (long long)batch * heads * ws_rows;
     const int per_block = kPrepassThreads / 8;
-    banded_bwd_prepass_kernel<<<unsigned((rows + per_block - 1) / per_block), kPrepassThreads, 0, s>>>(p);
+    banded_bwd_prepass_kernel<E><<<unsigned((rows + per_block - 1) / per_block), kPrepassThreads, 0, s>>>(p);
     if ((err = static_cast<int>(cudaGetLastError())) != 0) return err;
   }
   if (parts & kPartDq) {
-    banded_bwd_dq_kernel<<<dim3(q_frames * p.q_tiles, batch * heads), kThreads, kSmemBytes, s>>>(p);
+    banded_bwd_dq_kernel<E><<<dim3(q_frames * p.q_tiles, batch * heads), kThreads, kSmemBytes, s>>>(p);
     if ((err = static_cast<int>(cudaGetLastError())) != 0) return err;
   }
   if (parts & kPartDkv) {
     const unsigned blocks = unsigned((p.glob_tiles + n_frames * p.k_tiles) * batch * heads);
-    banded_bwd_dkv_kernel<<<blocks, kThreads, kSmemBytes, s>>>(p);
+    banded_bwd_dkv_kernel<E><<<blocks, kThreads, kSmemBytes, s>>>(p);
     if ((err = static_cast<int>(cudaGetLastError())) != 0) return err;
   }
   return 0;
+}
+
+template <typename E>
+int backward(const void* q, const void* k, const void* v, const void* o, const void* dout, const void* lse,
+             const void* ds_exp, void* lse2_ws, void* delta_ws, int ws_rows, void* dq, void* dk, void* dv, int batch,
+             int heads, int seq, int global_len, int tokens_per_frame, int n_frames, int span, int window,
+             const long long* st, float scale, int parts, void* stream) {
+  return launch<E>(q, k, v, o, dout, lse, ds_exp, lse2_ws, delta_ws, ws_rows, dq, dk, dv, batch, heads, seq,
+                   global_len, tokens_per_frame, n_frames, span, window, global_len, 0, n_frames, seq, st, scale,
+                   parts, stream);
+}
+
+template <typename E>
+int backward_local(const void* q, const void* k, const void* v, const void* o, const void* dout, const void* lse,
+                   const void* ds_exp, void* lse2_ws, void* delta_ws, int ws_rows, void* dq, void* dk, void* dv,
+                   int batch, int heads, int global_len, int tokens_per_frame, int n_frames, int span, int window,
+                   int frame_offset, int local_frames, const long long* st, float scale, int parts, void* stream) {
+  const int q_len = local_frames * tokens_per_frame;
+  return launch<E>(q, k, v, o, dout, lse, ds_exp, lse2_ws, delta_ws, ws_rows, dq, dk, dv, batch, heads, q_len,
+                   global_len, tokens_per_frame, n_frames, span, window, 0, frame_offset, local_frames, q_len, st,
+                   scale, parts, stream);
 }
 
 }  // namespace
@@ -562,50 +627,61 @@ int launch(const void* q, const void* k, const void* v, const void* o, const voi
 // Dynamic shared memory a block of the dq or dkv kernel asks for, in bytes.
 extern "C" int s2v_banded_attention_bwd_smem_bytes() { return kSmemBytes; }
 
-// B5: every tensor [B, S, H, d], lse [B, H, S]; dq at the video rows, dk/dv
-// (the video queries' part) at all.  lse2_ws and delta_ws: fp32 [B*H, ws_rows]
-// workspaces, ws_rows a multiple of 4 and at least F*tpf + 68.
-extern "C" int s2v_banded_attention_bwd(
-    const void* q, const void* k, const void* v, const void* o, const void* dout, const void* lse,
-    void* lse2_ws, void* delta_ws, int ws_rows, void* dq, void* dk, void* dv,
-    int batch, int heads, int seq, int global_len, int tokens_per_frame, int n_frames,
-    int span, int window,
-    long long q_sb, long long q_ss, long long q_sh,
-    long long k_sb, long long k_ss, long long k_sh,
-    long long v_sb, long long v_ss, long long v_sh,
-    long long o_sb, long long o_ss, long long o_sh,
-    long long do_sb, long long do_ss, long long do_sh,
-    long long dq_sb, long long dq_ss, long long dq_sh,
-    long long dk_sb, long long dk_ss, long long dk_sh,
-    long long dv_sb, long long dv_ss, long long dv_sh,
-    float scale, int parts, void* stream) {
-  const long long st[24] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh,
-                            do_sb, do_ss, do_sh, dq_sb, dq_ss, dq_sh, dk_sb, dk_ss, dk_sh, dv_sb, dv_ss, dv_sh};
-  return launch(q, k, v, o, dout, lse, lse2_ws, delta_ws, ws_rows, dq, dk, dv, batch, heads, seq, global_len,
-                tokens_per_frame, n_frames, span, window, global_len, 0, n_frames, seq, st, scale, parts, stream);
+#define S2V_BANDED_BWD_POINTERS                                                                            \
+  const void *q, const void *k, const void *v, const void *o, const void *dout, const void *lse,        \
+      const void *ds_exp, void *lse2_ws, void *delta_ws, int ws_rows, void *dq, void *dk, void *dv
+#define S2V_BANDED_BWD_STRIDES                                                                             \
+  long long q_sb, long long q_ss, long long q_sh, long long k_sb, long long k_ss, long long k_sh,          \
+      long long v_sb, long long v_ss, long long v_sh, long long o_sb, long long o_ss, long long o_sh,     \
+      long long do_sb, long long do_ss, long long do_sh, long long dq_sb, long long dq_ss, long long dq_sh, \
+      long long dk_sb, long long dk_ss, long long dk_sh, long long dv_sb, long long dv_ss, long long dv_sh
+#define S2V_BANDED_BWD_STRIDE_ARRAY                                                                        \
+  {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh,                                 \
+   do_sb, do_ss, do_sh, dq_sb, dq_ss, dq_sh, dk_sb, dk_ss, dk_sh, dv_sb, dv_ss, dv_sh}
+
+// B5: every tensor [B, S, H, d] in bf16, lse [B, H, S]; dq at the video rows,
+// dk/dv (the video queries' part) at all.  lse2_ws and delta_ws: fp32 [B*H,
+// ws_rows] workspaces, ws_rows a multiple of 4 and at least F*tpf + 68.  ds_exp
+// is not read (may be null).
+extern "C" int s2v_banded_attention_bwd(S2V_BANDED_BWD_POINTERS, int batch, int heads, int seq, int global_len,
+                                        int tokens_per_frame, int n_frames, int span, int window,
+                                        S2V_BANDED_BWD_STRIDES, float scale, int parts, void* stream) {
+  const long long st[24] = S2V_BANDED_BWD_STRIDE_ARRAY;
+  return backward<__nv_bfloat16>(q, k, v, o, dout, lse, ds_exp, lse2_ws, delta_ws, ws_rows, dq, dk, dv, batch,
+                                 heads, seq, global_len, tokens_per_frame, n_frames, span, window, st, scale, parts,
+                                 stream);
+}
+
+// The same in fp16, with ds_exp a device int: dS is scaled by 2^ds_exp before
+// its fp16 rounding, dq and dk by 2^-ds_exp after.
+extern "C" int s2v_banded_attention_bwd_f16(S2V_BANDED_BWD_POINTERS, int batch, int heads, int seq, int global_len,
+                                            int tokens_per_frame, int n_frames, int span, int window,
+                                            S2V_BANDED_BWD_STRIDES, float scale, int parts, void* stream) {
+  const long long st[24] = S2V_BANDED_BWD_STRIDE_ARRAY;
+  return backward<__half>(q, k, v, o, dout, lse, ds_exp, lse2_ws, delta_ws, ws_rows, dq, dk, dv, batch, heads, seq,
+                          global_len, tokens_per_frame, n_frames, span, window, st, scale, parts, stream);
 }
 
 // B7: q, o, dO, dq [B, F_loc*tpf, H, d] and lse [B, H, F_loc*tpf] of the shard at
-// frame_offset; k, v and the partial dk, dv the full [B, S, H, d]; the
+// frame_offset; k, v and the partial dk, dv the full [B, S, H, d]; all bf16; the
 // workspaces as B5's, with ws_rows at least F_loc*tpf + 68
-extern "C" int s2v_banded_attention_local_bwd(
-    const void* q, const void* k, const void* v, const void* o, const void* dout, const void* lse,
-    void* lse2_ws, void* delta_ws, int ws_rows, void* dq, void* dk, void* dv,
-    int batch, int heads, int global_len, int tokens_per_frame, int n_frames,
-    int span, int window, int frame_offset, int local_frames,
-    long long q_sb, long long q_ss, long long q_sh,
-    long long k_sb, long long k_ss, long long k_sh,
-    long long v_sb, long long v_ss, long long v_sh,
-    long long o_sb, long long o_ss, long long o_sh,
-    long long do_sb, long long do_ss, long long do_sh,
-    long long dq_sb, long long dq_ss, long long dq_sh,
-    long long dk_sb, long long dk_ss, long long dk_sh,
-    long long dv_sb, long long dv_ss, long long dv_sh,
-    float scale, int parts, void* stream) {
-  const long long st[24] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh,
-                            do_sb, do_ss, do_sh, dq_sb, dq_ss, dq_sh, dk_sb, dk_ss, dk_sh, dv_sb, dv_ss, dv_sh};
-  const int q_len = local_frames * tokens_per_frame;
-  return launch(q, k, v, o, dout, lse, lse2_ws, delta_ws, ws_rows, dq, dk, dv, batch, heads, q_len, global_len,
-                tokens_per_frame, n_frames, span, window, 0, frame_offset, local_frames, q_len, st, scale, parts,
-                stream);
+extern "C" int s2v_banded_attention_local_bwd(S2V_BANDED_BWD_POINTERS, int batch, int heads, int global_len,
+                                              int tokens_per_frame, int n_frames, int span, int window,
+                                              int frame_offset, int local_frames, S2V_BANDED_BWD_STRIDES,
+                                              float scale, int parts, void* stream) {
+  const long long st[24] = S2V_BANDED_BWD_STRIDE_ARRAY;
+  return backward_local<__nv_bfloat16>(q, k, v, o, dout, lse, ds_exp, lse2_ws, delta_ws, ws_rows, dq, dk, dv, batch,
+                                       heads, global_len, tokens_per_frame, n_frames, span, window, frame_offset,
+                                       local_frames, st, scale, parts, stream);
+}
+
+// The same in fp16 (ds_exp as in s2v_banded_attention_bwd_f16).
+extern "C" int s2v_banded_attention_local_bwd_f16(S2V_BANDED_BWD_POINTERS, int batch, int heads, int global_len,
+                                                  int tokens_per_frame, int n_frames, int span, int window,
+                                                  int frame_offset, int local_frames, S2V_BANDED_BWD_STRIDES,
+                                                  float scale, int parts, void* stream) {
+  const long long st[24] = S2V_BANDED_BWD_STRIDE_ARRAY;
+  return backward_local<__half>(q, k, v, o, dout, lse, ds_exp, lse2_ws, delta_ws, ws_rows, dq, dk, dv, batch, heads,
+                                global_len, tokens_per_frame, n_frames, span, window, frame_offset, local_frames, st,
+                                scale, parts, stream);
 }

@@ -1,6 +1,6 @@
 // Non-causal flash attention with an int8 q.k^T for Hopper (sm_90a): int8
-// q and k, bf16 v, fp32 online softmax, bf16 out; and the int8 pre-pass that
-// quantizes q and k for it.
+// q and k, bf16 or fp16 v, fp32 online softmax, out in v's type; and the int8
+// pre-pass that quantizes q and k (bf16 or fp16) for it.
 //
 // Replaces the TPU kernel B3, s2v_tpu/ops/pallas/int8_attention.py::
 // flash_attention_qk_int8 (_int8_kernel), and the quantize its wrapper runs in
@@ -62,6 +62,14 @@
 //     exponentials overlap the other's products.
 // Entry s2v_int8_qk_tile runs one s8 wgmma tile (64 x 128 x 64) through the
 // same TMA map and descriptors, for the card test of the 64B-swizzle layer.
+//
+// Element type (E template parameter, hopper.cuh) of q, k, v and o: bf16 (the
+// 5b models) or fp16 (the 2b family; entries s2v_int8_attention_fwd_f16 and
+// s2v_int8_prepass_f16).  The pre-pass reads E into fp32 (exact for both), so
+// its arithmetic is the same; the main kernel's V tiles are E and P is rounded
+// to E for P.V (.f16 wgmma), as in B1.  The softmax is online, so P <= 1 needs
+// no offset in fp16.  The bf16 instantiations are the kernels as they were
+// before fp16 came.
 
 #include "hopper.cuh"
 
@@ -82,21 +90,24 @@ constexpr uint32_t kVTileBytes = kBK * kD * 2;  // bf16
 constexpr float kNegBig = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
+template <typename E>
 struct Smem {
-  __nv_bfloat16 v[kStages][kBK * kD];  // 16 KB each, so every tile below stays 1024-aligned
+  E v[kStages][kBK * kD];  // 16 KB each, so every tile below stays 1024-aligned
   int8_t k[kStages][kBK * kD];         // 8 KB each
   int8_t q[kBQ * kD];                  // 8 KB; each warpgroup's half starts 512-aligned
   uint64_t full[kStages];
   uint64_t empty[kStages];
   uint64_t q_full;
 };
-constexpr int kSmemBytes = sizeof(Smem) + 1024;
+constexpr int kSmemBytes = sizeof(Smem<__nv_bfloat16>) + 1024;
+static_assert(sizeof(Smem<__half>) == sizeof(Smem<__nv_bfloat16>), "one layout for both types");
 
+template <typename E>
 struct Params {
   CUtensorMap q_map;  // int8, box (64, kBQ)
   CUtensorMap k_map;  // int8, box (64, kBK)
-  CUtensorMap v_map;  // bf16, box (64, kBK)
-  __nv_bfloat16* o;
+  CUtensorMap v_map;  // E, box (64, kBK)
+  E* o;
   const float* dq;    // device scalar: qs * ks
   long long o_sb, o_ss, o_sh;
   int H, Sq, Skv;
@@ -109,14 +120,16 @@ __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000u);
 __device__ __forceinline__ float exact_i2f(int x) { return __int_as_float(x + 0x4B400000) - 12582912.0f; }
 
 // K and V of key tile j into its stage
-__device__ __forceinline__ void load_kv_tile(const Params& p, Smem& sm, int j, int b, int h) {
+template <typename E>
+__device__ __forceinline__ void load_kv_tile(const Params<E>& p, Smem<E>& sm, int j, int b, int h) {
   const int st = j % kStages;
   mbar_arrive_expect_tx(&sm.full[st], kKTileBytes + kVTileBytes);
   tma_load_rows(sm.k[st], &p.k_map, &sm.full[st], j * kBK, h, b);
   tma_load_rows(sm.v[st], &p.v_map, &sm.full[st], j * kBK, h, b);
 }
 
-__device__ __forceinline__ void consumer(const Params& p, Smem& sm, int wg, int b, int h) {
+template <typename E>
+__device__ __forceinline__ void consumer(const Params<E>& p, Smem<E>& sm, int wg, int b, int h) {
   const int tid = threadIdx.x & 127;
   const int lane = tid & 31;
   const int t = lane & 3;
@@ -207,13 +220,13 @@ __device__ __forceinline__ void consumer(const Params& p, Smem& sm, int wg, int 
       l_run[1] += s[4 * j8 + 2] + s[4 * j8 + 3];
     }
 
-    // O += P V: P re-packed from the S accumulator as bf16 A fragments
+    // O += P V: P re-packed from the S accumulator as A fragments of E
     uint32_t pa[8][4];
 #pragma unroll
-    for (int kc = 0; kc < 8; ++kc) acc_to_a(pa[kc], s, kc);
+    for (int kc = 0; kc < 8; ++kc) acc_to_a<E>(pa[kc], s, kc);
     wgmma_fence();
 #pragma unroll
-    for (int kc = 0; kc < 8; ++kc) mma_m64n64k16_rs<1>(o_acc, pa[kc], desc_mnmajor(sm.v[st], kc), 1);
+    for (int kc = 0; kc < 8; ++kc) mma_m64n64k16_rs<1, E>(o_acc, pa[kc], desc_mnmajor(sm.v[st], kc), 1);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(o_acc);
@@ -233,9 +246,10 @@ __device__ __forceinline__ void consumer(const Params& p, Smem& sm, int wg, int 
   store_rows(p.o + b * p.o_sb + h * p.o_sh, p.o_ss, row0, p.Sq, o_acc, inv0, inv1, t);
 }
 
-__global__ void __launch_bounds__(kThreads, 2) s2v_i8attn_fwd_kernel(const __grid_constant__ Params p) {
+template <typename E>
+__global__ void __launch_bounds__(kThreads, 2) s2v_i8attn_fwd_kernel(const __grid_constant__ Params<E> p) {
   extern __shared__ uint8_t smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(align_1024(smem_raw));
+  Smem<E>& sm = *reinterpret_cast<Smem<E>*>(align_1024(smem_raw));
   const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);  // warp-uniform
   const int b = blockIdx.y / p.H;
   const int h = blockIdx.y % p.H;
@@ -260,7 +274,7 @@ __global__ void __launch_bounds__(kThreads, 2) s2v_i8attn_fwd_kernel(const __gri
     const int n_tiles = (p.Skv + kBK - 1) / kBK;
     for (int j = 0; j < kStages - 1 && j < n_tiles; ++j) load_kv_tile(p, sm, j, b, h);
   }
-  consumer(p, sm, wg, b, h);
+  consumer<E>(p, sm, wg, b, h);
 }
 
 // ------------------------------------------------------------------ pre-pass
@@ -272,9 +286,10 @@ constexpr int kPrepBlocksPerSm = 8;  // 2,048 threads an SM: enough 16-byte load
 constexpr float kInv127 = static_cast<float>(1.0 / 127.0);
 
 // q's rows and then k's rows as one list of 64-element rows; a chunk is 8
-// bf16 (16 bytes) of a row
+// values of E (16 bytes) of a row
+template <typename E>
 struct PrepassParams {
-  const __nv_bfloat16* src[2];  // q, k: [B, S, H, 64], rows contiguous
+  const E* src[2];              // q, k: [B, S, H, 64], rows contiguous
   int8_t* dst[2];               // q_i8, k_i8: [B, S, H, 64], contiguous
   unsigned int* amax;           // [2]: the fp32 bits of max|scale*q| and max|k|
   float* dq;                    // [1]: qs * ks
@@ -288,7 +303,8 @@ struct PrepassParams {
 
 // Chunk c: its tensor (0 = q, 1 = k), its row within that tensor and its
 // 8 values in fp32 (q's times scale).
-__device__ __forceinline__ void load_chunk(const PrepassParams& p, long long c, int& which, int& row,
+template <typename E>
+__device__ __forceinline__ void load_chunk(const PrepassParams<E>& p, long long c, int& which, int& row,
                                            float (&x)[8]) {
   const int r = static_cast<int>(c >> 3);
   which = r >= p.rows_q ? 1 : 0;
@@ -299,20 +315,21 @@ __device__ __forceinline__ void load_chunk(const PrepassParams& p, long long c, 
   const int bs = row / p.H;
   const int s = bs % seq;
   const int b = bs / seq;
-  const __nv_bfloat16* src = (which ? p.src[1] : p.src[0]) + b * (which ? p.sb[1] : p.sb[0]) +
+  const E* src = (which ? p.src[1] : p.src[0]) + b * (which ? p.sb[1] : p.sb[0]) +
                              s * (which ? p.ss[1] : p.ss[0]) + h * (which ? p.sh[1] : p.sh[0]) + (c & 7) * 8;
   const uint4 raw = __ldg(reinterpret_cast<const uint4*>(src));
   const uint32_t words[4] = {raw.x, raw.y, raw.z, raw.w};
   const float sc = which ? 1.f : p.scale;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&words[i]));
+    const float2 f = unpack_x2<E>(words[i]);
     x[2 * i] = __fmul_rn(f.x, sc);
     x[2 * i + 1] = __fmul_rn(f.y, sc);
   }
 }
 
-__global__ void __launch_bounds__(kPrepThreads) s2v_i8attn_amax_kernel(const PrepassParams p) {
+template <typename E>
+__global__ void __launch_bounds__(kPrepThreads) s2v_i8attn_amax_kernel(const PrepassParams<E> p) {
   __shared__ float part[2][kPrepThreads / 32];
   float mq = 0.f, mk = 0.f;
   const long long n = static_cast<long long>(p.rows) * 8;
@@ -353,7 +370,8 @@ __device__ __forceinline__ uint32_t pack_s8x4(const int* v) {
          (uint32_t(v[3]) << 24);
 }
 
-__global__ void __launch_bounds__(kPrepThreads) s2v_i8attn_quantize_kernel(const PrepassParams p) {
+template <typename E>
+__global__ void __launch_bounds__(kPrepThreads) s2v_i8attn_quantize_kernel(const PrepassParams<E> p) {
   const float aq = __uint_as_float(p.amax[0]);
   const float ak = __uint_as_float(p.amax[1]);
   const float sq = aq == 0.f ? 1.f : __fmul_rn(aq, kInv127);
@@ -419,56 +437,39 @@ __global__ void __launch_bounds__(128, 1) s2v_i8attn_tile_kernel(const __grid_co
   }
 }
 
-}  // namespace
-
-// Dynamic shared memory a block of the main kernel asks for, in bytes.
-extern "C" int s2v_int8_attention_fwd_smem_bytes() { return kSmemBytes; }
-
-// q_i8, k_i8 int8 and v, o bf16, all [B, S, H, 64] with element strides (rows
-// contiguous and 16-byte aligned, as TMA needs); dq a device fp32 scalar.
-extern "C" int s2v_int8_attention_fwd(
-    const void* q, const void* k, const void* v, void* o, const void* dq,
-    int batch, int heads, int sq, int skv,
-    long long q_sb, long long q_ss, long long q_sh,
-    long long k_sb, long long k_ss, long long k_sh,
-    long long v_sb, long long v_ss, long long v_sh,
-    long long o_sb, long long o_ss, long long o_sh,
-    void* stream) {
+template <typename E>
+int forward(const void* q, const void* k, const void* v, void* o, const void* dq, int batch, int heads, int sq,
+            int skv, const long long* st, void* stream) {
   static bool configured = false;
   if (!configured) {
     const cudaError_t err =
-        cudaFuncSetAttribute(s2v_i8attn_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+        cudaFuncSetAttribute(s2v_i8attn_fwd_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
-  Params p;
-  int err = make_bshd_map_s8(&p.q_map, q, batch, sq, heads, q_sb, q_ss, q_sh, kBQ);
+  Params<E> p;
+  int err = make_bshd_map_s8(&p.q_map, q, batch, sq, heads, st[0], st[1], st[2], kBQ);
   if (err != 0) return err;
-  if ((err = make_bshd_map_s8(&p.k_map, k, batch, skv, heads, k_sb, k_ss, k_sh, kBK)) != 0) return err;
-  if ((err = make_bshd_map(&p.v_map, v, batch, skv, heads, v_sb, v_ss, v_sh, kBK)) != 0) return err;
-  p.o = static_cast<__nv_bfloat16*>(o);
+  if ((err = make_bshd_map_s8(&p.k_map, k, batch, skv, heads, st[3], st[4], st[5], kBK)) != 0) return err;
+  if ((err = make_bshd_map<E>(&p.v_map, v, batch, skv, heads, st[6], st[7], st[8], kBK)) != 0) return err;
+  p.o = static_cast<E*>(o);
   p.dq = static_cast<const float*>(dq);
-  p.o_sb = o_sb; p.o_ss = o_ss; p.o_sh = o_sh;
+  p.o_sb = st[9]; p.o_ss = st[10]; p.o_sh = st[11];
   p.H = heads;
   p.Sq = sq;
   p.Skv = skv;
   const dim3 grid((sq + kBQ - 1) / kBQ, batch * heads);
-  s2v_i8attn_fwd_kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(p);
+  s2v_i8attn_fwd_kernel<E><<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The pre-pass: q, k bf16 [B, S, H, 64] (element strides, rows contiguous and
-// 16-byte aligned) -> q_i8, k_i8 int8 [B, S, H, 64] contiguous and dq [1]
-// fp32; amax is a 2-float device workspace.
-extern "C" int s2v_int8_prepass(
-    const void* q, const void* k, void* q_i8, void* k_i8, void* amax, void* dq,
-    int batch, int heads, int sq, int skv,
-    long long q_sb, long long q_ss, long long q_sh,
-    long long k_sb, long long k_ss, long long k_sh,
-    float scale, void* stream) {
-  PrepassParams p;
-  p.src[0] = static_cast<const __nv_bfloat16*>(q);
-  p.src[1] = static_cast<const __nv_bfloat16*>(k);
+template <typename E>
+int prepass(const void* q, const void* k, void* q_i8, void* k_i8, void* amax, void* dq, int batch, int heads,
+            int sq, int skv, long long q_sb, long long q_ss, long long q_sh, long long k_sb, long long k_ss,
+            long long k_sh, float scale, void* stream) {
+  PrepassParams<E> p;
+  p.src[0] = static_cast<const E*>(q);
+  p.src[1] = static_cast<const E*>(k);
   p.dst[0] = static_cast<int8_t*>(q_i8);
   p.dst[1] = static_cast<int8_t*>(k_i8);
   p.amax = static_cast<unsigned int*>(amax);
@@ -496,10 +497,52 @@ extern "C" int s2v_int8_prepass(
   const long long needed = (chunks + kPrepThreads - 1) / kPrepThreads;
   const long long most = static_cast<long long>(sms) * kPrepBlocksPerSm;
   const int blocks = static_cast<int>(needed < most ? needed : most);
-  s2v_i8attn_amax_kernel<<<blocks, kPrepThreads, 0, s>>>(p);
+  s2v_i8attn_amax_kernel<E><<<blocks, kPrepThreads, 0, s>>>(p);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  s2v_i8attn_quantize_kernel<<<blocks, kPrepThreads, 0, s>>>(p);
+  s2v_i8attn_quantize_kernel<E><<<blocks, kPrepThreads, 0, s>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Dynamic shared memory a block of the main kernel asks for, in bytes.
+extern "C" int s2v_int8_attention_fwd_smem_bytes() { return kSmemBytes; }
+
+#define S2V_INT8_FWD_ARGS                                                                                  \
+  const void *q, const void *k, const void *v, void *o, const void *dq, int batch, int heads, int sq,   \
+      int skv, long long q_sb, long long q_ss, long long q_sh, long long k_sb, long long k_ss,          \
+      long long k_sh, long long v_sb, long long v_ss, long long v_sh, long long o_sb, long long o_ss,   \
+      long long o_sh, void *stream
+#define S2V_INT8_PREPASS_ARGS                                                                              \
+  const void *q, const void *k, void *q_i8, void *k_i8, void *amax, void *dq, int batch, int heads,     \
+      int sq, int skv, long long q_sb, long long q_ss, long long q_sh, long long k_sb, long long k_ss,  \
+      long long k_sh, float scale, void *stream
+
+// q_i8, k_i8 int8 and v, o bf16, all [B, S, H, 64] with element strides (rows
+// contiguous and 16-byte aligned, as TMA needs); dq a device fp32 scalar.
+extern "C" int s2v_int8_attention_fwd(S2V_INT8_FWD_ARGS) {
+  const long long st[12] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh};
+  return forward<__nv_bfloat16>(q, k, v, o, dq, batch, heads, sq, skv, st, stream);
+}
+
+// The same with v and o fp16.
+extern "C" int s2v_int8_attention_fwd_f16(S2V_INT8_FWD_ARGS) {
+  const long long st[12] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh};
+  return forward<__half>(q, k, v, o, dq, batch, heads, sq, skv, st, stream);
+}
+
+// The pre-pass: q, k bf16 [B, S, H, 64] (element strides, rows contiguous and
+// 16-byte aligned) -> q_i8, k_i8 int8 [B, S, H, 64] contiguous and dq [1]
+// fp32; amax is a 2-float device workspace.
+extern "C" int s2v_int8_prepass(S2V_INT8_PREPASS_ARGS) {
+  return prepass<__nv_bfloat16>(q, k, q_i8, k_i8, amax, dq, batch, heads, sq, skv, q_sb, q_ss, q_sh, k_sb, k_ss,
+                                k_sh, scale, stream);
+}
+
+// The same with q and k fp16.
+extern "C" int s2v_int8_prepass_f16(S2V_INT8_PREPASS_ARGS) {
+  return prepass<__half>(q, k, q_i8, k_i8, amax, dq, batch, heads, sq, skv, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
+                         scale, stream);
 }
 
 // One s8 wgmma tile: out[64, 128] int32 = q_i8[64, 64] . k_i8[128, 64]^T,

@@ -37,6 +37,14 @@ through its own C entry point ``s2v_banded_attention_local_fwd``;
 :func:`banded_flash_attention_local_reference` is its plain version and
 ``banded_flash_attention_local.launches`` its own count.
 
+Element types: bf16 (the 5b models) and fp16 (the 2b family), one kernel
+templated on the type, two C entry points for each of B4 and B6 (``ENTRY``,
+``LOCAL_ENTRY``).  From fp16 inputs the kernel computes what the JAX package
+computes after its fp32 upcast, except that P is rounded to fp16 for P·V;
+the softmax is online, so P ≤ 1 against each row's running max and fp16
+needs no offset (ROADMAP C.1).  ``launches_by_dtype`` counts launches by
+element type.
+
 Bound on an H100 SXM at the main-path shape (B=2, H=48, G=1,576, tpf=1,350,
 F=13, w=2, d=64): the banded launch does 4·B·H·d·(17,550 × 8,326) = 3.59·10¹²
 operations (3.63 ms at 989 TFLOP/s bf16), the global queries' B1 call
@@ -64,6 +72,9 @@ from s2v_torch.kernels.flash_attention import (
 from s2v_torch.utils import native_build
 
 SOURCE = native_build.CSRC_DIR / "banded_attention.cu"
+# the C entry points of each element type: B4's and B6's
+ENTRY = {torch.bfloat16: "s2v_banded_attention_fwd", torch.float16: "s2v_banded_attention_fwd_f16"}
+LOCAL_ENTRY = {torch.bfloat16: "s2v_banded_attention_local_fwd", torch.float16: "s2v_banded_attention_local_fwd_f16"}
 # a block of the kernel owns KERNEL_QUERY_TILE query rows of one frame and
 # streams K/V in tiles of KERNEL_KEY_TILE keys
 KERNEL_QUERY_TILE = 128
@@ -75,13 +86,12 @@ def _library():
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(native_build.build_one(SOURCE)))
-        fn = lib.s2v_banded_attention_fwd
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [vp] * 5 + [i32] * 8 + [i64] * 12 + [ctypes.c_float, vp]
-        fn.restype = i32
-        local = lib.s2v_banded_attention_local_fwd
-        local.argtypes = [vp] * 5 + [i32] * 9 + [i64] * 12 + [ctypes.c_float, vp]
-        local.restype = i32
+        for entries, ints in ((ENTRY, 8), (LOCAL_ENTRY, 9)):
+            for name in entries.values():
+                fn = getattr(lib, name)
+                fn.argtypes = [vp] * 5 + [i32] * ints + [i64] * 12 + [ctypes.c_float, vp]
+                fn.restype = i32
         _lib = lib
     return _lib
 
@@ -237,8 +247,9 @@ def banded_flash_attention_reference(
 
 def check_banded_kernel_inputs(q, k, v) -> None:
     """Raise unless the CUDA kernel takes these tensors: one ``[B, S, H, d]``
-    shape, and what B1's kernel requires (bf16, d = 64, 16-byte aligned
-    rows, B·H ≤ 65535).  Reads only metadata (testable on meta tensors)."""
+    shape, and what B1's kernel requires (bf16 or fp16, d = 64, 16-byte
+    aligned rows, B·H ≤ 65535).  Reads only metadata (testable on meta
+    tensors)."""
     _check_qkv(q, k, v)
     check_kernel_inputs(q, k, v)
 
@@ -249,7 +260,7 @@ def launch_banded(q, k, v, o, lse, geo: BandGeometry, scale: float) -> None:
     b, s, h, _ = q.shape
     ptr = lambda t: ctypes.c_void_p(t.data_ptr() if t is not None else 0)  # noqa: E731
     strides = [st for t in (q, k, v, o) for st in t.stride()[:3]]
-    err = _library().s2v_banded_attention_fwd(
+    err = getattr(_library(), ENTRY[q.dtype])(
         ptr(q), ptr(k), ptr(v), ptr(o), ptr(lse), b, h, s, geo.global_len, geo.tokens_per_frame,
         geo.n_frames, geo.span, geo.window, *strides, ctypes.c_float(scale * LOG2E),
         ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream),
@@ -257,6 +268,8 @@ def launch_banded(q, k, v, o, lse, geo: BandGeometry, scale: float) -> None:
     if err != 0:
         raise RuntimeError(f"banded_flash_attention kernel launch failed: {native_build.launch_error(err)}")
     banded_flash_attention.launches += 1
+    dtype = str(q.dtype).replace("torch.", "")
+    banded_flash_attention.launches_by_dtype[dtype] = banded_flash_attention.launches_by_dtype.get(dtype, 0) + 1
 
 
 def _banded_flash_attention_cuda(q, k, v, geo: BandGeometry, scale, return_lse):
@@ -296,7 +309,7 @@ def banded_flash_attention(
     :func:`s2v_torch.kernels.banded_attention_bwd.banded_flash_attention_bwd`).
 
     CPU tensors take the plain version; CUDA tensors launch the kernels or
-    raise (bf16 and d = 64 only)."""
+    raise (bf16 or fp16, and d = 64 only)."""
     _check_qkv(q, k, v)
     geo = band_geometry(q.shape[1], global_len, tokens_per_frame, window_frames)
     devices = {t.device.type for t in (q, k, v)}
@@ -309,6 +322,7 @@ def banded_flash_attention(
 
 
 banded_flash_attention.launches = 0
+banded_flash_attention.launches_by_dtype = {}  # "bfloat16" / "float16" -> launches
 
 
 # ---------------------------------------------------------------------------
@@ -382,7 +396,7 @@ def launch_banded_local(q_vid, k, v, o, lse, geo: BandGeometry, scale: float) ->
     b, _, h, _ = q_vid.shape
     ptr = lambda t: ctypes.c_void_p(t.data_ptr() if t is not None else 0)  # noqa: E731
     strides = [st for t in (q_vid, k, v, o) for st in t.stride()[:3]]
-    err = _library().s2v_banded_attention_local_fwd(
+    err = getattr(_library(), LOCAL_ENTRY[q_vid.dtype])(
         ptr(q_vid), ptr(k), ptr(v), ptr(o), ptr(lse), b, h, geo.global_len, geo.tokens_per_frame,
         geo.n_frames, geo.span, geo.window, geo.frame_offset, geo.local_frames, *strides,
         ctypes.c_float(scale * LOG2E), ctypes.c_void_p(torch.cuda.current_stream(q_vid.device).cuda_stream),
@@ -390,6 +404,9 @@ def launch_banded_local(q_vid, k, v, o, lse, geo: BandGeometry, scale: float) ->
     if err != 0:
         raise RuntimeError(f"banded_flash_attention_local kernel launch failed: {native_build.launch_error(err)}")
     banded_flash_attention_local.launches += 1
+    dtype = str(q_vid.dtype).replace("torch.", "")
+    banded_flash_attention_local.launches_by_dtype[dtype] = (
+        banded_flash_attention_local.launches_by_dtype.get(dtype, 0) + 1)
 
 
 def banded_flash_attention_local(
@@ -416,7 +433,7 @@ def banded_flash_attention_local(
     :func:`s2v_torch.kernels.banded_attention_bwd.banded_flash_attention_local_bwd`).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel or
-    raise (bf16 and d = 64 only)."""
+    raise (bf16 or fp16, and d = 64 only)."""
     geo = local_geometry(q_vid, k_full, v_full, global_len, tokens_per_frame, window_frames, frame_offset,
                          n_frames_total)
     devices = {t.device.type for t in (q_vid, k_full, v_full)}
@@ -437,6 +454,7 @@ def banded_flash_attention_local(
 
 
 banded_flash_attention_local.launches = 0
+banded_flash_attention_local.launches_by_dtype = {}  # "bfloat16" / "float16" -> launches
 
 
 # ---------------------------------------------------------------------------
@@ -449,9 +467,11 @@ def _banded_fwd_schedule(q_rows, k, v, geo: BandGeometry, scale: float):
     of frames ``geo.frame_offset ..``: per 128-row query tile inside a frame,
     the key tiles of :meth:`BandGeometry.key_tiles` in order, with the
     kernel's online softmax in log2 units (running max, rescale), P rounded to
-    bf16 for P·V and the row sums of the unrounded P.  Returns o ``[B, H,
+    the input type (bf16, or fp16 for fp16 inputs) for P·V and the row sums of
+    the unrounded P.  Returns o ``[B, H,
     rows, d]`` and the natural-log lse ``[B, H, rows]``, fp32."""
     c = scale * LOG2E
+    low = torch.float16 if q_rows.dtype == torch.float16 else torch.bfloat16
     qf = q_rows.float().transpose(1, 2)  # [B, H, rows, d]
     kf, vf = k.float().transpose(1, 2), v.float().transpose(1, 2)  # [B, H, S, d]
     tpf = geo.tokens_per_frame
@@ -471,7 +491,7 @@ def _banded_fwd_schedule(q_rows, k, v, geo: BandGeometry, scale: float):
                 alpha = torch.exp2(m - m_new)
                 p = torch.exp2(s * c - m_new[..., None])
                 l = l * alpha + p.sum(-1)
-                o = o * alpha[..., None] + torch.matmul(p.to(torch.bfloat16).float(), vf[:, :, kb:ke])
+                o = o * alpha[..., None] + torch.matmul(p.to(low).float(), vf[:, :, kb:ke])
                 m = m_new
             outs.append(o / l[..., None])
             lses.append(m * LN2 + torch.log(l))

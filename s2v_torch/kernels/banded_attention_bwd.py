@@ -49,6 +49,15 @@ F=13, w=2, d=64): the five products over the band are 10·B·H·d·(17,550 ×
 the global queries' B2 call 9.3·10¹¹ (0.94 ms); both compute-bound.  B7 at
 world size 1 does the banded kernels' work; a shard of a P-rank ring does its
 real frames' share (``BandGeometry.shard_pairs``).
+
+Element types: bf16 and fp16 (the 2b family), one set of kernels templated
+on the type, two C entry points each for B5 and B7 (``ENTRY``,
+``LOCAL_ENTRY``); P and dS are rounded to the input type before their
+products.  In fp16 the kernels scale dS by 2^e before its rounding and dq,
+dk by 2^-e after, e from :func:`band_ds_exponent` (B2's ``ds_exponent`` over
+all of v and the call's real dO rows), so a training step's small dO does not
+flush dS (ROADMAP C.1).
+``launches_by_dtype`` counts calls by element type.
 """
 
 from __future__ import annotations
@@ -68,6 +77,7 @@ from s2v_torch.kernels.banded_attention import (
 )
 from s2v_torch.kernels.flash_attention import LOG2E, check_kernel_inputs, check_kernel_tensor
 from s2v_torch.kernels.flash_attention_bwd import (
+    ds_exponent,
     flash_attention_bwd,
     flash_attention_bwd_blocked,
     masked_bwd_reference,
@@ -76,6 +86,9 @@ from s2v_torch.kernels.flash_attention_bwd import (
 from s2v_torch.utils import native_build
 
 SOURCE = native_build.CSRC_DIR / "banded_attention_bwd.cu"
+# the C entry points of each element type: B5's and B7's
+ENTRY = {torch.bfloat16: "s2v_banded_attention_bwd", torch.float16: "s2v_banded_attention_bwd_f16"}
+LOCAL_ENTRY = {torch.bfloat16: "s2v_banded_attention_local_bwd", torch.float16: "s2v_banded_attention_local_bwd_f16"}
 # rows of each tile the kernels stream (keys in the dq kernel, queries in
 # the dk/dv kernel); a block owns 128 resident rows
 KERNEL_TILE_ROWS = 64
@@ -90,13 +103,13 @@ def _library():
     if _lib is None:
         lib = ctypes.CDLL(str(native_build.build_one(SOURCE)))
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        pointers = [vp] * 8 + [i32] + [vp] * 3  # q, k, v, o, dO, lse, the workspace and its rows, dq, dk, dv
-        fn = lib.s2v_banded_attention_bwd
-        fn.argtypes = pointers + [i32] * 8 + [i64] * 24 + [ctypes.c_float, i32, vp]
-        fn.restype = i32
-        local = lib.s2v_banded_attention_local_bwd
-        local.argtypes = pointers + [i32] * 9 + [i64] * 24 + [ctypes.c_float, i32, vp]
-        local.restype = i32
+        # q, k, v, o, dO, lse, the dS exponent, the workspace and its rows, dq, dk, dv
+        pointers = [vp] * 9 + [i32] + [vp] * 3
+        for entries, ints in ((ENTRY, 8), (LOCAL_ENTRY, 9)):
+            for name in entries.values():
+                fn = getattr(lib, name)
+                fn.argtypes = pointers + [i32] * ints + [i64] * 24 + [ctypes.c_float, i32, vp]
+                fn.restype = i32
         _lib = lib
     return _lib
 
@@ -116,6 +129,13 @@ def _check_lse(lse, what: str) -> None:
         raise ValueError(f"{what} kernels take a contiguous lse; strides {lse.stride()}")
 
 
+def _check_out_and_grad(q, o, g) -> None:
+    check_kernel_tensor("o", o)
+    check_kernel_tensor("dO", g)
+    if not q.dtype == o.dtype == g.dtype:
+        raise ValueError(f"o and dO must have q's dtype {q.dtype}; got {o.dtype}, {g.dtype}")
+
+
 def check_banded_bwd_kernel_inputs(q, k, v, o, lse, g) -> None:
     """Raise unless the CUDA kernels take these tensors: q/k/v/o/dO as
     :func:`check_banded_kernel_inputs` requires, lse fp32, contiguous ``[B,
@@ -123,8 +143,7 @@ def check_banded_bwd_kernel_inputs(q, k, v, o, lse, g) -> None:
     (testable on meta tensors)."""
     _check_shapes(q, k, v, o, lse, g)
     check_banded_kernel_inputs(q, k, v)
-    check_kernel_tensor("o", o)
-    check_kernel_tensor("dO", g)
+    _check_out_and_grad(q, o, g)
     _check_lse(lse, "banded_flash_attention_bwd")
 
 
@@ -159,9 +178,21 @@ def banded_bwd_workspace(q: torch.Tensor, query_rows: int) -> torch.Tensor:
     return torch.empty((2, b * h, ws_rows), dtype=torch.float32, device=q.device)
 
 
-def _pointers_and_strides(q, k, v, o, g, lse, workspace, dq, dk, dv):
-    ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
-    pointers = [ptr(t) for t in (q, k, v, o, g, lse, workspace[0], workspace[1])]
+def band_ds_exponent(v: torch.Tensor, g_rows: torch.Tensor, geo: BandGeometry) -> torch.Tensor:
+    """The fp16 kernels' dS exponent (:func:`ds_exponent`) for the banded
+    call on the query rows ``g_rows`` (dO of the video rows, or of a shard's
+    rows) against all of v: over the real frames' rows only, since a
+    shard's dummy frames may hold anything and add nothing; 0 when the call
+    has no real frame."""
+    real_rows = geo.real_frames() * geo.tokens_per_frame
+    if real_rows == 0:
+        return torch.zeros(1, dtype=torch.int32, device=v.device)
+    return ds_exponent(v, g_rows[:, :real_rows])
+
+
+def _pointers_and_strides(q, k, v, o, g, lse, ds_exp, workspace, dq, dk, dv):
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr() if t is not None else 0)  # noqa: E731
+    pointers = [ptr(t) for t in (q, k, v, o, g, lse, ds_exp, workspace[0], workspace[1])]
     pointers += [workspace.shape[2], ptr(dq), ptr(dk), ptr(dv)]
     strides = [st for t in (q, k, v, o, g, dq, dk, dv) for st in t.stride()[:3]]
     return pointers, strides
@@ -173,14 +204,17 @@ def launch_banded_bwd(q, k, v, o, g, lse, dq, dk, dv, geo: BandGeometry, scale: 
     smoke times them one at a time on a workspace a full launch has filled):
     dq at the video rows, dk and dv of the video queries' part at every row."""
     b, s, h, _ = q.shape
-    pointers, strides = _pointers_and_strides(q, k, v, o, g, lse, workspace, dq, dk, dv)
-    err = _library().s2v_banded_attention_bwd(
+    ds_exp = band_ds_exponent(v, g[:, geo.global_len:], geo) if q.dtype == torch.float16 else None
+    pointers, strides = _pointers_and_strides(q, k, v, o, g, lse, ds_exp, workspace, dq, dk, dv)
+    err = getattr(_library(), ENTRY[q.dtype])(
         *pointers, b, h, s, geo.global_len, geo.tokens_per_frame, geo.n_frames, geo.span, geo.window,
         *strides, ctypes.c_float(scale), int(parts), ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream),
     )
     if err != 0:
         raise RuntimeError(f"banded_flash_attention_bwd kernel launch failed: {native_build.launch_error(err)}")
     banded_flash_attention_bwd.launches += 1
+    dtype = str(q.dtype).replace("torch.", "")
+    banded_flash_attention_bwd.launches_by_dtype[dtype] = banded_flash_attention_bwd.launches_by_dtype.get(dtype, 0) + 1
 
 
 def _banded_flash_attention_bwd_cuda(q, k, v, o, lse, g, geo, scale):
@@ -221,7 +255,7 @@ def banded_flash_attention_bwd(
     log), g = dL/do.
 
     CPU tensors take the plain version; CUDA tensors launch the kernels or
-    raise (bf16 and d = 64 only)."""
+    raise (bf16 or fp16, and d = 64 only)."""
     _check_shapes(q, k, v, o, lse, g)
     geo = band_geometry(q.shape[1], global_len, tokens_per_frame, window_frames)
     devices = {t.device.type for t in (q, k, v, o, lse, g)}
@@ -234,6 +268,7 @@ def banded_flash_attention_bwd(
 
 
 banded_flash_attention_bwd.launches = 0
+banded_flash_attention_bwd.launches_by_dtype = {}  # "bfloat16" / "float16" -> launches
 
 
 # ---------------------------------------------------------------------------
@@ -290,8 +325,7 @@ def check_banded_local_bwd_kernel_inputs(q_vid, k_full, v_full, o_vid, lse_vid, 
     :func:`check_kernel_inputs` requires, lse fp32, contiguous ``[B, H,
     F_loc·tpf]``.  Reads only metadata (testable on meta tensors)."""
     check_kernel_inputs(q_vid, k_full, v_full)
-    check_kernel_tensor("o", o_vid)
-    check_kernel_tensor("dO", g_vid)
+    _check_out_and_grad(q_vid, o_vid, g_vid)
     _check_lse(lse_vid, "banded_flash_attention_local_bwd")
 
 
@@ -300,8 +334,9 @@ def launch_banded_local_bwd(q_vid, k, v, o_vid, g_vid, lse_vid, dq, dk, dv, geo:
     """Launch ``parts`` of one B7 backward: the shard's dq, and its partial
     dk and dv at every row of the full sequence."""
     b, _, h, _ = q_vid.shape
-    pointers, strides = _pointers_and_strides(q_vid, k, v, o_vid, g_vid, lse_vid, workspace, dq, dk, dv)
-    err = _library().s2v_banded_attention_local_bwd(
+    ds_exp = band_ds_exponent(v, g_vid, geo) if q_vid.dtype == torch.float16 else None
+    pointers, strides = _pointers_and_strides(q_vid, k, v, o_vid, g_vid, lse_vid, ds_exp, workspace, dq, dk, dv)
+    err = getattr(_library(), LOCAL_ENTRY[q_vid.dtype])(
         *pointers, b, h, geo.global_len, geo.tokens_per_frame, geo.n_frames, geo.span, geo.window,
         geo.frame_offset, geo.local_frames, *strides, ctypes.c_float(scale), int(parts),
         ctypes.c_void_p(torch.cuda.current_stream(q_vid.device).cuda_stream),
@@ -309,6 +344,9 @@ def launch_banded_local_bwd(q_vid, k, v, o_vid, g_vid, lse_vid, dq, dk, dv, geo:
     if err != 0:
         raise RuntimeError(f"banded_flash_attention_local_bwd kernel launch failed: {native_build.launch_error(err)}")
     banded_flash_attention_local_bwd.launches += 1
+    dtype = str(q_vid.dtype).replace("torch.", "")
+    banded_flash_attention_local_bwd.launches_by_dtype[dtype] = (
+        banded_flash_attention_local_bwd.launches_by_dtype.get(dtype, 0) + 1)
 
 
 def banded_flash_attention_local_bwd(
@@ -334,7 +372,7 @@ def banded_flash_attention_local_bwd(
     not included.
 
     CPU tensors take the plain version; CUDA tensors launch the kernels or
-    raise (bf16 and d = 64 only)."""
+    raise (bf16 or fp16, and d = 64 only)."""
     geo = _local_geometry(q_vid, k_full, v_full, o_vid, lse_vid, g_vid, global_len, tokens_per_frame,
                           window_frames, frame_offset, n_frames_total)
     devices = {t.device.type for t in (q_vid, k_full, v_full, o_vid, lse_vid, g_vid)}
@@ -360,6 +398,7 @@ def banded_flash_attention_local_bwd(
 
 
 banded_flash_attention_local_bwd.launches = 0
+banded_flash_attention_local_bwd.launches_by_dtype = {}  # "bfloat16" / "float16" -> launches
 
 
 # ---------------------------------------------------------------------------
@@ -370,8 +409,10 @@ banded_flash_attention_local_bwd.launches = 0
 def _banded_bwd_schedule(q_rows, k, v, o_rows, lse_rows, g_rows, geo: BandGeometry, scale: float):
     """The banded kernels on the query rows ``q_rows`` ``[B, F_loc·tpf, H, d]``
     of frames ``geo.frame_offset ..`` (with their o, dO and lse ``[B, H,
-    F_loc·tpf]``), fp32 with P and dS rounded to bf16 where the kernels feed
-    them to ``wgmma`` and the logits in log2 units against ``lse·log2 e``:
+    F_loc·tpf]``), fp32 with P and dS rounded to bf16 (fp16 for fp16 inputs,
+    dS scaled by 2^e of :func:`band_ds_exponent` first and dq, dk by 2^-e
+    after) where the kernels feed them to ``wgmma`` and the logits in log2
+    units against ``lse·log2 e``:
 
       * the dq kernel: per query frame (its 128-row tiles share one walk), dq
         summed over the 64-key tiles of :meth:`BandGeometry.key_tiles` in
@@ -389,7 +430,9 @@ def _banded_bwd_schedule(q_rows, k, v, o_rows, lse_rows, g_rows, geo: BandGeomet
     kf, vf = k.float().transpose(1, 2), v.float().transpose(1, 2)  # [B, H, S, d]
     delta = row_delta(o_rows, g_rows)  # [B, H, rows], the pre-pass
     lse2 = lse_rows.float() * LOG2E
-    bf16 = lambda x: x.to(torch.bfloat16).float()  # noqa: E731
+    low = torch.float16 if q_rows.dtype == torch.float16 else torch.bfloat16
+    bf16 = lambda x: x.to(low).float()  # noqa: E731
+    ds_up = 2.0 ** int(band_ds_exponent(v, g_rows, geo)) if q_rows.dtype == torch.float16 else 1.0
     g_len, tpf, off = geo.global_len, geo.tokens_per_frame, geo.frame_offset
     real = geo.real_frames()
 
@@ -400,7 +443,7 @@ def _banded_bwd_schedule(q_rows, k, v, o_rows, lse_rows, g_rows, geo: BandGeomet
             kt, vt = kf[:, :, kb:min(kb + tile, kend)], vf[:, :, kb:min(kb + tile, kend)]
             p = torch.exp2(torch.matmul(qf[:, :, r0:r1], kt.transpose(-1, -2)) * c - lse2[:, :, r0:r1, None])
             dp = torch.matmul(gf[:, :, r0:r1], vt.transpose(-1, -2))
-            dq[:, :, r0:r1] += torch.matmul(bf16(p * (dp - delta[:, :, r0:r1, None])), kt)
+            dq[:, :, r0:r1] += torch.matmul(bf16(p * (dp - delta[:, :, r0:r1, None]) * ds_up), kt)
 
     # (keys, query rows) of each key range: global keys see every real row
     ranges = [(0, g_len, 0, real * tpf)]
@@ -417,8 +460,9 @@ def _banded_bwd_schedule(q_rows, k, v, o_rows, lse_rows, g_rows, geo: BandGeomet
             pt = torch.exp2(torch.matmul(kf[:, :, k0:k1], qt.transpose(-1, -2)) * c - lse2[:, :, None, qb:qe])
             dpt = torch.matmul(vf[:, :, k0:k1], gt.transpose(-1, -2))
             dv[:, :, k0:k1] += torch.matmul(bf16(pt), gt)
-            dk[:, :, k0:k1] += torch.matmul(bf16(pt * (dpt - delta[:, :, None, qb:qe])), qt)
-    return dq * scale, dk * scale, dv
+            dk[:, :, k0:k1] += torch.matmul(bf16(pt * (dpt - delta[:, :, None, qb:qe]) * ds_up), qt)
+    out_scale = scale / ds_up
+    return dq * out_scale, dk * out_scale, dv
 
 
 def banded_flash_attention_bwd_blocked(

@@ -30,10 +30,10 @@ Bounded mode needs one host sync per call (the ``min log l < -55`` check
 that decides the online re-run): 42 per denoise step on the main path.
 
 Element types: bf16 (the 5b models) and fp16 (the 2b family), one kernel
-templated on the type, two C entry points.  From fp16 inputs the kernel
-computes what the JAX package computes after its fp32 upcast (the same
-products, fp32 accumulation), except that P is rounded to fp16 for P·V
-(ROADMAP C.1); the other kernels (B3-B7) take bf16 only.  fp16 has no
+templated on the type, two C entry points (so are B2-B7).  From fp16 inputs
+the kernel computes what the JAX package computes after its fp32 upcast (the
+same products, fp32 accumulation), except that P is rounded to fp16 for P·V
+(ROADMAP C.1); no kernel takes fp32.  fp16 has no
 normal values below 2⁻¹⁴, so in bounded mode the fp16 kernel offsets the
 logits by M0 less 15 bits (P = 2¹⁵ at the bound) and reports log l = -1e30
 for a row whose largest P stays below 1 (its largest logit more than 15
@@ -66,9 +66,8 @@ BOUNDED_MIN_LOG_L = -55.0
 # fp32 is 3.8 GB of logits, which fits beside the model on an 80 GB card
 REFERENCE_CHUNK = 512
 
-# the element types of kernels B1 and B2; B3-B7 take bf16 only (ROADMAP C.1)
+# the element types of kernels B1-B7; none takes fp32 (ROADMAP C.1)
 FLASH_DTYPES = (torch.bfloat16, torch.float16)
-BF16_ONLY = (torch.bfloat16,)
 
 SOURCE = native_build.CSRC_DIR / "flash_attention.cu"
 # the C entry point of each element type
@@ -105,15 +104,14 @@ def _check_shapes(q, k, v, key_pad_mask) -> None:
         raise ValueError(f"key_pad_mask must be [Skv={k.shape[1]}], got {tuple(key_pad_mask.shape)}")
 
 
-def check_kernel_tensor(name: str, t: torch.Tensor, dtypes=BF16_ONLY) -> None:
-    """Raise unless the kernels take ``t`` as a ``[B, S, H, d]`` operand: one
-    of ``dtypes`` (bf16 for every kernel, fp16 too for B1 and B2), d = 64,
+def check_kernel_tensor(name: str, t: torch.Tensor) -> None:
+    """Raise unless the kernels take ``t`` as a ``[B, S, H, d]`` operand:
+    bf16 or fp16, d = 64,
     rows contiguous and 16-byte aligned (base pointer and strides: TMA
     tensor maps and 16-byte loads need both)."""
-    if t.dtype not in dtypes:
-        names = " or ".join(str(d).replace("torch.", "") for d in dtypes)
-        raise ValueError(f"this attention kernel takes {names}; {name} is {t.dtype} (ROADMAP C.1: fp16 reaches "
-                         f"only kernels B1 and B2, fp32 none)")
+    if t.dtype not in FLASH_DTYPES:
+        raise ValueError(f"the attention kernels take bfloat16 or float16; {name} is {t.dtype} (ROADMAP C.1: no "
+                         f"kernel takes fp32)")
     if t.shape[-1] != KERNEL_HEAD_DIM:
         raise ValueError(f"flash_attention kernels take d={KERNEL_HEAD_DIM}; {name} has d={t.shape[-1]}")
     if t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:-1]):
@@ -122,7 +120,7 @@ def check_kernel_tensor(name: str, t: torch.Tensor, dtypes=BF16_ONLY) -> None:
         raise ValueError(f"{name} must start on a 16-byte boundary; its storage offset is {t.storage_offset()}")
 
 
-def check_kernel_inputs(q, k, v, key_pad_mask=None, dtypes=BF16_ONLY) -> None:
+def check_kernel_inputs(q, k, v, key_pad_mask=None) -> None:
     """Raise unless the CUDA kernel takes these tensors (see
     :func:`check_kernel_tensor`; q, k and v of one type).  Reads only
     metadata, so it is checked before any launch (and testable on CPU or
@@ -130,7 +128,7 @@ def check_kernel_inputs(q, k, v, key_pad_mask=None, dtypes=BF16_ONLY) -> None:
     no alignment."""
     _check_shapes(q, k, v, key_pad_mask)
     for name, t in (("q", q), ("k", k), ("v", v)):
-        check_kernel_tensor(name, t, dtypes)
+        check_kernel_tensor(name, t)
     if not q.dtype == k.dtype == v.dtype:
         raise ValueError(f"q, k, v must have one dtype; got {q.dtype}, {k.dtype}, {v.dtype}")
     if q.shape[0] * q.shape[2] > 65535:
@@ -234,7 +232,7 @@ def _launch(q, k, v, o, lse, mask, m0_log2, scale_log2: float, bounded: bool) ->
 
 
 def _flash_attention_cuda(q, k, v, scale, return_lse, key_pad_mask, softmax_mode):
-    check_kernel_inputs(q, k, v, key_pad_mask, FLASH_DTYPES)
+    check_kernel_inputs(q, k, v, key_pad_mask)
     for t in (k, v):
         if t.device != q.device:
             raise ValueError("q, k, v must be on one device")

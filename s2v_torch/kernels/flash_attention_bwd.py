@@ -50,7 +50,6 @@ from typing import Optional, Tuple
 import torch
 
 from s2v_torch.kernels.flash_attention import (
-    FLASH_DTYPES,
     LOG2E,
     REFERENCE_CHUNK,
     check_kernel_inputs,
@@ -120,9 +119,9 @@ def check_bwd_kernel_inputs(q, k, v, o, lse, g) -> None:
     fp32, contiguous ``[B, H, Sq]`` (the kernels compute D themselves).
     Reads only metadata (testable on meta tensors)."""
     _check_shapes(q, k, v, o, lse, g)
-    check_kernel_inputs(q, k, v, dtypes=FLASH_DTYPES)
-    check_kernel_tensor("o", o, FLASH_DTYPES)
-    check_kernel_tensor("dO", g, FLASH_DTYPES)
+    check_kernel_inputs(q, k, v)
+    check_kernel_tensor("o", o)
+    check_kernel_tensor("dO", g)
     if not q.dtype == o.dtype == g.dtype:
         raise ValueError(f"o and dO must have q's dtype {q.dtype}; got {o.dtype}, {g.dtype}")
     if lse.dtype != torch.float32:

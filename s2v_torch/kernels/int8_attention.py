@@ -36,6 +36,13 @@ version; CUDA tensors launch the kernels or raise.
 ``flash_attention_qk_int8.prepass_launches`` pre-pass launches (both
 kernels).  :func:`flash_attention_qk_int8_blocked` emulates the main
 kernel's schedule in plain PyTorch; the card tests hold the kernel to it.
+
+Element types of q, k, v: bf16 (the 5b models) and fp16 (the 2b family), the
+kernels templated on the type with two C entry points each (``ENTRY``,
+``PREPASS_ENTRY``).  The pre-pass reads either into fp32 exactly, so its
+int8 values and dq are the same arithmetic; the main kernel rounds P to v's
+type for P·V, in fp16 as B1 does (the softmax is online: P ≤ 1 needs no
+offset).  ``launches_by_dtype`` counts main-kernel launches by type.
 """
 
 from __future__ import annotations
@@ -51,6 +58,9 @@ from s2v_torch.ops.quant import INV_127
 from s2v_torch.utils import native_build
 
 SOURCE = native_build.CSRC_DIR / "int8_attention.cu"
+# the C entry points of each element type: the main kernel's and the pre-pass's
+ENTRY = {torch.bfloat16: "s2v_int8_attention_fwd", torch.float16: "s2v_int8_attention_fwd_f16"}
+PREPASS_ENTRY = {torch.bfloat16: "s2v_int8_prepass", torch.float16: "s2v_int8_prepass_f16"}
 # an fp32 product of int8-valued operands is exact while 127²·d < 2²⁴
 MAX_EXACT_FP32_HEAD_DIM = 1040
 # query rows per block and keys per tile of the main kernel
@@ -64,13 +74,15 @@ def _library():
     if _lib is None:
         lib = ctypes.CDLL(str(native_build.build_one(SOURCE)))
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.s2v_int8_attention_fwd.argtypes = [vp] * 5 + [i32] * 4 + [i64] * 12 + [vp]
-        lib.s2v_int8_prepass.argtypes = [vp] * 6 + [i32] * 4 + [i64] * 6 + [ctypes.c_float, vp]
+        for name in ENTRY.values():
+            getattr(lib, name).argtypes = [vp] * 5 + [i32] * 4 + [i64] * 12 + [vp]
+        for name in PREPASS_ENTRY.values():
+            getattr(lib, name).argtypes = [vp] * 6 + [i32] * 4 + [i64] * 6 + [ctypes.c_float, vp]
         lib.s2v_int8_qk_tile.argtypes = [vp] * 4
         lib.s2v_int8_attention_fwd_smem_bytes.argtypes = []
-        for fn in (lib.s2v_int8_attention_fwd, lib.s2v_int8_prepass, lib.s2v_int8_qk_tile,
-                   lib.s2v_int8_attention_fwd_smem_bytes):
-            fn.restype = i32
+        for name in (*ENTRY.values(), *PREPASS_ENTRY.values(), "s2v_int8_qk_tile",
+                     "s2v_int8_attention_fwd_smem_bytes"):
+            getattr(lib, name).restype = i32
         _lib = lib
     return _lib
 
@@ -160,8 +172,8 @@ def flash_attention_qk_int8_blocked(
     the same pre-pass; 128-row query tiles, each walking 128-key tiles in
     order; logits exact in int32 (int-valued fp32 products); an online
     softmax in exp2 with ``c = dq·log2 e``, the keys past Skv in the last
-    tile at −inf; the row sums of fp32 P, and P rounded to bf16 before P·V
-    (fp32 accumulation).  Same signature and contract as
+    tile at −inf; the row sums of fp32 P, and P rounded to v's type (bf16,
+    or fp16 for fp16 inputs) before P·V (fp32 accumulation).  Same signature and contract as
     :func:`flash_attention_qk_int8_reference`; the card tests and the smoke
     hold the kernel to it, the CPU tests hold it to the plain version and
     to JAX.  Nothing on the main path calls it."""
@@ -174,7 +186,8 @@ def flash_attention_qk_int8_blocked(
     pad = -skv % tile  # the last tile's keys past Skv: zeros, as TMA fills them
     kf = torch.nn.functional.pad(k_i8.float(), (0, 0, 0, 0, 0, pad)).permute(0, 2, 3, 1)  # [B, H, d, Skv_pad]
     vf = torch.nn.functional.pad(v.float(), (0, 0, 0, 0, 0, pad)).transpose(1, 2)  # [B, H, Skv_pad, d]
-    bf16 = lambda x: x.to(torch.bfloat16).float()  # noqa: E731
+    low = torch.float16 if v.dtype == torch.float16 else torch.bfloat16
+    bf16 = lambda x: x.to(low).float()  # noqa: E731
     outs = []
     for q0 in range(0, q.shape[1], KERNEL_QUERY_TILE):
         qt = q_i8[:, q0:q0 + KERNEL_QUERY_TILE].float().transpose(1, 2)  # [B, H, rows, d]
@@ -197,18 +210,21 @@ def flash_attention_qk_int8_blocked(
 
 
 def launch_int8_prepass(q: torch.Tensor, k: torch.Tensor, scale: float):
-    """The pre-pass kernels on bf16 q, k (rows contiguous and 16-byte
-    aligned): (q_i8, k_i8, dq) as :func:`int8_prepass` returns them,
-    bit for bit, with q_i8 and k_i8 contiguous."""
+    """The pre-pass kernels on bf16 or fp16 q, k of one type (rows
+    contiguous and 16-byte aligned): (q_i8, k_i8, dq) as
+    :func:`int8_prepass` returns them, bit for bit, with q_i8 and k_i8
+    contiguous."""
     _check_shapes(q, k, k)
     for name, t in (("q", q), ("k", k)):
         check_kernel_tensor(name, t)
+    if q.dtype != k.dtype:
+        raise ValueError(f"q and k must have one dtype; got {q.dtype}, {k.dtype}")
     q_i8 = torch.empty(q.shape, dtype=torch.int8, device=q.device)
     k_i8 = torch.empty(k.shape, dtype=torch.int8, device=q.device)
     amax = torch.empty(2, dtype=torch.float32, device=q.device)  # workspace
     dq = torch.empty(1, dtype=torch.float32, device=q.device)
     b, sq, h, _ = q.shape
-    err = _library().s2v_int8_prepass(
+    err = getattr(_library(), PREPASS_ENTRY[q.dtype])(
         *(_ptr(t) for t in (q, k, q_i8, k_i8, amax, dq)), b, h, sq, k.shape[1],
         *q.stride()[:3], *k.stride()[:3], ctypes.c_float(scale), _stream(q),
     )
@@ -218,17 +234,19 @@ def launch_int8_prepass(q: torch.Tensor, k: torch.Tensor, scale: float):
 
 
 def launch_int8(q_i8, k_i8, v, o, dq) -> None:
-    """One launch of the main kernel on int8 q/k and bf16 v, o (strides with
+    """One launch of the main kernel on int8 q/k and bf16 or fp16 v, o (strides with
     contiguous, 16-byte aligned rows, as TMA needs) and the device scalar
     ``dq``."""
     b, sq, h, _ = q_i8.shape
     strides = [s for t in (q_i8, k_i8, v, o) for s in t.stride()[:3]]
-    err = _library().s2v_int8_attention_fwd(
+    err = getattr(_library(), ENTRY[v.dtype])(
         *(_ptr(t) for t in (q_i8, k_i8, v, o, dq)),
         b, h, sq, k_i8.shape[1], *strides, _stream(q_i8),
     )
     _raise_on(err, "flash_attention_qk_int8 kernel")
     flash_attention_qk_int8.launches += 1
+    dtype = str(v.dtype).replace("torch.", "")
+    flash_attention_qk_int8.launches_by_dtype[dtype] = flash_attention_qk_int8.launches_by_dtype.get(dtype, 0) + 1
 
 
 def int8_qk_tile(q_i8: torch.Tensor, k_i8: torch.Tensor) -> torch.Tensor:
@@ -265,7 +283,7 @@ def flash_attention_qk_int8(
     d]`` in q's dtype; no lse, no mask.
 
     CPU tensors take the plain version; CUDA tensors launch the pre-pass
-    and main kernels or raise (bf16 and d = 64 only)."""
+    and main kernels or raise (bf16 or fp16, and d = 64 only)."""
     devices = {t.device.type for t in (q, k, v)}
     if devices == {"cpu"}:
         return flash_attention_qk_int8_reference(q, k, v, scale)
@@ -276,3 +294,4 @@ def flash_attention_qk_int8(
 
 flash_attention_qk_int8.launches = 0
 flash_attention_qk_int8.prepass_launches = 0
+flash_attention_qk_int8.launches_by_dtype = {}  # "bfloat16" / "float16" -> main-kernel launches

@@ -7,11 +7,13 @@ the blocks.  Inside a block the sequence is ``[text | ref | video]``.
 
 from __future__ import annotations
 
+import functools
+import re
 from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from s2v_torch.config import TransformerConfig
 from s2v_torch.ops.adaln import ada_layer_norm_out, ada_layer_norm_zero_3stream
@@ -122,13 +124,35 @@ def _layer_factors(lora_blocks: Optional[dict], num_layers: int) -> list:
     return [{name: {k: ts[i] for k, ts in ab.items()} for name, ab in split.items()} for i in range(num_layers)]
 
 
-def _remat_enabled(remat: Union[bool, str]) -> bool:
+# the matmuls whose outputs remat "dots" keeps: JAX's
+# dots_with_no_batch_dims_saveable saves dot_generals without batch dims,
+# which are the linears' 2-D products here (F.linear reaches aten.mm/addmm)
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_plan(remat: Union[bool, str], num_layers: int) -> Tuple[str, int]:
+    """(mode, segments) of a remat setting: ``none``, ``full`` (each block
+    checkpointed), ``dots`` (each block checkpointed, the linears' outputs
+    saved) or ``seg`` with S segments (``seg`` picks the S minimising S +
+    L/S, ``seg<N>`` pins S = N, which must divide L)."""
     if remat in (False, "none"):
-        return False
+        return "none", 0
     if remat in (True, "full"):
-        return True
-    if remat == "dots" or (isinstance(remat, str) and remat.startswith("seg")):
-        raise NotImplementedError(f"remat={remat!r} is not ported yet; use True/'full' or False/'none'")
+        return "full", 0
+    if remat == "dots":
+        return "dots", 0
+    if isinstance(remat, str) and re.fullmatch(r"seg\d*", remat):
+        if remat != "seg":
+            segments = int(remat[3:])
+            if segments < 1 or num_layers % segments:
+                raise ValueError(f"remat={remat!r}: {segments} does not divide {num_layers} layers")
+            return "seg", segments
+        return "seg", min((d for d in range(1, num_layers + 1) if num_layers % d == 0),
+                          key=lambda d: d + num_layers // d)
     raise ValueError(f"unknown remat mode {remat!r}")
 
 
@@ -207,14 +231,21 @@ def transformer_forward(
     (``s2v_tpu/models/transformer.py:439-444``).
 
     A runtime factor tree under ``params[RUNTIME_LORA_KEY]`` is applied per
-    layer inside the block loop.  ``remat`` True/``"full"`` checkpoints each
-    block (``torch.utils.checkpoint``, non-reentrant): only the streams
-    between blocks are saved and each block's forward runs again in the
-    backward; False/``"none"`` saves everything."""
+    layer inside the block loop.  ``remat`` (``s2v_tpu/models/transformer.py:465-509``):
+    True/``"full"`` checkpoints each block (``torch.utils.checkpoint``,
+    non-reentrant): only the streams between blocks are saved and each
+    block's forward runs again in the backward; ``"dots"`` checkpoints each
+    block with a selective policy that keeps the linears' outputs and
+    recomputes the rest (less recomputation, far more memory);
+    ``"seg"``/``"seg<N>"``
+    nests the checkpoints: S segments of L/S checkpointed blocks, each
+    segment checkpointed too, so S + L/S streams are saved instead of L, for
+    one more forward; False/``"none"`` saves everything.  Every mode gives
+    the same values and gradients."""
     b, f, h, w, _ = video_latents.shape
     p = cfg.patch_size
     dt = cfg.dtype
-    use_remat = _remat_enabled(remat)
+    mode, segments = _remat_plan(remat, len(params["blocks"]))
 
     runtime_lora = params.get(RUNTIME_LORA_KEY) or {}
     if "top" in runtime_lora:
@@ -242,11 +273,25 @@ def transformer_forward(
         return block_forward(layer, video, text, ref, temb, rope_cos, rope_sin, cfg, attention_backend,
                              tokens_per_frame=(h // p) * (w // p))
 
-    for layer, factors in zip(params["blocks"], layer_factors):
-        if use_remat:
-            video, text, ref = checkpoint(run_block, layer, factors, video, text, ref, use_reentrant=False)
-        else:
-            video, text, ref = run_block(layer, factors, video, text, ref)
+    def run_blocks(layers, factors_list, video, text, ref):
+        for layer, factors in zip(layers, factors_list):
+            if mode == "none":
+                video, text, ref = run_block(layer, factors, video, text, ref)
+            elif mode == "dots":
+                video, text, ref = checkpoint(
+                    run_block, layer, factors, video, text, ref, use_reentrant=False,
+                    context_fn=functools.partial(create_selective_checkpoint_contexts, _save_dots))
+            else:
+                video, text, ref = checkpoint(run_block, layer, factors, video, text, ref, use_reentrant=False)
+        return video, text, ref
+
+    if mode == "seg":
+        per = len(params["blocks"]) // segments
+        for s0 in range(0, len(params["blocks"]), per):
+            video, text, ref = checkpoint(run_blocks, params["blocks"][s0:s0 + per], layer_factors[s0:s0 + per],
+                                          video, text, ref, use_reentrant=False)
+    else:
+        video, text, ref = run_blocks(params["blocks"], layer_factors, video, text, ref)
 
     # final norm over [text | video]; the ref stream ends here
     joint = layer_norm(torch.cat([text, video], dim=1), params["norm_final"]["weight"],

@@ -62,11 +62,12 @@ ATTENTION_BACKENDS = ("auto", "flash", "plain", "chunked", "flash_int8") + WINDO
 # the JAX package's other sequence-parallel backends, not ported yet
 UNPORTED_SEQ_BACKENDS = ("ring", "sp_allgather", "sp_int8", "sp_ulysses")
 FLASH_SOFTMAX_MODE = "bounded"
-# fp16 (2b) q/k/v: the backends on kernels B1/B2 take it as it is; the
-# backends on B3-B7 take bf16 only (ROADMAP C.1), so on the card fp16 reaches
-# their wrappers, which raise; every other case upcasts as the JAX package does
+# fp16 (2b) q/k/v: on the card every kernel backend takes it as it is (B1-B7
+# have fp16 forms, ROADMAP C.1); on the CPU the backends on B1/B2 do too
+# (their plain versions compute in fp32), and every other case upcasts as the
+# JAX package does
 FP16_KERNEL_BACKENDS = ("flash", "windowed_gather")
-BF16_KERNEL_BACKENDS = ("flash_int8", "windowed", "sp_windowed")
+CARD_FP16_BACKENDS = ("flash_int8", "windowed", "sp_windowed")
 
 
 def _unported(backend: str) -> NotImplementedError:
@@ -266,11 +267,10 @@ def joint_attention(
 
     # fp16 storage: upcast once before attention and cast back after, as
     # JAX does for every backend (s2v_tpu/ops/attention.py:208-214), except
-    # into B1/B2, which take fp16 and return it (the same fp32 accumulation;
-    # P and dS rounded to fp16, ROADMAP C.1), and into B3-B7 on the card,
-    # whose wrappers refuse it rather than run a cast
+    # into the kernels, which take fp16 and return it (the same fp32
+    # accumulation; P and dS rounded to fp16, ROADMAP C.1)
     fp16_in = q.dtype == torch.float16 and not (
-        backend in FP16_KERNEL_BACKENDS or (q.is_cuda and backend in BF16_KERNEL_BACKENDS))
+        backend in FP16_KERNEL_BACKENDS or (q.is_cuda and backend in CARD_FP16_BACKENDS))
     if fp16_in:
         q, k, v = (t.float() for t in (q, k, v))
     if backend == "flash":

@@ -1,11 +1,11 @@
 """Training batches from a dataset of clips (counterpart of
-``s2v_tpu/training/data.py``): VAE posterior moments and T5 prompt
-embeddings per item, cached, then shuffled epochs of latent batches.
+``s2v_tpu/training/data.py``): a folder of videos decoded through OpenCV,
+VAE posterior moments and T5 prompt embeddings per item, cached, then
+shuffled epochs of latent batches.
 
 A dataset is anything indexable with a length whose items are
 ``{"video": [T, H, W, 3], "ref_image": [H, W, 3], "prompt": str}`` with
-pixels in [-1, 1].  The JAX package's ``VideoFolderDataset`` (mp4 decoding
-through OpenCV) is not ported yet.
+pixels in [-1, 1]: :class:`VideoFolderDataset`, or items in memory.
 """
 
 from __future__ import annotations
@@ -13,13 +13,97 @@ from __future__ import annotations
 import hashlib
 import os
 import random
-from typing import Iterator, Optional
+from dataclasses import dataclass
+from typing import Iterator, List, Optional
 
 import numpy as np
 import torch
 
 from s2v_torch.models.t5 import t5_encode
 from s2v_torch.models.vae import gaussian_sample, vae_encode
+
+VIDEO_EXTS = (".mp4", ".avi", ".mov", ".mkv", ".webm")
+
+
+def read_video_frames(
+    path: str,
+    num_frames: int = 49,
+    height: int = 480,
+    width: int = 720,
+    skip_frames_start: int = 0,
+    skip_frames_end: int = 0,
+) -> np.ndarray:
+    """Decode, trim, resize -> float32 [-1, 1] ``[T, H, W, 3]`` (RGB).
+
+    The reference CLI's frame conventions (``--max_num_frames``,
+    ``--skip_frames_start/end``): the first ``num_frames`` frames after the
+    skips, each resized to H x W with ``INTER_AREA``; a short clip is padded
+    by repeating its last frame.  OpenCV decodes on both machines (the
+    card's has no libavformat, ROADMAP C.12)."""
+    import cv2
+
+    cap = cv2.VideoCapture(path)
+    frames: List[np.ndarray] = []
+    while True:
+        ok, frame = cap.read()
+        if not ok:
+            break
+        frames.append(frame)
+    cap.release()
+    if not frames:
+        raise ValueError(f"no frames decoded from {path}")
+    frames = frames[skip_frames_start:len(frames) - skip_frames_end][:num_frames]
+    while len(frames) < num_frames:
+        frames.append(frames[-1])
+    out = np.empty((num_frames, height, width, 3), np.float32)
+    for i, f in enumerate(frames):
+        f = cv2.resize(f, (width, height), interpolation=cv2.INTER_AREA)
+        out[i] = cv2.cvtColor(f, cv2.COLOR_BGR2RGB).astype(np.float32)
+    return out / 255.0 * 2.0 - 1.0
+
+
+@dataclass
+class VideoFolderDataset:
+    """``root/*.mp4`` (and the other ``VIDEO_EXTS``, sorted) with an optional
+    ``root/prompts.txt`` (one prompt per non-empty line, in the sorted
+    videos' order; without it every prompt is empty) and an optional subject
+    image ``<stem>_ref.png`` per video (without it, the clip's first frame)."""
+
+    root: str
+    num_frames: int = 49
+    height: int = 480
+    width: int = 720
+
+    def __post_init__(self):
+        self.videos = sorted(os.path.join(self.root, f) for f in os.listdir(self.root)
+                             if f.lower().endswith(VIDEO_EXTS))
+        if not self.videos:
+            raise ValueError(f"no videos in {self.root}")
+        prompts_file = os.path.join(self.root, "prompts.txt")
+        if os.path.exists(prompts_file):
+            with open(prompts_file) as f:
+                self.prompts = [line.strip() for line in f if line.strip()]
+        else:
+            self.prompts = [""] * len(self.videos)
+
+    def __len__(self) -> int:
+        return len(self.videos)
+
+    def ref_path(self, idx: int) -> str:
+        return os.path.splitext(self.videos[idx])[0] + "_ref.png"
+
+    def prompt(self, idx: int) -> str:
+        return self.prompts[idx % len(self.prompts)]
+
+    def __getitem__(self, idx: int) -> dict:
+        video = read_video_frames(self.videos[idx], self.num_frames, self.height, self.width)
+        if os.path.exists(self.ref_path(idx)):
+            from s2v_torch.utils.video import load_image
+
+            ref = load_image(self.ref_path(idx))
+        else:
+            ref = video[0]  # the subject defaults to the first frame
+        return {"video": video, "ref_image": ref, "prompt": self.prompt(idx)}
 
 
 @torch.no_grad()
@@ -41,12 +125,30 @@ def _encode_item_moments(dataset, pipe, idx: int) -> dict:
     return _encode_moments(dataset[idx], pipe)
 
 
-def _disk_cache_path(cache_dir: str, item: dict, idx: int) -> str:
-    """Content-addressed path for an item's cached encodings.  The items are
-    in memory, not files, so the key is the item's index, the video's
-    geometry, the prompt and a sha1 of the video and subject pixels (the JAX
-    package keys a video file's path, mtime and size instead); any change
-    invalidates the entry."""
+def _file_cache_ident(dataset: VideoFolderDataset, idx: int) -> str:
+    """A file-backed item's identity, JAX's (``s2v_tpu/training/data.py:127-148``):
+    the video file's absolute path, mtime and size, the requested geometry,
+    the prompt, and the subject image's mtime and size when there is one."""
+    path = dataset.videos[idx]
+    st = os.stat(path)
+    ref_id = ""
+    if os.path.exists(dataset.ref_path(idx)):
+        rst = os.stat(dataset.ref_path(idx))
+        ref_id = f"|{rst.st_mtime_ns}|{rst.st_size}"
+    return (f"{os.path.abspath(path)}|{st.st_mtime_ns}|{st.st_size}|"
+            f"{dataset.num_frames}x{dataset.height}x{dataset.width}|{dataset.prompt(idx)}{ref_id}")
+
+
+def _disk_cache_path(cache_dir: str, item: dict, idx: int, dataset=None) -> str:
+    """Content-addressed path for an item's cached encodings; any change
+    invalidates the entry.  An item of a :class:`VideoFolderDataset` is keyed
+    on its files as the JAX package keys it (:func:`_file_cache_ident`, the
+    same file name), without decoding the video; an item in memory on its
+    index, the video's geometry, the prompt and a sha1 of the video and
+    subject pixels."""
+    if isinstance(dataset, VideoFolderDataset):
+        ident = _file_cache_ident(dataset, idx)
+        return os.path.join(cache_dir, hashlib.sha1(ident.encode()).hexdigest()[:20] + ".npz")
     video = np.ascontiguousarray(item["video"], np.float32)
     ref = np.ascontiguousarray(item["ref_image"], np.float32)
     content = hashlib.sha1(video.tobytes())
@@ -86,12 +188,14 @@ def latent_batches(
         if cache is None:
             return _encode_item_moments(dataset, pipe, idx)
         if idx not in cache:
-            item = dataset[idx]
-            disk = _disk_cache_path(cache_dir, item, idx) if cache_dir else None
+            # a file-backed item is keyed without decoding it; one in memory by its pixels
+            item = None if isinstance(dataset, VideoFolderDataset) else dataset[idx]
+            disk = _disk_cache_path(cache_dir, item, idx, dataset) if cache_dir else None
             if disk and os.path.exists(disk):
                 with np.load(disk) as z:
                     loaded = {k: z[k] for k in ("vm", "rm", "emb")}
             else:
+                item = dataset[idx] if item is None else item
                 loaded = {k: v.float().cpu().numpy() for k, v in _encode_moments(item, pipe).items()}
                 if disk:
                     tmp = disk + ".tmp"

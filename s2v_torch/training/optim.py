@@ -1,6 +1,6 @@
 """Optimizer and LR schedules of the trainers (counterpart of
-``s2v_tpu/training/optim.py``): global-norm clipping, then adam/adamw on a
-schedule with warm-up, then gradient accumulation.
+``s2v_tpu/training/optim.py``): global-norm clipping, then adam, adamw or
+prodigy on a schedule with warm-up, then gradient accumulation.
 
 The JAX package builds these as one optax chain; here they are plain tensor
 code with the same arithmetic, so that the first moment can be kept in bf16
@@ -10,6 +10,15 @@ Steps count as optax counts them: the first update uses ``schedule(0)`` and
 Adam's bias correction for step 1.  Accumulation follows
 ``optax.MultiSteps``: the mean of k micro-steps' grads, and the update and
 the step count move only on the k-th.  Updates are applied in place.
+
+Prodigy is ``optax.contrib.prodigy`` (optax 0.2.6) at its defaults but for
+what the trainer passes (the schedule as a multiplicative factor on the
+d-estimate, betas, eps, weight decay): beta3 = sqrt(beta2), initial
+estimate 1e-6, no safeguard warm-up; one repair (ROADMAP C.21): a step
+whose schedule factor is 0 keeps the d-estimate instead of optax's 0/0 NaN.
+Its scalars (the d-estimate and the
+weighted numerator) stay fp32 tensors on the parameters' device, so a step
+needs no host sync.
 """
 
 from __future__ import annotations
@@ -23,6 +32,8 @@ import torch
 SCHEDULES = ("constant", "constant_with_warmup", "linear", "cosine")
 OPTIMIZERS = ("adamw", "adam", "prodigy")
 MOMENT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# optax.contrib.prodigy's initial (under-)estimate of the learning rate
+PRODIGY_ESTIM_LR0 = 1e-6
 
 
 @dataclass(frozen=True)
@@ -96,23 +107,36 @@ def make_lr_schedule(spec: OptimizerSpec) -> Callable[[int], float]:
 
 
 class Optimizer:
-    """[global-norm clip] -> adam/adamw on a schedule [-> accumulation], on
-    a flat list of tensors.  ``init(params)`` returns the state;
-    ``step(params, grads, state)`` updates params and state in place."""
+    """[global-norm clip] -> adam/adamw/prodigy on a schedule [->
+    accumulation], on a flat list of tensors.  ``init(params)`` returns the
+    state; ``step(params, grads, state)`` updates params and state in
+    place."""
 
     def __init__(self, spec: OptimizerSpec):
-        if spec.optimizer == "prodigy":
-            raise NotImplementedError("optimizer='prodigy' is not ported yet; use adam or adamw")
         self.spec = spec
         self.schedule = make_lr_schedule(spec)
         self.mu_dtype = MOMENT_DTYPES[spec.moment_dtype]
 
     def init(self, params: List[torch.Tensor]) -> dict:
-        state = {
-            "count": 0,  # updates applied so far (Adam's and the schedule's count)
-            "mu": [torch.zeros_like(p, dtype=self.mu_dtype) for p in params],
-            "nu": [torch.zeros_like(p, dtype=torch.float32) for p in params],
-        }
+        if self.spec.optimizer == "prodigy":
+            # optax's ProdigyState: moments, the weighted gradient sum, the
+            # initial point, the d-estimate and the weighted numerator
+            device = params[0].device
+            state = {
+                "count": 0,
+                "exp_avg": [torch.zeros_like(p) for p in params],
+                "exp_avg_sq": [torch.zeros_like(p) for p in params],
+                "grad_sum": [torch.zeros_like(p) for p in params],
+                "params0": [p.detach().clone() for p in params],
+                "estim_lr": torch.tensor(PRODIGY_ESTIM_LR0, dtype=torch.float32, device=device),
+                "numerator_weighted": torch.zeros((), dtype=torch.float32, device=device),
+            }
+        else:
+            state = {
+                "count": 0,  # updates applied so far (Adam's and the schedule's count)
+                "mu": [torch.zeros_like(p, dtype=self.mu_dtype) for p in params],
+                "nu": [torch.zeros_like(p, dtype=torch.float32) for p in params],
+            }
         if self.spec.gradient_accumulation_steps > 1:
             state["mini_step"] = 0
             state["acc"] = [torch.zeros_like(p) for p in params]
@@ -140,6 +164,9 @@ class Optimizer:
             g_norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
             keep = g_norm < spec.max_grad_norm
             grads = [torch.where(keep, g, g / g_norm.to(g.dtype) * spec.max_grad_norm) for g in grads]
+        if spec.optimizer == "prodigy":
+            self._prodigy(params, grads, state)
+            return
         b1, b2 = spec.beta1, spec.beta2
         t = state["count"] + 1
         bc1, bc2 = 1.0 - b1**t, 1.0 - b2**t
@@ -153,6 +180,37 @@ class Optimizer:
             p.add_(u * -lr)
             state["mu"][i] = mu.to(self.mu_dtype)
             state["nu"][i] = nu
+        state["count"] = t
+
+    def _prodigy(self, params, grads, state) -> None:
+        """One ``optax.contrib.prodigy`` update, in its order: the old
+        d-estimate scales the gradients and the step size; the new one, the
+        larger of the old and the weighted numerator over the gradient
+        sum's L1 norm, enters only the epsilon term."""
+        spec = self.spec
+        b1, b2 = spec.beta1, spec.beta2
+        b3 = b2 ** 0.5
+        t = state["count"] + 1
+        bc = ((1 - b2 ** t) ** 0.5) / (1 - b1 ** t)
+        d = state["estim_lr"]
+        dlr = d * self.schedule(state["count"]) * bc
+        numerator = sum((g * (p0 - p)).sum() for g, p0, p in zip(grads, state["params0"], params))
+        for i, g in enumerate(grads):
+            dg = d * g
+            state["exp_avg"][i] = b1 * state["exp_avg"][i] + (1 - b1) * dg
+            state["exp_avg_sq"][i] = b2 * state["exp_avg_sq"][i] + (1 - b2) * dg * dg
+            state["grad_sum"][i] = b3 * state["grad_sum"][i] + dlr * dg / PRODIGY_ESTIM_LR0
+        state["numerator_weighted"] = (b3 * state["numerator_weighted"]
+                                       + (d / PRODIGY_ESTIM_LR0) * dlr * numerator)
+        denominator = sum(gs.abs().sum() for gs in state["grad_sum"])
+        # a step whose schedule factor is 0 (a warm-up's first) leaves the
+        # gradient sum, and so the denominator, at 0: optax's 0/0 turns the
+        # estimate, and every later update, into NaN (ROADMAP C.21); the
+        # estimate stays where it was instead, as prodigyopt's early return does
+        estimate = torch.where(denominator > 0, state["numerator_weighted"] / denominator, torch.zeros_like(d))
+        state["estim_lr"] = torch.maximum(d, estimate)
+        for p, ea, eas in zip(params, state["exp_avg"], state["exp_avg_sq"]):
+            p.add_(-spec.weight_decay * dlr * p - dlr * ea / (torch.sqrt(eas) + state["estim_lr"] * spec.epsilon))
         state["count"] = t
 
 

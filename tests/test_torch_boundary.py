@@ -53,7 +53,7 @@ def test_import_leaves_jax_out(tmp_path):
         "s2v_torch.loaders.cache, s2v_torch.loaders.resolve, s2v_torch.loaders.safetensors_io, "
         "s2v_torch.utils.tokenizer, s2v_torch.utils.video, s2v_torch.utils.mp4_native, s2v_torch.utils.logging, "
         "s2v_torch.schedulers.dpm, s2v_torch.pipelines.denoise, s2v_torch.serving, s2v_torch.serving.daemon, "
-        "s2v_torch.serving.client, s2v_torch.serve; "
+        "s2v_torch.serving.client, s2v_torch.serve, s2v_torch.train, s2v_torch.loaders.train_state; "
         "bad = [m for m in set(sys.modules) - before if m.split('.')[0] in ('jax', 's2v_tpu')]; "
         "print(bad); sys.exit(1 if bad else 0)"
     )

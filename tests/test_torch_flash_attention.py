@@ -8,7 +8,6 @@ import torch
 
 from s2v_tpu.ops.pallas.flash_attention import flash_attention as jax_flash_attention
 from s2v_torch.kernels.flash_attention import (
-    FLASH_DTYPES,
     SOFTMAX_MODES,
     check_kernel_inputs,
     flash_attention,
@@ -92,22 +91,25 @@ def test_kernel_input_checks(dtype, d, ok):
     B1 and B2 take bf16 and fp16 (the 2b family)."""
     q, k, v = (torch.empty(2, s, 3, d, dtype=dtype, device="meta") for s in (40, 50, 50))
     if ok:
-        check_kernel_inputs(q, k, v, dtypes=FLASH_DTYPES)
+        check_kernel_inputs(q, k, v)
     else:
         with pytest.raises(ValueError):
-            check_kernel_inputs(q, k, v, dtypes=FLASH_DTYPES)
+            check_kernel_inputs(q, k, v)
 
 
 def test_bf16_only_kernels_refuse_fp16_naming_c1():
-    """B3-B7 take bf16 only (their default check): fp16 and fp32 are refused
-    with ROADMAP C.1 in the message; mixed types are refused for B1/B2."""
-    for dtype in (torch.float16, torch.float32):
+    """Every kernel's check (B1-B7 share it) takes bf16 and fp16 since fp16
+    came to B3-B7; fp32 is refused with ROADMAP C.1 in the message; mixed
+    types are refused."""
+    for dtype in (torch.bfloat16, torch.float16):
         q = torch.empty(2, 40, 3, 64, dtype=dtype, device="meta")
-        with pytest.raises(ValueError, match="ROADMAP C.1"):
-            check_kernel_inputs(q, q, q)
+        check_kernel_inputs(q, q, q)
+    q = torch.empty(2, 40, 3, 64, dtype=torch.float32, device="meta")
+    with pytest.raises(ValueError, match="ROADMAP C.1"):
+        check_kernel_inputs(q, q, q)
     bf, hf = (torch.empty(2, 40, 3, 64, dtype=d, device="meta") for d in (torch.bfloat16, torch.float16))
     with pytest.raises(ValueError, match="one dtype"):
-        check_kernel_inputs(bf, hf, hf, dtypes=FLASH_DTYPES)
+        check_kernel_inputs(bf, hf, hf)
 
 
 @pytest.mark.parametrize("mode", ["online", "bounded", "bounded_exp2"])

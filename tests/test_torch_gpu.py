@@ -2,8 +2,8 @@
 B3 and B4-B7 also against the emulations of their schedules, and B2, B3, B5
 and B7 twice for determinism; B3's pre-pass kernels bit for bit against the
 plain pre-pass, and one s8 wgmma tile of its 64-byte-swizzle layer against
-an integer matmul; B1 and B2 in fp16 too, with a q row far above the others
-and at a small dO; B6/B7,
+an integer matmul; B1-B7 in fp16 too, B1 with a q row far above the others,
+B2, B5 and B7 at a small dO; B6/B7,
 the sequence-parallel shard kernels, at every offset of 2- and 4-rank
 rings), the differentiable flash and banded attentions (B1/B2, B4/B5, and
 ``sp_windowed`` on a one-rank NCCL group) against plain autograd, the
@@ -867,16 +867,127 @@ def test_flash_trainable_fp16_matches_autograd(cuda):
         _assert_close(g, r)
 
 
+# ---- fp16 in B3-B7 (the 2b family with the int8 and windowed backends) ----
+# fp16 inputs against the fp32 plain versions and the emulations of the
+# schedules (P, and dS scaled by 2^e, rounded to fp16): the bars of B1/B2.
+
+
+def _fp16_limits(a, ref):
+    """The kernel limits scaled to the reference (ROADMAP C.1): max error at
+    most 2^-6 of its largest element, relative L2 below 1e-2."""
+    diff = a.float() - ref.float()
+    assert diff.abs().max().item() <= 2.0 ** -6 * ref.float().abs().max().item()
+    assert (diff.norm() / ref.float().norm()).item() < L2_REL
+
+
+@pytest.mark.parametrize("g,tpf,f,w", BANDS)
+def test_banded_kernels_fp16_match_plain_and_schedule(cuda, g, tpf, f, w):
+    q, k, v = (x.half() for x in _band_qkv(g, tpf, f, 40, cuda))
+    before = (banded_flash_attention.launches_by_dtype.get("float16", 0),
+              banded_flash_attention_bwd.launches_by_dtype.get("float16", 0))
+    o, lse = banded_flash_attention(q, k, v, g, tpf, w, return_lse=True)
+    o_ref, lse_ref = banded_flash_attention_reference(q, k, v, g, tpf, w, return_lse=True)
+    o_emu = banded_flash_attention_blocked(q, k, v, g, tpf, w)
+    do = torch.from_numpy(np.random.RandomState(41).randn(*q.shape).astype(np.float32)).to(cuda, torch.float16)
+    got = banded_flash_attention_bwd(q, k, v, o, lse, do, g, tpf, w)
+    want = banded_flash_attention_bwd_reference(q, k, v, o, lse, do, g, tpf, w)
+    emulated = banded_flash_attention_bwd_blocked(q, k, v, o, lse, do, g, tpf, w)
+    torch.cuda.synchronize()
+    assert (banded_flash_attention.launches_by_dtype["float16"],
+            banded_flash_attention_bwd.launches_by_dtype["float16"]) == (before[0] + 1, before[1] + 1)
+    assert o.dtype == torch.float16
+    _assert_close(o, o_ref)
+    _assert_close(o, o_emu)
+    assert (lse - lse_ref).abs().max().item() < 1e-2
+    for a, r, e in zip(got, want, emulated):
+        assert a.dtype == torch.float16
+        _assert_close(a, r)
+        _assert_close(a, e)
+
+
+@pytest.mark.parametrize("g,tpf,f,w", BANDS)
+def test_banded_local_kernels_fp16_match_plain_and_schedule(cuda, g, tpf, f, w):
+    q, k, v = (x.half() for x in _band_qkv(g, tpf, f, 42, cuda))
+    do = torch.from_numpy(np.random.RandomState(43).randn(*q.shape).astype(np.float32)).to(cuda, torch.float16)
+    for f_loc, off in _ring_shards(f):
+        q_loc, do_loc = _shard(q, g, tpf, f, f_loc, off), _shard(do, g, tpf, f, f_loc, off)
+        o, lse = banded_flash_attention_local(q_loc, k, v, g, tpf, w, off, f, return_lse=True)
+        o_ref = banded_flash_attention_local_reference(q_loc, k, v, g, tpf, w, off, f)
+        o_emu = banded_flash_attention_blocked(q_loc, k, v, g, tpf, w, frame_offset=off, n_frames_total=f)
+        got = banded_flash_attention_local_bwd(q_loc, k, v, o, lse, do_loc, g, tpf, w, off, f)
+        want = banded_flash_attention_local_bwd_reference(q_loc, k, v, o, lse, do_loc, g, tpf, w, off, f)
+        emulated = banded_flash_attention_bwd_blocked(q_loc, k, v, o, lse, do_loc, g, tpf, w, frame_offset=off,
+                                                      n_frames_total=f)
+        torch.cuda.synchronize()
+        assert o.dtype == torch.float16
+        _assert_close(o, o_ref)
+        _assert_close(o, o_emu)
+        for a, r, e in zip(got, want, emulated):
+            assert a.dtype == torch.float16
+            if not r.any():  # a partial that no query of the shard's band reaches
+                assert not a.any()
+                continue
+            _assert_close(a, r)
+            _assert_close(a, e)
+
+
+def test_banded_bwd_kernels_fp16_small_do(cuda):
+    """fp16 B5, and B7 at each shard of a 2-rank ring, at dO 2^-14 of unit
+    normal over ~1,000 layer-normed keys a query, where the fp32 dS sits
+    near fp16's flush point: the dS scaled before its rounding keeps dq and
+    dk within the limits of the plain version and of the schedule."""
+    g, tpf, f, w = 250, 250, 5, 1
+    q, k, v = _qkv16(1, g + f * tpf, g + f * tpf, 2, 44, cuda)
+    q, k = (torch.nn.functional.layer_norm(x.float(), (64,)).half() for x in (q, k))
+    do = (torch.from_numpy(np.random.RandomState(45).randn(*q.shape).astype(np.float32)) * 2.0 ** -14).to(
+        cuda, torch.float16)
+    o, lse = banded_flash_attention(q, k, v, g, tpf, w, return_lse=True)
+    cases = [(banded_flash_attention_bwd(q, k, v, o, lse, do, g, tpf, w),
+              banded_flash_attention_bwd_reference(q, k, v, o, lse, do, g, tpf, w),
+              banded_flash_attention_bwd_blocked(q, k, v, o, lse, do, g, tpf, w))]
+    for off, n in ((0, 3), (3, 2)):
+        rows = slice(g + off * tpf, g + (off + n) * tpf)
+        args = (q[:, rows], k, v, o[:, rows], lse[..., rows].contiguous(), do[:, rows], g, tpf, w)
+        cases.append((banded_flash_attention_local_bwd(*args, off, f),
+                      banded_flash_attention_local_bwd_reference(*args, off, f),
+                      banded_flash_attention_bwd_blocked(*args, frame_offset=off, n_frames_total=f)))
+    torch.cuda.synchronize()
+    for got, want, emulated in cases:
+        for a, r, e in zip(got, want, emulated):
+            assert a.dtype == torch.float16 and bool((a != 0).any())
+            _fp16_limits(a, r)
+            _fp16_limits(a, e)
+
+
+@pytest.mark.parametrize("b,sq,skv,h", [(2, 200, 182, 3), (1, 77, 333, 2), (1, 300, 54, 2), (2, 129, 128, 1)])
+def test_int8_kernel_fp16_matches_plain_and_schedule(cuda, b, sq, skv, h):
+    """B3 on fp16 q/k/v: its fp16 pre-pass equal to the plain pre-pass bit
+    for bit, the output fp16 within the bars of the plain version and of the
+    schedule's emulation (P rounded to fp16)."""
+    q, k, v = _qkv16(b, sq, skv, h, 46, cuda)
+    scale = 64 ** -0.5
+    for got, want in zip(launch_int8_prepass(q, k, scale), int8_prepass(q, k, scale)):
+        assert torch.equal(got, want)
+    before = flash_attention_qk_int8.launches_by_dtype.get("float16", 0)
+    o = flash_attention_qk_int8(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention_qk_int8.launches_by_dtype["float16"] == before + 1
+    assert o.dtype == torch.float16
+    _assert_close(o, flash_attention_qk_int8_reference(q, k, v))
+    _assert_close(o, flash_attention_qk_int8_blocked(q, k, v))
+
+
 def test_bf16_only_kernels_refuse_fp16_on_the_card(cuda):
-    """No fallback: fp16 reaching B3 or B4 raises naming ROADMAP C.1, and
-    the flash_int8/windowed backends hand fp16 to them uncast on the card."""
+    """No fallback and no cast: fp32 reaching B3 or B4 raises naming ROADMAP
+    C.1, and the flash_int8/windowed backends hand fp16 to B3/B4 uncast on
+    the card (each launches its fp16 entry and returns fp16)."""
     from s2v_torch.ops.attention import joint_attention
 
     q, k, v = _qkv16(1, 200, 200, 2, 25, cuda)
     with pytest.raises(ValueError, match="ROADMAP C.1"):
-        flash_attention_qk_int8(q, k, v)
+        flash_attention_qk_int8(q.float(), k.float(), v.float())
     with pytest.raises(ValueError, match="ROADMAP C.1"):
-        banded_flash_attention(q, k, v, 40, 40, 1)
+        banded_flash_attention(q.float(), k.float(), v.float(), 40, 40, 1)
     d = 2 * 64
     params = {"qkv": {"weight": torch.randn(3 * d, d, device=cuda, dtype=torch.float16) * 0.05,
                       "bias": torch.zeros(3 * d, device=cuda, dtype=torch.float16)},
@@ -887,7 +998,12 @@ def test_bf16_only_kernels_refuse_fp16_on_the_card(cuda):
               "to_out": {"weight": torch.randn(d, d, device=cuda, dtype=torch.float16) * 0.05,
                          "bias": torch.zeros(d, device=cuda, dtype=torch.float16)}}
     x = torch.randn(1, 200, d, device=cuda, dtype=torch.float16)
-    for backend, window in (("flash_int8", None), ("windowed", (40, 40, 1))):
+    for backend, window, fn in (("flash_int8", None, flash_attention_qk_int8),
+                                ("windowed", (40, 40, 1), banded_flash_attention)):
+        before = fn.launches_by_dtype.get("float16", 0)
+        assert joint_attention(params, x, 2, backend=backend, window=window).dtype == torch.float16
+        assert fn.launches_by_dtype["float16"] == before + 1
         with pytest.raises(ValueError, match="ROADMAP C.1"):
-            joint_attention(params, x, 2, backend=backend, window=window)
+            joint_attention({k: {n: t.float() for n, t in leaf.items()} for k, leaf in params.items()}, x.float(),
+                            2, backend=backend, window=window)
     assert joint_attention(params, x, 2, backend="flash").dtype == torch.float16
