@@ -21,10 +21,17 @@ writes a per-step line on stderr.  ``--pipeline t2v`` generates from the
 prompt alone (no subject image; ``pipelines/variants.py::generate_t2v``),
 ``--disentangled_modulation`` keeps the pre-merge adaLN linears for the
 video and text streams, and ``--dtype float16`` (the 2b family's published
-type) runs on the card through the fp16 kernels B1/B2.  Flags of paths the
-port does not have yet raise ``NotImplementedError`` naming their ROADMAP
-item: ``--mesh``, ``--text_encoder_device mesh`` and the sequence-parallel
-backends (A.9).
+type) runs on the card through the fp16 kernels B1/B2.
+
+Across cards: ``torchrun --nproc_per_node N -m s2v_torch.cli --mesh sp<N>
+...`` generates one clip over N cards (one process each): the DiT's video
+frames are sharded over the ``seq`` ring, the exact backend becomes
+``sp_allgather`` (or pass ``sp_ulysses``, ``ring``, ``sp_int8``,
+``sp_windowed``), and the VAE decode runs context-parallel where the ring
+can take it.  Every rank runs the same generate; rank 0 alone prints and
+writes the clip.  ``--mesh sp1`` runs without ``torchrun``.  A ``data`` or
+``model`` mesh dim and ``--text_encoder_device mesh`` raise
+``NotImplementedError`` naming ROADMAP A.9.
 """
 
 from __future__ import annotations
@@ -37,7 +44,7 @@ import time
 from s2v_torch.cli_utils import (
     ATTENTION_BACKEND_CHOICES,
     BACKEND_NAMES,
-    UNPORTED_BACKENDS,
+    check_mesh_flags,
     str2bool as _str2bool,
     tiling_policy as _tiling_policy,
 )
@@ -97,7 +104,9 @@ def get_args(argv=None):
                         "g - 1 < threshold (error bounded by (g - 1)·|cond - uncond|); 0 = off. Try 0.01")
     p.add_argument("--segment_steps", type=int, default=0,
                    help=">0: run the denoise loop in host-stepped segments of N steps, with a progress line after each")
-    p.add_argument("--mesh", type=str, default=None, help="not ported yet (ROADMAP A.9)")
+    p.add_argument("--mesh", type=str, default=None,
+                   help="seq mesh over the processes torchrun started, e.g. sp4 (one process per card); data and "
+                        "model dims are not ported yet (ROADMAP A.9)")
     p.add_argument("--progress", action="store_true", default=False, help="a per-step progress line on stderr")
     p.add_argument("--profile_dir", type=str, default=None,
                    help="write a torch.profiler trace of the generate call (trace.json) here")
@@ -110,34 +119,31 @@ def get_args(argv=None):
     return p.parse_args(argv)
 
 
-def check_ported(args) -> None:
-    """Raise ``NotImplementedError`` naming the ROADMAP item for any flag
-    whose path the port does not have yet."""
-    unported = [
-        (args.mesh is not None, "--mesh", "A.9"),
-        (args.text_encoder_device == "mesh", "--text_encoder_device mesh", "A.9"),
-        (args.attention_backend in UNPORTED_BACKENDS, f"--attention_backend {args.attention_backend}",
-         UNPORTED_BACKENDS.get(args.attention_backend)),
-    ]
-    for hit, what, item in unported:
-        if hit:
-            raise NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
-
-
 def main(argv=None):
     args = argv if isinstance(argv, argparse.Namespace) else get_args(argv)
-    check_ported(args)
+    check_mesh_flags(args)
     if args.pipeline != "t2v" and not args.ref_img_path:
         raise SystemExit("--ref_img_path is required (or use --pipeline t2v)")
     os.makedirs(args.output_dir, exist_ok=True)
 
-    import torch
-
-    from s2v_torch.pipelines.s2v import S2VPipeline
+    from s2v_torch.parallel.sharding import entry_point_mesh
     from s2v_torch.utils.device import resolve_device
-    from s2v_torch.utils.video import export_to_video, to_uint8_frames
 
     device = resolve_device(args.device)
+    with entry_point_mesh(args.mesh, device.type) as mesh:
+        _generate(args, device, mesh)
+
+
+def _generate(args, device, mesh):
+    """Load, generate and (on rank 0) write the clip."""
+    import torch
+
+    from s2v_torch.parallel.multihost import is_main_process
+    from s2v_torch.pipelines.s2v import S2VPipeline
+    from s2v_torch.utils.video import export_to_video, to_uint8_frames
+
+    main_rank = is_main_process()
+    say = print if main_rank else (lambda *a, **k: None)
     t0 = time.perf_counter()
     pipe = S2VPipeline.from_pretrained(
         os.path.expanduser(args.pretrained_model_name_or_path),
@@ -148,6 +154,7 @@ def main(argv=None):
         text_encoder_device=args.text_encoder_device,
         disentangled_modulation=args.disentangled_modulation,
         dtype=getattr(torch, args.dtype),
+        mesh=mesh,
         cache_dir=os.path.expanduser(args.cache_dir) if args.cache_dir else None,
         device=device,
     )
@@ -157,14 +164,15 @@ def main(argv=None):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     where = f"{device} ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else str(device)
-    print(f"[s2v_torch] models loaded in {time.perf_counter() - t0:.1f}s on {where}", flush=True)
+    ring = f", seq ring of {pipe._seq_ring()}" if mesh is not None else ""
+    say(f"[s2v_torch] models loaded in {time.perf_counter() - t0:.1f}s on {where}{ring}", flush=True)
 
-    if args.save_merged_dir:
+    if args.save_merged_dir and main_rank:
         pipe.save_pretrained(os.path.expanduser(args.save_merged_dir))
-        print(f"[s2v_torch] merged snapshot written to {args.save_merged_dir}")
+        say(f"[s2v_torch] merged snapshot written to {args.save_merged_dir}")
 
     profiler = None
-    if args.profile_dir:
+    if args.profile_dir and main_rank:
         from torch.profiler import ProfilerActivity, profile
 
         activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
@@ -177,7 +185,7 @@ def main(argv=None):
 
         def progress(i, _latents):
             now = time.perf_counter()
-            print(f"[s2v_torch] denoise {i}/{args.num_inference_steps} steps (+{now - last[0]:.0f}s)", flush=True)
+            say(f"[s2v_torch] denoise {i}/{args.num_inference_steps} steps (+{now - last[0]:.0f}s)", flush=True)
             last[0] = now
 
     if args.pipeline == "t2v":
@@ -217,14 +225,15 @@ def main(argv=None):
         profiler.stop()
         os.makedirs(args.profile_dir, exist_ok=True)
         profiler.export_chrome_trace(os.path.join(args.profile_dir, "trace.json"))
-    print(f"[s2v_torch] generated {video.shape} in {dt:.1f}s "
-          f"({args.num_inference_steps / dt:.2f} steps/s incl. VAE)")
-    print(f"[s2v_torch] stage seconds {json.dumps(pipe.timings)}")
-
+    say(f"[s2v_torch] generated {video.shape} in {dt:.1f}s "
+        f"({args.num_inference_steps / dt:.2f} steps/s incl. VAE)")
+    say(f"[s2v_torch] stage seconds {json.dumps(pipe.timings)}")
+    if not main_rank:
+        return
     out_path = os.path.join(args.output_dir, "output.mp4")
     written = export_to_video(to_uint8_frames(video[0]), out_path, fps=args.fps)
-    print(f"[s2v_torch] wrote {written}")
-    print("Inference completed", flush=True)
+    say(f"[s2v_torch] wrote {written}")
+    say("Inference completed", flush=True)
 
 
 if __name__ == "__main__":

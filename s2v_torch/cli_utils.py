@@ -9,6 +9,8 @@ the JAX package's names, so a command line of the reference CLI parses;
 
 from __future__ import annotations
 
+from s2v_torch.ops.attention import SEQ_BACKENDS
+
 # the JAX CLI's --attention_backend choices (s2v_tpu/ops/attention.py:30-37)
 ATTENTION_BACKEND_CHOICES = [
     "auto", "xla", "pallas", "pallas_int8", "chunked", "ring", "sp_allgather", "sp_int8", "sp_ulysses",
@@ -18,10 +20,27 @@ ATTENTION_BACKEND_CHOICES = [
 BACKEND_NAMES = {
     "auto": "auto", "pallas": "flash", "pallas_int8": "flash_int8", "xla": "plain", "chunked": "chunked",
     "windowed": "windowed", "windowed_gather": "windowed_gather", "windowed_xla": "windowed_plain",
+    "ring": "ring", "sp_allgather": "sp_allgather", "sp_int8": "sp_int8", "sp_ulysses": "sp_ulysses",
+    "sp_windowed": "sp_windowed",
 }
-# JAX names with no port backend yet -> the ROADMAP item that ports them
-UNPORTED_BACKENDS = {"ring": "A.9", "sp_allgather": "A.9", "sp_int8": "A.9",
-                     "sp_ulysses": "A.9", "sp_windowed": "A.9"}
+# the JAX names of the backends that run over a seq mesh
+SEQ_BACKEND_NAMES = tuple(jax_name for jax_name, port in BACKEND_NAMES.items() if port in SEQ_BACKENDS)
+
+
+def check_mesh_flags(args) -> None:
+    """Before anything loads: a ``--mesh`` with a data or model dim, or
+    ``--text_encoder_device mesh``, raises ``NotImplementedError`` naming
+    ROADMAP A.9; a sequence-parallel backend without ``--mesh`` raises
+    ``ValueError``."""
+    if args.mesh is not None:
+        from s2v_torch.parallel.sharding import seq_mesh_size
+
+        seq_mesh_size(args.mesh)
+    if args.text_encoder_device == "mesh":
+        raise NotImplementedError("--text_encoder_device mesh (T5 sharded over the mesh) is not ported yet "
+                                  "(ROADMAP A.9)")
+    if args.attention_backend in SEQ_BACKEND_NAMES and args.mesh is None:
+        raise ValueError(f"--attention_backend {args.attention_backend} needs --mesh sp<N> (sp1 on one card)")
 
 
 def str2bool(v):

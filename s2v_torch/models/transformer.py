@@ -17,11 +17,12 @@ from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selectiv
 
 from s2v_torch.config import TransformerConfig
 from s2v_torch.ops.adaln import ada_layer_norm_out, ada_layer_norm_zero_3stream
-from s2v_torch.ops.attention import WINDOWED_BACKENDS, joint_attention
+from s2v_torch.ops.attention import SEQ_BACKENDS, WINDOWED_BACKENDS, joint_attention
 from s2v_torch.ops.norms import layer_norm
 from s2v_torch.ops.patchify import patchify_video, unpatchify_video
 from s2v_torch.ops.quant import dense
 from s2v_torch.ops.timestep import get_timestep_embedding, timestep_embedding_mlp
+from s2v_torch.parallel.context import FrameShard, active_seq_ring, frame_shard, gather_video
 from s2v_torch.utils.device import resolve_device
 
 
@@ -172,13 +173,15 @@ def block_forward(
     cfg: TransformerConfig,
     attention_backend: str = "plain",
     tokens_per_frame: int = 0,
+    shard: Optional[FrameShard] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One CogVideoX block; ``ref`` may be zero-width ``[B, 0, D]`` (T2V).
 
     A windowed backend attends with text + ref as the global segment and
     the video's frames of ``tokens_per_frame`` tokens: the ref's length when
     a ref is present (one latent frame of the video's size), else the value
-    given (``transformer_forward`` derives it from the video)."""
+    given (``transformer_forward`` derives it from the video).  Under a
+    sequence-parallel backend ``video`` is this rank's frames, ``shard``."""
     t_len = text.shape[1]
     r_len = ref.shape[1]
     window = None
@@ -196,7 +199,7 @@ def block_forward(
     x = torch.cat([t_n, r_n, v_n], dim=1)
     attn = joint_attention(
         p["attn"], x, cfg.num_attention_heads, rope_cos, rope_sin, cfg.qk_norm_eps, backend=attention_backend,
-        window=window,
+        window=window, shard=shard,
     )
     video = video + g_v * attn[:, t_len + r_len:]
     text = text + g_t * attn[:, :t_len]
@@ -241,11 +244,27 @@ def transformer_forward(
     nests the checkpoints: S segments of L/S checkpointed blocks, each
     segment checkpointed too, so S + L/S streams are saved instead of L, for
     one more forward; False/``"none"`` saves everything.  Every mode gives
-    the same values and gradients."""
+    the same values and gradients.
+
+    Sequence parallel (``s2v_tpu/models/transformer.py:433``): a backend of
+    ``SEQ_BACKENDS`` runs on the active mesh's ``seq`` ring.  Above one rank
+    each rank keeps its frames of the video stream (``FrameShard``, and the
+    same rows of the RoPE or sincos table) through every block, computes the
+    text and ref streams whole, and the output's video rows are gathered
+    once before the unpatchify; a ring of 1 keeps the whole clip.  On a
+    ring above 1 the backends of ``GATHERED_BACKENDS`` run on the same
+    shards (their attention on the gathered rows), and any other raises."""
     b, f, h, w, _ = video_latents.shape
     p = cfg.patch_size
     dt = cfg.dtype
     mode, segments = _remat_plan(remat, len(params["blocks"]))
+    tpf = (h // p) * (w // p)
+    shard = None
+    if attention_backend in SEQ_BACKENDS or active_seq_ring() > 1:
+        shard = frame_shard(f, tpf, attention_backend)
+    if shard is not None and shard.ring > 1:
+        video_latents, rope_cos, rope_sin, pos_embedding = _take_shard(
+            shard, video_latents, rope_cos, rope_sin, pos_embedding, text_embeds.shape[1])
 
     runtime_lora = params.get(RUNTIME_LORA_KEY) or {}
     if "top" in runtime_lora:
@@ -271,7 +290,7 @@ def transformer_forward(
         if factors is not None:
             layer = apply_runtime_lora_block(layer, factors)
         return block_forward(layer, video, text, ref, temb, rope_cos, rope_sin, cfg, attention_backend,
-                             tokens_per_frame=(h // p) * (w // p))
+                             tokens_per_frame=tpf, shard=shard)
 
     def run_blocks(layers, factors_list, video, text, ref):
         for layer, factors in zip(layers, factors_list):
@@ -299,7 +318,26 @@ def transformer_forward(
     video = joint[:, text.shape[1]:]
     video = ada_layer_norm_out(params["norm_out"], video, temb, cfg.norm_eps)
     video = dense(params["proj_out"], video)
+    if shard is not None and shard.ring > 1:
+        video = gather_video(video, shard)
     return unpatchify_video(video, f, h, w, p, cfg.out_channels)
+
+
+def _take_shard(shard: FrameShard, video_latents, rope_cos, rope_sin, pos_embedding, text_len: int):
+    """This rank's frames of the latents (zero dummy frames) and its rows of
+    the position tables (``[.. | video]`` along dim 0)."""
+    lat = video_latents[:, shard.first_frame:shard.first_frame + shard.real_frames]
+    pad = shard.local_frames - lat.shape[1]
+    if pad:
+        lat = torch.cat([lat, lat.new_zeros((lat.shape[0], pad, *lat.shape[2:]))], dim=1)
+
+    def rows(table, lead):
+        if table is None:
+            return None
+        lead = table.shape[0] - shard.video_rows if lead is None else lead
+        return torch.cat([table[:lead], shard.take(table[lead:], dim=0)], dim=0)
+
+    return lat, rows(rope_cos, None), rows(rope_sin, None), rows(pos_embedding, text_len)
 
 
 def init_transformer_params_random(

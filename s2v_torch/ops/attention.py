@@ -23,18 +23,23 @@ Backends:
     B5 backward (``s2v_torch.kernels.banded_attention``/``_bwd``);
     ``windowed_gather`` — the gather path on B1 (and B2 under autograd);
     ``windowed_plain`` — the gather path on the plain fp32 attention, the
-    counterpart of JAX ``windowed_xla``;
-    ``sp_windowed`` — sequence-parallel banded attention over the ``seq``
-    dim of the active mesh (``s2v_torch.parallel``): kernel B6 per frame
-    shard and B1 for the global queries forward, B7 and B2 backward
-    (``s2v_torch/parallel/sp_attention.py``).  Without a mesh context it
-    raises.
+    counterpart of JAX ``windowed_xla``.
+  * the sequence-parallel backends (:data:`SEQ_BACKENDS`, over the ``seq``
+    dim of the active mesh, ``s2v_torch/parallel/``): ``sp_allgather`` (K/V
+    all-gathered, B1 forward and B2 backward), ``sp_int8`` (the same around
+    B3, inference only), ``sp_ulysses`` (all-to-all from frames to heads
+    around B1/B2), ``ring`` (K/V passed rank to rank, B1 per hop, an fp32
+    ring pass backward) and the windowed ``sp_windowed`` (B6 and B1
+    forward, B7 and B2 backward).  They take the rows of this rank's frame
+    shard (``transformer_forward`` makes it); without a mesh context they
+    raise.  On a ring above 1 the single-card backends of PyTorch ops
+    (:data:`GATHERED_BACKENDS`: ``plain``, ``chunked``, ``windowed_plain``,
+    which JAX's GSPMD partitions) run on the whole rows gathered from the
+    ranks, each rank keeping its rows of the output; their attention is
+    not split.
 
 :func:`route_seq_backend` turns a single-card backend into its
-sequence-parallel form on a ``seq`` ring above 1.  Of the JAX package's
-sequence-parallel backends only ``sp_windowed`` is ported; ``sp_allgather``,
-``sp_int8``, ``sp_ulysses`` and ``ring`` raise ``NotImplementedError``
-(ROADMAP A.9), and no single-card backend stands in for them.
+sequence-parallel form on a ``seq`` ring above 1, as JAX's does.
 """
 
 from __future__ import annotations
@@ -53,33 +58,35 @@ from s2v_torch.ops.norms import layer_norm
 from s2v_torch.ops.quant import dense
 from s2v_torch.ops.rope import apply_rotary_emb
 from s2v_torch.ops.windowed_attention import windowed_attention
-from s2v_torch.parallel.context import active_axis, active_mesh
-from s2v_torch.parallel.sp_attention import banded_allgather_attention_trainable
+from s2v_torch.parallel.context import FrameShard, seq_group
+from s2v_torch.parallel.ring_attention import ring_attention_trainable
+from s2v_torch.parallel.sp_attention import (
+    allgather_kv_attention_trainable,
+    banded_allgather_attention_trainable,
+    gather_rows,
+    int8_allgather_attention,
+    ulysses_attention_trainable,
+)
 
 # backends that take the sliding temporal window (entry points configure its width)
 WINDOWED_BACKENDS = ("windowed", "windowed_gather", "windowed_plain", "sp_windowed")
-ATTENTION_BACKENDS = ("auto", "flash", "plain", "chunked", "flash_int8") + WINDOWED_BACKENDS
-# the JAX package's other sequence-parallel backends, not ported yet
-UNPORTED_SEQ_BACKENDS = ("ring", "sp_allgather", "sp_int8", "sp_ulysses")
+# backends that run on the frame shards of a seq ring
+SEQ_BACKENDS = ("ring", "sp_allgather", "sp_int8", "sp_ulysses", "sp_windowed")
+# single-card backends that also run on a seq ring above 1, on the gathered rows
+GATHERED_BACKENDS = ("plain", "chunked", "windowed_plain")
+ATTENTION_BACKENDS = ("auto", "flash", "plain", "chunked", "flash_int8", "ring", "sp_allgather", "sp_int8",
+                      "sp_ulysses") + WINDOWED_BACKENDS
 FLASH_SOFTMAX_MODE = "bounded"
 # fp16 (2b) q/k/v: on the card every kernel backend takes it as it is (B1-B7
 # have fp16 forms, ROADMAP C.1); on the CPU the backends on B1/B2 do too
 # (their plain versions compute in fp32), and every other case upcasts as the
 # JAX package does
 FP16_KERNEL_BACKENDS = ("flash", "windowed_gather")
-CARD_FP16_BACKENDS = ("flash_int8", "windowed", "sp_windowed")
-
-
-def _unported(backend: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"attention backend {backend!r} (sequence parallel) is not ported yet (ROADMAP A.9); of the "
-        f"sequence-parallel backends the port has 'sp_windowed'")
+CARD_FP16_BACKENDS = ("flash_int8", "windowed") + SEQ_BACKENDS
 
 
 def resolve_attention_backend(backend: str, device: torch.device) -> str:
     """``auto`` -> ``flash`` on CUDA, ``plain`` on the CPU."""
-    if backend in UNPORTED_SEQ_BACKENDS:
-        raise _unported(backend)
     if backend not in ATTENTION_BACKENDS:
         raise ValueError(f"unknown attention backend {backend!r}; expected one of {ATTENTION_BACKENDS}")
     if backend != "auto":
@@ -94,11 +101,10 @@ def route_seq_backend(backend: str, num_heads: int, seq_ring: int, tp_size: int 
     ``pallas_int8``).  Returns ``(backend, reason)``, ``reason`` a line
     when a legality fallback rerouted the request, else None.
 
-    ``windowed`` -> ``sp_windowed``; ``windowed_gather`` has no SP form and
-    raises ``ValueError``; the routes to ``sp_allgather`` (from ``flash``
-    and an illegal ``sp_ulysses``), ``sp_int8`` (from ``flash_int8``) and
-    ``sp_ulysses`` raise ``NotImplementedError``: those wrappers are not
-    ported (ROADMAP A.9).  A ring of 1 leaves every backend as it is."""
+    ``flash`` -> ``sp_allgather``, ``flash_int8`` -> ``sp_int8``,
+    ``windowed`` -> ``sp_windowed``, an ``sp_ulysses`` whose heads the ring
+    does not divide -> ``sp_allgather``; ``windowed_gather`` has no SP form
+    and raises ``ValueError``.  A ring of 1 leaves every backend as it is."""
     if seq_ring <= 1:
         return backend, None
     reason = None
@@ -112,21 +118,30 @@ def route_seq_backend(backend: str, num_heads: int, seq_ring: int, tp_size: int 
         if heads_local % seq_ring != 0:
             routed = "sp_allgather"
             reason = (f"sp_ulysses illegal on this mesh ({heads_local} heads per tp shard not divisible by seq "
-                      f"ring {seq_ring}) — falling back to sp_allgather (AG-KV has no divisibility constraint)")
-    if routed in UNPORTED_SEQ_BACKENDS:
-        raise _unported(routed)
+                      f"ring {seq_ring}) — falling back to sp_allgather (AG-KV has no divisibility constraint; "
+                      f"docs/SCALING.md)")
     return routed, reason
 
 
-def _sp_windowed(q, k, v, window):
-    """``sp_windowed`` on the active mesh's ``sp`` dim (``s2v_tpu/ops/attention.py:234-252``)."""
-    mesh, axis = active_mesh(), active_axis("sp")
-    if mesh is None or axis is None:
-        raise ValueError("sp_windowed needs an active mesh with an 'sp' axis (S2VPipeline.set_mesh, or "
-                         "s2v_torch.parallel.mesh_context)")
-    if active_axis("dp") is not None or active_axis("tp") is not None:
-        raise NotImplementedError("sp_windowed under a data or model mesh dim is not ported yet (ROADMAP A.9)")
-    return banded_allgather_attention_trainable(q, k, v, mesh, axis, *window)
+def _seq_attention(backend: str, q, k, v, shard: Optional[FrameShard], window):
+    """A sequence-parallel backend on this rank's rows
+    (``s2v_tpu/ops/attention.py:234-300``)."""
+    seq_group(backend)  # raises without a mesh context
+    if shard is None:
+        raise ValueError(f"{backend} runs on the frame shards transformer_forward makes; call it through "
+                         f"transformer_forward")
+    g = q.shape[1] - shard.local_rows
+    if backend == "sp_windowed":
+        if window is None:
+            raise ValueError("sp_windowed needs window=(global_len, tokens_per_frame, w)")
+        return banded_allgather_attention_trainable(q, k, v, shard, g, window[2])
+    if backend == "sp_allgather":
+        return allgather_kv_attention_trainable(q, k, v, shard, g, FLASH_SOFTMAX_MODE)
+    if backend == "sp_int8":
+        return int8_allgather_attention(q, k, v, shard, g)
+    if backend == "sp_ulysses":
+        return ulysses_attention_trainable(q, k, v, shard, g, FLASH_SOFTMAX_MODE)
+    return ring_attention_trainable(q, k, v, shard, g, FLASH_SOFTMAX_MODE)
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -235,6 +250,38 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, block_q
     return torch.cat(outs, dim=1)
 
 
+def _single_card_attention(backend: str, q, k, v, window):
+    if backend == "flash":
+        return flash_attention_trainable(q, k, v)
+    if backend == "plain":
+        return flash_attention_reference(q, k, v)
+    if backend == "chunked":
+        return chunked_attention(q, k, v)
+    if backend == "flash_int8":
+        return int8_attention_inference_only(q, k, v)
+    if backend in WINDOWED_BACKENDS:
+        if window is None:
+            raise ValueError(f"attention backend {backend!r} needs window=(global_len, tokens_per_frame, w)")
+        if backend == "windowed":
+            return banded_attention_trainable(q, k, v, *window)
+        attn_fn = flash_attention_trainable if backend == "windowed_gather" else flash_attention_reference
+        return windowed_attention(q, k, v, *window, attention_fn=attn_fn)
+    raise ValueError(f"unresolved attention backend {backend!r}")
+
+
+def _on_gathered_rows(backend: str, q, k, v, shard: FrameShard, window):
+    """A backend of :data:`GATHERED_BACKENDS` on a seq ring: every rank's
+    video rows gathered (summed back to their owner in the backward), the
+    single-card backend on the whole sequence, this rank's rows of its
+    output."""
+    if backend not in GATHERED_BACKENDS:
+        raise ValueError(f"attention backend {backend!r} has no form on a seq ring of {shard.ring}; use one of "
+                         f"{SEQ_BACKENDS + GATHERED_BACKENDS} (S2VPipeline routes flash to sp_allgather)")
+    g = q.shape[1] - shard.local_rows
+    out = _single_card_attention(backend, *(gather_rows(t, g, shard) for t in (q, k, v)), window)
+    return torch.cat([out[:, :g], shard.take(out[:, g:])], dim=1)
+
+
 def qkv_projections(params: dict, x: torch.Tensor, num_heads: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``[B, S, D]`` -> per-head q, k, v ``[B, S, H, d]`` through the fused
     ``qkv`` linear (weight ``[3D, D]``, rows q | k | v)."""
@@ -253,10 +300,12 @@ def joint_attention(
     qk_norm_eps: float = 1e-6,
     backend: str = "plain",
     window: Optional[Tuple[int, int, int]] = None,  # (global_len, tokens_per_frame, w)
+    shard: Optional[FrameShard] = None,
 ) -> torch.Tensor:
     """Full-sequence self attention: fused qkv, fp32-statistics qk-LayerNorm,
     segmented RoPE (``[S, d/2]`` tables, or None), attention, output linear.
-    A windowed backend needs ``window``."""
+    A windowed backend needs ``window``; a sequence-parallel one ``shard``,
+    this rank's frames, ``x`` being its rows ``[text | ref | its frames]``."""
     b, s, d = x.shape
     q, k, v = qkv_projections(params, x, num_heads)
     q = layer_norm(q, params["norm_q"]["weight"], params["norm_q"]["bias"], qk_norm_eps)
@@ -273,26 +322,12 @@ def joint_attention(
         backend in FP16_KERNEL_BACKENDS or (q.is_cuda and backend in CARD_FP16_BACKENDS))
     if fp16_in:
         q, k, v = (t.float() for t in (q, k, v))
-    if backend == "flash":
-        out = flash_attention_trainable(q, k, v)
-    elif backend == "plain":
-        out = flash_attention_reference(q, k, v)
-    elif backend == "chunked":
-        out = chunked_attention(q, k, v)
-    elif backend == "flash_int8":
-        out = int8_attention_inference_only(q, k, v)
-    elif backend in WINDOWED_BACKENDS:
-        if window is None:
-            raise ValueError(f"attention backend {backend!r} needs window=(global_len, tokens_per_frame, w)")
-        if backend == "windowed":
-            out = banded_attention_trainable(q, k, v, *window)
-        elif backend == "sp_windowed":
-            out = _sp_windowed(q, k, v, window)
-        else:
-            attn_fn = flash_attention_trainable if backend == "windowed_gather" else flash_attention_reference
-            out = windowed_attention(q, k, v, *window, attention_fn=attn_fn)
+    if backend in SEQ_BACKENDS:
+        out = _seq_attention(backend, q, k, v, shard, window)
+    elif shard is not None:
+        out = _on_gathered_rows(backend, q, k, v, shard, window)
     else:
-        raise ValueError(f"unresolved attention backend {backend!r}")
+        out = _single_card_attention(backend, q, k, v, window)
     if fp16_in:
         out = out.to(torch.float16)
     return dense(params["to_out"], out.reshape(b, s, d))

@@ -6,14 +6,37 @@ kernels ``[Cout, Cin, kt, kh, kw]`` (converted once at load time), the
 layouts cuDNN takes without a per-layer transpose.  The temporal padding is
 the cached last ``kt - 1`` frames of the previous chunk, or a replication of
 the first frame for the first chunk; the spatial padding is zeros.
+
+Temporal-halo mode (:func:`temporal_halo`, ``s2v_tpu/ops/causal_conv3d.py:25-61``):
+in the context-parallel VAE (``parallel/vae_temporal.py``) each rank decodes
+one chunk of frames and every causal conv gets its ``kt - 1``-frame cache
+from the previous rank instead of a host-carried value.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import contextlib
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+# the halo exchange of the context-parallel VAE: f(x, kt, cache) -> the
+# kt - 1 frames that pad x in time
+_HALO = {"fn": None}
+
+
+@contextlib.contextmanager
+def temporal_halo(fn: Callable[[torch.Tensor, int, Optional[torch.Tensor]], torch.Tensor]):
+    """Inside, every causal conv takes its temporal padding from ``fn(x,
+    kt, cache)``; a cache passed in is the stream state the first rank
+    continues from."""
+    prev = _HALO["fn"]
+    _HALO["fn"] = fn
+    try:
+        yield
+    finally:
+        _HALO["fn"] = prev
 
 
 def causal_conv3d(
@@ -28,7 +51,12 @@ def causal_conv3d(
     kt, kh, kw = w.shape[2], w.shape[3], w.shape[4]
     new_cache = None
     if kt > 1:
-        pad = x[:, :, :1].expand(-1, -1, kt - 1, -1, -1) if cache is None else cache.to(x.dtype)
+        if _HALO["fn"] is not None:
+            pad = _HALO["fn"](x, kt, cache).to(x.dtype)
+        elif cache is None:
+            pad = x[:, :, :1].expand(-1, -1, kt - 1, -1, -1)
+        else:
+            pad = cache.to(x.dtype)
         x = torch.cat([pad, x], dim=2)
         new_cache = x[:, :, -(kt - 1):].clone()  # a copy, so the padded input can be freed
     out = F.conv3d(x, w.to(x.dtype), params["bias"].to(x.dtype), stride=(time_stride, 1, 1),

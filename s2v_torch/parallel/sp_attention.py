@@ -1,30 +1,27 @@
-"""Sequence-parallel banded windowed attention, ``sp_windowed`` (counterpart
-of ``s2v_tpu/parallel/sp_attention.py::banded_allgather_attention`` :202 and
-``::banded_allgather_attention_trainable`` :327).
+"""Sequence-parallel attention on the frame shards of a ``seq`` ring
+(counterpart of ``s2v_tpu/parallel/sp_attention.py``): all-gather-KV
+``sp_allgather`` (``allgather_kv_attention`` :59, around kernel B1, or B3 for
+``sp_int8``), Ulysses ``sp_ulysses`` (``ulysses_attention`` :111) and the
+banded ``sp_windowed`` (``banded_allgather_attention`` :202, kernels B6/B7).
+Ring attention is ``ring_attention.py``.
 
-The video frames are sharded over the ``seq`` dim of a
-``torch.distributed.device_mesh.DeviceMesh``; K/V are all-gathered and each
-rank runs kernel B6 (``banded_flash_attention_local``) on its shard at its
-global frame offset ``rank · F_loc``, so windows clamp to the global frame
-range and shard-edge frames attend across the shard boundary exactly as the
-single-card kernel B4 does.  The small ``[text | ref]`` global segment is
-computed replicated, through B1 in the online mode.  The frame count is
-padded to a ring multiple; the dummy frames' rows are dropped.
+Every wrapper takes this rank's rows ``[text | ref | its video frames]``
+(``[B, G + F_loc·tpf, H, d]``, the frame layout of
+:class:`s2v_torch.parallel.context.FrameShard`, dummy frames included) and
+returns the attention output of the same rows.  The ``[text | ref]`` global
+segment of ``G`` rows is whole on every rank.  The keys are ``[text | ref]``
+and every rank's real video frames in order: the dummy frames' keys are
+dropped.  JAX pads the joint sequence to a ring multiple and shards its rows
+(``:88-93``); the padded rows and keys are exact no-ops in both layouts, so
+the results agree to rounding, except ``sp_int8``'s per-tensor q scale, which
+each rank takes over its own rows (ROADMAP C.27).
 
-Contract on the port's replicated model: outside attention every rank holds
-the whole ``[B, S, ...]`` activations (the port has no GSPMD), so the wrapper
-takes and returns the full ``[B, S, H, d]`` on every rank.  Each rank takes
-its frame shard of the queries and its row shard of K/V out of the full
-tensors, all-gathers K/V and, after B6, the shards' outputs (and lse).  The
-backward (``:369-443``) runs B7 for the local queries and B2 for the global
-queries (their dk/dv scaled by ``1/P``, since every rank computes them), sums
-the full-extent dk/dv partials over the ranks with one ``all_reduce`` (JAX's
-``psum_scatter`` leaves each rank its row shard; here every rank needs the
-whole sum) and all-gathers the dq shards, so every rank holds the whole
-gradient of its replicated input.
-
-At world size 1 the path is B6 at offset 0 over every frame, B1 for the
-global queries and collectives of one rank: B4's result by another route.
+Backwards follow the gradient contract of ``parallel/context.py``: the
+video keys' gradients are summed over the ring and each rank keeps its own
+frames' (the transpose of the all-gather; gloo has no reduce_scatter, so an
+all_reduce and a slice), the replicated text and ref keep their share.  At a
+ring of 1 the collectives move nothing and each wrapper is its single-card
+kernel on the same inputs.
 """
 
 from __future__ import annotations
@@ -36,176 +33,274 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from s2v_torch.kernels.banded_attention import BandGeometry, band_geometry, banded_flash_attention_local, ring_shards
+from s2v_torch.kernels.banded_attention import banded_flash_attention_local
 from s2v_torch.kernels.banded_attention_bwd import banded_flash_attention_local_bwd
 from s2v_torch.kernels.flash_attention import flash_attention
 from s2v_torch.kernels.flash_attention_bwd import flash_attention_bwd
+from s2v_torch.kernels.int8_attention import flash_attention_qk_int8
+from s2v_torch.parallel.context import FrameShard, all_gather_rows, sum_and_take
+
+# JAX's message for a differentiated int8 backend (s2v_tpu/ops/attention.py:319-330)
+INT8_BACKWARD_MESSAGE = ("the int8-QK attention backends ('pallas_int8'/'sp_int8') are inference-only (no backward "
+                         "kernels); train with 'pallas', 'sp_allgather', 'windowed', or 'chunked'")
 
 
-def _ring(mesh, axis_name: str):
-    """(process group, ring size, this rank's index) of the mesh dim."""
-    group = mesh.get_group(axis_name)
-    return group, dist.get_world_size(group), dist.get_rank(group)
+def gather_kv(x: torch.Tensor, global_len: int, shard: FrameShard) -> torch.Tensor:
+    """This rank's K (or V) rows -> ``[text | ref | the clip's video]``:
+    the global rows as they are, every rank's video frames all-gathered,
+    the dummy frames dropped."""
+    video = all_gather_rows(x[:, global_len:], shard.group, shard.ring)[:, :shard.video_rows]
+    return torch.cat([x[:, :global_len], video], dim=1)
 
 
-def _all_gather(x: torch.Tensor, dim: int, group, ring: int) -> torch.Tensor:
-    """The ranks' ``x`` concatenated along ``dim`` (a strided view of one
-    buffer gathered along its leading dim)."""
-    xt = x.movedim(dim, 0).contiguous()
-    buf = torch.empty((ring * xt.shape[0], *xt.shape[1:]), dtype=x.dtype, device=x.device)
-    dist.all_gather(list(buf.chunk(ring)), xt, group=group)
-    return buf.movedim(0, dim)
+def kv_grad_to_shard(dx: torch.Tensor, global_len: int, shard: FrameShard) -> torch.Tensor:
+    """The transpose of :func:`gather_kv`: this rank's share of the
+    gradient over every key -> the gradient of its own rows."""
+    return torch.cat([dx[:, :global_len], sum_and_take(dx[:, global_len:], shard)], dim=1)
 
 
-def _rows(x: torch.Tensor, lo: int, hi: int, end: int, dim: int = 1) -> torch.Tensor:
-    """Rows ``[lo, hi)`` of ``x`` along ``dim``, zero past ``end`` (ring padding)."""
-    piece = x.narrow(dim, min(lo, end), max(0, min(hi, end) - lo))
-    pad = (hi - lo) - piece.shape[dim]
-    if pad == 0:
-        return piece
-    widths = [0, 0] * (x.dim() - 1 - dim) + [0, pad]
-    return F.pad(piece, widths)
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, global_len, shard):
+        ctx.args = (global_len, shard)
+        return gather_kv(x, global_len, shard)
+
+    @staticmethod
+    def backward(ctx, g):
+        return kv_grad_to_shard(g, *ctx.args), None, None
 
 
-def _gather_kv(x: torch.Tensor, group, ring: int, rank: int) -> torch.Tensor:
-    """This rank's row shard of the full K (or V), padded to a ring multiple,
-    all-gathered back into the full ``[B, S, H, d]`` (``:254-261``)."""
-    s = x.shape[1]
-    s_loc = -(-s // ring)
-    return _all_gather(_rows(x, rank * s_loc, (rank + 1) * s_loc, s), 1, group, ring)[:, :s]
+def gather_rows(x: torch.Tensor, global_len: int, shard: FrameShard) -> torch.Tensor:
+    """:func:`gather_kv` under autograd, :func:`kv_grad_to_shard` its backward."""
+    return _GatherRows.apply(x, global_len, shard)
 
 
-def _full_attn_with_lse(qg, k_full, v_full, scale):
-    """Exact attention with the per-row lse for the global query segment
-    (``:185``): B1 in the online mode, its plain version on CPU tensors."""
-    return flash_attention(qg, k_full, v_full, scale=scale, return_lse=True, softmax_mode="online")
+# ---------------------------------------------------------------------------
+# sp_allgather / sp_int8
+# ---------------------------------------------------------------------------
+
+def allgather_kv_attention(q, k, v, shard: FrameShard, global_len: int, return_lse: bool = False,
+                           softmax_mode: str = "bounded", int8: bool = False):
+    """AG-KV attention of this rank's rows against every key: B1 (with its
+    fp32 lse when ``return_lse``), or B3 with ``int8``."""
+    kf, vf = gather_kv(k, global_len, shard), gather_kv(v, global_len, shard)
+    if int8:
+        return flash_attention_qk_int8(q, kf, vf)
+    return flash_attention(q, kf, vf, return_lse=return_lse, softmax_mode=softmax_mode)
 
 
-def _full_attn_bwd(qg, k_full, v_full, og, lseg, gg, scale):
-    """Backward of the global query segment (``:310``): B2, its plain
-    version on CPU tensors."""
-    return flash_attention_bwd(qg, k_full, v_full, og, lseg.contiguous(), gg, scale)
+class _AllgatherKV(torch.autograd.Function):
+    """``sp_allgather`` both ways: B1 with lse forward; B2 on the local rows
+    backward, K/V gathered again (only the local rows are saved)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, shard, global_len, softmax_mode):
+        o, lse = allgather_kv_attention(q, k, v, shard, global_len, True, softmax_mode)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.args = (shard, global_len)
+        return o
+
+    @staticmethod
+    def backward(ctx, go):
+        q, k, v, o, lse = ctx.saved_tensors
+        shard, g = ctx.args
+        kf, vf = gather_kv(k, g, shard), gather_kv(v, g, shard)
+        dq, dkf, dvf = flash_attention_bwd(q, kf, vf, o, lse, go.contiguous())
+        return dq, kv_grad_to_shard(dkf, g, shard), kv_grad_to_shard(dvf, g, shard), None, None, None
 
 
-def _rank_shard(s: int, global_len: int, tokens_per_frame: int, window_frames: int, ring: int,
-                rank: int) -> BandGeometry:
-    """This rank's frame shard of a ``[B, S, ...]`` call (frames padded to a
-    ring multiple, ``:248-249``)."""
-    geo = band_geometry(s, global_len, tokens_per_frame, window_frames)
-    if ring > geo.n_frames:
-        # B6/B7 take the shards of rings of at most F ranks (BandGeometry.shard)
-        raise ValueError(f"a seq ring of {ring} ranks needs at least {ring} latent frames; the clip has "
-                         f"{geo.n_frames}")
-    _, f_loc = ring_shards(geo.n_frames, ring)
-    return geo.shard(rank * f_loc, f_loc)
+class _Int8AllgatherKV(torch.autograd.Function):
+    """``sp_int8`` under autograd: the forward, and a backward that raises."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, shard, global_len):
+        return allgather_kv_attention(q, k, v, shard, global_len, int8=True)
+
+    @staticmethod
+    def backward(ctx, go):
+        raise NotImplementedError(INT8_BACKWARD_MESSAGE)
 
 
-def shard_rows(x: torch.Tensor, shard: BandGeometry, dim: int = 1) -> torch.Tensor:
-    """A shard's video rows of ``x`` (``[text | ref | video]`` along ``dim``):
-    its frames' tokens, zero past the clip (ring-padding dummy frames)."""
-    tpf = shard.tokens_per_frame
-    vid_rows = shard.n_frames * tpf
-    lo = shard.frame_offset * tpf
-    return _rows(x.narrow(dim, shard.global_len, vid_rows), lo, lo + shard.local_frames * tpf, vid_rows, dim)
+def needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
-def banded_allgather_attention(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
-    mesh,
-    axis_name: str,
-    global_len: int,
-    tokens_per_frame: int,
-    window_frames: int,
-    scale: Optional[float] = None,
-    return_lse: bool = False,
-):
-    """Sequence-parallel banded windowed attention.  q/k/v ``[B, S, H, d]``,
-    whole on every rank of ``mesh``'s ``axis_name`` dim; returns the whole
-    ``[B, S, H, d]`` on every rank (and, with ``return_lse``, the fp32 lse
-    ``[B, H, S]``, the residual of :func:`banded_allgather_attention_trainable`)."""
-    b, s, h, d = q.shape
-    group, ring, rank = _ring(mesh, axis_name)
-    sh = _rank_shard(s, global_len, tokens_per_frame, window_frames, ring, rank)
-    vid_rows = sh.n_frames * tokens_per_frame
+def allgather_kv_attention_trainable(q, k, v, shard: FrameShard, global_len: int,
+                                     softmax_mode: str = "bounded") -> torch.Tensor:
+    """Differentiable ``sp_allgather``; without autograd one B1 call without lse."""
+    if needs_grad(q, k, v):
+        return _AllgatherKV.apply(q, k, v, shard, global_len, softmax_mode)
+    return allgather_kv_attention(q, k, v, shard, global_len, softmax_mode=softmax_mode)
+
+
+def int8_allgather_attention(q, k, v, shard: FrameShard, global_len: int) -> torch.Tensor:
+    """``sp_int8``: inference only, differentiating it raises JAX's message."""
+    if needs_grad(q, k, v):
+        return _Int8AllgatherKV.apply(q, k, v, shard, global_len)
+    return allgather_kv_attention(q, k, v, shard, global_len, int8=True)
+
+
+# ---------------------------------------------------------------------------
+# sp_ulysses
+# ---------------------------------------------------------------------------
+
+def _heads(shard: FrameShard, num_heads: int) -> slice:
+    if num_heads % shard.ring:
+        raise ValueError(f"sp_ulysses needs heads divisible by the seq axis: {num_heads} heads vs ring {shard.ring}")
+    h_loc = num_heads // shard.ring
+    return slice(shard.rank * h_loc, (shard.rank + 1) * h_loc)
+
+
+def _all_to_all(send: torch.Tensor, shard: FrameShard) -> torch.Tensor:
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=shard.group)
+    return recv
+
+
+def seq_to_heads(x: torch.Tensor, shard: FrameShard) -> torch.Tensor:
+    """This rank's video rows of every head ``[B, F_loc·tpf, H, d]`` ->
+    every real video row of this rank's heads ``[B, F·tpf, H/ring, d]``."""
+    b, lv, h, d = x.shape
+    r = shard.ring
+    recv = _all_to_all(x.reshape(b, lv, r, h // r, d).permute(2, 0, 1, 3, 4).contiguous(), shard)
+    return recv.permute(1, 0, 2, 3, 4).reshape(b, r * lv, h // r, d)[:, :shard.video_rows]
+
+
+def heads_to_seq(y: torch.Tensor, shard: FrameShard) -> torch.Tensor:
+    """The inverse of :func:`seq_to_heads` (zero on the dummy frames)."""
+    b, rows, hl, d = y.shape
+    r, lv = shard.ring, shard.local_rows
+    y = F.pad(y, (0, 0, 0, 0, 0, r * lv - rows))
+    recv = _all_to_all(y.reshape(b, r, lv, hl, d).permute(1, 0, 2, 3, 4).contiguous(), shard)
+    return recv.permute(1, 2, 0, 3, 4).reshape(b, lv, r * hl, d)
+
+
+def _ulysses_inputs(q, k, v, shard, global_len, heads):
+    """q, k, v of this rank's heads over ``[text | ref | every real frame]``."""
+    return tuple(torch.cat([t[:, :global_len, heads], seq_to_heads(t[:, global_len:], shard)], dim=1)
+                 for t in (q, k, v))
+
+
+def _ulysses_output(o, shard, global_len):
+    """This rank's heads over every row -> every head over this rank's rows:
+    the global rows all-gathered over heads, the video rows sent home."""
+    o_g = all_gather_rows(o[:, :global_len], shard.group, shard.ring, dim=2)
+    return torch.cat([o_g, heads_to_seq(o[:, global_len:], shard)], dim=1)
+
+
+def ulysses_attention(q, k, v, shard: FrameShard, global_len: int, softmax_mode: str = "bounded") -> torch.Tensor:
+    """Ulysses attention: an all-to-all from frame shards to head shards,
+    B1 over every row for this rank's heads, and back."""
+    heads = _heads(shard, q.shape[2])
+    qh, kh, vh = _ulysses_inputs(q, k, v, shard, global_len, heads)
+    return _ulysses_output(flash_attention(qh, kh, vh, softmax_mode=softmax_mode), shard, global_len)
+
+
+class _Ulysses(torch.autograd.Function):
+    """``sp_ulysses`` both ways; the all-to-alls are linear, so the backward
+    is B2 between the reverse all-to-alls.  The global rows' output gradient
+    is this rank's share: summed over the ring (the transpose of the
+    all-gather over heads) before B2, and the global rows' input gradient
+    stays on this rank's heads."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, shard, global_len, softmax_mode):
+        heads = _heads(shard, q.shape[2])
+        qh, kh, vh = _ulysses_inputs(q, k, v, shard, global_len, heads)
+        oh, lse = flash_attention(qh, kh, vh, return_lse=True, softmax_mode=softmax_mode)
+        ctx.save_for_backward(qh, kh, vh, oh, lse)
+        ctx.args = (shard, global_len, heads, q.shape)
+        return _ulysses_output(oh, shard, global_len)
+
+    @staticmethod
+    def backward(ctx, go):
+        qh, kh, vh, oh, lse = ctx.saved_tensors
+        shard, g, heads, shape = ctx.args
+        go_g = go[:, :g].contiguous()
+        dist.all_reduce(go_g, group=shard.group)
+        goh = torch.cat([go_g[:, :, heads], seq_to_heads(go[:, g:].contiguous(), shard)], dim=1)
+        grads = flash_attention_bwd(qh, kh, vh, oh, lse, goh)
+        out = []
+        for dh in grads:
+            d_g = dh.new_zeros((shape[0], g, *shape[2:]))
+            d_g[:, :, heads] = dh[:, :g]
+            out.append(torch.cat([d_g, heads_to_seq(dh[:, g:], shard)], dim=1))
+        return (*out, None, None, None)
+
+
+def ulysses_attention_trainable(q, k, v, shard: FrameShard, global_len: int,
+                                softmax_mode: str = "bounded") -> torch.Tensor:
+    """Differentiable ``sp_ulysses``; without autograd the inference call."""
+    if needs_grad(q, k, v):
+        return _Ulysses.apply(q, k, v, shard, global_len, softmax_mode)
+    return ulysses_attention(q, k, v, shard, global_len, softmax_mode)
+
+
+# ---------------------------------------------------------------------------
+# sp_windowed
+# ---------------------------------------------------------------------------
+
+def banded_allgather_attention(q, k, v, shard: FrameShard, global_len: int, window_frames: int,
+                               scale: Optional[float] = None, return_lse: bool = False):
+    """Sequence-parallel banded windowed attention: K/V all-gathered, B6 for
+    this rank's video rows at its global frame offset (windows clamp to the
+    clip, shard-edge frames attend across the boundary as B4's do), and B1
+    in the online mode for the replicated global rows.  Returns the rows'
+    output (and the fp32 lse ``[B, H, rows]``)."""
+    d = q.shape[-1]
+    g, tpf = global_len, shard.tokens_per_frame
     if scale is None:
         scale = 1.0 / math.sqrt(d)
-    k_full, v_full = _gather_kv(k, group, ring, rank), _gather_kv(v, group, ring, rank)
-    local = banded_flash_attention_local(shard_rows(q, sh), k_full, v_full, global_len, tokens_per_frame,
-                                         window_frames, sh.frame_offset, sh.n_frames, scale=scale,
-                                         return_lse=return_lse)
-    qg = q[:, :global_len]
-    if return_lse:
-        o_loc, lse_loc = local
-        o_g, lse_g = _full_attn_with_lse(qg, k_full, v_full, scale)
-    else:
-        o_loc = local
-        # the global queries, replicated: B1 online, as B4's wrapper runs them
-        o_g = flash_attention(qg, k_full, v_full, scale=scale, softmax_mode="online")
-    o = torch.cat([o_g, _all_gather(o_loc, 1, group, ring)[:, :vid_rows]], dim=1)
+    kf, vf = gather_kv(k, g, shard), gather_kv(v, g, shard)
+    local = banded_flash_attention_local(q[:, g:], kf, vf, g, tpf, window_frames, shard.first_frame, shard.n_frames,
+                                         scale=scale, return_lse=return_lse)
+    glob = flash_attention(q[:, :g], kf, vf, scale=scale, return_lse=return_lse, softmax_mode="online")
     if not return_lse:
-        return o
-    lse = torch.cat([lse_g, _all_gather(lse_loc, 2, group, ring)[..., :vid_rows]], dim=-1)
-    return o, lse
+        return torch.cat([glob, local], dim=1)
+    return torch.cat([glob[0], local[0]], dim=1), torch.cat([glob[1], local[1]], dim=-1)
 
 
 class _BandedAllgatherAttention(torch.autograd.Function):
-    """``sp_windowed`` both ways: the forward saves q, k, v, o and lse; the
-    backward is B7 + B2 per rank, an all_reduce of dk/dv and an all_gather
-    of the dq shards (``:359-443``)."""
+    """``sp_windowed`` both ways (``:359-443``): B7 for the video rows and
+    B2 for the global rows, their key gradients summed and sent to the
+    frames' owners."""
 
     @staticmethod
-    def forward(ctx, q, k, v, mesh, axis_name, global_len, tokens_per_frame, window_frames):
-        o, lse = banded_allgather_attention(q, k, v, mesh, axis_name, global_len, tokens_per_frame, window_frames,
-                                            return_lse=True)
+    def forward(ctx, q, k, v, shard, global_len, window_frames):
+        o, lse = banded_allgather_attention(q, k, v, shard, global_len, window_frames, return_lse=True)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.args = (mesh, axis_name, global_len, tokens_per_frame, window_frames)
+        ctx.args = (shard, global_len, window_frames)
         return o
 
     @staticmethod
-    def backward(ctx, gr):
+    def backward(ctx, go):
         q, k, v, o, lse = ctx.saved_tensors
-        mesh, axis_name, g, tpf, w = ctx.args
-        dq, dk, dv = banded_allgather_attention_bwd(q, k, v, o, lse, gr, mesh, axis_name, g, tpf, w)
-        return dq, dk, dv, None, None, None, None, None
+        shard, g, w = ctx.args
+        dq, dk, dv = banded_allgather_attention_bwd(q, k, v, o, lse, go, shard, g, w)
+        return dq, dk, dv, None, None, None
 
 
-def banded_allgather_attention_bwd(q, k, v, o, lse, gr, mesh, axis_name: str, global_len: int,
-                                   tokens_per_frame: int, window_frames: int
+def banded_allgather_attention_bwd(q, k, v, o, lse, go, shard: FrameShard, global_len: int, window_frames: int
                                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(dq, dk, dv) of :func:`banded_allgather_attention`, each the whole
-    ``[B, S, H, d]`` on every rank; ``lse`` is its ``[B, H, S]`` residual and
-    ``gr`` = dL/do, both whole."""
-    b, s, h, d = q.shape
-    group, ring, rank = _ring(mesh, axis_name)
-    sh = _rank_shard(s, global_len, tokens_per_frame, window_frames, ring, rank)
-    scale = 1.0 / math.sqrt(d)
-    gr = gr.to(q.dtype).contiguous()
-    k_full, v_full = _gather_kv(k, group, ring, rank), _gather_kv(v, group, ring, rank)
-    # dummy frames: zero q and dO rows and lse 0, as JAX pads them (:394-397);
-    # B7 leaves them out of every sum whatever they hold
-    dq_loc, dk, dv = banded_flash_attention_local_bwd(
-        shard_rows(q, sh), k_full, v_full, shard_rows(o, sh), shard_rows(lse, sh, dim=2).contiguous(),
-        shard_rows(gr, sh), global_len, tokens_per_frame, window_frames, sh.frame_offset, sh.n_frames, scale)
-    g = global_len
-    dq_g, dk_g, dv_g = _full_attn_bwd(q[:, :g], k_full, v_full, o[:, :g], lse[..., :g], gr[:, :g], scale)
-    # every rank computed the global queries' part: 1/P of it from each
-    inv = 1.0 / ring
-    dk = dk + dk_g * inv
-    dv = dv + dv_g * inv
-    dist.all_reduce(dk, group=group)
-    dist.all_reduce(dv, group=group)
-    dq = torch.cat([dq_g, _all_gather(dq_loc, 1, group, ring)[:, :sh.n_frames * tokens_per_frame]], dim=1)
-    return dq, dk, dv
+    """(dq, dk, dv) of this rank's rows; ``lse`` is the forward's residual
+    and ``go`` this rank's share of dL/do."""
+    g, tpf = global_len, shard.tokens_per_frame
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    go = go.to(q.dtype).contiguous()
+    kf, vf = gather_kv(k, g, shard), gather_kv(v, g, shard)
+    # B7 leaves the dummy frames' rows out of every sum whatever they hold
+    dq_loc, dkf, dvf = banded_flash_attention_local_bwd(
+        q[:, g:], kf, vf, o[:, g:], lse[..., g:].contiguous(), go[:, g:], g, tpf, window_frames, shard.first_frame,
+        shard.n_frames, scale)
+    dq_g, dk_g, dv_g = flash_attention_bwd(q[:, :g], kf, vf, o[:, :g], lse[..., :g].contiguous(), go[:, :g], scale)
+    dq = torch.cat([dq_g, dq_loc], dim=1)
+    return dq, kv_grad_to_shard(dkf + dk_g, g, shard), kv_grad_to_shard(dvf + dv_g, g, shard)
 
 
-def banded_allgather_attention_trainable(q, k, v, mesh, axis_name: str, global_len: int, tokens_per_frame: int,
+def banded_allgather_attention_trainable(q, k, v, shard: FrameShard, global_len: int,
                                          window_frames: int) -> torch.Tensor:
     """Differentiable :func:`banded_allgather_attention` (B6/B1 forward,
-    B7/B2 backward).  Without autograd (no input needs a grad, or grad mode
-    is off) it is the inference call, without lse."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return _BandedAllgatherAttention.apply(q, k, v, mesh, axis_name, global_len, tokens_per_frame,
-                                               window_frames)
-    return banded_allgather_attention(q, k, v, mesh, axis_name, global_len, tokens_per_frame, window_frames)
+    B7/B2 backward); without autograd the inference call, without lse."""
+    if needs_grad(q, k, v):
+        return _BandedAllgatherAttention.apply(q, k, v, shard, global_len, window_frames)
+    return banded_allgather_attention(q, k, v, shard, global_len, window_frames)

@@ -26,13 +26,17 @@ quantize_transformer_params(pipe.transformer_params)`` (int8 linears, see
 ``s2v_torch/ops/quant.py``) and ``pipe.set_attention("flash_int8")`` (kernel
 B3); ``generate`` runs the int8 tree unchanged.
 
-Sequence parallel: ``pipe.set_mesh(mesh)`` with a ``DeviceMesh`` whose one
-dim is named ``seq`` (every rank builds the same pipeline and calls
-``generate`` with the same arguments).  On a ring above 1 ``generate`` routes
-``windowed`` to ``sp_windowed`` (kernels B6/B7 per frame shard); an explicit
-``set_attention("sp_windowed", w)`` runs that path on a ring of 1 too.
-Outside attention every rank computes the whole model (replicated), the VAE
-decode included.
+Sequence parallel: ``pipe.set_mesh("sp4")`` (or a dict of sizes, or a
+``DeviceMesh`` whose one dim is named ``seq``), one process per card, every
+rank building the same pipeline and calling ``generate`` with the same
+arguments (``torchrun``, see ``cli.py``).  On a ring above 1 ``generate``
+routes ``flash`` to ``sp_allgather``, ``flash_int8`` to ``sp_int8`` and
+``windowed`` to ``sp_windowed``, as JAX does; an explicit sequence-parallel
+backend (``sp_allgather``, ``sp_ulysses``, ``ring``, ``sp_int8``,
+``sp_windowed``) runs on a ring of 1 too.  The DiT shards its video stream
+by latent frames over the ranks (``models/transformer.py``), and the VAE
+decode runs context-parallel when the ring can take its chunks
+(``decode_latents``).  Every rank ends with the same clip.
 """
 
 from __future__ import annotations
@@ -184,13 +188,15 @@ class S2VPipeline:
         checkpoint into the DiT if given (``s2v_tpu/pipelines/s2v.py:199``).
 
         ``text_encoder_device``: ``"auto"``/``"device"`` put T5 on
-        ``device``; ``"host"`` keeps it on the CPU in fp32.  ``"mesh"`` and
-        ``mesh`` raise ``NotImplementedError`` (ROADMAP A.9).
+        ``device``; ``"host"`` keeps it on the CPU in fp32; ``"mesh"`` (T5
+        sharded over the mesh) raises ``NotImplementedError`` (ROADMAP A.9).
+        ``mesh``: a seq-only mesh (spec, dict or ``DeviceMesh``), see
+        :meth:`set_mesh`.
         ``disentangled_modulation=True`` keeps each block's pre-merge adaLN
         linears beside the merged ones (video and text are modulated by
         the base weights, the ref stream by the adapted ones)."""
-        if mesh is not None or text_encoder_device == "mesh":
-            raise _unported("loading onto a mesh (mesh=, text_encoder_device='mesh')", "A.9")
+        if text_encoder_device == "mesh":
+            raise _unported("text_encoder_device='mesh' (T5 sharded over the mesh)", "A.9")
         if text_encoder_device not in ("auto", "device", "host"):
             raise ValueError(f"text_encoder_device must be auto | device | host, got {text_encoder_device!r}")
         device = resolve_device(device)
@@ -231,6 +237,8 @@ class S2VPipeline:
         )
         if lora_checkpoint is not None:
             pipe._merged_lora = (os.path.realpath(lora_checkpoint), float(lora_alpha))
+        if mesh is not None:
+            pipe.set_mesh(mesh)
         return pipe
 
     def load_lora(self, lora_checkpoint: Optional[str], lora_alpha: float = 64.0, cache_base: bool = True,
@@ -346,12 +354,19 @@ class S2VPipeline:
             self.transformer_cfg = replace(self.transformer_cfg, attention_window_frames=window)
 
     def set_mesh(self, mesh) -> None:
-        """Attach a ``torch.distributed.device_mesh.DeviceMesh`` whose one
-        dim is named ``seq`` (its process group already initialised), or
-        None (back to one card) (``s2v_tpu/pipelines/s2v.py:78``).  The
-        params stay whole on every rank.  A ``data`` or ``model`` dim raises
+        """Attach a mesh: a spec (``"sp4"``), a dict of sizes
+        (``{"seq": 4}``), a ``torch.distributed.device_mesh.DeviceMesh``
+        whose one dim is named ``seq``, or None (back to one card)
+        (``s2v_tpu/pipelines/s2v.py:78-125``).  A spec or dict makes the mesh
+        over the default process group (``parallel/sharding.py::make_mesh``,
+        which starts the group when there is none).  The params stay whole
+        on every rank.  A ``data`` or ``model`` dim raises
         ``NotImplementedError``: TP/FSDP and data parallelism are not ported
         (ROADMAP A.9)."""
+        if isinstance(mesh, (str, dict)):
+            from s2v_torch.parallel.sharding import make_mesh
+
+            mesh = make_mesh(mesh, self.device.type)
         if mesh is not None:
             names = tuple(mesh.mesh_dim_names or ())
             if names != ("seq",):
@@ -518,11 +533,23 @@ class S2VPipeline:
         tiled, with less than ``DECODE_TILED_MIN_FREE`` in quarter-size tiles
         (:meth:`_decode_lean_tiles`).  A decode that runs out of memory is
         retried once in quarter-size tiles on the same card, and later
-        decodes go there directly."""
+        decodes go there directly.
+
+        On a ``seq`` ring above 1 an untiled decode runs context-parallel
+        (``parallel/vae_temporal.py``), on JAX's routes
+        (``s2v_tpu/pipelines/s2v.py:647-700``): uniform chunks when the ring
+        divides the frames into chunks of the VAE's frame batch, else the
+        reference's schedule when the ring has a rank for each of its
+        uniform chunks, else the streaming decode on every rank."""
         z = latents.to(self.vae_cfg.dtype) / self.vae_cfg.scaling_factor
         sc = self.vae_cfg.spatial_compression_ratio
         tiled = self._resolve_tiling(z.shape[2] * sc, z.shape[3] * sc)
         log = get_logger("s2v_torch.pipeline")
+        ring = self._seq_ring()
+        if ring > 1 and not tiled:
+            frames = self._decode_cp(z, ring, log)
+            if frames is not None:
+                return denormalize_video(frames.float().cpu().numpy())
         if not self._decode_lean and not tiled:
             free = self._device_free_bytes()
             if free is not None and free < DECODE_UNTILED_MIN_FREE:
@@ -547,6 +574,25 @@ class S2VPipeline:
                 torch.cuda.empty_cache()
             frames = self._decode_lean_tiles(z)
         return denormalize_video(frames.float().cpu().numpy())
+
+    def _decode_cp(self, z: torch.Tensor, ring: int, log) -> Optional[torch.Tensor]:
+        """The context-parallel decode of scaled latents, or None when the
+        ring cannot take the canonical schedule (the streaming decode runs)."""
+        from s2v_torch.parallel.vae_temporal import (
+            canonical_cp_chunks,
+            sharded_vae_decode,
+            sharded_vae_decode_canonical,
+        )
+
+        t, fb = z.shape[1], self.vae_cfg.num_latent_frames_batch_size
+        if t % ring == 0 and t // ring == fb:
+            return sharded_vae_decode(self.vae_params, self.vae_cfg, z, self.mesh)
+        n_cp = canonical_cp_chunks(self.vae_cfg, t)
+        if 1 <= n_cp <= ring:
+            return sharded_vae_decode_canonical(self.vae_params, self.vae_cfg, z, self.mesh)
+        log.warning("seq mesh (ring=%d) cannot serve the canonical %d-chunk decode schedule for %d latent frames; "
+                    "falling back to the single-device canonical streaming decode", ring, n_cp, t)
+        return None
 
     def _device_free_bytes(self) -> Optional[int]:
         """Bytes the decode can still get on the card (free device memory

@@ -15,8 +15,11 @@ for ``"status": "ok"`` and 1 otherwise.
     python -m s2v_torch.serve --socket /tmp/s2v_torch.sock \\
         --request '{"op": "generate", "prompt": "...", "ref_img_path": "...", "output_path": "out.mp4"}'
 
-``--mesh`` and ``--text_encoder_device mesh`` raise ``NotImplementedError``
-(ROADMAP A.9).
+Across cards: ``torchrun --nproc_per_node N -m s2v_torch.serve --mesh sp<N>
+...`` loads the pipeline on each card; rank 0 owns the socket and hands
+every request to the other ranks, which run it with it (see
+``serving/daemon.py``).  A ``data`` or ``model`` mesh dim and
+``--text_encoder_device mesh`` raise ``NotImplementedError`` (ROADMAP A.9).
 """
 
 from __future__ import annotations
@@ -25,11 +28,12 @@ import argparse
 import json
 import os
 import sys
+from datetime import timedelta
 
 from s2v_torch.cli_utils import (
     ATTENTION_BACKEND_CHOICES,
     BACKEND_NAMES,
-    UNPORTED_BACKENDS,
+    check_mesh_flags,
     str2bool as _str2bool,
     tiling_policy as _tiling_policy,
 )
@@ -53,7 +57,9 @@ def get_args(argv=None):
     p.add_argument("--quantize_int8", action="store_true", default=False)
     p.add_argument("--text_encoder_device", type=str, default="auto", choices=["auto", "device", "host", "mesh"],
                    help="host keeps T5 on the CPU in fp32; mesh is not ported yet (ROADMAP A.9)")
-    p.add_argument("--mesh", type=str, default=None, help="not ported yet (ROADMAP A.9)")
+    p.add_argument("--mesh", type=str, default=None,
+                   help="seq mesh over the processes torchrun started, e.g. sp4; data and model dims are not "
+                        "ported yet (ROADMAP A.9)")
     p.add_argument("--enable_tiling", type=_tiling_policy, default="auto")
     p.add_argument("--enable_slicing", type=_str2bool, default=True)
     p.add_argument("--fps", type=int, default=8)
@@ -78,18 +84,28 @@ def main(args=None):
         print(json.dumps(resp, indent=2))
         return 0 if resp.get("status") == "ok" else 1
 
-    if args.mesh is not None or args.text_encoder_device == "mesh":
-        raise NotImplementedError("--mesh and --text_encoder_device mesh are not ported yet (ROADMAP A.9)")
-    if args.attention_backend in UNPORTED_BACKENDS:
-        raise NotImplementedError(f"--attention_backend {args.attention_backend} is not ported yet "
-                                  f"(ROADMAP {UNPORTED_BACKENDS[args.attention_backend]})")
+    check_mesh_flags(args)
     if not args.pretrained_model_name_or_path:
         print("daemon mode requires --pretrained_model_name_or_path", file=sys.stderr)
         return 2
 
+    from s2v_torch.parallel.sharding import entry_point_mesh
+    from s2v_torch.utils.device import resolve_device
+
+    device = resolve_device(args.device)
+    with entry_point_mesh(args.mesh, device.type) as mesh:
+        return _serve(args, device, mesh)
+
+
+# how long the other ranks of a mesh wait for the next request
+IDLE_TIMEOUT = timedelta(days=365)
+
+
+def _serve(args, device, mesh) -> int:
+    import torch.distributed as dist
+
     from s2v_torch.pipelines.s2v import S2VPipeline
     from s2v_torch.serving.daemon import ServingDaemon
-    from s2v_torch.utils.device import resolve_device
     from s2v_torch.utils.logging import get_logger
 
     log = get_logger("s2v_torch.serve")
@@ -102,21 +118,27 @@ def main(args=None):
         attention_backend=backend,
         quantize_int8=args.quantize_int8,
         text_encoder_device=args.text_encoder_device,
-        device=resolve_device(args.device),
+        mesh=mesh,
+        device=device,
     )
     if runtime_lora and args.checkpoint_path:
         pipe.load_lora(args.checkpoint_path, lora_alpha=args.lora_alpha, mode="runtime")
     pipe.vae_tiling = args.enable_tiling
     pipe.vae_slicing = bool(args.enable_slicing)
     pipe.set_attention(backend, args.attention_window)
+    # requests reach the other ranks over gloo: an idle daemon must not time out its group
+    control = dist.new_group(backend="gloo", timeout=IDLE_TIMEOUT) if mesh is not None else None
     daemon = ServingDaemon(pipe, args.socket, fps=args.fps, lora_checkpoint=args.checkpoint_path,
-                           lora_mode=args.lora_mode, lora_alpha=args.lora_alpha)
+                           lora_mode=args.lora_mode, lora_alpha=args.lora_alpha, control_group=control)
 
     if args.warmup:
         wu = {"op": "warmup", **json.loads(args.warmup)}
         log.info("warmup: %s", wu)
         log.info("warmup done: %s", daemon.handle(wu))
 
+    if not daemon.is_main:
+        daemon.follow()
+        return 0
     log.info("serving on %s", args.socket)
     daemon.serve_forever(ready_file=args.ready_file)
     log.info("daemon stopped")

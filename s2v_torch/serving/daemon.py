@@ -28,6 +28,20 @@ request that raises gets an error response and the daemon keeps serving.
 Requests are served in order on one worker (one card); batching across
 prompts is expressed inside a request (num_videos_per_prompt, prompt lists).
 
+Across cards (``serve.py --mesh sp<N>`` under ``torchrun``): every rank
+holds the pipeline and runs every request, since each generate runs on all
+of them.  Rank 0 owns the socket: it hands each request (a ``load_lora``
+swap and ``shutdown`` too) to the other ranks with ``broadcast_object_list``
+over a gloo control group before it runs it, and it alone answers and
+writes clips; the other ranks wait in :meth:`ServingDaemon.follow`.  Rank 0
+answers once every rank has reported how its run ended: a request that
+failed the same way on every rank gets its error and the ranks serve on,
+while ranks that failed differently (one rank out of memory, a collective
+that timed out) may have left their collectives out of step, so every rank
+raises :class:`RanksOutOfStep` and exits, and ``torchrun`` ends the job.
+This stands in for JAX's single controller, which drives every chip from one
+process.
+
 The port compiles nothing, so of the protocol's compile fields
 ``compiled`` is always false and ``compiled_configs`` /
 ``compiled_configs_kept`` always 0; they stay so that clients of the JAX
@@ -45,6 +59,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 # generate() kwargs a request may override, with coercers
 _GEN_KEYS = {
@@ -67,10 +82,17 @@ _GEN_KEYS = {
 CLIENT_IDLE_TIMEOUT_S = 30.0
 
 
+class RanksOutOfStep(RuntimeError):
+    """The ranks of a mesh daemon failed a request in different ways."""
+
+
 class ServingDaemon:
     def __init__(self, pipe, socket_path: str, fps: int = 8, lora_checkpoint: Optional[str] = None,
-                 lora_mode: str = "merge", lora_alpha: float = 64.0):
+                 lora_mode: str = "merge", lora_alpha: float = 64.0, control_group=None):
         self.pipe = pipe
+        # the ranks of a seq mesh, to which rank 0 hands each request (None: one process)
+        self.control_group = control_group
+        self.is_main = control_group is None or dist.get_rank(control_group) == 0
         self.socket_path = socket_path
         self.fps = fps
         self.requests_served = 0
@@ -182,7 +204,7 @@ class ServingDaemon:
         }
         if swapped:
             resp["lora_checkpoint"] = self.lora_checkpoint
-        if export:
+        if export and self.is_main:
             out_path = req.get("output_path") or os.path.join(req.get("output_dir", "."),
                                                                f"s2v_{int(time.time())}.mp4")
             outputs = []
@@ -192,6 +214,53 @@ class ServingDaemon:
             self.clips_generated += len(outputs)
             resp["outputs"] = outputs
         return resp
+
+    # -- across ranks ----------------------------------------------------
+
+    def dispatch(self, req: dict) -> dict:
+        """Hand the request to the other ranks (when there are any), then run it."""
+        if self.control_group is None:
+            return self.handle(req)
+        dist.broadcast_object_list([req], src=dist.get_global_rank(self.control_group, 0), group=self.control_group)
+        return self._run_on_every_rank(req)
+
+    def _run_on_every_rank(self, req: dict) -> dict:
+        """Run the request, then gather every rank's outcome before rank 0
+        answers.  All ok: the response.  The same error on every rank (a bad
+        request): that error, and the ranks serve on.  Anything else:
+        :class:`RanksOutOfStep` on every rank."""
+        error, resp = None, None
+        try:
+            resp = self.handle(req)
+        except Exception as e:
+            error = e
+        outcomes = [None] * dist.get_world_size(self.control_group)
+        dist.all_gather_object(outcomes, None if error is None else f"{type(error).__name__}: {error}",
+                               group=self.control_group)
+        if all(o is None for o in outcomes):
+            return resp
+        if all(o == outcomes[0] for o in outcomes):
+            raise error
+        raise RanksOutOfStep("the ranks failed this request differently, so their collectives may no longer "
+                             "match; the daemon stops on every rank (" +
+                             "; ".join(f"rank {r}: {o or 'ok'}" for r, o in enumerate(outcomes)) + ")") from error
+
+    def follow(self) -> None:
+        """The loop of a rank other than 0: run each request rank 0 hands
+        over, until a shutdown; :class:`RanksOutOfStep` ends it."""
+        src = dist.get_global_rank(self.control_group, 0)
+        while True:
+            box = [None]
+            dist.broadcast_object_list(box, src=src, group=self.control_group)
+            req = box[0]
+            try:
+                self._run_on_every_rank(req)
+            except RanksOutOfStep:
+                raise
+            except Exception:  # every rank met this error; rank 0 answered it
+                pass
+            if req.get("op") == "shutdown":
+                return
 
     # -- socket loop -----------------------------------------------------
 
@@ -217,14 +286,18 @@ class ServingDaemon:
                             line = line.strip()
                             if not line:
                                 continue
+                            fatal = None
                             try:
-                                resp = self.handle(json.loads(line))
+                                resp = self.dispatch(json.loads(line))
                             except Exception as e:  # keep the daemon alive
                                 resp = {"status": "error", "error": f"{type(e).__name__}: {e}",
                                         "traceback": traceback.format_exc(limit=8)}
+                                fatal = e if isinstance(e, RanksOutOfStep) else None
                             self.requests_served += 1
                             stream.write((json.dumps(resp) + "\n").encode())
                             stream.flush()
+                            if fatal is not None:
+                                raise fatal
                             if resp.get("shutdown"):
                                 shutdown = True
                                 break

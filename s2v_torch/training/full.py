@@ -19,6 +19,7 @@ import torch
 from s2v_torch.config import SchedulerConfig, TransformerConfig
 from s2v_torch.models.transformer import transformer_forward
 from s2v_torch.ops.attention import resolve_attention_backend
+from s2v_torch.parallel.context import sum_grads_over_seq
 from s2v_torch.schedulers.ddim import add_noise, compute_alphas_cumprod, get_velocity
 
 
@@ -59,7 +60,13 @@ def vpred_loss(
     instead (how a test feeds the JAX package's draws).
     ``compute_dtype`` casts the floating params for the forward (fp32
     master params under a bf16 model config); the forward computes in
-    ``cfg.dtype``, so the two must agree."""
+    ``cfg.dtype``, so the two must agree.
+
+    On a ``seq`` ring (a sequence-parallel backend under a mesh context)
+    every rank computes its video frames and the loss over the gathered
+    prediction, and a param's gradient on a rank is that rank's share: the
+    caller sums them over the ring (``parallel/context.py``
+    ``sum_grads_over_seq``)."""
     if compute_dtype is not None:
         if compute_dtype != cfg.dtype:
             raise ValueError(f"compute_dtype {compute_dtype} must be the model config's dtype {cfg.dtype}")
@@ -176,8 +183,9 @@ def make_full_train_step(
         for x in leaves:
             x.requires_grad_(True)
         try:
-            loss = vpred_loss(params, fwd_cfg, batch, alphas, generator, attention_backend=backend, remat=remat,
-                              compute_dtype=compute_dtype, timesteps=timesteps, noise=noise)
+            loss = vpred_loss(sum_grads_over_seq(params), fwd_cfg, batch, alphas, generator,
+                              attention_backend=backend, remat=remat, compute_dtype=compute_dtype,
+                              timesteps=timesteps, noise=noise)
             grads = torch.autograd.grad(loss, leaves)
         finally:
             for x in leaves:

@@ -173,7 +173,11 @@ def lora_loss_fn(
     from s2v_torch.models.transformer import RUNTIME_LORA_KEY
     from s2v_torch.training.full import vpred_loss
 
+    from s2v_torch.parallel.context import sum_grads_over_seq
+
     _check_supported(base_params, spec)
+    # on a seq ring each rank's gradients are its share: summed over the ring here
+    lora_params = sum_grads_over_seq(lora_params)
     if spec.disentangled:
         params = merge_lora_params(base_params, lora_params, spec)
     else:
@@ -202,11 +206,12 @@ def make_lora_train_step(
     ``lora, opt_state, loss = train_step(lora, opt_state, batch, generator)``.
 
     ``attention_backend`` ``"auto"`` is ``flash`` on CUDA (B1 forward, B2
-    backward) and ``plain`` on the CPU.  ``"sp_windowed"`` (B6/B1 forward,
-    B7/B2 backward) needs the step to run under a mesh context with a
-    ``seq`` dim (``s2v_torch.parallel.mesh_context``, as ``S2VPipeline``
-    enters it); every rank passes the same batch and draws and computes the
-    same loss and gradients.  ``remat`` (default on) checkpoints
+    backward) and ``plain`` on the CPU.  A sequence-parallel backend
+    (``sp_allgather``, ``sp_ulysses``, ``ring``, ``sp_windowed``) needs the
+    step to run under a mesh context with a ``seq`` dim
+    (``s2v_torch.parallel.mesh_context``); every rank passes the same batch
+    and draws, computes its frames, and ends with the same loss and the
+    gradients summed over the ring.  ``remat`` (default on) checkpoints
     each block.  ``optimizer_spec`` selects the reference-template optimizer
     surface; without it, adamw at ``learning_rate`` with optax's defaults
     (b2 0.999, weight decay 1e-4).  The step updates the adapters and the

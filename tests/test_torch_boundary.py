@@ -49,6 +49,8 @@ def test_import_leaves_jax_out(tmp_path):
         "s2v_torch.ops.windowed_attention, s2v_torch.kernels.int8_attention, s2v_torch.ops.quant, "
         "s2v_torch.training.lora, s2v_torch.training.optim, s2v_torch.training.data, s2v_torch.training.full, "
         "s2v_torch.parallel, s2v_torch.parallel.context, s2v_torch.parallel.sp_attention, s2v_torch.ops.attention, "
+        "s2v_torch.parallel.ring_attention, s2v_torch.parallel.sharding, s2v_torch.parallel.multihost, "
+        "s2v_torch.parallel.vae_temporal, "
         "s2v_torch.cli, s2v_torch.cli_utils, s2v_torch.loaders.hf, s2v_torch.loaders.lora, s2v_torch.loaders.export_hf, "
         "s2v_torch.loaders.cache, s2v_torch.loaders.resolve, s2v_torch.loaders.safetensors_io, "
         "s2v_torch.utils.tokenizer, s2v_torch.utils.video, s2v_torch.utils.mp4_native, s2v_torch.utils.logging, "

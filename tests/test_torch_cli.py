@@ -18,7 +18,7 @@ from PIL import Image
 from _torch_parity import write_tiny_snapshot
 from s2v_tpu import cli as jcli
 from s2v_torch import cli
-from s2v_torch.cli_utils import BACKEND_NAMES, UNPORTED_BACKENDS
+from s2v_torch.cli_utils import BACKEND_NAMES, SEQ_BACKEND_NAMES
 from s2v_torch.ops.attention import ATTENTION_BACKENDS
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -52,25 +52,27 @@ def test_get_args_has_every_flag_and_default_of_jax():
     assert cli.get_args([]).device == "cuda"
 
 
+# flags -> (the error, what it says): the paths of ROADMAP A.9 raise naming
+# it; the sequence-parallel backends, ported, raise without --mesh
 UNPORTED = {
-    "mesh": (["--mesh", "sp4"], "A.9"),
-    "t5_on_mesh": (["--text_encoder_device", "mesh"], "A.9"),
-    **{f"backend_{b}": (["--attention_backend", b], item) for b, item in UNPORTED_BACKENDS.items()},
+    "mesh": (["--mesh", "dp2"], NotImplementedError, "ROADMAP A.9"),
+    "t5_on_mesh": (["--text_encoder_device", "mesh"], NotImplementedError, "ROADMAP A.9"),
+    **{f"backend_{b}": (["--attention_backend", b], ValueError, "needs --mesh") for b in SEQ_BACKEND_NAMES},
 }
 
 
 @pytest.mark.parametrize("case", sorted(UNPORTED))
 def test_unported_flag_raises_naming_its_roadmap_item(case, tmp_path):
-    flags, item = UNPORTED[case]
+    flags, error, says = UNPORTED[case]
     argv = ["--ref_img_path", "x.png", "--output_dir", str(tmp_path / "out"), "--device", "cpu", *flags]
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+    with pytest.raises(error, match=says):
         cli.main(argv)
     assert not (tmp_path / "out").exists()  # raised before anything was loaded or written
 
 
 def test_every_jax_backend_name_is_mapped_or_unported():
-    assert set(BACKEND_NAMES) | set(UNPORTED_BACKENDS) == set(cli.ATTENTION_BACKEND_CHOICES)
-    assert not set(BACKEND_NAMES) & set(UNPORTED_BACKENDS)
+    assert set(BACKEND_NAMES) == set(cli.ATTENTION_BACKEND_CHOICES)
+    assert set(SEQ_BACKEND_NAMES) <= set(BACKEND_NAMES)
     assert set(BACKEND_NAMES.values()) <= set(ATTENTION_BACKENDS)
 
 

@@ -25,7 +25,6 @@ import pytest
 import torch
 
 from s2v_torch.kernels.banded_attention import (
-    band_geometry,
     banded_flash_attention,
     banded_flash_attention_blocked,
     banded_flash_attention_local,
@@ -386,10 +385,12 @@ def test_banded_unsupported_inputs_raise_before_launch(cuda):
 # against their plain versions at every offset of a 2- and a 4-rank ring,
 # dummy frames included, held to B4's and B5's bars
 def _shard(x, g, tpf, f, f_loc, off):
-    """The shard's video rows of x, zero past the clip (the SP wrapper's)."""
-    from s2v_torch.parallel.sp_attention import shard_rows
+    """The shard's video rows of x, zero past the clip (the dummy frames, as
+    the SP wrapper takes them)."""
+    import torch.nn.functional as F
 
-    return shard_rows(x, band_geometry(g + f * tpf, g, tpf, 0).shard(off, f_loc))
+    rows = x[:, g + off * tpf:g + min(off + f_loc, f) * tpf]
+    return F.pad(rows, (0, 0, 0, 0, 0, f_loc * tpf - rows.shape[1]))
 
 
 def _ring_shards(f):
@@ -518,6 +519,7 @@ def test_sp_windowed_on_one_rank_matches_plain_autograd(cuda):
     from torch.distributed.device_mesh import init_device_mesh
 
     from s2v_torch.ops.windowed_attention import windowed_attention_reference as reference
+    from s2v_torch.parallel.context import FrameShard
     from s2v_torch.parallel.sp_attention import banded_allgather_attention_trainable
 
     started = not dist.is_initialized()
@@ -529,7 +531,8 @@ def test_sp_windowed_on_one_rank_matches_plain_autograd(cuda):
         q, k, v = (x.requires_grad_() for x in _band_qkv(g, tpf, f, 26, cuda))
         do = torch.from_numpy(np.random.RandomState(27).randn(*q.shape).astype(np.float32)).to(cuda, torch.bfloat16)
         before = (banded_flash_attention_local.launches, banded_flash_attention_local_bwd.launches)
-        o = banded_allgather_attention_trainable(q, k, v, mesh, "seq", g, tpf, w)
+        shard = FrameShard(f, tpf, 1, 0, mesh.get_group("seq"))
+        o = banded_allgather_attention_trainable(q, k, v, shard, g, w)
         got = torch.autograd.grad(o, (q, k, v), do)
         leaves = [x.detach().float().requires_grad_() for x in (q, k, v)]
         o_ref = reference(*leaves, g, tpf, w)
@@ -537,6 +540,53 @@ def test_sp_windowed_on_one_rank_matches_plain_autograd(cuda):
         torch.cuda.synchronize()
         assert (banded_flash_attention_local.launches, banded_flash_attention_local_bwd.launches) == (
             before[0] + 1, before[1] + 1)
+        _assert_close(o, o_ref)
+        for a, r in zip(got, want):
+            _assert_close(a, r)
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("backend", ["sp_allgather", "sp_ulysses", "ring", "sp_int8"])
+def test_exact_sp_backends_on_one_rank_match_plain(cuda, backend):
+    """The exact sequence-parallel backends on a one-rank NCCL group: the
+    output (and, but for sp_int8, the grads of their autograd Functions)
+    against plain fp32 autograd of exact attention; sp_int8 against B3's
+    plain version."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from s2v_torch.kernels.int8_attention import flash_attention_qk_int8_reference
+    from s2v_torch.parallel.context import FrameShard
+    from s2v_torch.parallel.ring_attention import ring_attention_trainable
+    from s2v_torch.parallel.sp_attention import (
+        allgather_kv_attention_trainable,
+        int8_allgather_attention,
+        ulysses_attention_trainable,
+    )
+
+    fn = {"sp_allgather": allgather_kv_attention_trainable, "sp_ulysses": ulysses_attention_trainable,
+          "ring": ring_attention_trainable, "sp_int8": int8_allgather_attention}[backend]
+    started = not dist.is_initialized()
+    if started:
+        dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("seq",))
+        g, tpf, f = 40, 100, 5
+        shard = FrameShard(f, tpf, 1, 0, mesh.get_group("seq"))
+        q, k, v = _band_qkv(g, tpf, f, 28, cuda)
+        if backend == "sp_int8":
+            _assert_close(fn(q, k, v, shard, g), flash_attention_qk_int8_reference(q, k, v))
+            return
+        q, k, v = (x.requires_grad_() for x in (q, k, v))
+        do = torch.from_numpy(np.random.RandomState(29).randn(*q.shape).astype(np.float32)).to(cuda, torch.bfloat16)
+        o = fn(q, k, v, shard, g)
+        got = torch.autograd.grad(o, (q, k, v), do)
+        leaves = [x.detach().float().requires_grad_() for x in (q, k, v)]
+        o_ref = flash_attention_reference(*leaves)
+        want = torch.autograd.grad(o_ref, leaves, do.float())
+        torch.cuda.synchronize()
         _assert_close(o, o_ref)
         for a, r in zip(got, want):
             _assert_close(a, r)

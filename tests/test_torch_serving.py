@@ -163,7 +163,7 @@ def test_idle_client_is_dropped(daemon, tiny, monkeypatch):
 
 def test_serve_mesh_raises_naming_its_roadmap_item(tiny):
     with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
-        serve_main(serve_args(["--pretrained_model_name_or_path", tiny[0], "--mesh", "sp4", "--device", "cpu"]))
+        serve_main(serve_args(["--pretrained_model_name_or_path", tiny[0], "--mesh", "dp2", "--device", "cpu"]))
 
 
 def test_serve_module_daemon_and_client(tiny, tmp_path):

@@ -1,13 +1,13 @@
 """The port's ``sp_windowed`` path (``s2v_torch/parallel/sp_attention.py``,
-kernels B6/B7 through their plain versions) in real gloo process groups of 1,
-2 and 4 ranks, against the JAX package on 4 virtual CPU devices: the wrapper
+kernels B6/B7 through their plain versions) on the frame shards of real gloo
+process groups of 1, 2 and 4 ranks, against the JAX package on 4 virtual CPU devices: the wrapper
 against ``banded_allgather_attention(..., interpret=True)`` and the
 ``jax.grad`` of ``banded_allgather_attention_trainable``; the tiny DiT
 forward, ``generate`` and the LoRA loss and grads against JAX's kernel-free
 ``windowed_xla``.  The ranks run in spawned processes that import torch and
 s2v_torch only (``tests/_torch_sp_worker.py``); each spawn runs all its cases
-at once and has its own time limit.  Also here: routing, the mesh checks
-and the raises of unported backends."""
+at once and has its own time limit.  Also here: routing and the mesh
+checks.  ``tests/test_torch_sp_backends.py`` holds the exact backends."""
 
 import functools
 
@@ -18,7 +18,7 @@ import pytest
 import torch
 
 from _torch_parity import band_inputs, perturb, rand
-from _torch_sp_worker import run_ranks
+from _torch_sp_worker import assert_grads_match, assert_rows_match, global_rows_spread, run_ranks
 from s2v_tpu.config import SchedulerConfig as JSchedulerConfig
 from s2v_tpu.config import TransformerConfig as JTransformerConfig
 from s2v_tpu.config import VAEConfig as JVAEConfig
@@ -100,6 +100,9 @@ def _cases(world_size):
     if world_size in FORWARD_FRAMES:
         params, inputs, _ = _forward(FORWARD_FRAMES[world_size])
         cases["forward"] = ("forward", dict(params=params, inputs=inputs, window=WINDOW))
+        if world_size > 1:
+            cases["forward_windowed_plain"] = ("forward", dict(params=params, inputs=inputs, window=WINDOW,
+                                                               backend="windowed_plain"))
     if world_size == 1:
         _, _, tp, vp, inputs = _generate_case()
         cases["generate"] = ("generate", dict(tp=tp, vp=vp, inputs=inputs, window=WINDOW))
@@ -125,33 +128,27 @@ def ranks(tmp_path_factory):
 @pytest.mark.parametrize("world_size", [1, 2, 4])
 @pytest.mark.parametrize("n_frames", FRAMES)
 def test_wrapper_forward_matches_jax(ranks, world_size, n_frames):
+    """Each rank's own rows (text, ref and its real frames) against the same rows of JAX's output."""
     want, _ = _jax_attention(n_frames)
-    for rank, res in enumerate(ranks(world_size)):
-        got = res[f"attention_F{n_frames}"]
-        for key in ("o_inference", "o"):
-            np.testing.assert_allclose(got[key], want, atol=FWD_ATOL, rtol=FWD_RTOL, err_msg=f"rank {rank} {key}")
+    assert_rows_match(ranks(world_size), f"attention_F{n_frames}", want, ("o_inference", "o"), FWD_ATOL, FWD_RTOL)
 
 
 @pytest.mark.parametrize("world_size", [1, 2, 4])
 @pytest.mark.parametrize("n_frames", FRAMES)
 def test_wrapper_grads_match_jax(ranks, world_size, n_frames):
     _, want = _jax_attention(n_frames)
-    for rank, res in enumerate(ranks(world_size)):
-        got = res[f"attention_F{n_frames}"]
-        for name, w in zip(("dq", "dk", "dv"), want):
-            np.testing.assert_allclose(got[name], w, atol=GRAD_ATOL, rtol=GRAD_RTOL, err_msg=f"rank {rank} {name}")
+    assert_grads_match(ranks(world_size), f"attention_F{n_frames}", want, GRAD_ATOL, GRAD_RTOL)
 
 
 @pytest.mark.parametrize("world_size", [2, 4])
 def test_ranks_hold_the_same_result(ranks, world_size):
-    """The wrapper returns the whole output and whole gradients on every
-    rank, bit for bit."""
+    """Every rank computes the replicated text and ref rows of the output
+    and lse itself, from the same gathered keys in the same order: bit for
+    bit rank 0's."""
     results = ranks(world_size)
-    for res in results[1:]:
-        for case, got in res.items():
-            if case.startswith("attention"):
-                for key, x in got.items():
-                    assert np.array_equal(x, results[0][case][key]), (case, key)
+    for case in results[0]:
+        if case.startswith("attention"):
+            assert global_rows_spread(results, case) == 0.0, case
 
 
 @pytest.mark.parametrize("world_size", [1, 2])
@@ -159,6 +156,15 @@ def test_transformer_forward_matches_jax_windowed(ranks, world_size):
     _, _, want = _forward(FORWARD_FRAMES[world_size])
     for rank, res in enumerate(ranks(world_size)):
         np.testing.assert_allclose(res["forward"]["out"], want, atol=ATOL, rtol=RTOL, err_msg=f"rank {rank}")
+
+
+def test_windowed_plain_on_a_ring_matches_jax(ranks):
+    """``windowed_plain`` (JAX ``windowed_xla``, which GSPMD partitions) on
+    a ring of 2: the DiT's frame shards, the attention on the gathered rows."""
+    _, _, want = _forward(FORWARD_FRAMES[2])
+    for rank, res in enumerate(ranks(2)):
+        np.testing.assert_allclose(res["forward_windowed_plain"]["out"], want, atol=ATOL, rtol=RTOL,
+                                   err_msg=f"rank {rank}")
 
 
 def test_generate_matches_jax_windowed(ranks):
@@ -211,16 +217,12 @@ _PORT_NAME = {"pallas": "flash", "pallas_int8": "flash_int8", "xla": "plain", "w
 ])
 def test_route_seq_backend_matches_jax(backend, heads, ring, tp):
     """The JAX routing (``s2v_tpu/ops/attention.py:78-101``) in the port's
-    names; a route to a wrapper the port lacks raises NotImplementedError."""
+    names, reason included; every sequence-parallel route is ported."""
     port_backend = _PORT_NAME.get(backend, backend)
     try:
         want = j_route_seq_backend(backend, heads, ring, tp)
     except ValueError:
         with pytest.raises(ValueError):
-            route_seq_backend(port_backend, heads, ring, tp)
-        return
-    if want[0] in ("sp_allgather", "sp_int8", "sp_ulysses", "ring"):
-        with pytest.raises(NotImplementedError, match="A.9"):
             route_seq_backend(port_backend, heads, ring, tp)
         return
     got = route_seq_backend(port_backend, heads, ring, tp)
@@ -229,8 +231,8 @@ def test_route_seq_backend_matches_jax(backend, heads, ring, tp):
 
 @pytest.mark.parametrize("backend", ["ring", "sp_allgather", "sp_int8", "sp_ulysses"])
 def test_unported_seq_backends_raise(backend):
-    with pytest.raises(NotImplementedError, match="A.9"):
-        resolve_attention_backend(backend, torch.device("cpu"))
+    """JAX's sequence-parallel backends, once unported, now resolve to themselves."""
+    assert resolve_attention_backend(backend, torch.device("cpu")) == backend
 
 
 def _attn_params(d):
@@ -294,9 +296,9 @@ def test_set_mesh_takes_a_seq_dim_only():
 
 
 def test_generate_on_a_ring_routes_and_raises_for_unported():
-    """On a ring of 2 (a stand-in mesh: the raise comes before any
-    collective) the exact backend routes to sp_allgather, which the port
-    lacks; and sp_windowed without set_mesh raises."""
+    """On a ring of 2 (a stand-in mesh: the raises come before any
+    collective) the exact backend routes to sp_allgather and
+    windowed_gather raises; and sp_windowed without set_mesh raises."""
     pipe = _tiny_pipe()
     kw = dict(latents=torch.randn(1, 2, 4, 4, 4), ref_latents=torch.randn(1, 1, 4, 4, 4),
               prompt_embeds=torch.randn(2, 16, 32), height=32, width=32, num_frames=5, num_inference_steps=1,
@@ -306,8 +308,9 @@ def test_generate_on_a_ring_routes_and_raises_for_unported():
         pipe.generate(**kw)
     pipe.set_mesh(_FakeMesh(("seq",), (2,)))
     pipe.set_attention("flash")
-    with pytest.raises(NotImplementedError, match="sp_allgather"):
-        pipe.generate(**kw)
+    cfg = pipe.transformer_cfg
+    assert route_seq_backend(pipe.attention_backend, cfg.num_attention_heads, pipe._seq_ring()) == ("sp_allgather",
+                                                                                                    None)
     pipe.set_attention("windowed_gather", 1)
     with pytest.raises(ValueError, match="no sequence-parallel"):
         pipe.generate(**kw)
