@@ -201,11 +201,36 @@ Phases, each printing one JSON line:
                 ``load_lora`` and a generate, stats, shutdown; every answer
                 ``"status": "ok"``; start, request and swap seconds;
       cli_mesh, serve_mesh — the CLI (2 steps at 49x480x720, 84 B1, its
-                clip) and the daemon (two 2-step generates answered ok, a
-                shutdown) under ``python3 -m torch.distributed.run
-                --standalone --nproc_per_node 1`` with ``--mesh sp1`` on
-                that snapshot (no LoRA); a ``seq_rings`` line then says that
-                no ring above 1 ran on the card;
+                clip; ``--mesh dp1,sp1,tp1 --text_encoder_device mesh``: the
+                DiT and T5 sliced over the model dim) and the daemon (two
+                2-step generates answered ok, a shutdown, ``--mesh sp1``)
+                under ``python3 -m torch.distributed.run --standalone
+                --nproc_per_node 1`` on that snapshot (no LoRA); a
+                ``seq_rings`` line then says that no mesh dim above 1 ran on
+                the card;
+      e2e_mesh, e2e_mesh_int8 — ``generate`` as ``e2e_sp_allgather`` (full
+                depth, 84 B1) and as ``e2e_int8`` (cut depth, B3) on the
+                one-rank mesh ``dp1,sp1,tp1`` with T5 on the mesh: the
+                params sliced over the model dim, the CFG rows split and
+                gathered over the data dim; clip and latents held against
+                the one-card runs' (bit for bit, else within B1's limits);
+      train_lora_mesh — at the cut depth, the LoRA loss and gradients on
+                the one-rank ``dp1,tp1`` mesh and with the base sharded over
+                the one-rank data dim (``--fsdp_base``'s placements),
+                against ``flash`` on one card;
+      train_full_5b_fsdp — full fine-tuning of the 5b DiT under FSDP on
+                the one-rank data dim at the deepest cut that fits beside
+                the resident pipeline (the depth printed), two micro-steps
+                against the unsharded step (losses, params, EMA), peak
+                memory and seconds, the sharded train state written and
+                read back bit for bit, and the per-rank bytes of the whole
+                42-block state at data = 4 and 8, computed from the
+                placements;
+      train_cli_mesh — the trainer CLI under ``torch.distributed.run``
+                with ``--mesh dp1,sp1,tp1 --attention_backend sp_windowed``
+                (B6/B7 on the trainer's CLI path) on that snapshot over two
+                9-frame 480x720 clips, two micro-steps with sharded train
+                states, then a resumed run equal to it bit for bit;
       train_cli — ``python3 -m s2v_torch.train`` in a subprocess on that
                 snapshot (LoRA rank 128, accumulation 2, cosine warm-up,
                 clip 1.0, an encode cache, a train state every step, 2
@@ -241,8 +266,9 @@ under 1,080 s, the earlier opt-in paths run at a cut depth (``DEPTH_CUT``,
 each announced by a ``depth_cut`` line): ``e2e_windowed``,
 ``e2e_sp_windowed``, ``e2e_sp_backends``, ``e2e_int8``, ``e2e_options``,
 ``train_windowed``, ``train_sp_windowed``, ``train_sp_backends``,
-``train_qlora`` and ``variants`` on the first 6 of the 42 blocks, ``e2e_2b`` and ``train_2b`` on the first 10 of 30; their
-launch counts follow the depth.  Any failed
+``train_qlora``, ``variants``, ``turbo``, ``e2e_mesh_int8`` and
+``train_lora_mesh`` on the first 6 of the 42 blocks, ``e2e_2b`` and
+``train_2b`` on the first 10 of 30; their launch counts follow the depth.  Any failed
 phase raises: the script exits non-zero and prints no result.  It needs a
 CUDA device and the repository beside it.  ``--phases a,b`` runs only those
 phases (after the build), for a short check of one part.
@@ -347,7 +373,11 @@ EARLIER_DEPTH_2B = 10
 DEPTH_CUT = {"e2e_windowed": EARLIER_DEPTH, "e2e_sp_windowed": EARLIER_DEPTH, "e2e_int8": EARLIER_DEPTH,
              "e2e_options": EARLIER_DEPTH, "train_windowed": EARLIER_DEPTH, "train_sp_windowed": EARLIER_DEPTH,
              "train_qlora": EARLIER_DEPTH, "e2e_sp_backends": EARLIER_DEPTH, "train_sp_backends": EARLIER_DEPTH,
-             "variants": EARLIER_DEPTH, "e2e_2b": EARLIER_DEPTH_2B, "train_2b": EARLIER_DEPTH_2B}
+             "variants": EARLIER_DEPTH, "e2e_2b": EARLIER_DEPTH_2B, "train_2b": EARLIER_DEPTH_2B,
+             # the data and model dims' phases: the int8 run and the LoRA
+             # gradients at e2e_int8's and train_sp_backends' depth; turbo's
+             # two 50-step clips cut to make room for them
+             "e2e_mesh_int8": EARLIER_DEPTH, "train_lora_mesh": EARLIER_DEPTH, "turbo": EARLIER_DEPTH}
 # the trainer CLI's resumed run against the uninterrupted one at step 2: the
 # adapters' max difference relative to their largest entry (the same draws,
 # batches and deterministic kernels give 0; the limit leaves room for a
@@ -2604,11 +2634,13 @@ print(json.dumps({"cli_flash_attention_launches": f.launches - f.reruns}), flush
 
 def phase_cli_mesh(dev, pipe, backend="flash", height=480, width=720, num_frames=49):
     """``python3 -m torch.distributed.run --standalone --nproc_per_node 1 -m
-    s2v_torch.cli --mesh sp1`` (through a wrapper that prints the B1
-    launches, as ``pretrained`` runs the CLI) on the snapshot that
-    ``pretrained`` wrote (no LoRA: its merge is ``pretrained``'s to time),
-    49x480x720, 2 steps: exit 0, one clip, and the B1 launches of the plain
-    CLI run (84)."""
+    s2v_torch.cli --mesh dp1,sp1,tp1 --text_encoder_device mesh`` (through a
+    wrapper that prints the B1 launches, as ``pretrained`` runs the CLI) on
+    the snapshot that ``pretrained`` wrote (no LoRA: its merge is
+    ``pretrained``'s to time), 49x480x720, 2 steps: the DiT and T5 sliced
+    over the one-rank model dim, the CFG rows over the data dim, the frames
+    over the seq dim; exit 0, one clip, and the B1 launches of the plain CLI
+    run (84)."""
     build = REPO / "build"
     snap, out_dir = build / "smoke_snapshot", build / "smoke_cli_mesh"
     if not snap.is_dir():
@@ -2623,7 +2655,8 @@ def phase_cli_mesh(dev, pipe, backend="flash", height=480, width=720, num_frames
     proc = _torchrun([str(wrapper), "--pretrained_model_name_or_path", str(snap), "--ref_img_path", str(png), "--prompt", "<cls> a pig walking in the park",
                       "--height", str(height), "--width", str(width), "--max_num_frames", str(num_frames),
                       "--num_inference_steps", "2",
-                      "--output_dir", str(out_dir / "out"), "--device", dev.type, "--mesh", "sp1"], log)
+                      "--output_dir", str(out_dir / "out"), "--device", dev.type, "--mesh", MESH_SPEC,
+                      "--text_encoder_device", "mesh"], log)
     rc = proc.wait(timeout=600)
     seconds = time.perf_counter() - t0
     lines = log.read_text().splitlines()
@@ -2637,7 +2670,8 @@ def phase_cli_mesh(dev, pipe, backend="flash", height=480, width=720, num_frames
     if launches != 2 * pipe.transformer_cfg.num_layers:
         raise AssertionError(f"cli_mesh: B1 launches {launches}, the plain CLI's {2 * pipe.transformer_cfg.num_layers}")
     clip = Path(wrote[-1].strip())
-    line = {"phase": "cli_mesh", "rc": rc, "seconds": seconds, "flash_attention_launches": launches,
+    line = {"phase": "cli_mesh", "mesh": MESH_SPEC, "text_encoder_device": "mesh", "rc": rc, "seconds": seconds,
+            "flash_attention_launches": launches,
             "clip": str(clip.relative_to(REPO)), "clip_bytes": clip.stat().st_size,
             "lines": [ln for ln in lines if "[s2v_torch]" in ln][-6:]}
     emit(line)
@@ -3553,7 +3587,13 @@ def _lora_batch(pipe, height, width, num_frames, seed=7):
     item = {"video": np.clip(rng.randn(num_frames, height, width, 3) * 0.5, -1, 1).astype(np.float32),
             "ref_image": np.clip(rng.randn(height, width, 3) * 0.5, -1, 1).astype(np.float32),
             "prompt": "a pig walking in the park"}
-    batch = next(latent_batches([item], pipe, batch_size=1, seed=0))
+    key = (id(pipe.vae_params), height, width, num_frames)  # seed 7 is train_steps' clip: its cache serves
+    if seed == 7 and key in _TRAIN_BATCHES:
+        batch = dict(_TRAIN_BATCHES[key])
+    else:
+        batch = next(latent_batches([item], pipe, batch_size=1, seed=0))
+        if seed == 7:
+            _TRAIN_BATCHES[key] = dict(batch)
     cos, sin = pipe.prepare_rope(height, width, batch["video_latents"].shape[1])
     if cos is not None:
         batch["rope_cos"], batch["rope_sin"] = cos, sin
@@ -3987,12 +4027,389 @@ def phase_serve(dev, pipe, backend="flash", height=480, width=720, num_frames=49
     return line
 
 
+# ---------------------------------------------------------------------------
+# the data and model dims (one card: every dim a one-rank NCCL group)
+# ---------------------------------------------------------------------------
+
+# the full-width state of full fine-tuning a block takes on the card: fp32
+# master, gradient, Adam's two moments and the EMA, and the block's bf16
+# gather: 22 bytes a parameter; the activations of a remat step at 49 frames
+# and the resident pipeline's working memory are kept free beside it
+FSDP_BYTES_PER_PARAM = 22
+FSDP_ACTIVATION_RESERVE = 16e9
+MESH_SPEC = "dp1,sp1,tp1"
+
+
+def phase_e2e_mesh(dev, pipe, backend="sp_allgather", name="e2e_mesh"):
+    """``generate`` as ``e2e_sp_allgather`` on the one-rank mesh
+    ``dp1,sp1,tp1`` with T5 on the mesh: ``set_mesh`` slices the DiT and
+    T5 over the model dim (the sharded code at size 1), the CFG batch's rows
+    go through the data dim's split and gather, the video frames through
+    the seq dim's; 84 B1.  Its clip and latents are held against
+    ``e2e_sp_allgather``'s after the run (``mesh_vs_single``).  The mesh is
+    detached after, which gathers the params back whole."""
+    import torch
+
+    sp_mesh()
+    pipe.t5_on_mesh = True
+    t0 = time.perf_counter()
+    pipe.set_mesh(MESH_SPEC)
+    torch.cuda.synchronize()
+    shard_s = time.perf_counter() - t0
+    try:
+        sliced = sum(int(p.model_dim is not None) for blk in pipe._tp_specs["blocks"] for grp in blk.values()
+                     for leaf in grp.values() for p in leaf.values())
+        return phase_e2e(dev, pipe, backend, name=name,
+                         extra={"mesh": MESH_SPEC, "set_mesh_s": shard_s, "t5_on_mesh": True,
+                                "model_sliced_leaves": sliced})
+    finally:
+        pipe.set_mesh(None)
+        pipe.t5_on_mesh = False
+
+
+def phase_e2e_mesh_int8(dev, pipe, backend="flash_int8"):
+    """``e2e_int8``'s run (the int8 DiT, B3, at the cut depth) on the
+    ``dp1,sp1,tp1`` mesh: the int8 tree sliced over the model dim, its
+    row-parallel linears summing their int32 products over it; held against
+    ``e2e_int8``'s after the run."""
+    bf16_params = pipe.transformer_params
+    params, _ = _quantized(pipe)
+    pipe.transformer_params = params
+    try:
+        return phase_e2e_mesh(dev, pipe, backend, name="e2e_mesh_int8")
+    finally:
+        pipe.transformer_params = bf16_params
+
+
+def mesh_vs_single(mesh, single, what) -> dict:
+    """A mesh phase's clip and 1-step latents against the one-card phase's:
+    bit for bit, or else within B1's limits with the reason; raises otherwise."""
+    import torch
+
+    line = {"phase": f"{what}_vs_single"}
+    for key in ("video", "latents"):
+        a, b = torch.as_tensor(np.asarray(mesh[key])), torch.as_tensor(np.asarray(single[key]))
+        same = bool(torch.equal(a, b))
+        line[key] = {"bitwise_equal": same}
+        if not same:
+            line[key].update(_agreement(a, b, f"{what} {key} against the one-card run's"),
+                             why="the one-rank collectives hand every matmul the same operands in other buffers")
+    return line
+
+
+def _loss_and_grads(params, cfg, spec, lora, batch, alphas, timesteps, noise, backend, gather=None):
+    """The LoRA loss and its adapters' gradients, counted and timed."""
+    import torch
+
+    from s2v_torch.training.lora import lora_leaves, lora_loss_fn
+
+    leaves = lora_leaves(lora)
+    for t in leaves:
+        t.requires_grad_(True)
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        loss = lora_loss_fn(lora, params, cfg, spec, batch, alphas, None, backend, True, timesteps=timesteps,
+                            noise=noise, param_gather=gather)
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+    finally:
+        for t in leaves:
+            t.requires_grad_(False)
+    return {"loss": loss.item(), "grads": [g.float() for g in grads], "counts": read_counts(),
+            "seconds": time.perf_counter() - t0}
+
+
+def phase_train_lora_mesh(dev, pipe, backend="flash", height=480, width=720, num_frames=49):
+    """At the cut depth, the ``train_sp_backends`` clip and draws: the LoRA
+    loss and adapter gradients with ``flash`` on one card, then on the
+    one-rank ``dp1,tp1`` mesh (the base sliced over model; the batch split
+    and gathered over data; the adapters' gradients summed over both), then
+    with the base sharded over the one-rank data dim as ``--fsdp_base``
+    shards it (``fsdp_param_specs`` at size 1, through the library: the
+    CLI keeps JAX's refusal of a data dim below 2), each block gathered
+    before it runs.  Each must equal the one-card loss and gradients bit
+    for bit, or else lie within B2's limits with the reason; B1 twice and
+    B2 once a block each."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from s2v_torch.config import SchedulerConfig
+    from s2v_torch.parallel import default_logical_map, mesh_context
+    from s2v_torch.parallel.context import data_parallel
+    from s2v_torch.parallel.sharding import ParamGather, fsdp_param_specs, shard_params, transformer_param_specs_like
+    from s2v_torch.schedulers.ddim import compute_alphas_cumprod
+    from s2v_torch.training.lora import LoRASpec, init_lora_params
+
+    t_phase = time.perf_counter()
+    sp_mesh()
+    params, cfg = pipe.transformer_params, pipe.transformer_cfg
+    L = cfg.num_layers
+    batch = _lora_batch(pipe, height, width, num_frames)
+    spec = LoRASpec(rank=128, alpha=64.0)
+    lora = init_lora_params(torch.Generator(device=dev).manual_seed(1), params, spec)
+    for ab in lora.values():  # nonzero b, so that every a gets a gradient
+        ab["b"].normal_(0.0, 1e-3, generator=torch.Generator(device=dev).manual_seed(2))
+    alphas = torch.as_tensor(compute_alphas_cumprod(SchedulerConfig()), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    timesteps = torch.randint(0, alphas.shape[0], (1,), generator=gen, device=dev)
+    noise = torch.randn(batch["video_latents"].shape, generator=gen, device=dev)
+    args = (cfg, spec, lora, batch, alphas, timesteps, noise, backend)
+    runs = {"one_card": _loss_and_grads(params, *args)}
+    mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+    with mesh_context(mesh, default_logical_map(mesh)):
+        sliced = shard_params(params, mesh, transformer_param_specs_like(params))
+        runs["dp1_tp1"] = _loss_and_grads(sliced, *args)
+        del sliced
+    data = init_device_mesh("cuda", (1,), mesh_dim_names=("data",))
+    base_specs = fsdp_param_specs(params, 1)
+    with mesh_context(data, default_logical_map(data)):
+        shards = shard_params(params, data, base_specs)
+        runs["fsdp_base_dp1"] = _loss_and_grads(shards, *args, gather=ParamGather(base_specs, data_parallel()))
+        del shards
+    names = [f"{n}.{k}" for n in sorted(lora) for k in ("a", "b")]
+    ref = runs["one_card"]
+    line = {"phase": "train_lora_mesh", "depth": L, "loss_one_card": ref["loss"], "runs": {}}
+    for name, r in runs.items():
+        if not check_counts(r["counts"], backend, 2 * L, L):
+            raise AssertionError(f"train_lora_mesh: {name} launches {r['counts']}")
+        if name == "one_card":
+            continue
+        same = [torch.equal(g, w) for g, w in zip(r["grads"], ref["grads"])]
+        entry = {"loss": r["loss"], "loss_equal": r["loss"] == ref["loss"], "grads_bitwise_equal": all(same),
+                 "launches": r["counts"], "loss_and_grad_s": r["seconds"]}
+        if not all(same) or r["loss"] != ref["loss"]:
+            grads = {n: _agreement(g, w, f"{name} grad {n}") for n, g, w in zip(names, r["grads"], ref["grads"])}
+            entry.update(worst_grad=max(grads.values(), key=lambda s: s["rel_l2"]),
+                         why="the one-rank collectives hand every matmul the same operands in other buffers")
+            if abs(r["loss"] - ref["loss"]) > 1e-3 * abs(ref["loss"]):
+                raise AssertionError(f"train_lora_mesh: {name} loss {r['loss']} against {ref['loss']}")
+        line["runs"][name] = entry
+    line["loss_and_grad_s_one_card"] = ref["seconds"]
+    line["seconds"] = time.perf_counter() - t_phase
+    emit(line)
+    return {"launches": [r["counts"] for r in runs.values()]}
+
+
+def fsdp_footprints() -> dict:
+    """Per-rank bytes of full fine-tuning's state of the whole 42-block 5b
+    DiT under FSDP at data = 4 and 8, computed from the placements of a
+    ``meta`` tree (no memory): the fp32 master params, and the master plus
+    gradient, Adam's two moments and the EMA."""
+    import torch
+
+    from s2v_torch import TransformerConfig
+    from s2v_torch.models.transformer import init_transformer_params_random
+    from s2v_torch.parallel.sharding import fsdp_param_specs, per_rank_bytes
+
+    tree = init_transformer_params_random(TransformerConfig(dtype=torch.float32), device="meta")
+    out = {"computed": "from the placements of a meta tree, not measured"}
+    for n in (1, 4, 8):
+        master = per_rank_bytes(tree, fsdp_param_specs(tree, n), {"data": n})
+        out[f"data{n}"] = {"master_gb": master / 1e9, "master_grad_adam_ema_gb": 5 * master / 1e9}
+    return out
+
+
+def phase_train_full_5b_fsdp(dev, pipe, backend="flash", micro_steps=2, height=480, width=720, num_frames=49):
+    """Full fine-tuning of the 5b DiT at its width under FSDP on the
+    one-rank data dim, at the deepest cut whose state fits beside the
+    resident pipeline (``FSDP_BYTES_PER_PARAM`` a parameter,
+    ``FSDP_ACTIVATION_RESERVE`` kept free): bf16 compute, adamw with clip
+    1.0, EMA 0.999, ``micro_steps`` micro-steps on the ``train`` clip with
+    seeded draws.  First without a mesh (its losses, params and EMA kept on
+    the host), then ``make_full_train_step(mesh=dp1)``: the shards cast and
+    placed by ``prepare``, each block gathered in bf16 before it runs and
+    again in the remat recompute, the gradients back to the shards, the
+    clip norm summed over the data dim.  Losses, params and EMA equal bit
+    for bit (or within B2's limits, with the reason); peak memory and the
+    seconds of a micro-step; the sharded train state (one file for the
+    rank, ``tree.json`` with the mesh and the placements) saved and read
+    back bit for bit.  Also the per-rank bytes of the whole 42-block state
+    at data = 4 and 8, computed from the placements."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from s2v_torch.loaders.train_state import load_train_state, save_train_state
+    from s2v_torch.training.full import floating_leaves, make_full_train_step, state_placements
+    from s2v_torch.training.optim import OptimizerSpec
+
+    t_phase = time.perf_counter()
+    sp_mesh()
+    torch.cuda.empty_cache()
+    block_params = sum(t.numel() for t in _tensors(pipe.transformer_params["blocks"][0]))
+    free = torch.cuda.mem_get_info()[0]
+    depth = int(min(pipe.transformer_cfg.num_layers,
+                    (free - FSDP_ACTIVATION_RESERVE) // (FSDP_BYTES_PER_PARAM * block_params)))
+    if depth < 1:
+        raise AssertionError(f"train_full_5b_fsdp: {free / 1e9:.1f} GB free holds no block's state")
+    opt = OptimizerSpec(optimizer="adamw", learning_rate=1e-5, beta1=0.9, beta2=0.95, weight_decay=1e-4,
+                        epsilon=1e-8, max_grad_norm=1.0)
+    mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("data",))
+    runs = {}
+    with cut_depth(pipe, depth):
+        cfg, L = pipe.transformer_cfg, depth
+        batch = _lora_batch(pipe, height, width, num_frames)
+        for name, m in (("one_card", None), ("fsdp_dp1", mesh)):
+            prepare, init, step = make_full_train_step(cfg, pipe.scheduler_cfg, opt, attention_backend=backend,
+                                                       compute_dtype=torch.bfloat16, ema_decay=0.999, mesh=m)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            params = prepare(pipe.transformer_params, dtype=torch.float32)
+            state = init(params)
+            torch.cuda.synchronize()
+            prepare_s = time.perf_counter() - t0
+            gen = torch.Generator(device=dev).manual_seed(5)
+            losses, step_s, launches = [], [], []
+            for _ in range(micro_steps):
+                reset_counts()
+                t0 = time.perf_counter()
+                params, state, loss = step(params, state, batch, gen)
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+                launches.append(read_counts())
+                losses.append(loss.item())
+            r = {"losses": losses, "step_s": step_s, "prepare_s": prepare_s, "launches": launches,
+                 "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
+            if m is None:
+                r["host"] = [t.detach().cpu() for t in floating_leaves(params) + floating_leaves(state[1])]
+            else:
+                r["specs"], r["params"], r["state"] = prepare.specs, params, state
+            runs[name] = r
+            del params, state
+    one, fsdp = runs["one_card"], runs["fsdp_dp1"]
+    problems = []
+    for name, r in runs.items():
+        for i, c in enumerate(r["launches"]):
+            if not check_counts(c, backend, 2 * L, L):
+                problems.append(f"{name} micro-step {i} launches {c}")
+        if not all(np.isfinite(r["losses"])):
+            problems.append(f"{name} losses {r['losses']}")
+    sharded = floating_leaves(fsdp["params"]) + floating_leaves(fsdp["state"][1])
+    same = [torch.equal(a.cpu(), b) for a, b in zip(sharded, one["host"])]
+    compare = {"losses_equal": fsdp["losses"] == one["losses"], "params_and_ema_bitwise_equal": all(same)}
+    if not all(same) or not compare["losses_equal"]:
+        worst = max((_agreement(a.cpu().float(), b.float(), "fsdp leaf") for a, b in zip(sharded, one["host"])),
+                    key=lambda s: s["rel_l2"])
+        compare.update(worst_leaf=worst, why="the one-rank gathers and reductions copy; a difference is the "
+                                             "allocator handing a matmul another buffer")
+    del one["host"], sharded
+    path = REPO / "build" / "smoke_fsdp_state"
+    tree = {"params": fsdp["params"], "opt_state": fsdp["state"], "step": micro_steps}
+    nbytes = sum(t.numel() * t.element_size() for t in floating_leaves(tree))
+    if shutil.disk_usage(REPO / "build").free < nbytes + 2 ** 30:
+        raise RuntimeError(f"{nbytes} bytes needed under build/ for the sharded train state")
+    try:
+        t0 = time.perf_counter()
+        save_train_state(tree, str(path), mesh=mesh, placements=state_placements(fsdp["specs"], True))
+        save_s = time.perf_counter() - t0
+        files = sorted(p.name for p in path.iterdir())
+        t0 = time.perf_counter()
+        back = load_train_state(str(path), tree, device="cpu", mesh=mesh)
+        load_s = time.perf_counter() - t0
+        equal = all(torch.equal(a, b.detach().cpu()) for a, b in zip(floating_leaves(back), floating_leaves(tree)))
+        if not equal or files != ["tensors.rank0-of-1.safetensors", "tree.json"]:
+            problems.append(f"the sharded train state did not come back bit for bit ({files})")
+        del back
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    if problems:
+        raise AssertionError(f"train_full_5b_fsdp: {problems}; {compare}")
+    line = {"phase": "train_full_5b_fsdp", "backend": backend, "mesh": "dp1", "depth": depth,
+            "of": pipe.transformer_cfg.num_layers, "free_gb_before": free / 1e9,
+            "block_params": block_params, "micro_steps": micro_steps, "compute_dtype": "bfloat16",
+            "one_card": {k: v for k, v in one.items() if k not in ("launches",)},
+            "fsdp": {k: v for k, v in fsdp.items() if k not in ("specs", "params", "state", "launches")},
+            "launches_fsdp": fsdp["launches"], "compare": compare,
+            "train_state": {"gb": nbytes / 1e9, "save_s": save_s, "load_s": load_s, "files": files,
+                            "bitwise_equal": True},
+            "per_rank_state_42_blocks": fsdp_footprints(), "seconds": time.perf_counter() - t_phase}
+    emit(line)
+    del fsdp, tree
+    torch.cuda.empty_cache()
+    return {"launches": one["launches"] + line["launches_fsdp"], "depth": depth}
+
+
+def phase_train_cli_mesh(dev, pipe, backend="sp_windowed", frames=9):
+    """The trainer CLI across the three dims on one card:
+    ``python3 -m torch.distributed.run --standalone --nproc_per_node 1 -m
+    s2v_torch.train --mesh dp1,sp1,tp1 --attention_backend sp_windowed``
+    (through the ``train_cli`` wrapper, which counts launches) on the
+    ``pretrained`` snapshot (written here from ``pipe`` when that phase did
+    not run) over two seeded ``frames``-frame 480x720 clips: LoRA rank 128,
+    two micro-steps with a sharded train state after each (one file for
+    the rank); B6 twice, B7 once, and B1/B2 for the global queries, a
+    block per step.  A second run resumes from ``train_state_1`` and must
+    end with the first run's adapters and optimizer state, bit for bit."""
+    import torch
+
+    from s2v_torch.loaders.safetensors_io import load_safetensors
+
+    build = REPO / "build"
+    snap = build / "smoke_snapshot"
+    written = write_smoke_snapshot(pipe) if not snap.is_dir() else None
+    L = 42
+    release_pipe(pipe, dev)
+    clips = write_smoke_clips(num_frames=frames)
+    out1, out2 = build / "smoke_train_mesh", build / "smoke_train_mesh_resumed"
+    wrapper = build / "smoke_train_cli_wrapper.py"
+    wrapper.write_text(_TRAIN_CLI_WRAPPER % {"counted": COUNTED})
+    common = [str(wrapper), "--pretrained_model_name_or_path", str(snap), "--dataset_dir", str(clips),
+              "--rank", "128", "--lora_alpha", "64", "--max_grad_norm", "1.0", "--checkpointing_steps", "1",
+              "--max_train_steps", "2", "--height", "480", "--width", "720", "--max_num_frames", str(frames),
+              "--device", dev.type, "--mesh", MESH_SPEC, "--attention_backend", backend]
+    runs = {}
+    try:
+        for name, extra, out in (("first", [], out1),
+                                 ("resumed", ["--resume_from_checkpoint", str(out1 / "train_state_1")], out2)):
+            shutil.rmtree(out, ignore_errors=True)
+            log = build / f"smoke_train_mesh_{name}.log"
+            t0 = time.perf_counter()
+            proc = _torchrun([*common, *extra, "--output_dir", str(out)], log)
+            rc = proc.wait(timeout=600)
+            lines = [ln for ln in log.read_text().splitlines() if ln.startswith('{"train_cli"')]
+            if rc != 0 or not lines:
+                raise AssertionError(f"train_cli_mesh: {name} exited {rc}\n{_tail(log)}")
+            runs[name] = {**json.loads(lines[-1])["train_cli"], "wall_s": time.perf_counter() - t0}
+        files = _files(out1)
+        want = {"pytorch_lora_weights_transformer.safetensors", "train_state_1/tensors.rank0-of-1.safetensors",
+                "train_state_1/tree.json", "train_state_2/tensors.rank0-of-1.safetensors", "train_state_2/tree.json"}
+        problems = []
+        if set(files) != want:
+            problems.append(f"files {files}")
+        for name, r in runs.items():
+            if not all(np.isfinite(r["losses"])):
+                problems.append(f"{name} losses {r['losses']}")
+            for c in r["launches"]:
+                if not check_counts(c, backend, 2 * L, L):
+                    problems.append(f"{name} launches {c}")
+        a = load_safetensors(str(out1 / "train_state_2" / "tensors.rank0-of-1.safetensors"))
+        b = load_safetensors(str(out2 / "train_state_2" / "tensors.rank0-of-1.safetensors"))
+        resume = {"bitwise_equal": sorted(a) == sorted(b) and all(torch.equal(a[k], b[k]) for k in a),
+                  "tensors": len(a)}
+        if not resume["bitwise_equal"]:
+            resume["max_abs_diff"] = max((a[k].float() - b[k].float()).abs().max().item() for k in a if k in b)
+            problems.append(f"the resumed run's state is not the first run's: {resume}")
+        mesh_line = json.loads((out1 / "train_state_2" / "tree.json").read_text())["mesh"]
+        if problems:
+            raise AssertionError(f"train_cli_mesh: {problems}\n{runs}")
+        line = {"phase": "train_cli_mesh", "mesh": MESH_SPEC, "backend": backend, "frames": frames,
+                "snapshot_written_here": written, "first": runs["first"], "resumed": runs["resumed"],
+                "files": files, "resume": resume, "state_mesh": mesh_line}
+    finally:
+        for d in (out1, out2, clips):
+            shutil.rmtree(d, ignore_errors=True)
+    emit(line)
+    return {"launches": runs["first"]["launches"] + runs["resumed"]["launches"]}
+
+
 PHASES = ("build", "kernel", "kernel_bwd", "kernel_fp16", "kernel_bwd_fp16", "kernel_banded", "kernel_banded_bwd", "kernel_banded_local",
           "kernel_banded_local_bwd", "kernel_int8", "kernel_int8_fp16", "kernel_banded_fp16", "kernel_banded_bwd_fp16",
           "kernel_banded_local_fp16", "kernel_banded_local_bwd_fp16", "reference", "chunked", "e2e", "e2e_windowed", "e2e_sp_windowed",
-          "e2e_sp_allgather", "e2e_sp_backends", "e2e_int8", "e2e_options", "turbo", "train", "train_windowed",
-          "train_sp_windowed", "train_sp_backends", "train_qlora", "variants", "train_remat", "pretrained", "serve",
-          "cli_mesh", "serve_mesh", "train_cli", "e2e_2b", "train_2b", "train_full_2b")
+          "e2e_sp_allgather", "e2e_sp_backends", "e2e_int8", "e2e_mesh", "e2e_mesh_int8", "e2e_options", "turbo",
+          "train", "train_windowed", "train_sp_windowed", "train_sp_backends", "train_lora_mesh", "train_qlora",
+          "train_full_5b_fsdp", "variants", "train_remat", "pretrained", "serve", "cli_mesh", "serve_mesh",
+          "train_cli_mesh", "train_cli", "e2e_2b", "train_2b", "train_full_2b")
 KERNEL_PHASES = {"kernel": phase_kernel, "kernel_bwd": phase_kernel_bwd, "kernel_fp16": phase_kernel_fp16,
                  "kernel_bwd_fp16": phase_kernel_bwd_fp16, "kernel_banded": phase_kernel_banded,
                  "kernel_banded_bwd": phase_kernel_banded_bwd, "kernel_banded_local": phase_kernel_banded_local,
@@ -4017,7 +4434,11 @@ PATH_PHASES = {"e2e": (phase_e2e, "flash"), "e2e_windowed": (phase_e2e, "windowe
                "pretrained": (phase_pretrained, "flash"), "serve": (phase_serve, "flash"),
                "e2e_2b": (phase_e2e_2b, "flash"), "train_2b": (phase_train_2b, "flash"),
                "train_remat": (phase_train_remat, "flash"), "train_cli": (phase_train_cli, "flash"),
-               "train_full_2b": (phase_train_full_2b, "flash")}
+               "train_full_2b": (phase_train_full_2b, "flash"),
+               "e2e_mesh": (phase_e2e_mesh, "sp_allgather"), "e2e_mesh_int8": (phase_e2e_mesh_int8, "flash_int8"),
+               "train_lora_mesh": (phase_train_lora_mesh, "flash"),
+               "train_full_5b_fsdp": (phase_train_full_5b_fsdp, "flash"),
+               "train_cli_mesh": (phase_train_cli_mesh, "sp_windowed")}
 # the phases on the CogVideoX-2b pipeline, built after the 5b phases (whose
 # pipeline is released first) and freed after
 PHASES_2B = ("e2e_2b", "train_2b", "train_full_2b")
@@ -4446,10 +4867,16 @@ def main(argv=None) -> int:
     if "e2e" in results and "e2e_sp_allgather" in results:
         # the same seed through B1 (flash) and through sp_allgather on one rank
         emit(sp_allgather_vs_e2e(results["e2e_sp_allgather"], results["e2e"]))
-    if any(p in results for p in ("e2e_sp_allgather", "e2e_sp_backends", "train_sp_backends")):
-        emit({"phase": "seq_rings", "rings_run_on_this_card": [1],
-              "note": "no seq ring above 1 ran on this card: one card, and NCCL takes one rank per device; rings of "
-                      "2 and 4 run only in the CPU tests (gloo)"})
+    if "e2e_mesh" in results and "e2e_sp_allgather" in results:
+        # the same seed on the one-rank dp1,sp1,tp1 mesh (DiT and T5 sliced) and on the sp1 ring
+        emit(mesh_vs_single(results["e2e_mesh"], results["e2e_sp_allgather"], "e2e_mesh"))
+    if "e2e_mesh_int8" in results and "e2e_int8" in results:
+        emit(mesh_vs_single(results["e2e_mesh_int8"], results["e2e_int8"], "e2e_mesh_int8"))
+    if any(p in results for p in ("e2e_sp_allgather", "e2e_sp_backends", "train_sp_backends", "e2e_mesh",
+                                  "train_lora_mesh", "train_full_5b_fsdp", "train_cli_mesh")):
+        emit({"phase": "seq_rings", "rings_run_on_this_card": [1], "data_and_model_dims_run_on_this_card": [1],
+              "note": "no mesh dim above 1 ran on this card: one card, and NCCL takes one rank per device; seq "
+                      "rings of 2 and 4 and data and model dims of 2 run only in the CPU tests (gloo)"})
     if "train_qlora" in results:
         # a finding, not a gate: the JAX package's test holds the QLoRA loss
         # to rtol 0.05 of the bf16-base loss on its tiny model

@@ -23,15 +23,16 @@ prompt alone (no subject image; ``pipelines/variants.py::generate_t2v``),
 video and text streams, and ``--dtype float16`` (the 2b family's published
 type) runs on the card through the fp16 kernels B1/B2.
 
-Across cards: ``torchrun --nproc_per_node N -m s2v_torch.cli --mesh sp<N>
-...`` generates one clip over N cards (one process each): the DiT's video
-frames are sharded over the ``seq`` ring, the exact backend becomes
-``sp_allgather`` (or pass ``sp_ulysses``, ``ring``, ``sp_int8``,
-``sp_windowed``), and the VAE decode runs context-parallel where the ring
-can take it.  Every rank runs the same generate; rank 0 alone prints and
-writes the clip.  ``--mesh sp1`` runs without ``torchrun``.  A ``data`` or
-``model`` mesh dim and ``--text_encoder_device mesh`` raise
-``NotImplementedError`` naming ROADMAP A.9.
+Across cards: ``torchrun --nproc_per_node N -m s2v_torch.cli --mesh
+dp<a>,tp<b>,sp<c> ...`` (a·b·c = N) generates one clip over N cards (one
+process each): a ``data`` dim splits the batched CFG's rows, a ``model`` dim
+runs megatron TP on sliced DiT params (and with ``--text_encoder_device
+mesh`` on sliced T5 params), a ``seq`` dim shards the DiT's video frames,
+where the exact backend becomes ``sp_allgather`` (or pass ``sp_ulysses``,
+``ring``, ``sp_int8``, ``sp_windowed``) and the VAE decode runs
+context-parallel where the ring can take it.  Every rank runs the same
+generate; rank 0 alone prints and writes the clip.  A one-rank mesh
+(``--mesh tp1``, ``sp1``) runs without ``torchrun``.
 """
 
 from __future__ import annotations
@@ -91,7 +92,7 @@ def get_args(argv=None):
     p.add_argument("--quantize_int8", action="store_true", default=False,
                    help="int8 linears in the DiT (pair with --attention_backend pallas_int8 for int8-QK attention)")
     p.add_argument("--text_encoder_device", type=str, default="auto", choices=["auto", "device", "host", "mesh"],
-                   help="host keeps T5 on the CPU in fp32; mesh is not ported yet (ROADMAP A.9)")
+                   help="host keeps T5 on the CPU in fp32; mesh slices it over --mesh's model dim")
     p.add_argument("--disentangled_modulation", action="store_true", default=False,
                    help="video/text modulated by the pre-merge adaLN linears, the ref stream by the LoRA-merged ones")
     p.add_argument("--dtype", type=str, default="bfloat16", choices=["bfloat16", "float16", "float32"],
@@ -105,8 +106,8 @@ def get_args(argv=None):
     p.add_argument("--segment_steps", type=int, default=0,
                    help=">0: run the denoise loop in host-stepped segments of N steps, with a progress line after each")
     p.add_argument("--mesh", type=str, default=None,
-                   help="seq mesh over the processes torchrun started, e.g. sp4 (one process per card); data and "
-                        "model dims are not ported yet (ROADMAP A.9)")
+                   help="mesh over the processes torchrun started, one per card, e.g. dp2,tp2 or sp4 (data: the "
+                        "CFG batch, model: megatron TP, seq: video frames)")
     p.add_argument("--progress", action="store_true", default=False, help="a per-step progress line on stderr")
     p.add_argument("--profile_dir", type=str, default=None,
                    help="write a torch.profiler trace of the generate call (trace.json) here")
@@ -164,11 +165,11 @@ def _generate(args, device, mesh):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     where = f"{device} ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else str(device)
-    ring = f", seq ring of {pipe._seq_ring()}" if mesh is not None else ""
-    say(f"[s2v_torch] models loaded in {time.perf_counter() - t0:.1f}s on {where}{ring}", flush=True)
+    on_mesh = f", mesh {args.mesh}, seq ring of {pipe._seq_ring()}" if mesh is not None else ""
+    say(f"[s2v_torch] models loaded in {time.perf_counter() - t0:.1f}s on {where}{on_mesh}", flush=True)
 
-    if args.save_merged_dir and main_rank:
-        pipe.save_pretrained(os.path.expanduser(args.save_merged_dir))
+    if args.save_merged_dir:
+        pipe.save_pretrained(os.path.expanduser(args.save_merged_dir), write=main_rank)
         say(f"[s2v_torch] merged snapshot written to {args.save_merged_dir}")
 
     profiler = None

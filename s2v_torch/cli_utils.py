@@ -28,17 +28,15 @@ SEQ_BACKEND_NAMES = tuple(jax_name for jax_name, port in BACKEND_NAMES.items() i
 
 
 def check_mesh_flags(args) -> None:
-    """Before anything loads: a ``--mesh`` with a data or model dim, or
-    ``--text_encoder_device mesh``, raises ``NotImplementedError`` naming
-    ROADMAP A.9; a sequence-parallel backend without ``--mesh`` raises
-    ``ValueError``."""
+    """Before anything loads: a ``--mesh`` that does not parse,
+    ``--text_encoder_device mesh`` without ``--mesh``, or a
+    sequence-parallel backend without ``--mesh``, raises ``ValueError``."""
     if args.mesh is not None:
-        from s2v_torch.parallel.sharding import seq_mesh_size
+        from s2v_torch.parallel.sharding import parse_mesh_spec
 
-        seq_mesh_size(args.mesh)
-    if args.text_encoder_device == "mesh":
-        raise NotImplementedError("--text_encoder_device mesh (T5 sharded over the mesh) is not ported yet "
-                                  "(ROADMAP A.9)")
+        parse_mesh_spec(args.mesh)
+    if args.text_encoder_device == "mesh" and args.mesh is None:
+        raise ValueError("--text_encoder_device mesh needs --mesh (e.g. tp2, or tp1 on one card)")
     if args.attention_backend in SEQ_BACKEND_NAMES and args.mesh is None:
         raise ValueError(f"--attention_backend {args.attention_backend} needs --mesh sp<N> (sp1 on one card)")
 

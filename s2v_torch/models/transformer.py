@@ -22,7 +22,18 @@ from s2v_torch.ops.norms import layer_norm
 from s2v_torch.ops.patchify import patchify_video, unpatchify_video
 from s2v_torch.ops.quant import dense
 from s2v_torch.ops.timestep import get_timestep_embedding, timestep_embedding_mlp
-from s2v_torch.parallel.context import FrameShard, active_seq_ring, frame_shard, gather_video
+from s2v_torch.parallel.context import (
+    FrameShard,
+    active_seq_ring,
+    copy_to_model,
+    data_parallel,
+    frame_shard,
+    gather_rows_over,
+    gather_video,
+    take_rows,
+    tensor_parallel,
+)
+from s2v_torch.parallel.sharding import take_slice, tp_leaf_placement
 from s2v_torch.utils.device import resolve_device
 
 
@@ -60,34 +71,56 @@ def _lora_delta(ab: dict) -> torch.Tensor:
     return ab["a"].float() @ ab["b"].float()
 
 
-def _add_delta(leaf: dict, delta: torch.Tensor) -> dict:
-    """Merge an ``[in, out]`` delta into a ``[out, in]`` weight, in fp32."""
+def _tp_slice(x: torch.Tensor, dim: int, placement, tp) -> torch.Tensor:
+    """This ``model`` rank's part of a whole tensor along ``dim``, sliced as
+    the leaf of ``placement`` is (per head for the fused qkv)."""
+    if tp is None:
+        return x
+    return take_slice(x, dim, placement.blocks, tp.rank, tp.size, "runtime LoRA factor")
+
+
+def _add_delta(leaf: dict, delta: torch.Tensor, placement=None, tp=None) -> dict:
+    """Merge an ``[in, out]`` delta into a ``[out, in]`` weight, in fp32.
+    Under megatron TP the whole delta is sliced as the weight is (JAX: the
+    computed delta inherits the kernel's sharding)."""
     weight = leaf["weight"]
+    if tp is not None and placement is not None and placement.model_dim is not None:
+        delta = _tp_slice(delta, 1 - placement.model_dim, placement, tp)
     if delta.shape[::-1] != weight.shape:
         raise ValueError(f"runtime LoRA delta {tuple(delta.shape)} does not match weight {tuple(weight.shape)}")
     return {**leaf, "weight": (weight.float() + delta.T).to(weight.dtype)}
 
 
-def _attach_factors(leaf: dict, pairs) -> dict:
+def _attach_factors(leaf: dict, pairs, placement=None, tp=None) -> dict:
     """Attach factor pairs for :func:`s2v_torch.ops.quant.dense` to apply
     after the linear.  A slotted q/k/v ``b`` is zero-padded to the fused
-    qkv's full output width (taken from ``q`` on an int8 leaf)."""
+    qkv's full output width (taken from ``q`` on an int8 leaf).  Under
+    megatron TP the factors are sliced as the weight is: ``b``'s columns
+    for a column-parallel leaf, ``a``'s rows for a row-parallel one."""
     out_width = leaf["q" if "q" in leaf else "weight"].shape[0]
+    if tp is not None and placement is not None and placement.model_dim == 0:
+        out_width *= tp.size
     attached = []
     for ab, slot in pairs:
         a, b = ab["a"], ab["b"]
         if slot is not None:
             d = b.shape[-1]
             b = F.pad(b, (slot * d, out_width - (slot + 1) * d))
+        if tp is not None and placement is not None and placement.model_dim == 0:
+            b = _tp_slice(b, b.dim() - 1, placement, tp)
+        elif tp is not None and placement is not None and placement.model_dim == 1:
+            a = _tp_slice(a, a.dim() - 2, placement, tp)
         attached.append((a, b))
     return {**leaf, "lora": tuple(attached)}
 
 
-def apply_runtime_lora_block(p: dict, lora: dict) -> dict:
+def apply_runtime_lora_block(p: dict, lora: dict, tp=None) -> dict:
     """One block's params with its runtime factors (``{target: {"a" [in, r],
     "b" [r, out]}}``) applied, copy-on-write: the fused qkv, ``to_out`` and
     ``ff.net.2`` get their pairs attached (applied after the linear), the
-    adaLN modulation linears (norm1/norm2) get ``W + (a @ b)ᵀ`` merged."""
+    adaLN modulation linears (norm1/norm2) get ``W + (a @ b)ᵀ`` merged.
+    ``tp``: the block holds this ``model`` rank's slices, and so do the
+    factors or deltas applied to it."""
     out = {k: dict(v) if isinstance(v, dict) else v for k, v in p.items()}
     grouped: dict = {}
     for name, ab in lora.items():
@@ -95,12 +128,13 @@ def apply_runtime_lora_block(p: dict, lora: dict) -> dict:
         grouped.setdefault(path, []).append((ab, slot))
     for (group, leaf_name), items in grouped.items():
         node = out[group]
+        placement = tp_leaf_placement(("blocks", "0", group, leaf_name, "weight"), 2)
         if group in ("attn", "ff"):
-            node[leaf_name] = _attach_factors(node[leaf_name], items)
+            node[leaf_name] = _attach_factors(node[leaf_name], items, placement, tp)
             continue
         leaf = node[leaf_name]
         for ab, _slot in items:  # norm linears: slotless by construction
-            leaf = _add_delta(leaf, _lora_delta(ab))
+            leaf = _add_delta(leaf, _lora_delta(ab), placement, tp)
         node[leaf_name] = leaf
     return out
 
@@ -157,9 +191,12 @@ def _remat_plan(remat: Union[bool, str], num_layers: int) -> Tuple[str, int]:
     raise ValueError(f"unknown remat mode {remat!r}")
 
 
-def _feed_forward(p: dict, x: torch.Tensor) -> torch.Tensor:
-    """gelu(tanh) MLP."""
-    return dense(p["net_2"], F.gelu(dense(p["net_0"], x), approximate="tanh"))
+def _feed_forward(p: dict, x: torch.Tensor, tp=None) -> torch.Tensor:
+    """gelu(tanh) MLP; under megatron TP ``net_0`` column-parallel and
+    ``net_2`` row-parallel with one all-reduce."""
+    if tp is not None:
+        x = copy_to_model(x, tp)
+    return dense(p["net_2"], F.gelu(dense(p["net_0"], x), approximate="tanh"), row_parallel=tp)
 
 
 def block_forward(
@@ -174,6 +211,7 @@ def block_forward(
     attention_backend: str = "plain",
     tokens_per_frame: int = 0,
     shard: Optional[FrameShard] = None,
+    tp=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One CogVideoX block; ``ref`` may be zero-width ``[B, 0, D]`` (T2V).
 
@@ -181,7 +219,8 @@ def block_forward(
     the video's frames of ``tokens_per_frame`` tokens: the ref's length when
     a ref is present (one latent frame of the video's size), else the value
     given (``transformer_forward`` derives it from the video).  Under a
-    sequence-parallel backend ``video`` is this rank's frames, ``shard``."""
+    sequence-parallel backend ``video`` is this rank's frames, ``shard``.
+    ``tp``: the block holds this ``model`` rank's slices (megatron TP)."""
     t_len = text.shape[1]
     r_len = ref.shape[1]
     window = None
@@ -195,19 +234,21 @@ def block_forward(
                              "so it is derived from the video shape")
         window = (t_len + r_len, tpf, cfg.attention_window_frames)
     v_n, t_n, r_n, g_v, g_t, g_r = ada_layer_norm_zero_3stream(
-        p["norm1"], video, text, ref, temb, cfg.norm_eps, base_linear=p["norm1"].get("base_linear") if disent else None)
+        p["norm1"], video, text, ref, temb, cfg.norm_eps, base_linear=p["norm1"].get("base_linear") if disent else None,
+        tp=tp)
     x = torch.cat([t_n, r_n, v_n], dim=1)
     attn = joint_attention(
         p["attn"], x, cfg.num_attention_heads, rope_cos, rope_sin, cfg.qk_norm_eps, backend=attention_backend,
-        window=window, shard=shard,
+        window=window, shard=shard, tp=tp,
     )
     video = video + g_v * attn[:, t_len + r_len:]
     text = text + g_t * attn[:, :t_len]
     ref = ref + g_r * attn[:, t_len:t_len + r_len]
 
     v_n, t_n, r_n, g_v, g_t, g_r = ada_layer_norm_zero_3stream(
-        p["norm2"], video, text, ref, temb, cfg.norm_eps, base_linear=p["norm2"].get("base_linear") if disent else None)
-    ff = _feed_forward(p["ff"], torch.cat([t_n, r_n, v_n], dim=1))
+        p["norm2"], video, text, ref, temb, cfg.norm_eps, base_linear=p["norm2"].get("base_linear") if disent else None,
+        tp=tp)
+    ff = _feed_forward(p["ff"], torch.cat([t_n, r_n, v_n], dim=1), tp)
     video = video + g_v * ff[:, t_len + r_len:]
     text = text + g_t * ff[:, :t_len]
     ref = ref + g_r * ff[:, t_len:t_len + r_len]
@@ -226,6 +267,7 @@ def transformer_forward(
     attention_backend: str = "plain",
     remat: Union[bool, str] = False,
     pos_embedding: Optional[torch.Tensor] = None,  # [S_text + S_video, D] sincos (2b)
+    param_gather=None,
 ) -> torch.Tensor:
     """Predict the denoising target ``[B, F, H, W, out_channels]``.
 
@@ -253,7 +295,24 @@ def transformer_forward(
     text and ref streams whole, and the output's video rows are gathered
     once before the unpatchify; a ring of 1 keeps the whole clip.  On a
     ring above 1 the backends of ``GATHERED_BACKENDS`` run on the same
-    shards (their attention on the gathered rows), and any other raises."""
+    shards (their attention on the gathered rows), and any other raises.
+
+    Under a ``data`` dim (``s2v_tpu/models/transformer.py:300-303,433``:
+    ``constrain(.., "dp", ..)``) each rank keeps its equal rows of the
+    batch (the batched CFG's 2B rows, a train batch) through the blocks,
+    and the output is all-gathered over ``data``; a batch the dim does not
+    divide raises.  Under a ``model`` dim every block runs megatron TP on
+    the params' slices (``parallel/sharding.py``, which the caller made:
+    ``S2VPipeline.set_mesh``, ``shard_params``); the runtime factors stay
+    whole and are sliced as their kernels.  ``param_gather(key, tree)``
+    (FSDP, ``training/full.py``): called with ``"top"`` and the params
+    outside the blocks once, and with each block's index and params inside
+    the block (so a remat recompute gathers again), it returns them whole
+    over ``data``."""
+    tp, dp = tensor_parallel(), data_parallel()
+    if dp is not None:
+        video_latents, ref_latents, text_embeds, timestep = (
+            take_rows(x, dp) for x in (video_latents, ref_latents, text_embeds, timestep))
     b, f, h, w, _ = video_latents.shape
     p = cfg.patch_size
     dt = cfg.dtype
@@ -267,6 +326,11 @@ def transformer_forward(
             shard, video_latents, rope_cos, rope_sin, pos_embedding, text_embeds.shape[1])
 
     runtime_lora = params.get(RUNTIME_LORA_KEY) or {}
+    if param_gather is not None:
+        params = {**params, **param_gather("top", {k: v for k, v in params.items()
+                                                   if k not in ("blocks", RUNTIME_LORA_KEY)})}
+    if tp is not None:
+        _check_tp_slices(params, cfg, tp, param_gather)
     if "top" in runtime_lora:
         params = apply_runtime_lora_top(params, runtime_lora["top"])
     layer_factors = _layer_factors(runtime_lora.get("blocks"), len(params["blocks"]))
@@ -286,31 +350,34 @@ def transformer_forward(
         joint = torch.cat([text, video], dim=1) + pos_embedding.to(device=video.device, dtype=dt)[None]
         text, video = joint[:, :t_len], joint[:, t_len:]
 
-    def run_block(layer, factors, video, text, ref):
+    def run_block(index, layer, factors, video, text, ref):
+        if param_gather is not None:
+            layer = param_gather(index, layer)
         if factors is not None:
-            layer = apply_runtime_lora_block(layer, factors)
+            layer = apply_runtime_lora_block(layer, factors, tp)
         return block_forward(layer, video, text, ref, temb, rope_cos, rope_sin, cfg, attention_backend,
-                             tokens_per_frame=tpf, shard=shard)
+                             tokens_per_frame=tpf, shard=shard, tp=tp)
 
-    def run_blocks(layers, factors_list, video, text, ref):
-        for layer, factors in zip(layers, factors_list):
+    def run_blocks(first, layers, factors_list, video, text, ref):
+        for index, (layer, factors) in enumerate(zip(layers, factors_list), first):
             if mode == "none":
-                video, text, ref = run_block(layer, factors, video, text, ref)
+                video, text, ref = run_block(index, layer, factors, video, text, ref)
             elif mode == "dots":
                 video, text, ref = checkpoint(
-                    run_block, layer, factors, video, text, ref, use_reentrant=False,
+                    run_block, index, layer, factors, video, text, ref, use_reentrant=False,
                     context_fn=functools.partial(create_selective_checkpoint_contexts, _save_dots))
             else:
-                video, text, ref = checkpoint(run_block, layer, factors, video, text, ref, use_reentrant=False)
+                video, text, ref = checkpoint(run_block, index, layer, factors, video, text, ref,
+                                              use_reentrant=False)
         return video, text, ref
 
     if mode == "seg":
         per = len(params["blocks"]) // segments
         for s0 in range(0, len(params["blocks"]), per):
-            video, text, ref = checkpoint(run_blocks, params["blocks"][s0:s0 + per], layer_factors[s0:s0 + per],
+            video, text, ref = checkpoint(run_blocks, s0, params["blocks"][s0:s0 + per], layer_factors[s0:s0 + per],
                                           video, text, ref, use_reentrant=False)
     else:
-        video, text, ref = run_blocks(params["blocks"], layer_factors, video, text, ref)
+        video, text, ref = run_blocks(0, params["blocks"], layer_factors, video, text, ref)
 
     # final norm over [text | video]; the ref stream ends here
     joint = layer_norm(torch.cat([text, video], dim=1), params["norm_final"]["weight"],
@@ -320,7 +387,27 @@ def transformer_forward(
     video = dense(params["proj_out"], video)
     if shard is not None and shard.ring > 1:
         video = gather_video(video, shard)
+    if dp is not None:
+        video = gather_rows_over(video, dp)
     return unpatchify_video(video, f, h, w, p, cfg.out_channels)
+
+
+def _check_tp_slices(params: dict, cfg: TransformerConfig, tp, param_gather) -> None:
+    """A model dim above 1 needs the blocks' slices (a whole tree would
+    run every head on every rank and add the row-parallel outputs tp
+    times); a mesh that does not fit the model raises, naming the sizes."""
+    for what, n in (("attention heads", cfg.num_attention_heads), ("feed-forward width", cfg.ff_inner_dim),
+                    ("inner width", cfg.inner_dim)):
+        if n % tp.size:
+            raise ValueError(f"the model's {what} of {n} does not split over a model mesh dim of {tp.size} ranks")
+    if tp.size == 1 or param_gather is not None or not params["blocks"]:
+        return
+    qkv = params["blocks"][0]["attn"]["qkv"]
+    rows = qkv["q" if "q" in qkv else "weight"].shape[0]
+    if rows != 3 * cfg.inner_dim // tp.size:
+        raise ValueError(f"the transformer params hold {rows} qkv rows, not the {3 * cfg.inner_dim // tp.size} "
+                         f"of a model mesh dim of {tp.size} ranks: slice them first (S2VPipeline.set_mesh, or "
+                         f"parallel/sharding.py::shard_params)")
 
 
 def _take_shard(shard: FrameShard, video_latents, rope_cos, rope_sin, pos_embedding, text_len: int):
@@ -348,15 +435,19 @@ def init_transformer_params_random(
 ) -> dict:
     """Random weights at any width, made on the device in ``cfg.dtype``:
     normal × ``scale`` kernels, zero biases, unit norm weights (modelled on
-    ``init_transformer_params_stacked``).  For runs without a checkpoint."""
-    device = resolve_device(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    ``init_transformer_params_stacked``).  For runs without a checkpoint;
+    ``device="meta"`` gives the shapes without values."""
+    meta = str(device) == "meta"  # shapes only, e.g. for the placements of a full-size tree
+    device = torch.device("meta") if meta else resolve_device(device)
+    gen = None if meta else torch.Generator(device=device).manual_seed(seed)
     dt = cfg.dtype
     d, td, hd = cfg.inner_dim, cfg.time_embed_dim, cfg.attention_head_dim
     pp = cfg.patch_size ** 2
 
     def lin(out_dim, in_dim):
-        w = torch.empty((out_dim, in_dim), dtype=dt, device=device).normal_(0.0, scale, generator=gen)
+        w = torch.empty((out_dim, in_dim), dtype=dt, device=device)
+        if gen is not None:
+            w.normal_(0.0, scale, generator=gen)
         return {"weight": w, "bias": torch.zeros(out_dim, dtype=dt, device=device)}
 
     def norm(dim):

@@ -12,9 +12,18 @@ import torch.nn.functional as F
 from s2v_torch.ops.norms import layer_norm
 
 
-def _modulation(linear: dict, temb: torch.Tensor) -> torch.Tensor:
-    """silu(temb) @ W + b in fp32."""
-    return F.linear(F.silu(temb.float()), linear["weight"].float(), linear["bias"].float())
+def _modulation(linear: dict, temb: torch.Tensor, tp=None) -> torch.Tensor:
+    """silu(temb) @ W + b in fp32.  Under megatron TP (``tp``, the ``model``
+    dim) the linear holds this rank's output rows (JAX's ``_COL_PARALLEL``
+    adaLN linears): its ``[B, 6D/tp]`` output is all-gathered over
+    ``model`` before the modulation."""
+    from s2v_torch.parallel.context import copy_to_model, gather_columns
+
+    x = F.silu(temb.float())
+    if tp is None:
+        return F.linear(x, linear["weight"].float(), linear["bias"].float())
+    mod = F.linear(copy_to_model(x, tp), linear["weight"].float(), linear["bias"].float())
+    return gather_columns(mod, tp)
 
 
 def ada_layer_norm_zero_3stream(
@@ -25,18 +34,20 @@ def ada_layer_norm_zero_3stream(
     temb: torch.Tensor,
     eps: float = 1e-5,
     base_linear: Optional[dict] = None,
+    tp=None,
 ) -> Tuple[torch.Tensor, ...]:
     """Returns (video_n, text_n, ref_n, video_gate, text_gate, ref_gate); the
     ref stream reuses the video stream's (shift, scale, gate).
 
     With ``base_linear`` (the disentangled mode, ``s2v_tpu/ops/adaln.py:44-60``)
     video and text are modulated by that pre-merge linear and the ref
-    stream by the first chunk of ``params["linear"]`` (the merged one)."""
-    mod = _modulation(params["linear"], temb)  # [B, 6D] fp32
+    stream by the first chunk of ``params["linear"]`` (the merged one).
+    ``tp``: the modulation linears are column-sliced over the ``model`` dim."""
+    mod = _modulation(params["linear"], temb, tp)  # [B, 6D] fp32
     shift, scale, gate, t_shift, t_scale, t_gate = mod.chunk(6, dim=-1)
     r_shift, r_scale, r_gate = shift, scale, gate
     if base_linear is not None:
-        shift, scale, gate, t_shift, t_scale, t_gate = _modulation(base_linear, temb).chunk(6, dim=-1)
+        shift, scale, gate, t_shift, t_scale, t_gate = _modulation(base_linear, temb, tp).chunk(6, dim=-1)
     norm_w = params["norm"]["weight"]
     norm_b = params["norm"]["bias"]
 

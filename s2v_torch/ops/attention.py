@@ -284,11 +284,22 @@ def _on_gathered_rows(backend: str, q, k, v, shard: FrameShard, window):
 
 def qkv_projections(params: dict, x: torch.Tensor, num_heads: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``[B, S, D]`` -> per-head q, k, v ``[B, S, H, d]`` through the fused
-    ``qkv`` linear (weight ``[3D, D]``, rows q | k | v)."""
-    b, s, d = x.shape
+    ``qkv`` linear (weight ``[3D, D]``, rows q | k | v; under megatron TP
+    this rank's ``H`` heads of each, ``[3D/tp, D]``)."""
+    b, s, _ = x.shape
     q, k, v = dense(params["qkv"], x).chunk(3, dim=-1)
-    shape = (b, s, num_heads, d // num_heads)
+    shape = (b, s, num_heads, q.shape[-1] // num_heads)
     return q.reshape(shape), k.reshape(shape), v.reshape(shape)
+
+
+def local_heads(num_heads: int, tp) -> int:
+    """The heads one rank of the ``model`` dim computes; a dim that does not
+    divide them raises."""
+    if tp is None:
+        return num_heads
+    if num_heads % tp.size:
+        raise ValueError(f"{num_heads} attention heads do not split over a model mesh dim of {tp.size} ranks")
+    return num_heads // tp.size
 
 
 def joint_attention(
@@ -301,15 +312,29 @@ def joint_attention(
     backend: str = "plain",
     window: Optional[Tuple[int, int, int]] = None,  # (global_len, tokens_per_frame, w)
     shard: Optional[FrameShard] = None,
+    tp=None,
 ) -> torch.Tensor:
     """Full-sequence self attention: fused qkv, fp32-statistics qk-LayerNorm,
     segmented RoPE (``[S, d/2]`` tables, or None), attention, output linear.
     A windowed backend needs ``window``; a sequence-parallel one ``shard``,
-    this rank's frames, ``x`` being its rows ``[text | ref | its frames]``."""
-    b, s, d = x.shape
-    q, k, v = qkv_projections(params, x, num_heads)
-    q = layer_norm(q, params["norm_q"]["weight"], params["norm_q"]["bias"], qk_norm_eps)
-    k = layer_norm(k, params["norm_k"]["weight"], params["norm_k"]["bias"], qk_norm_eps)
+    this rank's frames, ``x`` being its rows ``[text | ref | its frames]``.
+
+    ``tp`` (the ``model`` dim, ``parallel/context.py::tensor_parallel``):
+    megatron TP on this rank's ``num_heads / tp`` heads: the qkv
+    column-parallel by heads, the per-head qk norms on the local heads
+    (their gradients summed over ``model``), every backend on the local
+    heads, ``to_out`` row-parallel with one all-reduce."""
+    from s2v_torch.parallel.context import copy_to_model
+
+    b, s, _ = x.shape
+    heads = local_heads(num_heads, tp)
+    norm_q, norm_k = params["norm_q"], params["norm_k"]
+    if tp is not None:
+        x = copy_to_model(x, tp)
+        norm_q, norm_k = ({n: copy_to_model(w, tp) for n, w in p.items()} for p in (norm_q, norm_k))
+    q, k, v = qkv_projections(params, x, heads)
+    q = layer_norm(q, norm_q["weight"], norm_q["bias"], qk_norm_eps)
+    k = layer_norm(k, norm_k["weight"], norm_k["bias"], qk_norm_eps)
     if rope_cos is not None:
         q = apply_rotary_emb(q, rope_cos[:, None, :], rope_sin[:, None, :])
         k = apply_rotary_emb(k, rope_cos[:, None, :], rope_sin[:, None, :])
@@ -330,4 +355,4 @@ def joint_attention(
         out = _single_card_attention(backend, q, k, v, window)
     if fp16_in:
         out = out.to(torch.float16)
-    return dense(params["to_out"], out.reshape(b, s, d))
+    return dense(params["to_out"], out.reshape(b, s, -1), row_parallel=tp)

@@ -19,6 +19,7 @@ needs more than 16 rows (fewer are zero-padded here) and K, N multiples of 8.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 # quantized per block (JAX ``quantize_transformer_params``): ~96% of the
@@ -58,19 +59,30 @@ def _int_mm(xq: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     return torch._int_mm(xq.contiguous(), q.t())
 
 
-def _int8_mm_forward(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+def _int8_mm_forward(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, tp=None) -> torch.Tensor:
     """``x @ dequant(q, scale)ᵀ`` through per-token int8 activations, in the
     JAX order of operations (``_int8_mm_impl``): the row amax in x's own
     dtype, then fp32 · (1/127); divide by that scale (not multiply by its
     reciprocal) before the half-to-even round; clamp to ±127; the int32
-    product; ``(y · x_scale) · w_scale`` in fp32; cast to x's dtype."""
+    product; ``(y · x_scale) · w_scale`` in fp32; cast to x's dtype.
+
+    Row-parallel (``tp``, the ``model`` dim; ``x`` and ``q`` hold this
+    rank's input columns): the row amax is the max over every rank's
+    columns and the int32 products are summed over the ranks before the
+    scales, so the result is the whole product's, bit for bit."""
     # max |x| in one pass (exact in any dtype); x / x_scale promotes to fp32
     # without an fp32 copy of x; int32 · fp32 converts as it multiplies
-    x_scale = torch.linalg.vector_norm(x, float("inf"), dim=-1, keepdim=True).float() * INV_127
+    amax = torch.linalg.vector_norm(x, float("inf"), dim=-1, keepdim=True).float()
+    if tp is not None:
+        dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=tp.group)
+    x_scale = amax * INV_127
     x_scale = torch.where(x_scale == 0, torch.ones_like(x_scale), x_scale)
     xq = torch.div(x, x_scale).round_().clamp_(-127, 127).to(torch.int8)
     lead, k = x.shape[:-1], x.shape[-1]
-    y = torch.mul(_int_mm(xq.reshape(-1, k), q), x_scale.reshape(-1, 1)).mul_(scale)
+    acc = _int_mm(xq.reshape(-1, k), q)
+    if tp is not None:
+        dist.all_reduce(acc, group=tp.group)  # int32: exact
+    y = torch.mul(acc, x_scale.reshape(-1, 1)).mul_(scale)
     return y.to(x.dtype).reshape(*lead, q.shape[0])
 
 
@@ -84,10 +96,10 @@ class _Int8MM(torch.autograd.Function):
     accumulation.  q and scale are frozen and get no gradient."""
 
     @staticmethod
-    def forward(ctx, x, q, scale):
+    def forward(ctx, x, q, scale, tp):
         ctx.save_for_backward(q, scale)
         ctx.x_dtype = x.dtype
-        return _int8_mm_forward(x, q, scale)
+        return _int8_mm_forward(x, q, scale, tp)
 
     @staticmethod
     def backward(ctx, g):
@@ -103,20 +115,40 @@ class _Int8MM(torch.autograd.Function):
             # products of bf16 values and int8 are exact in fp32, so upcasting
             # first gives the fp32-accumulated result on the CPU
             dx = gs.float() @ q.float()
-        return dx.to(ctx.x_dtype).reshape(*lead, q.shape[1]), None, None
+        return dx.to(ctx.x_dtype).reshape(*lead, q.shape[1]), None, None, None
 
 
-def int8_dense(x: torch.Tensor, wq: dict, bias=None) -> torch.Tensor:
+def int8_dense(x: torch.Tensor, wq: dict, bias=None, tp=None) -> torch.Tensor:
     """Per-token int8 linear: ``x`` ``[..., in]`` against ``wq = {"q" [out,
     in] int8, "scale" [out] fp32}``, in and out in x's dtype, then the bias.
-    Differentiable with respect to ``x`` (see :class:`_Int8MM`)."""
-    y = _Int8MM.apply(x, wq["q"], wq["scale"])
+    Differentiable with respect to ``x`` (see :class:`_Int8MM`).  ``tp``:
+    row-parallel over the ``model`` dim (see :func:`_int8_mm_forward`)."""
+    y = _Int8MM.apply(x, wq["q"], wq["scale"], tp)
     if bias is not None:
         y = y + bias.to(y.dtype)
     return y
 
 
-def dense(params: dict, x: torch.Tensor) -> torch.Tensor:
+def _lora_term(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, dtype) -> torch.Tensor:
+    return ((x @ a.to(x.dtype)) @ b.to(x.dtype)).to(dtype)
+
+
+def _rank0_bias(bias, tp):
+    """A row-parallel linear's bias, added by ``model`` rank 0 only, so the
+    ranks' partial sums add up to one bias.  Under autograd every rank
+    keeps it in its graph (times 0 off rank 0) and its gradient, whole on
+    rank 0, is summed over ``model``."""
+    from s2v_torch.parallel.context import copy_to_model
+
+    if bias is None:
+        return None
+    if torch.is_grad_enabled() and bias.requires_grad:
+        bias = copy_to_model(bias, tp)
+        return bias if tp.rank == 0 else bias * 0
+    return bias if tp.rank == 0 else None
+
+
+def dense(params: dict, x: torch.Tensor, row_parallel=None) -> torch.Tensor:
     """Format-dispatching linear: ``x @ weight.T + bias`` for a
     ``{"weight", "bias"?}`` leaf, :func:`int8_dense` for a ``{"q", "scale",
     "bias"?}`` leaf, in x's dtype.
@@ -124,13 +156,31 @@ def dense(params: dict, x: torch.Tensor) -> torch.Tensor:
     An optional ``"lora"`` entry, a tuple of ``(a [in, r], b [r, out])``
     factor pairs with the alpha/r scale folded into ``a``, is applied after
     the linear: ``y += (x @ a) @ b``, both products in x's dtype (an int8
-    weight cannot absorb a merged delta)."""
+    weight cannot absorb a merged delta).
+
+    ``row_parallel`` (the ``model`` dim of megatron TP): ``x``, the weight's
+    columns and ``a``'s rows are this rank's slice of the input; the
+    partial outputs are all-reduced (an int8 leaf sums its exact int32
+    products, see :func:`int8_dense`, and then its adapters' partial
+    terms), the bias added once."""
+    from s2v_torch.parallel.context import reduce_from_model
+
+    pairs = params.get("lora", ())
     if "q" in params:
-        y = int8_dense(x, params, params.get("bias"))
+        y = int8_dense(x, params, params.get("bias"), tp=row_parallel)
+        if row_parallel is not None and pairs:
+            extra = None
+            for a, b in pairs:
+                term = _lora_term(x, a, b, y.dtype)
+                extra = term if extra is None else extra + term
+            return y + reduce_from_model(extra, row_parallel)
     else:
-        y = F.linear(x, params["weight"], params.get("bias"))
-    for a, b in params.get("lora", ()):
-        y = y + ((x @ a.to(x.dtype)) @ b.to(x.dtype)).to(y.dtype)
+        bias = params.get("bias") if row_parallel is None else _rank0_bias(params.get("bias"), row_parallel)
+        y = F.linear(x, params["weight"], bias)
+    for a, b in pairs:
+        y = y + _lora_term(x, a, b, y.dtype)
+    if row_parallel is not None and "q" not in params:
+        y = reduce_from_model(y, row_parallel)
     return y
 
 

@@ -1,5 +1,6 @@
-"""Logical-axis mesh context and the frame shards of a ``seq`` ring
-(counterpart of ``s2v_tpu/parallel/context.py``).
+"""Logical-axis mesh context, the frame shards of a ``seq`` ring, and the
+collectives of the ``data`` and ``model`` dims (counterpart of
+``s2v_tpu/parallel/context.py``).
 
 Model code asks :func:`active_mesh` and :func:`active_axis` for the mesh and
 the name of the mesh dimension a *logical* axis (``"dp"``/``"sp"``/``"tp"``)
@@ -7,26 +8,41 @@ is mapped to; outside a :func:`mesh_context` both are None, so single-card
 paths run unchanged.  The mesh is a
 ``torch.distributed.device_mesh.DeviceMesh`` whose dims carry names, as a
 ``jax.sharding.Mesh``'s axes do; its process group must already be
-initialised.  Only the ``"sp"`` -> ``"seq"`` mapping is used.
+initialised.
 
 ``constrain`` (``with_sharding_constraint`` for GSPMD) has no PyTorch
-counterpart; the port shards by hand instead.  Under a ``seq`` ring above 1
-the DiT's video stream is split by latent frames (:class:`FrameShard`): rank
-r holds frames ``r·F_loc .. r·F_loc + F_loc - 1`` with ``F_loc = ceil(F /
-ring)``, the frames past F being zero *dummy* frames (the ring padding of
-``BandGeometry.shard``/``ring_shards``).  The text and ref streams stay whole
-on every rank: each rank computes them alike (replicas).
+counterpart; the port shards by hand instead, at every size of a dim the
+mesh names (a one-rank dim runs the same collectives, which copy):
+
+* ``seq``: the DiT's video stream split by latent frames (:class:`FrameShard`):
+  rank r holds frames ``r·F_loc .. r·F_loc + F_loc - 1`` with ``F_loc =
+  ceil(F / ring)``, the frames past F being zero *dummy* frames (the ring
+  padding of ``BandGeometry.shard``/``ring_shards``).  The text and ref
+  streams stay whole on every rank: each rank computes them alike.  (A ring
+  of 1 keeps the whole clip, as before the other dims were ported.)
+* ``data``: the batch split into equal contiguous rows (:func:`take_rows`),
+  gathered after the DiT (:func:`gather_rows_over`).
+* ``model``: megatron TP (:class:`TensorParallel`): column-parallel linears
+  take their input through :func:`copy_to_model` (identity forward, the
+  gradient all-reduced), row-parallel ones hand their partial output to
+  :func:`reduce_from_model` (all-reduced forward, identity backward); the
+  adaLN's column-sliced modulation is all-gathered (:func:`gather_columns`).
 
 Gradient contract of the sharded model: each rank's backward carries its own
-share of the loss.  The video rows of the DiT's output are gathered by
-:func:`gather_video`, whose backward keeps this rank's rows of a gradient
-that every rank holds alike, so each video row's loss is counted on one rank.
-A replicated tensor's gradient on a rank is then that rank's share, the
-shares summing to the whole, and the parameters' gradients are summed over
-the ring once (:func:`sum_grads_over_seq`).  The sequence-parallel attention
-wrappers keep to this contract: the key and value gradients of another
-rank's frames are summed over the ring and handed to their owner, those of
-the replicated text and ref stay where they are.
+share of the loss.  The rows of the DiT's output are gathered over ``seq``
+(:func:`gather_video`) and ``data``, and each gather's backward keeps this
+rank's rows of a gradient that every rank holds alike, so each row's loss
+is counted on one rank.  A tensor replicated over ``seq`` or ``data`` then
+gets this rank's share of its gradient, the shares summing to the whole, and
+parameters' gradients are summed over those dims once (:func:`sum_grads`).
+Over ``model`` the replicated activations' gradients are whole on every
+rank (the megatron operators make them so); what a rank computes from its
+own heads only (the per-head qk norms, the row-parallel bias added on
+model rank 0, the LoRA factors whose delta is sliced) is a partial sum over
+``model`` and summed there.  The sequence-parallel attention wrappers keep
+to this contract: the key and value gradients of another rank's frames are
+summed over the ring and handed to their owner, those of the replicated
+text and ref stay where they are.
 """
 
 from __future__ import annotations
@@ -74,14 +90,11 @@ def default_logical_map(mesh) -> Dict[str, Optional[str]]:
 
 def seq_group(backend: str = "sequence-parallel attention") -> Tuple[object, int, int]:
     """(process group, ring size, this rank) of the active mesh's ``sp``
-    dim.  Raises ``ValueError`` without one, and ``NotImplementedError``
-    when the mapping also names a data or model dim (ROADMAP A.9)."""
+    dim.  Raises ``ValueError`` without one."""
     mesh, axis = active_mesh(), active_axis("sp")
     if mesh is None or axis is None:
         raise ValueError(f"{backend} needs an active mesh with an 'sp' axis (S2VPipeline.set_mesh, or "
                          f"s2v_torch.parallel.mesh_context)")
-    if active_axis("dp") is not None or active_axis("tp") is not None:
-        raise NotImplementedError(f"{backend} under a data or model mesh dim is not ported yet (ROADMAP A.9)")
     group = mesh.get_group(axis)
     return group, dist.get_world_size(group), dist.get_rank(group)
 
@@ -206,8 +219,51 @@ def gather_video(x: torch.Tensor, shard: FrameShard, dim: int = 1) -> torch.Tens
     return _GatherVideo.apply(x, shard, dim)
 
 
-class _SumGrads(torch.autograd.Function):
-    """Identity forward; the backward sums the gradient over the group."""
+def sum_grads_over_seq(tree):
+    """On an active ``seq`` ring above 1: :func:`sum_grads` over the ring.
+    Elsewhere the tree as it is."""
+    return sum_grads(tree, ("sp",))
+
+
+# ---------------------------------------------------------------------------
+# the data and model dims
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class DimGroup:
+    """A mesh dim's process group, its size and this rank on it."""
+
+    group: object
+    size: int
+    rank: int
+
+
+def dim_group(logical: str) -> Optional[DimGroup]:
+    """The active mesh's dim a logical axis (``"dp"``/``"tp"``/``"sp"``) maps
+    to, or None when no mesh is active or it has no such dim."""
+    mesh, axis = active_mesh(), active_axis(logical)
+    if mesh is None or axis is None:
+        return None
+    group = mesh.get_group(axis)
+    return DimGroup(group, dist.get_world_size(group), dist.get_rank(group))
+
+
+def tensor_parallel() -> Optional[DimGroup]:
+    """The ``model`` dim of the active mesh (megatron TP), or None."""
+    return dim_group("tp")
+
+
+def data_parallel() -> Optional[DimGroup]:
+    """The ``data`` dim of the active mesh, or None."""
+    return dim_group("dp")
+
+
+def _needs_grad(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Megatron's f: identity forward, the gradient all-reduced over the group."""
 
     @staticmethod
     def forward(ctx, x, group):
@@ -221,22 +277,134 @@ class _SumGrads(torch.autograd.Function):
         return g, None
 
 
-def sum_grads_over_seq(tree):
-    """On an active ``seq`` ring above 1: every tensor of the tree that
-    requires a gradient passed through an identity whose backward sums the
-    gradient over the ring, so each rank ends with the whole gradient.
-    Elsewhere the tree as it is."""
-    if active_seq_ring() <= 1:
-        return tree
-    group, _, _ = seq_group()
+class _ReduceFromModel(torch.autograd.Function):
+    """Megatron's g: the partial sums all-reduced forward, identity backward."""
 
-    def walk(t):
+    @staticmethod
+    def forward(ctx, x, group):
+        x = x.contiguous().clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_model(x: torch.Tensor, tp: DimGroup) -> torch.Tensor:
+    """The input of a column-parallel linear (or a leaf a rank uses on its
+    own heads only): the same tensor, whose gradient, a partial sum over
+    ``model``, is all-reduced there.  Without autograd, ``x``."""
+    return _CopyToModel.apply(x, tp.group) if _needs_grad(x) else x
+
+
+def reduce_from_model(x: torch.Tensor, tp: DimGroup) -> torch.Tensor:
+    """The output of a row-parallel linear: the ranks' partial sums added."""
+    if _needs_grad(x):
+        return _ReduceFromModel.apply(x, tp.group)
+    x = x.contiguous()
+    dist.all_reduce(x, group=tp.group)
+    return x
+
+
+class _GatherLast(torch.autograd.Function):
+    """Every rank's columns concatenated; the backward keeps this rank's
+    columns of a gradient every rank holds alike (the consumer is replicated)."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return all_gather_rows(x, tp.group, tp.size, dim=x.dim() - 1).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        w = g.shape[-1] // ctx.tp.size
+        return g.narrow(-1, ctx.tp.rank * w, w).contiguous(), None
+
+
+def gather_columns(x: torch.Tensor, tp: DimGroup) -> torch.Tensor:
+    """A column-parallel output ``[..., N/tp]`` -> ``[..., N]`` on every rank."""
+    if _needs_grad(x):
+        return _GatherLast.apply(x, tp)
+    return all_gather_rows(x, tp.group, tp.size, dim=x.dim() - 1).contiguous()
+
+
+def take_rows(x: Optional[torch.Tensor], dp: DimGroup, what: str = "batch") -> Optional[torch.Tensor]:
+    """This rank's equal contiguous rows of ``x`` along dim 0, as JAX's
+    ``P("data")`` lays a batch out; a batch the dim does not divide raises."""
+    if x is None:
+        return None
+    if x.shape[0] % dp.size:
+        raise ValueError(f"a {what} of {x.shape[0]} rows does not split over a data mesh dim of {dp.size} ranks")
+    n = x.shape[0] // dp.size
+    return x.narrow(0, dp.rank * n, n)
+
+
+class _GatherBatch(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dp):
+        ctx.dp = dp
+        return all_gather_rows(x, dp.group, dp.size, dim=0).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return take_rows(g, ctx.dp).contiguous(), None
+
+
+def gather_rows_over(x: torch.Tensor, dp: DimGroup) -> torch.Tensor:
+    """Every data rank's rows in rank order; the backward keeps this rank's
+    rows of a gradient every rank holds alike."""
+    if _needs_grad(x):
+        return _GatherBatch.apply(x, dp)
+    return all_gather_rows(x, dp.group, dp.size, dim=0)
+
+
+class _SumOver(torch.autograd.Function):
+    """Identity forward; the backward sums the gradient over each group."""
+
+    @staticmethod
+    def forward(ctx, x, groups):
+        ctx.groups = groups
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        for group in ctx.groups:
+            dist.all_reduce(g, group=group)
+        return g, None
+
+
+def _replica_groups(dims) -> list:
+    """The groups of the named logical dims that hold shares: ``seq`` only
+    above one rank (its ring of 1 keeps the whole clip), ``data`` and
+    ``model`` at any size."""
+    groups = []
+    for logical in dims:
+        if logical == "sp" and active_seq_ring() <= 1:
+            continue
+        g = dim_group(logical)
+        if g is not None:
+            groups.append(g.group)
+    return groups
+
+
+def sum_grads(tree, dims=("sp", "dp"), where=None):
+    """Every tensor of the tree that requires a gradient passed through an
+    identity whose backward sums its gradient over the active mesh's
+    ``dims`` (logical names), so each rank ends with the whole gradient.
+    ``where(path)``, when given, picks the leaves (by their key path) and
+    may return other dims for a leaf.  Without such a dim the tree as it is."""
+    default = _replica_groups(dims)
+
+    def walk(t, path):
         if isinstance(t, dict):
-            return {k: walk(v) for k, v in t.items()}
+            return {k: walk(v, path + (k,)) for k, v in t.items()}
         if isinstance(t, (list, tuple)):
-            return type(t)(walk(v) for v in t)
+            return type(t)(walk(v, path + (i,)) for i, v in enumerate(t))
         if isinstance(t, torch.Tensor) and t.requires_grad and torch.is_grad_enabled():
-            return _SumGrads.apply(t, group)
+            groups = default if where is None else _replica_groups(where(path))
+            return _SumOver.apply(t, groups) if groups else t
         return t
 
-    return walk(tree)
+    return walk(tree, ())

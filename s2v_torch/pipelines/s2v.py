@@ -26,10 +26,14 @@ quantize_transformer_params(pipe.transformer_params)`` (int8 linears, see
 ``s2v_torch/ops/quant.py``) and ``pipe.set_attention("flash_int8")`` (kernel
 B3); ``generate`` runs the int8 tree unchanged.
 
-Sequence parallel: ``pipe.set_mesh("sp4")`` (or a dict of sizes, or a
-``DeviceMesh`` whose one dim is named ``seq``), one process per card, every
-rank building the same pipeline and calling ``generate`` with the same
-arguments (``torchrun``, see ``cli.py``).  On a ring above 1 ``generate``
+Across cards: ``pipe.set_mesh("dp2,tp2,sp2")`` (a spec, a dict of sizes, or
+a ``DeviceMesh`` whose dims are named ``data``, ``seq`` and ``model``), one
+process per card, every rank building the same pipeline and calling
+``generate`` with the same arguments (``torchrun``, see ``cli.py``).  A
+``model`` dim slices the DiT's params in place for megatron TP (bf16 or int8
+trees; ``parallel/sharding.py``), and with ``text_encoder_device="mesh"``
+T5's; a ``data`` dim splits the batched CFG's rows.  On a ring above 1
+``generate``
 routes ``flash`` to ``sp_allgather``, ``flash_int8`` to ``sp_int8`` and
 ``windowed`` to ``sp_windowed``, as JAX does; an explicit sequence-parallel
 backend (``sp_allgather``, ``sp_ulysses``, ``ring``, ``sp_int8``,
@@ -105,10 +109,6 @@ def _has_int8(tree) -> bool:
     return getattr(tree, "dtype", None) == torch.int8
 
 
-def _unported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
-
-
 @dataclass
 class S2VPipeline:
     """Holds parameters and configs; ``generate`` is the entry point."""
@@ -131,8 +131,11 @@ class S2VPipeline:
     # (so 480x720 decodes untiled, the exact decoder output); True / False force it
     vae_tiling: object = "auto"
     vae_slicing: bool = True
-    # a DeviceMesh with one dim "seq" (set_mesh), or None: one card
+    # a DeviceMesh with dims named data, seq and model (set_mesh), or None: one card
     mesh: Optional[object] = None
+    # T5 runs on the mesh (from_pretrained(text_encoder_device="mesh")):
+    # sliced over its model dim, replicated over the others
+    t5_on_mesh: bool = False
     # the resolved snapshot dir of from_pretrained: load_lora re-reads the
     # base weights from it, save_pretrained copies its tokenizer files
     model_dir: Optional[str] = None
@@ -159,6 +162,9 @@ class S2VPipeline:
     _runtime_lora_cache: dict = field(default_factory=dict, repr=False)
     # set once only the quarter-tile decode fits: later decodes go straight there
     _decode_lean: bool = field(default=False, repr=False)
+    # the placements of the transformer's and T5's model-dim slices (set_mesh), None while whole
+    _tp_specs: Optional[dict] = field(default=None, repr=False)
+    _t5_specs: Optional[dict] = field(default=None, repr=False)
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -188,17 +194,17 @@ class S2VPipeline:
         checkpoint into the DiT if given (``s2v_tpu/pipelines/s2v.py:199``).
 
         ``text_encoder_device``: ``"auto"``/``"device"`` put T5 on
-        ``device``; ``"host"`` keeps it on the CPU in fp32; ``"mesh"`` (T5
-        sharded over the mesh) raises ``NotImplementedError`` (ROADMAP A.9).
-        ``mesh``: a seq-only mesh (spec, dict or ``DeviceMesh``), see
-        :meth:`set_mesh`.
+        ``device``; ``"host"`` keeps it on the CPU in fp32; ``"mesh"`` puts
+        it on the mesh (sliced over its ``model`` dim, ``s2v_tpu``'s
+        ``t5_on_mesh``), which needs ``mesh``.
+        ``mesh``: a spec, dict or ``DeviceMesh``, see :meth:`set_mesh`.
         ``disentangled_modulation=True`` keeps each block's pre-merge adaLN
         linears beside the merged ones (video and text are modulated by
         the base weights, the ref stream by the adapted ones)."""
-        if text_encoder_device == "mesh":
-            raise _unported("text_encoder_device='mesh' (T5 sharded over the mesh)", "A.9")
-        if text_encoder_device not in ("auto", "device", "host"):
-            raise ValueError(f"text_encoder_device must be auto | device | host, got {text_encoder_device!r}")
+        if text_encoder_device not in ("auto", "device", "host", "mesh"):
+            raise ValueError(f"text_encoder_device must be auto | device | host | mesh, got {text_encoder_device!r}")
+        if text_encoder_device == "mesh" and mesh is None:
+            raise ValueError('text_encoder_device="mesh" needs mesh=...')
         device = resolve_device(device)
         model_dir = resolve_model_dir(model_dir, cache_dir=cache_dir)
 
@@ -237,6 +243,7 @@ class S2VPipeline:
         )
         if lora_checkpoint is not None:
             pipe._merged_lora = (os.path.realpath(lora_checkpoint), float(lora_alpha))
+        pipe.t5_on_mesh = text_encoder_device == "mesh" and t5_params is not None
         if mesh is not None:
             pipe.set_mesh(mesh)
         return pipe
@@ -290,7 +297,13 @@ class S2VPipeline:
                                                      quantize_int8=_has_int8(self.transformer_params))
         del sd
         self.transformer_params = None  # the old tree goes before the new one reaches the device
-        self.transformer_params = _to(host_params, self.device)
+        if self._tp_specs is not None:  # each rank's model-dim slices, cut on the host
+            from s2v_torch.parallel.sharding import shard_params, transformer_param_specs_like
+
+            self._tp_specs = transformer_param_specs_like(host_params)
+            self.transformer_params = shard_params(host_params, self.mesh, self._tp_specs, device=self.device)
+        else:
+            self.transformer_params = _to(host_params, self.device)
         self._merged_lora = (None if lora_checkpoint is None
                              else (os.path.realpath(lora_checkpoint), float(lora_alpha)))
 
@@ -329,12 +342,15 @@ class S2VPipeline:
         else:
             self.transformer_params[RUNTIME_LORA_KEY] = tree
 
-    def save_pretrained(self, out_dir: str, dtype: Optional[str] = None) -> str:
+    def save_pretrained(self, out_dir: str, dtype: Optional[str] = None, write: bool = True) -> Optional[str]:
         """Write the current weights (a merged adapter included) as a
         diffusers-layout snapshot that ``from_pretrained`` loads, here or in
         the JAX package (``s2v_tpu/pipelines/s2v.py:527``).  ``dtype``: the
         on-disk dtype (``"bfloat16"`` halves the 5b snapshot); None keeps
-        fp32.  Refuses while a runtime adapter is attached."""
+        fp32.  Refuses while a runtime adapter is attached.  On a mesh
+        whose model dim sliced the params every rank calls it (the slices
+        are gathered) and only the ranks with ``write`` write; elsewhere a
+        call with ``write=False`` does nothing."""
         from s2v_torch.loaders.export_hf import save_pipeline_snapshot
 
         if RUNTIME_LORA_KEY in self.transformer_params:
@@ -342,7 +358,15 @@ class S2VPipeline:
                 "save_pretrained with a runtime LoRA attached would export only the base weights; reload the "
                 "adapter with load_lora(path, mode='merge') to export fused weights, or set_runtime_lora(None) "
                 "to export the base model")
-        return save_pipeline_snapshot(self, out_dir, dtype=dtype)
+        if self._tp_specs is None:
+            return save_pipeline_snapshot(self, out_dir, dtype=dtype) if write else None
+        # every rank gathers its model-dim slices back; the caller picks who writes
+        sliced = (self.transformer_params, self.t5_params)
+        self.transformer_params, self.t5_params = self._whole_params()
+        try:
+            return save_pipeline_snapshot(self, out_dir, dtype=dtype) if write else None
+        finally:
+            self.transformer_params, self.t5_params = sliced
 
     def set_attention(self, backend: str, window: Optional[int] = None) -> None:
         """Set the attention backend (``auto`` resolves on this device) and,
@@ -353,29 +377,55 @@ class S2VPipeline:
         if backend in WINDOWED_BACKENDS and window is not None:
             self.transformer_cfg = replace(self.transformer_cfg, attention_window_frames=window)
 
-    def set_mesh(self, mesh) -> None:
-        """Attach a mesh: a spec (``"sp4"``), a dict of sizes
-        (``{"seq": 4}``), a ``torch.distributed.device_mesh.DeviceMesh``
-        whose one dim is named ``seq``, or None (back to one card)
+    def set_mesh(self, mesh, shard_now: bool = True) -> None:
+        """Attach a mesh: a spec (``"dp2,tp4"``, ``"sp4"``), a dict of sizes
+        (``{"data": 2, "model": 4}``), a
+        ``torch.distributed.device_mesh.DeviceMesh`` whose dims are named
+        ``data``, ``seq`` and ``model``, or None (back to one card)
         (``s2v_tpu/pipelines/s2v.py:78-125``).  A spec or dict makes the mesh
         over the default process group (``parallel/sharding.py::make_mesh``,
-        which starts the group when there is none).  The params stay whole
-        on every rank.  A ``data`` or ``model`` dim raises
-        ``NotImplementedError``: TP/FSDP and data parallelism are not ported
-        (ROADMAP A.9)."""
+        which starts the group when there is none).
+
+        With a ``model`` dim (of any size) the transformer params, bf16 or
+        int8, are sliced in place for megatron TP, and T5's too when it runs
+        on the mesh; every other leaf, and an attached runtime factor tree,
+        stays whole on every rank.  ``shard_now=False`` attaches the mesh and
+        leaves the params as they are (the trainer's ``--fsdp_base`` places
+        them itself).  Slices of an earlier mesh are gathered back first, so
+        ``set_mesh(None)`` restores the whole tree.  The runtime-LoRA cache
+        goes stale and is cleared."""
         if isinstance(mesh, (str, dict)):
             from s2v_torch.parallel.sharding import make_mesh
 
             mesh = make_mesh(mesh, self.device.type)
-        if mesh is not None:
-            names = tuple(mesh.mesh_dim_names or ())
-            if names != ("seq",):
-                raise NotImplementedError(
-                    f"set_mesh takes a mesh with one dim named 'seq'; got dims {names} (data/model parallelism "
-                    f"is not ported yet, ROADMAP A.9)")
-            if mesh.device_type != self.device.type:
-                raise ValueError(f"the mesh is on {mesh.device_type}, the pipeline on {self.device.type}")
+        if mesh is not None and mesh.device_type != self.device.type:
+            raise ValueError(f"the mesh is on {mesh.device_type}, the pipeline on {self.device.type}")
+        if self._tp_specs is not None:
+            self.transformer_params, self.t5_params = self._whole_params()
+            self._tp_specs = self._t5_specs = None
+            self._prompt_embed_cache.clear()
         self.mesh = mesh
+        self._runtime_lora_cache.clear()
+        if mesh is None or not shard_now or "model" not in (mesh.mesh_dim_names or ()):
+            return
+        from s2v_torch.parallel.sharding import shard_params, t5_param_specs, transformer_param_specs_like
+
+        self._tp_specs = transformer_param_specs_like(self.transformer_params)
+        self.transformer_params = shard_params(self.transformer_params, mesh, self._tp_specs)
+        if self.t5_on_mesh and self.t5_params is not None:
+            self._t5_specs = t5_param_specs(self.t5_params)
+            self.t5_params = shard_params(self.t5_params, mesh, self._t5_specs)
+            self._prompt_embed_cache.clear()
+
+    def _whole_params(self):
+        """(transformer, T5) params gathered back from the mesh's model-dim slices."""
+        from s2v_torch.parallel.sharding import gather_params
+
+        transformer = gather_params(self.transformer_params, self.mesh, self._tp_specs)
+        t5 = self.t5_params
+        if self._t5_specs is not None:
+            t5 = gather_params(t5, self.mesh, self._t5_specs)
+        return transformer, t5
 
     def _mesh_ctx(self):
         """The mesh context the denoise loop runs under (``s2v_tpu/pipelines/s2v.py:127-134``)."""
@@ -384,10 +434,13 @@ class S2VPipeline:
         return mesh_context(self.mesh, default_logical_map(self.mesh))
 
     def _seq_ring(self) -> int:
-        """Ranks of the mesh's ``seq`` dim (1 without a mesh) (``:136-140``)."""
-        if self.mesh is None:
-            return 1
-        return self.mesh.size(list(self.mesh.mesh_dim_names).index("seq"))
+        """Ranks of the mesh's ``seq`` dim (1 without one) (``:136-140``)."""
+        return self._mesh_size("seq")
+
+    def _mesh_size(self, dim: str) -> int:
+        from s2v_torch.parallel.sharding import mesh_sizes
+
+        return mesh_sizes(self.mesh).get(dim, 1)
 
     def _resolve_tiling(self, height_px: int, width_px: int) -> bool:
         if self.vae_tiling == "auto":
@@ -454,7 +507,14 @@ class S2VPipeline:
         if missing:
             t5_device = torch.device("cpu") if self.t5_on_host else self.device
             ids = torch.as_tensor(self.tokenizer.encode(missing, max_length), device=t5_device)
-            emb = t5_encode(self.t5_params, self.t5_cfg, ids).to(self.device)
+            if self.t5_on_mesh and self.mesh is not None:
+                # on the mesh: sliced over its model dim (t5_param_specs), one all-reduce per o and wo
+                from s2v_torch.parallel.context import tensor_parallel
+
+                with self._mesh_ctx():
+                    emb = t5_encode(self.t5_params, self.t5_cfg, ids, tp=tensor_parallel())
+            else:
+                emb = t5_encode(self.t5_params, self.t5_cfg, ids).to(self.device)
             needed = {(t, max_length) for t in texts}
             for key in list(self._prompt_embed_cache):
                 if len(self._prompt_embed_cache) + len(missing) <= PROMPT_CACHE_SIZE:
@@ -688,7 +748,7 @@ class S2VPipeline:
         num_inference_steps, guidance_scale = run.num_inference_steps, run.guidance_scale
         cfg = self.transformer_cfg
         backend, _ = route_seq_backend(resolve_attention_backend(self.attention_backend, self.device),
-                                       cfg.num_attention_heads, self._seq_ring())
+                                       cfg.num_attention_heads, self._seq_ring(), self._mesh_size("model"))
 
         self.check_frames(num_frames)
         sc_total = self.vae_cfg.spatial_compression_ratio * cfg.patch_size

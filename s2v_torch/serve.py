@@ -15,11 +15,11 @@ for ``"status": "ok"`` and 1 otherwise.
     python -m s2v_torch.serve --socket /tmp/s2v_torch.sock \\
         --request '{"op": "generate", "prompt": "...", "ref_img_path": "...", "output_path": "out.mp4"}'
 
-Across cards: ``torchrun --nproc_per_node N -m s2v_torch.serve --mesh sp<N>
-...`` loads the pipeline on each card; rank 0 owns the socket and hands
-every request to the other ranks, which run it with it (see
-``serving/daemon.py``).  A ``data`` or ``model`` mesh dim and
-``--text_encoder_device mesh`` raise ``NotImplementedError`` (ROADMAP A.9).
+Across cards: ``torchrun --nproc_per_node N -m s2v_torch.serve --mesh
+dp<a>,tp<b>,sp<c> ...`` loads the pipeline on each card (the ``model`` dim's
+slices of it, as the CLI does); rank 0 owns the socket and hands every
+request to the other ranks, which run it with it (see
+``serving/daemon.py``).
 """
 
 from __future__ import annotations
@@ -56,10 +56,9 @@ def get_args(argv=None):
                    help="half-width (latent frames) for --attention_backend windowed")
     p.add_argument("--quantize_int8", action="store_true", default=False)
     p.add_argument("--text_encoder_device", type=str, default="auto", choices=["auto", "device", "host", "mesh"],
-                   help="host keeps T5 on the CPU in fp32; mesh is not ported yet (ROADMAP A.9)")
+                   help="host keeps T5 on the CPU in fp32; mesh slices it over --mesh's model dim")
     p.add_argument("--mesh", type=str, default=None,
-                   help="seq mesh over the processes torchrun started, e.g. sp4; data and model dims are not "
-                        "ported yet (ROADMAP A.9)")
+                   help="mesh over the processes torchrun started, one per card, e.g. dp2,tp2 or sp4")
     p.add_argument("--enable_tiling", type=_tiling_policy, default="auto")
     p.add_argument("--enable_slicing", type=_str2bool, default=True)
     p.add_argument("--fps", type=int, default=8)

@@ -28,7 +28,7 @@ request that raises gets an error response and the daemon keeps serving.
 Requests are served in order on one worker (one card); batching across
 prompts is expressed inside a request (num_videos_per_prompt, prompt lists).
 
-Across cards (``serve.py --mesh sp<N>`` under ``torchrun``): every rank
+Across cards (``serve.py --mesh dp<a>,tp<b>,sp<c>`` under ``torchrun``): every rank
 holds the pipeline and runs every request, since each generate runs on all
 of them.  Rank 0 owns the socket: it hands each request (a ``load_lora``
 swap and ``shutdown`` too) to the other ranks with ``broadcast_object_list``
@@ -90,7 +90,7 @@ class ServingDaemon:
     def __init__(self, pipe, socket_path: str, fps: int = 8, lora_checkpoint: Optional[str] = None,
                  lora_mode: str = "merge", lora_alpha: float = 64.0, control_group=None):
         self.pipe = pipe
-        # the ranks of a seq mesh, to which rank 0 hands each request (None: one process)
+        # the ranks of a mesh, to which rank 0 hands each request (None: one process)
         self.control_group = control_group
         self.is_main = control_group is None or dist.get_rank(control_group) == 0
         self.socket_path = socket_path

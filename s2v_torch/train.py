@@ -2,7 +2,7 @@
 (``s2v_tpu/train.py``): LoRA adapters on the frozen DiT (QLoRA over an int8
 base with ``--quantize_base``), or every transformer parameter
 (``--train_mode full``, fp32 master weights, an optional EMA), on one CUDA
-card:
+card or across cards:
 
     python -m s2v_torch.train \\
         --pretrained_model_name_or_path /path/to/CogVideoX-5b-snapshot \\
@@ -39,8 +39,24 @@ Where the port differs from the JAX CLI, by design:
   CPU, ``pallas`` is ``flash``, ``xla`` is ``plain``), and
   ``--compilation_cache_dir`` is accepted and ignored.
 
-``--mesh``, ``--fsdp_base`` and the sequence-parallel backends raise
-``NotImplementedError`` naming ROADMAP A.9.
+Across cards: ``torchrun --nproc_per_node N -m s2v_torch.train --mesh
+dp<a>,tp<b>,sp<c> ...`` (a·b·c = N, one process per card; a one-rank mesh
+runs without ``torchrun``), as JAX's ``--mesh`` (``:218-290, 484-525``):
+
+* ``data`` splits every batch (``--train_batch_size`` must divide over it);
+  in full mode it also shards the params, gradients, optimizer state and
+  EMA (FSDP, ``training/full.py``), and in LoRA mode with ``--fsdp_base``
+  (``data`` ≥ 2, no ``model`` above 1) the frozen base;
+* ``model`` runs megatron TP on the sliced base (LoRA) or params (full);
+* ``seq`` shards the video frames; ``pallas`` becomes ``sp_allgather`` and
+  ``windowed`` ``sp_windowed`` on a ring above 1, as in JAX.
+
+Every rank loads and encodes the same batches and draws the same noise;
+rank 0 alone logs, writes the adapters, the snapshot and the validation
+clips.  The train state is written sharded (``loaders/train_state.py``: one
+file per rank) and resumes on a mesh of the same sizes only.  Validation in
+full mode gathers the master weights (or the EMA) into a whole copy in the
+model's dtype and samples on one card's path (JAX's ``_val_params``).
 """
 
 from __future__ import annotations
@@ -67,7 +83,7 @@ def get_args(argv=None):
     p.add_argument("--output_dir", type=str, default="lora_out")
     p.add_argument("--train_mode", type=str, default="lora", choices=["lora", "full"],
                    help="lora = adapters on the 9 reference target families; full = every transformer param, "
-                        "fp32 master weights (one card; FSDP over a mesh is ROADMAP A.9)")
+                        "fp32 master weights (FSDP over --mesh's data dim)")
     p.add_argument("--compute_dtype", type=str, default="auto", choices=["auto", "none", "bfloat16"],
                    help="full mode forward-pass dtype (master weights stay fp32); auto = bfloat16 on the card, "
                         "none on the CPU")
@@ -103,8 +119,7 @@ def get_args(argv=None):
                         "runs skip the encode pass; posterior noise stays fresh per epoch")
     p.add_argument("--attention_backend", type=str, default="auto", choices=TRAIN_BACKEND_CHOICES,
                    help="auto = the flash kernels on CUDA, plain attention on the CPU; pallas = flash kernels "
-                        "both ways; windowed = banded sliding-window kernels both ways; ring and sp_* need a "
-                        "mesh (ROADMAP A.9)")
+                        "both ways; windowed = banded sliding-window kernels both ways; ring and sp_* need --mesh")
     p.add_argument("--remat", type=str, default="full",
                    help="block rematerialization: full = recompute each block in the backward, dots = save the "
                         "linears' outputs and recompute the rest, seg / seg<N> = nested checkpoints over N "
@@ -129,9 +144,12 @@ def get_args(argv=None):
     p.add_argument("--resume_from_checkpoint", type=str, default=None,
                    help="train-state dir written by --checkpointing_steps (adapters or params + optimizer state "
                         "+ step)")
-    p.add_argument("--mesh", type=str, default=None, help="multi-card training mesh: not ported yet (ROADMAP A.9)")
+    p.add_argument("--mesh", type=str, default=None,
+                   help="mesh over the processes torchrun started, one per card, e.g. dp4 or dp2,tp2 (data: the "
+                        "batch and FSDP, model: megatron TP, seq: video frames)")
     p.add_argument("--fsdp_base", action="store_true", default=False,
-                   help="shard the frozen base over a data mesh: not ported yet (ROADMAP A.9)")
+                   help="LoRA: shard the frozen base 1/N over the mesh's data dim (needs data >= 2, no model dim "
+                        "above 1)")
     p.add_argument("--compilation_cache_dir", type=str, default="auto",
                    help="accepted for the JAX CLI's command lines and ignored: the port compiles no XLA programs")
     p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
@@ -172,17 +190,39 @@ _RESUME_MISMATCH = (
 )
 
 
-def check_ported(args) -> None:
-    """Raise ``NotImplementedError`` naming ROADMAP A.9 for the multi-card flags."""
-    unported = [
-        (args.mesh is not None, "--mesh"),
-        (args.fsdp_base, "--fsdp_base"),
-        # the sequence-parallel backends need a mesh, which the trainer does not take yet
-        (args.attention_backend in SEQ_BACKEND_NAMES, f"--attention_backend {args.attention_backend}"),
-    ]
-    for hit, what in unported:
-        if hit:
-            raise NotImplementedError(f"{what} is not ported yet (ROADMAP A.9): the port trains on one card")
+def check_mesh_args(args) -> dict:
+    """The ``--mesh`` dim sizes (empty without one), after JAX's refusals:
+    the batch must split over ``data``, ``--fsdp_base`` needs ``data`` ≥ 2
+    and no ``model`` dim above 1 (``s2v_tpu/train.py:250-254, 505-509``);
+    and, as the port adds, a sequence-parallel backend needs a mesh and
+    ``--fsdp_base`` a LoRA run on one (JAX ignores it there)."""
+    from s2v_torch.parallel.sharding import parse_mesh_spec
+    from s2v_torch.training.data import data_rows
+
+    sizes = parse_mesh_spec(args.mesh) if args.mesh is not None else {}
+    if args.attention_backend in SEQ_BACKEND_NAMES and not sizes:
+        raise SystemExit(f"--attention_backend {args.attention_backend} needs --mesh (sp1 on one card)")
+    if "data" in sizes:
+        try:
+            data_rows(args.train_batch_size, sizes["data"])
+        except ValueError as e:
+            raise SystemExit(str(e)) from e
+    if args.fsdp_base:
+        if args.train_mode != "lora":
+            raise SystemExit("--fsdp_base is a LoRA-mode option (full mode shards every parameter over data)")
+        if sizes.get("model", 1) > 1:
+            raise SystemExit("--fsdp_base conflicts with a TP 'model' axis (base params are already sharded)")
+        if sizes.get("data", 1) < 2:
+            raise SystemExit("--fsdp_base needs a data mesh axis >= 2")
+    return sizes
+
+
+def _reroute_for_seq(args, sizes: dict) -> None:
+    """On a ring above 1 the flash kernels become ``sp_allgather`` and the
+    banded ones ``sp_windowed``, as JAX reroutes (``s2v_tpu/train.py:240-245``)."""
+    if sizes.get("seq", 1) > 1:
+        args.attention_backend = {"flash": "sp_allgather", "windowed": "sp_windowed"}.get(args.attention_backend,
+                                                                                          args.attention_backend)
 
 
 def _micro_generator(args, micro: int, device):
@@ -213,17 +253,20 @@ def _batches(args, pipe, dataset, epoch, cache):
         yield _add_positions(batch, pipe, args)
 
 
-def _validate(args, pipe, dataset, step, log, params_override=None, cfg_override=None):
+def _validate(args, pipe, dataset, step, log, params_override=None, cfg_override=None, write=True):
     """Validation sampling (the reference template's ``log_validation``):
     ``--num_validation_videos`` clips per validation prompt with the current
     weights, written under ``output_dir/samples/``.  The pipeline's weights
-    and config are swapped for the call and restored after."""
+    and config are swapped for the call and restored after.  On a mesh
+    every rank samples (the generate is collective) and the rank with
+    ``write`` writes."""
     from s2v_torch.utils.video import export_to_video, to_uint8_frames
 
     if not args.validation_prompt:
         return
     outdir = os.path.join(args.output_dir, "samples")
-    os.makedirs(outdir, exist_ok=True)
+    if write:
+        os.makedirs(outdir, exist_ok=True)
     ref = args.validation_ref_img
     if ref is None:
         ref = dataset[0]["ref_image"]  # [H, W, 3] in [-1, 1]
@@ -242,10 +285,20 @@ def _validate(args, pipe, dataset, step, log, params_override=None, cfg_override
                                        seed=args.seed + vi, output_type="np")
                 clip = frames[0] if frames.ndim == 5 else frames
                 path = os.path.join(outdir, f"step{step}_p{pi}_v{vi}.mp4")
-                export_to_video(to_uint8_frames(clip), path, fps=8)
-                log.info("validation step %d: %s", step, path)
+                if write:
+                    export_to_video(to_uint8_frames(clip), path, fps=8)
+                    log.info("validation step %d: %s", step, path)
     finally:
         pipe.transformer_params, pipe.transformer_cfg = prev_params, prev_cfg
+
+
+def _mesh_ctx(mesh):
+    """The context a train step runs under: the mesh's, or none."""
+    from contextlib import nullcontext
+
+    from s2v_torch.parallel.context import default_logical_map, mesh_context
+
+    return nullcontext() if mesh is None else mesh_context(mesh, default_logical_map(mesh))
 
 
 def _compute_dtype(args, device):
@@ -256,50 +309,66 @@ def _compute_dtype(args, device):
     return None
 
 
-def _restore(args, target):
-    """The train state at ``--resume_from_checkpoint`` in ``target``'s tree,
-    or SystemExit with JAX's resume-mismatch text."""
+def _restore(args, target, mesh=None):
+    """The train state at ``--resume_from_checkpoint`` in ``target``'s tree
+    (this rank's shards on a mesh), or SystemExit with JAX's
+    resume-mismatch text."""
     from s2v_torch.loaders.train_state import load_train_state
 
     path = os.path.abspath(os.path.expanduser(args.resume_from_checkpoint))
     try:
-        return load_train_state(path, target)
+        return load_train_state(path, target, mesh=mesh)
     except (ValueError, OSError, KeyError) as e:
         raise SystemExit(_RESUME_MISMATCH.format(path=args.resume_from_checkpoint, err=e)) from e
 
 
-def _run_full(args, pipe, dataset, opt_spec, log):
-    """Full-parameter fine-tuning on one card: fp32 master weights (with a
-    bf16 forward under ``--compute_dtype``), an optional EMA, a resumable
-    train state, and the final weights (the EMA when kept) exported as an
-    HF-layout snapshot."""
+def _run_full(args, pipe, dataset, opt_spec, log, mesh=None, main=True):
+    """Full-parameter fine-tuning: fp32 master weights (with a bf16 forward
+    under ``--compute_dtype``), an optional EMA, a resumable train state,
+    and the final weights (the EMA when kept) exported as an HF-layout
+    snapshot.  On a mesh with a ``data`` or ``model`` dim the state is
+    sharded (FSDP, megatron TP; ``training/full.py``) and the whole tree
+    never reaches one card: the pipeline's inference copy moves to the
+    host, and each rank casts and places its shards from there."""
     import torch
 
     from s2v_torch.loaders.train_state import save_train_state
-    from s2v_torch.training.full import cast_floating, make_full_train_step
+    from s2v_torch.parallel.sharding import gather_params, mesh_sizes
+    from s2v_torch.pipelines.s2v import _to
+    from s2v_torch.training.full import cast_floating, make_full_train_step, state_placements
 
+    sharded = bool({"data", "model"} & set(mesh_sizes(mesh)))
     prepare, init_opt, train_step = make_full_train_step(
         pipe.transformer_cfg, pipe.scheduler_cfg, opt_spec, attention_backend=args.attention_backend,
-        compute_dtype=_compute_dtype(args, pipe.device), ema_decay=args.ema_decay, remat=_remat_mode(args.remat))
+        compute_dtype=_compute_dtype(args, pipe.device), ema_decay=args.ema_decay, remat=_remat_mode(args.remat),
+        mesh=mesh if sharded else None)
+    if sharded:
+        pipe.transformer_params = _to(pipe.transformer_params, torch.device("cpu"))
     params = prepare(pipe.transformer_params, dtype=torch.float32)
     opt_state = init_opt(params)
+    placements = state_placements(prepare.specs, args.ema_decay > 0) if sharded else None
 
-    def sample_tree():
-        """The weights to sample from: the EMA when kept."""
-        return opt_state[1] if args.ema_decay > 0 else params
+    def sample_tree(dtype=None):
+        """The weights to sample from, the EMA when kept; whole (gathered
+        from every rank's shards) on a sharded mesh, cast to ``dtype``."""
+        tree = opt_state[1] if args.ema_decay > 0 else params
+        if not sharded:
+            return tree if dtype is None else cast_floating(tree, dtype)
+        return gather_params(tree, mesh, prepare.specs, dtype=dtype)
 
     def save(step, final=False):
         state_dir = os.path.join(os.path.abspath(args.output_dir), f"train_state_{step}")
-        save_train_state({"params": params, "opt_state": opt_state, "step": step}, state_dir)
+        save_train_state({"params": params, "opt_state": opt_state, "step": step}, state_dir,
+                         mesh=mesh if sharded else None, placements=placements)
         log.info("step %d: saved %s", step, state_dir)
         if final:
             pipe.transformer_params = sample_tree()
-            out = pipe.save_pretrained(os.path.join(args.output_dir, "snapshot"), dtype="bfloat16")
+            out = pipe.save_pretrained(os.path.join(args.output_dir, "snapshot"), dtype="bfloat16", write=main)
             log.info("exported fine-tuned pipeline snapshot: %s", out)
 
     step = micro = epoch = skip_batches = 0
     if args.resume_from_checkpoint:
-        state = _restore(args, {"params": params, "opt_state": opt_state, "step": 0})
+        state = _restore(args, {"params": params, "opt_state": opt_state, "step": 0}, mesh if sharded else None)
         params, opt_state, step = state["params"], state["opt_state"], state["step"]
         micro, epoch, skip_batches = _resume_position(args, step, dataset)
         log.info("resumed from %s at step %d (epoch %d, +%d batches)", args.resume_from_checkpoint, step, epoch,
@@ -313,8 +382,9 @@ def _run_full(args, pipe, dataset, opt_spec, log):
             if skip_batches:
                 skip_batches -= 1
                 continue
-            params, opt_state, loss = train_step(params, opt_state, batch,
-                                                 _micro_generator(args, micro, pipe.device))
+            with _mesh_ctx(mesh):
+                params, opt_state, loss = train_step(params, opt_state, batch,
+                                                     _micro_generator(args, micro, pipe.device))
             micro += 1
             if micro % args.gradient_accumulation_steps:
                 continue
@@ -323,8 +393,10 @@ def _run_full(args, pipe, dataset, opt_spec, log):
                 log.info("step %d/%d loss %.4f (%.2f s/step)", step, args.max_train_steps, float(loss),
                          (time.perf_counter() - t0) / (step - start_step))
             if args.validation_steps and step % args.validation_steps == 0:
-                _validate(args, pipe, dataset, step, log,
-                          params_override=cast_floating(sample_tree(), pipe.transformer_cfg.dtype))
+                whole = sample_tree(pipe.transformer_cfg.dtype)  # every rank gathers
+                if main:  # the whole copy samples on one card's path
+                    _validate(args, pipe, dataset, step, log, params_override=whole)
+                del whole
             if step % args.checkpointing_steps == 0 or step >= args.max_train_steps:
                 save(step, final=step >= args.max_train_steps)
             if step >= args.max_train_steps:
@@ -335,8 +407,20 @@ def _run_full(args, pipe, dataset, opt_spec, log):
 
 def main(args=None):
     args = args if isinstance(args, argparse.Namespace) else get_args(args)
-    check_ported(args)
+    sizes = check_mesh_args(args)
     os.makedirs(args.output_dir, exist_ok=True)
+
+    from s2v_torch.parallel.sharding import entry_point_mesh
+    from s2v_torch.utils.device import resolve_device
+
+    device = resolve_device(args.device)
+    with entry_point_mesh(args.mesh, device.type) as mesh:
+        return _train(args, device, mesh, sizes)
+
+
+def _train(args, device, mesh, sizes):
+    """The run of :func:`main` on ``device`` (and ``mesh``, None without one)."""
+    import logging
 
     import torch
 
@@ -352,12 +436,15 @@ def main(args=None):
         make_lora_train_step,
         merge_lora_params,
     )
+    from s2v_torch.parallel.multihost import is_main_process
+    from s2v_torch.parallel.sharding import fsdp_param_specs, gather_params, shard_params
     from s2v_torch.training.optim import OptimizerSpec
-    from s2v_torch.utils.device import resolve_device
     from s2v_torch.utils.logging import get_logger
 
     log = get_logger("s2v_torch.train")
-    device = resolve_device(args.device)
+    main_rank = is_main_process()
+    if not main_rank:
+        log.setLevel(logging.WARNING)  # rank 0 alone logs
     args.attention_backend = BACKEND_NAMES[args.attention_backend]
     if not (0.0 <= args.ema_decay < 1.0):
         raise SystemExit(f"--ema_decay {args.ema_decay} must be in [0, 1): 1.0 would freeze the EMA at the initial "
@@ -373,6 +460,7 @@ def main(args=None):
                                        device=device)
     pipe.set_attention(args.attention_backend, args.attention_window)
     args.attention_backend = pipe.attention_backend  # auto, resolved on the device
+    _reroute_for_seq(args, sizes)
     tc = pipe.vae_cfg.temporal_compression_ratio
     if (args.max_num_frames - 1) % tc:
         # the template trims clips so (F - 1) divides the VAE's temporal
@@ -392,21 +480,32 @@ def main(args=None):
         moment_dtype=args.moment_dtype,
     )
     if args.train_mode == "full":
-        return _run_full(args, pipe, dataset, opt_spec, log)
+        return _run_full(args, pipe, dataset, opt_spec, log, mesh, main_rank)
 
     spec = LoRASpec(rank=args.rank, alpha=args.lora_alpha, disentangled=args.disentangled_modulation)
+    # the adapters' shapes come from the whole base, before any slicing
     lora = init_lora_params(torch.Generator(device=device).manual_seed(args.seed), pipe.transformer_params, spec)
+    base_specs = None
+    if mesh is not None and args.fsdp_base:
+        # the frozen base 1/N over data, placed once (s2v_tpu/train.py:510-522)
+        pipe.set_mesh(mesh, shard_now=False)
+        base_specs = fsdp_param_specs(pipe.transformer_params, sizes["data"])
+        pipe.transformer_params = shard_params(pipe.transformer_params, mesh, base_specs)
+    elif mesh is not None:
+        pipe.set_mesh(mesh)  # slices the base over a model dim
     init_opt, train_step = make_lora_train_step(
         pipe.transformer_params, pipe.transformer_cfg, spec, pipe.scheduler_cfg,
-        attention_backend=args.attention_backend, optimizer_spec=opt_spec, remat=_remat_mode(args.remat))
+        attention_backend=args.attention_backend, optimizer_spec=opt_spec, remat=_remat_mode(args.remat),
+        base_specs=base_specs)
     opt_state = init_opt(lora)
 
     def save(step):
         # the reference-format adapters (what inference loads), then the resumable state
         path = os.path.join(args.output_dir, LORA_FILE)
-        save_safetensors(export_lora_to_reference_format(lora, spec, pipe.transformer_cfg), path)
+        if main_rank:
+            save_safetensors(export_lora_to_reference_format(lora, spec, pipe.transformer_cfg), path)
         state_dir = os.path.join(os.path.abspath(args.output_dir), f"train_state_{step}")
-        save_train_state({"lora": lora, "opt_state": opt_state, "step": step}, state_dir)
+        save_train_state({"lora": lora, "opt_state": opt_state, "step": step}, state_dir, mesh=mesh)
         log.info("step %d: saved %s (+ %s)", step, path, state_dir)
 
     def validation_override():
@@ -416,17 +515,20 @@ def main(args=None):
         from s2v_torch.models.transformer import RUNTIME_LORA_KEY
 
         cfg_ov = replace(pipe.transformer_cfg, disentangled_modulation=True) if spec.disentangled else None
-        with torch.no_grad():
+        base = pipe.transformer_params
+        with torch.no_grad(), pipe._mesh_ctx():  # a model dim's merge slices the deltas
+            if base_specs is not None:
+                base = gather_params(base, mesh, base_specs)  # whole for the sampling
             if args.quantize_base:
-                ov = dict(pipe.transformer_params)
+                ov = dict(base)
                 ov[RUNTIME_LORA_KEY] = _runtime_tree(lora, spec, pipe.transformer_cfg.dtype)
             else:
-                ov = merge_lora_params(pipe.transformer_params, lora, spec)
+                ov = merge_lora_params(base, lora, spec)
         return ov, cfg_ov
 
     step = micro = epoch = skip_batches = 0
     if args.resume_from_checkpoint:
-        state = _restore(args, {"lora": lora, "opt_state": opt_state, "step": 0})
+        state = _restore(args, {"lora": lora, "opt_state": opt_state, "step": 0}, mesh)
         lora, opt_state, step = state["lora"], state["opt_state"], state["step"]
         micro, epoch, skip_batches = _resume_position(args, step, dataset)
         log.info("resumed from %s at step %d (epoch %d, +%d batches)", args.resume_from_checkpoint, step, epoch,
@@ -442,7 +544,8 @@ def main(args=None):
             if skip_batches:
                 skip_batches -= 1
                 continue
-            lora, opt_state, loss = train_step(lora, opt_state, batch, _micro_generator(args, micro, device))
+            with pipe._mesh_ctx():
+                lora, opt_state, loss = train_step(lora, opt_state, batch, _micro_generator(args, micro, device))
             micro += 1
             if micro % args.gradient_accumulation_steps:
                 continue  # the optimizer update lands on the k-th micro-step
@@ -452,7 +555,7 @@ def main(args=None):
                          (time.perf_counter() - t0) / (step - start_step))
             if args.validation_steps and step % args.validation_steps == 0:
                 ov, cfg_ov = validation_override()
-                _validate(args, pipe, dataset, step, log, params_override=ov, cfg_override=cfg_ov)
+                _validate(args, pipe, dataset, step, log, params_override=ov, cfg_override=cfg_ov, write=main_rank)
                 del ov
             if step % args.checkpointing_steps == 0 or step >= args.max_train_steps:
                 save(step)

@@ -223,6 +223,18 @@ def latent_batches(
         }
 
 
+def data_rows(batch_size: int, data: int) -> int:
+    """The rows each rank of a ``data`` mesh dim of ``data`` ranks takes of
+    every batch: the DiT keeps rank r's rows ``[r·n, (r+1)·n)``, the layout
+    of JAX's ``P("data")`` batch (``models/transformer.py``); every rank
+    loads the whole batch and draws its noise, so the step equals the
+    unsharded one.  A batch the dim does not divide raises with the JAX
+    trainer's text (``s2v_tpu/train.py:250-254``)."""
+    if batch_size % data:
+        raise ValueError(f"--train_batch_size {batch_size} must be divisible by the data mesh axis ({data})")
+    return batch_size // data
+
+
 def prefetch_batches(it: Iterator[dict], depth: int = 2) -> Iterator[dict]:
     """Run ``it`` on a background thread with a bounded queue, so the host
     work of batch i+1 overlaps the train step on batch i.  The producer's

@@ -1,12 +1,19 @@
-"""The v-prediction objective and full fine-tuning on one card (counterpart
-of ``s2v_tpu/training/full.py``: ``vpred_loss``, ``make_full_train_step``).
+"""The v-prediction objective and full fine-tuning (counterpart of
+``s2v_tpu/training/full.py``: ``vpred_loss``, ``make_full_train_step``,
+with its FSDP).
 
 Every transformer parameter trains: fp32 master weights, an optional bf16
 (or fp16) forward through ``compute_dtype``, the trainers' optimizer, and an
-optional EMA of the weights.  The JAX package's FSDP and megatron specs
-(``fsdp_param_specs``, ``combined_param_specs``) shard over a ``data`` or
-``model`` mesh dim, which is ROADMAP A.9: a mesh with such a dim above 1
-raises.
+optional EMA of the weights.  On a mesh with a ``data`` or ``model`` dim (of
+any size) the tree is sharded as JAX's specs shard it
+(``parallel/sharding.py``: ``fsdp_param_specs`` over ``data``,
+megatron slices over ``model``, ``combined_param_specs`` for both): each
+rank keeps only its shards of the params, gradients, optimizer state and
+EMA; each block's shards are all-gathered over ``data`` in the compute dtype
+just before the block runs (again in the backward under remat), and the
+gradient goes back to its owner's shard.  The clip norm and prodigy's
+d-estimate add every rank's shards (``_global_sum``), so every rank steps
+alike.
 """
 
 from __future__ import annotations
@@ -19,7 +26,17 @@ import torch
 from s2v_torch.config import SchedulerConfig, TransformerConfig
 from s2v_torch.models.transformer import transformer_forward
 from s2v_torch.ops.attention import resolve_attention_backend
-from s2v_torch.parallel.context import sum_grads_over_seq
+from s2v_torch.parallel.context import data_parallel, default_logical_map, mesh_context, sum_grads, sum_grads_over_seq
+from s2v_torch.parallel.sharding import (
+    FSDP_MIN_SIZE,
+    ParamGather,
+    combined_param_specs,
+    fsdp_param_specs,
+    mesh_sizes,
+    shard_params,
+    spec_at,
+    transformer_param_specs_like,
+)
 from s2v_torch.schedulers.ddim import add_noise, compute_alphas_cumprod, get_velocity
 
 
@@ -45,6 +62,7 @@ def vpred_loss(
     compute_dtype: Optional[torch.dtype] = None,
     timesteps: Optional[torch.Tensor] = None,
     noise: Optional[torch.Tensor] = None,
+    param_gather=None,
 ) -> torch.Tensor:
     """v-prediction MSE on noised video latents (the CogVideoX objective).
 
@@ -66,7 +84,11 @@ def vpred_loss(
     every rank computes its video frames and the loss over the gathered
     prediction, and a param's gradient on a rank is that rank's share: the
     caller sums them over the ring (``parallel/context.py``
-    ``sum_grads_over_seq``)."""
+    ``sum_grads_over_seq``).  So on a ``data`` dim: every rank draws the
+    whole batch's timesteps and noise, runs its rows, and computes the loss
+    over the gathered prediction, the mean over the global batch; the
+    gradients are shares summed over ``data``.  ``param_gather``: FSDP's
+    per-block gather (``transformer_forward``)."""
     if compute_dtype is not None:
         if compute_dtype != cfg.dtype:
             raise ValueError(f"compute_dtype {compute_dtype} must be the model config's dtype {cfg.dtype}")
@@ -84,7 +106,7 @@ def vpred_loss(
     pred = transformer_forward(
         params, cfg, noisy, batch["ref_latents"], batch["text_embeds"], timesteps,
         batch.get("rope_cos"), batch.get("rope_sin"), attention_backend=attention_backend, remat=remat,
-        pos_embedding=batch.get("pos_embedding"),
+        pos_embedding=batch.get("pos_embedding"), param_gather=param_gather,
     )
     return torch.mean(torch.square(pred.float() - target.float()))
 
@@ -113,13 +135,81 @@ def _copy_floating(tree, dtype: Optional[torch.dtype] = None):
     return tree
 
 
-def _mesh_axes(mesh) -> Dict[str, int]:
-    """A ``DeviceMesh``'s (or an axes dict's) dim sizes by name."""
-    if mesh is None:
-        return {}
-    if isinstance(mesh, dict):
-        return dict(mesh)
-    return {name: mesh.size(i) for i, name in enumerate(mesh.mesh_dim_names or ())}
+def full_param_specs(params, mesh, min_size: int = FSDP_MIN_SIZE) -> dict:
+    """The placements full fine-tuning gives the tree on ``mesh``: FSDP over
+    ``data``, megatron slices over ``model``, both when both are named."""
+    sizes = mesh_sizes(mesh)
+    if "data" in sizes and "model" in sizes:
+        return combined_param_specs(params, sizes["data"], sizes["model"], min_size)
+    if "data" in sizes:
+        return fsdp_param_specs(params, sizes["data"], min_size)
+    return transformer_param_specs_like(params)
+
+
+def floating_specs(params, specs) -> list:
+    """The placements of :func:`floating_leaves` ``(params)``, in its order."""
+    if isinstance(params, dict):
+        return [p for k, v in params.items() for p in floating_specs(v, specs[k])]
+    if isinstance(params, (list, tuple)):
+        return [p for v, sp in zip(params, specs) for p in floating_specs(v, sp)]
+    if isinstance(params, torch.Tensor) and params.is_floating_point():
+        return [specs]
+    return []
+
+
+def _global_sum(specs: list, mesh):
+    """The optimizer's ``global_sum`` over a sharded tree: each leaf's sum
+    all-reduced over ``data`` when it is sharded there and over ``model``
+    when it is sliced there (a replicated leaf counts once), then added in
+    leaf order, so a one-rank mesh adds exactly what one card adds."""
+    names = mesh.mesh_dim_names or ()
+    masks = [(mesh.get_group(dim), [getattr(p, attr) is not None for p in specs])
+             for dim, attr in (("data", "data_dim"), ("model", "model_dim")) if dim in names]
+
+    def total(values):
+        v = torch.stack(values)
+        for group, mask in masks:
+            summed = v.clone()
+            torch.distributed.all_reduce(summed, group=group)
+            v = torch.where(torch.as_tensor(mask, device=v.device), summed, v)
+        return sum(v.unbind())
+
+    return total
+
+
+def _mesh_device(mesh) -> torch.device:
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
+def state_placements(specs, ema: bool) -> Dict[str, dict]:
+    """Each sharded tensor of full mode's train state ``{"params",
+    "opt_state", "step"}`` by its name in ``loaders/train_state.py``, with
+    its placement: the params, the EMA tree, and the optimizer's per-leaf
+    lists (moments, prodigy's sums, the accumulator)."""
+    named = []
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, f"{path}/{k}")
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(v, f"{path}/{i}")
+        else:
+            named.append((path, node.to_json()))
+
+    walk(specs, "")
+    inner = "opt_state/0" if ema else "opt_state"
+    out = {}
+    for i, (path, p) in enumerate(named):
+        out[f"params{path}"] = p
+        if ema:
+            out[f"opt_state/1{path}"] = p
+        for key in ("mu", "nu", "exp_avg", "exp_avg_sq", "grad_sum", "params0", "acc"):
+            out[f"{inner}/{key}/{i}"] = p
+    return out
 
 
 def make_full_train_step(
@@ -131,13 +221,18 @@ def make_full_train_step(
     mesh=None,
     compute_dtype: Optional[torch.dtype] = None,
     ema_decay: float = 0.0,
+    fsdp_min_size: int = FSDP_MIN_SIZE,
 ):
-    """Returns ``(prepare, init_opt_state, train_step)`` for one card
-    (``s2v_tpu/training/full.py:153-280`` without its FSDP):
+    """Returns ``(prepare, init_opt_state, train_step)``
+    (``s2v_tpu/training/full.py:153-280``):
 
     * ``prepare(params, dtype=None)``: a copy of the tree, its floating
       tensors cast to ``dtype`` (the fp32 master weights of a bf16
-      checkpoint); the copy is what trains, in place;
+      checkpoint); the copy is what trains, in place.  On a sharded mesh
+      (below) the copy is this rank's shards, each sliced from ``params``
+      (on the host or the card) before it is cast and moved to the mesh's
+      device, so the cast tree is never whole on one card; ``prepare.specs``
+      then holds their placements (:func:`full_param_specs`);
     * ``init_opt_state(params)``: the optimizer's state over the floating
       leaves, and with ``ema_decay > 0`` the pair ``(state, ema)``, the EMA
       tree starting at a copy of the params;
@@ -151,29 +246,60 @@ def make_full_train_step(
     ``compute_dtype`` (e.g. ``torch.bfloat16``) casts the floating params for
     the forward, which then computes in that type; without it the forward
     computes in the params' own type.  ``attention_backend`` ``"auto"`` is
-    ``flash`` on CUDA, ``plain`` on the CPU.  A ``mesh`` (a ``DeviceMesh`` or
-    a dict of dim sizes) with a ``data`` or ``model`` dim above 1 asks for
-    FSDP or megatron sharding, which raises (ROADMAP A.9)."""
+    ``flash`` on CUDA, ``plain`` on the CPU.
+
+    ``mesh`` (a ``DeviceMesh``) with a ``data`` or ``model`` dim, of any
+    size (JAX shards above 1 only, ``use_fsdp``; the results are the same,
+    ROADMAP C.30): FSDP and megatron TP as the module doc says, the step
+    running under the mesh's context.  Every rank passes the same whole
+    batch and draws; each runs its rows of a ``data`` dim and ends with the
+    same loss.  A mesh of a ``seq`` dim only is sequence parallelism (the
+    caller enters its context; the tree stays whole)."""
     from s2v_torch.training.optim import OptimizerSpec, make_optimizer
 
-    axes = _mesh_axes(mesh)
-    if axes.get("data", 1) > 1 or axes.get("model", 1) > 1:
-        raise NotImplementedError(
-            f"full fine-tuning over a mesh with a data or model dim above 1 ({axes}) is FSDP / megatron sharding, "
-            f"not ported yet (ROADMAP A.9); the port trains every parameter on one card")
+    sizes = mesh_sizes(mesh)
+    sharded = "data" in sizes or "model" in sizes
+    if sharded and (mesh is None or isinstance(mesh, dict)):
+        raise ValueError(f"FSDP and megatron sharding need a DeviceMesh (parallel/sharding.py::make_mesh), "
+                         f"not the sizes {sizes}")
     if not 0.0 <= ema_decay < 1.0:
         raise ValueError(f"ema_decay must be in [0, 1), got {ema_decay}")
     alphas_np = compute_alphas_cumprod(scheduler_cfg or SchedulerConfig())
     tx = make_optimizer(optimizer_spec or OptimizerSpec())
 
     def prepare(params, dtype: Optional[torch.dtype] = None):
-        return _copy_floating(params, dtype)
+        if not sharded:
+            return _copy_floating(params, dtype)
+        prepare.specs = full_param_specs(params, mesh, fsdp_min_size)
+        tx.global_sum = _global_sum(floating_specs(params, prepare.specs), mesh)
+        return shard_params(params, mesh, prepare.specs, dtype=dtype, device=_mesh_device(mesh))
+
+    prepare.specs = None
+
+    def loss_tree(params):
+        """The tree the loss reads, its leaves' gradients summed over the
+        dims where they are shares, and FSDP's gather."""
+        if not sharded:
+            return sum_grads_over_seq(params), None
+        specs = prepare.specs
+        if specs is None:
+            raise ValueError("call prepare(params) before the sharded train step: it places the shards")
+        tree = sum_grads(params, where=lambda path: ("sp",) if spec_at(specs, path).data_dim is not None
+                         else ("sp", "dp"))
+        dp = data_parallel()
+        return tree, (ParamGather(specs, dp) if dp is not None else None)
 
     def init_opt_state(params):
         state = tx.init(floating_leaves(params))
         return (state, _copy_floating(params)) if ema_decay > 0.0 else state
 
     def train_step(params, opt_state, batch, generator=None, timesteps=None, noise=None):
+        if not sharded:
+            return _train_step(params, opt_state, batch, generator, timesteps, noise)
+        with mesh_context(mesh, default_logical_map(mesh)):
+            return _train_step(params, opt_state, batch, generator, timesteps, noise)
+
+    def _train_step(params, opt_state, batch, generator, timesteps, noise):
         inner, ema = opt_state if ema_decay > 0.0 else (opt_state, None)
         leaves = floating_leaves(params)
         device = leaves[0].device
@@ -183,9 +309,9 @@ def make_full_train_step(
         for x in leaves:
             x.requires_grad_(True)
         try:
-            loss = vpred_loss(sum_grads_over_seq(params), fwd_cfg, batch, alphas, generator,
-                              attention_backend=backend, remat=remat, compute_dtype=compute_dtype,
-                              timesteps=timesteps, noise=noise)
+            tree, gather = loss_tree(params)
+            loss = vpred_loss(tree, fwd_cfg, batch, alphas, generator, attention_backend=backend, remat=remat,
+                              compute_dtype=compute_dtype, timesteps=timesteps, noise=noise, param_gather=gather)
             grads = torch.autograd.grad(loss, leaves)
         finally:
             for x in leaves:

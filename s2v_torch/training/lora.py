@@ -22,6 +22,17 @@ Disentangled LoRA (``LoRASpec.disentangled``, the reference's intended
 copy of the weights and keeps each block's pre-merge adaLN linears beside
 the adapted ones (``base_linear``), so the modulation adapters act on the
 ref stream only (``s2v_tpu/training/lora.py:134-141, 239-249``).
+
+Across cards (``s2v_tpu/training/lora.py:20-21``, ``s2v_tpu/train.py:484-525``),
+the step runs under a mesh context: the adapters and their optimizer are
+whole on every rank; a ``data`` dim splits the batch, and the adapters'
+gradients, each rank's share, are summed there (and over a ``seq`` ring);
+on a ``model`` dim the base is sliced for megatron TP
+(``S2VPipeline.set_mesh``), each block's adapter delta is sliced as its
+kernel, and the per-layer adapters' gradients, partial over ``model``, are
+summed there too; ``base_specs`` (``--fsdp_base``) says how the frozen base
+is sharded over ``data`` (``parallel/sharding.py::fsdp_param_specs``), and
+each block's shards are gathered before it runs.
 """
 
 from __future__ import annotations
@@ -34,6 +45,8 @@ import torch
 
 from s2v_torch.config import SchedulerConfig, TransformerConfig
 from s2v_torch.ops.attention import resolve_attention_backend
+from s2v_torch.parallel.context import data_parallel, sum_grads, tensor_parallel
+from s2v_torch.parallel.sharding import ParamGather, take_slice, tp_leaf_placement
 from s2v_torch.schedulers.ddim import compute_alphas_cumprod
 from s2v_torch.training.optim import OptimizerSpec, make_optimizer
 
@@ -95,7 +108,9 @@ def _check_supported(base_params: dict, spec: LoRASpec) -> None:
 def init_lora_params(generator: torch.Generator, base_params: dict, spec: LoRASpec,
                      dtype: torch.dtype = torch.float32) -> dict:
     """A ~ N(0, 1/r), B = 0, so the adapted model starts exactly at the base
-    model.  Made on ``generator``'s device, which must be the params'."""
+    model.  Made on ``generator``'s device, which must be the params'.
+    ``base_params`` is the whole tree (the shapes are read from it), not a
+    rank's slices."""
     _check_supported(base_params, spec)
     num_layers = len(base_params["blocks"])
     lora = {}
@@ -121,14 +136,19 @@ def merge_lora_params(base_params: dict, lora_params: dict, spec: LoRASpec) -> d
     _check_supported(base_params, spec)
     merged = dict(base_params)
     merged["blocks"] = [dict(layer) for layer in base_params["blocks"]]
+    tp = tensor_parallel()
     for name, ab in lora_params.items():
         (group, leaf_name), per_layer = _TARGETS[name]
         owners = merged["blocks"] if per_layer else [merged]
+        placement = tp_leaf_placement(("blocks", "0", group, leaf_name, "weight"), 2) if per_layer else None
         for i, owner in enumerate(owners):
             a, b = (ab["a"][i], ab["b"][i]) if per_layer else (ab["a"], ab["b"])
             owner[group] = dict(owner[group])
             leaf = owner[group][leaf_name]
             delta = (a @ b) * spec.scale
+            if tp is not None and placement is not None and placement.model_dim is not None:
+                # the whole delta sliced as the kernel is (a model rank's base holds its slices)
+                delta = take_slice(delta, 1 - placement.model_dim, placement.blocks, tp.rank, tp.size, name)
             owner[group][leaf_name] = {**leaf, "weight": leaf["weight"] + delta.T.to(leaf["weight"].dtype)}
             if spec.disentangled and name in ("norm1.linear", "norm2.linear"):
                 owner[group]["base_linear"] = {"weight": leaf["weight"], "bias": leaf["bias"]}
@@ -163,28 +183,33 @@ def lora_loss_fn(
     remat: Union[bool, str] = True,
     timesteps: Optional[torch.Tensor] = None,
     noise: Optional[torch.Tensor] = None,
+    param_gather=None,
 ) -> torch.Tensor:
     """v-prediction MSE with the adapters applied through the runtime factor
     tree, factors cast to ``cfg.dtype`` inside the loss; with
     ``spec.disentangled`` through :func:`merge_lora_params` instead (the
     pre-merge modulation linears beside the merged ones; ``cfg`` needs
     ``disentangled_modulation``, which :func:`make_lora_train_step` sets).
-    ``timesteps`` and ``noise`` are the test hooks of :func:`vpred_loss`."""
+    ``timesteps`` and ``noise`` are the test hooks of :func:`vpred_loss`,
+    ``param_gather`` its FSDP gather of the base.
+
+    Under a mesh context the adapters' gradients come out whole on every
+    rank: summed over ``seq`` (above one rank) and ``data``, where they are
+    each rank's share, and, for the per-layer adapters, whose delta is
+    sliced as the kernel, over ``model``."""
     from s2v_torch.models.transformer import RUNTIME_LORA_KEY
     from s2v_torch.training.full import vpred_loss
 
-    from s2v_torch.parallel.context import sum_grads_over_seq
-
     _check_supported(base_params, spec)
-    # on a seq ring each rank's gradients are its share: summed over the ring here
-    lora_params = sum_grads_over_seq(lora_params)
+    lora_params = sum_grads(lora_params, where=lambda path: ("sp", "dp") if path[0] in _TOP_TARGETS
+                            else ("sp", "dp", "tp"))
     if spec.disentangled:
         params = merge_lora_params(base_params, lora_params, spec)
     else:
         params = dict(base_params)
         params[RUNTIME_LORA_KEY] = _runtime_tree(lora_params, spec, cfg.dtype)
     return vpred_loss(params, cfg, batch, alphas_cumprod, generator, attention_backend=attention_backend,
-                      remat=remat, timesteps=timesteps, noise=noise)
+                      remat=remat, timesteps=timesteps, noise=noise, param_gather=param_gather)
 
 
 def lora_leaves(lora_params: dict) -> list:
@@ -201,6 +226,7 @@ def make_lora_train_step(
     attention_backend: str = "auto",
     remat: Union[bool, str] = True,
     optimizer_spec: Optional[OptimizerSpec] = None,
+    base_specs: Optional[dict] = None,
 ):
     """Returns ``(init_opt_state, train_step)`` with
     ``lora, opt_state, loss = train_step(lora, opt_state, batch, generator)``.
@@ -218,7 +244,13 @@ def make_lora_train_step(
     optimizer state in place and returns them; the base params get no
     gradient and do not change.  ``train_step`` also takes ``timesteps=``
     and ``noise=`` (the test hooks of :func:`vpred_loss`).  A disentangled
-    ``spec`` runs the model with ``disentangled_modulation``."""
+    ``spec`` runs the model with ``disentangled_modulation``.
+
+    Under a mesh context with a ``data`` or ``model`` dim (see the module
+    doc) every rank passes the same whole batch and draws and ends with the
+    same loss and adapters.  ``base_specs``: the placements of a base
+    sharded over ``data`` (``--fsdp_base``), gathered per block; the step
+    then needs a ``data`` dim in the active mesh."""
     _check_supported(base_params, spec)
     if spec.disentangled and not cfg.disentangled_modulation:
         cfg = replace(cfg, disentangled_modulation=True)
@@ -231,11 +263,17 @@ def make_lora_train_step(
         return tx.init(lora_leaves(lora_params))
 
     def train_step(lora_params, opt_state, batch, generator=None, timesteps=None, noise=None):
+        gather = None
+        if base_specs is not None:
+            dp = data_parallel()
+            if dp is None:
+                raise ValueError("a base sharded over data (base_specs) needs a mesh context with a data dim")
+            gather = ParamGather(base_specs, dp)
         leaves = lora_leaves(lora_params)
         for t in leaves:
             t.requires_grad_(True)
         loss = lora_loss_fn(lora_params, base_params, cfg, spec, batch, alphas, generator, backend, remat,
-                            timesteps=timesteps, noise=noise)
+                            timesteps=timesteps, noise=noise, param_gather=gather)
         grads = torch.autograd.grad(loss, leaves)
         tx.step([t.detach() for t in leaves], grads, opt_state)
         return lora_params, opt_state, loss.detach()

@@ -110,12 +110,19 @@ class Optimizer:
     """[global-norm clip] -> adam/adamw/prodigy on a schedule [->
     accumulation], on a flat list of tensors.  ``init(params)`` returns the
     state; ``step(params, grads, state)`` updates params and state in
-    place."""
+    place.
 
-    def __init__(self, spec: OptimizerSpec):
+    ``global_sum`` adds per-leaf sums into one total: the default, a sum in
+    leaf order, sees whole leaves; a sharded trainer (FSDP, megatron TP:
+    ``training/full.py``) passes one that also adds the other ranks'
+    shards, so the clip norm and prodigy's d-estimate are the whole tree's
+    on every rank."""
+
+    def __init__(self, spec: OptimizerSpec, global_sum: Optional[Callable[[List[torch.Tensor]], torch.Tensor]] = None):
         self.spec = spec
         self.schedule = make_lr_schedule(spec)
         self.mu_dtype = MOMENT_DTYPES[spec.moment_dtype]
+        self.global_sum = global_sum or (lambda values: sum(values))
 
     def init(self, params: List[torch.Tensor]) -> dict:
         if self.spec.optimizer == "prodigy":
@@ -161,7 +168,7 @@ class Optimizer:
     def _update(self, params, grads, state) -> None:
         spec = self.spec
         if spec.max_grad_norm is not None and spec.max_grad_norm > 0:
-            g_norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+            g_norm = torch.sqrt(self.global_sum([g.float().square().sum() for g in grads]))
             keep = g_norm < spec.max_grad_norm
             grads = [torch.where(keep, g, g / g_norm.to(g.dtype) * spec.max_grad_norm) for g in grads]
         if spec.optimizer == "prodigy":
@@ -194,7 +201,7 @@ class Optimizer:
         bc = ((1 - b2 ** t) ** 0.5) / (1 - b1 ** t)
         d = state["estim_lr"]
         dlr = d * self.schedule(state["count"]) * bc
-        numerator = sum((g * (p0 - p)).sum() for g, p0, p in zip(grads, state["params0"], params))
+        numerator = self.global_sum([(g * (p0 - p)).sum() for g, p0, p in zip(grads, state["params0"], params)])
         for i, g in enumerate(grads):
             dg = d * g
             state["exp_avg"][i] = b1 * state["exp_avg"][i] + (1 - b1) * dg
@@ -202,7 +209,7 @@ class Optimizer:
             state["grad_sum"][i] = b3 * state["grad_sum"][i] + dlr * dg / PRODIGY_ESTIM_LR0
         state["numerator_weighted"] = (b3 * state["numerator_weighted"]
                                        + (d / PRODIGY_ESTIM_LR0) * dlr * numerator)
-        denominator = sum(gs.abs().sum() for gs in state["grad_sum"])
+        denominator = self.global_sum([gs.abs().sum() for gs in state["grad_sum"]])
         # a step whose schedule factor is 0 (a warm-up's first) leaves the
         # gradient sum, and so the denominator, at 0: optax's 0/0 turns the
         # estimate, and every later update, into NaN (ROADMAP C.21); the
@@ -214,5 +221,5 @@ class Optimizer:
         state["count"] = t
 
 
-def make_optimizer(spec: OptimizerSpec) -> Optimizer:
-    return Optimizer(spec)
+def make_optimizer(spec: OptimizerSpec, global_sum=None) -> Optimizer:
+    return Optimizer(spec, global_sum)

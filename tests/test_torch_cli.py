@@ -52,11 +52,12 @@ def test_get_args_has_every_flag_and_default_of_jax():
     assert cli.get_args([]).device == "cuda"
 
 
-# flags -> (the error, what it says): the paths of ROADMAP A.9 raise naming
-# it; the sequence-parallel backends, ported, raise without --mesh
+# flags -> (the error, what it says), each raised before anything loads: a
+# mesh spec that does not parse, T5 on the mesh without one, and the
+# sequence-parallel backends without --mesh (every mesh dim is ported)
 UNPORTED = {
-    "mesh": (["--mesh", "dp2"], NotImplementedError, "ROADMAP A.9"),
-    "t5_on_mesh": (["--text_encoder_device", "mesh"], NotImplementedError, "ROADMAP A.9"),
+    "mesh": (["--mesh", "xp2"], ValueError, "bad mesh spec 'xp2'"),
+    "t5_on_mesh": (["--text_encoder_device", "mesh"], ValueError, "--text_encoder_device mesh needs --mesh"),
     **{f"backend_{b}": (["--attention_backend", b], ValueError, "needs --mesh") for b in SEQ_BACKEND_NAMES},
 }
 

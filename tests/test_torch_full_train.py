@@ -136,8 +136,40 @@ def test_ema_moves_only_on_the_accumulation_boundary():
 
 
 def test_a_data_or_model_mesh_raises_naming_a9():
+    """FSDP and TP need a DeviceMesh (a dict of sizes raises); on a one-rank
+    ``dp1,tp1`` mesh the sharded step (FSDP gathers, megatron collectives,
+    the global clip norm) runs the sharded code and equals the unsharded
+    step bit for bit: every collective of one rank copies."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
     cfg = TransformerConfig.tiny()
     for axes in ({"data": 2}, {"model": 4}, {"data": 2, "model": 2}):
-        with pytest.raises(NotImplementedError, match="A.9"):
+        with pytest.raises(ValueError, match="need a DeviceMesh"):
             make_full_train_step(cfg, mesh=axes)
-    make_full_train_step(cfg, mesh={"seq": 4, "data": 1})  # a seq mesh is the SP backends', not FSDP
+    make_full_train_step(cfg, mesh={"seq": 4})  # a seq mesh is the SP backends', not FSDP
+    base = perturb(init_transformer_params(jax.random.PRNGKey(0), JTransformerConfig.tiny()), seed=1)
+    tb = {k: torch.from_numpy(v) for k, v in _batch(JTransformerConfig.tiny()).items()}
+    spec = optim.OptimizerSpec(learning_rate=1e-3, max_grad_norm=0.5)
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cpu", (1, 1), mesh_dim_names=("data", "model"))
+        results = []
+        # contiguous weights, as a checkpoint's are: the shards and the gathered
+        # blocks are, and a weight's layout picks its matmul's summation order
+        source = jax.tree.map(lambda x: x.contiguous(), transformer_from_jax(base, cfg, device="cpu"))
+        for m in (None, mesh):
+            prep, init, step = make_full_train_step(cfg, optimizer_spec=spec, mesh=m, ema_decay=0.9)
+            params = prep(source, dtype=torch.float32)
+            state = init(params)
+            losses = []
+            for i in range(2):
+                ts, noise = _draws(jax.random.PRNGKey(300 + i), tb["video_latents"].shape)
+                params, state, loss = step(params, state, tb, timesteps=ts, noise=noise)
+                losses.append(loss)
+            results.append((losses, floating_leaves(params) + floating_leaves(state[1])))
+        assert prep.specs["blocks"][0]["ff"]["net_0"]["weight"].data_dim is not None
+        assert all(torch.equal(a, b) for a, b in zip(results[0][0], results[1][0]))
+        assert all(torch.equal(a, b) for a, b in zip(results[0][1], results[1][1]))
+    finally:
+        dist.destroy_process_group()

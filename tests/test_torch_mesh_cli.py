@@ -3,11 +3,12 @@
 on the CPU) writes the clip that one process without a mesh writes, from
 rank 0 alone; ``-m s2v_torch.serve --mesh sp2`` answers a request with that
 clip, rank 0 handing it to rank 1, and a shutdown stops both ranks; ranks
-that fail a request differently stop the daemon on both ranks.  A
-``data`` or ``model`` mesh dim and ``--text_encoder_device mesh`` raise
-naming ROADMAP A.9, and a mesh whose size is not the world size raises.
-The clips are compared as decoded frames: the ring's attention is the
-exact attention of other roundings."""
+that fail a request differently stop the daemon on both ranks.  The
+``data`` and ``model`` dims run too: ``--mesh dp2`` (the CFG rows split),
+``tp2`` (megatron TP), ``sp2,tp2`` (four ranks) and ``tp2`` with
+``--text_encoder_device mesh`` write the clip of one process; a mesh whose
+size is not the world size raises.  The clips are compared as decoded
+frames: the sharded model is the same model in other roundings."""
 
 import os
 import subprocess
@@ -28,6 +29,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # decoded frames of the ring's clip against one process's, in 8-bit levels
 # (both 0 on the machine the test was written on: the same frames)
 MEAN_LEVELS, MAX_LEVELS = 0.1, 4
+# a model dim's fp32 clip against one process's: the same mean, and a larger
+# largest level, as mp4v's lossy coding turns a one-level flip of a pixel
+# into a difference over its block
+TP_MAX_LEVELS = 32
 RUN_TIMEOUT_S = 120
 
 
@@ -74,10 +79,17 @@ def one_rank_clip(tiny, tmp_path_factory):
     return _frames(out / "output.mp4")
 
 
-def _close(got, want):
+@pytest.fixture(scope="module")
+def one_rank_clip_fp32(tiny, tmp_path_factory):
+    out = tmp_path_factory.mktemp("one_rank_fp32")
+    cli.main(_argv(tiny, out, "--dtype", "float32"))
+    return _frames(out / "output.mp4")
+
+
+def _close(got, want, max_levels=MAX_LEVELS):
     assert got.shape == want.shape and got.shape[1:] == (32, 32, 3)
     diff = np.abs(got - want)
-    assert diff.mean() <= MEAN_LEVELS and diff.max() <= MAX_LEVELS, (diff.mean(), diff.max())
+    assert diff.mean() <= MEAN_LEVELS and diff.max() <= max_levels, (diff.mean(), diff.max())
 
 
 def test_cli_mesh_sp2_writes_the_clip_of_one_rank(tiny, one_rank_clip, tmp_path):
@@ -139,16 +151,57 @@ def test_daemon_ranks_that_fail_differently_stop_every_rank(tmp_path):
 
 @pytest.mark.parametrize("flags", [["--mesh", "dp2"], ["--mesh", "tp2"], ["--mesh", "sp2,tp2"],
                                    ["--text_encoder_device", "mesh"]], ids=["dp2", "tp2", "sp2_tp2", "t5_mesh"])
-def test_data_model_dims_and_t5_on_the_mesh_raise_naming_a9(tiny, tmp_path, flags):
-    with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
-        cli.main(_argv(tiny, tmp_path / "out", *flags))
+def test_data_model_dims_and_t5_on_the_mesh_raise_naming_a9(tiny, one_rank_clip, one_rank_clip_fp32, tmp_path,
+                                                            flags):
+    """Under torchrun each mesh writes one process's clip, from rank 0 alone
+    (T5 on the mesh runs on a ``tp2`` mesh); one process given ``dp2``
+    raises, naming the torchrun it needs.  A model dim adds its ranks'
+    partial sums of the row-parallel linears, rounded to the model's dtype
+    each (as JAX's bf16 psum does), so its runs are in fp32 and held to the
+    fp32 clip of one process; ``dp2`` runs each row as one process does."""
+    from s2v_torch.parallel.sharding import parse_mesh_spec
+
+    if flags[0] == "--text_encoder_device":
+        flags = flags + ["--mesh", "tp2"]
+    ranks = int(np.prod(list(parse_mesh_spec(flags[-1]).values())))
+    tp = "tp" in flags[-1]
+    if tp:
+        flags = ["--dtype", "float32", *flags]
+    proc = _torchrun(ranks, "s2v_torch.cli", _argv(tiny, tmp_path / "out", *flags), stdout=subprocess.PIPE,
+                     stderr=subprocess.PIPE, text=True)
+    out, err = proc.communicate(timeout=RUN_TIMEOUT_S)
+    assert proc.returncode == 0, err[-3000:]
+    assert out.count("[s2v_torch] wrote") == 1 and f"mesh {flags[-1]}" in out, out
+    if tp:
+        _close(_frames(tmp_path / "out" / "output.mp4"), one_rank_clip_fp32, TP_MAX_LEVELS)
+    else:
+        _close(_frames(tmp_path / "out" / "output.mp4"), one_rank_clip)
+    if flags == ["--mesh", "dp2"]:
+        with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
+            cli.main(_argv(tiny, tmp_path / "one", *flags))
 
 
 def test_from_pretrained_t5_on_the_mesh_raises_naming_a9(tiny):
+    """T5 on the mesh needs a mesh; on a one-rank ``tp1`` mesh it runs
+    sliced (the one-rank collectives copy) and encodes what the T5 on the
+    device encodes, bit for bit."""
+    import torch
+    import torch.distributed as dist
+
     from s2v_torch.pipelines.s2v import S2VPipeline
 
-    with pytest.raises(NotImplementedError, match="A.9"):
+    with pytest.raises(ValueError, match='text_encoder_device="mesh" needs mesh'):
         S2VPipeline.from_pretrained(tiny[0], text_encoder_device="mesh", device="cpu")
+    plain = S2VPipeline.from_pretrained(tiny[0], dtype=torch.float32, device="cpu")
+    try:
+        on_mesh = S2VPipeline.from_pretrained(tiny[0], dtype=torch.float32, text_encoder_device="mesh", mesh="tp1",
+                                              device="cpu")
+        assert on_mesh.t5_on_mesh and on_mesh._t5_specs is not None
+        got = on_mesh.encode_prompt("<cls> a pig walking")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    assert torch.equal(got, plain.encode_prompt("<cls> a pig walking"))
 
 
 def test_a_mesh_of_another_size_than_the_world_raises():

@@ -255,8 +255,8 @@ def test_sp_windowed_without_a_mesh_raises():
     with mesh_context(object(), {"dp": None, "tp": None, "sp": None}):
         with pytest.raises(ValueError, match="sp_windowed needs an active mesh"):
             joint_attention(_attn_params(d), x, cfg.num_attention_heads, backend="sp_windowed", window=(4, 4, 0))
-    with mesh_context(object(), {"dp": "data", "tp": None, "sp": "seq"}):
-        with pytest.raises(NotImplementedError, match="A.9"):
+    with mesh_context(object(), {"dp": "data", "tp": "model", "sp": None}):
+        with pytest.raises(ValueError, match="sp_windowed needs an active mesh"):
             joint_attention(_attn_params(d), x, cfg.num_attention_heads, backend="sp_windowed", window=(4, 4, 0))
 
 
@@ -282,17 +282,32 @@ def _tiny_pipe():
 
 
 def test_set_mesh_takes_a_seq_dim_only():
+    """``set_mesh`` takes every dim: without a model dim the params stay as
+    they are; a model dim (a one-rank ``tp1,sp1`` mesh here) slices them in
+    place, and ``set_mesh(None)`` gathers them back whole, bit for bit."""
+    import torch.distributed as dist
+
     pipe = _tiny_pipe()
+    whole = pipe.transformer_params
     assert pipe._seq_ring() == 1
     pipe.set_mesh(_FakeMesh(("seq",), (4,)))
     assert pipe._seq_ring() == 4
-    for names in (("data",), ("model",), ("data", "seq"), ("seq", "model")):
-        with pytest.raises(NotImplementedError, match="A.9"):
-            pipe.set_mesh(_FakeMesh(names, (2, 2)))
+    for names in (("data",), ("data", "seq")):
+        pipe.set_mesh(_FakeMesh(names, (2, 2)))
+        assert pipe._seq_ring() == (2 if "seq" in names else 1) and pipe.transformer_params is whole
     with pytest.raises(ValueError):
         pipe.set_mesh(_FakeMesh(("seq",), (1,), device_type="cuda"))
     pipe.set_mesh(None)
     assert pipe.mesh is None and pipe._seq_ring() == 1
+    try:
+        pipe.set_mesh("tp1,sp1")  # a one-rank group over a HashStore
+        assert pipe._tp_specs is not None and pipe.transformer_params is not whole
+        pipe.set_mesh(None)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    qkv = lambda p: p["blocks"][0]["attn"]["qkv"]["weight"]  # noqa: E731
+    assert pipe._tp_specs is None and torch.equal(qkv(pipe.transformer_params), qkv(whole))
 
 
 def test_generate_on_a_ring_routes_and_raises_for_unported():

@@ -17,8 +17,10 @@ package writes (``_torch_parity.write_tiny_snapshot``) and a folder of three
 * Full mode with EMA: its ``snapshot/`` loads back through ``from_pretrained``
   and holds the EMA weights.
 * The C.3/C.19 pin: JAX's batches carry no positions, the port's do.
-* The guards: the frame-alignment message is JAX's; ``--mesh`` and
-  ``--fsdp_base`` raise naming ROADMAP A.9.
+* The guards: the frame-alignment message is JAX's; ``--mesh dp2`` with a
+  batch of 1 and ``--fsdp_base`` without a data dim of 2 raise JAX's
+  refusals, a sequence-parallel backend without ``--mesh`` raises (the
+  meshes themselves run in ``tests/test_torch_mesh_train.py``).
 """
 
 import argparse
@@ -268,5 +270,11 @@ def test_frame_alignment_guard_says_what_jax_says(tiny, tmp_path, frames):
 @pytest.mark.parametrize("extra", [("--mesh", "dp2"), ("--fsdp_base",), ("--attention_backend", "sp_windowed"),
                                    ("--attention_backend", "ring")])
 def test_multi_card_flags_raise_naming_a9(tiny, tmp_path, extra):
-    with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
+    """Every multi-card flag is ported; what still raises, before anything
+    loads, are JAX's refusals (a batch of 1 over a data dim of 2,
+    ``--fsdp_base`` without a data dim of 2) and a sequence-parallel
+    backend without a mesh."""
+    says = {"--mesh": r"--train_batch_size 1 must be divisible by the data mesh axis \(2\)",
+            "--fsdp_base": "--fsdp_base needs a data mesh axis >= 2"}.get(extra[0], "needs --mesh")
+    with pytest.raises(SystemExit, match=says):
         train.main(train.get_args(_argv(tiny, tmp_path, *extra)))
