@@ -51,8 +51,8 @@ Phases, each printing one JSON line:
                 sequence-parallel shard of video-query frames at a runtime
                 frame offset, against the full K/V) against its plain
                 version: the small geometries at every offset of a 2- and a
-                4-rank ring, dummy frames included (a ring with more ranks
-                than frames is refused before the launch); then the main
+                4-rank ring, dummy frames included (rings with more ranks
+                than frames: phase ring_past_frames); then the main
                 band (B=2) for P = 1, 2, 4, the shards' rows and lse
                 stitched against B4's; timed at P = 1 and per shard at P = 4
                 beside the bound, the plain version and one masked SDPA call
@@ -64,6 +64,21 @@ Phases, each printing one JSON line:
                 queries' B2 part against B5's dk/dv, and junk in the dummy
                 frames' rows changing nothing; at one rank two launches must
                 agree bit for bit, and the time is split among its kernels;
+      kernel_fp32, kernel_bwd_fp32, kernel_banded_fp32,
+      kernel_banded_bwd_fp32, kernel_banded_local_fp32,
+      kernel_banded_local_bwd_fp32 — the fp32 forms of B1, B2 and B4-B7
+                (``csrc/attention_f32.cu``, ``attention_f32_bwd.cu``: 3xTF32
+                on ``mma.sync``) against their plain versions (TF32 matmuls
+                off) and the emulations of their schedules: small ragged
+                cases (every softmax mode, a key pad mask, a bounded re-run;
+                every offset of 2- and 4-rank rings), then the main shapes
+                (B=2 forward, B=1 backward, S=19,126, H=48; the local forms
+                per shard of a 4-rank ring; the emulations on the first two
+                heads), timed over 3 launches beside the bound at the TF32
+                peak, its 3-pass floor, the plain version and fp32 SDPA;
+      ring_past_frames — B6/B7 in bf16 on the shards of a 4-rank ring over
+                2 latent frames (ranks 2-3 dummy only) and over the small
+                geometries' short clips, against their plain versions;
   9. kernel_int8 — kernel B3 (int8 q·kᵀ attention): first one s8 wgmma
                 tile through its 64-byte-swizzle layer against an integer
                 matmul; then against its plain PyTorch version on the same
@@ -218,9 +233,18 @@ Phases, each printing one JSON line:
                 the one-rank ``dp1,tp1`` mesh and with the base sharded over
                 the one-rank data dim (``--fsdp_base``'s placements),
                 against ``flash`` on one card;
+      e2e_fp32 — the pipeline cast to fp32 (``--dtype float32``) at 6
+                blocks: ``generate`` at 49x480x720, 2 steps, B1's fp32 kernel
+                12 times, the clip finite in [0, 1], its latents against the
+                ``chunked`` backend's (PyTorch ops); one step each with
+                ``windowed`` (B4 fp32) and ``sp_windowed`` (B6 fp32);
+      train_fp32 — on the same cast: the LoRA loss and adapter gradients
+                (``--compute_dtype none``), B1 fp32 12 and B2 fp32 6, against
+                ``chunked``'s; then ``windowed`` (B4, B5 fp32) and
+                ``sp_windowed`` (B6, B7 fp32);
       train_full_5b_fsdp — full fine-tuning of the 5b DiT under FSDP on
                 the one-rank data dim at the deepest cut that fits beside
-                the resident pipeline (the depth printed), two micro-steps
+                the resident pipeline, at most 7 blocks (the depth printed), two micro-steps
                 against the unsharded step (losses, params, EMA), peak
                 memory and seconds, the sharded train state written and
                 read back bit for bit, and the per-rank bytes of the whole
@@ -232,9 +256,9 @@ Phases, each printing one JSON line:
                 9-frame 480x720 clips, two micro-steps with sharded train
                 states, then a resumed run equal to it bit for bit;
       train_cli — ``python3 -m s2v_torch.train`` in a subprocess on that
-                snapshot (LoRA rank 128, accumulation 2, cosine warm-up,
+                snapshot (LoRA rank 128, no accumulation, cosine warm-up,
                 clip 1.0, an encode cache, a train state every step, 2
-                steps, validation at step 2) over two seeded 49x480x720
+                steps, a 1-step validation at step 2) over two seeded 49x480x720
                 clips written with OpenCV, then a second run resumed from
                 ``train_state_1``: load, encode and step seconds, peak
                 memory, launches, the files, and the resumed adapters
@@ -254,10 +278,11 @@ Phases, each printing one JSON line:
                 both 2b phases add one step each with the opt-ins on fp16
                 kernels: ``windowed`` (B4, B5), ``sp_windowed`` on the
                 one-rank mesh (B6, B7) and, in ``e2e_2b``, the int8 DiT (B3);
-      train_full_2b — full fine-tuning of the 2b DiT (fp32 master, bf16
-                compute, EMA 0.999, accumulation 2, 6 micro-steps): losses,
+      train_full_2b — full fine-tuning of the 2b DiT at 10 of its 30
+                blocks (fp32 master, bf16
+                compute, EMA 0.999, accumulation 2, 4 micro-steps): losses,
                 seconds, peak memory, the EMA moving on the boundary only,
-                and the 34 GB train state written and read back bit for bit.
+                and the train state (12 GB at 10 blocks) written and read back bit for bit.
 Then the seconds of each phase, the kernels line, the nvidia-smi line, and
 the result line.  The 5b pipeline phases share one pipeline; ``pretrained``
 empties it, so it, ``serve`` and ``train_cli`` run last of them; the 2b
@@ -363,21 +388,29 @@ LORA_STD = 0.02
 CHUNKED_BLOCK_Q = 1024
 CHUNKED_PEAK_BLOCKS = 8
 # The earlier paths that run at a cut depth, to keep the whole smoke under
-# 1,080 s with the trainer's phases (PERF.md §4): the 5b opt-in paths at the
-# first EARLIER_DEPTH of the DiT's 42 blocks, the 2b LoRA and generate paths
-# at the first EARLIER_DEPTH_2B of 30.  The exact generate and train step,
-# turbo, pretrained, serve, the kernel phases and the new phases keep their
+# 1,110 s with the trainer's and the fp32 phases (PERF.md §4): the 5b opt-in
+# paths at the first EARLIER_DEPTH of the DiT's 42 blocks, turbo's two
+# 50-step clips at TURBO_DEPTH, the 5b
+# full fine-tune under FSDP at most FSDP_DEPTH (the deepest that fit beside
+# the pipeline was 14), the 2b LoRA, generate and full fine-tuning paths at
+# the first EARLIER_DEPTH_2B of 30, the fp32 pipeline at FP32_DEPTH.  The exact
+# generate and train step, pretrained, serve and the kernel phases keep their
 # full depth.
-EARLIER_DEPTH = 6
+EARLIER_DEPTH = 4
 EARLIER_DEPTH_2B = 10
+TURBO_DEPTH = 3
+FSDP_DEPTH = 7
+FP32_DEPTH = 6
 DEPTH_CUT = {"e2e_windowed": EARLIER_DEPTH, "e2e_sp_windowed": EARLIER_DEPTH, "e2e_int8": EARLIER_DEPTH,
              "e2e_options": EARLIER_DEPTH, "train_windowed": EARLIER_DEPTH, "train_sp_windowed": EARLIER_DEPTH,
              "train_qlora": EARLIER_DEPTH, "e2e_sp_backends": EARLIER_DEPTH, "train_sp_backends": EARLIER_DEPTH,
              "variants": EARLIER_DEPTH, "e2e_2b": EARLIER_DEPTH_2B, "train_2b": EARLIER_DEPTH_2B,
              # the data and model dims' phases: the int8 run and the LoRA
-             # gradients at e2e_int8's and train_sp_backends' depth; turbo's
-             # two 50-step clips cut to make room for them
-             "e2e_mesh_int8": EARLIER_DEPTH, "train_lora_mesh": EARLIER_DEPTH, "turbo": EARLIER_DEPTH}
+             # gradients at e2e_int8's and train_sp_backends' depth
+             "e2e_mesh_int8": EARLIER_DEPTH, "train_lora_mesh": EARLIER_DEPTH, "turbo": TURBO_DEPTH,
+             "train_full_5b_fsdp": FSDP_DEPTH, "train_full_2b": EARLIER_DEPTH_2B,
+             # the fp32 pipeline (--dtype float32): its DiT cast at this depth
+             "e2e_fp32": FP32_DEPTH, "train_fp32": FP32_DEPTH}
 # the trainer CLI's resumed run against the uninterrupted one at step 2: the
 # adapters' max difference relative to their largest entry (the same draws,
 # batches and deterministic kernels give 0; the limit leaves room for a
@@ -402,6 +435,8 @@ def cuda_ms(fn, iters):
 
 
 def phase_build():
+    from s2v_torch.kernels.attention_f32 import BWD_SOURCE as F32_BWD_SRC
+    from s2v_torch.kernels.attention_f32 import SOURCE as F32_SRC
     from s2v_torch.kernels.banded_attention import SOURCE as BANDED_SRC
     from s2v_torch.kernels.banded_attention_bwd import SOURCE as BANDED_BWD_SRC
     from s2v_torch.kernels.flash_attention import SOURCE as FLASH_SRC
@@ -411,7 +446,7 @@ def phase_build():
     from s2v_torch.utils.sp_native import SOURCE as SP_SRC
 
     t0 = time.perf_counter()
-    kernels = (FLASH_SRC, FLASH_BWD_SRC, BANDED_SRC, BANDED_BWD_SRC, INT8_SRC)
+    kernels = (FLASH_SRC, FLASH_BWD_SRC, BANDED_SRC, BANDED_BWD_SRC, INT8_SRC, F32_SRC, F32_BWD_SRC)
     results = native_build.build([*kernels, SP_SRC])
     # per kernel: its registers, spills and shared memory
     ptxas = {src.stem: [ln.strip() for ln in results[src.stem]["log"].splitlines()
@@ -1125,8 +1160,8 @@ def phase_kernel_banded_local(dev):
     """Kernel B6 (one SP shard of video-query frames at a runtime frame
     offset, against the full K/V) against its plain version: the small
     geometries at every offset of a 2- and a 4-rank ring, dummy frames
-    included (a ring with more ranks than frames is refused before the
-    launch, and that is checked); then the main band (B=2) for P = 1, 2, 4:
+    included (a ring with more ranks than frames runs in phase
+    ring_past_frames); then the main band (B=2) for P = 1, 2, 4:
     the shards' rows stitched against B4's output and lse.  Timed at P = 1
     and per shard at P = 4, each beside its bound, the plain version and one
     masked SDPA call over the shard's video queries (a yardstick only)."""
@@ -1162,26 +1197,21 @@ def phase_kernel_banded_local(dev):
                 raise AssertionError(f"{what}: lse against the emulation {stats['schedule_lse_err']}")
         return stats, o, lse
 
-    small, refused = [], []
+    small, past_frames = [], []
     for (b, h, g, tpf, f, w) in BANDED_SMALL:
         geo = band_geometry(g + f * tpf, g, tpf, w)
         q, k, v = _qkv(b, g + f * tpf, g + f * tpf, h, g + tpf + f + 3, dev)
         for ring in (2, 4):
             f_pad, f_loc = ring_shards(f, ring)
             if ring > f:
-                try:
-                    banded_flash_attention_local(_shard_rows(q, geo, f_loc, (ring - 1) * f_loc), k, v, g, tpf, w,
-                                                 (ring - 1) * f_loc, f)
-                except ValueError:
-                    refused.append([g, tpf, f, w, ring])
-                    continue
-                raise AssertionError(f"a {ring}-rank ring over {f} frames was not refused")
+                past_frames.append([g, tpf, f, w, ring])
+                continue  # rings past the frame count: phase ring_past_frames
             for r in range(ring):
                 stats, _, _ = compare(_shard_rows(q, geo, f_loc, r * f_loc), k, v, geo, r * f_loc, schedule=True)
                 small.append({"band": [b, h, g, tpf, f, w], "ring": ring, "offset": r * f_loc,
                               "dummy_frames": f_loc - geo.shard(r * f_loc, f_loc).real_frames(), **_compact(stats),
                               "schedule_share": stats["schedule_max_abs_err"] / stats["schedule_max_abs_tol"]})
-    emit({"phase": "kernel_banded_local_small", "cases": small, "refused_rings": refused})
+    emit({"phase": "kernel_banded_local_small", "cases": small, "rings_past_frames": past_frames})
 
     b, s, h, d = MAIN_SHAPE
     q, k, v = _ln_qkv(b, s, h, 7, dev)
@@ -1305,7 +1335,7 @@ def phase_kernel_banded_local_bwd(dev):
         for ring in (2, 4):
             _, f_loc = ring_shards(f, ring)
             if ring > f:
-                continue  # refused before the launch (kernel_banded_local checks it)
+                continue  # rings past the frame count: phase ring_past_frames
             for r in range(ring):
                 _, stats = compare(shard_inputs(q, k, v, do, geo, f_loc, r * f_loc), schedule=True)
                 small.append({"band": [b, h, g, tpf, f, w], "ring": ring, "offset": r * f_loc,
@@ -2886,15 +2916,18 @@ class cut_depth:
         self.pipe.transformer_params, self.pipe.transformer_cfg = self.saved
 
 
-def release_pipe(pipe, dev) -> None:
-    """Drop the in-memory pipeline's weights (another process or pipeline needs the card)."""
+def release_pipe(pipe, dev, keep_batches=False) -> None:
+    """Drop the in-memory pipeline's weights (another process or pipeline
+    needs the card).  ``keep_batches``: a pipeline none of whose encoded
+    train batches were kept (the fp32 cast's) leaves the others' cache."""
     import gc
 
     import torch
 
     pipe.transformer_params = pipe.vae_params = pipe.t5_params = None
     pipe._prompt_embed_cache.clear()
-    _TRAIN_BATCHES.clear()  # keyed on the VAE's identity, which a new pipeline may reuse
+    if not keep_batches:
+        _TRAIN_BATCHES.clear()  # keyed on the VAE's identity, which a new pipeline may reuse
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
@@ -3767,9 +3800,9 @@ def phase_train_cli(dev, pipe, backend="flash"):
     """The trainer as users run it: ``python3 -m s2v_torch.train`` in a
     subprocess on the 5b snapshot that ``pretrained`` wrote (written here
     from ``pipe`` when that phase did not run), over two seeded 49x480x720
-    clips (``build/smoke_clips``): LoRA rank 128 / alpha 64, accumulation 2,
+    clips (``build/smoke_clips``): LoRA rank 128 / alpha 64, no accumulation,
     cosine with 1 warm-up step, clip 1.0, the encode cache on disk, a train
-    state every step, 2 optimizer steps, validation (2-step ``generate``
+    state every step, 2 optimizer steps, validation (a 1-step ``generate``
     through the merged adapters) at step 2.  Then a second run resumes from
     ``train_state_1`` to step 2 (its encodes from the disk cache): its
     adapters and optimizer state against the first run's at step 2.  Per
@@ -3792,10 +3825,10 @@ def phase_train_cli(dev, pipe, backend="flash"):
     for d in (out1, out2, cache):
         shutil.rmtree(d, ignore_errors=True)
     common = ["--pretrained_model_name_or_path", str(snap), "--dataset_dir", str(clips), "--rank", "128",
-              "--lora_alpha", "64", "--gradient_accumulation_steps", "2", "--lr_scheduler", "cosine",
+              "--lora_alpha", "64", "--gradient_accumulation_steps", "1", "--lr_scheduler", "cosine",
               "--lr_warmup_steps", "1", "--max_grad_norm", "1.0", "--encode_cache_dir", str(cache),
               "--checkpointing_steps", "1", "--max_train_steps", "2", "--validation_steps", "2",
-              "--validation_num_inference_steps", "2", "--validation_prompt", "<cls> a pig walking in the park",
+              "--validation_num_inference_steps", "1", "--validation_prompt", "<cls> a pig walking in the park",
               "--height", "480", "--width", "720", "--max_num_frames", "49", "--device", dev.type]
     L = 42
     try:
@@ -3812,7 +3845,7 @@ def phase_train_cli(dev, pipe, backend="flash"):
         problems = []
         if set(files) != want or not all(files.values()):
             problems.append(f"files {files}")
-        for name, r, n in (("first", first, 4), ("resumed", second, 2)):
+        for name, r, n in (("first", first, 2), ("resumed", second, 1)):
             if len(r["step_s"]) != n or not all(np.isfinite(r["losses"])):
                 problems.append(f"{name}: {len(r['step_s'])} micro-steps, losses {r['losses']}")
             for c in r["launches"]:
@@ -3846,11 +3879,11 @@ def phase_train_cli(dev, pipe, backend="flash"):
     return {**line, "launches": first["launches"] + second["launches"]}
 
 
-def phase_train_full_2b(dev, pipe, backend="flash", micro_steps=6, height=480, width=720, num_frames=49):
+def phase_train_full_2b(dev, pipe, backend="flash", micro_steps=4, height=480, width=720, num_frames=49):
     """Full fine-tuning (``make_full_train_step``) of the 2b DiT at its
-    published width: fp32 master weights (a copy of the fp16 tree), bf16
+    published width (at the phase's ``DEPTH_CUT``): fp32 master weights (a copy of the fp16 tree), bf16
     compute, adamw with clip 1.0, accumulation 2, EMA 0.999, ``micro_steps``
-    micro-steps (3 optimizer steps) on one seeded 49x480x720 clip with its
+    micro-steps (2 optimizer steps at the default 4) on one seeded 49x480x720 clip with its
     sincos table.  Losses finite; the master weights and the EMA moved (the
     EMA only on the accumulation boundary); per micro-step bf16 B1 twice and
     B2 once per block.  Then the train state (params, optimizer state with
@@ -4212,7 +4245,8 @@ def fsdp_footprints() -> dict:
 
 def phase_train_full_5b_fsdp(dev, pipe, backend="flash", micro_steps=2, height=480, width=720, num_frames=49):
     """Full fine-tuning of the 5b DiT at its width under FSDP on the
-    one-rank data dim, at the deepest cut whose state fits beside the
+    one-rank data dim, at the deepest cut (at most ``FSDP_DEPTH``, the
+    phase's ``DEPTH_CUT``) whose state fits beside the
     resident pipeline (``FSDP_BYTES_PER_PARAM`` a parameter,
     ``FSDP_ACTIVATION_RESERVE`` kept free): bf16 compute, adamw with clip
     1.0, EMA 0.999, ``micro_steps`` micro-steps on the ``train`` clip with
@@ -4403,12 +4437,812 @@ def phase_train_cli_mesh(dev, pipe, backend="sp_windowed", frames=9):
     return {"launches": runs["first"]["launches"] + runs["resumed"]["launches"]}
 
 
+# ---------------------------------------------------------------------------
+# fp32: kernels B1, B2 and B4-B7 on fp32 inputs (csrc/attention_f32.cu,
+# csrc/attention_f32_bwd.cu: 3xTF32 on mma.sync), the route of --dtype float32
+# ---------------------------------------------------------------------------
+
+# the H100 SXM's dense TF32 tensor-core peak (NVIDIA data sheet); 3xTF32 runs
+# three TF32 products for each product of the bound, so 3x the bound is the
+# design's floor (the "3-pass floor")
+PEAK_TF32_FLOPS = 495e12
+TF32_PASSES = 3
+# fp32 kernels against their plain versions (fp32 with TF32 matmuls off) and
+# against the emulations of their 3xTF32 schedules: 3xTF32 keeps products to
+# about 2^-21 relative and the sums are fp32 in another order, so the
+# forward's outputs agree to ~1e-6 relative (the emulation on the CPU:
+# ~1e-6 max, ~5e-7 L2), the backward's, which sum dS over every key or query,
+# to a few 1e-6.  One TF32 pass (10 mantissa bits, 2^-11 relative per
+# operand) gives ~5e-4 max and ~3e-4 L2 on the same outputs: every limit here
+# lies below that.
+FP32_FWD_MAX_REL, FP32_FWD_L2 = 2.0 ** -14, 2e-5
+FP32_BWD_MAX_REL, FP32_BWD_L2 = 2.0 ** -12, 1e-4
+# lse in fp32: ~1e-6 of values near 10
+FP32_LSE_TOL = 1e-4
+# the small cases of the fp32 banded phases: ragged frames and globals,
+# clamped windows, w = 0, a small clip, a window wider than the clip, the
+# main shape's remainders
+BANDED_SMALL_FP32 = [(2, 3, 24, 20, 5, 1), (1, 2, 24, 20, 3, 2), (1, 2, 24, 20, 4, 0), (1, 2, 1, 8, 2, 0),
+                     (1, 2, 50, 40, 5, 9), (1, 2, 168, 198, 5, 2), (1, 2, 129, 16, 7, 3)]
+# heads of the main shape that the 3xTF32 emulations run on (every head is an
+# independent problem; the emulation of all 48 would take minutes)
+FP32_EMULATED_HEADS = 2
+
+
+def _agreement_f32(o, o_ref, what, bwd=False, limits=None):
+    """An fp32 output against a reference with the fp32 kernel limits above
+    (or ``limits``, (max_rel, rel_l2)); an all-zero reference (a shard's
+    dk/dv partial that no query reaches) needs an all-zero output."""
+    max_rel, l2 = limits or ((FP32_BWD_MAX_REL, FP32_BWD_L2) if bwd else (FP32_FWD_MAX_REL, FP32_FWD_L2))
+    o_ref = o_ref.float()
+    diff = o.float() - o_ref
+    ref_max = o_ref.abs().max().item()
+    if ref_max == 0:
+        err = o.float().abs().max().item()
+        if err != 0:
+            raise AssertionError(f"{what}: reference is zero, kernel max |x| {err}")
+        return {"max_abs_err": 0.0, "max_abs_tol": 0.0, "rel_l2": 0.0, "rel_l2_tol": l2, "ref_max": 0.0}
+    stats = {"max_abs_err": diff.abs().max().item(), "max_abs_tol": max_rel * ref_max,
+             "rel_l2": (diff.norm() / o_ref.norm()).item(), "rel_l2_tol": l2, "ref_max": ref_max}
+    if not (stats["max_abs_err"] <= stats["max_abs_tol"] and stats["rel_l2"] < l2):
+        raise AssertionError(f"{what}: {stats}")
+    return stats
+
+
+def _lse_f32(lse, lse_ref, what):
+    err = (lse - lse_ref).abs().max().item() if lse.numel() else 0.0
+    if not err < FP32_LSE_TOL:
+        raise AssertionError(f"{what}: lse max_abs_err {err} (tol {FP32_LSE_TOL})")
+    return err
+
+
+def _f32_bound(flops, nbytes):
+    """(bound_ms, bound_by, floor_ms): the larger of the operations over the
+    TF32 peak and the bytes over the memory rate, and the 3-pass floor."""
+    t_ops, t_bytes = flops / PEAK_TF32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes",
+            max(TF32_PASSES * t_ops, t_bytes) * 1e3)
+
+
+def _ms3(fn):
+    """CUDA events over 3 launches after one warm-up (the fp32 kernels are slow)."""
+    fn()
+    return cuda_ms(fn, 3)
+
+
+def _worst(cases, key="max_abs_err", tol="max_abs_tol"):
+    shares = [c[key] / c[tol] for c in cases if c.get(tol)]
+    return max(shares) if shares else 0.0
+
+
+def _qkv32(b, sq, skv, h, seed, dev, layer_norm=False):
+    import torch
+    import torch.nn.functional as F
+
+    q, k, v = _qkv(b, sq, skv, h, seed, dev, torch.float32)
+    if layer_norm:
+        q, k = F.layer_norm(q, (64,)), F.layer_norm(k, (64,))
+    return q, k, v
+
+
+def phase_kernel_fp32(dev):
+    """Kernel B1 in fp32 against its plain version and the emulation of its
+    3xTF32 schedule: small ragged shapes in every softmax mode (a key pad
+    mask, Skv below one tile), a bounded call that must re-run online, then
+    the main shape B=2, S=19,126, H=48 (the emulation on its first heads),
+    timed over 3 launches beside its bound, its 3-pass floor, the plain
+    version and fp32 SDPA (a yardstick only)."""
+    import torch
+    import torch.nn.functional as F
+
+    from s2v_torch.kernels import attention_f32 as af
+    from s2v_torch.kernels.flash_attention import flash_attention, flash_attention_reference
+
+    def compare(q, k, v, mode, mask=None, emulate=True):
+        o, lse = flash_attention(q, k, v, return_lse=True, key_pad_mask=mask, softmax_mode=mode)
+        o_ref, lse_ref = flash_attention_reference(q, k, v, return_lse=True, key_pad_mask=mask, softmax_mode=mode)
+        what = f"fp32 flash_attention[{mode}] {tuple(q.shape)}x{tuple(k.shape)}"
+        stats = {**_agreement_f32(o, o_ref, what), "lse_err": _lse_f32(lse, lse_ref, what)}
+        if emulate:
+            o_e, lse_e = af.flash_attention_f32_blocked(q, k, v, return_lse=True, key_pad_mask=mask, softmax_mode=mode)
+            st = _agreement_f32(o, o_e, what + " against the 3xTF32 emulation")
+            stats.update(schedule_max_abs_err=st["max_abs_err"], schedule_rel_l2=st["rel_l2"],
+                         schedule_lse_err=_lse_f32(lse, lse_e, what + " against the emulation"))
+        return stats
+
+    small = []
+    for mode in MODES:
+        for (b, sq, skv, h, masked) in [(2, 200, 200, 3, False), (1, 77, 333, 2, True), (2, 1000, 129, 2, False),
+                                        (1, 130, 40, 2, False), (1, 300, 1000, 2, True)]:
+            q, k, v = _qkv32(b, sq, skv, h, sq + skv, dev)
+            mask = None
+            if masked:
+                mask = torch.zeros(skv, dtype=torch.bool, device=dev)
+                mask[5:40] = True
+                mask[-3:] = True
+            small.append({"mode": mode, "q": [b, sq, h, 64], "skv": skv, "masked": masked,
+                          **compare(q, k, v, mode, mask)})
+    q, k, v = _qkv32(1, 256, 256, 2, 5, dev)
+    q[..., 32:] = 0
+    k[..., :32] = 0
+    q, k = q * 400, k * 400  # every bounded p underflows in fp32: the online re-run must run
+    before = flash_attention.reruns
+    rerun = {"q": [1, 256, 2, 64], **compare(q, k, v, "bounded")}
+    if q.is_cuda and flash_attention.reruns == before:
+        raise AssertionError("fp32 bounded re-run not taken")
+    emit({"phase": "kernel_fp32_small", "cases": small, "rerun": rerun})
+
+    b, s, h, d = MAIN_SHAPE
+    q, k, v = _qkv32(b, s, s, h, 7, dev, layer_norm=True)
+    main = {}
+    for mode in ("online", MAIN_MODE):
+        main[mode] = compare(q, k, v, mode, emulate=False)
+        main[mode]["ms"] = _ms3(lambda: flash_attention(q, k, v, softmax_mode=mode))
+    e = FP32_EMULATED_HEADS
+    o_k = flash_attention(q, k, v, softmax_mode="online")[:, :, :e]
+    o_e = af.flash_attention_f32_blocked(*(x[:, :, :e].contiguous() for x in (q, k, v)))
+    emulated = _agreement_f32(o_k, o_e, f"fp32 flash_attention main shape, heads 0-{e - 1}, against the emulation")
+    del o_k, o_e
+    plain_ms = cuda_ms(lambda: flash_attention_reference(q, k, v, softmax_mode=MAIN_MODE), 1)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    library_ms = _ms3(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+    flops = 4 * b * h * s * s * d
+    bound_ms, bound_by, floor_ms = _f32_bound(flops, 4 * b * s * h * d * 4 + b * h * s * 4)
+    result = {"phase": "kernel_fp32_main", "shape": list(MAIN_SHAPE), "dtype": "float32", "modes": main,
+              "emulated_heads": e, "schedule": emulated, "plain_ms": plain_ms, "library_ms": library_ms,
+              "bound_ms": bound_ms, "bound_by": bound_by, "floor_ms": floor_ms,
+              "tflops": flops / main[MAIN_MODE]["ms"] / 1e9, "smem_bytes": af.smem_bytes(),
+              "small_worst_err_share": _worst(small)}
+    emit(result)
+    return result
+
+
+def phase_kernel_bwd_fp32(dev):
+    """Kernel B2 in fp32 against its plain version and the emulation of its
+    3xTF32 schedule: small ragged shapes (Sq != Skv), then the training shape
+    B=1 (the emulation on its first heads; two launches bit for bit), timed
+    over 3 launches, split among its three kernels, beside its bound, its
+    3-pass floor, the plain version and fp32 SDPA's backward."""
+    import torch
+    import torch.nn.functional as F
+
+    from s2v_torch.kernels import attention_f32 as af
+    from s2v_torch.kernels.flash_attention import flash_attention
+    from s2v_torch.kernels.flash_attention_bwd import flash_attention_bwd, flash_attention_bwd_reference
+
+    def inputs(b, sq, skv, h, seed, layer_norm=False):
+        q, k, v = _qkv32(b, sq, skv, h, seed, dev, layer_norm)
+        o, lse = flash_attention(q, k, v, return_lse=True, softmax_mode=MAIN_MODE)
+        do = torch.randn(q.shape, device=dev, generator=torch.Generator(device=dev).manual_seed(seed + 1))
+        return q, k, v, o, lse, do
+
+    def compare(args, emulate=True):
+        got = flash_attention_bwd(*args)
+        what = f"fp32 flash_attention_bwd {tuple(args[0].shape)}x{tuple(args[1].shape)}"
+        stats = {n: _agreement_f32(a, r, f"{what} {n}", bwd=True)
+                 for n, a, r in zip(("dq", "dk", "dv"), got, flash_attention_bwd_reference(*args))}
+        if emulate:
+            for n, a, r in zip(("dq", "dk", "dv"), got, af.flash_attention_bwd_f32_blocked(*args)):
+                stats[n]["schedule_max_abs_err"] = _agreement_f32(a, r, f"{what} {n} against the emulation",
+                                                                  bwd=True)["max_abs_err"]
+        return stats
+
+    small = [{"q": [b, sq, h, 64], "skv": skv, **compare(inputs(b, sq, skv, h, sq + skv))}
+             for (b, sq, skv, h) in [(2, 200, 200, 3), (1, 77, 333, 2), (2, 1000, 129, 2), (1, 130, 40, 2)]]
+    emit({"phase": "kernel_bwd_fp32_small", "cases": small})
+
+    b, s, h, d = TRAIN_SHAPE
+    args = inputs(b, s, s, h, 11, layer_norm=True)
+    stats = compare(args, emulate=False)
+    e = FP32_EMULATED_HEADS
+    got = [x[:, :, :e] for x in flash_attention_bwd(*args)]
+    sliced = [x[:, :, :e].contiguous() for x in args[:4]] + [args[4][:, :e].contiguous(), args[5][:, :, :e].contiguous()]
+    emulated = {n: _agreement_f32(a, r, f"fp32 flash_attention_bwd main shape {n} against the emulation", bwd=True)
+                for n, a, r in zip(("dq", "dk", "dv"), got, af.flash_attention_bwd_f32_blocked(*sliced))}
+    del got, sliced
+    deterministic = _determinism(flash_attention_bwd, args, "fp32 flash_attention_bwd")
+    ms = _ms3(lambda: flash_attention_bwd(*args))
+    q, k, v, o, lse, do = args
+    grads = [torch.empty_like(x) for x in (q, k, v)]
+    ws = af.bwd_workspace(q)
+    parts_ms = {}
+    af.launch_bwd(q, k, v, o, do, lse, *grads, d ** -0.5, workspace=ws)
+    for name, part in (("prepass", af.PART_PREPASS), ("dq", af.PART_DQ), ("dkv", af.PART_DKV)):
+        parts_ms[name] = _ms3(lambda: af.launch_bwd(q, k, v, o, do, lse, *grads, d ** -0.5, workspace=ws,
+                                                    parts=part))
+    del grads, ws
+    plain_ms = cuda_ms(lambda: flash_attention_bwd_reference(*args), 1)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt)
+    gt = do.transpose(1, 2)
+    library_ms = _ms3(lambda: torch.autograd.grad(out, (qt, kt, vt), gt, retain_graph=True))
+    del out, qt, kt, vt
+    flops = 10 * b * h * s * s * d
+    bound_ms, bound_by, floor_ms = _f32_bound(flops, 8 * b * s * h * d * 4 + b * h * s * 4)
+    result = {"phase": "kernel_bwd_fp32_main", "shape": list(TRAIN_SHAPE), "dtype": "float32", "grads": stats,
+              "schedule": emulated, "emulated_heads": e, "deterministic": deterministic, "ms": ms,
+              "parts_ms": parts_ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+              "bound_by": bound_by, "floor_ms": floor_ms, "tflops": flops / ms / 1e9,
+              "small_worst_err_share": max(_worst(list(c[n] for c in small)) for n in ("dq", "dk", "dv"))}
+    emit(result)
+    return result
+
+
+def _banded_f32_emulated(q, k, v, band):
+    """B4's fp32 kernels emulated as the CUDA path runs them: the video rows
+    on the banded schedule, the global rows through B1's online schedule."""
+    import torch
+
+    from s2v_torch.kernels import attention_f32 as af
+    from s2v_torch.kernels.banded_attention import band_geometry
+
+    geo = band_geometry(q.shape[1], *band)
+    g = geo.global_len
+    o_vid, lse_vid = af.banded_f32_blocked(q[:, g:], k, v, geo, return_lse=True)
+    o_glob, lse_glob = af.flash_attention_f32_blocked(q[:, :g], k, v, return_lse=True)
+    return torch.cat([o_glob, o_vid], dim=1), torch.cat([lse_glob, lse_vid], dim=-1)
+
+
+def _banded_bwd_f32_emulated(q, k, v, o, lse, do, band):
+    """B5's fp32 kernels emulated as the CUDA path runs them (the video
+    queries' banded part plus the global queries' B2 part)."""
+    import torch
+
+    from s2v_torch.kernels import attention_f32 as af
+    from s2v_torch.kernels.banded_attention import band_geometry
+
+    geo = band_geometry(q.shape[1], *band)
+    g = geo.global_len
+    dq_v, dk_v, dv_v = af.banded_bwd_f32_blocked(q[:, g:], k, v, o[:, g:], lse[..., g:], do[:, g:], geo)
+    dq_g, dk_g, dv_g = af.flash_attention_bwd_f32_blocked(q[:, :g], k, v, o[:, :g], lse[..., :g], do[:, :g])
+    return torch.cat([dq_g, dq_v], dim=1), dk_v + dk_g, dv_v + dv_g
+
+
+def phase_kernel_banded_fp32(dev):
+    """Kernel B4 in fp32 (the global queries through B1 in fp32) against its
+    plain version and the emulation of its schedule: small geometries, then
+    the main band (B=2; the emulation on its first heads), timed over 3
+    launches beside its bound, its 3-pass floor, the plain version and fp32
+    masked SDPA over the video queries."""
+    import torch
+
+    from s2v_torch.kernels.banded_attention import (
+        band_geometry,
+        banded_flash_attention,
+        banded_flash_attention_reference,
+    )
+
+    def compare(q, k, v, band, emulate=True):
+        o, lse = banded_flash_attention(q, k, v, *band, return_lse=True)
+        o_ref, lse_ref = banded_flash_attention_reference(q, k, v, *band, return_lse=True)
+        what = f"fp32 banded_flash_attention {tuple(q.shape)} band {band}"
+        stats = {**_agreement_f32(o, o_ref, what), "lse_err": _lse_f32(lse, lse_ref, what)}
+        if emulate:
+            o_e, lse_e = _banded_f32_emulated(q, k, v, band)
+            stats["schedule_max_abs_err"] = _agreement_f32(o, o_e, what + " against the emulation")["max_abs_err"]
+            stats["schedule_lse_err"] = _lse_f32(lse, lse_e, what + " against the emulation")
+        return stats
+
+    small = []
+    for (b, h, g, tpf, f, w) in BANDED_SMALL_FP32:
+        q, k, v = _qkv32(b, g + f * tpf, g + f * tpf, h, g + tpf + f, dev)
+        small.append({"b": b, "h": h, "band": [g, tpf, f, w], **compare(q, k, v, (g, tpf, w))})
+    emit({"phase": "kernel_banded_fp32_small", "cases": small})
+
+    b, s, h, d = MAIN_SHAPE
+    geo = band_geometry(s, *BAND)
+    q, k, v = _qkv32(b, s, s, h, 7, dev, layer_norm=True)
+    stats = compare(q, k, v, BAND, emulate=False)
+    e = FP32_EMULATED_HEADS
+    o_k = banded_flash_attention(q, k, v, *BAND)[:, :, :e]
+    o_e, _ = _banded_f32_emulated(*(x[:, :, :e].contiguous() for x in (q, k, v)), BAND)
+    emulated = _agreement_f32(o_k, o_e, "fp32 banded_flash_attention main band against the emulation")
+    del o_k, o_e
+    ms = _ms3(lambda: banded_flash_attention(q, k, v, *BAND))
+    plain_ms = cuda_ms(lambda: banded_flash_attention_reference(q, k, v, *BAND), 1)
+    rows = torch.arange(geo.global_len, s, device=dev)
+    library_ms, library_shape, library_failed = _masked_sdpa_ms(q[:, geo.global_len:], k, v, rows, geo)
+    pairs_vid, pairs_glob = geo.pairs()
+    flops = 4 * b * h * d * (pairs_vid + pairs_glob)
+    bound_ms, bound_by, floor_ms = _f32_bound(flops, 4 * b * s * h * d * 4 + b * h * s * 4)
+    result = {"phase": "kernel_banded_fp32_main", "shape": list(MAIN_SHAPE), "band": list(BAND), "dtype": "float32",
+              **stats, "schedule": emulated, "emulated_heads": e, "ms": ms, "plain_ms": plain_ms,
+              "library_ms": library_ms, "library_shape": library_shape, "library_not_run": library_failed,
+              "library_covers": "video queries (fp32 masked SDPA)", "bound_ms": bound_ms, "bound_by": bound_by,
+              "floor_ms": floor_ms, "tflops": flops / ms / 1e9, "small_worst_err_share": _worst(small)}
+    emit(result)
+    return result
+
+
+def phase_kernel_banded_bwd_fp32(dev):
+    """Kernel B5 in fp32 (the global queries through B2 in fp32) against its
+    plain version and the emulation of its schedule: small geometries, then
+    the training band (B=1; the emulation on its first heads; two launches
+    bit for bit), timed beside its bound, its 3-pass floor, the plain version
+    and the backward of fp32 masked SDPA over the video queries."""
+    import torch
+
+    from s2v_torch.kernels.banded_attention import band_geometry, banded_flash_attention
+    from s2v_torch.kernels.banded_attention_bwd import (
+        banded_flash_attention_bwd,
+        banded_flash_attention_bwd_reference,
+    )
+
+    def inputs(b, h, s, band, seed, layer_norm=False):
+        q, k, v = _qkv32(b, s, s, h, seed, dev, layer_norm)
+        o, lse = banded_flash_attention(q, k, v, *band, return_lse=True)
+        do = torch.randn(q.shape, device=dev, generator=torch.Generator(device=dev).manual_seed(seed + 1))
+        return q, k, v, o, lse, do
+
+    def compare(args, band, emulate=True):
+        got = banded_flash_attention_bwd(*args, *band)
+        what = f"fp32 banded_flash_attention_bwd {tuple(args[0].shape)} band {band}"
+        stats = {n: _agreement_f32(a, r, f"{what} {n}", bwd=True)
+                 for n, a, r in zip(("dq", "dk", "dv"), got, banded_flash_attention_bwd_reference(*args, *band))}
+        if emulate:
+            for n, a, r in zip(("dq", "dk", "dv"), got, _banded_bwd_f32_emulated(*args, band)):
+                stats[n]["schedule_max_abs_err"] = _agreement_f32(a, r, f"{what} {n} against the emulation",
+                                                                  bwd=True)["max_abs_err"]
+        return stats
+
+    small = []
+    for (b, h, g, tpf, f, w) in BANDED_SMALL_FP32:
+        small.append({"b": b, "h": h, "band": [g, tpf, f, w],
+                      **compare(inputs(b, h, g + f * tpf, (g, tpf, w), g + tpf + f), (g, tpf, w))})
+    emit({"phase": "kernel_banded_bwd_fp32_small", "cases": small})
+
+    b, s, h, d = TRAIN_SHAPE
+    geo = band_geometry(s, *BAND)
+    args = inputs(b, h, s, BAND, 11, layer_norm=True)
+    stats = compare(args, BAND, emulate=False)
+    e = FP32_EMULATED_HEADS
+    got = [x[:, :, :e] for x in banded_flash_attention_bwd(*args, *BAND)]
+    sliced = [x[:, :, :e].contiguous() for x in args[:4]] + [args[4][:, :e].contiguous(), args[5][:, :, :e].contiguous()]
+    emulated = {n: _agreement_f32(a, r, f"fp32 banded_flash_attention_bwd main band {n} against the emulation",
+                                  bwd=True)
+                for n, a, r in zip(("dq", "dk", "dv"), got, _banded_bwd_f32_emulated(*sliced, BAND))}
+    del got, sliced
+    deterministic = _determinism(banded_flash_attention_bwd, (*args, *BAND), "fp32 banded_flash_attention_bwd")
+    ms = _ms3(lambda: banded_flash_attention_bwd(*args, *BAND))
+    plain_ms = cuda_ms(lambda: banded_flash_attention_bwd_reference(*args, *BAND), 1)
+    rows = torch.arange(geo.global_len, s, device=dev)
+    library_ms, library_shape, library_failed = _masked_sdpa_ms(args[0][:, geo.global_len:], args[1], args[2], rows,
+                                                                geo, grad=args[5][:, geo.global_len:])
+    pairs_vid, pairs_glob = geo.pairs()
+    flops = 10 * b * h * d * (pairs_vid + pairs_glob)
+    bound_ms, bound_by, floor_ms = _f32_bound(flops, 8 * b * s * h * d * 4 + b * h * s * 4)
+    result = {"phase": "kernel_banded_bwd_fp32_main", "shape": list(TRAIN_SHAPE), "band": list(BAND),
+              "dtype": "float32", "grads": stats, "schedule": emulated, "emulated_heads": e,
+              "deterministic": deterministic, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+              "library_shape": library_shape, "library_not_run": library_failed,
+              "library_covers": "video queries (backward of fp32 masked SDPA)", "bound_ms": bound_ms,
+              "bound_by": bound_by, "floor_ms": floor_ms, "tflops": flops / ms / 1e9,
+              "small_worst_err_share": max(_worst(list(c[n] for c in small)) for n in ("dq", "dk", "dv"))}
+    emit(result)
+    return result
+
+
+def _local_f32_shards(ring, n_frames):
+    from s2v_torch.kernels.banded_attention import ring_shards
+
+    _, f_loc = ring_shards(n_frames, ring)
+    return [(r, r * f_loc, f_loc) for r in range(ring)]
+
+
+def phase_kernel_banded_local_fp32(dev):
+    """Kernel B6 in fp32 (one shard of video-query frames at a runtime frame
+    offset) against its plain version and the emulation of its schedule: the
+    small geometries at every offset of a 2- and a 4-rank ring (dummy
+    frames, and rings past the frame count, included); then each shard of a
+    4-rank ring over the main band (B=2), timed beside its bound, its 3-pass
+    floor, the plain version and fp32 masked SDPA over the shard's
+    queries."""
+    import torch
+
+    from s2v_torch.kernels import attention_f32 as af
+    from s2v_torch.kernels.banded_attention import (
+        band_geometry,
+        banded_flash_attention_local,
+        banded_flash_attention_local_reference,
+    )
+
+    def compare(q_loc, k, v, geo, off, emulate=True):
+        band = (geo.global_len, geo.tokens_per_frame, geo.window)
+        o, lse = banded_flash_attention_local(q_loc, k, v, *band, off, geo.n_frames, return_lse=True)
+        o_ref, lse_ref = banded_flash_attention_local_reference(q_loc, k, v, *band, off, geo.n_frames,
+                                                                return_lse=True)
+        what = f"fp32 banded_flash_attention_local {tuple(q_loc.shape)} band {band} offset {off}"
+        stats = {**_agreement_f32(o, o_ref, what), "lse_err": _lse_f32(lse, lse_ref, what)}
+        if emulate:
+            shard = geo.shard(off, q_loc.shape[1] // geo.tokens_per_frame)
+            o_e, lse_e = af.banded_f32_blocked(q_loc, k, v, shard, return_lse=True)
+            stats["schedule_max_abs_err"] = _agreement_f32(o, o_e, what + " against the emulation")["max_abs_err"]
+            stats["schedule_lse_err"] = _lse_f32(lse, lse_e, what + " against the emulation")
+        return stats
+
+    small = []
+    for (b, h, g, tpf, f, w) in BANDED_SMALL_FP32:
+        geo = band_geometry(g + f * tpf, g, tpf, w)
+        q, k, v = _qkv32(b, g + f * tpf, g + f * tpf, h, g + tpf + f + 3, dev)
+        for ring in (2, 4):
+            for r, off, f_loc in _local_f32_shards(ring, f):
+                small.append({"band": [b, h, g, tpf, f, w], "ring": ring, "offset": off,
+                              "dummy_frames": f_loc - geo.shard(off, f_loc).real_frames(),
+                              **compare(_shard_rows(q, geo, f_loc, off), k, v, geo, off)})
+    emit({"phase": "kernel_banded_local_fp32_small", "cases": small})
+
+    b, s, h, d = MAIN_SHAPE
+    geo = band_geometry(s, *BAND)
+    g_len, tpf = geo.global_len, geo.tokens_per_frame
+    q, k, v = _qkv32(b, s, s, h, 7, dev, layer_norm=True)
+    shards = []
+    for r, off, f_loc in _local_f32_shards(4, geo.n_frames):
+        shard = geo.shard(off, f_loc)
+        q_loc = _shard_rows(q, geo, f_loc, off)
+        stats = compare(q_loc, k, v, geo, off, emulate=False)
+        ms = _ms3(lambda: banded_flash_attention_local(q_loc, k, v, *BAND, off, geo.n_frames))
+        plain_ms = cuda_ms(lambda: banded_flash_attention_local_reference(q_loc, k, v, *BAND, off, geo.n_frames), 1)
+        rows = torch.arange(g_len + off * tpf, g_len + (off + f_loc) * tpf, device=dev)
+        library_ms, library_shape, _ = _masked_sdpa_ms(q_loc, k, v, rows, geo)
+        sq = q_loc.shape[1]
+        flops = 4 * b * h * d * shard.shard_pairs()
+        bound_ms, bound_by, floor_ms = _f32_bound(flops, (2 * sq + 2 * s) * b * h * d * 4)
+        shards.append({"rank": r, "offset": off, "local_frames": f_loc,
+                       "dummy_frames": f_loc - shard.real_frames(), **stats, "ms": ms, "plain_ms": plain_ms,
+                       "library_ms": library_ms, "library_shape": library_shape, "bound_ms": bound_ms,
+                       "bound_by": bound_by, "floor_ms": floor_ms, "tflops": flops / ms / 1e9})
+    e = FP32_EMULATED_HEADS
+    _, off, f_loc = _local_f32_shards(4, geo.n_frames)[0]
+    q_loc = _shard_rows(q, geo, f_loc, off)[:, :, :e].contiguous()
+    k_e, v_e = k[:, :, :e].contiguous(), v[:, :, :e].contiguous()
+    emulated = _agreement_f32(banded_flash_attention_local(q_loc, k_e, v_e, *BAND, off, geo.n_frames),
+                              af.banded_f32_blocked(q_loc, k_e, v_e, geo.shard(off, f_loc)),
+                              "fp32 banded_flash_attention_local main band rank 0 against the emulation")
+    result = {"phase": "kernel_banded_local_fp32_main", "shape": list(MAIN_SHAPE), "band": list(BAND),
+              "dtype": "float32", "ring": 4, "shards": shards, "schedule_rank0": emulated, "emulated_heads": e,
+              "small_worst_err_share": _worst(small)}
+    emit(result)
+    return result
+
+
+def phase_kernel_banded_local_bwd_fp32(dev):
+    """Kernel B7 in fp32 (the backward of B6 for one shard) against its plain
+    version and the emulation of its schedule: the small geometries at every
+    offset of a 2- and a 4-rank ring (rings past the frame count included),
+    then each shard of a 4-rank ring over the training band (B=1), timed
+    beside its bound, its 3-pass floor, the plain version and the backward of
+    fp32 masked SDPA over the shard's queries."""
+    import torch
+
+    from s2v_torch.kernels import attention_f32 as af
+    from s2v_torch.kernels.banded_attention import band_geometry, banded_flash_attention_local
+    from s2v_torch.kernels.banded_attention_bwd import (
+        banded_flash_attention_local_bwd,
+        banded_flash_attention_local_bwd_reference,
+    )
+
+    def shard_args(q, k, v, do, geo, f_loc, off):
+        band = (geo.global_len, geo.tokens_per_frame, geo.window)
+        q_loc, do_loc = _shard_rows(q, geo, f_loc, off), _shard_rows(do, geo, f_loc, off)
+        o, lse = banded_flash_attention_local(q_loc, k, v, *band, off, geo.n_frames, return_lse=True)
+        return q_loc, k, v, o, lse, do_loc, *band, off, geo.n_frames
+
+    def compare(args, geo, emulate=True):
+        got = banded_flash_attention_local_bwd(*args)
+        what = f"fp32 banded_flash_attention_local_bwd {tuple(args[0].shape)} offset {args[9]}"
+        stats = {n: _agreement_f32(a, r, f"{what} {n}", bwd=True)
+                 for n, a, r in zip(("dq", "dk", "dv"), got, banded_flash_attention_local_bwd_reference(*args))}
+        if emulate:
+            shard = geo.shard(args[9], args[0].shape[1] // geo.tokens_per_frame)
+            for n, a, r in zip(("dq", "dk", "dv"), got, af.banded_bwd_f32_blocked(*args[:6], shard)):
+                stats[n]["schedule_max_abs_err"] = _agreement_f32(a, r, f"{what} {n} against the emulation",
+                                                                  bwd=True)["max_abs_err"]
+        return stats
+
+    small = []
+    for (b, h, g, tpf, f, w) in BANDED_SMALL_FP32:
+        geo = band_geometry(g + f * tpf, g, tpf, w)
+        q, k, v = _qkv32(b, g + f * tpf, g + f * tpf, h, g + tpf + f + 5, dev)
+        do = torch.randn(q.shape, device=dev, generator=torch.Generator(device=dev).manual_seed(f))
+        for ring in (2, 4):
+            for r, off, f_loc in _local_f32_shards(ring, f):
+                small.append({"band": [b, h, g, tpf, f, w], "ring": ring, "offset": off,
+                              **compare(shard_args(q, k, v, do, geo, f_loc, off), geo)})
+    emit({"phase": "kernel_banded_local_bwd_fp32_small", "cases": small})
+
+    b, s, h, d = TRAIN_SHAPE
+    geo = band_geometry(s, *BAND)
+    g_len, tpf = geo.global_len, geo.tokens_per_frame
+    q, k, v = _qkv32(b, s, s, h, 11, dev, layer_norm=True)
+    do = torch.randn(q.shape, device=dev, generator=torch.Generator(device=dev).manual_seed(12))
+    shards = []
+    for r, off, f_loc in _local_f32_shards(4, geo.n_frames):
+        shard = geo.shard(off, f_loc)
+        args = shard_args(q, k, v, do, geo, f_loc, off)
+        stats = compare(args, geo, emulate=False)
+        ms = _ms3(lambda: banded_flash_attention_local_bwd(*args))
+        plain_ms = cuda_ms(lambda: banded_flash_attention_local_bwd_reference(*args), 1)
+        rows = torch.arange(g_len + off * tpf, g_len + (off + f_loc) * tpf, device=dev)
+        library_ms, library_shape, _ = _masked_sdpa_ms(args[0], k, v, rows, geo, grad=args[5])
+        sq = args[0].shape[1]
+        flops = 10 * b * h * d * shard.shard_pairs()
+        bound_ms, bound_by, floor_ms = _f32_bound(flops, (4 * sq + 4 * s) * b * h * d * 4 + b * h * sq * 4)
+        shards.append({"rank": r, "offset": off, "local_frames": f_loc,
+                       "dummy_frames": f_loc - shard.real_frames(), "grads": stats, "ms": ms, "plain_ms": plain_ms,
+                       "library_ms": library_ms, "library_shape": library_shape, "bound_ms": bound_ms,
+                       "bound_by": bound_by, "floor_ms": floor_ms, "tflops": flops / ms / 1e9})
+        if r == 0:
+            deterministic = _determinism(banded_flash_attention_local_bwd, args, "fp32 banded_flash_attention_local_bwd")
+        del args
+    e = FP32_EMULATED_HEADS
+    _, off, f_loc = _local_f32_shards(4, geo.n_frames)[0]
+    args = shard_args(*(x[:, :, :e].contiguous() for x in (q, k, v, do)), geo, f_loc, off)
+    emulated = {n: _agreement_f32(a, r, f"fp32 banded_flash_attention_local_bwd main band {n} against the emulation",
+                                  bwd=True)
+                for n, a, r in zip(("dq", "dk", "dv"), banded_flash_attention_local_bwd(*args),
+                                   af.banded_bwd_f32_blocked(*args[:6], geo.shard(off, f_loc)))}
+    result = {"phase": "kernel_banded_local_bwd_fp32_main", "shape": list(TRAIN_SHAPE), "band": list(BAND),
+              "dtype": "float32", "ring": 4, "shards": shards, "schedule_rank0": emulated, "emulated_heads": e,
+              "deterministic": deterministic,
+              "small_worst_err_share": max(_worst(list(c[n] for c in small)) for n in ("dq", "dk", "dv"))}
+    emit(result)
+    return result
+
+
+# the fp32 pipeline's latents with B1-B7's fp32 kernels against the same
+# pipeline with the chunked backend (PyTorch ops, fp32 with TF32 off): each
+# attention call differs by ~3e-6 relative (kernel_fp32), which 6 blocks, 2
+# steps and guidance 6 (the uncond/cond difference times up to 2g - 1 = 11)
+# carry to ~1e-5; one TF32 pass would give ~1e-2
+FP32_PIPELINE_MAX_REL, FP32_PIPELINE_L2 = 1e-3, 1e-4
+# the LoRA loss and adapter gradients of the same: the backward's kernels at
+# ~3e-6, through remat and 6 blocks
+FP32_LOSS_REL, FP32_GRAD_MAX_REL, FP32_GRAD_L2 = 1e-5, 1e-3, 1e-4
+
+
+def _cast_tree(tree, dtype):
+    import torch
+
+    if isinstance(tree, dict):
+        return {k: _cast_tree(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_cast_tree(v, dtype) for v in tree)
+    if isinstance(tree, torch.Tensor) and tree.is_floating_point():
+        return tree.to(dtype)
+    return tree
+
+
+def fp32_pipe(pipe, dev):
+    """The resident pipeline cast to fp32 (its DiT as the phase's depth cut
+    leaves it, T5-XXL ≈ 19 GB, the VAE), as ``--dtype float32`` loads it; the
+    caller releases it."""
+    import dataclasses
+
+    import torch
+
+    from s2v_torch import S2VPipeline
+
+    t0 = time.perf_counter()
+    f32 = torch.float32
+    fp = S2VPipeline(
+        transformer_params=_cast_tree(pipe.transformer_params, f32),
+        transformer_cfg=dataclasses.replace(pipe.transformer_cfg, dtype=f32),
+        vae_params=_cast_tree(pipe.vae_params, f32), vae_cfg=dataclasses.replace(pipe.vae_cfg, dtype=f32),
+        t5_params=_cast_tree(pipe.t5_params, f32), t5_cfg=dataclasses.replace(pipe.t5_cfg, dtype=f32),
+        tokenizer=pipe.tokenizer, device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    emit({"phase": "fp32_pipeline", "cast_s": time.perf_counter() - t0,
+          "memory_allocated_gb": torch.cuda.memory_allocated() / 1e9 if dev.type == "cuda" else None})
+    return fp
+
+
+def _fp32_counts(counts, backend, forwards, backwards):
+    """The launches of ``check_counts``, all of them fp32."""
+    if not check_counts(counts, backend, forwards, backwards):
+        return False
+    return all(counts[f"{name}_by_dtype"].get("float32", 0) == counts[name] for name in COUNTED)
+
+
+def phase_e2e_fp32(dev, pipe, backend="flash", height=480, width=720, num_frames=49):
+    """``generate`` on the pipeline cast to fp32 (``--dtype float32``) at the
+    cut depth, 49x480x720, 2 steps: the exact backend runs B1's fp32 kernel
+    once a block and step, and no input is cast down.  Its latents held
+    against the ``chunked`` backend's (PyTorch ops) at the same seed; then
+    one step each with ``windowed`` (B4 fp32 and B1 fp32 for the global
+    queries) and, on the one-rank seq mesh, ``sp_windowed`` (B6 fp32).  The
+    clip is the exact run's latents decoded, as ``generate`` decodes them
+    for ``output_type="np"``."""
+    import torch
+
+    t_phase = time.perf_counter()
+    fp = fp32_pipe(pipe, dev)
+    L = fp.transformer_cfg.num_layers
+    image = np.clip(np.random.RandomState(42).randn(height, width, 3).astype(np.float32) * 0.5, -1, 1)
+    kw = dict(prompt="a pig walking in the park", ref_image=image, height=height, width=width,
+              num_frames=num_frames, guidance_scale=6.0, seed=42)
+    try:
+        latents = {}
+        for name in (backend, "chunked"):
+            fp.set_attention(name)
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t0 = time.perf_counter()
+            latents[name] = fp.generate(num_inference_steps=2, output_type="latent", **kw).float()
+            if name == backend:
+                counts, timings = read_counts(), dict(fp.timings)
+                # the clip of the same run: the decode generate runs for output_type="np"
+                t1 = time.perf_counter()
+                video = fp.decode_latents(latents[name].to(fp.vae_cfg.dtype))
+                timings["decode_s"] = time.perf_counter() - t1
+                wall_s = time.perf_counter() - t0
+                peak_gb = torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda" else None
+        _clip_checks(video, (1, num_frames, height, width, 3), "e2e_fp32")
+        if not _fp32_counts(counts, backend, 2 * L, 0):
+            raise AssertionError(f"e2e_fp32 launches {counts}; expected {2 * L} fp32 B1 and nothing else")
+        agreement = _agreement_f32(latents[backend], latents["chunked"], "e2e_fp32 latents",
+                                   limits=(FP32_PIPELINE_MAX_REL, FP32_PIPELINE_L2))
+        legs = {}
+        for name in ("windowed", "sp_windowed"):
+            if name == "sp_windowed":
+                fp.set_mesh(sp_mesh())
+            try:
+                fp.set_attention(name, 2)
+                reset_counts()
+                t0 = time.perf_counter()
+                fp.generate(num_inference_steps=1, output_type="latent", **kw)
+                legs[name] = {"launches": read_counts(), "seconds": time.perf_counter() - t0,
+                              "denoise_step_s": fp.timings["denoise_step_s"]}
+            finally:
+                fp.set_mesh(None)
+            if not _fp32_counts(legs[name]["launches"], name, L, 0):
+                raise AssertionError(f"e2e_fp32 {name} launches {legs[name]['launches']}")
+    finally:
+        release_pipe(fp, dev, keep_batches=True)
+    line = {"phase": "e2e_fp32", "backend": backend, "depth": L, "num_frames": num_frames, "steps": 2,
+            "output_shape": list(video.shape), "launches": counts, "encode_prompt_s": timings["encode_prompt_s"],
+            "encode_ref_s": timings["encode_ref_s"], "denoise_step_s": timings["denoise_step_s"],
+            "decode_s": timings["decode_s"], "wall_s": wall_s, "max_memory_allocated_gb": peak_gb,
+            "output_mean": float(video.mean()), "output_std": float(video.std()),
+            "latents_vs_chunked": agreement, "windowed_legs": legs, "seconds": time.perf_counter() - t_phase}
+    emit(line)
+    return {**counts, "windowed": legs["windowed"]["launches"], "sp_windowed": legs["sp_windowed"]["launches"]}
+
+
+def phase_train_fp32(dev, pipe, backend="flash", height=480, width=720, num_frames=49):
+    """One LoRA loss and its adapters' gradients on the pipeline cast to fp32
+    (the trainer's ``--dtype float32 --compute_dtype none``) at the cut
+    depth, with remat: B1's fp32 kernel twice a block and B2's once, held
+    against the ``chunked`` backend's loss and gradients; then the same with
+    ``windowed`` (B4 and B5 fp32) and, under the one-rank seq mesh,
+    ``sp_windowed`` (B6 and B7 fp32)."""
+    import dataclasses
+
+    import torch
+
+    from s2v_torch.config import SchedulerConfig
+    from s2v_torch.parallel import default_logical_map, mesh_context
+    from s2v_torch.schedulers.ddim import compute_alphas_cumprod
+    from s2v_torch.training.lora import LoRASpec, init_lora_params
+
+    t_phase = time.perf_counter()
+    fp = fp32_pipe(pipe, dev)
+    try:
+        params, cfg = fp.transformer_params, fp.transformer_cfg
+        L = cfg.num_layers
+        batch = _lora_batch(fp, height, width, num_frames, seed=8)
+        spec = LoRASpec(rank=128, alpha=64.0)
+        lora = init_lora_params(torch.Generator(device=dev).manual_seed(1), params, spec)
+        for ab in lora.values():  # nonzero b, so that every a gets a gradient
+            ab["b"].normal_(0.0, 1e-3, generator=torch.Generator(device=dev).manual_seed(2))
+        alphas = torch.as_tensor(compute_alphas_cumprod(SchedulerConfig()), device=dev)
+        gen = torch.Generator(device=dev).manual_seed(3)
+        timesteps = torch.randint(0, alphas.shape[0], (1,), generator=gen, device=dev)
+        noise = torch.randn(batch["video_latents"].shape, generator=gen, device=dev)
+        torch.cuda.reset_peak_memory_stats()
+        runs = {name: _loss_and_grads(params, cfg, spec, lora, batch, alphas, timesteps, noise, name)
+                for name in (backend, "chunked")}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        wcfg = dataclasses.replace(cfg, attention_window_frames=2)
+        runs["windowed"] = _loss_and_grads(params, wcfg, spec, lora, batch, alphas, timesteps, noise, "windowed")
+        mesh = sp_mesh()
+        with mesh_context(mesh, default_logical_map(mesh)):
+            runs["sp_windowed"] = _loss_and_grads(params, wcfg, spec, lora, batch, alphas, timesteps, noise,
+                                                  "sp_windowed")
+    finally:
+        release_pipe(fp, dev, keep_batches=True)
+    for name, r in runs.items():
+        if name != "chunked" and not _fp32_counts(r["counts"], name, 2 * L, L):
+            raise AssertionError(f"train_fp32 {name} launches {r['counts']}")
+    ref, got = runs["chunked"], runs[backend]
+    names = [f"{n}.{k}" for n in sorted(lora) for k in ("a", "b")]
+    loss_rel = abs(got["loss"] - ref["loss"]) / abs(ref["loss"])
+    if not loss_rel < FP32_LOSS_REL:
+        raise AssertionError(f"train_fp32: loss {got['loss']} against chunked {ref['loss']}")
+    grads = {n: _agreement_f32(g, w, f"train_fp32 grad {n}", limits=(FP32_GRAD_MAX_REL, FP32_GRAD_L2))
+             for n, g, w in zip(names, got["grads"], ref["grads"])}
+    # the windowed pair: the same loss through the band (a different
+    # function), finite, its sp_windowed twin within the fp32 kernels' limits
+    w, sp = runs["windowed"], runs["sp_windowed"]
+    if not (np.isfinite(w["loss"]) and abs(sp["loss"] - w["loss"]) <= FP32_LOSS_REL * abs(w["loss"])):
+        raise AssertionError(f"train_fp32: windowed loss {w['loss']}, sp_windowed {sp['loss']}")
+    line = {"phase": "train_fp32", "depth": L, "loss": got["loss"], "loss_chunked": ref["loss"],
+            "loss_rel_err": loss_rel, "loss_rel_tol": FP32_LOSS_REL,
+            "worst_grad": max(grads.values(), key=lambda st: st["rel_l2"]),
+            "grad_limits": {"max_rel": FP32_GRAD_MAX_REL, "rel_l2": FP32_GRAD_L2},
+            "loss_and_grad_s": {n: r["seconds"] for n, r in runs.items()}, "launches": {n: r["counts"] for n, r in runs.items()},
+            "loss_windowed": w["loss"], "loss_sp_windowed": sp["loss"], "max_memory_allocated_gb": peak_gb,
+            "seconds": time.perf_counter() - t_phase}
+    emit(line)
+    return {"launches": [runs[n]["counts"] for n in (backend, "windowed", "sp_windowed")]}
+
+
+def phase_ring_past_frames(dev):
+    """B6 and B7 in bf16 on the shards of rings with more ranks than latent
+    frames (ROADMAP A.9.4): a 4-rank ring over 2 frames, where ranks 2-3
+    hold one dummy frame each, and the small geometries whose frames a
+    4-rank ring outnumbers; every shard's output, lse and gradients held
+    against the plain versions with the bf16 limits (a shard of dummy frames
+    only: dq and its dk/dv partials exactly zero)."""
+    import torch
+
+    from s2v_torch.kernels.banded_attention import (
+        band_geometry,
+        banded_flash_attention_local,
+        banded_flash_attention_local_reference,
+        ring_shards,
+    )
+    from s2v_torch.kernels.banded_attention_bwd import (
+        banded_flash_attention_local_bwd,
+        banded_flash_attention_local_bwd_reference,
+    )
+
+    counts = _counted_fns()
+    before = {n: counts[n].launches for n in ("banded_flash_attention_local", "banded_flash_attention_local_bwd")}
+    cases = []
+    geometries = [(1, 2, 24, 20, 2, 1)] + [c for c in BANDED_SMALL if c[4] < 4]
+    for (b, h, g, tpf, f, w) in geometries:
+        geo = band_geometry(g + f * tpf, g, tpf, w)
+        q, k, v = _qkv(b, g + f * tpf, g + f * tpf, h, g + tpf + f + 9, dev)
+        do = torch.randn(q.shape, device=dev, generator=torch.Generator(device=dev).manual_seed(f + 1)).to(q.dtype)
+        _, f_loc = ring_shards(f, 4)
+        for r in range(4):
+            off = r * f_loc
+            q_loc, do_loc = _shard_rows(q, geo, f_loc, off), _shard_rows(do, geo, f_loc, off)
+            band = (g, tpf, w)
+            o, lse = banded_flash_attention_local(q_loc, k, v, *band, off, f, return_lse=True)
+            o_ref, lse_ref = banded_flash_attention_local_reference(q_loc, k, v, *band, off, f, return_lse=True)
+            what = f"B6 4-rank ring over {f} frames, rank {r}"
+            stats = _agreement(o, o_ref, what)
+            lse_err = (lse - lse_ref).abs().max().item()
+            if not lse_err < LSE_TOL:
+                raise AssertionError(f"{what}: lse max_abs_err {lse_err}")
+            args = (q_loc, k, v, o, lse, do_loc, *band, off, f)
+            got = banded_flash_attention_local_bwd(*args)
+            want = banded_flash_attention_local_bwd_reference(*args)
+            grads = {n: _compact(_agreement_or_zero(a, r_, f"B7 4-rank ring over {f} frames, rank {r} {n}"))
+                     for n, a, r_ in zip(("dq", "dk", "dv"), got, want)}
+            real = geo.shard(off, f_loc).real_frames()
+            if real == 0 and any(bool(x.any()) for x in got):
+                raise AssertionError(f"B7 rank {r} holds dummy frames only and wrote a nonzero gradient")
+            cases.append({"band": [b, h, g, tpf, f, w], "rank": r, "offset": off, "real_frames": real,
+                          **_compact(stats), "lse_err": lse_err, "grads": grads})
+    launches = {n: counts[n].launches - before[n] for n in before}
+    result = {"phase": "ring_past_frames", "ring": 4, "cases": cases, "launches": launches,
+              "worst_err_share": max(c["max_abs_err"] / c["max_abs_tol"] for c in cases)}
+    emit(result)
+    return result
+
+
 PHASES = ("build", "kernel", "kernel_bwd", "kernel_fp16", "kernel_bwd_fp16", "kernel_banded", "kernel_banded_bwd", "kernel_banded_local",
           "kernel_banded_local_bwd", "kernel_int8", "kernel_int8_fp16", "kernel_banded_fp16", "kernel_banded_bwd_fp16",
-          "kernel_banded_local_fp16", "kernel_banded_local_bwd_fp16", "reference", "chunked", "e2e", "e2e_windowed", "e2e_sp_windowed",
+          "kernel_banded_local_fp16", "kernel_banded_local_bwd_fp16", "kernel_fp32", "kernel_bwd_fp32",
+          "kernel_banded_fp32", "kernel_banded_bwd_fp32", "kernel_banded_local_fp32", "kernel_banded_local_bwd_fp32",
+          "ring_past_frames", "reference", "chunked", "e2e", "e2e_windowed", "e2e_sp_windowed",
           "e2e_sp_allgather", "e2e_sp_backends", "e2e_int8", "e2e_mesh", "e2e_mesh_int8", "e2e_options", "turbo",
           "train", "train_windowed", "train_sp_windowed", "train_sp_backends", "train_lora_mesh", "train_qlora",
-          "train_full_5b_fsdp", "variants", "train_remat", "pretrained", "serve", "cli_mesh", "serve_mesh",
+          "e2e_fp32", "train_fp32", "train_full_5b_fsdp", "variants", "train_remat", "pretrained", "serve", "cli_mesh", "serve_mesh",
           "train_cli_mesh", "train_cli", "e2e_2b", "train_2b", "train_full_2b")
 KERNEL_PHASES = {"kernel": phase_kernel, "kernel_bwd": phase_kernel_bwd, "kernel_fp16": phase_kernel_fp16,
                  "kernel_bwd_fp16": phase_kernel_bwd_fp16, "kernel_banded": phase_kernel_banded,
@@ -4418,6 +5252,12 @@ KERNEL_PHASES = {"kernel": phase_kernel, "kernel_bwd": phase_kernel_bwd, "kernel
                  "kernel_banded_bwd_fp16": phase_kernel_banded_bwd_fp16,
                  "kernel_banded_local_fp16": phase_kernel_banded_local_fp16,
                  "kernel_banded_local_bwd_fp16": phase_kernel_banded_local_bwd_fp16,
+                 "kernel_fp32": phase_kernel_fp32, "kernel_bwd_fp32": phase_kernel_bwd_fp32,
+                 "kernel_banded_fp32": phase_kernel_banded_fp32,
+                 "kernel_banded_bwd_fp32": phase_kernel_banded_bwd_fp32,
+                 "kernel_banded_local_fp32": phase_kernel_banded_local_fp32,
+                 "kernel_banded_local_bwd_fp32": phase_kernel_banded_local_bwd_fp32,
+                 "ring_past_frames": phase_ring_past_frames,
                  "reference": phase_reference, "chunked": phase_chunked}
 # the pipeline phases: the backend each runs
 PATH_PHASES = {"e2e": (phase_e2e, "flash"), "e2e_windowed": (phase_e2e, "windowed"),
@@ -4438,10 +5278,13 @@ PATH_PHASES = {"e2e": (phase_e2e, "flash"), "e2e_windowed": (phase_e2e, "windowe
                "e2e_mesh": (phase_e2e_mesh, "sp_allgather"), "e2e_mesh_int8": (phase_e2e_mesh_int8, "flash_int8"),
                "train_lora_mesh": (phase_train_lora_mesh, "flash"),
                "train_full_5b_fsdp": (phase_train_full_5b_fsdp, "flash"),
+               "e2e_fp32": (phase_e2e_fp32, "flash"), "train_fp32": (phase_train_fp32, "flash"),
                "train_cli_mesh": (phase_train_cli_mesh, "sp_windowed")}
 # the phases on the CogVideoX-2b pipeline, built after the 5b phases (whose
 # pipeline is released first) and freed after
 PHASES_2B = ("e2e_2b", "train_2b", "train_full_2b")
+# the phases on the fp32 cast of the 5b pipeline: their launches are the fp32 rows'
+PHASES_FP32 = ("e2e_fp32", "train_fp32")
 
 
 def _path_launches(results, kernel, skip=()):
@@ -4484,7 +5327,7 @@ def kernels_line(results):
         "headers": ["s2v_torch/csrc/hopper.cuh"],
         "replaces": "s2v_tpu/ops/pallas/flash_attention.py:222",
         "launches": results["e2e"]["flash_attention"],
-        "launches_by_path": {**_path_launches(results, "flash_attention", skip=PHASES_2B),
+        "launches_by_path": {**_path_launches(results, "flash_attention", skip=PHASES_2B + PHASES_FP32),
                              **({"pretrained_cli": results["pretrained"]["cli_flash_attention"]}
                                 if "pretrained" in results else {}),
                              **({"cli_mesh": results["cli_mesh"]["cli_flash_attention"]}
@@ -4539,7 +5382,7 @@ def kernels_line(results):
         "headers": ["s2v_torch/csrc/hopper.cuh"],
         "replaces": "s2v_tpu/ops/pallas/flash_attention_bwd.py:128",
         "launches": sum(c["flash_attention_bwd"] for c in results["train"]["launches"]),
-        "launches_by_path": _path_launches(results, "flash_attention_bwd", skip=PHASES_2B),
+        "launches_by_path": _path_launches(results, "flash_attention_bwd", skip=PHASES_2B + PHASES_FP32),
         # the worst of dq, dk, dv at the training shape, beside what it was held to
         "max_abs_err": worst(bwd["grads"], "max_abs_err"),
         "max_abs_tol": min(v["max_abs_tol"] for v in bwd["grads"].values()),
@@ -4588,7 +5431,7 @@ def kernels_line(results):
         "headers": ["s2v_torch/csrc/hopper.cuh", "s2v_torch/csrc/band.cuh"],
         "replaces": "s2v_tpu/ops/pallas/banded_attention.py:155",
         "launches": results["e2e_windowed"]["banded_flash_attention"],
-        "launches_by_path": _path_launches(results, "banded_flash_attention"),
+        "launches_by_path": _path_launches(results, "banded_flash_attention", skip=PHASES_FP32),
         "max_abs_err": banded["max_abs_err"],
         "max_abs_tol": banded["max_abs_tol"],
         "rel_l2": banded["rel_l2"],
@@ -4618,7 +5461,7 @@ def kernels_line(results):
         "headers": ["s2v_torch/csrc/hopper.cuh", "s2v_torch/csrc/band.cuh"],
         "replaces": "s2v_tpu/ops/pallas/banded_attention_bwd.py:178",
         "launches": sum(c["banded_flash_attention_bwd"] for c in results["train_windowed"]["launches"]),
-        "launches_by_path": _path_launches(results, "banded_flash_attention_bwd"),
+        "launches_by_path": _path_launches(results, "banded_flash_attention_bwd", skip=PHASES_FP32),
         "max_abs_err": worst(banded_bwd["grads"], "max_abs_err"),
         "max_abs_tol": min(v["max_abs_tol"] for v in banded_bwd["grads"].values()),
         "rel_l2": worst(banded_bwd["grads"], "rel_l2"),
@@ -4680,7 +5523,7 @@ def kernels_line(results):
         "headers": ["s2v_torch/csrc/hopper.cuh", "s2v_torch/csrc/band.cuh"],
         "replaces": "s2v_tpu/ops/pallas/banded_attention.py:281",
         "launches": results["e2e_sp_windowed"]["banded_flash_attention_local"],
-        "launches_by_path": _path_launches(results, "banded_flash_attention_local"),
+        "launches_by_path": _path_launches(results, "banded_flash_attention_local", skip=PHASES_FP32),
         # at the main path's shape (one rank: q the 17,550 video rows, k/v all 19,126)
         "max_abs_err": local["stitched"]["plain"]["max_abs_err"],
         "max_abs_tol": local["stitched"]["plain"]["max_abs_tol"],
@@ -4704,7 +5547,7 @@ def kernels_line(results):
         "headers": ["s2v_torch/csrc/hopper.cuh", "s2v_torch/csrc/band.cuh"],
         "replaces": "s2v_tpu/ops/pallas/banded_attention_bwd.py:375",
         "launches": sum(c["banded_flash_attention_local_bwd"] for c in results["train_sp_windowed"]["launches"]),
-        "launches_by_path": _path_launches(results, "banded_flash_attention_local_bwd"),
+        "launches_by_path": _path_launches(results, "banded_flash_attention_local_bwd", skip=PHASES_FP32),
         "max_abs_err": worst(local_bwd["stitched"]["plain"], "max_abs_err"),
         "max_abs_tol": min(v["max_abs_tol"] for v in local_bwd["stitched"]["plain"].values()),
         "rel_l2": worst(local_bwd["stitched"]["plain"], "rel_l2"),
@@ -4720,7 +5563,73 @@ def kernels_line(results):
         "q_shape": [TRAIN_SHAPE[0], TRAIN_SHAPE[1] - BAND[0], *TRAIN_SHAPE[2:]],
         "shape": list(TRAIN_SHAPE),
         "band": list(BAND),
-    }, *_fp16_rows(results, common)]
+    }, *_fp16_rows(results, common), *_fp32_rows(results, common)]
+
+
+def _fp32_rows(results, common):
+    """The kernels line's rows of B1, B2 and B4-B7 in fp32: launches on the
+    fp32 pipeline's paths (``e2e_fp32`` and its windowed legs,
+    ``train_fp32``), agreement and times from the fp32 kernel phases at the
+    main shapes (B6/B7: rank 0's shard of a 4-rank ring, every shard
+    listed)."""
+    e2e, train = results["e2e_fp32"], results["train_fp32"]["launches"]  # train: flash, windowed, sp_windowed
+    f32 = lambda counts, name: counts[f"{name}_by_dtype"].get("float32", 0)  # noqa: E731
+    fwd, bwd = results["kernel_fp32"], results["kernel_bwd_fp32"]
+    banded, banded_bwd = results["kernel_banded_fp32"], results["kernel_banded_bwd_fp32"]
+    local, local_bwd = results["kernel_banded_local_fp32"], results["kernel_banded_local_bwd_fp32"]
+    times = ("ms", "plain_ms", "bound_ms", "bound_by", "floor_ms", "library_ms", "tflops")
+
+    def grads_worst(stats, key):
+        return max(v[key] for v in stats.values())
+
+    def shard_fields(r, grads):
+        worst = (lambda sh: grads_worst(sh["grads"], "max_abs_err")) if grads else (lambda sh: sh["max_abs_err"])
+        first = r["shards"][0]
+        return {**{k: first[k] for k in times}, "max_abs_err": max(worst(sh) for sh in r["shards"]),
+                "per_shard_ring4": [{k: sh[k] for k in ("rank", "offset", "dummy_frames", "ms", "plain_ms",
+                                                        "bound_ms", "floor_ms", "library_ms")} for sh in r["shards"]]}
+
+    rows = [
+        ("flash_attention_fp32", "attention_f32.cu", "s2v_tpu/ops/pallas/flash_attention.py:222",
+         {"e2e_fp32": f32(e2e, "flash_attention"), "train_fp32": f32(train[0], "flash_attention")},
+         {"max_abs_err": max(m["max_abs_err"] for m in fwd["modes"].values()),
+          "rel_l2": max(m["rel_l2"] for m in fwd["modes"].values()), **{k: fwd[k] for k in times if k != "ms"},
+          "ms": fwd["modes"][MAIN_MODE]["ms"], "ms_online": fwd["modes"]["online"]["ms"], "mode": MAIN_MODE,
+          "shape": list(MAIN_SHAPE), "max_abs_tol_rel": FP32_FWD_MAX_REL, "rel_l2_tol": FP32_FWD_L2}),
+        ("flash_attention_bwd_fp32", "attention_f32_bwd.cu", "s2v_tpu/ops/pallas/flash_attention_bwd.py:128",
+         {"train_fp32": f32(train[0], "flash_attention_bwd")},
+         {"max_abs_err": grads_worst(bwd["grads"], "max_abs_err"), "rel_l2": grads_worst(bwd["grads"], "rel_l2"),
+          **{k: bwd[k] for k in times}, "parts_ms": bwd["parts_ms"], "deterministic": bwd["deterministic"],
+          "shape": list(TRAIN_SHAPE), "max_abs_tol_rel": FP32_BWD_MAX_REL, "rel_l2_tol": FP32_BWD_L2}),
+        ("banded_flash_attention_fp32", "attention_f32.cu", "s2v_tpu/ops/pallas/banded_attention.py:155",
+         {"e2e_fp32_windowed": f32(e2e["windowed"], "banded_flash_attention"),
+          "train_fp32_windowed": f32(train[1], "banded_flash_attention")},
+         {"max_abs_err": banded["max_abs_err"], "rel_l2": banded["rel_l2"], **{k: banded[k] for k in times},
+          "library_covers": banded["library_covers"], "library_shape": banded["library_shape"],
+          "shape": list(MAIN_SHAPE), "band": list(BAND), "max_abs_tol_rel": FP32_FWD_MAX_REL,
+          "rel_l2_tol": FP32_FWD_L2}),
+        ("banded_flash_attention_bwd_fp32", "attention_f32_bwd.cu", "s2v_tpu/ops/pallas/banded_attention_bwd.py:178",
+         {"train_fp32_windowed": f32(train[1], "banded_flash_attention_bwd")},
+         {"max_abs_err": grads_worst(banded_bwd["grads"], "max_abs_err"),
+          "rel_l2": grads_worst(banded_bwd["grads"], "rel_l2"), **{k: banded_bwd[k] for k in times},
+          "library_covers": banded_bwd["library_covers"], "library_shape": banded_bwd["library_shape"],
+          "deterministic": banded_bwd["deterministic"], "shape": list(TRAIN_SHAPE), "band": list(BAND),
+          "max_abs_tol_rel": FP32_BWD_MAX_REL, "rel_l2_tol": FP32_BWD_L2}),
+        ("banded_flash_attention_local_fp32", "attention_f32.cu", "s2v_tpu/ops/pallas/banded_attention.py:281",
+         {"e2e_fp32_sp_windowed": f32(e2e["sp_windowed"], "banded_flash_attention_local"),
+          "train_fp32_sp_windowed": f32(train[2], "banded_flash_attention_local")},
+         {**shard_fields(local, False), "shape": list(MAIN_SHAPE), "band": list(BAND), "ring": 4,
+          "max_abs_tol_rel": FP32_FWD_MAX_REL, "rel_l2_tol": FP32_FWD_L2}),
+        ("banded_flash_attention_local_bwd_fp32", "attention_f32_bwd.cu",
+         "s2v_tpu/ops/pallas/banded_attention_bwd.py:375",
+         {"train_fp32_sp_windowed": f32(train[2], "banded_flash_attention_local_bwd")},
+         {**shard_fields(local_bwd, True), "deterministic": local_bwd["deterministic"], "shape": list(TRAIN_SHAPE),
+          "band": list(BAND), "ring": 4, "max_abs_tol_rel": FP32_BWD_MAX_REL, "rel_l2_tol": FP32_BWD_L2}),
+    ]
+    return [{**common, "name": name, "dtype": "float32", "source": f"s2v_torch/csrc/{src}",
+             "headers": ["s2v_torch/csrc/attention_f32.cuh", "s2v_torch/csrc/band.cuh"], "replaces": replaces,
+             "launches": sum(by_path.values()), "launches_by_path": by_path, **fields}
+            for name, src, replaces, by_path, fields in rows]
 
 
 def _fp16_rows(results, common):

@@ -42,8 +42,9 @@ templated on the type, two C entry points for each of B4 and B6 (``ENTRY``,
 ``LOCAL_ENTRY``).  From fp16 inputs the kernel computes what the JAX package
 computes after its fp32 upcast, except that P is rounded to fp16 for P·V;
 the softmax is online, so P ≤ 1 against each row's running max and fp16
-needs no offset (ROADMAP C.1).  ``launches_by_dtype`` counts launches by
-element type.
+needs no offset.  fp32 inputs launch the fp32 kernel of
+``csrc/attention_f32.cu`` on the same band (``kernels/attention_f32.py``,
+3xTF32).  ``launches_by_dtype`` counts launches by element type.
 
 Bound on an H100 SXM at the main-path shape (B=2, H=48, G=1,576, tpf=1,350,
 F=13, w=2, d=64): the banded launch does 4·B·H·d·(17,550 × 8,326) = 3.59·10¹²
@@ -61,6 +62,7 @@ from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
+from s2v_torch.kernels import attention_f32
 from s2v_torch.kernels.flash_attention import (
     LN2,
     LOG2E,
@@ -144,17 +146,15 @@ class BandGeometry(NamedTuple):
 
     def shard(self, frame_offset: int, local_frames: int) -> "BandGeometry":
         """The geometry of one sequence-parallel shard of video-query frames,
-        ``local_frames`` frames from global frame ``frame_offset``.  Raises
-        unless the shard lies in the ring-padded clip of a ring of at most F
-        ranks: ``1 <= F_loc <= F``, ``0 <= frame_offset`` and ``frame_offset +
-        F_loc <= F·F_loc`` (the largest F_pad such a ring gives).  Frames at
-        or past F are ring-padding dummy frames."""
+        ``local_frames`` frames from global frame ``frame_offset``: ``1 <=
+        F_loc <= F`` and ``0 <= frame_offset``.  Frames at or past F are
+        ring-padding dummy frames; on a ring with more ranks than frames
+        (F_loc = 1) the ranks past F hold one dummy frame each."""
         f = self.n_frames
         if not 1 <= local_frames <= f:
             raise ValueError(f"a shard holds 1 to F={f} frames, got {local_frames}")
-        if frame_offset < 0 or frame_offset + local_frames > f * local_frames:
-            raise ValueError(f"frame_offset {frame_offset} with {local_frames} local frames lies outside the "
-                             f"ring-padded clip [0, {f * local_frames}) of F={f} frames")
+        if frame_offset < 0:
+            raise ValueError(f"frame_offset must be >= 0, got {frame_offset}")
         return self._replace(frame_offset=frame_offset, local_frames=local_frames)
 
     def real_frames(self) -> int:
@@ -247,7 +247,7 @@ def banded_flash_attention_reference(
 
 def check_banded_kernel_inputs(q, k, v) -> None:
     """Raise unless the CUDA kernel takes these tensors: one ``[B, S, H, d]``
-    shape, and what B1's kernel requires (bf16 or fp16, d = 64, 16-byte
+    shape, and what B1's kernel requires (bf16, fp16 or fp32, d = 64, 16-byte
     aligned rows, B·H ≤ 65535).  Reads only metadata (testable on meta
     tensors)."""
     _check_qkv(q, k, v)
@@ -258,15 +258,20 @@ def launch_banded(q, k, v, o, lse, geo: BandGeometry, scale: float) -> None:
     """One launch of the banded kernel: the video rows of ``o`` (and of
     ``lse``, a contiguous ``[B, H, S]`` fp32 tensor, or None)."""
     b, s, h, _ = q.shape
-    ptr = lambda t: ctypes.c_void_p(t.data_ptr() if t is not None else 0)  # noqa: E731
-    strides = [st for t in (q, k, v, o) for st in t.stride()[:3]]
-    err = getattr(_library(), ENTRY[q.dtype])(
-        ptr(q), ptr(k), ptr(v), ptr(o), ptr(lse), b, h, s, geo.global_len, geo.tokens_per_frame,
-        geo.n_frames, geo.span, geo.window, *strides, ctypes.c_float(scale * LOG2E),
-        ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream),
-    )
-    if err != 0:
-        raise RuntimeError(f"banded_flash_attention kernel launch failed: {native_build.launch_error(err)}")
+    if q.dtype == torch.float32:
+        g_len = geo.global_len
+        attention_f32.launch_fwd(q[:, g_len:], k, v, o[:, g_len:], None if lse is None else lse[..., g_len:],
+                                 None, None, scale * LOG2E, False, band=geo)
+    else:
+        ptr = lambda t: ctypes.c_void_p(t.data_ptr() if t is not None else 0)  # noqa: E731
+        strides = [st for t in (q, k, v, o) for st in t.stride()[:3]]
+        err = getattr(_library(), ENTRY[q.dtype])(
+            ptr(q), ptr(k), ptr(v), ptr(o), ptr(lse), b, h, s, geo.global_len, geo.tokens_per_frame,
+            geo.n_frames, geo.span, geo.window, *strides, ctypes.c_float(scale * LOG2E),
+            ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream),
+        )
+        if err != 0:
+            raise RuntimeError(f"banded_flash_attention kernel launch failed: {native_build.launch_error(err)}")
     banded_flash_attention.launches += 1
     dtype = str(q.dtype).replace("torch.", "")
     banded_flash_attention.launches_by_dtype[dtype] = banded_flash_attention.launches_by_dtype.get(dtype, 0) + 1
@@ -309,7 +314,7 @@ def banded_flash_attention(
     :func:`s2v_torch.kernels.banded_attention_bwd.banded_flash_attention_bwd`).
 
     CPU tensors take the plain version; CUDA tensors launch the kernels or
-    raise (bf16 or fp16, and d = 64 only)."""
+    raise (bf16, fp16 or fp32, and d = 64 only)."""
     _check_qkv(q, k, v)
     geo = band_geometry(q.shape[1], global_len, tokens_per_frame, window_frames)
     devices = {t.device.type for t in (q, k, v)}
@@ -322,7 +327,7 @@ def banded_flash_attention(
 
 
 banded_flash_attention.launches = 0
-banded_flash_attention.launches_by_dtype = {}  # "bfloat16" / "float16" -> launches
+banded_flash_attention.launches_by_dtype = {}  # "bfloat16" / "float16" / "float32" -> launches
 
 
 # ---------------------------------------------------------------------------
@@ -394,15 +399,19 @@ def launch_banded_local(q_vid, k, v, o, lse, geo: BandGeometry, scale: float) ->
     """One launch of B6: the shard's rows of ``o`` (and of ``lse``, a
     contiguous ``[B, H, F_loc·tpf]`` fp32 tensor, or None)."""
     b, _, h, _ = q_vid.shape
-    ptr = lambda t: ctypes.c_void_p(t.data_ptr() if t is not None else 0)  # noqa: E731
-    strides = [st for t in (q_vid, k, v, o) for st in t.stride()[:3]]
-    err = getattr(_library(), LOCAL_ENTRY[q_vid.dtype])(
-        ptr(q_vid), ptr(k), ptr(v), ptr(o), ptr(lse), b, h, geo.global_len, geo.tokens_per_frame,
-        geo.n_frames, geo.span, geo.window, geo.frame_offset, geo.local_frames, *strides,
-        ctypes.c_float(scale * LOG2E), ctypes.c_void_p(torch.cuda.current_stream(q_vid.device).cuda_stream),
-    )
-    if err != 0:
-        raise RuntimeError(f"banded_flash_attention_local kernel launch failed: {native_build.launch_error(err)}")
+    if q_vid.dtype == torch.float32:
+        attention_f32.launch_fwd(q_vid, k, v, o, lse, None, None, scale * LOG2E, False, band=geo)
+    else:
+        ptr = lambda t: ctypes.c_void_p(t.data_ptr() if t is not None else 0)  # noqa: E731
+        strides = [st for t in (q_vid, k, v, o) for st in t.stride()[:3]]
+        err = getattr(_library(), LOCAL_ENTRY[q_vid.dtype])(
+            ptr(q_vid), ptr(k), ptr(v), ptr(o), ptr(lse), b, h, geo.global_len, geo.tokens_per_frame,
+            geo.n_frames, geo.span, geo.window, geo.frame_offset, geo.local_frames, *strides,
+            ctypes.c_float(scale * LOG2E), ctypes.c_void_p(torch.cuda.current_stream(q_vid.device).cuda_stream),
+        )
+        if err != 0:
+            raise RuntimeError(f"banded_flash_attention_local kernel launch failed: "
+                               f"{native_build.launch_error(err)}")
     banded_flash_attention_local.launches += 1
     dtype = str(q_vid.dtype).replace("torch.", "")
     banded_flash_attention_local.launches_by_dtype[dtype] = (
@@ -433,7 +442,7 @@ def banded_flash_attention_local(
     :func:`s2v_torch.kernels.banded_attention_bwd.banded_flash_attention_local_bwd`).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel or
-    raise (bf16 or fp16, and d = 64 only)."""
+    raise (bf16, fp16 or fp32, and d = 64 only)."""
     geo = local_geometry(q_vid, k_full, v_full, global_len, tokens_per_frame, window_frames, frame_offset,
                          n_frames_total)
     devices = {t.device.type for t in (q_vid, k_full, v_full)}
@@ -454,7 +463,7 @@ def banded_flash_attention_local(
 
 
 banded_flash_attention_local.launches = 0
-banded_flash_attention_local.launches_by_dtype = {}  # "bfloat16" / "float16" -> launches
+banded_flash_attention_local.launches_by_dtype = {}  # "bfloat16" / "float16" / "float32" -> launches
 
 
 # ---------------------------------------------------------------------------

@@ -56,7 +56,9 @@ on the type, two C entry points each for B5 and B7 (``ENTRY``,
 products.  In fp16 the kernels scale dS by 2^e before its rounding and dq,
 dk by 2^-e after, e from :func:`band_ds_exponent` (B2's ``ds_exponent`` over
 all of v and the call's real dO rows), so a training step's small dO does not
-flush dS (ROADMAP C.1).
+flush dS.  fp32 inputs launch the fp32 kernels of
+``csrc/attention_f32_bwd.cu`` on the same band (``kernels/attention_f32.py``,
+3xTF32, P and dS kept in fp32).
 ``launches_by_dtype`` counts calls by element type.
 """
 
@@ -68,6 +70,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from s2v_torch.kernels import attention_f32
 from s2v_torch.kernels.banded_attention import (
     BandGeometry,
     band_geometry,
@@ -171,8 +174,11 @@ def banded_bwd_workspace(q: torch.Tensor, query_rows: int) -> torch.Tensor:
     """The kernels' fp32 workspace ``[2, B·H, ws_rows]`` (lse·log2 e and D of
     the call's ``query_rows`` video query rows), written by the pre-pass:
     ``ws_rows`` is a multiple of the tile with room past the last row for a
-    tile's copy from a 16-byte boundary (``query_rows + 68`` at least)."""
+    tile's copy from a 16-byte boundary (``query_rows + 68`` at least); the
+    fp32 kernels' is ``[2, B·H, query_rows]``."""
     b, _, h, _ = q.shape
+    if q.dtype == torch.float32:
+        return torch.empty((2, b * h, query_rows), dtype=torch.float32, device=q.device)
     tile = KERNEL_TILE_ROWS
     ws_rows = -(-(query_rows + tile + 4) // tile) * tile
     return torch.empty((2, b * h, ws_rows), dtype=torch.float32, device=q.device)
@@ -190,6 +196,13 @@ def band_ds_exponent(v: torch.Tensor, g_rows: torch.Tensor, geo: BandGeometry) -
     return ds_exponent(v, g_rows[:, :real_rows])
 
 
+def _count(fn, dtype) -> None:
+    """One launch of ``fn``'s kernels, counted in total and by element type."""
+    fn.launches += 1
+    name = str(dtype).replace("torch.", "")
+    fn.launches_by_dtype[name] = fn.launches_by_dtype.get(name, 0) + 1
+
+
 def _pointers_and_strides(q, k, v, o, g, lse, ds_exp, workspace, dq, dk, dv):
     ptr = lambda t: ctypes.c_void_p(t.data_ptr() if t is not None else 0)  # noqa: E731
     pointers = [ptr(t) for t in (q, k, v, o, g, lse, ds_exp, workspace[0], workspace[1])]
@@ -204,6 +217,12 @@ def launch_banded_bwd(q, k, v, o, g, lse, dq, dk, dv, geo: BandGeometry, scale: 
     smoke times them one at a time on a workspace a full launch has filled):
     dq at the video rows, dk and dv of the video queries' part at every row."""
     b, s, h, _ = q.shape
+    if q.dtype == torch.float32:
+        g_len = geo.global_len
+        attention_f32.launch_bwd(q[:, g_len:], k, v, o[:, g_len:], g[:, g_len:], lse[..., g_len:], dq[:, g_len:],
+                                 dk, dv, scale, band=geo, workspace=workspace, parts=parts)
+        _count(banded_flash_attention_bwd, q.dtype)
+        return
     ds_exp = band_ds_exponent(v, g[:, geo.global_len:], geo) if q.dtype == torch.float16 else None
     pointers, strides = _pointers_and_strides(q, k, v, o, g, lse, ds_exp, workspace, dq, dk, dv)
     err = getattr(_library(), ENTRY[q.dtype])(
@@ -212,9 +231,7 @@ def launch_banded_bwd(q, k, v, o, g, lse, dq, dk, dv, geo: BandGeometry, scale: 
     )
     if err != 0:
         raise RuntimeError(f"banded_flash_attention_bwd kernel launch failed: {native_build.launch_error(err)}")
-    banded_flash_attention_bwd.launches += 1
-    dtype = str(q.dtype).replace("torch.", "")
-    banded_flash_attention_bwd.launches_by_dtype[dtype] = banded_flash_attention_bwd.launches_by_dtype.get(dtype, 0) + 1
+    _count(banded_flash_attention_bwd, q.dtype)
 
 
 def _banded_flash_attention_bwd_cuda(q, k, v, o, lse, g, geo, scale):
@@ -255,7 +272,7 @@ def banded_flash_attention_bwd(
     log), g = dL/do.
 
     CPU tensors take the plain version; CUDA tensors launch the kernels or
-    raise (bf16 or fp16, and d = 64 only)."""
+    raise (bf16, fp16 or fp32, and d = 64 only)."""
     _check_shapes(q, k, v, o, lse, g)
     geo = band_geometry(q.shape[1], global_len, tokens_per_frame, window_frames)
     devices = {t.device.type for t in (q, k, v, o, lse, g)}
@@ -268,7 +285,7 @@ def banded_flash_attention_bwd(
 
 
 banded_flash_attention_bwd.launches = 0
-banded_flash_attention_bwd.launches_by_dtype = {}  # "bfloat16" / "float16" -> launches
+banded_flash_attention_bwd.launches_by_dtype = {}  # "bfloat16" / "float16" / "float32" -> launches
 
 
 # ---------------------------------------------------------------------------
@@ -334,6 +351,11 @@ def launch_banded_local_bwd(q_vid, k, v, o_vid, g_vid, lse_vid, dq, dk, dv, geo:
     """Launch ``parts`` of one B7 backward: the shard's dq, and its partial
     dk and dv at every row of the full sequence."""
     b, _, h, _ = q_vid.shape
+    if q_vid.dtype == torch.float32:
+        attention_f32.launch_bwd(q_vid, k, v, o_vid, g_vid, lse_vid, dq, dk, dv, scale, band=geo,
+                                 workspace=workspace, parts=parts)
+        _count(banded_flash_attention_local_bwd, q_vid.dtype)
+        return
     ds_exp = band_ds_exponent(v, g_vid, geo) if q_vid.dtype == torch.float16 else None
     pointers, strides = _pointers_and_strides(q_vid, k, v, o_vid, g_vid, lse_vid, ds_exp, workspace, dq, dk, dv)
     err = getattr(_library(), LOCAL_ENTRY[q_vid.dtype])(
@@ -343,10 +365,7 @@ def launch_banded_local_bwd(q_vid, k, v, o_vid, g_vid, lse_vid, dq, dk, dv, geo:
     )
     if err != 0:
         raise RuntimeError(f"banded_flash_attention_local_bwd kernel launch failed: {native_build.launch_error(err)}")
-    banded_flash_attention_local_bwd.launches += 1
-    dtype = str(q_vid.dtype).replace("torch.", "")
-    banded_flash_attention_local_bwd.launches_by_dtype[dtype] = (
-        banded_flash_attention_local_bwd.launches_by_dtype.get(dtype, 0) + 1)
+    _count(banded_flash_attention_local_bwd, q_vid.dtype)
 
 
 def banded_flash_attention_local_bwd(
@@ -372,7 +391,7 @@ def banded_flash_attention_local_bwd(
     not included.
 
     CPU tensors take the plain version; CUDA tensors launch the kernels or
-    raise (bf16 or fp16, and d = 64 only)."""
+    raise (bf16, fp16 or fp32, and d = 64 only)."""
     geo = _local_geometry(q_vid, k_full, v_full, o_vid, lse_vid, g_vid, global_len, tokens_per_frame,
                           window_frames, frame_offset, n_frames_total)
     devices = {t.device.type for t in (q_vid, k_full, v_full, o_vid, lse_vid, g_vid)}
@@ -398,7 +417,7 @@ def banded_flash_attention_local_bwd(
 
 
 banded_flash_attention_local_bwd.launches = 0
-banded_flash_attention_local_bwd.launches_by_dtype = {}  # "bfloat16" / "float16" -> launches
+banded_flash_attention_local_bwd.launches_by_dtype = {}  # "bfloat16" / "float16" / "float32" -> launches
 
 
 # ---------------------------------------------------------------------------

@@ -32,8 +32,11 @@ that decides the online re-run): 42 per denoise step on the main path.
 Element types: bf16 (the 5b models) and fp16 (the 2b family), one kernel
 templated on the type, two C entry points (so are B2-B7).  From fp16 inputs
 the kernel computes what the JAX package computes after its fp32 upcast (the
-same products, fp32 accumulation), except that P is rounded to fp16 for P·V
-(ROADMAP C.1); no kernel takes fp32.  fp16 has no
+same products, fp32 accumulation), except that P is rounded to fp16 for P·V.
+fp32 inputs (``--dtype float32``) launch the fp32 kernel of
+``s2v_torch/csrc/attention_f32.cu`` (``kernels/attention_f32.py``: 3xTF32
+products, nothing rounded below fp32), counted under
+``launches_by_dtype["float32"]``.  fp16 has no
 normal values below 2⁻¹⁴, so in bounded mode the fp16 kernel offsets the
 logits by M0 less 15 bits (P = 2¹⁵ at the bound) and reports log l = -1e30
 for a row whose largest P stays below 1 (its largest logit more than 15
@@ -49,6 +52,7 @@ from typing import Optional
 
 import torch
 
+from s2v_torch.kernels import attention_f32
 from s2v_torch.utils import native_build
 
 NEG_INF = -1e30
@@ -66,8 +70,10 @@ BOUNDED_MIN_LOG_L = -55.0
 # fp32 is 3.8 GB of logits, which fits beside the model on an 80 GB card
 REFERENCE_CHUNK = 512
 
-# the element types of kernels B1-B7; none takes fp32 (ROADMAP C.1)
-FLASH_DTYPES = (torch.bfloat16, torch.float16)
+# the element types of kernels B1, B2 and B4-B7 (fp32 through kernels/attention_f32.py)
+FLASH_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
+# kernel B3's: it has no fp32 form yet (ROADMAP C.1)
+HALF_DTYPES = (torch.bfloat16, torch.float16)
 
 SOURCE = native_build.CSRC_DIR / "flash_attention.cu"
 # the C entry point of each element type
@@ -104,23 +110,25 @@ def _check_shapes(q, k, v, key_pad_mask) -> None:
         raise ValueError(f"key_pad_mask must be [Skv={k.shape[1]}], got {tuple(key_pad_mask.shape)}")
 
 
-def check_kernel_tensor(name: str, t: torch.Tensor) -> None:
-    """Raise unless the kernels take ``t`` as a ``[B, S, H, d]`` operand:
-    bf16 or fp16, d = 64,
-    rows contiguous and 16-byte aligned (base pointer and strides: TMA
-    tensor maps and 16-byte loads need both)."""
-    if t.dtype not in FLASH_DTYPES:
-        raise ValueError(f"the attention kernels take bfloat16 or float16; {name} is {t.dtype} (ROADMAP C.1: no "
-                         f"kernel takes fp32)")
+def check_kernel_tensor(name: str, t: torch.Tensor, dtypes=FLASH_DTYPES) -> None:
+    """Raise unless the kernels take ``t`` as a ``[B, S, H, d]`` operand: one
+    of ``dtypes`` (bf16, fp16 or fp32; B3 passes :data:`HALF_DTYPES`), d =
+    64, rows contiguous and 16-byte aligned (base pointer and strides: TMA
+    tensor maps, cp.async and 16-byte loads need both)."""
+    if t.dtype not in dtypes:
+        names = ", ".join(str(d).replace("torch.", "") for d in dtypes)
+        note = (" (ROADMAP C.1: flash_attention_qk_int8, B3, has no fp32 form yet)"
+                if t.dtype == torch.float32 else "")
+        raise ValueError(f"this attention kernel takes {names}; {name} is {t.dtype}{note}")
     if t.shape[-1] != KERNEL_HEAD_DIM:
         raise ValueError(f"flash_attention kernels take d={KERNEL_HEAD_DIM}; {name} has d={t.shape[-1]}")
-    if t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:-1]):
+    if t.stride(-1) != 1 or any((s * t.element_size()) % 16 for s in t.stride()[:-1]):
         raise ValueError(f"{name} needs a contiguous last dim and 16-byte aligned rows; strides {t.stride()}")
     if t.data_ptr() % 16:
         raise ValueError(f"{name} must start on a 16-byte boundary; its storage offset is {t.storage_offset()}")
 
 
-def check_kernel_inputs(q, k, v, key_pad_mask=None) -> None:
+def check_kernel_inputs(q, k, v, key_pad_mask=None, dtypes=FLASH_DTYPES) -> None:
     """Raise unless the CUDA kernel takes these tensors (see
     :func:`check_kernel_tensor`; q, k and v of one type).  Reads only
     metadata, so it is checked before any launch (and testable on CPU or
@@ -128,7 +136,7 @@ def check_kernel_inputs(q, k, v, key_pad_mask=None) -> None:
     no alignment."""
     _check_shapes(q, k, v, key_pad_mask)
     for name, t in (("q", q), ("k", k), ("v", v)):
-        check_kernel_tensor(name, t)
+        check_kernel_tensor(name, t, dtypes)
     if not q.dtype == k.dtype == v.dtype:
         raise ValueError(f"q, k, v must have one dtype; got {q.dtype}, {k.dtype}, {v.dtype}")
     if q.shape[0] * q.shape[2] > 65535:
@@ -216,15 +224,18 @@ def flash_attention_reference(
 def _launch(q, k, v, o, lse, mask, m0_log2, scale_log2: float, bounded: bool) -> None:
     b, sq, h, _ = q.shape
     skv = k.shape[1]
-    ptr = lambda t: ctypes.c_void_p(t.data_ptr() if t is not None else 0)  # noqa: E731
-    strides = [s for t in (q, k, v, o) for s in t.stride()[:3]]
-    err = getattr(_library(), ENTRY[q.dtype])(
-        ptr(q), ptr(k), ptr(v), ptr(o), ptr(lse), ptr(mask), ptr(m0_log2),
-        b, h, sq, skv, *strides, ctypes.c_float(scale_log2), int(bounded),
-        ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream),
-    )
-    if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: {native_build.launch_error(err)}")
+    if q.dtype == torch.float32:
+        attention_f32.launch_fwd(q, k, v, o, lse, mask, m0_log2, scale_log2, bounded)
+    else:
+        ptr = lambda t: ctypes.c_void_p(t.data_ptr() if t is not None else 0)  # noqa: E731
+        strides = [s for t in (q, k, v, o) for s in t.stride()[:3]]
+        err = getattr(_library(), ENTRY[q.dtype])(
+            ptr(q), ptr(k), ptr(v), ptr(o), ptr(lse), ptr(mask), ptr(m0_log2),
+            b, h, sq, skv, *strides, ctypes.c_float(scale_log2), int(bounded),
+            ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream),
+        )
+        if err != 0:
+            raise RuntimeError(f"flash_attention kernel launch failed: {native_build.launch_error(err)}")
     flash_attention.launches += 1
     flash_attention.launches_by_batch[b] = flash_attention.launches_by_batch.get(b, 0) + 1
     dtype = str(q.dtype).replace("torch.", "")
@@ -289,7 +300,7 @@ def flash_attention(
     ``bounded`` or ``bounded_exp2`` (see the module docstring).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel or
-    raise (bf16 or fp16, and d = 64 only)."""
+    raise (bf16, fp16 or fp32, and d = 64 only)."""
     _check_mode(softmax_mode)
     devices = {t.device.type for t in (q, k, v)}
     if devices == {"cpu"}:
@@ -301,5 +312,5 @@ def flash_attention(
 
 flash_attention.launches = 0
 flash_attention.launches_by_batch = {}  # batch size -> launches (a cfg-skipped step runs B, not 2B)
-flash_attention.launches_by_dtype = {}  # "bfloat16" / "float16" -> launches
+flash_attention.launches_by_dtype = {}  # "bfloat16" / "float16" / "float32" -> launches
 flash_attention.reruns = 0

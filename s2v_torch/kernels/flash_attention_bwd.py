@@ -19,7 +19,9 @@ bf16, against ~0.95 GB of traffic (0.28 ms at 3.35 TB/s): compute-bound.
 
 Element types: bf16 and fp16 (the 2b family), one set of kernels templated
 on the type, two C entry points; P and dS are rounded to the input type
-before their products (ROADMAP C.1).  fp16 has no normal values below
+before their products.  fp32 inputs launch the fp32 kernels of
+``csrc/attention_f32_bwd.cu`` (``kernels/attention_f32.py``: 3xTF32
+products, P and dS kept in fp32).  fp16 has no normal values below
 2⁻¹⁴, and dS takes dO's scale, which a training step with no loss scaler
 puts near 10⁻⁶: in fp16 the kernels scale dS by 2^e before its rounding
 and dq, dk by 2^-e after (:func:`ds_exponent`), so dq and dk keep their
@@ -49,6 +51,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from s2v_torch.kernels import attention_f32
 from s2v_torch.kernels.flash_attention import (
     LOG2E,
     REFERENCE_CHUNK,
@@ -115,7 +118,7 @@ def row_delta(o: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 
 def check_bwd_kernel_inputs(q, k, v, o, lse, g) -> None:
     """Raise unless the CUDA kernels take these tensors: q/k/v/o/dO as
-    :func:`check_kernel_inputs` requires (bf16 or fp16, all of one type), lse
+    :func:`check_kernel_inputs` requires (bf16, fp16 or fp32, all of one type), lse
     fp32, contiguous ``[B, H, Sq]`` (the kernels compute D themselves).
     Reads only metadata (testable on meta tensors)."""
     _check_shapes(q, k, v, o, lse, g)
@@ -224,7 +227,10 @@ def flash_attention_bwd_blocked(q, k, v, o, lse, g, scale=None):
 
 def bwd_workspace(q: torch.Tensor) -> torch.Tensor:
     """The kernels' fp32 workspace ``[2, B·H, Sq_pad]`` (lse·log2 e and D,
-    rows padded to whole 64-row tiles), written by the pre-pass."""
+    rows padded to whole 64-row tiles), written by the pre-pass; the fp32
+    kernels' ``[2, B·H, Sq]``."""
+    if q.dtype == torch.float32:
+        return attention_f32.bwd_workspace(q)
     b, sq, h, _ = q.shape
     sq_pad = -(-sq // KERNEL_TILE_ROWS) * KERNEL_TILE_ROWS
     return torch.empty((2, b * h, sq_pad), dtype=torch.float32, device=q.device)
@@ -235,16 +241,19 @@ def _launch(q, k, v, o, g, lse, dq, dk, dv, scale: float, workspace, parts: int 
     times them one at a time on a workspace a full launch has filled)."""
     b, sq, h, _ = q.shape
     skv = k.shape[1]
-    ptr = lambda t: ctypes.c_void_p(t.data_ptr() if t is not None else 0)  # noqa: E731
-    strides = [s for t in (q, k, v, o, g, dq, dk, dv) for s in t.stride()[:3]]
-    ds_exp = ds_exponent(v, g) if q.dtype == torch.float16 else None
-    err = getattr(_library(), ENTRY[q.dtype])(
-        ptr(q), ptr(k), ptr(v), ptr(o), ptr(g), ptr(lse), ptr(ds_exp), ptr(workspace[0]), ptr(workspace[1]),
-        ptr(dq), ptr(dk), ptr(dv), b, h, sq, skv, *strides, ctypes.c_float(scale), int(parts),
-        ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream),
-    )
-    if err != 0:
-        raise RuntimeError(f"flash_attention_bwd kernel launch failed: {native_build.launch_error(err)}")
+    if q.dtype == torch.float32:
+        attention_f32.launch_bwd(q, k, v, o, g, lse, dq, dk, dv, scale, workspace=workspace, parts=parts)
+    else:
+        ptr = lambda t: ctypes.c_void_p(t.data_ptr() if t is not None else 0)  # noqa: E731
+        strides = [s for t in (q, k, v, o, g, dq, dk, dv) for s in t.stride()[:3]]
+        ds_exp = ds_exponent(v, g) if q.dtype == torch.float16 else None
+        err = getattr(_library(), ENTRY[q.dtype])(
+            ptr(q), ptr(k), ptr(v), ptr(o), ptr(g), ptr(lse), ptr(ds_exp), ptr(workspace[0]), ptr(workspace[1]),
+            ptr(dq), ptr(dk), ptr(dv), b, h, sq, skv, *strides, ctypes.c_float(scale), int(parts),
+            ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream),
+        )
+        if err != 0:
+            raise RuntimeError(f"flash_attention_bwd kernel launch failed: {native_build.launch_error(err)}")
     flash_attention_bwd.launches += 1
     dtype = str(q.dtype).replace("torch.", "")
     flash_attention_bwd.launches_by_dtype[dtype] = flash_attention_bwd.launches_by_dtype.get(dtype, 0) + 1
@@ -278,7 +287,7 @@ def flash_attention_bwd(
     ``[B, H, Sq]`` fp32 (the forward's, natural log).
 
     CPU tensors take the plain version; CUDA tensors launch the kernels or
-    raise (bf16 or fp16, and d = 64 only)."""
+    raise (bf16, fp16 or fp32, and d = 64 only)."""
     devices = {t.device.type for t in (q, k, v, o, lse, g)}
     if devices == {"cpu"}:
         return flash_attention_bwd_reference(q, k, v, o, lse, g, scale)
@@ -288,4 +297,4 @@ def flash_attention_bwd(
 
 
 flash_attention_bwd.launches = 0
-flash_attention_bwd.launches_by_dtype = {}  # "bfloat16" / "float16" -> launches
+flash_attention_bwd.launches_by_dtype = {}  # "bfloat16" / "float16" / "float32" -> launches

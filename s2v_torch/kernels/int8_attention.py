@@ -53,7 +53,13 @@ from typing import Optional, Tuple
 
 import torch
 
-from s2v_torch.kernels.flash_attention import LOG2E, REFERENCE_CHUNK, check_kernel_inputs, check_kernel_tensor
+from s2v_torch.kernels.flash_attention import (
+    HALF_DTYPES,
+    LOG2E,
+    REFERENCE_CHUNK,
+    check_kernel_inputs,
+    check_kernel_tensor,
+)
 from s2v_torch.ops.quant import INV_127
 from s2v_torch.utils import native_build
 
@@ -216,7 +222,7 @@ def launch_int8_prepass(q: torch.Tensor, k: torch.Tensor, scale: float):
     contiguous."""
     _check_shapes(q, k, k)
     for name, t in (("q", q), ("k", k)):
-        check_kernel_tensor(name, t)
+        check_kernel_tensor(name, t, HALF_DTYPES)
     if q.dtype != k.dtype:
         raise ValueError(f"q and k must have one dtype; got {q.dtype}, {k.dtype}")
     q_i8 = torch.empty(q.shape, dtype=torch.int8, device=q.device)
@@ -263,7 +269,7 @@ def int8_qk_tile(q_i8: torch.Tensor, k_i8: torch.Tensor) -> torch.Tensor:
 
 def _flash_attention_qk_int8_cuda(q, k, v, scale):
     _check_shapes(q, k, v)
-    check_kernel_inputs(q, k, v)
+    check_kernel_inputs(q, k, v, dtypes=HALF_DTYPES)  # no fp32 form yet (ROADMAP C.1)
     for t in (k, v):
         if t.device != q.device:
             raise ValueError("q, k, v must be on one device")

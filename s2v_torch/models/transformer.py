@@ -300,8 +300,9 @@ def transformer_forward(
     Under a ``data`` dim (``s2v_tpu/models/transformer.py:300-303,433``:
     ``constrain(.., "dp", ..)``) each rank keeps its equal rows of the
     batch (the batched CFG's 2B rows, a train batch) through the blocks,
-    and the output is all-gathered over ``data``; a batch the dim does not
-    divide raises.  Under a ``model`` dim every block runs megatron TP on
+    and the output is all-gathered over ``data``; without a gradient a
+    batch the dim does not divide is padded with dummy rows (copies of its
+    last) that the gather drops, under autograd it raises (ROADMAP C.32).  Under a ``model`` dim every block runs megatron TP on
     the params' slices (``parallel/sharding.py``, which the caller made:
     ``S2VPipeline.set_mesh``, ``shard_params``); the runtime factors stay
     whole and are sliced as their kernels.  ``param_gather(key, tree)``
@@ -310,9 +311,14 @@ def transformer_forward(
     the block (so a remat recompute gathers again), it returns them whole
     over ``data``."""
     tp, dp = tensor_parallel(), data_parallel()
+    rows = video_latents.shape[0]
     if dp is not None:
+        # without a gradient, rows the dim does not divide are padded with
+        # dummy rows and dropped after the gather (ROADMAP C.32); a training
+        # batch must divide (the trainer refuses it first, as JAX's does)
+        pad = not _grad_flows(params, video_latents, ref_latents, text_embeds)
         video_latents, ref_latents, text_embeds, timestep = (
-            take_rows(x, dp) for x in (video_latents, ref_latents, text_embeds, timestep))
+            take_rows(x, dp, pad=pad) for x in (video_latents, ref_latents, text_embeds, timestep))
     b, f, h, w, _ = video_latents.shape
     p = cfg.patch_size
     dt = cfg.dtype
@@ -388,8 +394,27 @@ def transformer_forward(
     if shard is not None and shard.ring > 1:
         video = gather_video(video, shard)
     if dp is not None:
-        video = gather_rows_over(video, dp)
+        video = gather_rows_over(video, dp)[:rows]
     return unpatchify_video(video, f, h, w, p, cfg.out_channels)
+
+
+def _grad_flows(params, *inputs) -> bool:
+    """Whether autograd records this forward: grad mode on and a parameter
+    or an input that requires a gradient."""
+    if not torch.is_grad_enabled():
+        return False
+    if any(x is not None and x.requires_grad for x in inputs):
+        return True
+    stack = [params]
+    while stack:
+        t = stack.pop()
+        if isinstance(t, dict):
+            stack.extend(t.values())
+        elif isinstance(t, (list, tuple)):
+            stack.extend(t)
+        elif isinstance(t, torch.Tensor) and t.requires_grad:
+            return True
+    return False
 
 
 def _check_tp_slices(params: dict, cfg: TransformerConfig, tp, param_gather) -> None:

@@ -78,9 +78,11 @@ ATTENTION_BACKENDS = ("auto", "flash", "plain", "chunked", "flash_int8", "ring",
                       "sp_ulysses") + WINDOWED_BACKENDS
 FLASH_SOFTMAX_MODE = "bounded"
 # fp16 (2b) q/k/v: on the card every kernel backend takes it as it is (B1-B7
-# have fp16 forms, ROADMAP C.1); on the CPU the backends on B1/B2 do too
-# (their plain versions compute in fp32), and every other case upcasts as the
-# JAX package does
+# have fp16 forms); on the CPU the backends on B1/B2 do too (their plain
+# versions compute in fp32), and every other case upcasts as the JAX package
+# does.  fp32 q/k/v go to every backend as they are: on the card B1, B2 and
+# B4-B7 launch their fp32 forms (3xTF32), and B3 (flash_int8, sp_int8)
+# refuses fp32 (ROADMAP C.1)
 FP16_KERNEL_BACKENDS = ("flash", "windowed_gather")
 CARD_FP16_BACKENDS = ("flash_int8", "windowed") + SEQ_BACKENDS
 
@@ -342,7 +344,7 @@ def joint_attention(
     # fp16 storage: upcast once before attention and cast back after, as
     # JAX does for every backend (s2v_tpu/ops/attention.py:208-214), except
     # into the kernels, which take fp16 and return it (the same fp32
-    # accumulation; P and dS rounded to fp16, ROADMAP C.1)
+    # accumulation; P and dS rounded to fp16); fp32 is never cast
     fp16_in = q.dtype == torch.float16 and not (
         backend in FP16_KERNEL_BACKENDS or (q.is_cuda and backend in CARD_FP16_BACKENDS))
     if fp16_in:

@@ -3,9 +3,10 @@ specs, meshes and parameter placements for megatron TP and FSDP
 (``sharding.py``), process groups (``multihost.py``), the mesh context, the
 frame shards and the collectives of the data and model dims
 (``context.py``), the sequence-parallel attention backends
-(``sp_attention.py``, ``ring_attention.py``) and the context-parallel VAE
-(``vae_temporal.py``).  The spatial CP decode and multi-host meshes are not
-ported (ROADMAP A.9)."""
+(``sp_attention.py``, ``ring_attention.py``), the context-parallel VAE
+over frames (``vae_temporal.py``) and over spatial tiles
+(``vae_spatial.py``), and meshes across hosts (``multihost.py``:
+``make_hybrid_mesh``)."""
 
 from s2v_torch.parallel.context import (
     FrameShard,
@@ -17,6 +18,7 @@ from s2v_torch.parallel.context import (
     mesh_context,
     sum_grads_over_seq,
 )
+from s2v_torch.parallel.multihost import initialize_distributed, make_hybrid_mesh
 
 __all__ = ["FrameShard", "active_axis", "active_mesh", "default_logical_map", "frame_shard", "gather_video",
-           "mesh_context", "sum_grads_over_seq"]
+           "initialize_distributed", "make_hybrid_mesh", "mesh_context", "sum_grads_over_seq"]

@@ -21,7 +21,9 @@ mesh names (a one-rank dim runs the same collectives, which copy):
   streams stay whole on every rank: each rank computes them alike.  (A ring
   of 1 keeps the whole clip, as before the other dims were ported.)
 * ``data``: the batch split into equal contiguous rows (:func:`take_rows`),
-  gathered after the DiT (:func:`gather_rows_over`).
+  gathered after the DiT (:func:`gather_rows_over`); without a gradient a
+  batch the dim does not divide is padded with dummy rows, dropped after the
+  gather (ROADMAP C.32).
 * ``model``: megatron TP (:class:`TensorParallel`): column-parallel linears
   take their input through :func:`copy_to_model` (identity forward, the
   gradient all-reduced), row-parallel ones hand their partial output to
@@ -111,19 +113,14 @@ def active_seq_ring() -> int:
 class FrameShard:
     """The video frames one rank of a ``seq`` ring owns: ``local_frames``
     frames from global frame ``first_frame``, of which ``real_frames`` lie in
-    the clip and the rest are dummy frames."""
+    the clip and the rest are dummy frames.  A ring with more ranks than
+    frames gives every rank one frame, and the ranks past F a dummy one."""
 
     n_frames: int  # F: latent frames of the clip
     tokens_per_frame: int
     ring: int
     rank: int
     group: Optional[object] = None  # the ring's process group (None: one rank, no collectives)
-
-    def __post_init__(self):
-        if self.ring > self.n_frames:
-            # B6/B7 and the frame layout take rings of at most F ranks
-            raise ValueError(f"a seq ring of {self.ring} ranks needs at least {self.ring} latent frames; the clip "
-                             f"has {self.n_frames} (rings with more ranks than frames: ROADMAP A.9)")
 
     @property
     def local_frames(self) -> int:
@@ -329,13 +326,23 @@ def gather_columns(x: torch.Tensor, tp: DimGroup) -> torch.Tensor:
     return all_gather_rows(x, tp.group, tp.size, dim=x.dim() - 1).contiguous()
 
 
-def take_rows(x: Optional[torch.Tensor], dp: DimGroup, what: str = "batch") -> Optional[torch.Tensor]:
+def take_rows(x: Optional[torch.Tensor], dp: DimGroup, what: str = "batch",
+              pad: bool = False) -> Optional[torch.Tensor]:
     """This rank's equal contiguous rows of ``x`` along dim 0, as JAX's
-    ``P("data")`` lays a batch out; a batch the dim does not divide raises."""
+    ``P("data")`` lays a batch out.  A batch the dim does not divide raises,
+    unless ``pad``: then it is first padded to a multiple of the dim with
+    copies of its last row (dummy rows: a statistic taken over a rank's rows,
+    such as B3's amax or B1's bound, sees nothing a real row does not hold),
+    which the caller drops after :func:`gather_rows_over` (ROADMAP C.32; JAX's
+    GSPMD shards an uneven batch)."""
     if x is None:
         return None
-    if x.shape[0] % dp.size:
-        raise ValueError(f"a {what} of {x.shape[0]} rows does not split over a data mesh dim of {dp.size} ranks")
+    extra = -x.shape[0] % dp.size
+    if extra:
+        if not pad:
+            raise ValueError(f"a {what} of {x.shape[0]} rows does not split over a data mesh dim of {dp.size} "
+                             f"ranks")
+        x = torch.cat([x, x[-1:].expand(extra, *x.shape[1:])], dim=0)
     n = x.shape[0] // dp.size
     return x.narrow(0, dp.rank * n, n)
 

@@ -13,7 +13,7 @@ uniform chunks (:func:`sharded_vae_decode`), or with the reference's own
 schedule (:func:`sharded_vae_decode_canonical`), whose odd first chunk rank
 0 decodes first and whose conv caches seed rank 0's halo.  Inputs are whole
 on every rank, channels-last as ``models/vae.py``'s.  The spatial CP decode
-(``vae_spatial.py``) is not ported (ROADMAP A.9).
+of tiled frames is ``vae_spatial.py``.
 """
 
 from __future__ import annotations

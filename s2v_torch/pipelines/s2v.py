@@ -595,9 +595,11 @@ class S2VPipeline:
         retried once in quarter-size tiles on the same card, and later
         decodes go there directly.
 
-        On a ``seq`` ring above 1 an untiled decode runs context-parallel
-        (``parallel/vae_temporal.py``), on JAX's routes
-        (``s2v_tpu/pipelines/s2v.py:647-700``): uniform chunks when the ring
+        On a ``seq`` ring above 1 the decode runs context-parallel on JAX's
+        routes (``s2v_tpu/pipelines/s2v.py:647-700``): a tiled decode with a
+        full tile for each rank spreads its tiles over the ring
+        (``parallel/vae_spatial.py``); otherwise the frames
+        (``parallel/vae_temporal.py``, untiled): uniform chunks when the ring
         divides the frames into chunks of the VAE's frame batch, else the
         reference's schedule when the ring has a rank for each of its
         uniform chunks, else the streaming decode on every rank."""
@@ -606,8 +608,15 @@ class S2VPipeline:
         tiled = self._resolve_tiling(z.shape[2] * sc, z.shape[3] * sc)
         log = get_logger("s2v_torch.pipeline")
         ring = self._seq_ring()
-        if ring > 1 and not tiled:
-            frames = self._decode_cp(z, ring, log)
+        if ring > 1:
+            frames = None
+            if tiled:
+                from s2v_torch.parallel.vae_spatial import spatial_cp_supported, spatial_tiled_decode_cp
+
+                if spatial_cp_supported(self.vae_cfg, z, self.mesh, "seq"):
+                    frames = spatial_tiled_decode_cp(self.vae_params, self.vae_cfg, z, self.mesh, "seq")
+            if frames is None:
+                frames = self._decode_cp(z, ring, log)
             if frames is not None:
                 return denormalize_video(frames.float().cpu().numpy())
         if not self._decode_lean and not tiled:

@@ -86,7 +86,7 @@ def get_args(argv=None):
                         "fp32 master weights (FSDP over --mesh's data dim)")
     p.add_argument("--compute_dtype", type=str, default="auto", choices=["auto", "none", "bfloat16"],
                    help="full mode forward-pass dtype (master weights stay fp32); auto = bfloat16 on the card, "
-                        "none on the CPU")
+                        "none on the CPU; none on the card runs the fp32 attention kernels (B1/B2, B4-B7 as 3xTF32)")
     p.add_argument("--ema_decay", type=float, default=0.0,
                    help="full mode: keep an EMA of the params at this decay (e.g. 0.9999); the final snapshot "
                         "exports the EMA weights. 0 = off")
@@ -154,7 +154,8 @@ def get_args(argv=None):
                    help="accepted for the JAX CLI's command lines and ignored: the port compiles no XLA programs")
     p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     p.add_argument("--dtype", type=str, default="bfloat16", choices=["bfloat16", "float16", "float32"],
-                   help="the model's dtype (the 2b family publishes float16)")
+                   help="the model's dtype (the 2b family publishes float16); float32 on the card runs the fp32 "
+                        "attention kernels (B1/B2, B4-B7 as 3xTF32)")
     return p.parse_args(argv)
 
 

@@ -211,8 +211,57 @@ def case_state(mesh, base, out_dir, other):
     return {"equal": same(state, back), "errors": errors, "files": files}
 
 
-CASES = {"forward": case_forward, "heads": case_heads, "t5": case_t5, "lora": case_lora, "full": case_full,
-         "state": case_state}
+def case_generate(mesh, tp, vp, inputs, backend="plain", grad_forward=None):
+    """``S2VPipeline.generate`` to latents after ``set_mesh`` (the DiT
+    sliced over ``model``) and ``set_attention(backend)``; with
+    ``grad_forward`` (a batch size), also the error of a forward under
+    autograd on that many rows (C.32: the refusal stays there)."""
+    from s2v_torch.config import TransformerConfig, VAEConfig
+    from s2v_torch.loaders.jax_params import transformer_from_jax, vae_from_jax
+    from s2v_torch.models.transformer import transformer_forward
+    from s2v_torch.pipelines.s2v import S2VPipeline
+
+    tcfg = TransformerConfig.tiny()
+    vcfg = VAEConfig.tiny(latent_channels=4, sample_height=64, sample_width=64)
+    pipe = S2VPipeline(transformer_params=transformer_from_jax(tp, tcfg, device="cpu"), transformer_cfg=tcfg,
+                       vae_params=vae_from_jax(vp, vcfg, device="cpu"), vae_cfg=vcfg, device="cpu")
+    pipe.set_mesh(mesh)
+    pipe.set_attention(backend)
+    latents, ref, embeds, common = inputs
+    got = pipe.generate(latents=_t(latents), ref_latents=_t(ref), prompt_embeds=_t(embeds), **common)
+    out = {"latents": _np(got), "stats": dict(pipe.stats)}
+    if grad_forward:
+        b = grad_forward
+        video = torch.zeros(b, *latents.shape[1:], requires_grad=True)
+        try:
+            with _ctx(mesh):
+                transformer_forward(pipe.transformer_params, tcfg, video, _t(ref).expand(b, *ref.shape[1:]),
+                                    torch.zeros(b, tcfg.max_text_seq_length, tcfg.text_embed_dim),
+                                    torch.full((b,), 500), attention_backend=backend)
+            out["grad_error"] = ""
+        except ValueError as e:
+            out["grad_error"] = str(e)
+    return out
+
+
+def case_hybrid(mesh, dcn, ici, local_world_size):
+    """``make_hybrid_mesh`` with ``LOCAL_WORLD_SIZE`` ranks a host: its dim
+    names and this rank's coordinates, or the error it raises."""
+    from s2v_torch.parallel import make_hybrid_mesh
+
+    os.environ["LOCAL_WORLD_SIZE"] = str(local_world_size)
+    try:
+        hybrid = make_hybrid_mesh(dcn, ici, "cpu")
+    except ValueError as e:
+        return {"error": str(e)}
+    finally:
+        del os.environ["LOCAL_WORLD_SIZE"]
+    return {"names": list(hybrid.mesh_dim_names), "coords": list(hybrid.get_coordinate()),
+            "shape": list(hybrid.mesh.shape), "rank": torch.distributed.get_rank()}
+
+
+CASES = {"hybrid": case_hybrid, "forward": case_forward, "heads": case_heads, "t5": case_t5, "lora": case_lora, "full": case_full,
+         "state": case_state, "generate": case_generate}
 _MESHES = {}
 
 

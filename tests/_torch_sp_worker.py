@@ -190,10 +190,23 @@ def case_forward_error(mesh, params, inputs, backend):
 
 
 def case_generate(mesh, tp, vp, inputs, window, backend="sp_windowed", cfg_kw=None):
-    """``S2VPipeline.generate`` after ``set_mesh`` and ``set_attention(backend, w)``."""
+    """``S2VPipeline.generate`` after ``set_mesh`` and ``set_attention(backend,
+    w)``; the warnings the pipeline logged come back too."""
+    import logging
+
     from s2v_torch.config import TransformerConfig, VAEConfig
     from s2v_torch.loaders.jax_params import transformer_from_jax, vae_from_jax
     from s2v_torch.pipelines.s2v import S2VPipeline
+
+    warnings = []
+
+    class _Keep(logging.Handler):
+        def emit(self, record):
+            if record.levelno >= logging.WARNING:
+                warnings.append(record.getMessage())
+
+    handler = _Keep()
+    logging.getLogger("s2v_torch.pipeline").addHandler(handler)
 
     tcfg = TransformerConfig.tiny(**(cfg_kw or {}))
     vcfg = VAEConfig.tiny(latent_channels=4, sample_height=64, sample_width=64)
@@ -202,10 +215,13 @@ def case_generate(mesh, tp, vp, inputs, window, backend="sp_windowed", cfg_kw=No
     pipe.set_mesh(mesh)
     pipe.set_attention(backend, window)
     latents, ref, embeds, common = inputs
-    got = pipe.generate(latents=_t(latents), ref_latents=_t(ref), prompt_embeds=_t(embeds), **common)
+    try:
+        got = pipe.generate(latents=_t(latents), ref_latents=_t(ref), prompt_embeds=_t(embeds), **common)
+    finally:
+        logging.getLogger("s2v_torch.pipeline").removeHandler(handler)
     if common.get("output_type") != "latent":
         got = torch.from_numpy(np.asarray(got))
-    return {"latents": _np(got), "backend": pipe.attention_backend}
+    return {"latents": _np(got), "backend": pipe.attention_backend, "warnings": warnings}
 
 
 def case_lora(mesh, base, batch, tree, rank, alpha, timesteps, noise, window, backend="sp_windowed"):
@@ -308,7 +324,36 @@ def case_daemon_outcomes(mesh, requests):
     return {"seen": seen}
 
 
-CASES = {"daemon_outcomes": case_daemon_outcomes, "attention": case_attention, "forward": case_forward, "forward_error": case_forward_error,
+def case_spatial(mesh, vp, latents, cfg_kw):
+    """The spatial-tile CP decode (``parallel/vae_spatial.py``), whether the
+    pipeline takes it, and the single-card tiled decode on this rank."""
+    from s2v_torch.config import VAEConfig
+    from s2v_torch.loaders.jax_params import vae_from_jax
+    from s2v_torch.models.vae import vae_decode
+    from s2v_torch.parallel import vae_spatial
+
+    from s2v_torch.pipelines.s2v import S2VPipeline
+
+    cfg = VAEConfig.tiny(**cfg_kw)
+    params = vae_from_jax(vp, cfg, device="cpu")
+    z = _t(latents)
+    out = {"supported": vae_spatial.spatial_cp_supported(cfg, z, mesh, "seq"),
+           "cp": _np(vae_spatial.spatial_tiled_decode_cp(params, cfg, z, mesh, "seq")),
+           "single": _np(vae_decode(params, cfg, z, use_tiling=True, use_slicing=False))}
+    # the pipeline's decode on the ring (latents 10x10 > the native 8x8: tiled) takes the CP route
+    pipe = S2VPipeline(transformer_params={}, transformer_cfg=None, vae_params=params, vae_cfg=cfg, device="cpu")
+    pipe.set_mesh(mesh)
+    calls, decode_cp = [], vae_spatial.spatial_tiled_decode_cp
+    vae_spatial.spatial_tiled_decode_cp = lambda *a, **k: calls.append(1) or decode_cp(*a, **k)
+    try:
+        out["pipeline"] = np.asarray(pipe.decode_latents(z * cfg.scaling_factor))
+    finally:
+        vae_spatial.spatial_tiled_decode_cp = decode_cp
+    out["pipeline_cp_calls"] = len(calls)
+    return out
+
+
+CASES = {"spatial": case_spatial, "daemon_outcomes": case_daemon_outcomes, "attention": case_attention, "forward": case_forward, "forward_error": case_forward_error,
          "generate": case_generate, "lora": case_lora, "vae": case_vae, "full_grads": case_full_grads}
 
 

@@ -84,11 +84,12 @@ def test_fully_masked_keys_give_zero_rows():
 
 @pytest.mark.parametrize(
     "dtype,d,ok",
-    [(torch.bfloat16, 64, True), (torch.float32, 64, False), (torch.float16, 64, True), (torch.bfloat16, 128, False)],
+    [(torch.bfloat16, 64, True), (torch.float32, 64, True), (torch.float16, 64, True), (torch.bfloat16, 128, False)],
 )
 def test_kernel_input_checks(dtype, d, ok):
     """The CUDA branch's checks read metadata only: run them on meta tensors.
-    B1 and B2 take bf16 and fp16 (the 2b family)."""
+    B1 and B2 take bf16, fp16 (the 2b family) and fp32 (``--dtype float32``,
+    the 3xTF32 kernels of ``csrc/attention_f32.cu``)."""
     q, k, v = (torch.empty(2, s, 3, d, dtype=dtype, device="meta") for s in (40, 50, 50))
     if ok:
         check_kernel_inputs(q, k, v)
@@ -98,18 +99,51 @@ def test_kernel_input_checks(dtype, d, ok):
 
 
 def test_bf16_only_kernels_refuse_fp16_naming_c1():
-    """Every kernel's check (B1-B7 share it) takes bf16 and fp16 since fp16
-    came to B3-B7; fp32 is refused with ROADMAP C.1 in the message; mixed
-    types are refused."""
+    """The one kernel left without an fp32 form, B3 (its checks pass
+    ``HALF_DTYPES``), takes bf16 and fp16 and refuses fp32 naming ROADMAP
+    C.1, before any launch; mixed types are refused by every kernel."""
+    from s2v_torch.kernels.flash_attention import HALF_DTYPES
+    from s2v_torch.kernels.int8_attention import launch_int8_prepass
+
     for dtype in (torch.bfloat16, torch.float16):
         q = torch.empty(2, 40, 3, 64, dtype=dtype, device="meta")
-        check_kernel_inputs(q, q, q)
+        check_kernel_inputs(q, q, q, dtypes=HALF_DTYPES)
     q = torch.empty(2, 40, 3, 64, dtype=torch.float32, device="meta")
     with pytest.raises(ValueError, match="ROADMAP C.1"):
-        check_kernel_inputs(q, q, q)
+        check_kernel_inputs(q, q, q, dtypes=HALF_DTYPES)
+    with pytest.raises(ValueError, match="ROADMAP C.1"):  # B3's pre-pass checks before it launches
+        launch_int8_prepass(q, q, 0.125)
     bf, hf = (torch.empty(2, 40, 3, 64, dtype=d, device="meta") for d in (torch.bfloat16, torch.float16))
     with pytest.raises(ValueError, match="one dtype"):
         check_kernel_inputs(bf, hf, hf)
+    with pytest.raises(ValueError, match="one dtype"):
+        check_kernel_inputs(q, bf, bf)
+
+
+def test_fp32_passes_the_kernel_checks_of_b1_b2_b4_to_b7():
+    """fp32 operands pass the checks of B1, B2 and B4-B7 (each launches its
+    fp32 form on the card), with rows 16-byte aligned as cp.async needs: 4
+    floats, where bf16 and fp16 need 8 elements."""
+    from s2v_torch.kernels.banded_attention import check_banded_kernel_inputs
+    from s2v_torch.kernels.banded_attention_bwd import (
+        check_banded_bwd_kernel_inputs,
+        check_banded_local_bwd_kernel_inputs,
+    )
+    from s2v_torch.kernels.flash_attention_bwd import check_bwd_kernel_inputs
+
+    q = torch.empty(2, 40, 3, 64, device="meta")
+    lse = torch.empty(2, 3, 40, device="meta")
+    check_kernel_inputs(q, q, q)
+    check_bwd_kernel_inputs(q, q, q, q, lse, q)
+    check_banded_kernel_inputs(q, q, q)
+    check_banded_bwd_kernel_inputs(q, q, q, q, lse, q)
+    check_banded_local_bwd_kernel_inputs(q[:, :20], q, q, q[:, :20], torch.empty(2, 3, 20, device="meta"),
+                                         q[:, :20])
+    # a view whose rows start 4 floats apart is aligned in fp32; 2 floats apart is not
+    base = torch.empty(2, 40, 3, 72, device="meta")
+    check_kernel_inputs(base[..., 4:68], q, q)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        check_kernel_inputs(torch.empty(2, 40, 3, 66, device="meta")[..., :64], q, q)
 
 
 @pytest.mark.parametrize("mode", ["online", "bounded", "bounded_exp2"])

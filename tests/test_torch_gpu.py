@@ -3,6 +3,8 @@ B3 and B4-B7 also against the emulations of their schedules, and B2, B3, B5
 and B7 twice for determinism; B3's pre-pass kernels bit for bit against the
 plain pre-pass, and one s8 wgmma tile of its 64-byte-swizzle layer against
 an integer matmul; B1-B7 in fp16 too, B1 with a q row far above the others,
+B1, B2 and B4-B7 in fp32 (the 3xTF32 kernels, TF32 matmuls off in the plain
+versions),
 B2, B5 and B7 at a small dO; B6/B7,
 the sequence-parallel shard kernels, at every offset of 2- and 4-rank
 rings), the differentiable flash and banded attentions (B1/B2, B4/B5, and
@@ -134,7 +136,7 @@ def test_unsupported_inputs_raise_before_launch(cuda):
     q, k, v = _qkv(1, 64, 64, 1, 3, cuda)
     before = flash_attention.launches
     with pytest.raises(ValueError):
-        flash_attention(q.float(), k.float(), v.float())
+        flash_attention(q.double(), k.double(), v.double())  # fp32 runs its own kernel; fp64 none
     with pytest.raises(ValueError):
         flash_attention(q[..., :32], k[..., :32], v[..., :32])
     # a view whose base pointer is 2 bytes off a 16-byte boundary
@@ -195,7 +197,7 @@ def test_bwd_unsupported_inputs_raise_before_launch(cuda):
     o, lse = flash_attention(q, k, v, return_lse=True)
     before = flash_attention_bwd.launches
     with pytest.raises(ValueError):
-        flash_attention_bwd(q.float(), k.float(), v.float(), o.float(), lse, o.float())
+        flash_attention_bwd(q.double(), k.double(), v.double(), o.double(), lse, o.double())
     with pytest.raises(ValueError):
         flash_attention_bwd(q, k, v, o, lse.to(torch.bfloat16), o)
     shifted = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda)[1:].view(q.shape)
@@ -366,7 +368,7 @@ def test_banded_unsupported_inputs_raise_before_launch(cuda):
     o, lse = banded_flash_attention(q, k, v, 24, 20, 1, return_lse=True)
     before = (banded_flash_attention.launches, banded_flash_attention_bwd.launches)
     with pytest.raises(ValueError):
-        banded_flash_attention(q.float(), k.float(), v.float(), 24, 20, 1)
+        banded_flash_attention(q.double(), k.double(), v.double(), 24, 20, 1)
     with pytest.raises(ValueError):
         banded_flash_attention(q[..., :32], k[..., :32], v[..., :32], 24, 20, 1)
     with pytest.raises(ValueError):
@@ -494,13 +496,13 @@ def test_banded_local_unsupported_inputs_raise_before_launch(cuda):
     q_loc = q[:, g:g + 2 * tpf]
     o, lse = banded_flash_attention_local(q_loc, k, v, g, tpf, 1, 0, f, return_lse=True)
     before = (banded_flash_attention_local.launches, banded_flash_attention_local_bwd.launches)
-    for bad_off in (-1, 9):
-        with pytest.raises(ValueError):
-            banded_flash_attention_local(q_loc, k, v, g, tpf, 1, bad_off, f)
-        with pytest.raises(ValueError):
-            banded_flash_attention_local_bwd(q_loc, k, v, o, lse, o, g, tpf, 1, bad_off, f)
+    # a negative offset (an offset past F is a shard of dummy frames, which runs)
     with pytest.raises(ValueError):
-        banded_flash_attention_local(q_loc.float(), k.float(), v.float(), g, tpf, 1, 0, f)
+        banded_flash_attention_local(q_loc, k, v, g, tpf, 1, -1, f)
+    with pytest.raises(ValueError):
+        banded_flash_attention_local_bwd(q_loc, k, v, o, lse, o, g, tpf, 1, -1, f)
+    with pytest.raises(ValueError):
+        banded_flash_attention_local(q_loc.double(), k.double(), v.double(), g, tpf, 1, 0, f)
     with pytest.raises(ValueError):
         banded_flash_attention_local(q_loc[..., :32], k[..., :32], v[..., :32], g, tpf, 1, 0, f)
     with pytest.raises(ValueError):
@@ -1028,16 +1030,19 @@ def test_int8_kernel_fp16_matches_plain_and_schedule(cuda, b, sq, skv, h):
 
 
 def test_bf16_only_kernels_refuse_fp16_on_the_card(cuda):
-    """No fallback and no cast: fp32 reaching B3 or B4 raises naming ROADMAP
-    C.1, and the flash_int8/windowed backends hand fp16 to B3/B4 uncast on
-    the card (each launches its fp16 entry and returns fp16)."""
+    """No fallback and no cast: fp32 reaching B3 raises naming ROADMAP C.1,
+    fp32 reaching B4 launches its fp32 form (and returns fp32), and the
+    flash_int8/windowed backends hand fp16 to B3/B4 uncast on the card (each
+    launches its fp16 entry and returns fp16); fp32 to B3 through the
+    backend raises, to B4 runs the fp32 kernel."""
     from s2v_torch.ops.attention import joint_attention
 
     q, k, v = _qkv16(1, 200, 200, 2, 25, cuda)
     with pytest.raises(ValueError, match="ROADMAP C.1"):
         flash_attention_qk_int8(q.float(), k.float(), v.float())
-    with pytest.raises(ValueError, match="ROADMAP C.1"):
-        banded_flash_attention(q.float(), k.float(), v.float(), 40, 40, 1)
+    before = banded_flash_attention.launches_by_dtype.get("float32", 0)
+    assert banded_flash_attention(q.float(), k.float(), v.float(), 40, 40, 1).dtype == torch.float32
+    assert banded_flash_attention.launches_by_dtype["float32"] == before + 1
     d = 2 * 64
     params = {"qkv": {"weight": torch.randn(3 * d, d, device=cuda, dtype=torch.float16) * 0.05,
                       "bias": torch.zeros(3 * d, device=cuda, dtype=torch.float16)},
@@ -1053,7 +1058,92 @@ def test_bf16_only_kernels_refuse_fp16_on_the_card(cuda):
         before = fn.launches_by_dtype.get("float16", 0)
         assert joint_attention(params, x, 2, backend=backend, window=window).dtype == torch.float16
         assert fn.launches_by_dtype["float16"] == before + 1
-        with pytest.raises(ValueError, match="ROADMAP C.1"):
-            joint_attention({k: {n: t.float() for n, t in leaf.items()} for k, leaf in params.items()}, x.float(),
-                            2, backend=backend, window=window)
+        fp32_params = {k: {n: t.float() for n, t in leaf.items()} for k, leaf in params.items()}
+        if backend == "flash_int8":
+            with pytest.raises(ValueError, match="ROADMAP C.1"):
+                joint_attention(fp32_params, x.float(), 2, backend=backend, window=window)
+        else:
+            before = fn.launches_by_dtype.get("float32", 0)
+            assert joint_attention(fp32_params, x.float(), 2, backend=backend, window=window).dtype == torch.float32
+            assert fn.launches_by_dtype["float32"] == before + 1
     assert joint_attention(params, x, 2, backend="flash").dtype == torch.float16
+
+
+# fp32 (ROADMAP C.1): the 3xTF32 kernels of csrc/attention_f32.cu and
+# attention_f32_bwd.cu against their plain versions with TF32 matmuls off and
+# against the emulations of their schedules; the chip smoke's limits
+FP32_FWD = (2.0 ** -14, 2e-5)
+FP32_BWD = (2.0 ** -12, 1e-4)
+
+
+def _close_f32(x, ref, limits):
+    max_rel, l2 = limits
+    x, ref = x.double(), ref.double()
+    if not ref.abs().max().item():
+        assert not x.abs().max().item()
+        return
+    diff = x - ref
+    assert diff.abs().max().item() <= max_rel * ref.abs().max().item()
+    assert (diff.norm() / ref.norm()).item() < l2
+
+
+@pytest.fixture
+def no_tf32(cuda):
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield cuda
+    torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def _f32(shape, seed, device):
+    return torch.from_numpy(np.random.RandomState(seed).randn(*shape).astype(np.float32)).to(device)
+
+
+@pytest.mark.parametrize("mode", ["online", "bounded", "bounded_exp2"])
+def test_fp32_b1_b2_match_plain_and_emulation(no_tf32, mode):
+    from s2v_torch.kernels import attention_f32 as af
+
+    q, k, v = (_f32((2, s, 3, 64), i, no_tf32) for i, s in enumerate((200, 333, 333)))
+    mask = torch.zeros(333, dtype=torch.bool, device=no_tf32)
+    mask[7:40] = True
+    before = flash_attention.launches_by_dtype.get("float32", 0)
+    o, lse = flash_attention(q, k, v, return_lse=True, key_pad_mask=mask, softmax_mode=mode)
+    assert o.dtype == torch.float32 and flash_attention.launches_by_dtype["float32"] > before
+    o_ref, lse_ref = flash_attention_reference(q, k, v, return_lse=True, key_pad_mask=mask, softmax_mode=mode)
+    _close_f32(o, o_ref, FP32_FWD)
+    _close_f32(o, af.flash_attention_f32_blocked(q, k, v, key_pad_mask=mask, softmax_mode=mode), FP32_FWD)
+    assert (lse - lse_ref).abs().max().item() < 1e-4
+    o, lse = flash_attention(q, k, v, return_lse=True, softmax_mode=mode)
+    do = _f32(q.shape, 9, no_tf32)
+    got = flash_attention_bwd(q, k, v, o, lse, do)
+    again = flash_attention_bwd(q, k, v, o, lse, do)
+    for a, r, e, b in zip(got, flash_attention_bwd_reference(q, k, v, o, lse, do),
+                          af.flash_attention_bwd_f32_blocked(q, k, v, o, lse, do), again):
+        _close_f32(a, r, FP32_BWD)
+        _close_f32(a, e, FP32_BWD)
+        assert torch.equal(a, b)
+
+
+def test_fp32_b4_to_b7_match_plain(no_tf32):
+    g, tpf, f, w = 40, 100, 5, 1
+    s = g + f * tpf
+    q, k, v, do = (_f32((1, s, 2, 64), i + 20, no_tf32) for i in range(4))
+    o, lse = banded_flash_attention(q, k, v, g, tpf, w, return_lse=True)
+    o_ref = banded_flash_attention_reference(q, k, v, g, tpf, w)
+    _close_f32(o, o_ref, FP32_FWD)
+    for a, r in zip(banded_flash_attention_bwd(q, k, v, o, lse, do, g, tpf, w),
+                    banded_flash_attention_bwd_reference(q, k, v, o, lse, do, g, tpf, w)):
+        _close_f32(a, r, FP32_BWD)
+    for ring in (2, 4, 8):  # 8 ranks over 5 frames: ranks 5-7 hold dummy frames only
+        _, f_loc = ring_shards(f, ring)
+        for r in range(ring):
+            off = r * f_loc
+            lo, hi = g + off * tpf, g + (off + f_loc) * tpf
+            q_loc = torch.nn.functional.pad(q[:, lo:hi], (0, 0, 0, 0, 0, f_loc * tpf - q[:, lo:hi].shape[1]))
+            do_loc = torch.nn.functional.pad(do[:, lo:hi], (0, 0, 0, 0, 0, f_loc * tpf - do[:, lo:hi].shape[1]))
+            o_l, lse_l = banded_flash_attention_local(q_loc, k, v, g, tpf, w, off, f, return_lse=True)
+            o_lr = banded_flash_attention_local_reference(q_loc, k, v, g, tpf, w, off, f)
+            _close_f32(o_l, o_lr, FP32_FWD)
+            args = (q_loc, k, v, o_l, lse_l, do_loc, g, tpf, w, off, f)
+            for a, r_ in zip(banded_flash_attention_local_bwd(*args), banded_flash_attention_local_bwd_reference(*args)):
+                _close_f32(a, r_, FP32_BWD)

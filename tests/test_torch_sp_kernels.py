@@ -149,12 +149,15 @@ def test_shard_and_kernel_input_checks():
     g, tpf, f = 24, 20, 5
     k = _meta(2, g + f * tpf, 3, 64)
     q = _meta(2, 2 * tpf, 3, 64)
-    for off in (0, 3, 8):  # 8 + 2 frames = F·F_loc: the last offset of the widest ring
+    # 8 + 2 frames = F·F_loc: the last offset of the widest ring of 2-frame
+    # shards; 9 and 12: shards of dummy frames only (ROADMAP A.9.4 lets rings
+    # outnumber the frames, and any offset past F is such a shard)
+    for off in (0, 3, 8, 9, 12):
         geo = local_geometry(q, k, k, g, tpf, 1, torch.tensor([off], dtype=torch.int32), f)
         assert (geo.frame_offset, geo.local_frames, geo.n_frames) == (off, 2, f)
-    for bad_off in (-1, 9):
-        with pytest.raises(ValueError, match="ring-padded clip"):
-            banded_flash_attention_local(q, k, k, g, tpf, 1, bad_off, f)
+        assert geo.real_frames() == max(0, min(2, f - off))
+    with pytest.raises(ValueError, match="frame_offset must be >= 0"):
+        banded_flash_attention_local(q, k, k, g, tpf, 1, -1, f)
     with pytest.raises(ValueError, match="1 to F"):
         banded_flash_attention_local(_meta(2, 6 * tpf, 3, 64), k, k, g, tpf, 1, 0, f)
     with pytest.raises(ValueError, match="ragged local"):
