@@ -68,14 +68,26 @@ Phases, each printing one JSON line:
       kernel_banded_bwd_fp32, kernel_banded_local_fp32,
       kernel_banded_local_bwd_fp32 — the fp32 forms of B1, B2 and B4-B7
                 (``csrc/attention_f32.cu``, ``attention_f32_bwd.cu``: 3xTF32
-                on ``mma.sync``) against their plain versions (TF32 matmuls
-                off) and the emulations of their schedules: small ragged
-                cases (every softmax mode, a key pad mask, a bounded re-run;
-                every offset of 2- and 4-rank rings), then the main shapes
-                (B=2 forward, B=1 backward, S=19,126, H=48; the local forms
-                per shard of a 4-rank ring; the emulations on the first two
-                heads), timed over 3 launches beside the bound at the TF32
-                peak, its 3-pass floor, the plain version and fp32 SDPA;
+                on ``wgmma`` from the big and small planes a pre-pass
+                writes) against their plain versions (TF32 matmuls off) and
+                the emulations of their schedules: small ragged cases
+                (every softmax mode, a key pad mask, a bounded re-run; every
+                offset of 2- and 4-rank rings), then the main shapes (B=2
+                forward, B=1 backward, S=19,126, H=48; the local forms per
+                shard of a 4-rank ring; the emulations on the first two
+                heads), timed over 3 launches beside the bound (the 3-pass
+                TF32 floor; one TF32 pass beside it), the plain version and
+                fp32 SDPA;
+      kernel_int8_fp32 — kernel B3 in fp32 (int8 logits, 3xTF32 P·V):
+                small ragged shapes against the plain version and the
+                emulation of its schedule, the pre-pass kernels' int8 values
+                and dq equal to the plain pre-pass's everywhere; the main
+                shape B=2, S=19,126, H=48 against the plain version, two
+                launches bit for bit, timed (whole, pre-pass, main launch)
+                beside its bound and the plain version;
+      int8_widths — the int8 linears at widths that are not multiples of 8
+                (20 -> 36, 7 -> 13): the card's padded int32 products equal
+                to the CPU's bit for bit;
       ring_past_frames — B6/B7 in bf16 on the shards of a 4-rank ring over
                 2 latent frames (ranks 2-3 dummy only) and over the small
                 geometries' short clips, against their plain versions;
@@ -237,7 +249,11 @@ Phases, each printing one JSON line:
                 blocks: ``generate`` at 49x480x720, 2 steps, B1's fp32 kernel
                 12 times, the clip finite in [0, 1], its latents against the
                 ``chunked`` backend's (PyTorch ops); one step each with
-                ``windowed`` (B4 fp32) and ``sp_windowed`` (B6 fp32);
+                ``windowed`` (B4 fp32) and ``sp_windowed`` (B6 fp32); then on
+                the DiT's int8 linears two steps each with ``flash_int8``
+                (B3 fp32) and, on the one-rank seq mesh, ``sp_int8``, finite
+                and within the relative RMS the int8 path is held to of the
+                exact run's latents;
       train_fp32 — on the same cast: the LoRA loss and adapter gradients
                 (``--compute_dtype none``), B1 fp32 12 and B2 fp32 6, against
                 ``chunked``'s; then ``windowed`` (B4, B5 fp32) and
@@ -4439,7 +4455,7 @@ def phase_train_cli_mesh(dev, pipe, backend="sp_windowed", frames=9):
 
 # ---------------------------------------------------------------------------
 # fp32: kernels B1, B2 and B4-B7 on fp32 inputs (csrc/attention_f32.cu,
-# csrc/attention_f32_bwd.cu: 3xTF32 on mma.sync), the route of --dtype float32
+# csrc/attention_f32_bwd.cu: 3xTF32 on wgmma), the route of --dtype float32
 # ---------------------------------------------------------------------------
 
 # the H100 SXM's dense TF32 tensor-core peak (NVIDIA data sheet); 3xTF32 runs
@@ -4497,11 +4513,14 @@ def _lse_f32(lse, lse_ref, what):
 
 
 def _f32_bound(flops, nbytes):
-    """(bound_ms, bound_by, floor_ms): the larger of the operations over the
-    TF32 peak and the bytes over the memory rate, and the 3-pass floor."""
+    """(bound_ms, bound_by, tf32_one_pass_ms): the bound is the larger of the
+    operations at fp32 accuracy on the tensor cores (three TF32 passes, the
+    3-pass floor; fp32 without them runs at 67 TFLOP/s, slower) and the
+    bytes over the memory rate; one TF32 pass, which keeps only about three
+    digits and so is not the same work, is given beside it."""
     t_ops, t_bytes = flops / PEAK_TF32_FLOPS, nbytes / PEAK_BYTES_PER_S
-    return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes",
-            max(TF32_PASSES * t_ops, t_bytes) * 1e3)
+    return (max(TF32_PASSES * t_ops, t_bytes) * 1e3, "operations" if TF32_PASSES * t_ops >= t_bytes else "bytes",
+            t_ops * 1e3)
 
 
 def _ms3(fn):
@@ -4587,10 +4606,10 @@ def phase_kernel_fp32(dev):
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     library_ms = _ms3(lambda: F.scaled_dot_product_attention(qt, kt, vt))
     flops = 4 * b * h * s * s * d
-    bound_ms, bound_by, floor_ms = _f32_bound(flops, 4 * b * s * h * d * 4 + b * h * s * 4)
+    bound_ms, bound_by, one_pass_ms = _f32_bound(flops, 4 * b * s * h * d * 4 + b * h * s * 4)
     result = {"phase": "kernel_fp32_main", "shape": list(MAIN_SHAPE), "dtype": "float32", "modes": main,
               "emulated_heads": e, "schedule": emulated, "plain_ms": plain_ms, "library_ms": library_ms,
-              "bound_ms": bound_ms, "bound_by": bound_by, "floor_ms": floor_ms,
+              "bound_ms": bound_ms, "bound_by": bound_by, "tf32_one_pass_ms": one_pass_ms,
               "tflops": flops / main[MAIN_MODE]["ms"] / 1e9, "smem_bytes": af.smem_bytes(),
               "small_worst_err_share": _worst(small)}
     emit(result)
@@ -4644,13 +4663,13 @@ def phase_kernel_bwd_fp32(dev):
     ms = _ms3(lambda: flash_attention_bwd(*args))
     q, k, v, o, lse, do = args
     grads = [torch.empty_like(x) for x in (q, k, v)]
-    ws = af.bwd_workspace(q)
+    ws, planes = af.bwd_workspace(q), af.bwd_planes(q, k)
     parts_ms = {}
-    af.launch_bwd(q, k, v, o, do, lse, *grads, d ** -0.5, workspace=ws)
+    af.launch_bwd(q, k, v, o, do, lse, *grads, d ** -0.5, workspace=ws, planes=planes)
     for name, part in (("prepass", af.PART_PREPASS), ("dq", af.PART_DQ), ("dkv", af.PART_DKV)):
         parts_ms[name] = _ms3(lambda: af.launch_bwd(q, k, v, o, do, lse, *grads, d ** -0.5, workspace=ws,
-                                                    parts=part))
-    del grads, ws
+                                                    planes=planes, parts=part))
+    del grads, ws, planes
     plain_ms = cuda_ms(lambda: flash_attention_bwd_reference(*args), 1)
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
     out = F.scaled_dot_product_attention(qt, kt, vt)
@@ -4658,11 +4677,11 @@ def phase_kernel_bwd_fp32(dev):
     library_ms = _ms3(lambda: torch.autograd.grad(out, (qt, kt, vt), gt, retain_graph=True))
     del out, qt, kt, vt
     flops = 10 * b * h * s * s * d
-    bound_ms, bound_by, floor_ms = _f32_bound(flops, 8 * b * s * h * d * 4 + b * h * s * 4)
+    bound_ms, bound_by, one_pass_ms = _f32_bound(flops, 8 * b * s * h * d * 4 + b * h * s * 4)
     result = {"phase": "kernel_bwd_fp32_main", "shape": list(TRAIN_SHAPE), "dtype": "float32", "grads": stats,
               "schedule": emulated, "emulated_heads": e, "deterministic": deterministic, "ms": ms,
               "parts_ms": parts_ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
-              "bound_by": bound_by, "floor_ms": floor_ms, "tflops": flops / ms / 1e9,
+              "bound_by": bound_by, "tf32_one_pass_ms": one_pass_ms, "tflops": flops / ms / 1e9,
               "small_worst_err_share": max(_worst(list(c[n] for c in small)) for n in ("dq", "dk", "dv"))}
     emit(result)
     return result
@@ -4744,12 +4763,12 @@ def phase_kernel_banded_fp32(dev):
     library_ms, library_shape, library_failed = _masked_sdpa_ms(q[:, geo.global_len:], k, v, rows, geo)
     pairs_vid, pairs_glob = geo.pairs()
     flops = 4 * b * h * d * (pairs_vid + pairs_glob)
-    bound_ms, bound_by, floor_ms = _f32_bound(flops, 4 * b * s * h * d * 4 + b * h * s * 4)
+    bound_ms, bound_by, one_pass_ms = _f32_bound(flops, 4 * b * s * h * d * 4 + b * h * s * 4)
     result = {"phase": "kernel_banded_fp32_main", "shape": list(MAIN_SHAPE), "band": list(BAND), "dtype": "float32",
               **stats, "schedule": emulated, "emulated_heads": e, "ms": ms, "plain_ms": plain_ms,
               "library_ms": library_ms, "library_shape": library_shape, "library_not_run": library_failed,
               "library_covers": "video queries (fp32 masked SDPA)", "bound_ms": bound_ms, "bound_by": bound_by,
-              "floor_ms": floor_ms, "tflops": flops / ms / 1e9, "small_worst_err_share": _worst(small)}
+              "tf32_one_pass_ms": one_pass_ms, "tflops": flops / ms / 1e9, "small_worst_err_share": _worst(small)}
     emit(result)
     return result
 
@@ -4810,13 +4829,13 @@ def phase_kernel_banded_bwd_fp32(dev):
                                                                 geo, grad=args[5][:, geo.global_len:])
     pairs_vid, pairs_glob = geo.pairs()
     flops = 10 * b * h * d * (pairs_vid + pairs_glob)
-    bound_ms, bound_by, floor_ms = _f32_bound(flops, 8 * b * s * h * d * 4 + b * h * s * 4)
+    bound_ms, bound_by, one_pass_ms = _f32_bound(flops, 8 * b * s * h * d * 4 + b * h * s * 4)
     result = {"phase": "kernel_banded_bwd_fp32_main", "shape": list(TRAIN_SHAPE), "band": list(BAND),
               "dtype": "float32", "grads": stats, "schedule": emulated, "emulated_heads": e,
               "deterministic": deterministic, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
               "library_shape": library_shape, "library_not_run": library_failed,
               "library_covers": "video queries (backward of fp32 masked SDPA)", "bound_ms": bound_ms,
-              "bound_by": bound_by, "floor_ms": floor_ms, "tflops": flops / ms / 1e9,
+              "bound_by": bound_by, "tf32_one_pass_ms": one_pass_ms, "tflops": flops / ms / 1e9,
               "small_worst_err_share": max(_worst(list(c[n] for c in small)) for n in ("dq", "dk", "dv"))}
     emit(result)
     return result
@@ -4886,11 +4905,11 @@ def phase_kernel_banded_local_fp32(dev):
         library_ms, library_shape, _ = _masked_sdpa_ms(q_loc, k, v, rows, geo)
         sq = q_loc.shape[1]
         flops = 4 * b * h * d * shard.shard_pairs()
-        bound_ms, bound_by, floor_ms = _f32_bound(flops, (2 * sq + 2 * s) * b * h * d * 4)
+        bound_ms, bound_by, one_pass_ms = _f32_bound(flops, (2 * sq + 2 * s) * b * h * d * 4)
         shards.append({"rank": r, "offset": off, "local_frames": f_loc,
                        "dummy_frames": f_loc - shard.real_frames(), **stats, "ms": ms, "plain_ms": plain_ms,
                        "library_ms": library_ms, "library_shape": library_shape, "bound_ms": bound_ms,
-                       "bound_by": bound_by, "floor_ms": floor_ms, "tflops": flops / ms / 1e9})
+                       "bound_by": bound_by, "tf32_one_pass_ms": one_pass_ms, "tflops": flops / ms / 1e9})
     e = FP32_EMULATED_HEADS
     _, off, f_loc = _local_f32_shards(4, geo.n_frames)[0]
     q_loc = _shard_rows(q, geo, f_loc, off)[:, :, :e].contiguous()
@@ -4966,11 +4985,11 @@ def phase_kernel_banded_local_bwd_fp32(dev):
         library_ms, library_shape, _ = _masked_sdpa_ms(args[0], k, v, rows, geo, grad=args[5])
         sq = args[0].shape[1]
         flops = 10 * b * h * d * shard.shard_pairs()
-        bound_ms, bound_by, floor_ms = _f32_bound(flops, (4 * sq + 4 * s) * b * h * d * 4 + b * h * sq * 4)
+        bound_ms, bound_by, one_pass_ms = _f32_bound(flops, (4 * sq + 4 * s) * b * h * d * 4 + b * h * sq * 4)
         shards.append({"rank": r, "offset": off, "local_frames": f_loc,
                        "dummy_frames": f_loc - shard.real_frames(), "grads": stats, "ms": ms, "plain_ms": plain_ms,
                        "library_ms": library_ms, "library_shape": library_shape, "bound_ms": bound_ms,
-                       "bound_by": bound_by, "floor_ms": floor_ms, "tflops": flops / ms / 1e9})
+                       "bound_by": bound_by, "tf32_one_pass_ms": one_pass_ms, "tflops": flops / ms / 1e9})
         if r == 0:
             deterministic = _determinism(banded_flash_attention_local_bwd, args, "fp32 banded_flash_attention_local_bwd")
         del args
@@ -4998,6 +5017,118 @@ FP32_PIPELINE_MAX_REL, FP32_PIPELINE_L2 = 1e-3, 1e-4
 # the LoRA loss and adapter gradients of the same: the backward's kernels at
 # ~3e-6, through remat and 6 blocks
 FP32_LOSS_REL, FP32_GRAD_MAX_REL, FP32_GRAD_L2 = 1e-5, 1e-3, 1e-4
+
+
+def phase_kernel_int8_fp32(dev):
+    """Kernel B3 in fp32: its pre-pass kernels (``s2v_int8_prepass_f32``)
+    against ``int8_prepass`` bit for bit, and its main kernel (int8 logits
+    exact in int32, 3xTF32 P·V) against the plain version within the fp32
+    limits, on small ragged shapes (also against the emulation of its
+    schedule) and at the main shape B=2, S=19,126, H=48 (two launches bit
+    for bit), timed by CUDA events beside its bound: the tensor cores' int8
+    logits plus P·V at the 3-pass TF32 floor, against the exponentials on
+    the SFUs and the bytes."""
+    import torch
+
+    from s2v_torch.kernels import attention_f32 as af
+    from s2v_torch.kernels.int8_attention import (
+        flash_attention_qk_int8,
+        flash_attention_qk_int8_blocked,
+        flash_attention_qk_int8_reference,
+        int8_prepass,
+        launch_int8,
+        launch_int8_prepass,
+    )
+
+    def compare(q, k, v, emulate=True):
+        what = f"fp32 flash_attention_qk_int8 {tuple(q.shape)}x{tuple(k.shape)}"
+        o = flash_attention_qk_int8(q, k, v)
+        if o.dtype != torch.float32:
+            raise AssertionError(f"{what}: output {o.dtype}")
+        stats = _agreement_f32(o, flash_attention_qk_int8_reference(q, k, v), what)
+        if emulate:
+            st = _agreement_f32(o, flash_attention_qk_int8_blocked(q, k, v), what + " against the emulation")
+            stats.update(schedule_max_abs_err=st["max_abs_err"], schedule_rel_l2=st["rel_l2"])
+        return {**stats, "prepass_bit_equal": _prepass_equal(q, k, what)}
+
+    small = []
+    # ragged against the 128-row blocks and 64-key tiles, Sq != Skv both ways, one key tile
+    for (b, sq, skv, h) in [(2, 90, 90, 2), (1, 200, 77, 3), (2, 77, 333, 2), (2, 1000, 129, 2), (1, 310, 438, 2)]:
+        q, k, v = _qkv32(b, sq, skv, h, sq + skv + 3, dev)
+        small.append({"q": [b, sq, h, 64], "skv": skv, **compare(q, k, v)})
+    emit({"phase": "kernel_int8_fp32_small", "cases": small})
+
+    b, s, h, d = MAIN_SHAPE
+    q, k, v = _qkv32(b, s, s, h, 7, dev, layer_norm=True)
+    before = flash_attention_qk_int8.launches_by_dtype.get("float32", 0)
+    stats = compare(q, k, v, emulate=False)
+    if flash_attention_qk_int8.launches_by_dtype.get("float32", 0) != before + 1:
+        raise AssertionError("fp32 flash_attention_qk_int8: the fp32 kernel did not launch")
+    got, want = launch_int8_prepass(q, k, d ** -0.5), int8_prepass(q, k, d ** -0.5)
+    differing = {n: int((a != w).sum()) for n, a, w in zip(("q_i8", "k_i8", "dq"), got, want)}
+    del got, want
+    first, second = flash_attention_qk_int8(q, k, v), flash_attention_qk_int8(q, k, v)
+    if not torch.equal(first, second):
+        raise AssertionError("fp32 flash_attention_qk_int8: two launches on the same inputs differ")
+    del first, second
+    ms = _ms3(lambda: flash_attention_qk_int8(q, k, v))
+    prepass_ms = _ms3(lambda: launch_int8_prepass(q, k, d ** -0.5))
+    q_i8, k_i8, dq = launch_int8_prepass(q, k, d ** -0.5)
+    o = torch.empty_like(q)
+    launch_ms = _ms3(lambda: launch_int8(q_i8, k_i8, v, o, dq))
+    del q_i8, k_i8, o
+    plain_ms = cuda_ms(lambda: flash_attention_qk_int8_reference(q, k, v), 1)
+    products = 2 * b * h * s * s * d  # each of q·kᵀ (int8) and P·V (3xTF32)
+    logits_ms = products / PEAK_INT8_OPS * 1e3
+    pv_ms = TF32_PASSES * products / PEAK_TF32_FLOPS * 1e3
+    exp_ms, sfu = _sfu_exp_ms(b * h * s * s)
+    bytes_ms = 4 * b * s * h * d * 4 / PEAK_BYTES_PER_S * 1e3  # q, k, v read once and o written once in fp32
+    bound_ms, set_by = max((logits_ms + pv_ms, "tensor cores (int8 logits, 3xTF32 P·V)"),
+                           (exp_ms, "exponentials (SFU)"), (bytes_ms, "bytes"))
+    result = {"phase": "kernel_int8_fp32_main", "shape": list(MAIN_SHAPE), "dtype": "float32", **stats,
+              "prepass_values_differing": differing, "deterministic": True, "ms": ms, "prepass_ms": prepass_ms,
+              "launch_ms": launch_ms, "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
+              "bound_by": "bytes" if set_by == "bytes" else "operations", "bound_set_by": set_by,
+              "bound_parts_ms": {"int8_logits": logits_ms, "pv_3xtf32": pv_ms, "exponentials": exp_ms,
+                                 "bytes": bytes_ms, **sfu},
+              "bound_share": bound_ms / ms, "smem_bytes": af.smem_bytes()["int8_fwd"],
+              "small_worst_err_share": _worst(small)}
+    emit(result)
+    return result
+
+
+# in and out widths of the int8 linears that are not multiples of 8, and the rows
+INT8_WIDTHS = [(20, 36, 5), (7, 13, 300), (20, 36, 77)]
+
+
+def phase_int8_widths(dev):
+    """The int8 linears at widths CUDA's ``torch._int_mm`` does not take
+    as they are: ``ops/quant.py`` pads them (zero columns, zero rows of q)
+    and the card's int32 products must equal the CPU's bit for bit, and
+    ``int8_dense``'s fp32 outputs agree with the CPU's."""
+    import torch
+
+    from s2v_torch.ops.quant import _int_mm, int8_dense, quantize_weight_int8
+
+    cases = []
+    for d_in, d_out, rows in INT8_WIDTHS:
+        rng = np.random.RandomState(d_in * d_out + rows)
+        xq = torch.from_numpy(rng.randint(-127, 128, (rows, d_in)).astype(np.int8))
+        wq8 = torch.from_numpy(rng.randint(-127, 128, (d_out, d_in)).astype(np.int8))
+        got = _int_mm(xq.to(dev), wq8.to(dev)).cpu()
+        if not (got.dtype == torch.int32 and torch.equal(got, _int_mm(xq, wq8))):
+            raise AssertionError(f"int8 product {d_in} -> {d_out} ({rows} rows): the card's differs from the CPU's")
+        x = torch.from_numpy(rng.randn(1, rows, d_in).astype(np.float32))
+        wq = quantize_weight_int8(torch.from_numpy(0.05 * rng.randn(d_out, d_in).astype(np.float32)))
+        y = int8_dense(x.to(dev), {n: t.to(dev) for n, t in wq.items()}).cpu()
+        want = int8_dense(x, wq)
+        err = ((y - want).abs().max() / want.abs().max()).item()
+        if not (y.shape == want.shape and torch.isfinite(y).all() and err <= 1e-6):
+            raise AssertionError(f"int8_dense {d_in} -> {d_out}: relative error {err} against the CPU")
+        cases.append({"in": d_in, "out": d_out, "rows": rows, "int32_bit_equal": True, "dense_max_rel_err": err})
+    result = {"phase": "int8_widths", "cases": cases}
+    emit(result)
+    return result
 
 
 def _cast_tree(tree, dtype):
@@ -5098,6 +5229,7 @@ def phase_e2e_fp32(dev, pipe, backend="flash", height=480, width=720, num_frames
                 fp.set_mesh(None)
             if not _fp32_counts(legs[name]["launches"], name, L, 0):
                 raise AssertionError(f"e2e_fp32 {name} launches {legs[name]['launches']}")
+        int8 = _fp32_int8_legs(fp, dev, kw, latents[backend])
     finally:
         release_pipe(fp, dev, keep_batches=True)
     line = {"phase": "e2e_fp32", "backend": backend, "depth": L, "num_frames": num_frames, "steps": 2,
@@ -5105,16 +5237,65 @@ def phase_e2e_fp32(dev, pipe, backend="flash", height=480, width=720, num_frames
             "encode_ref_s": timings["encode_ref_s"], "denoise_step_s": timings["denoise_step_s"],
             "decode_s": timings["decode_s"], "wall_s": wall_s, "max_memory_allocated_gb": peak_gb,
             "output_mean": float(video.mean()), "output_std": float(video.std()),
-            "latents_vs_chunked": agreement, "windowed_legs": legs, "seconds": time.perf_counter() - t_phase}
+            "latents_vs_chunked": agreement, "windowed_legs": legs, "int8_legs": int8,
+            "seconds": time.perf_counter() - t_phase}
     emit(line)
-    return {**counts, "windowed": legs["windowed"]["launches"], "sp_windowed": legs["sp_windowed"]["launches"]}
+    return {**counts, "windowed": legs["windowed"]["launches"], "sp_windowed": legs["sp_windowed"]["launches"],
+            "int8": int8["flash_int8"]["launches"], "sp_int8": int8["sp_int8"]["launches"]}
+
+
+def _fp32_int8_legs(fp, dev, kw, exact):
+    """On the fp32 pipeline's DiT with int8 linears: two steps with
+    ``flash_int8`` (B3 fp32 once a block and step) and two with ``sp_int8``
+    on the one-rank seq mesh, each finite and counted (fp32 launches only);
+    ``sp_int8``'s latents against ``flash_int8``'s within the fp32 pipeline
+    limits (one rank: the same values in other buffers), and each int8 run's
+    relative RMS against the exact run's latents (``exact``) printed, the
+    measure ``reference`` prints for the bf16 int8 path (the JAX package's
+    test holds a DiT output to 0.10)."""
+    import torch
+
+    params, quantize_s = _quantized(fp)
+    exact_params, fp.transformer_params = fp.transformer_params, params
+    L = fp.transformer_cfg.num_layers
+    legs, latents = {"quantize_s": quantize_s}, {}
+    try:
+        for name in ("flash_int8", "sp_int8"):
+            if name == "sp_int8":
+                fp.set_mesh(sp_mesh())
+            try:
+                fp.set_attention(name)
+                reset_counts()
+                t0 = time.perf_counter()
+                latents[name] = fp.generate(num_inference_steps=2, output_type="latent", **kw).float()
+                counts = read_counts()
+                seconds = time.perf_counter() - t0
+            finally:
+                fp.set_mesh(None)
+            got = latents[name]
+            if not torch.isfinite(got).all():
+                raise AssertionError(f"e2e_fp32 {name}: latents not finite")
+            if not _fp32_counts(counts, "flash_int8", 2 * L, 0):
+                raise AssertionError(f"e2e_fp32 {name} launches {counts}; expected {2 * L} fp32 B3 and nothing else")
+            rel_rms = ((got - exact).square().mean().sqrt() / exact.square().mean().sqrt()).item()
+            legs[name] = {"launches": counts, "seconds": seconds, "denoise_step_s": fp.timings["denoise_step_s"],
+                          "rel_rms_vs_exact": rel_rms}
+        legs["sp_int8"]["vs_flash_int8"] = {
+            **_agreement_f32(latents["sp_int8"], latents["flash_int8"], "e2e_fp32 sp_int8 latents against flash_int8's",
+                             limits=(FP32_PIPELINE_MAX_REL, FP32_PIPELINE_L2)),
+            "bitwise_equal": bool(torch.equal(latents["sp_int8"], latents["flash_int8"]))}
+    finally:
+        fp.transformer_params = exact_params
+        fp.set_attention("flash")
+    return legs
 
 
 def phase_train_fp32(dev, pipe, backend="flash", height=480, width=720, num_frames=49):
     """One LoRA loss and its adapters' gradients on the pipeline cast to fp32
     (the trainer's ``--dtype float32 --compute_dtype none``) at the cut
-    depth, with remat: B1's fp32 kernel twice a block and B2's once, held
-    against the ``chunked`` backend's loss and gradients; then the same with
+    depth, with remat: B1's fp32 kernel twice a block and B2's once (a first
+    run timed apart), held against the ``chunked`` backend's loss and
+    gradients; then the same with
     ``windowed`` (B4 and B5 fp32) and, under the one-rank seq mesh,
     ``sp_windowed`` (B6 and B7 fp32)."""
     import dataclasses
@@ -5141,6 +5322,9 @@ def phase_train_fp32(dev, pipe, backend="flash", height=480, width=720, num_fram
         timesteps = torch.randint(0, alphas.shape[0], (1,), generator=gen, device=dev)
         noise = torch.randn(batch["video_latents"].shape, generator=gen, device=dev)
         torch.cuda.reset_peak_memory_stats()
+        # the first fp32 call of the process's backward pays one-time costs
+        # (its workspaces' first allocations): timed apart, then the run held below
+        first_s = _loss_and_grads(params, cfg, spec, lora, batch, alphas, timesteps, noise, backend)["seconds"]
         runs = {name: _loss_and_grads(params, cfg, spec, lora, batch, alphas, timesteps, noise, name)
                 for name in (backend, "chunked")}
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -5171,7 +5355,8 @@ def phase_train_fp32(dev, pipe, backend="flash", height=480, width=720, num_fram
             "loss_rel_err": loss_rel, "loss_rel_tol": FP32_LOSS_REL,
             "worst_grad": max(grads.values(), key=lambda st: st["rel_l2"]),
             "grad_limits": {"max_rel": FP32_GRAD_MAX_REL, "rel_l2": FP32_GRAD_L2},
-            "loss_and_grad_s": {n: r["seconds"] for n, r in runs.items()}, "launches": {n: r["counts"] for n, r in runs.items()},
+            "loss_and_grad_s": {n: r["seconds"] for n, r in runs.items()}, "first_loss_and_grad_s": first_s,
+            "launches": {n: r["counts"] for n, r in runs.items()},
             "loss_windowed": w["loss"], "loss_sp_windowed": sp["loss"], "max_memory_allocated_gb": peak_gb,
             "seconds": time.perf_counter() - t_phase}
     emit(line)
@@ -5239,7 +5424,7 @@ PHASES = ("build", "kernel", "kernel_bwd", "kernel_fp16", "kernel_bwd_fp16", "ke
           "kernel_banded_local_bwd", "kernel_int8", "kernel_int8_fp16", "kernel_banded_fp16", "kernel_banded_bwd_fp16",
           "kernel_banded_local_fp16", "kernel_banded_local_bwd_fp16", "kernel_fp32", "kernel_bwd_fp32",
           "kernel_banded_fp32", "kernel_banded_bwd_fp32", "kernel_banded_local_fp32", "kernel_banded_local_bwd_fp32",
-          "ring_past_frames", "reference", "chunked", "e2e", "e2e_windowed", "e2e_sp_windowed",
+          "kernel_int8_fp32", "int8_widths", "ring_past_frames", "reference", "chunked", "e2e", "e2e_windowed", "e2e_sp_windowed",
           "e2e_sp_allgather", "e2e_sp_backends", "e2e_int8", "e2e_mesh", "e2e_mesh_int8", "e2e_options", "turbo",
           "train", "train_windowed", "train_sp_windowed", "train_sp_backends", "train_lora_mesh", "train_qlora",
           "e2e_fp32", "train_fp32", "train_full_5b_fsdp", "variants", "train_remat", "pretrained", "serve", "cli_mesh", "serve_mesh",
@@ -5257,6 +5442,7 @@ KERNEL_PHASES = {"kernel": phase_kernel, "kernel_bwd": phase_kernel_bwd, "kernel
                  "kernel_banded_bwd_fp32": phase_kernel_banded_bwd_fp32,
                  "kernel_banded_local_fp32": phase_kernel_banded_local_fp32,
                  "kernel_banded_local_bwd_fp32": phase_kernel_banded_local_bwd_fp32,
+                 "kernel_int8_fp32": phase_kernel_int8_fp32, "int8_widths": phase_int8_widths,
                  "ring_past_frames": phase_ring_past_frames,
                  "reference": phase_reference, "chunked": phase_chunked}
 # the pipeline phases: the backend each runs
@@ -5567,8 +5753,8 @@ def kernels_line(results):
 
 
 def _fp32_rows(results, common):
-    """The kernels line's rows of B1, B2 and B4-B7 in fp32: launches on the
-    fp32 pipeline's paths (``e2e_fp32`` and its windowed legs,
+    """The kernels line's rows of B1-B7 in fp32: launches on the fp32
+    pipeline's paths (``e2e_fp32`` and its windowed and int8 legs,
     ``train_fp32``), agreement and times from the fp32 kernel phases at the
     main shapes (B6/B7: rank 0's shard of a 4-rank ring, every shard
     listed)."""
@@ -5577,7 +5763,8 @@ def _fp32_rows(results, common):
     fwd, bwd = results["kernel_fp32"], results["kernel_bwd_fp32"]
     banded, banded_bwd = results["kernel_banded_fp32"], results["kernel_banded_bwd_fp32"]
     local, local_bwd = results["kernel_banded_local_fp32"], results["kernel_banded_local_bwd_fp32"]
-    times = ("ms", "plain_ms", "bound_ms", "bound_by", "floor_ms", "library_ms", "tflops")
+    int8 = results["kernel_int8_fp32"]
+    times = ("ms", "plain_ms", "bound_ms", "bound_by", "tf32_one_pass_ms", "library_ms", "tflops")
 
     def grads_worst(stats, key):
         return max(v[key] for v in stats.values())
@@ -5587,7 +5774,8 @@ def _fp32_rows(results, common):
         first = r["shards"][0]
         return {**{k: first[k] for k in times}, "max_abs_err": max(worst(sh) for sh in r["shards"]),
                 "per_shard_ring4": [{k: sh[k] for k in ("rank", "offset", "dummy_frames", "ms", "plain_ms",
-                                                        "bound_ms", "floor_ms", "library_ms")} for sh in r["shards"]]}
+                                                        "bound_ms", "tf32_one_pass_ms", "library_ms")}
+                                    for sh in r["shards"]]}
 
     rows = [
         ("flash_attention_fp32", "attention_f32.cu", "s2v_tpu/ops/pallas/flash_attention.py:222",
@@ -5601,6 +5789,14 @@ def _fp32_rows(results, common):
          {"max_abs_err": grads_worst(bwd["grads"], "max_abs_err"), "rel_l2": grads_worst(bwd["grads"], "rel_l2"),
           **{k: bwd[k] for k in times}, "parts_ms": bwd["parts_ms"], "deterministic": bwd["deterministic"],
           "shape": list(TRAIN_SHAPE), "max_abs_tol_rel": FP32_BWD_MAX_REL, "rel_l2_tol": FP32_BWD_L2}),
+        ("flash_attention_qk_int8_fp32", "attention_f32.cu", "s2v_tpu/ops/pallas/int8_attention.py:99",
+         {"e2e_fp32_int8": f32(e2e["int8"], "flash_attention_qk_int8"),
+          "e2e_fp32_sp_int8": f32(e2e["sp_int8"], "flash_attention_qk_int8")},
+         {**{k: int8[k] for k in ("max_abs_err", "rel_l2", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                  "launch_ms", "prepass_ms", "bound_set_by", "bound_parts_ms",
+                                  "prepass_bit_equal", "prepass_values_differing")},
+          "prepass_source": "s2v_torch/csrc/int8_attention.cu", "shape": list(MAIN_SHAPE),
+          "max_abs_tol_rel": FP32_FWD_MAX_REL, "rel_l2_tol": FP32_FWD_L2}),
         ("banded_flash_attention_fp32", "attention_f32.cu", "s2v_tpu/ops/pallas/banded_attention.py:155",
          {"e2e_fp32_windowed": f32(e2e["windowed"], "banded_flash_attention"),
           "train_fp32_windowed": f32(train[1], "banded_flash_attention")},

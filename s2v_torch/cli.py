@@ -22,8 +22,9 @@ prompt alone (no subject image; ``pipelines/variants.py::generate_t2v``),
 ``--disentangled_modulation`` keeps the pre-merge adaLN linears for the
 video and text streams, ``--dtype float16`` (the 2b family's published
 type) runs on the card through the fp16 kernels B1/B2, and ``--dtype
-float32`` through the fp32 kernels (B1, B4, B6 as 3xTF32; the int8 B3 has no
-fp32 form and refuses it, ROADMAP C.1).
+float32`` through the fp32 kernels (B1, B4, B6 as 3xTF32; the int8 B3 of
+``--attention_backend pallas_int8`` with exact int32 logits and a 3xTF32
+P·V).
 
 Across cards: ``torchrun --nproc_per_node N -m s2v_torch.cli --mesh
 dp<a>,tp<b>,sp<c> ...`` (a·b·c = N) generates one clip over N cards (one
@@ -98,9 +99,8 @@ def get_args(argv=None):
     p.add_argument("--disentangled_modulation", action="store_true", default=False,
                    help="video/text modulated by the pre-merge adaLN linears, the ref stream by the LoRA-merged ones")
     p.add_argument("--dtype", type=str, default="bfloat16", choices=["bfloat16", "float16", "float32"],
-                   help="model dtype; on the card every attention kernel takes bfloat16 and float16, and all "
-                        "but the int8 one take float32 (3xTF32; --attention_backend pallas_int8 refuses float32, "
-                        "ROADMAP C.1)")
+                   help="model dtype; on the card every attention kernel takes bfloat16, float16 and float32 "
+                        "(3xTF32 products; pallas_int8's logits stay exact int32)")
     p.add_argument("--adaptive_threshold", type=float, default=0.0,
                    help="opt-in step skipping (bounded-difference criterion); 0 = the exact loop. Try 0.01-0.02")
     p.add_argument("--cfg_skip_threshold", type=float, default=0.0,

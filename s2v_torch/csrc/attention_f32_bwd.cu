@@ -21,49 +21,94 @@
 // TFLOP/s TF32 peak, 68 ms for three passes; the kernels compute seven (q.k^T
 // and dO.v^T in both), so 3xTF32 puts their floor at 95 ms.
 //
-// Design (simple first): the pre-pass writes lse*log2 e and D per query row
-// into an fp32 workspace [2, B*H, sq]; the dq kernel holds 64 query rows
-// (q, dO) and streams 64-key K/V tiles; the dk/dv kernel holds 64 keys (K,
-// V) and streams 64-query q/dO tiles with their workspace rows; both with
-// two cp.async stages and four warps of 16 rows, every product mma.sync
-// m16n8k8 tf32 as 3xTF32 (attention_f32.cuh), each tile's product summed
-// from zero and added to dq, dk, dv in fp32.  Every output is written by
-// one block, so a launch is deterministic bit for bit.
+// Design: the pre-pass writes lse*log2 e and D per query row into an fp32
+// workspace [2, B*H, sq], and, once per call, the planes (attention_f32.cuh)
+// the kernels read: the row planes of q, dO, k and v, the transposed planes
+// of k, q and dO.  Both kernels have two consumer warpgroups of 64 rows (a
+// block owns 128 rows, so every streamed tile serves 128 of them), thread 0
+// issuing the TMA loads, and every product on wgmma m64nNk8 tf32 in three
+// passes:
+//   dq:    128 query rows; q's and dO's fragments in registers; 32-key
+//          tiles of K's and V's row planes and K's transposed planes (48 KB)
+//          through four stages; S = q.K^T and dP = dO.V^T m64n32 with A
+//          from registers, dQ += dS.K m64n64 from dS's fragments;
+//   dk/dv: 128 keys; K's fragments in registers; V's row planes resident;
+//          32-query tiles of q's and dO's row and transposed planes (64 KB)
+//          through two stages (three would need 256 KB); P^T = K.q^T and
+//          dP^T = V.dO^T m64n32, dV += P^T.dO and dK += dS^T.q m64n64.
+// Each tile's product is summed from zero and added to dq, dk, dv in fp32.
+// Every output is written by one block, so a launch is deterministic bit
+// for bit.
 
 #include "attention_f32.cuh"
-#include "band.cuh"
 
 namespace {
 
 using namespace f32attn;
 
-struct BwdArgs {
-  const float *q, *k, *v, *o, *dout, *lse;
-  float* ws;  // [2, B*H, sq]: lse*log2 e, then D
+constexpr int kTile = 32;       // keys (dq) or queries (dk/dv) per streamed tile
+constexpr int kDqStages = 4;
+constexpr int kDkvStages = 2;
+constexpr int kRowTile = kTile * kD;  // one plane of a 32 x 64 row tile, 8 KB
+constexpr int kColTile = kD * kTile;  // one plane of a 64 x 32 transposed tile, 8 KB
+constexpr int kResTile = kBlockRows * kD;  // one plane of the 128-row resident tile, 32 KB
+
+struct DqSmem {
+  float k[kDqStages][2][kRowTile];          // K's row planes
+  float v[kDqStages][2][kRowTile];          // V's row planes
+  float kt[kDqStages][2][kColTile];         // K's transposed planes
+  uint64_t full[kDqStages];
+  uint64_t empty[kDqStages];
+};
+
+struct DkvSmem {
+  float v[2][kResTile];                     // V's row planes of the block's keys
+  float q[kDkvStages][2][kRowTile];         // q's row planes
+  float g[kDkvStages][2][kRowTile];         // dO's row planes
+  float qt[kDkvStages][2][kColTile];        // q's transposed planes
+  float gt[kDkvStages][2][kColTile];        // dO's transposed planes
+  uint64_t full[kDkvStages];
+  uint64_t empty[kDkvStages];
+  uint64_t res_full;
+};
+
+constexpr int kDqSmem = int(sizeof(DqSmem)) + 1024;
+constexpr int kDkvSmem = int(sizeof(DkvSmem)) + 1024;
+
+struct BwdParams {
+  CUtensorMap res_map;   // dk/dv: the resident tile's row planes (V), box (32, 128)
+  CUtensorMap a_map;     // row planes streamed first (dq: K; dk/dv: q), box (32, 32)
+  CUtensorMap b_map;     // row planes streamed second (dq: V; dk/dv: dO), box (32, 32)
+  CUtensorMap at_map;    // transposed planes streamed (dq: K; dk/dv: q), box (32, 64)
+  CUtensorMap bt_map;    // dk/dv: dO's transposed planes, box (32, 64)
+  const float* frag_planes;  // the row planes read into registers (dq: q; dk/dv: k)
+  const float* frag2_planes; // dq: dO's row planes, also read into registers
+  const float* ws;           // [2, B*H, sq]: lse*log2 e, then D
   float *dq, *dk, *dv;
-  int heads, sq, skv;
-  long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh, g_sb, g_ss, g_sh;
+  int heads, bh_total, sq, skv;
   long long dq_sb, dq_ss, dq_sh, dk_sb, dk_ss, dk_sh, dv_sb, dv_ss, dv_sh;
-  int lse_ld;
-  int bh_total;
   float scale;
   Band band;
 };
 
-constexpr int kDqSmem = 6 * kTileFloats * int(sizeof(float));                              // q, dO, K x2, V x2
-constexpr int kDkvSmem = 6 * kTileFloats * int(sizeof(float)) + 4 * kRows * int(sizeof(float));  // + lse2, D x2
-
 // the query rows that hold a real frame (a band's shard may end in dummy frames)
-__device__ __forceinline__ int real_rows(const BwdArgs& a) {
-  if (!a.band.banded) return a.sq;
-  const int frames = max(0, min(a.band.local_frames, a.band.n_frames - a.band.frame_offset));
-  return frames * a.band.tpf;
+__device__ __forceinline__ int real_rows(const BwdParams& p) {
+  if (!p.band.banded) return p.sq;
+  const int frames = max(0, min(p.band.local_frames, p.band.n_frames - p.band.frame_offset));
+  return frames * p.band.tpf;
 }
 
+struct PrepassArgs {
+  const float *o, *dout, *lse;
+  float* ws;
+  int heads, sq, lse_ld, bh_total;
+  long long o_sb, o_ss, o_sh, g_sb, g_ss, g_sh;
+};
+
 // one warp per query row: lse*log2 e and D = rowsum(dO o)
-__global__ void __launch_bounds__(kThreads) prepass_kernel(const BwdArgs a) {
+__global__ void __launch_bounds__(256) prepass_kernel(const PrepassArgs a) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int row = blockIdx.x * (kThreads / 32) + warp;
+  const int row = blockIdx.x * 8 + warp;
   const int bh = blockIdx.y, b = bh / a.heads, h = bh % a.heads;
   if (row >= a.sq) return;
   const float2 ov = *reinterpret_cast<const float2*>(a.o + b * a.o_sb + h * a.o_sh + row * a.o_ss + 2 * lane);
@@ -78,218 +123,355 @@ __global__ void __launch_bounds__(kThreads) prepass_kernel(const BwdArgs a) {
   }
 }
 
-__global__ void __launch_bounds__(kThreads) dq_kernel(const BwdArgs a) {
-  extern __shared__ __align__(16) float smem[];
-  float* s_q = smem;
-  float* s_g = s_q + kTileFloats;
-  float* s_k = s_g + kTileFloats;
-  float* s_v = s_k + 2 * kTileFloats;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
-  const int bh = blockIdx.y, b = bh / a.heads, h = bh % a.heads;
+// barrier setup of a block: full (one arrival plus bytes), empty (one per
+// consumer warp), and the resident tile's, if there is one
+template <int STAGES>
+__device__ __forceinline__ void init_barriers(uint64_t (&full)[STAGES], uint64_t (&empty)[STAGES], uint64_t* res) {
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], kConsumers * 4);
+    }
+    if (res != nullptr) mbar_init(res, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+}
+
+// both row planes (dst[0] big, dst[1] small) of 128 resident rows [r0, r0 + 128) of (b, h)
+__device__ __forceinline__ void load_resident(float (&dst)[2][kResTile], const CUtensorMap* map, uint64_t* bar,
+                                              int r0, int bh, int bh_total) {
+  mbar_arrive_expect_tx(bar, 2 * kResTile * 4);
+  load_row_tile(dst[0], map, bar, r0, bh, kBlockRows);
+  load_row_tile(dst[1], map, bar, r0, bh_total + bh, kBlockRows);
+}
+
+// ------------------------------------------------------------------ dq
+
+__device__ __forceinline__ void dq_stage(const BwdParams& p, DqSmem& sm, int j, const AlignedWalk<kTile>& walk,
+                                         int bh) {
+  int k0, klo, kend;
+  walk.tile(j, k0, klo, kend);
+  const int st = j % kDqStages;
+  uint64_t* bar = &sm.full[st];
+  mbar_arrive_expect_tx(bar, 2 * (2 * kRowTile + kColTile) * 4);
+  for (int pl = 0; pl < 2; ++pl) {
+    const int plane = pl * p.bh_total + bh;
+    load_row_tile(sm.k[st][pl], &p.a_map, bar, k0, plane, kTile);
+    load_row_tile(sm.v[st][pl], &p.b_map, bar, k0, plane, kTile);
+    load_cols_tile(sm.kt[st][pl], &p.at_map, bar, k0, plane, 1);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1) dq_kernel(const __grid_constant__ BwdParams p) {
+  extern __shared__ uint8_t smem_raw[];
+  DqSmem& sm = *reinterpret_cast<DqSmem*>(align_1024(smem_raw));
+  const int tid = threadIdx.x, lane = tid & 31, t = lane & 3, g = lane >> 2;
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
+  const int bh = blockIdx.y, b = bh / p.heads, h = bh % p.heads;
 
   int r0, r_end;
-  band::KeyWalk walk;
-  if (a.band.banded) {
-    const int per_frame = (a.band.tpf + kRows - 1) / kRows;
+  band::KeyWalk keys;
+  if (p.band.banded) {
+    const int per_frame = (p.band.tpf + kBlockRows - 1) / kBlockRows;
     const int fl = blockIdx.x / per_frame;
-    r0 = fl * a.band.tpf + (blockIdx.x % per_frame) * kRows;
-    r_end = min(r0 + kRows, (fl + 1) * a.band.tpf);
-    const int ws = band::window_start(a.band.frame_offset + fl, a.band.window, a.band.n_frames, a.band.span);
-    walk = band::key_walk<kRows>(a.band.G, a.band.tpf, ws, a.band.span);
-    if (r0 >= real_rows(a)) walk.n_tiles = 0;  // a dummy frame: dq = 0
+    r0 = fl * p.band.tpf + (blockIdx.x % per_frame) * kBlockRows;
+    r_end = min(r0 + kBlockRows, (fl + 1) * p.band.tpf);
+    const int ws = band::window_start(p.band.frame_offset + fl, p.band.window, p.band.n_frames, p.band.span);
+    keys = band::key_walk<kTile>(p.band.G, p.band.tpf, ws, p.band.span);
+    if (r0 >= real_rows(p)) keys.n_tiles = keys.n_first = 0;  // a dummy frame: dq = 0
   } else {
-    r0 = blockIdx.x * kRows;
-    r_end = min(r0 + kRows, a.sq);
-    walk.end0 = a.skv;
-    walk.n_first = (a.skv + kRows - 1) / kRows;
-    walk.win_lo = walk.win_hi = a.skv;
-    walk.n_tiles = walk.n_first;
+    r0 = blockIdx.x * kBlockRows;
+    r_end = min(r0 + kBlockRows, p.sq);
+    keys = full_walk<kTile>(p.skv);
   }
-  const int row0 = r0 + warp * 16;
+  const AlignedWalk<kTile> walk(keys);
+  const int row0 = r0 + wg * kWgRows + ((tid >> 5) & 3) * 16;
   const int valid = r_end - row0;
 
-  const float* kb = a.k + b * a.k_sb + h * a.k_sh;
-  const float* vb = a.v + b * a.v_sb + h * a.v_sh;
-  load_tile(s_q, a.q + b * a.q_sb + h * a.q_sh, a.q_ss, r0, r_end, tid);
-  load_tile(s_g, a.dout + b * a.g_sb + h * a.g_sh, a.g_ss, r0, r_end, tid);
-  if (walk.n_tiles > 0) {
-    int k0, kend;
-    band::tile_keys<kRows>(walk, 0, k0, kend);
-    load_tile(s_k, kb, a.k_ss, k0, a.skv, tid);
-    load_tile(s_v, vb, a.v_ss, k0, a.skv, tid);
+  init_barriers(sm.full, sm.empty, nullptr);
+  if (tid == 0 && walk.n_tiles > 0) {
+    prefetch_tensor_map(&p.a_map);
+    prefetch_tensor_map(&p.b_map);
+    prefetch_tensor_map(&p.at_map);
+    for (int j = 0; j < kDqStages - 1 && j < walk.n_tiles; ++j) dq_stage(p, sm, j, walk, bh);
   }
-  cp_async_commit();
 
+  // q's and dO's fragments of this warp's rows, split once, in registers
+  uint32_t qb[8][4], qs[8][4], gb[8][4], gs[8][4];
+  {
+    const long long at = ((long long)bh * p.sq + row0) * kD, small = (long long)p.bh_total * p.sq * kD;
+    load_a_planes(p.frag_planes + at, p.frag_planes + small + at, valid, qb, qs);
+    load_a_planes(p.frag2_planes + at, p.frag2_planes + small + at, valid, gb, gs);
+  }
   // this thread's rows g and g + 8: lse*log2 e and D (rows past the end read row r0)
   float lse2[2], dd[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + g + 8 * r < r_end ? row0 + g + 8 * r : r0;
-    lse2[r] = a.ws[(long long)bh * a.sq + row];
-    dd[r] = a.ws[(long long)(a.bh_total + bh) * a.sq + row];
+    lse2[r] = p.ws[(long long)bh * p.sq + row];
+    dd[r] = p.ws[(long long)(p.bh_total + bh) * p.sq + row];
   }
-  const float c = a.scale * kLog2e;
-  float dq[8][4];
-  zero(dq);
-  const float* q_warp = s_q + warp * 16 * kPitch;
-  const float* g_warp = s_g + warp * 16 * kPitch;
+  const float c = p.scale * kLog2e;
+  float dq[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dq[i] = 0.f;
 
   for (int j = 0; j < walk.n_tiles; ++j) {
-    int k0, kend;
-    band::tile_keys<kRows>(walk, j, k0, kend);
-    if (j + 1 < walk.n_tiles) {
-      int n0, nend;
-      band::tile_keys<kRows>(walk, j + 1, n0, nend);
-      load_tile(s_k + ((j + 1) & 1) * kTileFloats, kb, a.k_ss, n0, a.skv, tid);
-      load_tile(s_v + ((j + 1) & 1) * kTileFloats, vb, a.v_ss, n0, a.skv, tid);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const float* K = s_k + (j & 1) * kTileFloats;
-    const float* V = s_v + (j & 1) * kTileFloats;
-
-    float s[8][4], dp[8][4];
-    zero(s);
-    zero(dp);
-    product_rows(s, q_warp, K, g, t);
-    product_rows(dp, g_warp, V, g, t);
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + n * 8 + 2 * t + (e & 1);
-        const float p = key < kend ? exp2f(s[n][e] * c - lse2[e >> 1]) : 0.f;
-        s[n][e] = p * (dp[n][e] - dd[e >> 1]);  // dS
+    if (tid == 0) {
+      // the producer's step: tile j + kDqStages - 1 into the stage tile j - 1
+      // used, once every consumer warp is done with it (round 0 passes at once)
+      const int jn = j + kDqStages - 1;
+      if (jn < walk.n_tiles) {
+        mbar_wait(&sm.empty[jn % kDqStages], ((jn / kDqStages) & 1) ^ 1);
+        dq_stage(p, sm, jn, walk, bh);
       }
-    float part[8][4];  // this tile's dS.K from zero, added in fp32 (see attention_f32.cuh)
-    zero(part);
-    product_acc(part, s, K, g, t);
-    add(dq, part);
-    __syncthreads();
+    }
+    __syncwarp();
+    int k0, klo, kend;
+    walk.tile(j, k0, klo, kend);
+    const int st = j % kDqStages;
+    mbar_wait(&sm.full[st], (j / kDqStages) & 1);
+
+    // S = q.K^T and dP = dO.V^T (A from registers): 64 rows x 32 keys
+    float s[16], dp[16];
+    wgmma_fence();
+#pragma unroll
+    for (int pass = 0; pass < 3; ++pass)
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        wgmma_tf32_rs_n32(s, pass == 0 ? qs[kk] : qb[kk], desc_k8(sm.k[st][pass == 1], kTile, kk), pass | kk);
+        wgmma_tf32_rs_n32(dp, pass == 0 ? gs[kk] : gb[kk], desc_k8(sm.v[st][pass == 1], kTile, kk), pass | kk);
+      }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int key = k0 + (i >> 2) * 8 + 2 * t + (i & 1);
+      const int r = (i >> 1) & 1;
+      const float pr = key >= klo && key < kend ? exp2f(s[i] * c - lse2[r]) : 0.f;
+      s[i] = pr * (dp[i] - dd[r]);  // dS
+    }
+    // this tile's dS.K from zero, added in fp32 (see attention_f32.cuh)
+    uint32_t db[4][4], ds[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) acc_to_a(s + 4 * kk, db[kk], ds[kk]);
+    float part[32];
+    wgmma_fence();
+#pragma unroll
+    for (int pass = 0; pass < 3; ++pass)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_tf32_rs_n64(part, pass == 0 ? ds[kk] : db[kk], desc_k8(sm.kt[st][pass == 1], kD, kk), pass | kk);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(part);
+    fence_regs(db);
+    fence_regs(ds);
+    if (lane == 0) mbar_arrive(&sm.empty[st]);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dq[i] += part[i];
   }
-  cp_async_wait<0>();
-  store_rows(a.dq + b * a.dq_sb + h * a.dq_sh + (long long)row0 * a.dq_ss, a.dq_ss, dq, a.scale, a.scale, g, t,
-             valid);
+  store_acc_rows(p.dq + b * p.dq_sb + h * p.dq_sh + (long long)row0 * p.dq_ss, p.dq_ss, dq, p.scale, valid);
 }
 
-__global__ void __launch_bounds__(kThreads) dkv_kernel(const BwdArgs a) {
-  extern __shared__ __align__(16) float smem[];
-  float* s_k = smem;
-  float* s_v = s_k + kTileFloats;
-  float* s_q = s_v + kTileFloats;       // x2
-  float* s_g = s_q + 2 * kTileFloats;   // x2
-  float* s_l = s_g + 2 * kTileFloats;   // lse2 x2
-  float* s_d = s_l + 2 * kRows;         // D x2
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
-  const int bh = blockIdx.y, b = bh / a.heads, h = bh % a.heads;
+// ---------------------------------------------------------------- dk/dv
+
+__device__ __forceinline__ void dkv_stage(const BwdParams& p, DkvSmem& sm, int j, int q_base, int bh) {
+  const int st = j % kDkvStages, qb0 = q_base + j * kTile;
+  uint64_t* bar = &sm.full[st];
+  mbar_arrive_expect_tx(bar, 2 * (2 * kRowTile + 2 * kColTile) * 4);
+  for (int pl = 0; pl < 2; ++pl) {
+    const int plane = pl * p.bh_total + bh;
+    load_row_tile(sm.q[st][pl], &p.a_map, bar, qb0, plane, kTile);
+    load_row_tile(sm.g[st][pl], &p.b_map, bar, qb0, plane, kTile);
+    load_cols_tile(sm.qt[st][pl], &p.at_map, bar, qb0, plane, 1);
+    load_cols_tile(sm.gt[st][pl], &p.bt_map, bar, qb0, plane, 1);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1) dkv_kernel(const __grid_constant__ BwdParams p) {
+  extern __shared__ uint8_t smem_raw[];
+  DkvSmem& sm = *reinterpret_cast<DkvSmem*>(align_1024(smem_raw));
+  const int tid = threadIdx.x, lane = tid & 31, t = lane & 3;
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
+  const int bh = blockIdx.y, b = bh / p.heads, h = bh % p.heads;
 
   // the block's keys [k0, k_end) and the query rows [q_lo, q_hi) that attend them
   int k0, k_end, q_lo, q_hi;
-  if (a.band.banded) {
-    const int n_glob = (a.band.G + kRows - 1) / kRows;
+  if (p.band.banded) {
+    const int n_glob = (p.band.G + kBlockRows - 1) / kBlockRows;
     if (blockIdx.x < n_glob) {
-      k0 = blockIdx.x * kRows;
-      k_end = min(k0 + kRows, a.band.G);
+      k0 = blockIdx.x * kBlockRows;
+      k_end = min(k0 + kBlockRows, p.band.G);
       q_lo = 0;
-      q_hi = real_rows(a);
+      q_hi = real_rows(p);
     } else {
-      const int per_frame = (a.band.tpf + kRows - 1) / kRows;
+      const int per_frame = (p.band.tpf + kBlockRows - 1) / kBlockRows;
       const int j = blockIdx.x - n_glob, fk = j / per_frame;
-      k0 = a.band.G + fk * a.band.tpf + (j % per_frame) * kRows;
-      k_end = min(k0 + kRows, a.band.G + (fk + 1) * a.band.tpf);
+      k0 = p.band.G + fk * p.band.tpf + (j % per_frame) * kBlockRows;
+      k_end = min(k0 + kBlockRows, p.band.G + (fk + 1) * p.band.tpf);
       int f_lo, f_hi;
-      band::inverse_band(fk, a.band.window, a.band.n_frames, a.band.span, f_lo, f_hi);
-      const int lo = max(f_lo, a.band.frame_offset);
-      const int hi = min(f_hi, a.band.frame_offset + a.band.local_frames - 1);
-      q_lo = (lo - a.band.frame_offset) * a.band.tpf;
-      q_hi = hi >= lo ? (hi - a.band.frame_offset + 1) * a.band.tpf : q_lo;
+      band::inverse_band(fk, p.band.window, p.band.n_frames, p.band.span, f_lo, f_hi);
+      const int lo = max(f_lo, p.band.frame_offset);
+      const int hi = min(f_hi, p.band.frame_offset + p.band.local_frames - 1);
+      q_lo = (lo - p.band.frame_offset) * p.band.tpf;
+      q_hi = hi >= lo ? (hi - p.band.frame_offset + 1) * p.band.tpf : q_lo;
     }
   } else {
-    k0 = blockIdx.x * kRows;
-    k_end = min(k0 + kRows, a.skv);
+    k0 = blockIdx.x * kBlockRows;
+    k_end = min(k0 + kBlockRows, p.skv);
     q_lo = 0;
-    q_hi = a.sq;
+    q_hi = p.sq;
   }
-  const int n_tiles = (q_hi - q_lo + kRows - 1) / kRows;
+  // query tiles from q_lo rounded down to kAlign (the transposed planes' TMA boxes); rows before q_lo get P = 0
+  const int q_base = align_down(q_lo);
+  const int n_tiles = q_hi > q_lo ? (q_hi - q_base + kTile - 1) / kTile : 0;
+  const int row0 = k0 + wg * kWgRows + ((tid >> 5) & 3) * 16;
+  const int valid = k_end - row0;
 
-  const float* qb = a.q + b * a.q_sb + h * a.q_sh;
-  const float* gb = a.dout + b * a.g_sb + h * a.g_sh;
-  const float* ws_l = a.ws + (long long)bh * a.sq;
-  const float* ws_d = a.ws + (long long)(a.bh_total + bh) * a.sq;
-  load_tile(s_k, a.k + b * a.k_sb + h * a.k_sh, a.k_ss, k0, k_end, tid);
-  load_tile(s_v, a.v + b * a.v_sb + h * a.v_sh, a.v_ss, k0, k_end, tid);
-  auto load_queries = [&](int stage, int qb0) {
-    load_tile(s_q + stage * kTileFloats, qb, a.q_ss, qb0, q_hi, tid);
-    load_tile(s_g + stage * kTileFloats, gb, a.g_ss, qb0, q_hi, tid);
-    if (tid < kRows) {
-      const int row = qb0 + tid;
-      const bool ok = row < q_hi;
-      s_l[stage * kRows + tid] = ok ? ws_l[row] : INFINITY;  // P = exp2(-inf) = 0 past the range
-      s_d[stage * kRows + tid] = ok ? ws_d[row] : 0.f;
-    }
-  };
-  if (n_tiles > 0) load_queries(0, q_lo);
-  cp_async_commit();
+  init_barriers(sm.full, sm.empty, &sm.res_full);
+  if (tid == 0 && n_tiles > 0) {
+    prefetch_tensor_map(&p.res_map);
+    prefetch_tensor_map(&p.a_map);
+    prefetch_tensor_map(&p.b_map);
+    prefetch_tensor_map(&p.at_map);
+    prefetch_tensor_map(&p.bt_map);
+    load_resident(sm.v, &p.res_map, &sm.res_full, k0, bh, p.bh_total);
+    for (int j = 0; j < kDkvStages - 1 && j < n_tiles; ++j) dkv_stage(p, sm, j, q_base, bh);
+  }
 
-  const float c = a.scale * kLog2e;
-  float dk[8][4], dv[8][4];
-  zero(dk);
-  zero(dv);
-  const float* k_warp = s_k + warp * 16 * kPitch;
-  const float* v_warp = s_v + warp * 16 * kPitch;
+  uint32_t kb[8][4], ks[8][4];
+  {
+    const float* big = p.frag_planes + ((long long)bh * p.skv + row0) * kD;
+    load_a_planes(big, big + (long long)p.bh_total * p.skv * kD, valid, kb, ks);
+  }
+  const float* ws_l = p.ws + (long long)bh * p.sq;
+  const float* ws_d = p.ws + (long long)(p.bh_total + bh) * p.sq;
+  const float c = p.scale * kLog2e;
+  float dk[32], dv[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.f;
+  if (n_tiles > 0) mbar_wait(&sm.res_full, 0);
 
   for (int j = 0; j < n_tiles; ++j) {
-    if (j + 1 < n_tiles) load_queries((j + 1) & 1, q_lo + (j + 1) * kRows);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const float* Q = s_q + (j & 1) * kTileFloats;
-    const float* G = s_g + (j & 1) * kTileFloats;
-    const float* L = s_l + (j & 1) * kRows;
-    const float* D = s_d + (j & 1) * kRows;
-
-    // P^T and dP^T: rows are this warp's 16 keys, columns the tile's 64 queries
-    float p[8][4], dp[8][4];
-    zero(p);
-    zero(dp);
-    product_rows(p, k_warp, Q, g, t);
-    product_rows(dp, v_warp, G, g, t);
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = n * 8 + 2 * t + (e & 1);
-        p[n][e] = exp2f(p[n][e] * c - L[col]);
-        dp[n][e] = p[n][e] * (dp[n][e] - D[col]);  // dS^T
+    if (tid == 0) {
+      const int jn = j + kDkvStages - 1;
+      if (jn < n_tiles) {
+        mbar_wait(&sm.empty[jn % kDkvStages], ((jn / kDkvStages) & 1) ^ 1);
+        dkv_stage(p, sm, jn, q_base, bh);
       }
-    // each tile's products from zero, added in fp32 (see attention_f32.cuh);
-    // P is dead after P^T.dO and holds dS^T.q
-    float part[8][4];
-    zero(part);
-    product_acc(part, p, G, g, t);
-    add(dv, part);
-    zero(p);
-    product_acc(p, dp, Q, g, t);
-    add(dk, p);
-    __syncthreads();
+    }
+    __syncwarp();
+    const int qb0 = q_base + j * kTile;
+    const int st = j % kDkvStages;
+    // this thread's queries' lse*log2 e and D (+inf and 0 outside the range: P = 0)
+    float lq[8], dq8[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int row = qb0 + (i >> 1) * 8 + 2 * t + (i & 1);
+      const bool ok = row >= q_lo && row < q_hi;
+      lq[i] = ok ? ws_l[row] : INFINITY;
+      dq8[i] = ok ? ws_d[row] : 0.f;
+    }
+    mbar_wait(&sm.full[st], (j / kDkvStages) & 1);
+
+    // P^T = K.q^T (A from registers) and dP^T = V.dO^T (A from shared memory): 64 keys x 32 queries
+    float pt[16], dpt[16];
+    wgmma_fence();
+#pragma unroll
+    for (int pass = 0; pass < 3; ++pass)
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        wgmma_tf32_rs_n32(pt, pass == 0 ? ks[kk] : kb[kk], desc_k8(sm.q[st][pass == 1], kTile, kk), pass | kk);
+        wgmma_tf32_ss_n32(dpt, desc_k8(sm.v[pass == 0], kBlockRows, kk, wg * kWgRows),
+                          desc_k8(sm.g[st][pass == 1], kTile, kk), pass | kk);
+      }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(pt);
+    fence_regs(dpt);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int col = ((i >> 2) << 1) | (i & 1);  // this thread's query (0..7 of lq, dq8)
+      pt[i] = exp2f(pt[i] * c - lq[col]);
+      dpt[i] = pt[i] * (dpt[i] - dq8[col]);  // dS^T
+    }
+    // each tile's products from zero, added in fp32 (see attention_f32.cuh)
+    uint32_t fb[4][4], fs[4][4];
+    float part[32];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) acc_to_a(pt + 4 * kk, fb[kk], fs[kk]);
+    wgmma_fence();
+#pragma unroll
+    for (int pass = 0; pass < 3; ++pass)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_tf32_rs_n64(part, pass == 0 ? fs[kk] : fb[kk], desc_k8(sm.gt[st][pass == 1], kD, kk), pass | kk);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(part);
+    fence_regs(fb);
+    fence_regs(fs);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dv[i] += part[i];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) acc_to_a(dpt + 4 * kk, fb[kk], fs[kk]);
+    wgmma_fence();
+#pragma unroll
+    for (int pass = 0; pass < 3; ++pass)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_tf32_rs_n64(part, pass == 0 ? fs[kk] : fb[kk], desc_k8(sm.qt[st][pass == 1], kD, kk), pass | kk);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(part);
+    fence_regs(fb);
+    fence_regs(fs);
+    if (lane == 0) mbar_arrive(&sm.empty[st]);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dk[i] += part[i];
   }
-  cp_async_wait<0>();
-  const int row0 = k0 + warp * 16;
-  const int valid = k_end - row0;
-  store_rows(a.dk + b * a.dk_sb + h * a.dk_sh + (long long)row0 * a.dk_ss, a.dk_ss, dk, a.scale, a.scale, g, t,
-             valid);
-  store_rows(a.dv + b * a.dv_sb + h * a.dv_sh + (long long)row0 * a.dv_ss, a.dv_ss, dv, 1.f, 1.f, g, t, valid);
+  store_acc_rows(p.dk + b * p.dk_sb + h * p.dk_sh + (long long)row0 * p.dk_ss, p.dk_ss, dk, p.scale, valid);
+  store_acc_rows(p.dv + b * p.dv_sb + h * p.dv_sh + (long long)row0 * p.dv_ss, p.dv_ss, dv, 1.f, valid);
 }
+
+// the planes workspace: row planes of q, dO (sq rows), k, v (skv rows), then
+// transposed planes of k, q, dO
+struct Planes {
+  float *q, *g, *k, *v, *kt, *qt, *gt;
+  Planes(float* base, int bh, int sq, int skv) {
+    q = base;
+    g = q + row_planes(bh, sq);
+    k = g + row_planes(bh, sq);
+    v = k + row_planes(bh, skv);
+    kt = v + row_planes(bh, skv);
+    qt = kt + col_planes(bh, skv);
+    gt = qt + col_planes(bh, sq);
+  }
+  static long long floats(int bh, int sq, int skv) {
+    return 2 * row_planes(bh, sq) + 2 * row_planes(bh, skv) + col_planes(bh, skv) + 2 * col_planes(bh, sq);
+  }
+};
 
 }  // namespace
 
-extern "C" int s2v_attention_f32_bwd_smem_bytes() { return kDkvSmem; }
+extern "C" int s2v_attention_f32_bwd_smem_bytes() { return kDqSmem > kDkvSmem ? kDqSmem : kDkvSmem; }
 
-// parts: 1 the pre-pass, 2 the dq kernel, 4 the dk/dv kernel
+// floats of the planes workspace of one backward
+extern "C" long long s2v_attention_f32_bwd_planes(int batch, int heads, int sq, int skv) {
+  return Planes::floats(batch * heads, sq, skv);
+}
+
+// parts: 1 the pre-pass (the workspace rows and the planes), 2 the dq
+// kernel, 4 the dk/dv kernel; ws [2, B*H, sq] and planes (of
+// s2v_attention_f32_bwd_planes floats) fp32 workspaces that parts 2 and 4
+// read as part 1 wrote them.  Returns 0 or an error code.
 extern "C" int s2v_attention_f32_bwd(
     const void* q, const void* k, const void* v, const void* o, const void* dout, const void* lse, void* ws,
-    void* dq, void* dk, void* dv, int batch, int heads, int sq, int skv,
+    void* planes, void* dq, void* dk, void* dv, int batch, int heads, int sq, int skv,
     long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh,
@@ -301,56 +483,71 @@ extern "C" int s2v_attention_f32_bwd(
     int lse_ld, float scale, int parts,
     int banded, int G, int tpf, int n_frames, int span, int window, int frame_offset, int local_frames,
     void* stream) {
-  BwdArgs a;
-  a.q = static_cast<const float*>(q);
-  a.k = static_cast<const float*>(k);
-  a.v = static_cast<const float*>(v);
-  a.o = static_cast<const float*>(o);
-  a.dout = static_cast<const float*>(dout);
-  a.lse = static_cast<const float*>(lse);
-  a.ws = static_cast<float*>(ws);
-  a.dq = static_cast<float*>(dq);
-  a.dk = static_cast<float*>(dk);
-  a.dv = static_cast<float*>(dv);
-  a.heads = heads;
-  a.sq = sq;
-  a.skv = skv;
-  a.q_sb = q_sb; a.q_ss = q_ss; a.q_sh = q_sh;
-  a.k_sb = k_sb; a.k_ss = k_ss; a.k_sh = k_sh;
-  a.v_sb = v_sb; a.v_ss = v_ss; a.v_sh = v_sh;
-  a.o_sb = o_sb; a.o_ss = o_ss; a.o_sh = o_sh;
-  a.g_sb = g_sb; a.g_ss = g_ss; a.g_sh = g_sh;
-  a.dq_sb = dq_sb; a.dq_ss = dq_ss; a.dq_sh = dq_sh;
-  a.dk_sb = dk_sb; a.dk_ss = dk_ss; a.dk_sh = dk_sh;
-  a.dv_sb = dv_sb; a.dv_ss = dv_ss; a.dv_sh = dv_sh;
-  a.lse_ld = lse_ld;
-  a.bh_total = batch * heads;
-  a.scale = scale;
-  a.band = Band{banded, G, tpf, n_frames, span, window, frame_offset, local_frames};
-  if (batch * heads == 0) return 0;
+  const int bh = batch * heads;
+  if (bh == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if ((parts & 1) && sq > 0) {
-    prepass_kernel<<<dim3((sq + 3) / 4, batch * heads), kThreads, 0, st>>>(a);
-    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  const Planes pl(static_cast<float*>(planes), bh, sq, skv);
+  int err = 0;
+  if (parts & 1) {
+    if (sq > 0) {
+      PrepassArgs a = {static_cast<const float*>(o), static_cast<const float*>(dout), static_cast<const float*>(lse),
+                       static_cast<float*>(ws), heads, sq, lse_ld, bh, o_sb, o_ss, o_sh, g_sb, g_ss, g_sh};
+      prepass_kernel<<<dim3((sq + 7) / 8, bh), 256, 0, st>>>(a);
+      if ((err = static_cast<int>(cudaGetLastError())) != 0) return err;
+    }
+    const float *fq = static_cast<const float*>(q), *fk = static_cast<const float*>(k);
+    const float *fv = static_cast<const float*>(v), *fg = static_cast<const float*>(dout);
+    if ((err = launch_split_rows(fq, pl.q, batch, heads, sq, q_sb, q_ss, q_sh, st)) != 0) return err;
+    if ((err = launch_split_rows(fg, pl.g, batch, heads, sq, g_sb, g_ss, g_sh, st)) != 0) return err;
+    if ((err = launch_split_rows(fk, pl.k, batch, heads, skv, k_sb, k_ss, k_sh, st)) != 0) return err;
+    if ((err = launch_split_rows(fv, pl.v, batch, heads, skv, v_sb, v_ss, v_sh, st)) != 0) return err;
+    if ((err = launch_split_cols(fk, pl.kt, batch, heads, skv, k_sb, k_ss, k_sh, st)) != 0) return err;
+    if ((err = launch_split_cols(fq, pl.qt, batch, heads, sq, q_sb, q_ss, q_sh, st)) != 0) return err;
+    if ((err = launch_split_cols(fg, pl.gt, batch, heads, sq, g_sb, g_ss, g_sh, st)) != 0) return err;
   }
-  if (parts & 2) {
-    const int blocks = banded ? local_frames * ((tpf + kRows - 1) / kRows) : (sq + kRows - 1) / kRows;
+  BwdParams p = {};
+  p.ws = static_cast<const float*>(ws);
+  p.dq = static_cast<float*>(dq);
+  p.dk = static_cast<float*>(dk);
+  p.dv = static_cast<float*>(dv);
+  p.heads = heads;
+  p.bh_total = bh;
+  p.sq = sq;
+  p.skv = skv;
+  p.dq_sb = dq_sb; p.dq_ss = dq_ss; p.dq_sh = dq_sh;
+  p.dk_sb = dk_sb; p.dk_ss = dk_ss; p.dk_sh = dk_sh;
+  p.dv_sb = dv_sb; p.dv_ss = dv_ss; p.dv_sh = dv_sh;
+  p.scale = scale;
+  p.band = Band{banded, G, tpf, n_frames, span, window, frame_offset, local_frames};
+  if ((parts & 2) && sq > 0) {
+    const int blocks = banded ? local_frames * ((tpf + kBlockRows - 1) / kBlockRows)
+                              : (sq + kBlockRows - 1) / kBlockRows;
+    if ((err = make_plane_map(&p.a_map, pl.k, kD, skv, 2LL * bh, kTile)) != 0) return err;
+    if ((err = make_plane_map(&p.b_map, pl.v, kD, skv, 2LL * bh, kTile)) != 0) return err;
+    if ((err = make_plane_map(&p.at_map, pl.kt, pad_seq(skv), kD, 2LL * bh, kD)) != 0) return err;
+    p.frag_planes = pl.q;
+    p.frag2_planes = pl.g;
     if (blocks > 0) {
-      err = cudaFuncSetAttribute(dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kDqSmem);
-      if (err != cudaSuccess) return static_cast<int>(err);
-      dq_kernel<<<dim3(blocks, batch * heads), kThreads, kDqSmem, st>>>(a);
-      if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+      cudaError_t e = cudaFuncSetAttribute(dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kDqSmem);
+      if (e != cudaSuccess) return static_cast<int>(e);
+      dq_kernel<<<dim3(blocks, bh), kThreads, kDqSmem, st>>>(p);
+      if ((err = static_cast<int>(cudaGetLastError())) != 0) return err;
     }
   }
-  if (parts & 4) {
-    const int blocks = banded ? (G + kRows - 1) / kRows + n_frames * ((tpf + kRows - 1) / kRows)
-                              : (skv + kRows - 1) / kRows;
+  if ((parts & 4) && skv > 0) {
+    const int blocks = banded ? (G + kBlockRows - 1) / kBlockRows + n_frames * ((tpf + kBlockRows - 1) / kBlockRows)
+                              : (skv + kBlockRows - 1) / kBlockRows;
+    if ((err = make_plane_map(&p.res_map, pl.v, kD, skv, 2LL * bh, kBlockRows)) != 0) return err;
+    if ((err = make_plane_map(&p.a_map, pl.q, kD, sq, 2LL * bh, kTile)) != 0) return err;
+    if ((err = make_plane_map(&p.b_map, pl.g, kD, sq, 2LL * bh, kTile)) != 0) return err;
+    if ((err = make_plane_map(&p.at_map, pl.qt, pad_seq(sq), kD, 2LL * bh, kD)) != 0) return err;
+    if ((err = make_plane_map(&p.bt_map, pl.gt, pad_seq(sq), kD, 2LL * bh, kD)) != 0) return err;
+    p.frag_planes = pl.k;
     if (blocks > 0) {
-      err = cudaFuncSetAttribute(dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kDkvSmem);
-      if (err != cudaSuccess) return static_cast<int>(err);
-      dkv_kernel<<<dim3(blocks, batch * heads), kThreads, kDkvSmem, st>>>(a);
-      if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+      cudaError_t e = cudaFuncSetAttribute(dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kDkvSmem);
+      if (e != cudaSuccess) return static_cast<int>(e);
+      dkv_kernel<<<dim3(blocks, bh), kThreads, kDkvSmem, st>>>(p);
+      if ((err = static_cast<int>(cudaGetLastError())) != 0) return err;
     }
   }
   return 0;

@@ -65,7 +65,9 @@
 //
 // Element type (E template parameter, hopper.cuh) of q, k, v and o: bf16 (the
 // 5b models) or fp16 (the 2b family; entries s2v_int8_attention_fwd_f16 and
-// s2v_int8_prepass_f16).  The pre-pass reads E into fp32 (exact for both), so
+// s2v_int8_prepass_f16).  The pre-pass also takes fp32 (entry
+// s2v_int8_prepass_f32, the same arithmetic); fp32 B3's main kernel is in
+// attention_f32.cu.  The pre-pass reads E into fp32 (exact for both), so
 // its arithmetic is the same; the main kernel's V tiles are E and P is rounded
 // to E for P.V (.f16 wgmma), as in B1.  The softmax is online, so P <= 1 needs
 // no offset in fp16.  The bf16 instantiations are the kernels as they were
@@ -286,7 +288,7 @@ constexpr int kPrepBlocksPerSm = 8;  // 2,048 threads an SM: enough 16-byte load
 constexpr float kInv127 = static_cast<float>(1.0 / 127.0);
 
 // q's rows and then k's rows as one list of 64-element rows; a chunk is 8
-// values of E (16 bytes) of a row
+// values of E (16 bytes of bf16 or fp16, 32 of fp32) of a row
 template <typename E>
 struct PrepassParams {
   const E* src[2];              // q, k: [B, S, H, 64], rows contiguous
@@ -317,14 +319,22 @@ __device__ __forceinline__ void load_chunk(const PrepassParams<E>& p, long long 
   const int b = bs / seq;
   const E* src = (which ? p.src[1] : p.src[0]) + b * (which ? p.sb[1] : p.sb[0]) +
                              s * (which ? p.ss[1] : p.ss[0]) + h * (which ? p.sh[1] : p.sh[0]) + (c & 7) * 8;
-  const uint4 raw = __ldg(reinterpret_cast<const uint4*>(src));
-  const uint32_t words[4] = {raw.x, raw.y, raw.z, raw.w};
   const float sc = which ? 1.f : p.scale;
+  if constexpr (std::is_same<E, float>::value) {
+    const float4 lo = __ldg(reinterpret_cast<const float4*>(src));
+    const float4 hi = __ldg(reinterpret_cast<const float4*>(src) + 1);
+    const float f[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = unpack_x2<E>(words[i]);
-    x[2 * i] = __fmul_rn(f.x, sc);
-    x[2 * i + 1] = __fmul_rn(f.y, sc);
+    for (int i = 0; i < 8; ++i) x[i] = __fmul_rn(f[i], sc);
+  } else {
+    const uint4 raw = __ldg(reinterpret_cast<const uint4*>(src));
+    const uint32_t words[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = unpack_x2<E>(words[i]);
+      x[2 * i] = __fmul_rn(f.x, sc);
+      x[2 * i + 1] = __fmul_rn(f.y, sc);
+    }
   }
 }
 
@@ -543,6 +553,13 @@ extern "C" int s2v_int8_prepass(S2V_INT8_PREPASS_ARGS) {
 extern "C" int s2v_int8_prepass_f16(S2V_INT8_PREPASS_ARGS) {
   return prepass<__half>(q, k, q_i8, k_i8, amax, dq, batch, heads, sq, skv, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
                          scale, stream);
+}
+
+// The same with q and k fp32 (kernel B3's fp32 form, whose main kernel is
+// attention_f32.cu's s2v_flash_attention_qk_int8_fwd_f32).
+extern "C" int s2v_int8_prepass_f32(S2V_INT8_PREPASS_ARGS) {
+  return prepass<float>(q, k, q_i8, k_i8, amax, dq, batch, heads, sq, skv, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
+                        scale, stream);
 }
 
 // One s8 wgmma tile: out[64, 128] int32 = q_i8[64, 64] . k_i8[128, 64]^T,

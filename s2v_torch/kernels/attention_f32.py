@@ -11,19 +11,25 @@ card (their launches count under ``launches_by_dtype["float32"]``).  Two
 sources, built with ``nvcc`` for ``sm_90a`` into ``build/`` on the first
 fp32 call and bound with ``ctypes``:
 
-  * ``csrc/attention_f32.cu``, one forward over a key range per 64-query
+  * ``csrc/attention_f32.cu``, one forward over a key range per 128-query
     block: ``[0, Skv)`` for B1 (online and bounded softmax, lse, key pad
     mask), the global keys and the frame's window for B4's video queries,
-    the same at a runtime frame offset for B6;
+    the same at a runtime frame offset for B6; and B3's fp32 main kernel
+    (int8 logits, fp32 P·V; ``kernels/int8_attention.py`` calls it);
   * ``csrc/attention_f32_bwd.cu``, a pre-pass (lse·log2 e and D =
     rowsum(dO ∘ o)), a dq kernel and a dk/dv kernel over the same ranges
     for B2, B5 and B7.
 
-Every product is ``mma.sync`` m16n8k8 tf32 as 3xTF32 (``csrc/attention_f32.cuh``):
+Every product is ``wgmma`` m64nNk8 tf32 as 3xTF32 (``csrc/attention_f32.cuh``):
 x = big + small with both halves rounded to tf32, and a·b ≈ small·big +
 big·small + big·big in fp32, about fp32's precision where one TF32 pass keeps
-about three decimal digits.  Softmax and sums are fp32.  Nothing is cast
-down to bf16 on this route.
+about three decimal digits.  Each call's pre-pass splits every operand read
+from memory once, into big and small planes (row planes, and transposed
+planes for the products that reduce over the sequence, since tf32 ``wgmma``
+reads K-major operands only) in a workspace the launcher allocates
+(:func:`fwd_planes`, :func:`bwd_planes`); TMA brings their tiles to the
+tensor cores, and the kernels split only P and dS, which they make.
+Softmax and sums are fp32.  Nothing is cast down to bf16 on this route.
 
 Bounds on an H100 SXM (TF32 dense peak 495 TFLOP/s; the operation counts
 of the bf16 rows): B1 at the main shape 18.2 ms, B2 at the training shape
@@ -33,8 +39,9 @@ floor").
 :func:`flash_attention_f32_blocked`, :func:`flash_attention_bwd_f32_blocked`,
 :func:`banded_f32_blocked` and :func:`banded_bwd_f32_blocked` emulate the
 kernels' schedules in PyTorch on any device (tf32 rounding done on the fp32
-bits, 64-row tiles in the kernels' order); the CPU tests hold them to the
-plain versions and to JAX, the card's checks hold the kernels to them.
+bits, the kernels' tiles in their order: 64 keys a forward tile, 32 keys a
+dq tile, 32 queries a dk/dv tile); the CPU tests hold them to the plain
+versions and to JAX, the card's checks hold the kernels to them.
 """
 
 from __future__ import annotations
@@ -49,8 +56,15 @@ from s2v_torch.utils import native_build
 
 SOURCE = native_build.CSRC_DIR / "attention_f32.cu"
 BWD_SOURCE = native_build.CSRC_DIR / "attention_f32_bwd.cu"
-# rows of a block's resident tile and of each streamed tile
+# rows a block owns (queries; keys in the dk/dv kernel)
+KERNEL_BLOCK_ROWS = 128
+# keys per tile of the forward
 KERNEL_ROWS = 64
+# keys per tile of the dq kernel, queries per tile of the dk/dv kernel
+BWD_TILE_ROWS = 32
+# a range's tiles start at its first row rounded down to this (the transposed
+# planes' TMA boxes start on 16-byte boundaries); rows before the range are masked
+TILE_ALIGN = 4
 LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
 NEG_INF = -1e30
@@ -67,19 +81,29 @@ def _library(src):
         vp, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
         band = [i32] * 8
         if src == SOURCE:
-            lib.s2v_attention_f32_fwd.argtypes = [vp] * 7 + [i32] * 4 + [i64] * 12 + [i32, f32, i32] + band + [vp]
-            lib.s2v_attention_f32_fwd.restype = i32
+            lib.s2v_attention_f32_fwd.argtypes = [vp] * 8 + [i32] * 4 + [i64] * 12 + [i32, f32, i32] + band + [vp]
+            lib.s2v_flash_attention_qk_int8_fwd_f32.argtypes = [vp] * 6 + [i32] * 4 + [i64] * 6 + [vp]
+            for name in ("s2v_attention_f32_fwd", "s2v_flash_attention_qk_int8_fwd_f32",
+                         "s2v_attention_f32_fwd_smem_bytes", "s2v_flash_attention_qk_int8_fwd_f32_smem_bytes"):
+                getattr(lib, name).restype = i32
+            lib.s2v_attention_f32_fwd_planes.argtypes = [i32] * 4
+            lib.s2v_flash_attention_qk_int8_fwd_f32_planes.argtypes = [i32] * 3
+            lib.s2v_attention_f32_fwd_planes.restype = i64
+            lib.s2v_flash_attention_qk_int8_fwd_f32_planes.restype = i64
         else:
-            lib.s2v_attention_f32_bwd.argtypes = [vp] * 10 + [i32] * 4 + [i64] * 24 + [i32, f32, i32] + band + [vp]
+            lib.s2v_attention_f32_bwd.argtypes = [vp] * 11 + [i32] * 4 + [i64] * 24 + [i32, f32, i32] + band + [vp]
             lib.s2v_attention_f32_bwd.restype = i32
+            lib.s2v_attention_f32_bwd_planes.argtypes = [i32] * 4
+            lib.s2v_attention_f32_bwd_planes.restype = i64
         _libs[src] = lib
     return lib
 
 
 def smem_bytes() -> dict:
-    """Dynamic shared memory of the forward and of the dk/dv kernel (the
-    backward's largest)."""
+    """Dynamic shared memory of the forward, of B3's fp32 kernel and of the
+    dk/dv kernel (the backward's largest)."""
     return {"fwd": _library(SOURCE).s2v_attention_f32_fwd_smem_bytes(),
+            "int8_fwd": _library(SOURCE).s2v_flash_attention_qk_int8_fwd_f32_smem_bytes(),
             "bwd": _library(BWD_SOURCE).s2v_attention_f32_bwd_smem_bytes()}
 
 
@@ -100,22 +124,48 @@ def _stream(t):
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
+def fwd_planes(q, k) -> torch.Tensor:
+    """The forward's planes workspace (q's and k's row planes, v's transposed
+    planes; fp32, the size the C entry gives), written by the call's
+    pre-pass."""
+    b, sq, h, _ = q.shape
+    return torch.empty(_library(SOURCE).s2v_attention_f32_fwd_planes(b, h, sq, k.shape[1]), dtype=torch.float32,
+                       device=q.device)
+
+
 def launch_fwd(q, k, v, o, lse, mask, m0_log2, scale_log2: float, bounded: bool, band=None) -> None:
-    """One launch of the forward on fp32 ``[B, S, H, 64]`` views (rows 16-byte
-    aligned): q the call's query rows (a band's: its video rows, frame by
-    frame), k and v every key.  ``lse`` (or None) is a ``[B, H, *]`` view
-    whose rows may be longer than q's (B4 writes its video part of the
-    whole lse); ``mask`` (or None) one byte per key; ``m0_log2`` a device
-    scalar in bounded mode.  Raises on a launch error; counts nothing (the
-    wrappers count)."""
+    """One launch of the forward (its planes pre-pass, then the kernel) on
+    fp32 ``[B, S, H, 64]`` views (rows 16-byte aligned): q the call's query
+    rows (a band's: its video rows, frame by frame), k and v every key.
+    ``lse`` (or None) is a ``[B, H, *]`` view whose rows may be longer than
+    q's (B4 writes its video part of the whole lse); ``mask`` (or None) one
+    byte per key; ``m0_log2`` a device scalar in bounded mode.  Raises on a
+    launch error; counts nothing (the wrappers count)."""
     b, sq, h, _ = q.shape
     lse_ld = lse.stride(1) if lse is not None else 0
     strides = [s for t in (q, k, v, o) for s in t.stride()[:3]]
+    planes = fwd_planes(q, k)
     err = _library(SOURCE).s2v_attention_f32_fwd(
-        _ptr(q), _ptr(k), _ptr(v), _ptr(o), _ptr(lse), _ptr(mask), _ptr(m0_log2), b, h, sq, k.shape[1], *strides,
-        lse_ld, ctypes.c_float(scale_log2), int(bounded), *_band_args(band), _stream(q))
+        _ptr(q), _ptr(k), _ptr(v), _ptr(o), _ptr(lse), _ptr(mask), _ptr(m0_log2), _ptr(planes), b, h, sq,
+        k.shape[1], *strides, lse_ld, ctypes.c_float(scale_log2), int(bounded), *_band_args(band), _stream(q))
     if err != 0:
         raise RuntimeError(f"fp32 attention kernel launch failed: {native_build.launch_error(err)}")
+
+
+def launch_int8_fwd(q_i8, k_i8, v, o, dq) -> None:
+    """One launch of kernel B3's fp32 main kernel (v's planes pre-pass, then
+    the kernel): int8 q_i8, k_i8 contiguous ``[B, S, H, 64]`` (the int8
+    pre-pass's), fp32 v and o (rows 16-byte aligned), ``dq`` the pre-pass's
+    device scalar.  Raises on a launch error; counts nothing."""
+    b, sq, h, _ = q_i8.shape
+    lib = _library(SOURCE)
+    planes = torch.empty(lib.s2v_flash_attention_qk_int8_fwd_f32_planes(b, h, v.shape[1]), dtype=torch.float32,
+                         device=v.device)
+    err = lib.s2v_flash_attention_qk_int8_fwd_f32(
+        _ptr(q_i8), _ptr(k_i8), _ptr(v), _ptr(o), _ptr(dq), _ptr(planes), b, h, sq, k_i8.shape[1],
+        *v.stride()[:3], *o.stride()[:3], _stream(v))
+    if err != 0:
+        raise RuntimeError(f"fp32 flash_attention_qk_int8 kernel launch failed: {native_build.launch_error(err)}")
 
 
 def bwd_workspace(q) -> torch.Tensor:
@@ -124,17 +174,28 @@ def bwd_workspace(q) -> torch.Tensor:
     return torch.empty((2, b * h, sq), dtype=torch.float32, device=q.device)
 
 
-def launch_bwd(q, k, v, o, g, lse, dq, dk, dv, scale: float, band=None, workspace=None,
+def bwd_planes(q, k) -> torch.Tensor:
+    """The backward's planes workspace (the row planes of q, dO, k and v, the
+    transposed planes of k, q and dO; fp32, the size the C entry gives),
+    written by the pre-pass part."""
+    b, sq, h, _ = q.shape
+    return torch.empty(_library(BWD_SOURCE).s2v_attention_f32_bwd_planes(b, h, sq, k.shape[1]), dtype=torch.float32,
+                       device=q.device)
+
+
+def launch_bwd(q, k, v, o, g, lse, dq, dk, dv, scale: float, band=None, workspace=None, planes=None,
                parts: int = ALL_PARTS) -> None:
     """Launch ``parts`` of one backward on fp32 views: q, o, g (dO), dq the
     call's query rows, k, v, dk, dv every key, ``lse`` a ``[B, H, *]`` view
-    of the forward's (natural log) for the query rows.  Raises on a launch
-    error."""
+    of the forward's (natural log) for the query rows.  The dq and dk/dv
+    parts read ``workspace`` and ``planes`` as the pre-pass part wrote them
+    (a call without them runs all three parts).  Raises on a launch error."""
     b, sq, h, _ = q.shape
     workspace = bwd_workspace(q) if workspace is None else workspace
+    planes = bwd_planes(q, k) if planes is None else planes
     strides = [s for t in (q, k, v, o, g, dq, dk, dv) for s in t.stride()[:3]]
     err = _library(BWD_SOURCE).s2v_attention_f32_bwd(
-        *(_ptr(t) for t in (q, k, v, o, g, lse, workspace, dq, dk, dv)), b, h, sq, k.shape[1], *strides,
+        *(_ptr(t) for t in (q, k, v, o, g, lse, workspace, planes, dq, dk, dv)), b, h, sq, k.shape[1], *strides,
         lse.stride(1), ctypes.c_float(scale), int(parts), *_band_args(band), _stream(q))
     if err != 0:
         raise RuntimeError(f"fp32 attention backward launch failed: {native_build.launch_error(err)}")
@@ -166,23 +227,37 @@ def mm_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(as_, bb) + torch.matmul(ab, bs) + torch.matmul(ab, bb)
 
 
+def _range_tiles(lo: int, end: int, tile: int):
+    """The tiles of keys (or queries) ``[lo, end)`` as the kernels walk them:
+    ``(lo, end)`` slices of tiles that start at ``lo`` rounded down to
+    :data:`TILE_ALIGN` (the kernels mask the rows before ``lo``)."""
+    return [(max(kb, lo), min(kb + tile, end)) for kb in range(lo - lo % TILE_ALIGN, end, tile)]
+
+
 def _frame_groups(band, n_rows: int, n_keys: int, tile: int):
-    """(row_lo, row_hi, key tiles) of each group of query rows that shares one
-    key walk: all rows over ``[0, n_keys)`` without a band, else each frame of
-    the call over its global keys and window (``BandGeometry.key_tiles``)."""
+    """(row_lo, row_hi, key slices) of each group of query rows that shares
+    one key walk: all rows over ``[0, n_keys)`` without a band, else each
+    frame of the call over its global keys and window, walked as one range
+    when they touch (``csrc/band.cuh``'s walk, the window's tiles aligned as
+    :func:`_range_tiles` aligns them)."""
     if band is None:
-        return [(0, n_rows, [(kb, n_keys) for kb in range(0, n_keys, tile)])]
-    tpf = band.tokens_per_frame
-    return [(fl * tpf, (fl + 1) * tpf, band.key_tiles(band.frame_offset + fl, tile))
-            for fl in range(band.local_frames)]
+        return [(0, n_rows, _range_tiles(0, n_keys, tile))]
+    g, tpf = band.global_len, band.tokens_per_frame
+    groups = []
+    for fl in range(band.local_frames):
+        win_lo = g + band.window_start(band.frame_offset + fl) * tpf
+        win_hi = win_lo + band.span * tpf
+        ranges = [(0, win_hi)] if win_lo == g else [(0, g), (win_lo, win_hi)]
+        groups.append((fl * tpf, (fl + 1) * tpf, [t for lo, end in ranges for t in _range_tiles(lo, end, tile)]))
+    return groups
 
 
 def _fwd_schedule(q, k, v, scale, band=None, key_pad_mask=None, m0_log2=None):
     """The forward kernel on query rows ``q`` ``[B, R, H, d]`` against k, v:
-    64-key tiles in walk order, 3xTF32 products, an fp32 softmax in log2
-    units, online (``m0_log2`` None) or bounded.  Returns o ``[B, H, R, d]``
-    (divided by l, 0 where l = 0) and the lse: natural, or log l in bounded
-    mode; -1e30 where l = 0."""
+    64-key tiles in walk order (:func:`_frame_groups`), 3xTF32 products, an
+    fp32 softmax in log2 units, online (``m0_log2`` None) or bounded.
+    Returns o ``[B, H, R, d]`` (divided by l, 0 where l = 0) and the lse:
+    natural, or log l in bounded mode; -1e30 where l = 0."""
     c = scale * LOG2E
     qf, kf, vf = (x.float().transpose(1, 2) for x in (q, k, v))  # [B, H, *, d]
     valid = None if key_pad_mask is None else ~key_pad_mask.to(device=q.device, dtype=torch.bool)
@@ -193,8 +268,7 @@ def _fwd_schedule(q, k, v, scale, band=None, key_pad_mask=None, m0_log2=None):
         m = qt.new_full(qt.shape[:-1], NEG_INF) if not bounded else None
         l = qt.new_zeros(qt.shape[:-1])
         o = torch.zeros_like(qt)
-        for kb, kend in tiles:
-            ke = min(kb + KERNEL_ROWS, kend)
+        for kb, ke in tiles:
             s = mm_3xtf32(qt, kf[:, :, kb:ke].transpose(-1, -2))
             if valid is not None:
                 s = s.masked_fill(~valid[kb:ke], float("-inf"))
@@ -251,8 +325,8 @@ def banded_f32_blocked(q, k, v, band, scale=None, return_lse=False):
 
 def _bwd_schedule(q, k, v, o, lse, g, scale, band=None):
     """The backward kernels on query rows q (o, dO, lse ``[B, H, R]`` the
-    same rows) against k, v: the dq kernel's walk over 64-key tiles per
-    frame group, the dk/dv kernel's over 64-query tiles from the first row
+    same rows) against k, v: the dq kernel's walk over 32-key tiles per
+    frame group, the dk/dv kernel's over 32-query tiles from the first row
     that attends each key range; 3xTF32 products, fp32 sums, P from
     lse·log2 e.  Returns dq ``[B, H, R, d]`` and dk, dv ``[B, H, S, d]``,
     scaled, fp32."""
@@ -265,11 +339,11 @@ def _bwd_schedule(q, k, v, o, lse, g, scale, band=None):
         * band.tokens_per_frame
 
     dq = torch.zeros_like(qf)
-    for r0, r1, tiles in _frame_groups(band, n_rows, n_keys, KERNEL_ROWS):
+    for r0, r1, tiles in _frame_groups(band, n_rows, n_keys, BWD_TILE_ROWS):
         if r0 >= real:
             continue  # a dummy frame: dq = 0
-        for kb, kend in tiles:
-            kt, vt = kf[:, :, kb:min(kb + KERNEL_ROWS, kend)], vf[:, :, kb:min(kb + KERNEL_ROWS, kend)]
+        for kb, ke in tiles:
+            kt, vt = kf[:, :, kb:ke], vf[:, :, kb:ke]
             p = torch.exp2(mm_3xtf32(qf[:, :, r0:r1], kt.transpose(-1, -2)) * c - lse2[:, :, r0:r1, None])
             dp = mm_3xtf32(gf[:, :, r0:r1], vt.transpose(-1, -2))
             dq[:, :, r0:r1] += mm_3xtf32(p * (dp - delta[:, :, r0:r1, None]), kt)
@@ -287,8 +361,7 @@ def _bwd_schedule(q, k, v, o, lse, g, scale, band=None):
             ranges.append((k0, k0 + tpf, q_lo, (hi - off + 1) * tpf if hi >= lo else q_lo))
     dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
     for k0, k1, q_lo, q_hi in ranges:
-        for qb in range(q_lo, q_hi, KERNEL_ROWS):
-            qe = min(qb + KERNEL_ROWS, q_hi)
+        for qb, qe in _range_tiles(q_lo, q_hi, BWD_TILE_ROWS):
             qt, gt = qf[:, :, qb:qe], gf[:, :, qb:qe]
             pt = torch.exp2(mm_3xtf32(kf[:, :, k0:k1], qt.transpose(-1, -2)) * c - lse2[:, :, None, qb:qe])
             dpt = mm_3xtf32(vf[:, :, k0:k1], gt.transpose(-1, -2))

@@ -70,10 +70,8 @@ BOUNDED_MIN_LOG_L = -55.0
 # fp32 is 3.8 GB of logits, which fits beside the model on an 80 GB card
 REFERENCE_CHUNK = 512
 
-# the element types of kernels B1, B2 and B4-B7 (fp32 through kernels/attention_f32.py)
+# the element types of kernels B1-B7 (fp32 through kernels/attention_f32.py)
 FLASH_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
-# kernel B3's: it has no fp32 form yet (ROADMAP C.1)
-HALF_DTYPES = (torch.bfloat16, torch.float16)
 
 SOURCE = native_build.CSRC_DIR / "flash_attention.cu"
 # the C entry point of each element type
@@ -110,16 +108,14 @@ def _check_shapes(q, k, v, key_pad_mask) -> None:
         raise ValueError(f"key_pad_mask must be [Skv={k.shape[1]}], got {tuple(key_pad_mask.shape)}")
 
 
-def check_kernel_tensor(name: str, t: torch.Tensor, dtypes=FLASH_DTYPES) -> None:
+def check_kernel_tensor(name: str, t: torch.Tensor) -> None:
     """Raise unless the kernels take ``t`` as a ``[B, S, H, d]`` operand: one
-    of ``dtypes`` (bf16, fp16 or fp32; B3 passes :data:`HALF_DTYPES`), d =
-    64, rows contiguous and 16-byte aligned (base pointer and strides: TMA
-    tensor maps, cp.async and 16-byte loads need both)."""
-    if t.dtype not in dtypes:
-        names = ", ".join(str(d).replace("torch.", "") for d in dtypes)
-        note = (" (ROADMAP C.1: flash_attention_qk_int8, B3, has no fp32 form yet)"
-                if t.dtype == torch.float32 else "")
-        raise ValueError(f"this attention kernel takes {names}; {name} is {t.dtype}{note}")
+    of :data:`FLASH_DTYPES` (bf16, fp16 or fp32), d = 64, rows contiguous and
+    16-byte aligned (base pointer and strides: TMA tensor maps, cp.async and
+    16-byte loads need both)."""
+    if t.dtype not in FLASH_DTYPES:
+        names = ", ".join(str(d).replace("torch.", "") for d in FLASH_DTYPES)
+        raise ValueError(f"this attention kernel takes {names}; {name} is {t.dtype}")
     if t.shape[-1] != KERNEL_HEAD_DIM:
         raise ValueError(f"flash_attention kernels take d={KERNEL_HEAD_DIM}; {name} has d={t.shape[-1]}")
     if t.stride(-1) != 1 or any((s * t.element_size()) % 16 for s in t.stride()[:-1]):
@@ -128,7 +124,7 @@ def check_kernel_tensor(name: str, t: torch.Tensor, dtypes=FLASH_DTYPES) -> None
         raise ValueError(f"{name} must start on a 16-byte boundary; its storage offset is {t.storage_offset()}")
 
 
-def check_kernel_inputs(q, k, v, key_pad_mask=None, dtypes=FLASH_DTYPES) -> None:
+def check_kernel_inputs(q, k, v, key_pad_mask=None) -> None:
     """Raise unless the CUDA kernel takes these tensors (see
     :func:`check_kernel_tensor`; q, k and v of one type).  Reads only
     metadata, so it is checked before any launch (and testable on CPU or
@@ -136,7 +132,7 @@ def check_kernel_inputs(q, k, v, key_pad_mask=None, dtypes=FLASH_DTYPES) -> None
     no alignment."""
     _check_shapes(q, k, v, key_pad_mask)
     for name, t in (("q", q), ("k", k), ("v", v)):
-        check_kernel_tensor(name, t, dtypes)
+        check_kernel_tensor(name, t)
     if not q.dtype == k.dtype == v.dtype:
         raise ValueError(f"q, k, v must have one dtype; got {q.dtype}, {k.dtype}, {v.dtype}")
     if q.shape[0] * q.shape[2] > 65535:

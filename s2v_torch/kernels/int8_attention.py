@@ -39,10 +39,20 @@ kernel's schedule in plain PyTorch; the card tests hold the kernel to it.
 
 Element types of q, k, v: bf16 (the 5b models) and fp16 (the 2b family), the
 kernels templated on the type with two C entry points each (``ENTRY``,
-``PREPASS_ENTRY``).  The pre-pass reads either into fp32 exactly, so its
-int8 values and dq are the same arithmetic; the main kernel rounds P to v's
-type for P·V, in fp16 as B1 does (the softmax is online: P ≤ 1 needs no
-offset).  ``launches_by_dtype`` counts main-kernel launches by type.
+``PREPASS_ENTRY``), and fp32 (``--dtype float32``, as the JAX kernel takes
+it).  The pre-pass reads each into fp32 exactly, so its int8 values and dq
+are the same arithmetic for all three (fp32: ``s2v_int8_prepass_f32``); the
+bf16/fp16 main kernel rounds P to v's type for P·V, in fp16 as B1 does (the
+softmax is online: P ≤ 1 needs no offset).  The fp32 main kernel is
+``csrc/attention_f32.cu``'s ``s2v_flash_attention_qk_int8_fwd_f32``
+(:func:`s2v_torch.kernels.attention_f32.launch_int8_fwd`): the same exact
+int32 logits (``wgmma`` m64n64k32 s8 on TMA-loaded 64-key tiles), an online
+softmax in fp32 and P·V in 3xTF32 (``wgmma`` tf32) from v's big and small
+transposed planes, each tile's sum from zero added in fp32; nothing is
+rounded below fp32.  Its bound at the main shape: the logits 2.3 ms, the
+exponentials 8.4 ms, P·V 27.2 ms at the 3-pass TF32 floor (3 × 4.5·10¹²
+operations at 495 TFLOP/s).
+``launches_by_dtype`` counts main-kernel launches by type.
 """
 
 from __future__ import annotations
@@ -53,8 +63,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from s2v_torch.kernels import attention_f32
 from s2v_torch.kernels.flash_attention import (
-    HALF_DTYPES,
     LOG2E,
     REFERENCE_CHUNK,
     check_kernel_inputs,
@@ -65,13 +75,16 @@ from s2v_torch.utils import native_build
 
 SOURCE = native_build.CSRC_DIR / "int8_attention.cu"
 # the C entry points of each element type: the main kernel's and the pre-pass's
+# (fp32's main kernel is attention_f32.cu's)
 ENTRY = {torch.bfloat16: "s2v_int8_attention_fwd", torch.float16: "s2v_int8_attention_fwd_f16"}
-PREPASS_ENTRY = {torch.bfloat16: "s2v_int8_prepass", torch.float16: "s2v_int8_prepass_f16"}
+PREPASS_ENTRY = {torch.bfloat16: "s2v_int8_prepass", torch.float16: "s2v_int8_prepass_f16",
+                 torch.float32: "s2v_int8_prepass_f32"}
 # an fp32 product of int8-valued operands is exact while 127²·d < 2²⁴
 MAX_EXACT_FP32_HEAD_DIM = 1040
-# query rows per block and keys per tile of the main kernel
+# query rows per block and keys per tile of the main kernel (fp32: 64-key tiles)
 KERNEL_QUERY_TILE = 128
 KERNEL_KEY_TILE = 128
+KERNEL_KEY_TILE_F32 = attention_f32.KERNEL_ROWS
 _lib = None
 
 
@@ -182,11 +195,14 @@ def flash_attention_qk_int8_blocked(
     or fp16 for fp16 inputs) before P·V (fp32 accumulation).  Same signature and contract as
     :func:`flash_attention_qk_int8_reference`; the card tests and the smoke
     hold the kernel to it, the CPU tests hold it to the plain version and
-    to JAX.  Nothing on the main path calls it."""
+    to JAX.  Nothing on the main path calls it.  fp32 inputs take the fp32
+    kernel's schedule (:func:`_blocked_f32`)."""
     _check_shapes(q, k, v)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     q_i8, k_i8, dq = int8_prepass(q, k, scale)
+    if v.dtype == torch.float32:
+        return _blocked_f32(q_i8, k_i8, v, dq)
     c = dq * LOG2E  # fp32, as the kernel's *dq * log2(e)
     skv, tile = k.shape[1], KERNEL_KEY_TILE
     pad = -skv % tile  # the last tile's keys past Skv: zeros, as TMA fills them
@@ -215,14 +231,40 @@ def flash_attention_qk_int8_blocked(
     return torch.cat(outs, dim=1)
 
 
+def _blocked_f32(q_i8, k_i8, v, dq):
+    """The fp32 main kernel's schedule: 64-key tiles in order, the logits
+    exact, an online softmax in exp2 (running max from -1e30, keys past Skv
+    at -inf), each tile's P·V in 3xTF32 from zero (``mm_3xtf32``) added to
+    the rescaled sum in fp32, o = sum / l (0 where l = 0)."""
+    c = dq * LOG2E
+    skv, tile = k_i8.shape[1], KERNEL_KEY_TILE_F32
+    kf = k_i8.float().permute(0, 2, 3, 1)  # [B, H, d, Skv]
+    vf = v.transpose(1, 2)  # [B, H, Skv, d]
+    qt = q_i8.float().transpose(1, 2)  # [B, H, Sq, d]: rows are independent, so the 128-row blocks need no loop
+    m = torch.full(qt.shape[:3], -1e30, dtype=torch.float32, device=v.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(*qt.shape[:3], v.shape[-1], dtype=torch.float32, device=v.device)
+    for k0 in range(0, skv, tile):
+        s = torch.matmul(qt, kf[..., k0:k0 + tile])
+        new = torch.maximum(m, s.amax(-1) * c)
+        alpha = torch.exp2(m - new)
+        p = torch.exp2(s * c - new[..., None])
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + attention_f32.mm_3xtf32(p, vf[:, :, k0:k0 + tile])
+        m = new
+    out = torch.where(l[..., None] > 0, acc / torch.where(l > 0, l, torch.ones_like(l))[..., None],
+                      torch.zeros_like(acc))
+    return out.transpose(1, 2).contiguous()
+
+
 def launch_int8_prepass(q: torch.Tensor, k: torch.Tensor, scale: float):
-    """The pre-pass kernels on bf16 or fp16 q, k of one type (rows
+    """The pre-pass kernels on bf16, fp16 or fp32 q, k of one type (rows
     contiguous and 16-byte aligned): (q_i8, k_i8, dq) as
     :func:`int8_prepass` returns them, bit for bit, with q_i8 and k_i8
     contiguous."""
     _check_shapes(q, k, k)
     for name, t in (("q", q), ("k", k)):
-        check_kernel_tensor(name, t, HALF_DTYPES)
+        check_kernel_tensor(name, t)
     if q.dtype != k.dtype:
         raise ValueError(f"q and k must have one dtype; got {q.dtype}, {k.dtype}")
     q_i8 = torch.empty(q.shape, dtype=torch.int8, device=q.device)
@@ -240,16 +282,20 @@ def launch_int8_prepass(q: torch.Tensor, k: torch.Tensor, scale: float):
 
 
 def launch_int8(q_i8, k_i8, v, o, dq) -> None:
-    """One launch of the main kernel on int8 q/k and bf16 or fp16 v, o (strides with
-    contiguous, 16-byte aligned rows, as TMA needs) and the device scalar
-    ``dq``."""
-    b, sq, h, _ = q_i8.shape
-    strides = [s for t in (q_i8, k_i8, v, o) for s in t.stride()[:3]]
-    err = getattr(_library(), ENTRY[v.dtype])(
-        *(_ptr(t) for t in (q_i8, k_i8, v, o, dq)),
-        b, h, sq, k_i8.shape[1], *strides, _stream(q_i8),
-    )
-    _raise_on(err, "flash_attention_qk_int8 kernel")
+    """One launch of the main kernel on int8 q/k and bf16, fp16 or fp32 v, o
+    (strides with contiguous, 16-byte aligned rows, as TMA needs; fp32:
+    q_i8 and k_i8 contiguous, as the pre-pass writes them) and the device
+    scalar ``dq``."""
+    if v.dtype == torch.float32:
+        attention_f32.launch_int8_fwd(q_i8, k_i8, v, o, dq)
+    else:
+        b, sq, h, _ = q_i8.shape
+        strides = [s for t in (q_i8, k_i8, v, o) for s in t.stride()[:3]]
+        err = getattr(_library(), ENTRY[v.dtype])(
+            *(_ptr(t) for t in (q_i8, k_i8, v, o, dq)),
+            b, h, sq, k_i8.shape[1], *strides, _stream(q_i8),
+        )
+        _raise_on(err, "flash_attention_qk_int8 kernel")
     flash_attention_qk_int8.launches += 1
     dtype = str(v.dtype).replace("torch.", "")
     flash_attention_qk_int8.launches_by_dtype[dtype] = flash_attention_qk_int8.launches_by_dtype.get(dtype, 0) + 1
@@ -269,7 +315,7 @@ def int8_qk_tile(q_i8: torch.Tensor, k_i8: torch.Tensor) -> torch.Tensor:
 
 def _flash_attention_qk_int8_cuda(q, k, v, scale):
     _check_shapes(q, k, v)
-    check_kernel_inputs(q, k, v, dtypes=HALF_DTYPES)  # no fp32 form yet (ROADMAP C.1)
+    check_kernel_inputs(q, k, v)
     for t in (k, v):
         if t.device != q.device:
             raise ValueError("q, k, v must be on one device")
@@ -289,7 +335,7 @@ def flash_attention_qk_int8(
     d]`` in q's dtype; no lse, no mask.
 
     CPU tensors take the plain version; CUDA tensors launch the pre-pass
-    and main kernels or raise (bf16 or fp16, and d = 64 only)."""
+    and main kernels or raise (bf16, fp16 or fp32, and d = 64 only)."""
     devices = {t.device.type for t in (q, k, v)}
     if devices == {"cpu"}:
         return flash_attention_qk_int8_reference(q, k, v, scale)
@@ -300,4 +346,4 @@ def flash_attention_qk_int8(
 
 flash_attention_qk_int8.launches = 0
 flash_attention_qk_int8.prepass_launches = 0
-flash_attention_qk_int8.launches_by_dtype = {}  # "bfloat16" / "float16" -> main-kernel launches
+flash_attention_qk_int8.launches_by_dtype = {}  # "bfloat16" / "float16" / "float32" -> main-kernel launches

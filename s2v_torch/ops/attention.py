@@ -80,9 +80,8 @@ FLASH_SOFTMAX_MODE = "bounded"
 # fp16 (2b) q/k/v: on the card every kernel backend takes it as it is (B1-B7
 # have fp16 forms); on the CPU the backends on B1/B2 do too (their plain
 # versions compute in fp32), and every other case upcasts as the JAX package
-# does.  fp32 q/k/v go to every backend as they are: on the card B1, B2 and
-# B4-B7 launch their fp32 forms (3xTF32), and B3 (flash_int8, sp_int8)
-# refuses fp32 (ROADMAP C.1)
+# does.  fp32 q/k/v go to every backend as they are: on the card B1-B7
+# launch their fp32 forms (3xTF32 products; B3's logits exact int32)
 FP16_KERNEL_BACKENDS = ("flash", "windowed_gather")
 CARD_FP16_BACKENDS = ("flash_int8", "windowed") + SEQ_BACKENDS
 

@@ -13,7 +13,10 @@ Leaves: ``{"weight" [out, in], "bias"?}`` in the model dtype, or
 ``{"q" [out, in] int8, "scale" [out] fp32, "bias"?}``.  The int8 product is
 ``torch._int_mm`` (int32 accumulation), a plain matrix product that the JAX
 package, too, leaves outside any kernel (``lax.dot_general``); on CUDA it
-needs more than 16 rows (fewer are zero-padded here) and K, N multiples of 8.
+needs more than 16 rows and K, N multiples of 8, so other shapes are
+zero-padded here (:func:`pad_int8_operands`; zeros add nothing to an int32
+sum, so the product is the unpadded one bit for bit) and every width runs,
+as JAX's ``int8_dense`` does.
 """
 
 from __future__ import annotations
@@ -25,8 +28,10 @@ import torch.nn.functional as F
 # quantized per block (JAX ``quantize_transformer_params``): ~96% of the
 # DiT's linear operations
 QUANTIZED_LEAVES = (("attn", "qkv"), ("attn", "to_out"), ("ff", "net_0"), ("ff", "net_2"))
-# torch._int_mm on CUDA takes more than this many rows of the first operand
+# torch._int_mm on CUDA takes more than this many rows of the first operand,
+# and inner and output widths that are multiples of this
 _INT_MM_MIN_ROWS = 16
+_INT_MM_WIDTH = 8
 # amax / 127 as XLA compiles the JAX package's ``/ 127.0``: a multiply by the
 # fp32 reciprocal.  Written as a multiply it is the same on the CPU and on
 # CUDA (PyTorch's CUDA division by a Python scalar multiplies by the
@@ -45,17 +50,30 @@ def quantize_weight_int8(weight: torch.Tensor) -> dict:
     return {"q": q, "scale": scale}
 
 
-def _int_mm(xq: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
-    """int8 ``[M, K]`` × int8 ``[N, K]``ᵀ -> int32 ``[M, N]``, exact."""
+def pad_int8_operands(xq: torch.Tensor, q: torch.Tensor):
+    """int8 ``xq [M, K]`` and ``q [N, K]`` zero-padded to the shapes CUDA's
+    ``torch._int_mm`` takes: M above 16 rows, K and N to multiples of 8
+    (zero columns in both, zero rows of ``q``).  Returns the operands, the
+    same tensors where no pad is needed (every 5b and 2b width), so the
+    product's first ``M`` rows and ``N`` columns are the unpadded product."""
     m, k = xq.shape
     n = q.shape[0]
+    pad_k, pad_n = -k % _INT_MM_WIDTH, -n % _INT_MM_WIDTH
+    if pad_k or pad_n:
+        q = F.pad(q, (0, pad_k, 0, pad_n))
+    if pad_k or m <= _INT_MM_MIN_ROWS:
+        xq = F.pad(xq, (0, pad_k, 0, max(0, _INT_MM_MIN_ROWS + 1 - m)))
+    return xq, q
+
+
+def _int_mm(xq: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """int8 ``[M, K]`` × int8 ``[N, K]``ᵀ -> int32 ``[M, N]``, exact."""
     if xq.is_cuda:
-        if k % 8 or n % 8:
-            raise ValueError(f"int8 linears on CUDA need in/out widths that are multiples of 8; got {k} -> {n}")
-        if m <= _INT_MM_MIN_ROWS:
-            pad = xq.new_zeros((_INT_MM_MIN_ROWS + 1 - m, k))
-            return torch._int_mm(torch.cat([xq, pad]), q.t())[:m]
-    # q.t() is the column-major [K, N] operand cuBLASLt takes
+        m, n = xq.shape[0], q.shape[0]
+        xq, q = pad_int8_operands(xq, q)
+        # q.t() is the column-major [K, N] operand cuBLASLt takes
+        out = torch._int_mm(xq.contiguous(), q.t())
+        return out if out.shape == (m, n) else out[:m, :n]
     return torch._int_mm(xq.contiguous(), q.t())
 
 

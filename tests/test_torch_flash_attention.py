@@ -98,26 +98,38 @@ def test_kernel_input_checks(dtype, d, ok):
             check_kernel_inputs(q, k, v)
 
 
-def test_bf16_only_kernels_refuse_fp16_naming_c1():
-    """The one kernel left without an fp32 form, B3 (its checks pass
-    ``HALF_DTYPES``), takes bf16 and fp16 and refuses fp32 naming ROADMAP
-    C.1, before any launch; mixed types are refused by every kernel."""
-    from s2v_torch.kernels.flash_attention import HALF_DTYPES
+def test_bf16_only_kernels_refuse_fp16_naming_c1(monkeypatch):
+    """No kernel is left without an fp32 form: B3's checks (its wrapper's
+    and its pre-pass's, before any launch) take bf16, fp16 and fp32, and
+    nothing names ROADMAP C.1 as a refusal any more; other types and mixed
+    types are refused by every kernel."""
+    from s2v_torch.kernels import int8_attention
     from s2v_torch.kernels.int8_attention import launch_int8_prepass
 
-    for dtype in (torch.bfloat16, torch.float16):
+    class Launched(Exception):
+        pass
+
+    def no_library():
+        raise Launched
+
+    monkeypatch.setattr(int8_attention, "_library", no_library)
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
         q = torch.empty(2, 40, 3, 64, dtype=dtype, device="meta")
-        check_kernel_inputs(q, q, q, dtypes=HALF_DTYPES)
-    q = torch.empty(2, 40, 3, 64, dtype=torch.float32, device="meta")
-    with pytest.raises(ValueError, match="ROADMAP C.1"):
-        check_kernel_inputs(q, q, q, dtypes=HALF_DTYPES)
-    with pytest.raises(ValueError, match="ROADMAP C.1"):  # B3's pre-pass checks before it launches
+        check_kernel_inputs(q, q, q)
+        with pytest.raises(Launched):  # the checks passed: it went on to the launch
+            launch_int8_prepass(q, q, 0.125)
+    q = torch.empty(2, 40, 3, 64, dtype=torch.float64, device="meta")
+    with pytest.raises(ValueError, match="float64") as refused:
         launch_int8_prepass(q, q, 0.125)
+    assert "C.1" not in str(refused.value)
+    q = torch.empty(2, 40, 3, 64, dtype=torch.float32, device="meta")
     bf, hf = (torch.empty(2, 40, 3, 64, dtype=d, device="meta") for d in (torch.bfloat16, torch.float16))
     with pytest.raises(ValueError, match="one dtype"):
         check_kernel_inputs(bf, hf, hf)
     with pytest.raises(ValueError, match="one dtype"):
         check_kernel_inputs(q, bf, bf)
+    with pytest.raises(ValueError, match="one dtype"):
+        launch_int8_prepass(q, bf, 0.125)
 
 
 def test_fp32_passes_the_kernel_checks_of_b1_b2_b4_to_b7():

@@ -683,7 +683,7 @@ def test_int8_unsupported_inputs_raise_before_launch(cuda):
     q, k, v = _qkv(1, 64, 64, 1, 18, cuda)
     before = flash_attention_qk_int8.launches
     with pytest.raises(ValueError):
-        flash_attention_qk_int8(q.float(), k.float(), v.float())
+        flash_attention_qk_int8(q.double(), k.double(), v.double())
     with pytest.raises(ValueError):
         flash_attention_qk_int8(q[..., :32], k[..., :32], v[..., :32])
     shifted = torch.empty(v.numel() + 1, dtype=v.dtype, device=cuda)[1:].view(v.shape)
@@ -1030,16 +1030,16 @@ def test_int8_kernel_fp16_matches_plain_and_schedule(cuda, b, sq, skv, h):
 
 
 def test_bf16_only_kernels_refuse_fp16_on_the_card(cuda):
-    """No fallback and no cast: fp32 reaching B3 raises naming ROADMAP C.1,
-    fp32 reaching B4 launches its fp32 form (and returns fp32), and the
-    flash_int8/windowed backends hand fp16 to B3/B4 uncast on the card (each
-    launches its fp16 entry and returns fp16); fp32 to B3 through the
-    backend raises, to B4 runs the fp32 kernel."""
+    """No fallback and no cast: fp32 reaching B3 or B4 launches its fp32 form
+    (and returns fp32), and the flash_int8/windowed backends hand fp16 to
+    B3/B4 uncast on the card (each launches its fp16 entry and returns
+    fp16); fp32 through either backend runs the fp32 kernel."""
     from s2v_torch.ops.attention import joint_attention
 
     q, k, v = _qkv16(1, 200, 200, 2, 25, cuda)
-    with pytest.raises(ValueError, match="ROADMAP C.1"):
-        flash_attention_qk_int8(q.float(), k.float(), v.float())
+    before = flash_attention_qk_int8.launches_by_dtype.get("float32", 0)
+    assert flash_attention_qk_int8(q.float(), k.float(), v.float()).dtype == torch.float32
+    assert flash_attention_qk_int8.launches_by_dtype["float32"] == before + 1
     before = banded_flash_attention.launches_by_dtype.get("float32", 0)
     assert banded_flash_attention(q.float(), k.float(), v.float(), 40, 40, 1).dtype == torch.float32
     assert banded_flash_attention.launches_by_dtype["float32"] == before + 1
@@ -1059,13 +1059,9 @@ def test_bf16_only_kernels_refuse_fp16_on_the_card(cuda):
         assert joint_attention(params, x, 2, backend=backend, window=window).dtype == torch.float16
         assert fn.launches_by_dtype["float16"] == before + 1
         fp32_params = {k: {n: t.float() for n, t in leaf.items()} for k, leaf in params.items()}
-        if backend == "flash_int8":
-            with pytest.raises(ValueError, match="ROADMAP C.1"):
-                joint_attention(fp32_params, x.float(), 2, backend=backend, window=window)
-        else:
-            before = fn.launches_by_dtype.get("float32", 0)
-            assert joint_attention(fp32_params, x.float(), 2, backend=backend, window=window).dtype == torch.float32
-            assert fn.launches_by_dtype["float32"] == before + 1
+        before = fn.launches_by_dtype.get("float32", 0)
+        assert joint_attention(fp32_params, x.float(), 2, backend=backend, window=window).dtype == torch.float32
+        assert fn.launches_by_dtype["float32"] == before + 1
     assert joint_attention(params, x, 2, backend="flash").dtype == torch.float16
 
 
@@ -1147,3 +1143,62 @@ def test_fp32_b4_to_b7_match_plain(no_tf32):
             args = (q_loc, k, v, o_l, lse_l, do_loc, g, tpf, w, off, f)
             for a, r_ in zip(banded_flash_attention_local_bwd(*args), banded_flash_attention_local_bwd_reference(*args)):
                 _close_f32(a, r_, FP32_BWD)
+
+
+# ragged fp32 shapes of the redesigned kernels: Sq != Skv, lengths off the
+# 128-row blocks and the 64-key (forward) and 32-row (backward) tiles
+FP32_RAGGED = [(1, 77, 333, 2), (2, 1000, 129, 2), (1, 130, 40, 2), (1, 129, 257, 1)]
+
+
+@pytest.mark.parametrize("b,sq,skv,h", FP32_RAGGED)
+def test_fp32_b1_b2_ragged_match_plain_and_emulation(no_tf32, b, sq, skv, h):
+    from s2v_torch.kernels import attention_f32 as af
+
+    q, k, v = (_f32((b, s, h, 64), s + i, no_tf32) for i, s in enumerate((sq, skv, skv)))
+    o, lse = flash_attention(q, k, v, return_lse=True, softmax_mode="online")
+    _close_f32(o, flash_attention_reference(q, k, v), FP32_FWD)
+    _close_f32(o, af.flash_attention_f32_blocked(q, k, v), FP32_FWD)
+    do = _f32(q.shape, 3, no_tf32)
+    got = flash_attention_bwd(q, k, v, o, lse, do)
+    for a, r, e, again in zip(got, flash_attention_bwd_reference(q, k, v, o, lse, do),
+                              af.flash_attention_bwd_f32_blocked(q, k, v, o, lse, do),
+                              flash_attention_bwd(q, k, v, o, lse, do)):
+        _close_f32(a, r, FP32_BWD)
+        _close_f32(a, e, FP32_BWD)
+        assert torch.equal(a, again)
+
+
+@pytest.mark.parametrize("b,sq,skv,h", [(2, 90, 90, 2), (1, 77, 200, 3), (2, 200, 33, 1), (1, 300, 1000, 2)])
+def test_int8_kernel_fp32_matches_plain_and_schedule(no_tf32, b, sq, skv, h):
+    """B3's fp32 form: the pre-pass kernels' int8 values and dq equal to the
+    plain pre-pass's, the kernel within the fp32 limits of the plain version
+    and of its schedule's emulation, two launches bit for bit."""
+    q, k, v = (_f32((b, s, h, 64), 40 + i + s, no_tf32) for i, s in enumerate((sq, skv, skv)))
+    for got, want in zip(launch_int8_prepass(q, k, 0.125), int8_prepass(q, k, 0.125)):
+        assert torch.equal(got, want)
+    before = flash_attention_qk_int8.launches_by_dtype.get("float32", 0)
+    o = flash_attention_qk_int8(q, k, v)
+    assert o.dtype == torch.float32 and flash_attention_qk_int8.launches_by_dtype["float32"] == before + 1
+    _close_f32(o, flash_attention_qk_int8_reference(q, k, v), FP32_FWD)
+    _close_f32(o, flash_attention_qk_int8_blocked(q, k, v), FP32_FWD)
+    assert torch.equal(o, flash_attention_qk_int8(q, k, v))
+
+
+@pytest.mark.parametrize("d_in,d_out,rows", [(20, 36, 5), (7, 13, 300), (64, 40, 33)])
+def test_int8_dense_any_width_on_cuda_equals_cpu(cuda, d_in, d_out, rows):
+    """The int8 linears at widths that are not multiples of 8: the card pads
+    the operands (zero columns, zero rows of q); its int32 products equal
+    the CPU's bit for bit, and its fp32 outputs meet
+    ``test_int8_dense_on_cuda_matches_cpu``'s fp32 bar."""
+    from s2v_torch.ops.quant import _int_mm, int8_dense, quantize_weight_int8
+
+    rng = np.random.RandomState(d_in * d_out + rows)
+    xq = torch.from_numpy(rng.randint(-127, 128, (rows, d_in)).astype(np.int8))
+    q = torch.from_numpy(rng.randint(-127, 128, (d_out, d_in)).astype(np.int8))
+    assert torch.equal(_int_mm(xq.to(cuda), q.to(cuda)).cpu(), _int_mm(xq, q))
+    x = torch.from_numpy(rng.randn(1, rows, d_in).astype(np.float32))
+    wq = quantize_weight_int8(torch.from_numpy(0.05 * rng.randn(d_out, d_in).astype(np.float32)))
+    got = int8_dense(x.to(cuda), {n: t.to(cuda) for n, t in wq.items()}).cpu()
+    want = int8_dense(x, wq)
+    assert got.shape == (1, rows, d_out)
+    assert ((got - want).abs() <= 1e-6 * want.abs() + 1e-6 * want.abs().max()).all()

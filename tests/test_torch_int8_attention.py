@@ -15,6 +15,7 @@ from _torch_parity import perturb, quantized, rand, t
 from s2v_tpu.ops.pallas import int8_attention as j_int8
 from s2v_torch.kernels.int8_attention import (
     flash_attention_qk_int8,
+    flash_attention_qk_int8_blocked,
     flash_attention_qk_int8_reference,
     int8_prepass,
 )
@@ -82,6 +83,29 @@ def test_reference_matches_jax_interpret_fp32(b, sq, skv, h, d):
     # and it is the int8 path, not exact attention
     exact = np.asarray(jax.nn.dot_product_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)))
     assert 1e-6 < np.abs(got.numpy() - exact).max() < 0.05
+
+
+# B3's fp32 kernel against the plain version (the card's limits, as B1's
+# fp32 kernel: 2^-14 of the largest |value| and 2e-5 relative L2)
+F32_MAX_REL, F32_L2 = 2.0 ** -14, 2e-5
+
+
+@pytest.mark.parametrize("b,sq,skv,h,d", SHAPES + [(1, 130, 300, 2, 64)])
+def test_fp32_schedule_matches_plain_and_jax(b, sq, skv, h, d):
+    """The emulation of B3's fp32 kernel (64-key tiles, online exp2
+    softmax, 3xTF32 P·V summed per tile from zero) against the plain version
+    within the card's fp32 limits and against JAX's kernel in interpret
+    mode within the plain version's bar, at ragged lengths (keys past the
+    last 64-key tile, Sq != Skv)."""
+    rng = np.random.RandomState(3 * sq + skv)
+    q, k, v = (rng.randn(b, s, h, d).astype(np.float32) for s in (sq, skv, skv))
+    got = flash_attention_qk_int8_blocked(t(q), t(k), t(v))
+    assert got.dtype == torch.float32 and got.shape == (b, sq, h, d)
+    want = flash_attention_qk_int8_reference(t(q), t(k), t(v)).numpy()
+    diff = got.numpy() - want
+    assert np.abs(diff).max() <= F32_MAX_REL * np.abs(want).max()
+    assert np.linalg.norm(diff) < F32_L2 * np.linalg.norm(want)
+    np.testing.assert_allclose(got.numpy(), _jax_int8(q, k, v, block_q=32, block_k=64), rtol=0, atol=FP32_ATOL)
 
 
 def test_negative_logit_rows_with_ragged_tail():

@@ -80,12 +80,18 @@ def test_blocked_schedule_matches_plain_and_pallas(name):
 
 def test_blocked_schedule_rounds_p_to_bf16():
     """The emulation is the kernel's arithmetic, not the plain version's:
-    P rounded to bf16 moves the output by more than fp32 noise; and on bf16
-    inputs it returns bf16 within the limits of the plain version's."""
+    with a bf16 v, P rounded to bf16 moves the (fp32, q's type) output by
+    more than fp32 noise, where fp32 inputs take the fp32 kernel's schedule
+    and stay within fp32 noise; and on bf16 inputs it returns bf16 within
+    the limits of the plain version's."""
     q, k, v = _inputs("ragged_54")
+    v16 = t(v).to(torch.bfloat16)
+    got = flash_attention_qk_int8_blocked(t(q), t(k), v16).numpy()
+    plain = flash_attention_qk_int8_reference(t(q), t(k), v16).numpy()
+    assert np.abs(got - plain).max() > 1e-5
     got = flash_attention_qk_int8_blocked(t(q), t(k), t(v)).numpy()
     plain = flash_attention_qk_int8_reference(t(q), t(k), t(v)).numpy()
-    assert np.abs(got - plain).max() > 1e-5
+    assert np.abs(got - plain).max() < 1e-5
     bf16 = [t(x).to(torch.bfloat16) for x in (q, k, v)]
     got = flash_attention_qk_int8_blocked(*bf16)
     assert got.dtype == torch.bfloat16

@@ -177,3 +177,39 @@ def test_int8_transformer_forward_matches_jax():
                                 jnp.asarray(text), jnp.asarray(ts)))
     rel = np.sqrt(np.mean((got - fp32) ** 2)) / np.sqrt(np.mean(fp32 ** 2))
     assert 1e-5 < rel < 0.10
+
+
+@pytest.mark.parametrize("rows", [5, 300])
+@pytest.mark.parametrize("d_in,d_out", [(20, 36), (7, 13), (64, 40)])
+def test_padded_int8_product_equals_unpadded(rows, d_in, d_out):
+    """The operands the CUDA path pads (``pad_int8_operands``: K and N to
+    multiples of 8, M above 16 rows) give the unpadded int32 product bit for
+    bit: zero columns add nothing to an int32 sum and the padded rows and
+    columns are sliced away.  Widths already multiples of 8 pad no weight."""
+    from s2v_torch.ops.quant import pad_int8_operands
+
+    rng = np.random.RandomState(rows + d_in + d_out)
+    xq = torch.from_numpy(rng.randint(-127, 128, (rows, d_in)).astype(np.int8))
+    q = torch.from_numpy(rng.randint(-127, 128, (d_out, d_in)).astype(np.int8))
+    xp, qp = pad_int8_operands(xq, q)
+    assert xp.shape[0] > 16 and xp.shape[1] % 8 == 0 and qp.shape[0] % 8 == 0 and xp.shape[1] == qp.shape[1]
+    assert torch.equal(xp[:rows, :d_in], xq) and not xp[rows:].any() and not xp[:, d_in:].any()
+    assert torch.equal(qp[:d_out, :d_in], q) and not qp[d_out:].any() and not qp[:, d_in:].any()
+    if d_in % 8 == 0 and d_out % 8 == 0:
+        assert qp is q
+    want = xq.long() @ q.long().t()
+    got = torch._int_mm(xp.contiguous(), qp.t())[:rows, :d_out]
+    assert got.dtype == torch.int32 and torch.equal(got.long(), want)
+
+
+def test_int8_dense_at_odd_widths_matches_jax():
+    """``int8_dense`` at widths that are not multiples of 8 (20 -> 36, as
+    JAX's ``int8_dense`` takes them) against JAX's, in fp32."""
+    x = rand(2, 7, 20, seed=41)
+    w = _weights(20, 36, 42)
+    b = rand(36, seed=43)
+    jq = jax.jit(j_quant.quantize_weight_int8)(jnp.asarray(w))
+    want = np.asarray(jax.jit(j_quant.int8_dense)(jnp.asarray(x), jq, jnp.asarray(b)))
+    got = int8_dense(t(x), quantize_weight_int8(t(w.T)), t(b)).numpy()
+    assert got.shape == (2, 7, 36)
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6 * np.abs(want).max())
