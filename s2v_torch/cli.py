@@ -113,7 +113,8 @@ def get_args(argv=None):
                         "CFG batch, model: megatron TP, seq: video frames)")
     p.add_argument("--progress", action="store_true", default=False, help="a per-step progress line on stderr")
     p.add_argument("--profile_dir", type=str, default=None,
-                   help="write a torch.profiler trace of the generate call (trace.json) here")
+                   help="write a torch.profiler trace of the generate call (trace.json) here and print its "
+                        "s2v.* spans (calls, host ms, device ms, self device ms)")
     p.add_argument("--save_merged_dir", type=str, default=None,
                    help="also export the loaded (LoRA-merged) weights as an HF-layout snapshot to this dir "
                         "(save_pretrained)")
@@ -232,6 +233,11 @@ def _generate(args, device, mesh):
     say(f"[s2v_torch] generated {video.shape} in {dt:.1f}s "
         f"({args.num_inference_steps / dt:.2f} steps/s incl. VAE)")
     say(f"[s2v_torch] stage seconds {json.dumps(pipe.timings)}")
+    if profiler is not None:
+        from s2v_torch.utils.logging import span_summary
+
+        # {name: [calls, host_ms, device_ms, self_device_ms]}, device values null on the CPU
+        say(f"[s2v_torch] spans {json.dumps(span_summary())}")
     if not main_rank:
         return
     out_path = os.path.join(args.output_dir, "output.mp4")

@@ -54,6 +54,7 @@ import torch
 
 from s2v_torch.kernels import attention_f32
 from s2v_torch.utils import native_build
+from s2v_torch.utils.logging import phase
 
 NEG_INF = -1e30
 LOG2E = 1.4426950408889634
@@ -211,7 +212,9 @@ def flash_attention_reference(
     o = torch.cat(outs, dim=1)
     lse = torch.cat(lses, dim=-1)  # [B, H, Sq]
     if bounded:
-        if float(lse.amin()) < BOUNDED_MIN_LOG_L:
+        with phase("s2v.sync.b1_guard"):
+            rerun = float(lse.amin()) < BOUNDED_MIN_LOG_L
+        if rerun:
             return flash_attention_reference(q, k, v, scale, return_lse, key_pad_mask, "online")
         lse = lse + (m0 * LN2 if use_exp2 else m0)
     return (o, lse) if return_lse else o
@@ -266,13 +269,16 @@ def _flash_attention_cuda(q, k, v, scale, return_lse, key_pad_mask, softmax_mode
         return (o, lse) if return_lse else o
 
     use_exp2 = softmax_mode == "bounded_exp2"
-    m0 = _bound_m0(q, k, scale * (LOG2E if use_exp2 else 1.0))  # device scalar
-    m0_log2 = (m0 if use_exp2 else m0 * LOG2E).reshape(1).contiguous()
+    with phase("s2v.attention.bound"):
+        m0 = _bound_m0(q, k, scale * (LOG2E if use_exp2 else 1.0))  # device scalar
+        m0_log2 = (m0 if use_exp2 else m0 * LOG2E).reshape(1).contiguous()
     logl = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     _launch(q, k, v, o, logl, mask, m0_log2, scale_log2, bounded=True)
     # the one host sync of the call: the underflow guard (fp16: also the
     # rows whose largest logit lies more than 15 bits below M0)
-    if float(logl.amin()) < BOUNDED_MIN_LOG_L:
+    with phase("s2v.sync.b1_guard"):
+        rerun = float(logl.amin()) < BOUNDED_MIN_LOG_L
+    if rerun:
         flash_attention.reruns += 1
         lse = online(return_lse)
         return (o, lse) if return_lse else o

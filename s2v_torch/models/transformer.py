@@ -35,6 +35,7 @@ from s2v_torch.parallel.context import (
 )
 from s2v_torch.parallel.sharding import take_slice, tp_leaf_placement
 from s2v_torch.utils.device import resolve_device
+from s2v_torch.utils.logging import phase
 
 
 # ---------------------------------------------------------------------------
@@ -196,7 +197,10 @@ def _feed_forward(p: dict, x: torch.Tensor, tp=None) -> torch.Tensor:
     ``net_2`` row-parallel with one all-reduce."""
     if tp is not None:
         x = copy_to_model(x, tp)
-    return dense(p["net_2"], F.gelu(dense(p["net_0"], x), approximate="tanh"), row_parallel=tp)
+    h = dense(p["net_0"], x)
+    with phase("s2v.gelu"):
+        h = F.gelu(h, approximate="tanh")
+    return dense(p["net_2"], h, row_parallel=tp)
 
 
 def block_forward(
@@ -233,25 +237,30 @@ def block_forward(
             raise ValueError("windowed attention needs tokens-per-frame; call through transformer_forward "
                              "so it is derived from the video shape")
         window = (t_len + r_len, tpf, cfg.attention_window_frames)
-    v_n, t_n, r_n, g_v, g_t, g_r = ada_layer_norm_zero_3stream(
-        p["norm1"], video, text, ref, temb, cfg.norm_eps, base_linear=p["norm1"].get("base_linear") if disent else None,
-        tp=tp)
-    x = torch.cat([t_n, r_n, v_n], dim=1)
+
+    def modulated(norm: dict):
+        """adaLN-Zero of the three streams, joined into ``[text | ref | video]``, and their gates."""
+        with phase("s2v.adaln"):
+            v_n, t_n, r_n, *gates = ada_layer_norm_zero_3stream(
+                norm, video, text, ref, temb, cfg.norm_eps, base_linear=norm.get("base_linear") if disent else None,
+                tp=tp)
+            return torch.cat([t_n, r_n, v_n], dim=1), gates
+
+    def gated(out: torch.Tensor, gates):
+        """The streams' gated residual adds of a sublayer's joint output."""
+        g_v, g_t, g_r = gates
+        with phase("s2v.gate"):
+            return (video + g_v * out[:, t_len + r_len:], text + g_t * out[:, :t_len],
+                    ref + g_r * out[:, t_len:t_len + r_len])
+
+    x, gates = modulated(p["norm1"])
     attn = joint_attention(
         p["attn"], x, cfg.num_attention_heads, rope_cos, rope_sin, cfg.qk_norm_eps, backend=attention_backend,
         window=window, shard=shard, tp=tp,
     )
-    video = video + g_v * attn[:, t_len + r_len:]
-    text = text + g_t * attn[:, :t_len]
-    ref = ref + g_r * attn[:, t_len:t_len + r_len]
-
-    v_n, t_n, r_n, g_v, g_t, g_r = ada_layer_norm_zero_3stream(
-        p["norm2"], video, text, ref, temb, cfg.norm_eps, base_linear=p["norm2"].get("base_linear") if disent else None,
-        tp=tp)
-    ff = _feed_forward(p["ff"], torch.cat([t_n, r_n, v_n], dim=1), tp)
-    video = video + g_v * ff[:, t_len + r_len:]
-    text = text + g_t * ff[:, :t_len]
-    ref = ref + g_r * ff[:, t_len:t_len + r_len]
+    video, text, ref = gated(attn, gates)
+    x, gates = modulated(p["norm2"])
+    video, text, ref = gated(_feed_forward(p["ff"], x, tp), gates)
     return video, text, ref
 
 

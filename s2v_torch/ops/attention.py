@@ -67,6 +67,7 @@ from s2v_torch.parallel.sp_attention import (
     int8_allgather_attention,
     ulysses_attention_trainable,
 )
+from s2v_torch.utils.logging import phase
 
 # backends that take the sliding temporal window (entry points configure its width)
 WINDOWED_BACKENDS = ("windowed", "windowed_gather", "windowed_plain", "sp_windowed")
@@ -334,26 +335,27 @@ def joint_attention(
         x = copy_to_model(x, tp)
         norm_q, norm_k = ({n: copy_to_model(w, tp) for n, w in p.items()} for p in (norm_q, norm_k))
     q, k, v = qkv_projections(params, x, heads)
-    q = layer_norm(q, norm_q["weight"], norm_q["bias"], qk_norm_eps)
-    k = layer_norm(k, norm_k["weight"], norm_k["bias"], qk_norm_eps)
-    if rope_cos is not None:
-        q = apply_rotary_emb(q, rope_cos[:, None, :], rope_sin[:, None, :])
-        k = apply_rotary_emb(k, rope_cos[:, None, :], rope_sin[:, None, :])
-
     # fp16 storage: upcast once before attention and cast back after, as
     # JAX does for every backend (s2v_tpu/ops/attention.py:208-214), except
     # into the kernels, which take fp16 and return it (the same fp32
     # accumulation; P and dS rounded to fp16); fp32 is never cast
     fp16_in = q.dtype == torch.float16 and not (
         backend in FP16_KERNEL_BACKENDS or (q.is_cuda and backend in CARD_FP16_BACKENDS))
-    if fp16_in:
-        q, k, v = (t.float() for t in (q, k, v))
-    if backend in SEQ_BACKENDS:
-        out = _seq_attention(backend, q, k, v, shard, window)
-    elif shard is not None:
-        out = _on_gathered_rows(backend, q, k, v, shard, window)
-    else:
-        out = _single_card_attention(backend, q, k, v, window)
-    if fp16_in:
-        out = out.to(torch.float16)
+    with phase("s2v.qk_rope"):
+        q = layer_norm(q, norm_q["weight"], norm_q["bias"], qk_norm_eps)
+        k = layer_norm(k, norm_k["weight"], norm_k["bias"], qk_norm_eps)
+        if rope_cos is not None:
+            q = apply_rotary_emb(q, rope_cos[:, None, :], rope_sin[:, None, :])
+            k = apply_rotary_emb(k, rope_cos[:, None, :], rope_sin[:, None, :])
+        if fp16_in:
+            q, k, v = (t.float() for t in (q, k, v))
+    with phase("s2v.attention"):
+        if backend in SEQ_BACKENDS:
+            out = _seq_attention(backend, q, k, v, shard, window)
+        elif shard is not None:
+            out = _on_gathered_rows(backend, q, k, v, shard, window)
+        else:
+            out = _single_card_attention(backend, q, k, v, window)
+        if fp16_in:
+            out = out.to(torch.float16)
     return dense(params["to_out"], out.reshape(b, s, -1), row_parallel=tp)

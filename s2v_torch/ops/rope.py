@@ -11,6 +11,8 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
+from s2v_torch.utils.logging import phase
+
 
 def get_resize_crop_region_for_grid(src_hw, tgt_width, tgt_height):
     """Center-crop coordinates used to align RoPE grids across aspect ratios."""
@@ -102,10 +104,9 @@ def build_segmented_rope(
     half = ref_cos.shape[-1]
     cos = np.concatenate([np.ones((text_len, half), np.float32), ref_cos, vid_cos], axis=0)
     sin = np.concatenate([np.zeros((text_len, half), np.float32), ref_sin, vid_sin], axis=0)
-    return (
-        torch.from_numpy(np.ascontiguousarray(cos, np.float32)).to(device),
-        torch.from_numpy(np.ascontiguousarray(sin, np.float32)).to(device),
-    )
+    cos, sin = (torch.from_numpy(np.ascontiguousarray(t, np.float32)) for t in (cos, sin))
+    with phase("s2v.sync.to_device"):  # copies from the host
+        return cos.to(device), sin.to(device)
 
 
 def apply_rotary_emb(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:

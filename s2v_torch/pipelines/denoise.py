@@ -34,6 +34,7 @@ from s2v_torch.config import SchedulerConfig, TransformerConfig
 from s2v_torch.models.transformer import transformer_forward
 from s2v_torch.schedulers.ddim import alpha_pair_for_step, compute_alphas_cumprod, ddim_step, get_timesteps
 from s2v_torch.schedulers.dpm import dpm_multipliers, dpm_step
+from s2v_torch.utils.logging import phase
 
 CFG_MODES = ("batched", "sequential")
 
@@ -133,7 +134,9 @@ class DPMNoise:
         return torch.randn(tuple(shape), generator=torch.Generator().manual_seed(int(state)))
 
     def __call__(self, i: int, shape, device) -> tuple:
-        return self._draw(2 * i, shape).to(device), self._draw(2 * i + 1, shape).to(device)
+        n1, n2 = self._draw(2 * i, shape), self._draw(2 * i + 1, shape)
+        with phase("s2v.sync.dpm_noise"):  # two copies from the host
+            return n1.to(device), n2.to(device)
 
 
 NoiseSource = Callable[[int, tuple, torch.device], tuple]
@@ -186,31 +189,41 @@ def _build_eps_update_fns(
         return transformer_forward(
             params, cfg, lat_in, ref, emb, ts, rope_cos, rope_sin, attention_backend=attention_backend,
             pos_embedding=pos_embedding,
-        ).float()
+        )
 
     def eps_fn(i, latents):
         g = float(schedule.guidance[i])
         if skip[i]:
             # g - 1 below the threshold: the cond prediction alone, off by
             # at most (g - 1)·|cond - uncond| from the mix
-            return fwd(latents, emb_cond, i)
+            cond = fwd(latents, emb_cond, i)
+            with phase("s2v.cfg_ddim"):
+                return cond.float()
         if batched:
-            uncond, cond = fwd(torch.cat([latents, latents], dim=0), prompt_embeds, i).chunk(2, dim=0)
-            return uncond + g * (cond - uncond)
+            both = fwd(torch.cat([latents, latents], dim=0), prompt_embeds, i)
+            with phase("s2v.cfg_ddim"):
+                uncond, cond = both.float().chunk(2, dim=0)
+                return uncond + g * (cond - uncond)
         if do_cfg:
-            uncond = fwd(latents, emb_uncond, i)
-            return uncond + g * (fwd(latents, emb_cond, i) - uncond)
-        return fwd(latents, prompt_embeds, i)
+            uncond, cond = fwd(latents, emb_uncond, i), fwd(latents, emb_cond, i)
+            with phase("s2v.cfg_ddim"):
+                uncond = uncond.float()
+                return uncond + g * (cond.float() - uncond)
+        out = fwd(latents, prompt_embeds, i)
+        with phase("s2v.cfg_ddim"):
+            return out.float()
 
     def update_fn(i, latents, old_x0, noise_pred):
         if schedule.use_dpm:
             n1, n2 = noise(i, latents.shape, latents.device)
             mults = {k: v[i] for k, v in schedule.dpm_mults.items()}
-            new, x0 = dpm_step(noise_pred, latents, old_x0, n1, mults, schedule.prediction_type, noise2=n2)
-        else:
+            with phase("s2v.cfg_ddim"):
+                new, x0 = dpm_step(noise_pred, latents, old_x0, n1, mults, schedule.prediction_type, noise2=n2)
+                return new.to(latents.dtype), x0.to(latents.dtype)
+        with phase("s2v.cfg_ddim"):
             new, x0 = ddim_step(noise_pred, latents, float(schedule.alpha_t[i]), float(schedule.alpha_prev[i]),
                                 schedule.prediction_type)
-        return new.to(latents.dtype), x0.to(latents.dtype)
+            return new.to(latents.dtype), x0.to(latents.dtype)
 
     return eps_fn, update_fn
 
@@ -253,7 +266,8 @@ def _build_adaptive_step_fn(params, cfg, schedule, ref_latents, prompt_embeds, r
         d1 = (lat - prev_lat).float()
         skip = False
         if 2 <= i < n - 1:
-            skip = bool((d1 - prev_d1).abs().mean() < thr * d1.abs().mean())
+            with phase("s2v.sync.adaptive_test"):
+                skip = bool((d1 - prev_d1).abs().mean() < thr * d1.abs().mean())
         eps = prev_eps if skip else eps_fn(i, lat)
         new_lat, x0 = update_fn(i, lat, old_x0, eps)
         return new_lat, x0, eps, lat, d1, skips + int(skip)
@@ -270,7 +284,8 @@ def _progress_line(i: int, n: int) -> None:
 
 def _run_steps(step, carry, i0: int, i1: int, n: int, progress: bool, step_callback):
     for i in range(i0, i1):
-        carry = step(i, carry)
+        with phase("s2v.step", step=i):
+            carry = step(i, carry)
         if progress:
             _progress_line(i, n)
         if step_callback is not None:

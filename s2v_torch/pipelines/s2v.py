@@ -45,12 +45,13 @@ decode runs context-parallel when the ring can take its chunks
 
 from __future__ import annotations
 
+import functools
 import gc
 import os
 import time
 from contextlib import contextmanager, nullcontext
 from dataclasses import dataclass, field, replace
-from typing import Callable, Optional, Union
+from typing import Optional, Union
 
 import numpy as np
 import torch
@@ -75,7 +76,7 @@ from s2v_torch.pipelines.denoise import (
     make_segmented_denoise,
 )
 from s2v_torch.utils.device import resolve_device
-from s2v_torch.utils.logging import get_logger, phase
+from s2v_torch.utils.logging import get_logger, phase, span_device
 from s2v_torch.utils.video import denormalize_video, load_image, to_uint8_frames
 
 PROMPT_CACHE_SIZE = 32
@@ -86,6 +87,18 @@ OUTPUT_TYPES = ("np", "pil", "pt", "latent")
 # below DECODE_UNTILED_MIN_FREE, quarter-size tiles below DECODE_TILED_MIN_FREE
 DECODE_UNTILED_MIN_FREE = 5.5e9
 DECODE_TILED_MIN_FREE = 2.5e9
+
+
+def _on_card(method):
+    """Runs a pipeline method with the pipeline's card as the current CUDA
+    device, so that its spans time the stream its work runs on."""
+
+    @functools.wraps(method)
+    def wrapper(self, *args, **kwargs):
+        with span_device(self.device):
+            return method(self, *args, **kwargs)
+
+    return wrapper
 
 
 def _tree_map(fn, tree):
@@ -452,27 +465,26 @@ class S2VPipeline:
         t0 = time.perf_counter()
         yield
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            with phase("s2v.sync.stage_timer"):
+                torch.cuda.synchronize(self.device)
         self.timings[name] = time.perf_counter() - t0
 
-    def _step_timer(self) -> Callable[[int], None]:
-        """A denoise step callback that waits for the card and appends each
-        step's seconds to a new ``timings["denoise_step_s"]``."""
-        step_times = self.timings["denoise_step_s"] = []
-        t_step = [time.perf_counter()]
+    def _step_timer(self) -> "_StepTimer":
+        """A denoise step callback that marks each step boundary; its
+        ``finish()`` after the loop fills a new ``timings["denoise_step_s"]``
+        with the device seconds between step boundaries (on the card CUDA
+        events and one sync after the loop; on the CPU the host clock)."""
+        times = self.timings["denoise_step_s"] = []
+        return _StepTimer(self.device, times)
 
-        def on_step(_i):
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            now = time.perf_counter()
-            step_times.append(now - t_step[0])
-            t_step[0] = now
-
-        return on_step
+    def _to_device(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """An input on the card in ``dtype``; from the host a copy that waits for it."""
+        with phase("s2v.sync.to_device"):
+            return x.to(self.device, dtype)
 
     def _decode_timed(self, latents: torch.Tensor) -> np.ndarray:
         """:meth:`decode_latents` with its seconds in ``timings["decode_s"]``."""
-        with phase("vae-decode", log=True), self._timed("decode_s"):
+        with phase("s2v.decode", log=True), self._timed("decode_s"):
             return self.decode_latents(latents)
 
     # ------------------------------------------------------------------
@@ -575,7 +587,8 @@ class S2VPipeline:
             self.vae_cfg.temporal_compression_ratio, cfg.max_text_seq_length,
             cfg.spatial_interpolation_scale, cfg.temporal_interpolation_scale,
         )
-        return torch.from_numpy(table).to(self.device)
+        with phase("s2v.sync.to_device"):  # a copy from the host
+            return torch.from_numpy(table).to(self.device)
 
     def check_frames(self, num_frames: int) -> None:
         """A model without RoPE has a positional table of ``sample_frames``
@@ -584,6 +597,7 @@ class S2VPipeline:
         if num_frames > cfg.sample_frames and not cfg.use_rotary_positional_embeddings:
             raise ValueError(f"num_frames must be <= {cfg.sample_frames} (static positional embeddings)")
 
+    @_on_card
     def decode_latents(self, latents: torch.Tensor) -> np.ndarray:
         """Latents ``[B, F, h, w, C]`` -> frames ``[B, T, H, W, 3]`` float32 in [0, 1].
 
@@ -610,15 +624,16 @@ class S2VPipeline:
         ring = self._seq_ring()
         if ring > 1:
             frames = None
-            if tiled:
-                from s2v_torch.parallel.vae_spatial import spatial_cp_supported, spatial_tiled_decode_cp
+            with phase("s2v.decode.vae"):
+                if tiled:
+                    from s2v_torch.parallel.vae_spatial import spatial_cp_supported, spatial_tiled_decode_cp
 
-                if spatial_cp_supported(self.vae_cfg, z, self.mesh, "seq"):
-                    frames = spatial_tiled_decode_cp(self.vae_params, self.vae_cfg, z, self.mesh, "seq")
-            if frames is None:
-                frames = self._decode_cp(z, ring, log)
+                    if spatial_cp_supported(self.vae_cfg, z, self.mesh, "seq"):
+                        frames = spatial_tiled_decode_cp(self.vae_params, self.vae_cfg, z, self.mesh, "seq")
+                if frames is None:
+                    frames = self._decode_cp(z, ring, log)
             if frames is not None:
-                return denormalize_video(frames.float().cpu().numpy())
+                return _frames_to_host(frames)
         if not self._decode_lean and not tiled:
             free = self._device_free_bytes()
             if free is not None and free < DECODE_UNTILED_MIN_FREE:
@@ -628,10 +643,13 @@ class S2VPipeline:
                 self._decode_lean = lean
                 tiled = not lean
         if self._decode_lean:
-            return denormalize_video(self._decode_lean_tiles(z).float().cpu().numpy())
+            with phase("s2v.decode.vae"):
+                frames = self._decode_lean_tiles(z)
+            return _frames_to_host(frames)
         oom = False
         try:
-            frames = vae_decode(self.vae_params, self.vae_cfg, z, use_tiling=tiled, use_slicing=self.vae_slicing)
+            with phase("s2v.decode.vae"):
+                frames = vae_decode(self.vae_params, self.vae_cfg, z, use_tiling=tiled, use_slicing=self.vae_slicing)
         except torch.cuda.OutOfMemoryError:
             oom = True  # retried below, once the exception no longer pins the failed call's tensors
         if oom:
@@ -641,8 +659,9 @@ class S2VPipeline:
             gc.collect()
             if self.device.type == "cuda":
                 torch.cuda.empty_cache()
-            frames = self._decode_lean_tiles(z)
-        return denormalize_video(frames.float().cpu().numpy())
+            with phase("s2v.decode.vae"):
+                frames = self._decode_lean_tiles(z)
+        return _frames_to_host(frames)
 
     def _decode_cp(self, z: torch.Tensor, ring: int, log) -> Optional[torch.Tensor]:
         """The context-parallel decode of scaled latents, or None when the
@@ -713,6 +732,7 @@ class S2VPipeline:
     # ------------------------------------------------------------------
 
     @torch.inference_mode()
+    @_on_card
     def generate(
         self,
         prompt: Optional[Union[str, list]] = None,
@@ -789,73 +809,81 @@ class S2VPipeline:
                              "use progress=True for a step line)")
 
         self.timings = {}
-        seed_gen = torch.Generator().manual_seed(run.seed)
-        seeds = torch.randint(2**62, (2,), generator=seed_gen)
-        gen_latents = torch.Generator().manual_seed(int(seeds[0]))
-        gen_ref = torch.Generator().manual_seed(int(seeds[1]))
-        # drawn after the two above, so the latents and ref draws stay what they were
-        dpm_seed = int(torch.randint(2**62, (1,), generator=seed_gen))
+        # a clip's host work before its first step; the benchmark weighs its device idle once a clip
+        with phase("s2v.prologue", steps=num_inference_steps):
+            seed_gen = torch.Generator().manual_seed(run.seed)
+            seeds = torch.randint(2**62, (2,), generator=seed_gen)
+            gen_latents = torch.Generator().manual_seed(int(seeds[0]))
+            gen_ref = torch.Generator().manual_seed(int(seeds[1]))
+            # drawn after the two above, so the latents and ref draws stay what they were
+            dpm_seed = int(torch.randint(2**62, (1,), generator=seed_gen))
 
-        do_cfg = guidance_scale > 1.0
-        if prompt_embeds is None:
-            with phase("encode-prompt"), self._timed("encode_prompt_s"):
-                prompt_embeds = self.encode_prompt(prompt, negative_prompt, do_cfg=do_cfg)
-        prompt_embeds = prompt_embeds.to(self.device, cfg.dtype)
-        if num_videos_per_prompt > 1:
-            prompt_embeds = prompt_embeds.repeat_interleave(num_videos_per_prompt, dim=0)
-        batch = prompt_embeds.shape[0] // (2 if do_cfg else 1)
+            do_cfg = guidance_scale > 1.0
+            if prompt_embeds is None:
+                with phase("s2v.encode_prompt"), self._timed("encode_prompt_s"):
+                    prompt_embeds = self.encode_prompt(prompt, negative_prompt, do_cfg=do_cfg)
+            prompt_embeds = self._to_device(prompt_embeds, cfg.dtype)
+            if num_videos_per_prompt > 1:
+                prompt_embeds = prompt_embeds.repeat_interleave(num_videos_per_prompt, dim=0)
+            batch = prompt_embeds.shape[0] // (2 if do_cfg else 1)
 
-        if ref_latents is None:
-            if ref_image is None:
-                raise ValueError("need ref_image or ref_latents")
-            with phase("encode-ref-image"), self._timed("encode_ref_s"):
-                ref_latents = self.encode_ref_image(ref_image, gen_ref)
-        ref_latents = ref_latents.to(self.device, cfg.dtype)
-        if ref_latents.shape[0] == 1 and batch > 1:
-            ref_latents = ref_latents.expand(batch, *ref_latents.shape[1:])
+            if ref_latents is None:
+                if ref_image is None:
+                    raise ValueError("need ref_image or ref_latents")
+                with phase("s2v.encode_ref"), self._timed("encode_ref_s"):
+                    ref_latents = self.encode_ref_image(ref_image, gen_ref)
+            ref_latents = self._to_device(ref_latents, cfg.dtype)
+            if ref_latents.shape[0] == 1 and batch > 1:
+                ref_latents = ref_latents.expand(batch, *ref_latents.shape[1:])
 
-        f_lat = run.latent_frames(self.vae_cfg.temporal_compression_ratio)
-        h_lat, w_lat = run.latent_hw(self.vae_cfg.spatial_compression_ratio)
-        if latents is None:
-            latents = torch.randn((batch, f_lat, h_lat, w_lat, cfg.in_channels), generator=gen_latents)
-        latents = latents.to(self.device, cfg.dtype)
+            f_lat = run.latent_frames(self.vae_cfg.temporal_compression_ratio)
+            h_lat, w_lat = run.latent_hw(self.vae_cfg.spatial_compression_ratio)
+            if latents is None:
+                latents = torch.randn((batch, f_lat, h_lat, w_lat, cfg.in_channels), generator=gen_latents)
+            latents = self._to_device(latents, cfg.dtype)
 
-        rope_cos, rope_sin = self.prepare_rope(height, width, f_lat)
-        pos_embedding = self.prepare_pos_embedding(height, width, num_frames)
-        schedule = DenoiseSchedule.create(self.scheduler_cfg, num_inference_steps, guidance_scale,
-                                          run.use_dynamic_cfg, use_dpm)
-        if cfg_mode == "auto":
-            cfg_mode = "sequential" if batch > 1 else "batched"
-        log = get_logger("s2v_torch.pipeline")
-        n_cfg_skip = int(cfg_skip_steps(schedule, cfg_skip_threshold).sum()) if do_cfg else 0
-        if do_cfg and cfg_skip_threshold > 0.0:
-            log.info("cfg-skip: uncond forward skipped on %d/%d steps", n_cfg_skip, num_inference_steps)
-        noise = self.dpm_noise if self.dpm_noise is not None else DPMNoise(dpm_seed)
-        adaptive = adaptive_threshold > 0.0
+            with phase("s2v.prologue.rope"):
+                rope_cos, rope_sin = self.prepare_rope(height, width, f_lat)
+            with phase("s2v.prologue.pos_embedding"):
+                pos_embedding = self.prepare_pos_embedding(height, width, num_frames)
+            schedule = DenoiseSchedule.create(self.scheduler_cfg, num_inference_steps, guidance_scale,
+                                              run.use_dynamic_cfg, use_dpm)
+            if cfg_mode == "auto":
+                cfg_mode = "sequential" if batch > 1 else "batched"
+            log = get_logger("s2v_torch.pipeline")
+            n_cfg_skip = int(cfg_skip_steps(schedule, cfg_skip_threshold).sum()) if do_cfg else 0
+            if do_cfg and cfg_skip_threshold > 0.0:
+                log.info("cfg-skip: uncond forward skipped on %d/%d steps", n_cfg_skip, num_inference_steps)
+            noise = self.dpm_noise if self.dpm_noise is not None else DPMNoise(dpm_seed)
+            adaptive = adaptive_threshold > 0.0
 
-        on_step = self._step_timer()
-        # the whole loop is one segment: segments run the same step function, bit for bit
-        run_steps = make_segmented_denoise(
-            self.transformer_params, cfg, schedule, rope_cos, rope_sin, do_cfg=do_cfg, dpm_noise=noise,
-            attention_backend=backend, cfg_mode=cfg_mode, cfg_skip_threshold=cfg_skip_threshold,
-            adaptive_threshold=adaptive_threshold, progress=progress, step_callback=on_step,
-            pos_embedding=pos_embedding)
-        carry = adaptive_init_carry(latents) if adaptive else (latents, torch.zeros_like(latents))
-        segment = segment_steps if segment_steps > 0 else num_inference_steps
-        with phase("denoise", log=True), self._mesh_ctx():
+            timer = self._step_timer()
+            # the whole loop is one segment: segments run the same step function, bit for bit
+            run_steps = make_segmented_denoise(
+                self.transformer_params, cfg, schedule, rope_cos, rope_sin, do_cfg=do_cfg, dpm_noise=noise,
+                attention_backend=backend, cfg_mode=cfg_mode, cfg_skip_threshold=cfg_skip_threshold,
+                adaptive_threshold=adaptive_threshold, progress=progress, step_callback=timer,
+                pos_embedding=pos_embedding)
+            carry = adaptive_init_carry(latents) if adaptive else (latents, torch.zeros_like(latents))
+            segment = segment_steps if segment_steps > 0 else num_inference_steps
+        with phase("s2v.denoise", log=True), self._mesh_ctx():
             for i0 in range(0, num_inference_steps, segment):
                 i1 = min(i0 + segment, num_inference_steps)
                 carry = run_steps(None, carry, ref_latents, prompt_embeds, None, i0, i1)
                 if callback_on_segment_end is None:
                     continue
-                cb = callback_on_segment_end(i1, carry[0])
+                with phase("s2v.callback"):  # the caller's code
+                    cb = callback_on_segment_end(i1, carry[0])
                 if isinstance(cb, (bool, np.bool_)) or (
                         getattr(cb, "shape", None) == () and getattr(cb, "dtype", None) in (torch.bool, np.bool_)):
-                    if not bool(cb):
+                    with phase("s2v.sync.callback"):  # a device tensor's value
+                        go_on = bool(cb)
+                    if not go_on:
                         break  # cooperative interrupt (a 0-d bool tensor, e.g. torch.all(...), counts too)
                 elif getattr(cb, "shape", None) == carry[0].shape:
                     # a same-shape tensor replaces the trajectory's latents
-                    carry = (torch.as_tensor(cb).to(self.device, carry[0].dtype),) + tuple(carry[1:])
+                    carry = (self._to_device(torch.as_tensor(cb), carry[0].dtype),) + tuple(carry[1:])
+        timer.finish()
         final = carry[0]
         n_adaptive = carry[5] if adaptive else None
         if adaptive:
@@ -865,6 +893,42 @@ class S2VPipeline:
         if output_type == "latent":
             return final
         return self.postprocess_video(self._decode_timed(final), output_type)
+
+
+class _StepTimer:
+    """The denoise loop's step seconds.  Called after each step, it marks
+    the boundary: on CUDA a timing event on the device's current stream,
+    so the seconds are device seconds between step boundaries, resolved by
+    ``finish()`` after the loop with one sync; on the CPU the host clock."""
+
+    def __init__(self, device: torch.device, times: list):
+        self.device, self.times = device, times
+        self.marks = [self._mark()]
+
+    def _mark(self):
+        if self.device.type != "cuda":
+            return time.perf_counter()
+        event = torch.cuda.Event(enable_timing=True)
+        event.record(torch.cuda.current_stream(self.device))
+        return event
+
+    def __call__(self, _i: int) -> None:
+        self.marks.append(self._mark())
+
+    def finish(self) -> None:
+        if self.device.type == "cuda":
+            with phase("s2v.sync.step_timer"):
+                self.marks[-1].synchronize()
+            self.times[:] = [a.elapsed_time(b) / 1e3 for a, b in zip(self.marks, self.marks[1:])]
+        else:
+            self.times[:] = [b - a for a, b in zip(self.marks, self.marks[1:])]
+
+
+def _frames_to_host(frames: torch.Tensor) -> np.ndarray:
+    """Decoded ``[-1, 1]`` frames as ``[0, 1]`` float32 on the host: the copy
+    (which waits for the decode) and the clip there."""
+    with phase("s2v.decode.to_host"):
+        return denormalize_video(frames.float().cpu().numpy())
 
 
 def _add_base_linears(sd: dict, num_layers: int) -> None:

@@ -112,11 +112,13 @@ def _encode_prompt(pipe, prompt, do_cfg: bool) -> torch.Tensor:
 def _run(pipe, schedule, latents, ref_latents, prompt_embeds, rope, pos_embedding, do_cfg, output_type,
          cond_latents=None):
     """The denoise loop (step seconds in ``pipe.timings``), then the decode."""
+    timer = pipe._step_timer()
     final = denoise(
         pipe.transformer_params, pipe.transformer_cfg, schedule, latents, ref_latents, prompt_embeds, *rope,
         do_cfg=do_cfg, attention_backend=resolve_attention_backend(pipe.attention_backend, pipe.device),
-        step_callback=pipe._step_timer(), pos_embedding=pos_embedding, cond_latents=cond_latents,
+        step_callback=timer, pos_embedding=pos_embedding, cond_latents=cond_latents,
     )
+    timer.finish()
     return final if output_type == "latent" else pipe._decode_timed(final)
 
 

@@ -38,6 +38,7 @@ from s2v_torch.parallel.sharding import (
     transformer_param_specs_like,
 )
 from s2v_torch.schedulers.ddim import add_noise, compute_alphas_cumprod, get_velocity
+from s2v_torch.utils.logging import phase, span_device
 
 
 def cast_floating(tree, dtype: torch.dtype):
@@ -300,27 +301,33 @@ def make_full_train_step(
             return _train_step(params, opt_state, batch, generator, timesteps, noise)
 
     def _train_step(params, opt_state, batch, generator, timesteps, noise):
-        inner, ema = opt_state if ema_decay > 0.0 else (opt_state, None)
         leaves = floating_leaves(params)
         device = leaves[0].device
-        fwd_cfg = replace(cfg, dtype=compute_dtype or leaves[0].dtype)
-        alphas = torch.as_tensor(alphas_np, device=device)
-        backend = resolve_attention_backend(attention_backend, device)
-        for x in leaves:
-            x.requires_grad_(True)
-        try:
-            tree, gather = loss_tree(params)
-            loss = vpred_loss(tree, fwd_cfg, batch, alphas, generator, attention_backend=backend, remat=remat,
-                              compute_dtype=compute_dtype, timesteps=timesteps, noise=noise, param_gather=gather)
-            grads = torch.autograd.grad(loss, leaves)
-        finally:
+        with span_device(device), phase("s2v.train.step"):
+            inner, ema = opt_state if ema_decay > 0.0 else (opt_state, None)
+            fwd_cfg = replace(cfg, dtype=compute_dtype or leaves[0].dtype)
+            with phase("s2v.sync.to_device"):  # the scheduler's table, from the host
+                alphas = torch.as_tensor(alphas_np, device=device)
+            backend = resolve_attention_backend(attention_backend, device)
             for x in leaves:
-                x.requires_grad_(False)
-        tx.step(leaves, grads, inner)
-        if ema is not None and inner.get("mini_step", 0) == 0:
-            with torch.no_grad():
-                for e, w in zip(floating_leaves(ema), leaves):
-                    e.copy_(e * ema_decay + w.to(e.dtype) * (1.0 - ema_decay))
-        return params, ((inner, ema) if ema is not None else inner), loss.detach()
+                x.requires_grad_(True)
+            try:
+                with phase("s2v.train.forward"):
+                    tree, gather = loss_tree(params)
+                    loss = vpred_loss(tree, fwd_cfg, batch, alphas, generator, attention_backend=backend,
+                                      remat=remat, compute_dtype=compute_dtype, timesteps=timesteps, noise=noise,
+                                      param_gather=gather)
+                with phase("s2v.train.backward"):  # remat's recompute runs in here
+                    grads = torch.autograd.grad(loss, leaves)
+            finally:
+                for x in leaves:
+                    x.requires_grad_(False)
+            with phase("s2v.train.optimizer"):
+                tx.step(leaves, grads, inner)
+                if ema is not None and inner.get("mini_step", 0) == 0:
+                    with torch.no_grad():
+                        for e, w in zip(floating_leaves(ema), leaves):
+                            e.copy_(e * ema_decay + w.to(e.dtype) * (1.0 - ema_decay))
+            return params, ((inner, ema) if ema is not None else inner), loss.detach()
 
     return prepare, init_opt_state, train_step

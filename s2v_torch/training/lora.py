@@ -49,6 +49,7 @@ from s2v_torch.parallel.context import data_parallel, sum_grads, tensor_parallel
 from s2v_torch.parallel.sharding import ParamGather, take_slice, tp_leaf_placement
 from s2v_torch.schedulers.ddim import compute_alphas_cumprod
 from s2v_torch.training.optim import OptimizerSpec, make_optimizer
+from s2v_torch.utils.logging import phase, span_device
 
 # target -> (where its weight lives, whether it is per layer)
 _TARGETS = {
@@ -263,20 +264,24 @@ def make_lora_train_step(
         return tx.init(lora_leaves(lora_params))
 
     def train_step(lora_params, opt_state, batch, generator=None, timesteps=None, noise=None):
-        gather = None
-        if base_specs is not None:
-            dp = data_parallel()
-            if dp is None:
-                raise ValueError("a base sharded over data (base_specs) needs a mesh context with a data dim")
-            gather = ParamGather(base_specs, dp)
-        leaves = lora_leaves(lora_params)
-        for t in leaves:
-            t.requires_grad_(True)
-        loss = lora_loss_fn(lora_params, base_params, cfg, spec, batch, alphas, generator, backend, remat,
-                            timesteps=timesteps, noise=noise, param_gather=gather)
-        grads = torch.autograd.grad(loss, leaves)
-        tx.step([t.detach() for t in leaves], grads, opt_state)
-        return lora_params, opt_state, loss.detach()
+        with span_device(device), phase("s2v.train.step"):
+            gather = None
+            if base_specs is not None:
+                dp = data_parallel()
+                if dp is None:
+                    raise ValueError("a base sharded over data (base_specs) needs a mesh context with a data dim")
+                gather = ParamGather(base_specs, dp)
+            leaves = lora_leaves(lora_params)
+            for t in leaves:
+                t.requires_grad_(True)
+            with phase("s2v.train.forward"):
+                loss = lora_loss_fn(lora_params, base_params, cfg, spec, batch, alphas, generator, backend, remat,
+                                    timesteps=timesteps, noise=noise, param_gather=gather)
+            with phase("s2v.train.backward"):  # remat's recompute runs in here
+                grads = torch.autograd.grad(loss, leaves)
+            with phase("s2v.train.optimizer"):
+                tx.step([t.detach() for t in leaves], grads, opt_state)
+            return lora_params, opt_state, loss.detach()
 
     return init_opt_state, train_step
 
