@@ -88,6 +88,13 @@ Phases, each printing one JSON line:
       int8_widths — the int8 linears at widths that are not multiples of 8
                 (20 -> 36, 7 -> 13): the card's padded int32 products equal
                 to the CPU's bit for bit;
+      kernel_qk_norm_rope — the q/k LayerNorms and RoPE kernel (the port's
+                own; no Pallas counterpart) against the emulation of its
+                arithmetic and the plain chain: small ragged shapes on
+                strided qkv views, then the 5b shape (bf16, the segmented
+                tables) and the 2b shape (fp16, no tables), timed over 10
+                launches beside the bound (q and k read and written once at
+                3.35 TB/s) and the plain chain;
       ring_past_frames — B6/B7 in bf16 on the shards of a 4-rank ring over
                 2 latent frames (ranks 2-3 dummy only) and over the small
                 geometries' short clips, against their plain versions;
@@ -458,11 +465,12 @@ def phase_build():
     from s2v_torch.kernels.flash_attention import SOURCE as FLASH_SRC
     from s2v_torch.kernels.flash_attention_bwd import SOURCE as FLASH_BWD_SRC
     from s2v_torch.kernels.int8_attention import SOURCE as INT8_SRC
+    from s2v_torch.kernels.qk_norm_rope import SOURCE as QK_SRC
     from s2v_torch.utils import native_build
     from s2v_torch.utils.sp_native import SOURCE as SP_SRC
 
     t0 = time.perf_counter()
-    kernels = (FLASH_SRC, FLASH_BWD_SRC, BANDED_SRC, BANDED_BWD_SRC, INT8_SRC, F32_SRC, F32_BWD_SRC)
+    kernels = (FLASH_SRC, FLASH_BWD_SRC, BANDED_SRC, BANDED_BWD_SRC, INT8_SRC, F32_SRC, F32_BWD_SRC, QK_SRC)
     results = native_build.build([*kernels, SP_SRC])
     # per kernel: its registers, spills and shared memory
     ptxas = {src.stem: [ln.strip() for ln in results[src.stem]["log"].splitlines()
@@ -2042,6 +2050,86 @@ def phase_reference(dev):
     emit(result)
 
 
+def phase_kernel_qk_norm_rope(dev):
+    """The q/k LayerNorms and RoPE kernel (``kernels/qk_norm_rope.py``)
+    against the emulation of its arithmetic and the plain chain, within the
+    bf16/fp16 limits: small shapes (heads below, at and past its 4-head
+    items; bf16 and fp16; with tables and without; the norm params in the
+    storage type, and in fp32, which the wrapper rounds to it as the plain
+    chain does) on strided views of a fused qkv output, then
+    the 5b shape (bf16 [2, 19126, 48, 64], the segmented tables of a
+    49x480x720 clip) and the 2b shape (fp16 [2, 19126, 30, 64], no tables),
+    each timed over 10 launches beside its bound (q and k read once and
+    written once, and the tables, at 3.35 TB/s) and the plain chain over 2
+    calls."""
+    import torch
+
+    from s2v_torch.config import TransformerConfig
+    from s2v_torch.kernels.qk_norm_rope import qk_norm_rope, qk_norm_rope_emulated, qk_norm_rope_reference
+    from s2v_torch.ops.rope import build_segmented_rope, prepare_video_and_ref_rope
+
+    eps = TransformerConfig().qk_norm_eps
+
+    def tables(height, width, frames, text_len):
+        vc, vs, rc, rs = prepare_video_and_ref_rope(height, width, frames, 64)
+        return build_segmented_rope(text_len, rc, rs, vc, vs, device=dev)
+
+    def inputs(b, s, h, dtype, seed, params_dtype=None):
+        # q and k as the DiT has them: views of one fused qkv output, rows with a nonzero mean
+        g = torch.Generator(device=dev).manual_seed(seed)
+        qkv = torch.randn(b, s, 3 * h * 64, device=dev, generator=g) * 2 + torch.randn(b, s, 1, device=dev,
+                                                                                       generator=g)
+        q, k, _ = qkv.to(dtype).chunk(3, dim=-1)
+        pd = params_dtype or dtype
+        norms = tuple({"weight": (1 + 0.1 * torch.randn(64, device=dev, generator=g)).to(pd),
+                       "bias": (0.02 * torch.randn(64, device=dev, generator=g)).to(pd)} for _ in range(2))
+        return q.reshape(b, s, h, 64), k.reshape(b, s, h, 64), norms
+
+    def compare(q, k, norms, rope, what):
+        before = qk_norm_rope.launches
+        got = qk_norm_rope(q, k, *norms, eps, *rope)
+        if qk_norm_rope.launches != before + 1:
+            raise AssertionError(f"{what}: the kernel did not launch")
+        emulated = qk_norm_rope_emulated(q, k, *norms, eps, *rope)
+        plain = qk_norm_rope_reference(q, k, *norms, eps, *rope)
+        return {name: {"emulated": _compact(_agreement(g, e, f"{what} {name} against the emulation")),
+                       "plain": _compact(_agreement(g, p, f"{what} {name} against the plain chain"))}
+                for name, g, e, p in zip("qk", got, emulated, plain)}
+
+    small = []
+    for (b, h, geo) in [(1, 3, (32, 32, 3, 5)), (2, 13, (64, 96, 4, 17)), (1, 48, (48, 64, 2, 226))]:
+        rope = tables(*geo)
+        for dtype in (torch.bfloat16, torch.float16):
+            for with_rope in (True, False):
+                q, k, norms = inputs(b, rope[0].shape[0], h, dtype, b + h)
+                what = f"qk_norm_rope {tuple(q.shape)} {dtype} rope={with_rope}"
+                small.append({"shape": list(q.shape), "dtype": str(dtype).replace("torch.", ""), "rope": with_rope,
+                              **compare(q, k, norms, rope if with_rope else (None, None), what)})
+    q, k, norms = inputs(2, 137, 13, torch.bfloat16, 5, params_dtype=torch.float32)
+    small.append({"shape": list(q.shape), "dtype": "bfloat16", "rope": True, "params": "float32",
+                  **compare(q, k, norms, tables(64, 96, 4, 17), "qk_norm_rope fp32 params")})
+    emit({"phase": "kernel_qk_norm_rope_small", "cases": small})
+
+    main = {}
+    for model, (b, s, h, d), dtype, rope in (("5b", MAIN_SHAPE, torch.bfloat16, tables(480, 720, 13, 226)),
+                                             ("2b", SHAPES_2B["s2v"], torch.float16, (None, None))):
+        q, k, norms = inputs(b, s, h, dtype, 7)
+        stats = compare(q, k, norms, rope, f"qk_norm_rope {model}")
+        ms = cuda_ms(lambda: qk_norm_rope(q, k, *norms, eps, *rope), 10)
+        plain_ms = cuda_ms(lambda: qk_norm_rope_reference(q, k, *norms, eps, *rope), 2)
+        # q and k read once and written once, the tables read once
+        nbytes = 4 * q.numel() * q.element_size() + sum(t.numel() * 4 for t in rope if t is not None)
+        bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+        main[model] = {"shape": [b, s, h, d], "dtype": str(dtype).replace("torch.", ""), "rope": rope[0] is not None,
+                       **stats, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+                       "bytes": nbytes, "tb_per_s": nbytes / ms / 1e9, "bound_share": bound_ms / ms}
+        del q, k
+    result = {"phase": "kernel_qk_norm_rope", "main": main, "launches": qk_norm_rope.launches,
+              "launches_by_dtype": dict(qk_norm_rope.launches_by_dtype)}
+    emit(result)
+    return result
+
+
 COUNTED = ("flash_attention", "flash_attention_bwd", "banded_flash_attention", "banded_flash_attention_bwd",
            "flash_attention_qk_int8", "banded_flash_attention_local", "banded_flash_attention_local_bwd")
 
@@ -2060,19 +2148,29 @@ def _counted_fns():
 
 def reset_counts():
     """Every kernel's launch count (and B1's online re-runs, B3's pre-pass
-    launches) set to 0."""
+    launches, the q/k norm kernel's plain calls) set to 0."""
+    from s2v_torch.kernels.qk_norm_rope import qk_norm_rope
+
     fns = _counted_fns()
-    for fn in fns.values():
+    for fn in (*fns.values(), qk_norm_rope):
         fn.launches = 0
         fn.launches_by_dtype = {}
+    qk_norm_rope.plain_calls = 0
     fns["flash_attention"].launches_by_batch = {}
     fns["flash_attention"].reruns = 0
     fns["flash_attention_qk_int8"].prepass_launches = 0
 
 
 def read_counts() -> dict:
+    """The attention kernels' counts, and the q/k norm kernel's launches and
+    the calls that took its plain chain (outside ``COUNTED``: it is no
+    attention backend, and each generate checks it on its own)."""
+    from s2v_torch.kernels.qk_norm_rope import qk_norm_rope
+
     fns = _counted_fns()
     return {**{name: fn.launches for name, fn in fns.items()}, "reruns": fns["flash_attention"].reruns,
+            "qk_norm_rope": qk_norm_rope.launches, "qk_norm_rope_plain": qk_norm_rope.plain_calls,
+            "qk_norm_rope_by_dtype": dict(qk_norm_rope.launches_by_dtype),
             "flash_attention_qk_int8_prepass": fns["flash_attention_qk_int8"].prepass_launches,
             "flash_attention_by_batch": {str(b): n for b, n in fns["flash_attention"].launches_by_batch.items()},
             **{f"{name}_by_dtype": dict(fn.launches_by_dtype) for name, fn in fns.items()}}
@@ -2171,6 +2269,9 @@ def phase_e2e(dev, pipe, backend="flash", window=2, num_frames=49, name=None, ex
     if not check_counts(counts, backend, 2 * tcfg.num_layers, 0):
         raise AssertionError(f"{backend} generate launches {counts}; expected {2 * tcfg.num_layers} per "
                              f"forward kernel and no backward")
+    if counts["qk_norm_rope"] != 2 * tcfg.num_layers or counts["qk_norm_rope_plain"]:
+        raise AssertionError(f"{backend} generate: qk_norm_rope launches {counts['qk_norm_rope']} and plain calls "
+                             f"{counts['qk_norm_rope_plain']}; expected {2 * tcfg.num_layers} and 0")
     emit({"phase": name or ("e2e" if backend == "flash" else f"e2e_{backend}"), "backend": backend, **(extra or {}),
           "window": window if backend in ("windowed", "sp_windowed") else None, "num_frames": num_frames, "steps": 2,
           "output_shape": list(video.shape), "launches": counts,
@@ -2361,6 +2462,8 @@ def phase_train(dev, pipe, backend="flash", steps=3, name=None, extra=None):
         # forward kernels: the forward and the remat recompute of each block; backward: one per block
         if not check_counts(c, backend, 2 * L, L):
             problems.append(f"step {i} launches {c}")
+        if c["qk_norm_rope"]:  # q and k need gradients: the plain chain
+            problems.append(f"step {i} launched qk_norm_rope {c['qk_norm_rope']} times")
     if r["export_keys"] != 2 * (7 * L + 2):
         problems.append(f"export keys {r['export_keys']}")
     if problems:
@@ -3335,6 +3438,9 @@ def _variant_clip(name, pipe, fn, steps_run, shape, *args, **kw):
     if cuda and (not check_counts(counts, "flash", steps_run * layers, 0) or counts["flash_attention_by_dtype"] != {
             dtype: steps_run * layers + counts["reruns"]}):
         raise AssertionError(f"{name}: launches {counts}; expected {steps_run * layers} B1 ({dtype})")
+    if cuda and (counts["qk_norm_rope_by_dtype"] != {dtype: steps_run * layers} or counts["qk_norm_rope_plain"]):
+        raise AssertionError(f"{name}: qk_norm_rope launches {counts['qk_norm_rope_by_dtype']}, plain calls "
+                             f"{counts['qk_norm_rope_plain']}; expected {steps_run * layers} ({dtype}) and 0")
     if len(pipe.timings["denoise_step_s"]) != steps_run:
         raise AssertionError(f"{name}: ran {len(pipe.timings['denoise_step_s'])} steps, expected {steps_run}")
     t = pipe.timings
@@ -3487,8 +3593,8 @@ def phase_e2e_2b(dev, pipe, backend="flash", height=480, width=720, num_frames=4
     for run in runs:
         for dtype, n in run["flash_attention_by_dtype"].items():
             by_dtype[dtype] = by_dtype.get(dtype, 0) + n
-    return {**{k: sum(run[k] for run in runs) for k in COUNTED}, "flash_attention_by_dtype": by_dtype,
-            "opt_ins": out["opt_ins"]}
+    return {**{k: sum(run[k] for run in runs) for k in COUNTED + ("qk_norm_rope",)},
+            "flash_attention_by_dtype": by_dtype, "opt_ins": out["opt_ins"]}
 
 
 def _opt_in_steps_2b(dev, pipe, prompt, image, size):
@@ -5424,7 +5530,7 @@ PHASES = ("build", "kernel", "kernel_bwd", "kernel_fp16", "kernel_bwd_fp16", "ke
           "kernel_banded_local_bwd", "kernel_int8", "kernel_int8_fp16", "kernel_banded_fp16", "kernel_banded_bwd_fp16",
           "kernel_banded_local_fp16", "kernel_banded_local_bwd_fp16", "kernel_fp32", "kernel_bwd_fp32",
           "kernel_banded_fp32", "kernel_banded_bwd_fp32", "kernel_banded_local_fp32", "kernel_banded_local_bwd_fp32",
-          "kernel_int8_fp32", "int8_widths", "ring_past_frames", "reference", "chunked", "e2e", "e2e_windowed", "e2e_sp_windowed",
+          "kernel_int8_fp32", "int8_widths", "kernel_qk_norm_rope", "ring_past_frames", "reference", "chunked", "e2e", "e2e_windowed", "e2e_sp_windowed",
           "e2e_sp_allgather", "e2e_sp_backends", "e2e_int8", "e2e_mesh", "e2e_mesh_int8", "e2e_options", "turbo",
           "train", "train_windowed", "train_sp_windowed", "train_sp_backends", "train_lora_mesh", "train_qlora",
           "e2e_fp32", "train_fp32", "train_full_5b_fsdp", "variants", "train_remat", "pretrained", "serve", "cli_mesh", "serve_mesh",
@@ -5443,6 +5549,7 @@ KERNEL_PHASES = {"kernel": phase_kernel, "kernel_bwd": phase_kernel_bwd, "kernel
                  "kernel_banded_local_fp32": phase_kernel_banded_local_fp32,
                  "kernel_banded_local_bwd_fp32": phase_kernel_banded_local_bwd_fp32,
                  "kernel_int8_fp32": phase_kernel_int8_fp32, "int8_widths": phase_int8_widths,
+                 "kernel_qk_norm_rope": phase_kernel_qk_norm_rope,
                  "ring_past_frames": phase_ring_past_frames,
                  "reference": phase_reference, "chunked": phase_chunked}
 # the pipeline phases: the backend each runs
@@ -5749,7 +5856,37 @@ def kernels_line(results):
         "q_shape": [TRAIN_SHAPE[0], TRAIN_SHAPE[1] - BAND[0], *TRAIN_SHAPE[2:]],
         "shape": list(TRAIN_SHAPE),
         "band": list(BAND),
-    }, *_fp16_rows(results, common), *_fp32_rows(results, common)]
+    }, _qk_norm_rope_row(results, common), *_fp16_rows(results, common), *_fp32_rows(results, common)]
+
+
+def _qk_norm_rope_row(results, common):
+    """The kernels line's row of the q/k LayerNorms and RoPE kernel: the
+    port's own, with no Pallas counterpart; its launches on the 5b and 2b
+    generate paths (42 and 30 a step at full depth), none on the LoRA
+    step, and its times at both shapes beside the bound."""
+    qk = results["kernel_qk_norm_rope"]
+    main = qk["main"]
+    return {
+        **common,
+        "name": "qk_norm_rope",
+        "source": "s2v_torch/csrc/qk_norm_rope.cu",
+        "headers": ["s2v_torch/csrc/hopper.cuh"],
+        "replaces": None,
+        "replaces_note": "no Pallas kernel: the JAX package leaves the q/k norms and RoPE to XLA",
+        "launches": results["e2e"]["qk_norm_rope"],
+        "launches_e2e_2b": results["e2e_2b"]["qk_norm_rope"],
+        "launches_train": sum(c["qk_norm_rope"] for c in results["train"]["launches"]),
+        "max_abs_err": max(main[m][t][ref]["max_abs_err"] for m in main for t in "qk" for ref in ("emulated", "plain")),
+        "rel_l2": max(main[m][t][ref]["rel_l2"] for m in main for t in "qk" for ref in ("emulated", "plain")),
+        **{f"ms_{m}": main[m]["ms"] for m in main},
+        **{f"bound_ms_{m}": main[m]["bound_ms"] for m in main},
+        **{f"plain_ms_{m}": main[m]["plain_ms"] for m in main},
+        "bound_by": "bytes",
+        "library_ms": None,
+        "library_note": "no PyTorch call computes the q/k norms and RoPE together",
+        "shape": list(MAIN_SHAPE),
+        "shape_2b": list(SHAPES_2B["s2v"]),
+    }
 
 
 def _fp32_rows(results, common):

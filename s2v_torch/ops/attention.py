@@ -54,9 +54,8 @@ from s2v_torch.kernels.banded_attention_bwd import banded_flash_attention_bwd
 from s2v_torch.kernels.flash_attention import flash_attention, flash_attention_reference
 from s2v_torch.kernels.flash_attention_bwd import flash_attention_bwd
 from s2v_torch.kernels.int8_attention import flash_attention_qk_int8
-from s2v_torch.ops.norms import layer_norm
+from s2v_torch.kernels.qk_norm_rope import qk_norm_rope
 from s2v_torch.ops.quant import dense
-from s2v_torch.ops.rope import apply_rotary_emb
 from s2v_torch.ops.windowed_attention import windowed_attention
 from s2v_torch.parallel.context import FrameShard, seq_group
 from s2v_torch.parallel.ring_attention import ring_attention_trainable
@@ -317,7 +316,9 @@ def joint_attention(
     tp=None,
 ) -> torch.Tensor:
     """Full-sequence self attention: fused qkv, fp32-statistics qk-LayerNorm,
-    segmented RoPE (``[S, d/2]`` tables, or None), attention, output linear.
+    segmented RoPE (``[S, d/2]`` tables, or None; the two in one kernel on
+    the card without autograd, ``kernels/qk_norm_rope.py``), attention,
+    output linear.
     A windowed backend needs ``window``; a sequence-parallel one ``shard``,
     this rank's frames, ``x`` being its rows ``[text | ref | its frames]``.
 
@@ -342,11 +343,7 @@ def joint_attention(
     fp16_in = q.dtype == torch.float16 and not (
         backend in FP16_KERNEL_BACKENDS or (q.is_cuda and backend in CARD_FP16_BACKENDS))
     with phase("s2v.qk_rope"):
-        q = layer_norm(q, norm_q["weight"], norm_q["bias"], qk_norm_eps)
-        k = layer_norm(k, norm_k["weight"], norm_k["bias"], qk_norm_eps)
-        if rope_cos is not None:
-            q = apply_rotary_emb(q, rope_cos[:, None, :], rope_sin[:, None, :])
-            k = apply_rotary_emb(k, rope_cos[:, None, :], rope_sin[:, None, :])
+        q, k = qk_norm_rope(q, k, norm_q, norm_k, qk_norm_eps, rope_cos, rope_sin)
         if fp16_in:
             q, k, v = (t.float() for t in (q, k, v))
     with phase("s2v.attention"):
