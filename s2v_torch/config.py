@@ -7,7 +7,7 @@ from __future__ import annotations
 import dataclasses
 import json
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -42,6 +42,11 @@ class TransformerConfig:
     sample_height: int = 60
     sample_frames: int = 49
     patch_size: int = 2
+    # latent frames per token (CogVideoX1.5: 2, tokens are 2x2x2 patches over
+    # time, height and width); None: one latent frame per token grid
+    patch_size_t: Optional[int] = None
+    # the patch embedding's bias (CogVideoX1.5: False)
+    patch_bias: bool = True
     temporal_compression_ratio: int = 4
     max_text_seq_length: int = 226
     norm_eps: float = 1e-5
@@ -88,6 +93,22 @@ class TransformerConfig:
         )
         base.update(overrides)
         return cls(**base)
+
+    @classmethod
+    def cogvideox1_5_5b(cls, **overrides) -> "TransformerConfig":
+        """CogVideoX1.5-5B: the 5b's widths with 2x2x2 patches (``patch_size_t``
+        2, no patch bias) and the RoPE's integer grid of at most
+        ``sample_height/p`` x ``sample_width/p`` = 150 x 150 patches."""
+        base = dict(patch_size_t=2, patch_bias=False, sample_frames=81, sample_height=300, sample_width=300)
+        base.update(overrides)
+        return cls(**base)
+
+    def require_frame_patches(self, what: str) -> None:
+        """Raise, naming ``what``, for a path that has no temporal patches yet."""
+        if self.patch_size_t is not None:
+            raise NotImplementedError(
+                f"{what} does not take temporal patches (patch_size_t={self.patch_size_t}, CogVideoX1.5) yet; "
+                f"generate on one card with the flash, plain or chunked attention backend")
 
     @classmethod
     def tiny(cls, **overrides) -> "TransformerConfig":

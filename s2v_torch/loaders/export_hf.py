@@ -2,7 +2,8 @@
 ``s2v_tpu/loaders/export_hf.py``): the inverses of ``loaders/hf.py``.
 
 The fused ``qkv`` splits back into ``to_q``/``to_k``/``to_v``, the
-patch-embedding matmul weight back into its ``[D, C, p, p]`` conv, and the
+patch-embedding matmul weight back into its ``[D, C, p, p]`` conv (CogVideoX1.5's
+Linear stays as it is), and the
 nested trees back into diffusers (transformer, VAE) and transformers (T5)
 keys.  ``save_pipeline_snapshot`` writes a diffusers-layout snapshot that
 the port's and the JAX package's ``from_pretrained`` both load.  The state
@@ -63,8 +64,12 @@ def transformer_state_dict(params, cfg: TransformerConfig) -> dict:
     sd: dict = {}
     p, d = cfg.patch_size, cfg.inner_dim
     proj = params["patch_embed"]["proj"]
-    sd["patch_embed.proj.weight"] = proj["weight"].reshape(d, p, p, cfg.in_channels).permute(0, 3, 1, 2)
-    sd["patch_embed.proj.bias"] = proj["bias"]
+    if cfg.patch_size_t is None:
+        sd["patch_embed.proj.weight"] = proj["weight"].reshape(d, p, p, cfg.in_channels).permute(0, 3, 1, 2)
+    else:  # CogVideoX1.5's Linear, in its own layout
+        sd["patch_embed.proj.weight"] = proj["weight"]
+    if "bias" in proj:
+        sd["patch_embed.proj.bias"] = proj["bias"]
     _wb(sd, "patch_embed.text_proj", params["patch_embed"]["text_proj"])
     _wb(sd, "time_embedding.linear_1", params["time_embedding"]["linear_1"])
     _wb(sd, "time_embedding.linear_2", params["time_embedding"]["linear_2"])

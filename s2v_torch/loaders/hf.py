@@ -6,7 +6,10 @@ tensors as they are: ``[out, in]`` linears and channels-first convs.  What
 changes: the key names become nested dicts with one dict per layer, the
 attention's ``to_q``/``to_k``/``to_v`` are fused into one ``qkv`` (rows
 q | k | v), and the patch-embedding conv ``[D, C, p, p]`` becomes the
-space-to-depth matmul weight ``[D, p·p·C]`` (columns ordered ph, pw, c).
+space-to-depth matmul weight ``[D, p·p·C]`` (columns ordered ph, pw, c);
+CogVideoX1.5's patch embedding is a Linear ``[D, C·pₜ·p·p]`` already in the
+port's (c, pₜ, ph, pw) order, taken as it is, with no bias where the
+config's ``patch_bias`` is false.
 The result is the tree ``loaders/jax_params.py`` builds from the JAX
 package's converted params, as CPU tensors in the config's dtype; the
 pipeline moves it to its device in one pass.  No arithmetic happens except
@@ -90,10 +93,17 @@ def convert_transformer_state_dict(
                                   else {k: v.to(dt) for k, v in wb.items()})
         blocks.append(layer)
 
+    if cfg.patch_size_t is None:
+        proj = {"weight": conv_w.permute(0, 2, 3, 1).reshape(d, -1).to(dt)}
+    else:  # CogVideoX1.5: a Linear [D, C·pₜ·p·p], features (c, pₜ, ph, pw) as the port's patchify takes them
+        proj = {"weight": conv_w.to(dt)}
+    if "patch_embed.proj.bias" in sd:
+        proj["bias"] = sd["patch_embed.proj.bias"].to(dt)
+    elif cfg.patch_bias:
+        raise KeyError("patch_embed.proj.bias: the config's patch_bias is true")
     return {
         "patch_embed": {
-            "proj": {"weight": conv_w.permute(0, 2, 3, 1).reshape(d, -1).to(dt),
-                     "bias": sd["patch_embed.proj.bias"].to(dt)},
+            "proj": proj,
             "text_proj": _wb(sd, "patch_embed.text_proj", dt),
         },
         "time_embedding": {

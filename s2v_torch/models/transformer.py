@@ -280,6 +280,13 @@ def transformer_forward(
 ) -> torch.Tensor:
     """Predict the denoising target ``[B, F, H, W, out_channels]``.
 
+    With ``cfg.patch_size_t`` (CogVideoX1.5) a token is a 2x2x2 patch over
+    (time, height, width): the latent frames must be a multiple of it (the
+    pipeline pads them), a one-frame ``ref_latents`` is repeated into one
+    temporal patch, and the RoPE tables are those of the temporal patches
+    (``S2VPipeline.prepare_rope``); only one card and the exact backends take
+    it (:func:`_check_frame_patches` raises for the others).
+
     ``pos_embedding`` (a model without RoPE, the 2b family) is added over
     ``[text | video]`` after the patch embedding; the ref stream gets none
     (``s2v_tpu/models/transformer.py:439-444``).
@@ -320,6 +327,9 @@ def transformer_forward(
     the block (so a remat recompute gathers again), it returns them whole
     over ``data``."""
     tp, dp = tensor_parallel(), data_parallel()
+    pt = cfg.patch_size_t
+    if pt is not None:
+        _check_frame_patches(cfg, attention_backend, tp, dp, param_gather)
     rows = video_latents.shape[0]
     if dp is not None:
         # without a gradient, rows the dim does not divide are padded with
@@ -355,11 +365,16 @@ def transformer_forward(
 
     pe = params["patch_embed"]
     text = dense(pe["text_proj"], text_embeds.to(dt))
-    video = patchify_video(video_latents.to(dt), pe["proj"]["weight"], pe["proj"]["bias"], p)
-    if ref_latents is None:
-        ref = video[:, :0]
-    else:
-        ref = patchify_video(ref_latents.to(dt), pe["proj"]["weight"], pe["proj"]["bias"], p)
+    proj_w, proj_b = pe["proj"]["weight"], pe["proj"].get("bias")
+    with phase("s2v.patch_embed"):
+        video = patchify_video(video_latents.to(dt), proj_w, proj_b, p, pt)
+        if ref_latents is None:
+            ref = video[:, :0]
+        else:
+            if pt is not None and ref_latents.shape[1] == 1:
+                # the subject's latent frame repeated into one temporal patch
+                ref_latents = ref_latents.expand(-1, pt, -1, -1, -1)
+            ref = patchify_video(ref_latents.to(dt), proj_w, proj_b, p, pt)
     if pos_embedding is not None and not cfg.use_rotary_positional_embeddings:
         t_len = text.shape[1]
         joint = torch.cat([text, video], dim=1) + pos_embedding.to(device=video.device, dtype=dt)[None]
@@ -399,12 +414,36 @@ def transformer_forward(
                        params["norm_final"]["bias"], cfg.norm_eps)
     video = joint[:, text.shape[1]:]
     video = ada_layer_norm_out(params["norm_out"], video, temb, cfg.norm_eps)
-    video = dense(params["proj_out"], video)
-    if shard is not None and shard.ring > 1:
-        video = gather_video(video, shard)
-    if dp is not None:
-        video = gather_rows_over(video, dp)[:rows]
-    return unpatchify_video(video, f, h, w, p, cfg.out_channels)
+    with phase("s2v.unpatchify"):  # across cards with the gathers of the video rows
+        video = dense(params["proj_out"], video)
+        if shard is not None and shard.ring > 1:
+            video = gather_video(video, shard)
+        if dp is not None:
+            video = gather_rows_over(video, dp)[:rows]
+        return unpatchify_video(video, f, h, w, p, cfg.out_channels, pt)
+
+
+def token_grid(cfg: TransformerConfig, latent_frames: int, latent_h: int, latent_w: int) -> Tuple[int, int]:
+    """(temporal patches, tokens per temporal patch) of a clip's latents: one
+    patch per latent frame without ``patch_size_t``."""
+    per = (latent_h // cfg.patch_size) * (latent_w // cfg.patch_size)
+    return latent_frames // (cfg.patch_size_t or 1), per
+
+
+# the backends that take no temporal patches: the windowed and sequence-parallel
+# ones split the video by latent frames, B3 is untried with them
+FRAME_BACKENDS = WINDOWED_BACKENDS + SEQ_BACKENDS + ("flash_int8",)
+
+
+def _check_frame_patches(cfg: TransformerConfig, attention_backend: str, tp, dp, param_gather) -> None:
+    """Temporal patches run on one card through the exact backends only
+    (not :data:`FRAME_BACKENDS`, no mesh dim, no FSDP gather)."""
+    if attention_backend in FRAME_BACKENDS:
+        cfg.require_frame_patches(f"the {attention_backend!r} attention backend")
+    if tp is not None or dp is not None or active_seq_ring() > 1:
+        cfg.require_frame_patches("a mesh (data, seq or model dim)")
+    if param_gather is not None:
+        cfg.require_frame_patches("FSDP's parameter gather")
 
 
 def _grad_flows(params, *inputs) -> bool:
@@ -476,7 +515,7 @@ def init_transformer_params_random(
     gen = None if meta else torch.Generator(device=device).manual_seed(seed)
     dt = cfg.dtype
     d, td, hd = cfg.inner_dim, cfg.time_embed_dim, cfg.attention_head_dim
-    pp = cfg.patch_size ** 2
+    pp = cfg.patch_size ** 2 * (cfg.patch_size_t or 1)
 
     def lin(out_dim, in_dim):
         w = torch.empty((out_dim, in_dim), dtype=dt, device=device)
@@ -496,8 +535,11 @@ def init_transformer_params_random(
         }
         for _ in range(cfg.num_layers)
     ]
+    proj = lin(d, pp * cfg.in_channels)
+    if not cfg.patch_bias:
+        del proj["bias"]
     return {
-        "patch_embed": {"proj": lin(d, pp * cfg.in_channels), "text_proj": lin(d, cfg.text_embed_dim)},
+        "patch_embed": {"proj": proj, "text_proj": lin(d, cfg.text_embed_dim)},
         "time_embedding": {"linear_1": lin(td, d), "linear_2": lin(td, td)},
         "blocks": blocks,
         "norm_final": norm(d),

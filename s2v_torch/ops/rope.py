@@ -91,6 +91,33 @@ def prepare_video_and_ref_rope(
     return cos[tpf:], sin[tpf:], cos[:tpf], sin[:tpf]
 
 
+def prepare_video_and_ref_rope_patches(
+    height: int,
+    width: int,
+    num_latent_frames: int,
+    attention_head_dim: int,
+    patch_size: int,
+    patch_size_t: int,
+    max_grid: Tuple[int, int],
+    vae_spatial_ratio: int = 8,
+):
+    """(video_cos, video_sin, ref_cos, ref_sin) of temporal patches
+    (CogVideoX1.5, diffusers' ``grid_type="slice"``): the integer positions
+    of the token grid, with no resize onto a base grid, sliced from a table
+    of at most ``max_grid`` (h, w) patches; the subject's temporal patch is
+    t = 0, the video's ``num_latent_frames / patch_size_t`` patches
+    1..F/pₜ."""
+    grid_h = height // (vae_spatial_ratio * patch_size)
+    grid_w = width // (vae_spatial_ratio * patch_size)
+    if grid_h > max_grid[0] or grid_w > max_grid[1]:
+        raise ValueError(f"a {grid_h} x {grid_w} token grid exceeds the RoPE table's {max_grid[0]} x {max_grid[1]} "
+                         f"(sample_height, sample_width over patch_size)")
+    patches = num_latent_frames // patch_size_t
+    cos, sin = get_3d_rotary_pos_embed(attention_head_dim, ((0, 0), (grid_h, grid_w)), (grid_h, grid_w), patches + 1)
+    tpf = grid_h * grid_w
+    return cos[tpf:], sin[tpf:], cos[:tpf], sin[:tpf]
+
+
 def build_segmented_rope(
     text_len: int,
     ref_cos: np.ndarray,

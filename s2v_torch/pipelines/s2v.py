@@ -15,6 +15,16 @@ table for a model without RoPE (the 2b family, ``prepare_pos_embedding``).
 ``pipelines/variants.py`` holds t2v, i2v, fun-control and v2v on the same
 components.
 
+CogVideoX1.5 (``TransformerConfig.patch_size_t``): tokens are 2x2x2 patches
+over (time, height, width).  ``generate`` draws (or takes) the latents at the
+frame count padded to a multiple of ``patch_size_t`` (81 frames: 21 latent
+frames padded to 22), as diffusers' ``CogVideoXPipeline`` does, returns them
+padded as ``latent`` output and drops the leading padding frames only on the
+way to the decode; the RoPE table is the integer grid of the temporal patches
+(``prepare_rope``).  Such a model generates on one card through the exact
+attention backends: a mesh, int8 linears, the windowed, sequence-parallel
+and int8 backends, the variants and the trainers raise on it.
+
 Subject adapters: ``load_lora(path)`` re-merges the base weights with
 another checkpoint, ``load_lora(path, mode="runtime")`` attaches its
 low-rank factors instead (the DiT applies them per layer); ``None``
@@ -62,10 +72,10 @@ from s2v_torch.loaders.lora import load_and_merge_lora, load_runtime_lora
 from s2v_torch.loaders.resolve import resolve_model_dir
 from s2v_torch.loaders.safetensors_io import load_sharded_safetensors
 from s2v_torch.models.t5 import t5_encode
-from s2v_torch.models.transformer import RUNTIME_LORA_KEY
+from s2v_torch.models.transformer import FRAME_BACKENDS, RUNTIME_LORA_KEY, token_grid
 from s2v_torch.models.vae import gaussian_sample, vae_decode, vae_encode
 from s2v_torch.ops.attention import WINDOWED_BACKENDS, resolve_attention_backend, route_seq_backend
-from s2v_torch.ops.rope import build_segmented_rope, prepare_video_and_ref_rope
+from s2v_torch.ops.rope import build_segmented_rope, prepare_video_and_ref_rope, prepare_video_and_ref_rope_patches
 from s2v_torch.ops.sincos import joint_text_video_pos_embedding
 from s2v_torch.parallel.context import default_logical_map, mesh_context
 from s2v_torch.pipelines.denoise import (
@@ -76,7 +86,7 @@ from s2v_torch.pipelines.denoise import (
     make_segmented_denoise,
 )
 from s2v_torch.utils.device import resolve_device
-from s2v_torch.utils.logging import get_logger, phase, span_device
+from s2v_torch.utils.logging import get_logger, phase, span_attrs, span_device
 from s2v_torch.utils.video import denormalize_video, load_image, to_uint8_frames
 
 PROMPT_CACHE_SIZE = 32
@@ -157,7 +167,8 @@ class S2VPipeline:
     t5_on_host: bool = False
     # host-clock seconds of the last generate()'s stages, each ended by a device sync
     timings: dict = field(default_factory=dict, repr=False)
-    # counts of the last generate(): steps run, cfg-skipped and adaptive-skipped steps
+    # counts of the last generate(): steps run, cfg-skipped and adaptive-skipped steps, and the
+    # clip's tokens (text, ref, video) and padding latent frames, also attributes of its s2v.prologue span
     stats: dict = field(default_factory=dict, repr=False)
     # the DPM noise source, noise(i, shape, device) -> (n1, n2); None draws
     # from pipelines.denoise.DPMNoise seeded from generate()'s seed
@@ -222,6 +233,8 @@ class S2VPipeline:
         model_dir = resolve_model_dir(model_dir, cache_dir=cache_dir)
 
         t_cfg = TransformerConfig.from_hf_config(os.path.join(model_dir, "transformer", "config.json"), dtype=dtype)
+        if quantize_int8:
+            t_cfg.require_frame_patches("int8 linears (quantize_int8)")
         sd = load_sharded_safetensors(os.path.join(model_dir, "transformer"))
         if disentangled_modulation:
             t_cfg = replace(t_cfg, disentangled_modulation=True)
@@ -386,6 +399,8 @@ class S2VPipeline:
         for the windowed family, the window half-width in latent frames
         (``s2v_tpu/pipelines/s2v.py:142-158``)."""
         backend = resolve_attention_backend(backend, self.device)
+        if backend in FRAME_BACKENDS:
+            self.transformer_cfg.require_frame_patches(f"the {backend!r} attention backend")
         self.attention_backend = backend
         if backend in WINDOWED_BACKENDS and window is not None:
             self.transformer_cfg = replace(self.transformer_cfg, attention_window_frames=window)
@@ -407,6 +422,8 @@ class S2VPipeline:
         them itself).  Slices of an earlier mesh are gathered back first, so
         ``set_mesh(None)`` restores the whole tree.  The runtime-LoRA cache
         goes stale and is cleared."""
+        if mesh is not None and self.transformer_cfg is not None:  # a decode-only pipeline has no DiT
+            self.transformer_cfg.require_frame_patches("a mesh")
         if isinstance(mesh, (str, dict)):
             from s2v_torch.parallel.sharding import make_mesh
 
@@ -540,20 +557,26 @@ class S2VPipeline:
     def encode_ref_image(self, image, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """An image path, or an ``[H, W, 3]`` image in [-1, 1] -> scaled ref
         latents ``[1, 1, h, w, C]``: a posterior sample (noise from the CPU
-        ``generator``) or, without a generator, the posterior mean."""
+        ``generator``) or, without a generator, the posterior mean.  With the
+        VAE's ``invert_scale_latents`` (CogVideoX1.5) the latents are divided
+        by the scaling factor instead of multiplied, the rule of diffusers'
+        ``CogVideoXImageToVideoPipeline.prepare_latents`` for image latents."""
         if isinstance(image, str):
             image = load_image(image)
         x = torch.as_tensor(np.asarray(image, np.float32))[None, None]
         draw = None
         if generator is not None:
             draw = lambda shape: torch.randn(shape, generator=generator, dtype=torch.float32)  # noqa: E731
-        return self.encode_pixels(x, draw)
+        sf = self.vae_cfg.scaling_factor
+        return self.encode_pixels(x, draw, scale=1 / sf if self.vae_cfg.invert_scale_latents else sf)
 
-    def encode_pixels(self, x, draw=None, use_tiling: Optional[bool] = None) -> torch.Tensor:
+    def encode_pixels(self, x, draw=None, use_tiling: Optional[bool] = None,
+                      scale: Optional[float] = None) -> torch.Tensor:
         """Frames ``[B, T, H, W, 3]`` in [-1, 1] -> scaled latents ``[B, F, h,
         w, C]``: a posterior sample whose noise is ``draw(shape)`` (a CPU fp32
-        tensor), or without ``draw`` the posterior mean.  ``use_tiling`` None
-        follows ``vae_tiling``."""
+        tensor), or without ``draw`` the posterior mean, times ``scale``
+        (default: the VAE's scaling factor).  ``use_tiling`` None follows
+        ``vae_tiling``."""
         x = torch.as_tensor(x).to(self.device, self.vae_cfg.dtype)
         if use_tiling is None:
             use_tiling = self._resolve_tiling(x.shape[2], x.shape[3])
@@ -561,16 +584,26 @@ class S2VPipeline:
         noise = None
         if draw is not None:
             noise = draw(tuple(moments.shape[:-1]) + (moments.shape[-1] // 2,)).to(self.device, moments.dtype)
-        return gaussian_sample(moments, noise) * self.vae_cfg.scaling_factor
+        return gaussian_sample(moments, noise) * (self.vae_cfg.scaling_factor if scale is None else scale)
 
     def prepare_rope(self, height: int, width: int, num_latent_frames: int):
+        """The fp32 (cos, sin) table over ``[text | ref | video]`` of a RoPE
+        model, None for one without; with ``patch_size_t`` over the temporal
+        patches of ``num_latent_frames`` (the padded count)."""
         cfg = self.transformer_cfg
         if not cfg.use_rotary_positional_embeddings:
             return None, None
-        vc, vs, rc, rs = prepare_video_and_ref_rope(
-            height, width, num_latent_frames, cfg.attention_head_dim, cfg.patch_size,
-            self.vae_cfg.spatial_compression_ratio,
-        )
+        if cfg.patch_size_t is None:
+            vc, vs, rc, rs = prepare_video_and_ref_rope(
+                height, width, num_latent_frames, cfg.attention_head_dim, cfg.patch_size,
+                self.vae_cfg.spatial_compression_ratio,
+            )
+        else:
+            vc, vs, rc, rs = prepare_video_and_ref_rope_patches(
+                height, width, num_latent_frames, cfg.attention_head_dim, cfg.patch_size, cfg.patch_size_t,
+                (cfg.sample_height // cfg.patch_size, cfg.sample_width // cfg.patch_size),
+                self.vae_cfg.spatial_compression_ratio,
+            )
         return build_segmented_rope(cfg.max_text_seq_length, rc, rs, vc, vs, device=self.device)
 
     def prepare_pos_embedding(self, height: int, width: int, num_frames: int) -> Optional[torch.Tensor]:
@@ -838,9 +871,23 @@ class S2VPipeline:
 
             f_lat = run.latent_frames(self.vae_cfg.temporal_compression_ratio)
             h_lat, w_lat = run.latent_hw(self.vae_cfg.spatial_compression_ratio)
+            # CogVideoX1.5: the latent frames padded to whole temporal patches, dropped before the decode
+            pad_frames = -f_lat % (cfg.patch_size_t or 1)
+            f_lat += pad_frames
             if latents is None:
                 latents = torch.randn((batch, f_lat, h_lat, w_lat, cfg.in_channels), generator=gen_latents)
+            elif latents.shape[1] != f_lat:
+                raise ValueError(f"latents hold {latents.shape[1]} frames; {num_frames} frames take {f_lat} latent "
+                                 f"frames ({pad_frames} of them padding)")
             latents = self._to_device(latents, cfg.dtype)
+            patches, per_patch = token_grid(cfg, f_lat, h_lat, w_lat)
+            ref_frames = ref_latents.shape[1]
+            if cfg.patch_size_t is not None and ref_frames == 1:
+                ref_frames = cfg.patch_size_t  # the DiT repeats it into one temporal patch
+            tokens = {"tokens_text": prompt_embeds.shape[1],
+                      "tokens_ref": token_grid(cfg, ref_frames, h_lat, w_lat)[0] * per_patch,
+                      "tokens_video": patches * per_patch, "pad_frames": pad_frames}
+            span_attrs(**tokens)
 
             with phase("s2v.prologue.rope"):
                 rope_cos, rope_sin = self.prepare_rope(height, width, f_lat)
@@ -889,10 +936,10 @@ class S2VPipeline:
         if adaptive:
             log.info("adaptive denoise skipped %d/%d forwards", n_adaptive, num_inference_steps)
         self.stats = {"steps_run": len(self.timings["denoise_step_s"]), "cfg_skipped_steps": n_cfg_skip,
-                      "adaptive_skipped_steps": n_adaptive}
+                      "adaptive_skipped_steps": n_adaptive, **tokens}
         if output_type == "latent":
             return final
-        return self.postprocess_video(self._decode_timed(final), output_type)
+        return self.postprocess_video(self._decode_timed(final[:, pad_frames:]), output_type)
 
 
 class _StepTimer:

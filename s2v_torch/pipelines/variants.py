@@ -18,6 +18,9 @@ The JAX package's t2v calls the table's function with the wrong arguments and
 raises on every sincos model, and its other variants pass no table at all
 (ROADMAP C.17, C.18); the port builds the table for each.
 
+Temporal patches (CogVideoX1.5, ``patch_size_t``) run through
+``S2VPipeline.generate`` only; every variant raises on them.
+
 Random draws come from one replaceable source, ``pipe.variant_noise(name,
 shape)`` -> a CPU fp32 tensor (the latents ``"latents"``, the condition's
 posterior ``"cond"``, the ref image's posterior ``"ref"``, v2v's posterior
@@ -140,6 +143,7 @@ def generate_t2v(
     tables with an empty ref segment, a sincos model the ``generate``
     table (``s2v_tpu/pipelines/variants.py:62``, without its C.17)."""
     cfg = pipe.transformer_cfg
+    cfg.require_frame_patches("generate_t2v")
     pipe.check_frames(num_frames)
     pipe.timings = {}
     noise = _noise(pipe, seed)
@@ -177,6 +181,7 @@ def generate_i2v(
     channel axis each step; the subject stream is the same image unless
     ``ref_latents`` are given (``s2v_tpu/pipelines/variants.py:131``)."""
     cfg = pipe.transformer_cfg
+    cfg.require_frame_patches("generate_i2v")
     pipe.check_frames(num_frames)
     pipe.timings = {}
     noise = _noise(pipe, seed)
@@ -218,6 +223,7 @@ def generate_fun_control(
     ``ref_image``, else the control video's first frame
     (``s2v_tpu/pipelines/variants.py:189``)."""
     cfg = pipe.transformer_cfg
+    cfg.require_frame_patches("generate_fun_control")
     control_video = _as_clip(control_video)
     height, width, num_frames = int(control_video.shape[2]), int(control_video.shape[3]), int(control_video.shape[1])
     pipe.check_frames(num_frames)
@@ -259,6 +265,7 @@ def generate_v2v(
     ``ref_latents``, ``ref_image``, else the video's first frame
     (``s2v_tpu/pipelines/variants.py:254``)."""
     cfg = pipe.transformer_cfg
+    cfg.require_frame_patches("generate_v2v")
     video = _as_clip(video)
     height, width, num_frames = int(video.shape[2]), int(video.shape[3]), int(video.shape[1])
     pipe.check_frames(num_frames)

@@ -255,8 +255,12 @@ def make_full_train_step(
     running under the mesh's context.  Every rank passes the same whole
     batch and draws; each runs its rows of a ``data`` dim and ends with the
     same loss.  A mesh of a ``seq`` dim only is sequence parallelism (the
-    caller enters its context; the tree stays whole)."""
+    caller enters its context; the tree stays whole).  Temporal patches
+    (``cfg.patch_size_t``) raise: the trainer's data and loss are per latent
+    frame."""
     from s2v_torch.training.optim import OptimizerSpec, make_optimizer
+
+    cfg.require_frame_patches("the full trainer")
 
     sizes = mesh_sizes(mesh)
     sharded = "data" in sizes or "model" in sizes

@@ -251,7 +251,10 @@ def make_lora_train_step(
     doc) every rank passes the same whole batch and draws and ends with the
     same loss and adapters.  ``base_specs``: the placements of a base
     sharded over ``data`` (``--fsdp_base``), gathered per block; the step
-    then needs a ``data`` dim in the active mesh."""
+    then needs a ``data`` dim in the active mesh.  Temporal patches
+    (``cfg.patch_size_t``) raise: the trainer's data and loss are per latent
+    frame."""
+    cfg.require_frame_patches("the LoRA trainer")
     _check_supported(base_params, spec)
     if spec.disentangled and not cfg.disentangled_modulation:
         cfg = replace(cfg, disentangled_modulation=True)

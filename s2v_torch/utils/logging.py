@@ -15,7 +15,8 @@ records its name, its parent (the span open when it began, on any thread:
 the backward that autograd runs on its own device thread nests under the
 span that called it), its host interval in Unix nanoseconds
 (``time.time_ns``, the clock Kineto stamps its CPU events on), keyword
-attributes such as a step's index, and on CUDA two timing events recorded
+attributes such as a step's index (given at entry, or added by
+:func:`span_attrs` while it is open), and on CUDA two timing events recorded
 on the current device's current stream around it (:func:`span_device`),
 resolved only when read: no span syncs.  The records are flat lists, so a
 span leaves no object for Python's collector to track.  ``span_records()``
@@ -193,6 +194,13 @@ def phase(name: str, log: bool = False, **attrs):
     global _stale
     _stale = True
     return _Logged(name) if log else _OFF
+
+
+def span_attrs(**attrs) -> None:
+    """Add attributes to the innermost open span (with no profiler
+    running, or no span open, nothing)."""
+    if torch.autograd.profiler._is_profiler_enabled and _open:
+        _attrs.setdefault(_open[-1], {}).update(attrs)
 
 
 def span_device(device: torch.device):

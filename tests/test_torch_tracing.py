@@ -133,7 +133,8 @@ def test_generate_records_the_block_spans_of_each_step():
         _generate(pipe)
     recs = span_records()
     names = [r.name for r in recs]
-    assert names.count("s2v.prologue") == 1 and recs[names.index("s2v.prologue")].attrs == {"steps": STEPS}
+    assert names.count("s2v.prologue") == 1 and recs[names.index("s2v.prologue")].attrs == {
+        "steps": STEPS, "tokens_text": 16, "tokens_ref": 4, "tokens_video": 12, "pad_frames": 0}
     for child in ("s2v.prologue.rope", "s2v.prologue.pos_embedding"):
         assert _under(recs, names.index(child), "s2v.prologue")
     steps = [i for i, r in enumerate(recs) if r.name == "s2v.step"]
@@ -144,6 +145,9 @@ def test_generate_records_the_block_spans_of_each_step():
         got = {n: sum(1 for i, r in enumerate(recs) if r.name == n and r.parent is not None
                       and _under(recs, i, "s2v.step") and _step_of(recs, i) == s) for n in want}
         assert got == {n: k * layers for n, k in want.items()}
+        once = {n: sum(1 for i, r in enumerate(recs) if r.name == n and _step_of(recs, i) == s)
+                for n in ("s2v.patch_embed", "s2v.unpatchify")}
+        assert once == {"s2v.patch_embed": 1, "s2v.unpatchify": 1}  # one batched CFG forward a step
         assert sum(1 for i, r in enumerate(recs) if r.name == "s2v.cfg_ddim" and _step_of(recs, i) == s) >= 1
     guards = [i for i, r in enumerate(recs) if r.name == "s2v.sync.b1_guard"]
     assert all(_under(recs, i, "s2v.attention") for i in guards)
