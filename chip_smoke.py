@@ -95,6 +95,15 @@ Phases, each printing one JSON line:
                 tables) and the 2b shape (fp16, no tables), timed over 10
                 launches beside the bound (q and k read and written once at
                 3.35 TB/s) and the plain chain;
+      kernel_adaln — the adaLN-Zero LayerNorms, modulation and stream
+                join kernel (the port's own; no Pallas counterpart) against
+                the emulation of its arithmetic (one ulp) and the plain
+                chain: small ragged shapes (a zero-width ref, strided
+                streams, one stream, fp32 norm params), then the 5b, 2b and
+                1.5 shapes, timed over 10 launches beside the bound (the
+                streams read and the joined rows written once at 3.35
+                TB/s), a contiguous copy of the same bytes and the plain
+                chain;
       ring_past_frames — B6/B7 in bf16 on the shards of a 4-rank ring over
                 2 latent frames (ranks 2-3 dummy only) and over the small
                 geometries' short clips, against their plain versions;
@@ -457,7 +466,26 @@ def cuda_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
+def queued_ms(fn, iters):
+    """:func:`cuda_ms` with the launches queued behind a device sleep (≈ 25
+    ms), so the events time the device's work even where a call's host
+    work outlasts its kernel."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def phase_build():
+    from s2v_torch.kernels.adaln import SOURCE as ADALN_SRC
     from s2v_torch.kernels.attention_f32 import BWD_SOURCE as F32_BWD_SRC
     from s2v_torch.kernels.attention_f32 import SOURCE as F32_SRC
     from s2v_torch.kernels.banded_attention import SOURCE as BANDED_SRC
@@ -470,7 +498,8 @@ def phase_build():
     from s2v_torch.utils.sp_native import SOURCE as SP_SRC
 
     t0 = time.perf_counter()
-    kernels = (FLASH_SRC, FLASH_BWD_SRC, BANDED_SRC, BANDED_BWD_SRC, INT8_SRC, F32_SRC, F32_BWD_SRC, QK_SRC)
+    kernels = (FLASH_SRC, FLASH_BWD_SRC, BANDED_SRC, BANDED_BWD_SRC, INT8_SRC, F32_SRC, F32_BWD_SRC, QK_SRC,
+               ADALN_SRC)
     results = native_build.build([*kernels, SP_SRC])
     # per kernel: its registers, spills and shared memory
     ptxas = {src.stem: [ln.strip() for ln in results[src.stem]["log"].splitlines()
@@ -2130,6 +2159,97 @@ def phase_kernel_qk_norm_rope(dev):
     return result
 
 
+# the adaLN kernel's main shapes: (B, (text, ref, video) tokens, D, dtype)
+ADALN_SHAPES = {"5b": (2, (226, 1350, 17550), 3072, "bfloat16"), "2b": (2, (226, 1350, 17550), 1920, "float16"),
+                "1.5": (2, (226, 4080, 44880), 3072, "bfloat16")}
+
+
+def phase_kernel_adaln(dev):
+    """The adaLN-Zero LayerNorms, modulation and stream join kernel
+    (``kernels/adaln.py``) against the emulation of its arithmetic and the
+    plain chain (the three plain streams and a ``torch.cat``), within the
+    bf16/fp16 limits: small ragged shapes (a zero-width ref, widths below,
+    at and between its vector buckets, strided streams, one stream as the
+    output norm calls it, fp32 norm params), then the 5b (bf16 [2, 19126,
+    3072]), 2b (fp16, D = 1,920) and 1.5 (bf16 [2, 49186, 3072]) shapes,
+    each timed over 10 launches queued behind a device sleep (the wrapper's
+    host work is near the kernel's 0.1-0.2 ms) beside its bound (the
+    streams read once and the joined rows written once at 3.35 TB/s), a
+    contiguous copy of the same bytes (``Tensor.copy_``, for scale) and the
+    plain chain over 2 calls."""
+    import torch
+
+    from s2v_torch.kernels.adaln import (
+        adaln_zero_join,
+        adaln_zero_join_emulated,
+        adaln_zero_join_reference,
+        ulps_from_emulation,
+    )
+
+    eps = 1e-5
+
+    def inputs(b, lens, d, dtype, seed, params_dtype=None):
+        # rows with a nonzero mean each; (shift, scale) views of one [B, 6D] modulation, the ref's the video's
+        g = torch.Generator(device=dev).manual_seed(seed)
+        streams = [(torch.randn(b, n, d, device=dev, generator=g) * 2 + torch.randn(b, n, 1, device=dev, generator=g))
+                   .to(dtype) for n in lens]
+        c = (0.5 * torch.randn(b, 6 * d, device=dev, generator=g)).chunk(6, dim=-1)
+        pd = params_dtype or dtype
+        norm = {"weight": (1 + 0.1 * torch.randn(d, device=dev, generator=g)).to(pd),
+                "bias": (0.05 * torch.randn(d, device=dev, generator=g)).to(pd)}
+        return streams, [(c[3], c[4]), (c[0], c[1]), (c[0], c[1])][:len(lens)], norm
+
+    def compare(streams, mods, norm, what):
+        before = adaln_zero_join.launches
+        got = adaln_zero_join(streams, mods, norm, eps)
+        if adaln_zero_join.launches != before + 1:
+            raise AssertionError(f"{what}: the kernel did not launch")
+        emulated = adaln_zero_join_emulated(streams, mods, norm, eps)
+        ulps = ulps_from_emulation(got, emulated)
+        if ulps > 1:
+            raise AssertionError(f"{what}: {ulps} ulps from the emulation")
+        plain = adaln_zero_join_reference(streams, mods, norm, eps)
+        return {"ulps_from_emulation": ulps, "plain": _compact(_agreement(got, plain, f"{what} against the plain chain"))}
+
+    small = []
+    for b, lens, d in [(1, (5, 7, 12), 64), (2, (9, 0, 21), 96), (2, (3, 17, 40), 1920), (1, (2, 3, 5), 3072),
+                       (2, (4, 4, 33), 4096), (2, (37,), 256)]:
+        for dtype in (torch.bfloat16, torch.float16):
+            streams, mods, norm = inputs(b, lens, d, dtype, d + sum(lens))
+            what = f"adaln {b}x{lens}x{d} {dtype}"
+            small.append({"batch": b, "lens": list(lens), "dim": d, "dtype": str(dtype).replace("torch.", ""),
+                          **compare(streams, mods, norm, what)})
+    streams, mods, norm = inputs(2, (30, 30, 30), 512, torch.bfloat16, 5, params_dtype=torch.float32)
+    strided = [streams[0][:, :6, :256], streams[1][:, 6:, 256:], streams[2][:, :, 128:384]]
+    small.append({"batch": 2, "lens": [6, 24, 30], "dim": 256, "dtype": "bfloat16", "strided": True,
+                  "params": "float32", **compare(strided, [(a[:, :256], c[:, :256]) for a, c in mods],
+                                                 {k: v[:256] for k, v in norm.items()}, "adaln strided")})
+    emit({"phase": "kernel_adaln_small", "cases": small})
+
+    main = {}
+    for model, (b, lens, d, dtype_name) in ADALN_SHAPES.items():
+        dtype = getattr(torch, dtype_name)
+        streams, mods, norm = inputs(b, lens, d, dtype, 7)
+        stats = compare(streams, mods, norm, f"adaln {model}")
+        ms = queued_ms(lambda: adaln_zero_join(streams, mods, norm, eps), 10)
+        plain_ms = queued_ms(lambda: adaln_zero_join_reference(streams, mods, norm, eps), 2)
+        src = torch.cat(streams, dim=1)
+        dst = torch.empty_like(src)
+        copy_ms = queued_ms(lambda: dst.copy_(src), 10)
+        # the streams read once and the joined rows written once
+        nbytes = 2 * src.numel() * src.element_size()
+        bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+        main[model] = {"batch": b, "lens": list(lens), "dim": d, "dtype": dtype_name, **stats, "ms": ms,
+                       "plain_ms": plain_ms, "copy_ms": copy_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+                       "bytes": nbytes, "tb_per_s": nbytes / ms / 1e9, "bound_share": bound_ms / ms}
+        del streams, src, dst
+        torch.cuda.empty_cache()
+    result = {"phase": "kernel_adaln", "main": main, "launches": adaln_zero_join.launches,
+              "launches_by_dtype": dict(adaln_zero_join.launches_by_dtype)}
+    emit(result)
+    return result
+
+
 COUNTED = ("flash_attention", "flash_attention_bwd", "banded_flash_attention", "banded_flash_attention_bwd",
            "flash_attention_qk_int8", "banded_flash_attention_local", "banded_flash_attention_local_bwd")
 
@@ -2148,29 +2268,35 @@ def _counted_fns():
 
 def reset_counts():
     """Every kernel's launch count (and B1's online re-runs, B3's pre-pass
-    launches, the q/k norm kernel's plain calls) set to 0."""
+    launches, the q/k norm and adaLN kernels' plain calls) set to 0."""
+    from s2v_torch.kernels.adaln import adaln_zero_join
     from s2v_torch.kernels.qk_norm_rope import qk_norm_rope
 
     fns = _counted_fns()
-    for fn in (*fns.values(), qk_norm_rope):
+    for fn in (*fns.values(), qk_norm_rope, adaln_zero_join):
         fn.launches = 0
         fn.launches_by_dtype = {}
     qk_norm_rope.plain_calls = 0
+    adaln_zero_join.plain_calls = 0
     fns["flash_attention"].launches_by_batch = {}
     fns["flash_attention"].reruns = 0
     fns["flash_attention_qk_int8"].prepass_launches = 0
 
 
 def read_counts() -> dict:
-    """The attention kernels' counts, and the q/k norm kernel's launches and
-    the calls that took its plain chain (outside ``COUNTED``: it is no
-    attention backend, and each generate checks it on its own)."""
+    """The attention kernels' counts, and the q/k norm and adaLN kernels'
+    launches and the calls that took their plain chains (outside
+    ``COUNTED``: they are no attention backend, and each generate checks
+    them on its own)."""
+    from s2v_torch.kernels.adaln import adaln_zero_join
     from s2v_torch.kernels.qk_norm_rope import qk_norm_rope
 
     fns = _counted_fns()
     return {**{name: fn.launches for name, fn in fns.items()}, "reruns": fns["flash_attention"].reruns,
             "qk_norm_rope": qk_norm_rope.launches, "qk_norm_rope_plain": qk_norm_rope.plain_calls,
             "qk_norm_rope_by_dtype": dict(qk_norm_rope.launches_by_dtype),
+            "adaln": adaln_zero_join.launches, "adaln_plain": adaln_zero_join.plain_calls,
+            "adaln_by_dtype": dict(adaln_zero_join.launches_by_dtype),
             "flash_attention_qk_int8_prepass": fns["flash_attention_qk_int8"].prepass_launches,
             "flash_attention_by_batch": {str(b): n for b, n in fns["flash_attention"].launches_by_batch.items()},
             **{f"{name}_by_dtype": dict(fn.launches_by_dtype) for name, fn in fns.items()}}
@@ -2272,6 +2398,9 @@ def phase_e2e(dev, pipe, backend="flash", window=2, num_frames=49, name=None, ex
     if counts["qk_norm_rope"] != 2 * tcfg.num_layers or counts["qk_norm_rope_plain"]:
         raise AssertionError(f"{backend} generate: qk_norm_rope launches {counts['qk_norm_rope']} and plain calls "
                              f"{counts['qk_norm_rope_plain']}; expected {2 * tcfg.num_layers} and 0")
+    if counts["adaln"] != 2 * (2 * tcfg.num_layers + 1) or counts["adaln_plain"]:
+        raise AssertionError(f"{backend} generate: adaln launches {counts['adaln']} and plain calls "
+                             f"{counts['adaln_plain']}; expected {2 * (2 * tcfg.num_layers + 1)} and 0")
     emit({"phase": name or ("e2e" if backend == "flash" else f"e2e_{backend}"), "backend": backend, **(extra or {}),
           "window": window if backend in ("windowed", "sp_windowed") else None, "num_frames": num_frames, "steps": 2,
           "output_shape": list(video.shape), "launches": counts,
@@ -2464,6 +2593,8 @@ def phase_train(dev, pipe, backend="flash", steps=3, name=None, extra=None):
             problems.append(f"step {i} launches {c}")
         if c["qk_norm_rope"]:  # q and k need gradients: the plain chain
             problems.append(f"step {i} launched qk_norm_rope {c['qk_norm_rope']} times")
+        if c["adaln"]:  # the streams and the modulation need gradients: the plain chain
+            problems.append(f"step {i} launched the adaln kernel {c['adaln']} times")
     if r["export_keys"] != 2 * (7 * L + 2):
         problems.append(f"export keys {r['export_keys']}")
     if problems:
@@ -3593,7 +3724,7 @@ def phase_e2e_2b(dev, pipe, backend="flash", height=480, width=720, num_frames=4
     for run in runs:
         for dtype, n in run["flash_attention_by_dtype"].items():
             by_dtype[dtype] = by_dtype.get(dtype, 0) + n
-    return {**{k: sum(run[k] for run in runs) for k in COUNTED + ("qk_norm_rope",)},
+    return {**{k: sum(run[k] for run in runs) for k in COUNTED + ("qk_norm_rope", "adaln")},
             "flash_attention_by_dtype": by_dtype, "opt_ins": out["opt_ins"]}
 
 
@@ -5530,7 +5661,7 @@ PHASES = ("build", "kernel", "kernel_bwd", "kernel_fp16", "kernel_bwd_fp16", "ke
           "kernel_banded_local_bwd", "kernel_int8", "kernel_int8_fp16", "kernel_banded_fp16", "kernel_banded_bwd_fp16",
           "kernel_banded_local_fp16", "kernel_banded_local_bwd_fp16", "kernel_fp32", "kernel_bwd_fp32",
           "kernel_banded_fp32", "kernel_banded_bwd_fp32", "kernel_banded_local_fp32", "kernel_banded_local_bwd_fp32",
-          "kernel_int8_fp32", "int8_widths", "kernel_qk_norm_rope", "ring_past_frames", "reference", "chunked", "e2e", "e2e_windowed", "e2e_sp_windowed",
+          "kernel_int8_fp32", "int8_widths", "kernel_qk_norm_rope", "kernel_adaln", "ring_past_frames", "reference", "chunked", "e2e", "e2e_windowed", "e2e_sp_windowed",
           "e2e_sp_allgather", "e2e_sp_backends", "e2e_int8", "e2e_mesh", "e2e_mesh_int8", "e2e_options", "turbo",
           "train", "train_windowed", "train_sp_windowed", "train_sp_backends", "train_lora_mesh", "train_qlora",
           "e2e_fp32", "train_fp32", "train_full_5b_fsdp", "variants", "train_remat", "pretrained", "serve", "cli_mesh", "serve_mesh",
@@ -5549,7 +5680,7 @@ KERNEL_PHASES = {"kernel": phase_kernel, "kernel_bwd": phase_kernel_bwd, "kernel
                  "kernel_banded_local_fp32": phase_kernel_banded_local_fp32,
                  "kernel_banded_local_bwd_fp32": phase_kernel_banded_local_bwd_fp32,
                  "kernel_int8_fp32": phase_kernel_int8_fp32, "int8_widths": phase_int8_widths,
-                 "kernel_qk_norm_rope": phase_kernel_qk_norm_rope,
+                 "kernel_qk_norm_rope": phase_kernel_qk_norm_rope, "kernel_adaln": phase_kernel_adaln,
                  "ring_past_frames": phase_ring_past_frames,
                  "reference": phase_reference, "chunked": phase_chunked}
 # the pipeline phases: the backend each runs
@@ -5856,7 +5987,8 @@ def kernels_line(results):
         "q_shape": [TRAIN_SHAPE[0], TRAIN_SHAPE[1] - BAND[0], *TRAIN_SHAPE[2:]],
         "shape": list(TRAIN_SHAPE),
         "band": list(BAND),
-    }, _qk_norm_rope_row(results, common), *_fp16_rows(results, common), *_fp32_rows(results, common)]
+    }, _qk_norm_rope_row(results, common), _adaln_row(results, common), *_fp16_rows(results, common),
+        *_fp32_rows(results, common)]
 
 
 def _qk_norm_rope_row(results, common):
@@ -5886,6 +6018,37 @@ def _qk_norm_rope_row(results, common):
         "library_note": "no PyTorch call computes the q/k norms and RoPE together",
         "shape": list(MAIN_SHAPE),
         "shape_2b": list(SHAPES_2B["s2v"]),
+    }
+
+
+def _adaln_row(results, common):
+    """The kernels line's row of the adaLN-Zero LayerNorms, modulation and
+    stream join kernel: the port's own, with no Pallas counterpart; its
+    launches on the 5b and 2b generate paths (two a block and the output
+    norm a forward), none on the LoRA step, and its times at the 5b, 2b
+    and 1.5 shapes beside the bound and a copy of the same bytes."""
+    main = results["kernel_adaln"]["main"]
+    return {
+        **common,
+        "name": "adaln_zero",
+        "source": "s2v_torch/csrc/adaln.cu",
+        "headers": ["s2v_torch/csrc/hopper.cuh"],
+        "replaces": None,
+        "replaces_note": "no Pallas kernel: the JAX package leaves the adaLN norms and modulation to XLA",
+        "launches": results["e2e"]["adaln"],
+        "launches_e2e_2b": results["e2e_2b"]["adaln"],
+        "launches_train": sum(c["adaln"] for c in results["train"]["launches"]),
+        "max_abs_err": max(main[m]["plain"]["max_abs_err"] for m in main),
+        "rel_l2": max(main[m]["plain"]["rel_l2"] for m in main),
+        "ulps_from_emulation": max(main[m]["ulps_from_emulation"] for m in main),
+        **{f"ms_{m}": main[m]["ms"] for m in main},
+        **{f"bound_ms_{m}": main[m]["bound_ms"] for m in main},
+        **{f"plain_ms_{m}": main[m]["plain_ms"] for m in main},
+        **{f"copy_ms_{m}": main[m]["copy_ms"] for m in main},
+        "bound_by": "bytes",
+        "library_ms": None,
+        "library_note": "no PyTorch call computes the LayerNorm, the modulation and the join together",
+        "shapes": {m: [main[m]["batch"], sum(main[m]["lens"]), main[m]["dim"]] for m in main},
     }
 
 

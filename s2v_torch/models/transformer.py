@@ -16,7 +16,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from s2v_torch.config import TransformerConfig
-from s2v_torch.ops.adaln import ada_layer_norm_out, ada_layer_norm_zero_3stream
+from s2v_torch.ops.adaln import ada_layer_norm_out, ada_layer_norm_zero_joined
 from s2v_torch.ops.attention import SEQ_BACKENDS, WINDOWED_BACKENDS, joint_attention
 from s2v_torch.ops.norms import layer_norm
 from s2v_torch.ops.patchify import patchify_video, unpatchify_video
@@ -241,10 +241,9 @@ def block_forward(
     def modulated(norm: dict):
         """adaLN-Zero of the three streams, joined into ``[text | ref | video]``, and their gates."""
         with phase("s2v.adaln"):
-            v_n, t_n, r_n, *gates = ada_layer_norm_zero_3stream(
+            return ada_layer_norm_zero_joined(
                 norm, video, text, ref, temb, cfg.norm_eps, base_linear=norm.get("base_linear") if disent else None,
                 tp=tp)
-            return torch.cat([t_n, r_n, v_n], dim=1), gates
 
     def gated(out: torch.Tensor, gates):
         """The streams' gated residual adds of a sublayer's joint output."""
