@@ -551,6 +551,7 @@ def phase_kernel(dev):
     import torch.nn.functional as F
 
     from s2v_torch.kernels import flash_attention as fa_module
+    from s2v_torch.kernels import native
     from s2v_torch.kernels.flash_attention import flash_attention, flash_attention_reference
 
     small = []
@@ -577,12 +578,12 @@ def phase_kernel(dev):
         k[..., :32] = 0
         q *= 40
         k *= 40
-        before = flash_attention.reruns
+        before = native.launches("flash_attention_rerun")
         o = flash_attention(q, k, v, softmax_mode=mode)
-        if flash_attention.reruns != before + 1:
+        if native.launches("flash_attention_rerun") != before + 1:
             raise AssertionError(f"bounded re-run not taken ({mode})")
         o_ref = flash_attention_reference(q, k, v, softmax_mode="online")
-        reruns[mode] = {"reruns": flash_attention.reruns - before,
+        reruns[mode] = {"reruns": native.launches("flash_attention_rerun") - before,
                         **_agreement(o, o_ref, f"flash_attention[{mode}] re-run")}
     emit({"phase": "kernel_rerun", "cases": reruns})
 
@@ -609,8 +610,8 @@ def phase_kernel(dev):
         main[mode]["tflops"] = flops / main[mode]["ms"] / 1e9
     result = {"phase": "kernel_main", "shape": list(MAIN_SHAPE), "modes": main, "plain_ms": plain_ms,
               "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-              "tflops": flops / main[MAIN_MODE]["ms"] / 1e9, "reruns": flash_attention.reruns,
-              "smem_bytes": fa_module._library().s2v_flash_attention_fwd_smem_bytes()}
+              "tflops": flops / main[MAIN_MODE]["ms"] / 1e9, "reruns": native.launches("flash_attention_rerun"),
+              "smem_bytes": fa_module.LIB.entry("s2v_flash_attention_fwd_smem_bytes")()}
     emit(result)
     return result
 
@@ -703,7 +704,7 @@ def phase_kernel_bwd(dev):
     result = {"phase": "kernel_bwd_main", "shape": list(TRAIN_SHAPE), "grads": stats, "ms": ms,
               "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
               "tflops": flops / ms / 1e9, "parts_ms": parts_ms, "deterministic": deterministic,
-              "smem_bytes": fab._library().s2v_flash_attention_bwd_smem_bytes(),
+              "smem_bytes": fab.LIB.entry("s2v_flash_attention_bwd_smem_bytes")(),
               "b1_with_lse_ms": b1_ms, "b1_with_lse_tflops": 4 * b * h * s * s * d / b1_ms / 1e9}
     emit(result)
     return result
@@ -719,6 +720,7 @@ def phase_kernel_fp16(dev):
     import torch
     import torch.nn.functional as F
 
+    from s2v_torch.kernels import native
     from s2v_torch.kernels.flash_attention import flash_attention, flash_attention_reference
 
     fp16 = torch.float16
@@ -730,10 +732,10 @@ def phase_kernel_fp16(dev):
             if masked:
                 mask = torch.zeros(skv, dtype=torch.bool, device=dev)
                 mask[5:40] = True
-            before = flash_attention.reruns
+            before = native.launches("flash_attention_rerun")
             stats = _compare(q, k, v, mode, mask)
             small.append({"mode": mode, "q": [b, sq, h, 64], "skv": skv, "masked": masked,
-                          "reruns": flash_attention.reruns - before, **stats})
+                          "reruns": native.launches("flash_attention_rerun") - before, **stats})
     emit({"phase": "kernel_fp16_small", "cases": small})
 
     # one q row scaled x4 puts M0 ~40 nats above every other row's largest
@@ -743,11 +745,11 @@ def phase_kernel_fp16(dev):
     for mode in ("bounded", "bounded_exp2"):
         q, k, v = _qkv(1, 300, 300, 2, 31, dev, fp16)
         q[:, 0] *= 4
-        before = flash_attention.reruns
+        before = native.launches("flash_attention_rerun")
         stats = _compare(q, k, v, mode)
-        if flash_attention.reruns != before + 1:
+        if native.launches("flash_attention_rerun") != before + 1:
             raise AssertionError(f"flash_attention fp16 [{mode}]: rows far below M0 did not re-run online")
-        far[mode] = {"reruns": flash_attention.reruns - before, **stats}
+        far[mode] = {"reruns": native.launches("flash_attention_rerun") - before, **stats}
     emit({"phase": "kernel_fp16_far_rows", "cases": far})
 
     shapes = {}
@@ -757,9 +759,9 @@ def phase_kernel_fp16(dev):
         k = F.layer_norm(k.float(), (d,)).to(fp16)
         modes = {}
         for mode in MODES_2B:
-            before = flash_attention.reruns
+            before = native.launches("flash_attention_rerun")
             stats = _compare(q, k, v, mode)
-            if flash_attention.reruns != before:  # the time below would be two launches
+            if native.launches("flash_attention_rerun") != before:  # the time below would be two launches
                 raise AssertionError(f"flash_attention fp16 [{mode}] at the {name} shape re-ran online")
             flash_attention(q, k, v, softmax_mode=mode)  # warm-up
             modes[mode] = {**stats, "ms": cuda_ms(lambda: flash_attention(q, k, v, softmax_mode=mode), 10)}
@@ -1046,7 +1048,7 @@ def phase_kernel_banded(dev):
               "video_bound_ms": video_bound_ms, "global_bound_ms": flops_glob / PEAK_BF16_FLOPS * 1e3,
               "video_tflops": flops_vid / video_ms / 1e9,
               "small_worst_schedule_share": max(c["schedule_max_abs_err"] / c["schedule_max_abs_tol"] for c in small),
-              "smem_bytes": ba._library().s2v_banded_attention_fwd_smem_bytes()}
+              "smem_bytes": ba.LIB.entry("s2v_banded_attention_fwd_smem_bytes")()}
     emit(result)
     return result
 
@@ -1172,7 +1174,7 @@ def phase_kernel_banded_bwd(dev):
               "video_parts_ms": parts_ms, "deterministic": deterministic,
               "small_worst_schedule_share": max(c[n]["schedule_max_abs_err"] / c[n]["schedule_max_abs_tol"]
                                                 for c in small for n in ("dq", "dk", "dv")),
-              "smem_bytes": bab._library().s2v_banded_attention_bwd_smem_bytes()}
+              "smem_bytes": bab.LIB.entry("s2v_banded_attention_bwd_smem_bytes")()}
     emit(result)
     return result
 
@@ -1701,6 +1703,7 @@ def phase_kernel_banded_fp16(dev):
     over the video queries (a yardstick only)."""
     import torch
 
+    from s2v_torch.kernels import native
     from s2v_torch.kernels.banded_attention import (
         band_geometry,
         banded_flash_attention,
@@ -1720,9 +1723,9 @@ def phase_kernel_banded_fp16(dev):
     b, s, h, d = MAIN_SHAPE_2B
     q, k, v = _ln_qkv(b, s, h, 47, dev, fp16)
     geo = band_geometry(s, *BAND)
-    before = banded_flash_attention.launches_by_dtype.get("float16", 0)
+    before = native.launches("banded_flash_attention", "float16")
     stats = _compare_banded(q, k, v, BAND)
-    if banded_flash_attention.launches_by_dtype.get("float16", 0) != before + 1:
+    if native.launches("banded_flash_attention", "float16") != before + 1:
         raise AssertionError("banded_flash_attention fp16: the fp16 entry did not launch")
     banded_flash_attention(q, k, v, *BAND)  # warm-up
     ms = cuda_ms(lambda: banded_flash_attention(q, k, v, *BAND), 10)
@@ -1758,6 +1761,7 @@ def phase_kernel_banded_bwd_fp16(dev):
     import torch
 
     from s2v_torch.kernels import banded_attention_bwd as bab
+    from s2v_torch.kernels import native
     from s2v_torch.kernels.banded_attention import band_geometry
     from s2v_torch.kernels.banded_attention_bwd import (
         band_ds_exponent,
@@ -1779,9 +1783,9 @@ def phase_kernel_banded_bwd_fp16(dev):
     b, s, h, d = TRAIN_SHAPE_2B
     geo = band_geometry(s, *BAND)
     q, k, v, o, lse, do = _banded_bwd_inputs(b, h, s, BAND, 51, dev, layer_norm=True, dtype=fp16)
-    before = banded_flash_attention_bwd.launches_by_dtype.get("float16", 0)
+    before = native.launches("banded_flash_attention_bwd", "float16")
     stats = _compare_banded_bwd(q, k, v, o, lse, do, BAND)
-    if banded_flash_attention_bwd.launches_by_dtype.get("float16", 0) != before + 1:
+    if native.launches("banded_flash_attention_bwd", "float16") != before + 1:
         raise AssertionError("banded_flash_attention_bwd fp16: the fp16 entry did not launch")
     deterministic = _determinism(banded_flash_attention_bwd, (q, k, v, o, lse, do, *BAND),
                                  "banded_flash_attention_bwd fp16")
@@ -1848,6 +1852,7 @@ def phase_kernel_banded_local_fp16(dev):
     bound, the plain version and one fp16 masked SDPA call (a yardstick)."""
     import torch
 
+    from s2v_torch.kernels import native
     from s2v_torch.kernels.banded_attention import (
         band_geometry,
         banded_flash_attention,
@@ -1873,9 +1878,9 @@ def phase_kernel_banded_local_fp16(dev):
     q, k, v = _ln_qkv(b, s, h, 61, dev, torch.float16)
     geo = band_geometry(s, *BAND)
     q_loc = q[:, geo.global_len:]
-    before = banded_flash_attention_local.launches_by_dtype.get("float16", 0)
+    before = native.launches("banded_flash_attention_local", "float16")
     stats = compare(q_loc, k, v, geo, 0, 0, schedule=False)
-    if banded_flash_attention_local.launches_by_dtype.get("float16", 0) != before + 1:
+    if native.launches("banded_flash_attention_local", "float16") != before + 1:
         raise AssertionError("banded_flash_attention_local fp16: the fp16 entry did not launch")
     o4 = banded_flash_attention(q, k, v, *BAND)[:, geo.global_len:]
     o6 = banded_flash_attention_local(q_loc, k, v, *BAND, 0, geo.n_frames)
@@ -1908,6 +1913,7 @@ def phase_kernel_banded_local_bwd_fp16(dev):
     bound, the plain version and the backward of one fp16 masked SDPA call."""
     import torch
 
+    from s2v_torch.kernels import native
     from s2v_torch.kernels.banded_attention import band_geometry, banded_flash_attention_local
     from s2v_torch.kernels.banded_attention_bwd import (
         banded_flash_attention_bwd,
@@ -1943,9 +1949,9 @@ def phase_kernel_banded_local_bwd_fp16(dev):
     q, k, v, o, lse, do = _banded_bwd_inputs(b, h, s, BAND, 71, dev, layer_norm=True, dtype=torch.float16)
     g_len = geo.global_len
     args = (q[:, g_len:], k, v, o[:, g_len:], lse[..., g_len:].contiguous(), do[:, g_len:], *BAND, 0, geo.n_frames)
-    before = banded_flash_attention_local_bwd.launches_by_dtype.get("float16", 0)
+    before = native.launches("banded_flash_attention_local_bwd", "float16")
     got = banded_flash_attention_local_bwd(*args)
-    if banded_flash_attention_local_bwd.launches_by_dtype.get("float16", 0) != before + 1:
+    if native.launches("banded_flash_attention_local_bwd", "float16") != before + 1:
         raise AssertionError("banded_flash_attention_local_bwd fp16: the fp16 entry did not launch")
     want = banded_flash_attention_local_bwd_reference(*args)
     stats = {n: _agreement(a, r, f"banded_flash_attention_local_bwd fp16 {n}")
@@ -1989,6 +1995,7 @@ def phase_kernel_int8_fp16(dev):
     int8-QK attention)."""
     import torch
 
+    from s2v_torch.kernels import native
     from s2v_torch.kernels.flash_attention import flash_attention
     from s2v_torch.kernels.int8_attention import flash_attention_qk_int8, flash_attention_qk_int8_reference
 
@@ -2001,9 +2008,9 @@ def phase_kernel_int8_fp16(dev):
 
     b, s, h, d = MAIN_SHAPE_2B
     q, k, v = _ln_qkv(b, s, h, 83, dev, fp16)
-    before = flash_attention_qk_int8.launches_by_dtype.get("float16", 0)
+    before = native.launches("flash_attention_qk_int8", "float16")
     stats = _compare_int8(q, k, v)
-    if flash_attention_qk_int8.launches_by_dtype.get("float16", 0) != before + 1:
+    if native.launches("flash_attention_qk_int8", "float16") != before + 1:
         raise AssertionError("flash_attention_qk_int8 fp16: the fp16 entry did not launch")
     if not torch.equal(flash_attention_qk_int8(q, k, v), flash_attention_qk_int8(q, k, v)):
         raise AssertionError("flash_attention_qk_int8 fp16: two launches on the same inputs differ")
@@ -2094,6 +2101,7 @@ def phase_kernel_qk_norm_rope(dev):
     import torch
 
     from s2v_torch.config import TransformerConfig
+    from s2v_torch.kernels import native
     from s2v_torch.kernels.qk_norm_rope import qk_norm_rope, qk_norm_rope_emulated, qk_norm_rope_reference
     from s2v_torch.ops.rope import build_segmented_rope, prepare_video_and_ref_rope
 
@@ -2115,9 +2123,9 @@ def phase_kernel_qk_norm_rope(dev):
         return q.reshape(b, s, h, 64), k.reshape(b, s, h, 64), norms
 
     def compare(q, k, norms, rope, what):
-        before = qk_norm_rope.launches
+        before = native.launches("qk_norm_rope")
         got = qk_norm_rope(q, k, *norms, eps, *rope)
-        if qk_norm_rope.launches != before + 1:
+        if native.launches("qk_norm_rope") != before + 1:
             raise AssertionError(f"{what}: the kernel did not launch")
         emulated = qk_norm_rope_emulated(q, k, *norms, eps, *rope)
         plain = qk_norm_rope_reference(q, k, *norms, eps, *rope)
@@ -2153,8 +2161,9 @@ def phase_kernel_qk_norm_rope(dev):
                        **stats, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
                        "bytes": nbytes, "tb_per_s": nbytes / ms / 1e9, "bound_share": bound_ms / ms}
         del q, k
-    result = {"phase": "kernel_qk_norm_rope", "main": main, "launches": qk_norm_rope.launches,
-              "launches_by_dtype": dict(qk_norm_rope.launches_by_dtype)}
+    counts = read_counts()
+    result = {"phase": "kernel_qk_norm_rope", "main": main, "launches": counts["qk_norm_rope"],
+              "launches_by_dtype": counts["qk_norm_rope_by_dtype"]}
     emit(result)
     return result
 
@@ -2179,6 +2188,7 @@ def phase_kernel_adaln(dev):
     plain chain over 2 calls."""
     import torch
 
+    from s2v_torch.kernels import native
     from s2v_torch.kernels.adaln import (
         adaln_zero_join,
         adaln_zero_join_emulated,
@@ -2200,9 +2210,9 @@ def phase_kernel_adaln(dev):
         return streams, [(c[3], c[4]), (c[0], c[1]), (c[0], c[1])][:len(lens)], norm
 
     def compare(streams, mods, norm, what):
-        before = adaln_zero_join.launches
+        before = native.launches("adaln_zero_join")
         got = adaln_zero_join(streams, mods, norm, eps)
-        if adaln_zero_join.launches != before + 1:
+        if native.launches("adaln_zero_join") != before + 1:
             raise AssertionError(f"{what}: the kernel did not launch")
         emulated = adaln_zero_join_emulated(streams, mods, norm, eps)
         ulps = ulps_from_emulation(got, emulated)
@@ -2244,62 +2254,49 @@ def phase_kernel_adaln(dev):
                        "bytes": nbytes, "tb_per_s": nbytes / ms / 1e9, "bound_share": bound_ms / ms}
         del streams, src, dst
         torch.cuda.empty_cache()
-    result = {"phase": "kernel_adaln", "main": main, "launches": adaln_zero_join.launches,
-              "launches_by_dtype": dict(adaln_zero_join.launches_by_dtype)}
+    counts = read_counts()
+    result = {"phase": "kernel_adaln", "main": main, "launches": counts["adaln"],
+              "launches_by_dtype": counts["adaln_by_dtype"]}
     emit(result)
     return result
 
 
-COUNTED = ("flash_attention", "flash_attention_bwd", "banded_flash_attention", "banded_flash_attention_bwd",
-           "flash_attention_qk_int8", "banded_flash_attention_local", "banded_flash_attention_local_bwd")
-
-
-def _counted_fns():
-    from s2v_torch.kernels.banded_attention import banded_flash_attention, banded_flash_attention_local
-    from s2v_torch.kernels.banded_attention_bwd import banded_flash_attention_bwd, banded_flash_attention_local_bwd
-    from s2v_torch.kernels.flash_attention import flash_attention
-    from s2v_torch.kernels.flash_attention_bwd import flash_attention_bwd
-    from s2v_torch.kernels.int8_attention import flash_attention_qk_int8
-
-    return dict(zip(COUNTED, (flash_attention, flash_attention_bwd, banded_flash_attention,
-                              banded_flash_attention_bwd, flash_attention_qk_int8, banded_flash_attention_local,
-                              banded_flash_attention_local_bwd)))
-
-
 def reset_counts():
-    """Every kernel's launch count (and B1's online re-runs, B3's pre-pass
-    launches, the q/k norm and adaLN kernels' plain calls) set to 0."""
-    from s2v_torch.kernels.adaln import adaln_zero_join
-    from s2v_torch.kernels.qk_norm_rope import qk_norm_rope
+    """Every count of the port's launch registry set to 0."""
+    from s2v_torch.kernels import native
 
-    fns = _counted_fns()
-    for fn in (*fns.values(), qk_norm_rope, adaln_zero_join):
-        fn.launches = 0
-        fn.launches_by_dtype = {}
-    qk_norm_rope.plain_calls = 0
-    adaln_zero_join.plain_calls = 0
-    fns["flash_attention"].launches_by_batch = {}
-    fns["flash_attention"].reruns = 0
-    fns["flash_attention_qk_int8"].prepass_launches = 0
+    native.reset_counts()
+
+
+# the attention kernels whose counts check_counts reads: read_counts gives
+# each of them, launched or not, and the sums below add them by name
+ATTENTION_KERNELS = ("flash_attention", "flash_attention_bwd", "banded_flash_attention", "banded_flash_attention_bwd",
+                     "flash_attention_qk_int8", "banded_flash_attention_local", "banded_flash_attention_local_bwd")
 
 
 def read_counts() -> dict:
-    """The attention kernels' counts, and the q/k norm and adaLN kernels'
-    launches and the calls that took their plain chains (outside
-    ``COUNTED``: they are no attention backend, and each generate checks
-    them on its own)."""
-    from s2v_torch.kernels.adaln import adaln_zero_join
-    from s2v_torch.kernels.qk_norm_rope import qk_norm_rope
+    """The launch registry's counts (``s2v_torch.kernels.native``): every
+    counted kernel or event under its own name, with ``<name>_by_dtype``;
+    and under the smoke's names, each of ``ATTENTION_KERNELS`` (0 when it
+    did not launch), B1's by batch, its online re-runs and B3's pre-pass
+    launches, and the q/k norm and adaLN kernels' launches and the calls
+    that took their plain chains (no attention backend: each generate
+    checks them on its own)."""
+    from s2v_torch.kernels import native
 
-    fns = _counted_fns()
-    return {**{name: fn.launches for name, fn in fns.items()}, "reruns": fns["flash_attention"].reruns,
-            "qk_norm_rope": qk_norm_rope.launches, "qk_norm_rope_plain": qk_norm_rope.plain_calls,
-            "qk_norm_rope_by_dtype": dict(qk_norm_rope.launches_by_dtype),
-            "adaln": adaln_zero_join.launches, "adaln_plain": adaln_zero_join.plain_calls,
-            "adaln_by_dtype": dict(adaln_zero_join.launches_by_dtype),
-            "flash_attention_qk_int8_prepass": fns["flash_attention_qk_int8"].prepass_launches,
-            "flash_attention_by_batch": {str(b): n for b, n in fns["flash_attention"].launches_by_batch.items()},
-            **{f"{name}_by_dtype": dict(fn.launches_by_dtype) for name, fn in fns.items()}}
+    counts = native.counts()
+    n = lambda kernel: counts.get(kernel, {}).get("launches", 0)  # noqa: E731
+    by_dtype = lambda kernel: counts.get(kernel, {}).get("dtype", {})  # noqa: E731
+    by_batch = counts.get("flash_attention", {}).get("batch", {})
+    return {**{k: n(k) for k in counts}, **{f"{k}_by_dtype": by_dtype(k) for k in counts},
+            **{name: n(name) for name in ATTENTION_KERNELS}, "reruns": n("flash_attention_rerun"),
+            "qk_norm_rope": n("qk_norm_rope"), "qk_norm_rope_plain": n("qk_norm_rope_plain"),
+            "qk_norm_rope_by_dtype": by_dtype("qk_norm_rope"),
+            "adaln": n("adaln_zero_join"), "adaln_plain": n("adaln_zero_join_plain"),
+            "adaln_by_dtype": by_dtype("adaln_zero_join"),
+            "flash_attention_qk_int8_prepass": n("flash_attention_qk_int8_prepass"),
+            "flash_attention_by_batch": {str(b): k for b, k in by_batch.items()},
+            **{f"{name}_by_dtype": by_dtype(name) for name in ATTENTION_KERNELS}}
 
 
 def check_counts(counts: dict, backend: str, forwards: int, backwards: int) -> bool:
@@ -2810,8 +2807,8 @@ def phase_e2e_sp_backends(dev, pipe, backend="sp_ulysses", height=480, width=720
     line["seconds"] = time.perf_counter() - t_phase
     emit(line)
     # the kernels line reads this phase's launches: the sequence-parallel runs'
-    fns = COUNTED + ("reruns", "flash_attention_qk_int8_prepass")
-    return {k: sum(runs[n]["counts"][k] for n in pairs) for k in fns}
+    return {k: sum(runs[n]["counts"][k] for n in pairs)
+            for k in ATTENTION_KERNELS + ("reruns", "flash_attention_qk_int8_prepass")}
 
 
 def phase_train_sp_backends(dev, pipe, backend="sp_allgather", height=480, width=720, num_frames=49):
@@ -2907,8 +2904,9 @@ _CLI_MESH_WRAPPER = """
 import json, runpy, sys
 sys.argv = ["s2v_torch.cli"] + sys.argv[1:]
 runpy.run_module("s2v_torch.cli", run_name="__main__")
-from s2v_torch.kernels.flash_attention import flash_attention as f
-print(json.dumps({"cli_flash_attention_launches": f.launches - f.reruns}), flush=True)
+from s2v_torch.kernels import native
+print(json.dumps({"cli_flash_attention_launches": native.launches("flash_attention")
+                  - native.launches("flash_attention_rerun")}), flush=True)
 """
 
 
@@ -3100,8 +3098,9 @@ def _run_cli(args, env) -> dict:
     which then prints its net B1 launches on one JSON line."""
     code = ("import json, runpy, sys; sys.argv = ['s2v_torch.cli'] + sys.argv[1:]; "
             "runpy.run_module('s2v_torch.cli', run_name='__main__'); "
-            "from s2v_torch.kernels.flash_attention import flash_attention as f; "
-            "print(json.dumps({'cli_flash_attention_launches': f.launches - f.reruns}))")
+            "from s2v_torch.kernels import native; "
+            "print(json.dumps({'cli_flash_attention_launches': native.launches('flash_attention') "
+            "- native.launches('flash_attention_rerun')}))")
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-c", code, *args], cwd=str(REPO), env=env, capture_output=True,
                           text=True, timeout=900)
@@ -3724,7 +3723,7 @@ def phase_e2e_2b(dev, pipe, backend="flash", height=480, width=720, num_frames=4
     for run in runs:
         for dtype, n in run["flash_attention_by_dtype"].items():
             by_dtype[dtype] = by_dtype.get(dtype, 0) + n
-    return {**{k: sum(run[k] for run in runs) for k in COUNTED + ("qk_norm_rope", "adaln")},
+    return {**{k: sum(run[k] for run in runs) for k in ATTENTION_KERNELS + ("qk_norm_rope", "adaln")},
             "flash_attention_by_dtype": by_dtype, "opt_ins": out["opt_ins"]}
 
 
@@ -3985,15 +3984,7 @@ import torch
 sys.argv = ["s2v_torch.train"] + sys.argv[1:]
 from s2v_torch.pipelines import s2v as P
 from s2v_torch.training import data as D, lora as L
-from s2v_torch.kernels.banded_attention import banded_flash_attention, banded_flash_attention_local
-from s2v_torch.kernels.banded_attention_bwd import banded_flash_attention_bwd, banded_flash_attention_local_bwd
-from s2v_torch.kernels.flash_attention import flash_attention
-from s2v_torch.kernels.flash_attention_bwd import flash_attention_bwd
-from s2v_torch.kernels.int8_attention import flash_attention_qk_int8
-fns = dict(zip(%(counted)r, (flash_attention, flash_attention_bwd, banded_flash_attention,
-                             banded_flash_attention_bwd, flash_attention_qk_int8, banded_flash_attention_local,
-                             banded_flash_attention_local_bwd)))
-counts = lambda: {n: f.launches for n, f in fns.items()}
+from chip_smoke import ATTENTION_KERNELS, read_counts
 cuda = torch.cuda.is_available()
 sync = torch.cuda.synchronize if cuda else (lambda: None)
 rec = {"load_s": 0.0, "encode_s": 0.0, "step_s": [], "losses": [], "launches": []}
@@ -4007,14 +3998,14 @@ def timed_encode(*a, **k):
 def timed_make(*a, **k):
     init, step = make(*a, **k)
     def timed_step(*args, **kw):
-        sync(); before = counts(); r0, p0 = flash_attention.reruns, flash_attention_qk_int8.prepass_launches
+        sync(); before = read_counts()
         t = time.perf_counter()
         out = step(*args, **kw)
         sync()
         rec["step_s"].append(time.perf_counter() - t); rec["losses"].append(out[2].item())
-        after = counts()
-        rec["launches"].append({**{n: after[n] - before[n] for n in after}, "reruns": flash_attention.reruns - r0,
-                                "flash_attention_qk_int8_prepass": flash_attention_qk_int8.prepass_launches - p0})
+        after = read_counts()
+        rec["launches"].append({n: after[n] - before[n]
+                                for n in ATTENTION_KERNELS + ("reruns", "flash_attention_qk_int8_prepass")})
         return out
     return init, timed_step
 P.S2VPipeline.from_pretrained = staticmethod(timed_load)
@@ -4024,9 +4015,10 @@ if cuda:
     torch.cuda.reset_peak_memory_stats()
 t0 = time.perf_counter()
 runpy.run_module("s2v_torch.train", run_name="__main__")
+total = read_counts()
 rec.update(seconds=time.perf_counter() - t0,
            max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9 if cuda else None,
-           flash_attention_total=flash_attention.launches - flash_attention.reruns)
+           flash_attention_total=total["flash_attention"] - total["reruns"])
 print(json.dumps({"train_cli": rec}))
 """
 
@@ -4034,7 +4026,7 @@ print(json.dumps({"train_cli": rec}))
 def _run_train_cli(args, log):
     """``python3 -m s2v_torch.train`` (through the wrapper) in a subprocess;
     its record, or raise with the log's tail."""
-    code = _TRAIN_CLI_WRAPPER % {"counted": COUNTED}
+    code = _TRAIN_CLI_WRAPPER
     t0 = time.perf_counter()
     with open(log, "w") as logf:
         proc = subprocess.run([sys.executable, "-c", code, *args], cwd=str(REPO), stdout=subprocess.PIPE,
@@ -4640,7 +4632,7 @@ def phase_train_cli_mesh(dev, pipe, backend="sp_windowed", frames=9):
     clips = write_smoke_clips(num_frames=frames)
     out1, out2 = build / "smoke_train_mesh", build / "smoke_train_mesh_resumed"
     wrapper = build / "smoke_train_cli_wrapper.py"
-    wrapper.write_text(_TRAIN_CLI_WRAPPER % {"counted": COUNTED})
+    wrapper.write_text(_TRAIN_CLI_WRAPPER)
     common = [str(wrapper), "--pretrained_model_name_or_path", str(snap), "--dataset_dir", str(clips),
               "--rank", "128", "--lora_alpha", "64", "--max_grad_norm", "1.0", "--checkpointing_steps", "1",
               "--max_train_steps", "2", "--height", "480", "--width", "720", "--max_num_frames", str(frames),
@@ -4792,6 +4784,7 @@ def phase_kernel_fp32(dev):
     import torch.nn.functional as F
 
     from s2v_torch.kernels import attention_f32 as af
+    from s2v_torch.kernels import native
     from s2v_torch.kernels.flash_attention import flash_attention, flash_attention_reference
 
     def compare(q, k, v, mode, mask=None, emulate=True):
@@ -4822,9 +4815,9 @@ def phase_kernel_fp32(dev):
     q[..., 32:] = 0
     k[..., :32] = 0
     q, k = q * 400, k * 400  # every bounded p underflows in fp32: the online re-run must run
-    before = flash_attention.reruns
+    before = native.launches("flash_attention_rerun")
     rerun = {"q": [1, 256, 2, 64], **compare(q, k, v, "bounded")}
-    if q.is_cuda and flash_attention.reruns == before:
+    if q.is_cuda and native.launches("flash_attention_rerun") == before:
         raise AssertionError("fp32 bounded re-run not taken")
     emit({"phase": "kernel_fp32_small", "cases": small, "rerun": rerun})
 
@@ -5268,6 +5261,7 @@ def phase_kernel_int8_fp32(dev):
     import torch
 
     from s2v_torch.kernels import attention_f32 as af
+    from s2v_torch.kernels import native
     from s2v_torch.kernels.int8_attention import (
         flash_attention_qk_int8,
         flash_attention_qk_int8_blocked,
@@ -5297,9 +5291,9 @@ def phase_kernel_int8_fp32(dev):
 
     b, s, h, d = MAIN_SHAPE
     q, k, v = _qkv32(b, s, s, h, 7, dev, layer_norm=True)
-    before = flash_attention_qk_int8.launches_by_dtype.get("float32", 0)
+    before = native.launches("flash_attention_qk_int8", "float32")
     stats = compare(q, k, v, emulate=False)
-    if flash_attention_qk_int8.launches_by_dtype.get("float32", 0) != before + 1:
+    if native.launches("flash_attention_qk_int8", "float32") != before + 1:
         raise AssertionError("fp32 flash_attention_qk_int8: the fp32 kernel did not launch")
     got, want = launch_int8_prepass(q, k, d ** -0.5), int8_prepass(q, k, d ** -0.5)
     differing = {n: int((a != w).sum()) for n, a, w in zip(("q_i8", "k_i8", "dq"), got, want)}
@@ -5409,7 +5403,7 @@ def _fp32_counts(counts, backend, forwards, backwards):
     """The launches of ``check_counts``, all of them fp32."""
     if not check_counts(counts, backend, forwards, backwards):
         return False
-    return all(counts[f"{name}_by_dtype"].get("float32", 0) == counts[name] for name in COUNTED)
+    return all(counts[f"{name}_by_dtype"].get("float32", 0) == counts[name] for name in ATTENTION_KERNELS)
 
 
 def phase_e2e_fp32(dev, pipe, backend="flash", height=480, width=720, num_frames=49):
@@ -5609,6 +5603,7 @@ def phase_ring_past_frames(dev):
     only: dq and its dk/dv partials exactly zero)."""
     import torch
 
+    from s2v_torch.kernels import native
     from s2v_torch.kernels.banded_attention import (
         band_geometry,
         banded_flash_attention_local,
@@ -5620,8 +5615,7 @@ def phase_ring_past_frames(dev):
         banded_flash_attention_local_bwd_reference,
     )
 
-    counts = _counted_fns()
-    before = {n: counts[n].launches for n in ("banded_flash_attention_local", "banded_flash_attention_local_bwd")}
+    before = {n: native.launches(n) for n in ("banded_flash_attention_local", "banded_flash_attention_local_bwd")}
     cases = []
     geometries = [(1, 2, 24, 20, 2, 1)] + [c for c in BANDED_SMALL if c[4] < 4]
     for (b, h, g, tpf, f, w) in geometries:
@@ -5650,7 +5644,7 @@ def phase_ring_past_frames(dev):
                 raise AssertionError(f"B7 rank {r} holds dummy frames only and wrote a nonzero gradient")
             cases.append({"band": [b, h, g, tpf, f, w], "rank": r, "offset": off, "real_frames": real,
                           **_compact(stats), "lse_err": lse_err, "grads": grads})
-    launches = {n: counts[n].launches - before[n] for n in before}
+    launches = {n: native.launches(n) - before[n] for n in before}
     result = {"phase": "ring_past_frames", "ring": 4, "cases": cases, "launches": launches,
               "worst_err_share": max(c["max_abs_err"] / c["max_abs_tol"] for c in cases)}
     emit(result)

@@ -21,9 +21,9 @@ needed (grad mode off, or none of the streams, the shift and scale rows and
 the norm params requiring one); the kernel has no backward, so the trainers
 and remat's recompute keep the plain chain.  Every other call, on the CPU,
 in fp32 or under autograd, runs :func:`adaln_zero_join_reference`, the
-plain chain itself.  ``adaln_zero_join.launches`` counts kernel launches
-(``launches_by_dtype`` the same by element type) and
-``adaln_zero_join.plain_calls`` the calls that ran the plain chain.
+plain chain itself.  ``native.count`` records each launch as
+``adaln_zero_join`` (by element type) and each call that ran the plain
+chain as ``adaln_zero_join_plain``.
 
 Precision: the kernel computes in fp32 throughout (the mean, the variance
 of the centred values, the norm's apply and the modulation) and rounds
@@ -40,15 +40,16 @@ from typing import Sequence, Tuple
 
 import torch
 
+from s2v_torch.kernels import native
 from s2v_torch.ops.norms import layer_norm
 from s2v_torch.utils import native_build
+from s2v_torch.utils.device import needs_grad
 
 MAX_DIM = 4096  # 16 vectors of 8 channels a lane of a 32-lane row
 STREAMS = 3  # text, ref, video
 SOURCE = native_build.CSRC_DIR / "adaln.cu"
 # the C entry point of each element type
 ENTRY = {torch.bfloat16: "s2v_adaln_zero", torch.float16: "s2v_adaln_zero_f16"}
-_lib = None
 
 Modulation = Tuple[torch.Tensor, torch.Tensor]  # (shift, scale), each [B, D] fp32
 
@@ -74,16 +75,7 @@ class _Args(ctypes.Structure):
     ]
 
 
-def _library():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(native_build.build_one(SOURCE)))
-        for name in ENTRY.values():
-            fn = getattr(lib, name)
-            fn.argtypes = [ctypes.POINTER(_Args), ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+LIB = native_build.Library(SOURCE, {name: [ctypes.POINTER(_Args), native.STREAM] for name in ENTRY.values()})
 
 
 def modulate_reference(x: torch.Tensor, norm: dict, shift: torch.Tensor, scale: torch.Tensor,
@@ -182,8 +174,7 @@ def _kernel_engages(streams: Sequence[torch.Tensor], mods: Sequence[Modulation],
     if not (all(s.is_cuda for s in streams) and x.dtype in ENTRY and x.shape[-1] % 8 == 0
             and x.shape[-1] <= MAX_DIM):
         return False
-    tensors = (*streams, *(t for pair in mods for t in pair), norm["weight"], norm["bias"])
-    return not (torch.is_grad_enabled() and any(t.requires_grad for t in tensors))
+    return not needs_grad(*streams, *(t for pair in mods for t in pair), norm["weight"], norm["bias"])
 
 
 def _launch(streams, mods, norm, eps):
@@ -202,13 +193,8 @@ def _launch(streams, mods, norm, eps):
         args.sb[k], args.ss[k] = s.stride(0), s.stride(1)
         args.mb_shift[k], args.mb_scale[k] = shift.stride(0), scale.stride(0)
         args.len[k] = s.shape[1]
-    err = getattr(_library(), ENTRY[x.dtype])(ctypes.byref(args),
-                                             ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
-    if err != 0:
-        raise RuntimeError(f"adaln kernel launch failed: {native_build.launch_error(err)}")
-    adaln_zero_join.launches += 1
-    dtype = str(x.dtype).replace("torch.", "")
-    adaln_zero_join.launches_by_dtype[dtype] = adaln_zero_join.launches_by_dtype.get(dtype, 0) + 1
+    native.launch(LIB, ENTRY[x.dtype], x.device, ctypes.byref(args))
+    native.count("adaln_zero_join", x.dtype)
     return out
 
 
@@ -221,10 +207,5 @@ def adaln_zero_join(streams: Sequence[torch.Tensor], mods: Sequence[Modulation],
     See the module docstring for which calls take the kernel."""
     if _kernel_engages(streams, mods, norm):
         return _launch(streams, mods, norm, eps)
-    adaln_zero_join.plain_calls += 1
+    native.count("adaln_zero_join_plain")
     return adaln_zero_join_reference(streams, mods, norm, eps)
-
-
-adaln_zero_join.launches = 0
-adaln_zero_join.launches_by_dtype = {}  # "bfloat16" / "float16" -> launches
-adaln_zero_join.plain_calls = 0  # calls that ran the plain chain (the CPU, fp32, autograd)

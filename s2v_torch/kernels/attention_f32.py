@@ -7,9 +7,9 @@ and backward kernels), and both CLIs offer ``--dtype float32``.  These
 kernels give the port's wrappers the same: ``flash_attention``,
 ``flash_attention_bwd``, ``banded_flash_attention(_local)`` and
 ``banded_flash_attention(_local)_bwd`` launch them for fp32 tensors on the
-card (their launches count under ``launches_by_dtype["float32"]``).  Two
-sources, built with ``nvcc`` for ``sm_90a`` into ``build/`` on the first
-fp32 call and bound with ``ctypes``:
+card (their launches count as ``float32`` launches).  Two sources, built
+with ``nvcc`` for ``sm_90a`` into ``build/`` on the first fp32 call and
+bound with ``ctypes``:
 
   * ``csrc/attention_f32.cu``, one forward over a key range per 128-query
     block: ``[0, Skv)`` for B1 (online and bounded softmax, lse, key pad
@@ -46,12 +46,13 @@ versions and to JAX, the card's checks hold the kernels to them.
 
 from __future__ import annotations
 
-import ctypes
 import math
 from typing import List, Tuple
 
 import torch
 
+from s2v_torch.kernels import native
+from s2v_torch.kernels.native import F32, I32, I64, PTR, STREAM, ptr
 from s2v_torch.utils import native_build
 
 SOURCE = native_build.CSRC_DIR / "attention_f32.cu"
@@ -71,40 +72,28 @@ NEG_INF = -1e30
 # the parts of one backward call, a bit mask of the C entry point
 PART_PREPASS, PART_DQ, PART_DKV = 1, 2, 4
 ALL_PARTS = PART_PREPASS | PART_DQ | PART_DKV
-_libs = {}
-
-
-def _library(src):
-    lib = _libs.get(src)
-    if lib is None:
-        lib = ctypes.CDLL(str(native_build.build_one(src)))
-        vp, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-        band = [i32] * 8
-        if src == SOURCE:
-            lib.s2v_attention_f32_fwd.argtypes = [vp] * 8 + [i32] * 4 + [i64] * 12 + [i32, f32, i32] + band + [vp]
-            lib.s2v_flash_attention_qk_int8_fwd_f32.argtypes = [vp] * 6 + [i32] * 4 + [i64] * 6 + [vp]
-            for name in ("s2v_attention_f32_fwd", "s2v_flash_attention_qk_int8_fwd_f32",
-                         "s2v_attention_f32_fwd_smem_bytes", "s2v_flash_attention_qk_int8_fwd_f32_smem_bytes"):
-                getattr(lib, name).restype = i32
-            lib.s2v_attention_f32_fwd_planes.argtypes = [i32] * 4
-            lib.s2v_flash_attention_qk_int8_fwd_f32_planes.argtypes = [i32] * 3
-            lib.s2v_attention_f32_fwd_planes.restype = i64
-            lib.s2v_flash_attention_qk_int8_fwd_f32_planes.restype = i64
-        else:
-            lib.s2v_attention_f32_bwd.argtypes = [vp] * 11 + [i32] * 4 + [i64] * 24 + [i32, f32, i32] + band + [vp]
-            lib.s2v_attention_f32_bwd.restype = i32
-            lib.s2v_attention_f32_bwd_planes.argtypes = [i32] * 4
-            lib.s2v_attention_f32_bwd_planes.restype = i64
-        _libs[src] = lib
-    return lib
+_BAND = [I32] * 8  # the band arguments of _band_args
+LIB = native_build.Library(SOURCE, {
+    "s2v_attention_f32_fwd": [PTR] * 8 + [I32] * 4 + [I64] * 12 + [I32, F32, I32] + _BAND + [STREAM],
+    "s2v_flash_attention_qk_int8_fwd_f32": [PTR] * 6 + [I32] * 4 + [I64] * 6 + [STREAM],
+    "s2v_attention_f32_fwd_smem_bytes": [],
+    "s2v_flash_attention_qk_int8_fwd_f32_smem_bytes": [],
+    "s2v_attention_f32_fwd_planes": [I32] * 4,
+    "s2v_flash_attention_qk_int8_fwd_f32_planes": [I32] * 3,
+}, restype={"s2v_attention_f32_fwd_planes": I64, "s2v_flash_attention_qk_int8_fwd_f32_planes": I64})
+BWD_LIB = native_build.Library(BWD_SOURCE, {
+    "s2v_attention_f32_bwd": [PTR] * 11 + [I32] * 4 + [I64] * 24 + [I32, F32, I32] + _BAND + [STREAM],
+    "s2v_attention_f32_bwd_smem_bytes": [],
+    "s2v_attention_f32_bwd_planes": [I32] * 4,
+}, restype={"s2v_attention_f32_bwd_planes": I64})
 
 
 def smem_bytes() -> dict:
     """Dynamic shared memory of the forward, of B3's fp32 kernel and of the
     dk/dv kernel (the backward's largest)."""
-    return {"fwd": _library(SOURCE).s2v_attention_f32_fwd_smem_bytes(),
-            "int8_fwd": _library(SOURCE).s2v_flash_attention_qk_int8_fwd_f32_smem_bytes(),
-            "bwd": _library(BWD_SOURCE).s2v_attention_f32_bwd_smem_bytes()}
+    return {"fwd": LIB.entry("s2v_attention_f32_fwd_smem_bytes")(),
+            "int8_fwd": LIB.entry("s2v_flash_attention_qk_int8_fwd_f32_smem_bytes")(),
+            "bwd": BWD_LIB.entry("s2v_attention_f32_bwd_smem_bytes")()}
 
 
 def _band_args(band) -> List[int]:
@@ -116,20 +105,12 @@ def _band_args(band) -> List[int]:
             band.local_frames]
 
 
-def _ptr(t):
-    return ctypes.c_void_p(t.data_ptr() if t is not None else 0)
-
-
-def _stream(t):
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
-
-
 def fwd_planes(q, k) -> torch.Tensor:
     """The forward's planes workspace (q's and k's row planes, v's transposed
     planes; fp32, the size the C entry gives), written by the call's
     pre-pass."""
     b, sq, h, _ = q.shape
-    return torch.empty(_library(SOURCE).s2v_attention_f32_fwd_planes(b, h, sq, k.shape[1]), dtype=torch.float32,
+    return torch.empty(LIB.entry("s2v_attention_f32_fwd_planes")(b, h, sq, k.shape[1]), dtype=torch.float32,
                        device=q.device)
 
 
@@ -145,11 +126,9 @@ def launch_fwd(q, k, v, o, lse, mask, m0_log2, scale_log2: float, bounded: bool,
     lse_ld = lse.stride(1) if lse is not None else 0
     strides = [s for t in (q, k, v, o) for s in t.stride()[:3]]
     planes = fwd_planes(q, k)
-    err = _library(SOURCE).s2v_attention_f32_fwd(
-        _ptr(q), _ptr(k), _ptr(v), _ptr(o), _ptr(lse), _ptr(mask), _ptr(m0_log2), _ptr(planes), b, h, sq,
-        k.shape[1], *strides, lse_ld, ctypes.c_float(scale_log2), int(bounded), *_band_args(band), _stream(q))
-    if err != 0:
-        raise RuntimeError(f"fp32 attention kernel launch failed: {native_build.launch_error(err)}")
+    native.launch(LIB, "s2v_attention_f32_fwd", q.device, ptr(q), ptr(k), ptr(v), ptr(o), ptr(lse), ptr(mask),
+                  ptr(m0_log2), ptr(planes), b, h, sq, k.shape[1], *strides, lse_ld, scale_log2, int(bounded),
+                  *_band_args(band))
 
 
 def launch_int8_fwd(q_i8, k_i8, v, o, dq) -> None:
@@ -158,14 +137,10 @@ def launch_int8_fwd(q_i8, k_i8, v, o, dq) -> None:
     pre-pass's), fp32 v and o (rows 16-byte aligned), ``dq`` the pre-pass's
     device scalar.  Raises on a launch error; counts nothing."""
     b, sq, h, _ = q_i8.shape
-    lib = _library(SOURCE)
-    planes = torch.empty(lib.s2v_flash_attention_qk_int8_fwd_f32_planes(b, h, v.shape[1]), dtype=torch.float32,
-                         device=v.device)
-    err = lib.s2v_flash_attention_qk_int8_fwd_f32(
-        _ptr(q_i8), _ptr(k_i8), _ptr(v), _ptr(o), _ptr(dq), _ptr(planes), b, h, sq, k_i8.shape[1],
-        *v.stride()[:3], *o.stride()[:3], _stream(v))
-    if err != 0:
-        raise RuntimeError(f"fp32 flash_attention_qk_int8 kernel launch failed: {native_build.launch_error(err)}")
+    planes = torch.empty(LIB.entry("s2v_flash_attention_qk_int8_fwd_f32_planes")(b, h, v.shape[1]),
+                         dtype=torch.float32, device=v.device)
+    native.launch(LIB, "s2v_flash_attention_qk_int8_fwd_f32", v.device, ptr(q_i8), ptr(k_i8), ptr(v), ptr(o),
+                  ptr(dq), ptr(planes), b, h, sq, k_i8.shape[1], *v.stride()[:3], *o.stride()[:3])
 
 
 def bwd_workspace(q) -> torch.Tensor:
@@ -179,7 +154,7 @@ def bwd_planes(q, k) -> torch.Tensor:
     transposed planes of k, q and dO; fp32, the size the C entry gives),
     written by the pre-pass part."""
     b, sq, h, _ = q.shape
-    return torch.empty(_library(BWD_SOURCE).s2v_attention_f32_bwd_planes(b, h, sq, k.shape[1]), dtype=torch.float32,
+    return torch.empty(BWD_LIB.entry("s2v_attention_f32_bwd_planes")(b, h, sq, k.shape[1]), dtype=torch.float32,
                        device=q.device)
 
 
@@ -194,11 +169,9 @@ def launch_bwd(q, k, v, o, g, lse, dq, dk, dv, scale: float, band=None, workspac
     workspace = bwd_workspace(q) if workspace is None else workspace
     planes = bwd_planes(q, k) if planes is None else planes
     strides = [s for t in (q, k, v, o, g, dq, dk, dv) for s in t.stride()[:3]]
-    err = _library(BWD_SOURCE).s2v_attention_f32_bwd(
-        *(_ptr(t) for t in (q, k, v, o, g, lse, workspace, planes, dq, dk, dv)), b, h, sq, k.shape[1], *strides,
-        lse.stride(1), ctypes.c_float(scale), int(parts), *_band_args(band), _stream(q))
-    if err != 0:
-        raise RuntimeError(f"fp32 attention backward launch failed: {native_build.launch_error(err)}")
+    native.launch(BWD_LIB, "s2v_attention_f32_bwd", q.device,
+                  *(ptr(t) for t in (q, k, v, o, g, lse, workspace, planes, dq, dk, dv)), b, h, sq, k.shape[1],
+                  *strides, lse.stride(1), scale, int(parts), *_band_args(band))
 
 
 # ---------------------------------------------------------------------------

@@ -23,7 +23,8 @@ past its range's end, and the query rows past the frame's end, are
 predicated.  :func:`banded_flash_attention_blocked` emulates that schedule
 in PyTorch on any device.  CPU tensors take
 :func:`banded_flash_attention_reference`, the plain PyTorch version.
-``banded_flash_attention.launches`` counts launches of the banded kernel.
+``native.count`` records each launch of the banded kernel as
+``banded_flash_attention``.
 
 Kernel B6, :func:`banded_flash_attention_local`, replaces
 ``s2v_tpu/ops/pallas/banded_attention.py::banded_flash_attention_local``:
@@ -35,7 +36,7 @@ frames at or past F (ring-padding dummy frames) attend the last window,
 giving rows the caller drops.  It shares the ``__global__`` kernel with B4
 through its own C entry point ``s2v_banded_attention_local_fwd``;
 :func:`banded_flash_attention_local_reference` is its plain version and
-``banded_flash_attention_local.launches`` its own count.
+``banded_flash_attention_local`` its own count.
 
 Element types: bf16 (the 5b models) and fp16 (the 2b family), one kernel
 templated on the type, two C entry points for each of B4 and B6 (``ENTRY``,
@@ -44,7 +45,7 @@ computes after its fp32 upcast, except that P is rounded to fp16 for P·V;
 the softmax is online, so P ≤ 1 against each row's running max and fp16
 needs no offset.  fp32 inputs launch the fp32 kernel of
 ``csrc/attention_f32.cu`` on the same band (``kernels/attention_f32.py``,
-3xTF32).  ``launches_by_dtype`` counts launches by element type.
+3xTF32).  Each count is also kept by element type.
 
 Bound on an H100 SXM at the main-path shape (B=2, H=48, G=1,576, tpf=1,350,
 F=13, w=2, d=64): the banded launch does 4·B·H·d·(17,550 × 8,326) = 3.59·10¹²
@@ -56,13 +57,12 @@ its real frames' share (:meth:`BandGeometry.shard_pairs`).
 
 from __future__ import annotations
 
-import ctypes
 import math
 from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
-from s2v_torch.kernels import attention_f32
+from s2v_torch.kernels import attention_f32, native
 from s2v_torch.kernels.flash_attention import (
     LN2,
     LOG2E,
@@ -71,6 +71,7 @@ from s2v_torch.kernels.flash_attention import (
     flash_attention,
     flash_attention_reference,
 )
+from s2v_torch.kernels.native import F32, I32, I64, PTR, STREAM, ptr
 from s2v_torch.utils import native_build
 
 SOURCE = native_build.CSRC_DIR / "banded_attention.cu"
@@ -81,21 +82,9 @@ LOCAL_ENTRY = {torch.bfloat16: "s2v_banded_attention_local_fwd", torch.float16: 
 # streams K/V in tiles of KERNEL_KEY_TILE keys
 KERNEL_QUERY_TILE = 128
 KERNEL_KEY_TILE = 128
-_lib = None
-
-
-def _library():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(native_build.build_one(SOURCE)))
-        vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        for entries, ints in ((ENTRY, 8), (LOCAL_ENTRY, 9)):
-            for name in entries.values():
-                fn = getattr(lib, name)
-                fn.argtypes = [vp] * 5 + [i32] * ints + [i64] * 12 + [ctypes.c_float, vp]
-                fn.restype = i32
-        _lib = lib
-    return _lib
+LIB = native_build.Library(SOURCE, {**{name: [PTR] * 5 + [I32] * ints + [I64] * 12 + [F32, STREAM]
+                                 for entries, ints in ((ENTRY, 8), (LOCAL_ENTRY, 9)) for name in entries.values()},
+                              "s2v_banded_attention_fwd_smem_bytes": []})
 
 
 class BandGeometry(NamedTuple):
@@ -263,18 +252,11 @@ def launch_banded(q, k, v, o, lse, geo: BandGeometry, scale: float) -> None:
         attention_f32.launch_fwd(q[:, g_len:], k, v, o[:, g_len:], None if lse is None else lse[..., g_len:],
                                  None, None, scale * LOG2E, False, band=geo)
     else:
-        ptr = lambda t: ctypes.c_void_p(t.data_ptr() if t is not None else 0)  # noqa: E731
         strides = [st for t in (q, k, v, o) for st in t.stride()[:3]]
-        err = getattr(_library(), ENTRY[q.dtype])(
-            ptr(q), ptr(k), ptr(v), ptr(o), ptr(lse), b, h, s, geo.global_len, geo.tokens_per_frame,
-            geo.n_frames, geo.span, geo.window, *strides, ctypes.c_float(scale * LOG2E),
-            ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream),
-        )
-        if err != 0:
-            raise RuntimeError(f"banded_flash_attention kernel launch failed: {native_build.launch_error(err)}")
-    banded_flash_attention.launches += 1
-    dtype = str(q.dtype).replace("torch.", "")
-    banded_flash_attention.launches_by_dtype[dtype] = banded_flash_attention.launches_by_dtype.get(dtype, 0) + 1
+        native.launch(LIB, ENTRY[q.dtype], q.device, ptr(q), ptr(k), ptr(v), ptr(o), ptr(lse), b, h, s,
+                      geo.global_len, geo.tokens_per_frame, geo.n_frames, geo.span, geo.window, *strides,
+                      scale * LOG2E)
+    native.count("banded_flash_attention", q.dtype)
 
 
 def _banded_flash_attention_cuda(q, k, v, geo: BandGeometry, scale, return_lse):
@@ -324,10 +306,6 @@ def banded_flash_attention(
     if devices == {"cuda"}:
         return _banded_flash_attention_cuda(q, k, v, geo, scale, return_lse)
     raise ValueError(f"banded_flash_attention needs q, k, v all on the CPU or all on CUDA, got {devices}")
-
-
-banded_flash_attention.launches = 0
-banded_flash_attention.launches_by_dtype = {}  # "bfloat16" / "float16" / "float32" -> launches
 
 
 # ---------------------------------------------------------------------------
@@ -402,20 +380,11 @@ def launch_banded_local(q_vid, k, v, o, lse, geo: BandGeometry, scale: float) ->
     if q_vid.dtype == torch.float32:
         attention_f32.launch_fwd(q_vid, k, v, o, lse, None, None, scale * LOG2E, False, band=geo)
     else:
-        ptr = lambda t: ctypes.c_void_p(t.data_ptr() if t is not None else 0)  # noqa: E731
         strides = [st for t in (q_vid, k, v, o) for st in t.stride()[:3]]
-        err = getattr(_library(), LOCAL_ENTRY[q_vid.dtype])(
-            ptr(q_vid), ptr(k), ptr(v), ptr(o), ptr(lse), b, h, geo.global_len, geo.tokens_per_frame,
-            geo.n_frames, geo.span, geo.window, geo.frame_offset, geo.local_frames, *strides,
-            ctypes.c_float(scale * LOG2E), ctypes.c_void_p(torch.cuda.current_stream(q_vid.device).cuda_stream),
-        )
-        if err != 0:
-            raise RuntimeError(f"banded_flash_attention_local kernel launch failed: "
-                               f"{native_build.launch_error(err)}")
-    banded_flash_attention_local.launches += 1
-    dtype = str(q_vid.dtype).replace("torch.", "")
-    banded_flash_attention_local.launches_by_dtype[dtype] = (
-        banded_flash_attention_local.launches_by_dtype.get(dtype, 0) + 1)
+        native.launch(LIB, LOCAL_ENTRY[q_vid.dtype], q_vid.device, ptr(q_vid), ptr(k), ptr(v), ptr(o), ptr(lse),
+                      b, h, geo.global_len, geo.tokens_per_frame, geo.n_frames, geo.span, geo.window,
+                      geo.frame_offset, geo.local_frames, *strides, scale * LOG2E)
+    native.count("banded_flash_attention_local", q_vid.dtype)
 
 
 def banded_flash_attention_local(
@@ -460,10 +429,6 @@ def banded_flash_attention_local(
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q_vid.device) if return_lse else None
     launch_banded_local(q_vid, k_full, v_full, o, lse, geo, 1.0 / math.sqrt(d) if scale is None else scale)
     return (o, lse) if return_lse else o
-
-
-banded_flash_attention_local.launches = 0
-banded_flash_attention_local.launches_by_dtype = {}  # "bfloat16" / "float16" / "float32" -> launches
 
 
 # ---------------------------------------------------------------------------

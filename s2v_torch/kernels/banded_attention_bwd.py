@@ -26,8 +26,8 @@ returns dq, dk, dv.  On CUDA:
 
 CPU tensors take :func:`banded_flash_attention_bwd_reference`, the plain
 PyTorch version.  :func:`banded_flash_attention_bwd_blocked` emulates the
-kernels' schedule on any device.  ``banded_flash_attention_bwd.launches``
-counts calls that launched the banded kernels.
+kernels' schedule on any device.  ``native.count`` records each call that
+launched the banded kernels as ``banded_flash_attention_bwd``.
 
 Kernel B7, :func:`banded_flash_attention_local_bwd`, replaces
 ``s2v_tpu/ops/pallas/banded_attention_bwd.py::banded_flash_attention_local_bwd``:
@@ -39,7 +39,7 @@ from the shard's queries only (the global queries' part is the SP wrapper's,
 three CUDA kernels through its own C entry point
 ``s2v_banded_attention_local_bwd``, at the shard's runtime frame offset;
 :func:`banded_flash_attention_local_bwd_reference` is its plain version and
-``banded_flash_attention_local_bwd.launches`` its own count.  Frames at or
+``banded_flash_attention_local_bwd`` its own count.  Frames at or
 past F (ring-padding dummy frames) contribute exactly nothing: their dq rows
 are zero and no dk/dv walk reaches them, whatever their q, dO and lse hold.
 
@@ -58,19 +58,17 @@ dk by 2^-e after, e from :func:`band_ds_exponent` (B2's ``ds_exponent`` over
 all of v and the call's real dO rows), so a training step's small dO does not
 flush dS.  fp32 inputs launch the fp32 kernels of
 ``csrc/attention_f32_bwd.cu`` on the same band (``kernels/attention_f32.py``,
-3xTF32, P and dS kept in fp32).
-``launches_by_dtype`` counts calls by element type.
+3xTF32, P and dS kept in fp32).  Each count is also kept by element type.
 """
 
 from __future__ import annotations
 
-import ctypes
 import math
 from typing import Optional, Tuple
 
 import torch
 
-from s2v_torch.kernels import attention_f32
+from s2v_torch.kernels import attention_f32, native
 from s2v_torch.kernels.banded_attention import (
     BandGeometry,
     band_geometry,
@@ -86,6 +84,7 @@ from s2v_torch.kernels.flash_attention_bwd import (
     masked_bwd_reference,
     row_delta,
 )
+from s2v_torch.kernels.native import F32, I32, I64, PTR, STREAM, ptr
 from s2v_torch.utils import native_build
 
 SOURCE = native_build.CSRC_DIR / "banded_attention_bwd.cu"
@@ -98,23 +97,11 @@ KERNEL_TILE_ROWS = 64
 # the parts of one call, a bit mask of the C entry points
 PART_PREPASS, PART_DQ, PART_DKV = 1, 2, 4
 ALL_PARTS = PART_PREPASS | PART_DQ | PART_DKV
-_lib = None
-
-
-def _library():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(native_build.build_one(SOURCE)))
-        vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        # q, k, v, o, dO, lse, the dS exponent, the workspace and its rows, dq, dk, dv
-        pointers = [vp] * 9 + [i32] + [vp] * 3
-        for entries, ints in ((ENTRY, 8), (LOCAL_ENTRY, 9)):
-            for name in entries.values():
-                fn = getattr(lib, name)
-                fn.argtypes = pointers + [i32] * ints + [i64] * 24 + [ctypes.c_float, i32, vp]
-                fn.restype = i32
-        _lib = lib
-    return _lib
+# q, k, v, o, dO, lse, the dS exponent, the workspace and its rows, dq, dk, dv
+_POINTERS = [PTR] * 9 + [I32] + [PTR] * 3
+LIB = native_build.Library(SOURCE, {**{name: _POINTERS + [I32] * ints + [I64] * 24 + [F32, I32, STREAM]
+                                 for entries, ints in ((ENTRY, 8), (LOCAL_ENTRY, 9)) for name in entries.values()},
+                              "s2v_banded_attention_bwd_smem_bytes": []})
 
 
 def _check_shapes(q, k, v, o, lse, g) -> None:
@@ -196,15 +183,7 @@ def band_ds_exponent(v: torch.Tensor, g_rows: torch.Tensor, geo: BandGeometry) -
     return ds_exponent(v, g_rows[:, :real_rows])
 
 
-def _count(fn, dtype) -> None:
-    """One launch of ``fn``'s kernels, counted in total and by element type."""
-    fn.launches += 1
-    name = str(dtype).replace("torch.", "")
-    fn.launches_by_dtype[name] = fn.launches_by_dtype.get(name, 0) + 1
-
-
 def _pointers_and_strides(q, k, v, o, g, lse, ds_exp, workspace, dq, dk, dv):
-    ptr = lambda t: ctypes.c_void_p(t.data_ptr() if t is not None else 0)  # noqa: E731
     pointers = [ptr(t) for t in (q, k, v, o, g, lse, ds_exp, workspace[0], workspace[1])]
     pointers += [workspace.shape[2], ptr(dq), ptr(dk), ptr(dv)]
     strides = [st for t in (q, k, v, o, g, dq, dk, dv) for st in t.stride()[:3]]
@@ -221,17 +200,13 @@ def launch_banded_bwd(q, k, v, o, g, lse, dq, dk, dv, geo: BandGeometry, scale: 
         g_len = geo.global_len
         attention_f32.launch_bwd(q[:, g_len:], k, v, o[:, g_len:], g[:, g_len:], lse[..., g_len:], dq[:, g_len:],
                                  dk, dv, scale, band=geo, workspace=workspace, parts=parts)
-        _count(banded_flash_attention_bwd, q.dtype)
+        native.count("banded_flash_attention_bwd", q.dtype)
         return
     ds_exp = band_ds_exponent(v, g[:, geo.global_len:], geo) if q.dtype == torch.float16 else None
     pointers, strides = _pointers_and_strides(q, k, v, o, g, lse, ds_exp, workspace, dq, dk, dv)
-    err = getattr(_library(), ENTRY[q.dtype])(
-        *pointers, b, h, s, geo.global_len, geo.tokens_per_frame, geo.n_frames, geo.span, geo.window,
-        *strides, ctypes.c_float(scale), int(parts), ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream),
-    )
-    if err != 0:
-        raise RuntimeError(f"banded_flash_attention_bwd kernel launch failed: {native_build.launch_error(err)}")
-    _count(banded_flash_attention_bwd, q.dtype)
+    native.launch(LIB, ENTRY[q.dtype], q.device, *pointers, b, h, s, geo.global_len, geo.tokens_per_frame,
+                  geo.n_frames, geo.span, geo.window, *strides, scale, int(parts))
+    native.count("banded_flash_attention_bwd", q.dtype)
 
 
 def _banded_flash_attention_bwd_cuda(q, k, v, o, lse, g, geo, scale):
@@ -282,10 +257,6 @@ def banded_flash_attention_bwd(
     if devices == {"cuda"}:
         return _banded_flash_attention_bwd_cuda(q, k, v, o, lse, g, geo, scale)
     raise ValueError(f"banded_flash_attention_bwd needs all its inputs on the CPU or all on CUDA, got {devices}")
-
-
-banded_flash_attention_bwd.launches = 0
-banded_flash_attention_bwd.launches_by_dtype = {}  # "bfloat16" / "float16" / "float32" -> launches
 
 
 # ---------------------------------------------------------------------------
@@ -354,18 +325,14 @@ def launch_banded_local_bwd(q_vid, k, v, o_vid, g_vid, lse_vid, dq, dk, dv, geo:
     if q_vid.dtype == torch.float32:
         attention_f32.launch_bwd(q_vid, k, v, o_vid, g_vid, lse_vid, dq, dk, dv, scale, band=geo,
                                  workspace=workspace, parts=parts)
-        _count(banded_flash_attention_local_bwd, q_vid.dtype)
+        native.count("banded_flash_attention_local_bwd", q_vid.dtype)
         return
     ds_exp = band_ds_exponent(v, g_vid, geo) if q_vid.dtype == torch.float16 else None
     pointers, strides = _pointers_and_strides(q_vid, k, v, o_vid, g_vid, lse_vid, ds_exp, workspace, dq, dk, dv)
-    err = getattr(_library(), LOCAL_ENTRY[q_vid.dtype])(
-        *pointers, b, h, geo.global_len, geo.tokens_per_frame, geo.n_frames, geo.span, geo.window,
-        geo.frame_offset, geo.local_frames, *strides, ctypes.c_float(scale), int(parts),
-        ctypes.c_void_p(torch.cuda.current_stream(q_vid.device).cuda_stream),
-    )
-    if err != 0:
-        raise RuntimeError(f"banded_flash_attention_local_bwd kernel launch failed: {native_build.launch_error(err)}")
-    _count(banded_flash_attention_local_bwd, q_vid.dtype)
+    native.launch(LIB, LOCAL_ENTRY[q_vid.dtype], q_vid.device, *pointers, b, h, geo.global_len,
+                  geo.tokens_per_frame, geo.n_frames, geo.span, geo.window, geo.frame_offset, geo.local_frames,
+                  *strides, scale, int(parts))
+    native.count("banded_flash_attention_local_bwd", q_vid.dtype)
 
 
 def banded_flash_attention_local_bwd(
@@ -414,10 +381,6 @@ def banded_flash_attention_local_bwd(
     launch_banded_local_bwd(q_vid, k_full, v_full, o_vid, g_vid, lse_vid, dq, dk, dv, geo, scale,
                             banded_bwd_workspace(q_vid, q_vid.shape[1]))
     return dq, dk, dv
-
-
-banded_flash_attention_local_bwd.launches = 0
-banded_flash_attention_local_bwd.launches_by_dtype = {}  # "bfloat16" / "float16" / "float32" -> launches
 
 
 # ---------------------------------------------------------------------------

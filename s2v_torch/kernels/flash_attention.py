@@ -20,11 +20,9 @@ overlap the other's products.
 
 ``flash_attention`` dispatches on the device of its inputs: CPU tensors go to
 :func:`flash_attention_reference`, the plain PyTorch version; CUDA tensors
-launch the kernel or raise.  ``flash_attention.launches`` counts kernel
-launches (``launches_by_batch`` and ``launches_by_dtype`` the same by batch
-size and by element type) and
-``flash_attention.reruns`` the bounded calls that fell back to the online
-kernel.
+launch the kernel or raise.  ``native.count`` records each launch as
+``flash_attention`` (by element type and by batch size) and each bounded
+call that fell back to the online kernel as ``flash_attention_rerun``.
 
 Bounded mode needs one host sync per call (the ``min log l < -55`` check
 that decides the online re-run): 42 per denoise step on the main path.
@@ -35,24 +33,23 @@ the kernel computes what the JAX package computes after its fp32 upcast (the
 same products, fp32 accumulation), except that P is rounded to fp16 for P·V.
 fp32 inputs (``--dtype float32``) launch the fp32 kernel of
 ``s2v_torch/csrc/attention_f32.cu`` (``kernels/attention_f32.py``: 3xTF32
-products, nothing rounded below fp32), counted under
-``launches_by_dtype["float32"]``.  fp16 has no
-normal values below 2⁻¹⁴, so in bounded mode the fp16 kernel offsets the
-logits by M0 less 15 bits (P = 2¹⁵ at the bound) and reports log l = -1e30
-for a row whose largest P stays below 1 (its largest logit more than 15
-bits below M0): the guard then re-runs the call online, where P is rounded
-against each row's running max.
+products, nothing rounded below fp32), counted as ``float32`` launches.
+fp16 has no normal values below 2⁻¹⁴, so in bounded mode the fp16 kernel
+offsets the logits by M0 less 15 bits (P = 2¹⁵ at the bound) and reports
+log l = -1e30 for a row whose largest P stays below 1 (its largest logit
+more than 15 bits below M0): the guard then re-runs the call online, where
+P is rounded against each row's running max.
 """
 
 from __future__ import annotations
 
-import ctypes
 import math
 from typing import Optional
 
 import torch
 
-from s2v_torch.kernels import attention_f32
+from s2v_torch.kernels import attention_f32, native
+from s2v_torch.kernels.native import F32, I32, I64, PTR, STREAM, ptr
 from s2v_torch.utils import native_build
 from s2v_torch.utils.logging import phase
 
@@ -77,20 +74,9 @@ FLASH_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
 SOURCE = native_build.CSRC_DIR / "flash_attention.cu"
 # the C entry point of each element type
 ENTRY = {torch.bfloat16: "s2v_flash_attention_fwd", torch.float16: "s2v_flash_attention_fwd_f16"}
-_lib = None
-
-
-def _library():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(native_build.build_one(SOURCE)))
-        vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        for name in ENTRY.values():
-            fn = getattr(lib, name)
-            fn.argtypes = [vp] * 7 + [i32] * 4 + [i64] * 12 + [ctypes.c_float, i32, vp]
-            fn.restype = i32
-        _lib = lib
-    return _lib
+LIB = native_build.Library(SOURCE, {**{name: [PTR] * 7 + [I32] * 4 + [I64] * 12 + [F32, I32, STREAM]
+                                 for name in ENTRY.values()},
+                              "s2v_flash_attention_fwd_smem_bytes": []})
 
 
 def _check_mode(softmax_mode: str) -> None:
@@ -226,19 +212,10 @@ def _launch(q, k, v, o, lse, mask, m0_log2, scale_log2: float, bounded: bool) ->
     if q.dtype == torch.float32:
         attention_f32.launch_fwd(q, k, v, o, lse, mask, m0_log2, scale_log2, bounded)
     else:
-        ptr = lambda t: ctypes.c_void_p(t.data_ptr() if t is not None else 0)  # noqa: E731
         strides = [s for t in (q, k, v, o) for s in t.stride()[:3]]
-        err = getattr(_library(), ENTRY[q.dtype])(
-            ptr(q), ptr(k), ptr(v), ptr(o), ptr(lse), ptr(mask), ptr(m0_log2),
-            b, h, sq, skv, *strides, ctypes.c_float(scale_log2), int(bounded),
-            ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream),
-        )
-        if err != 0:
-            raise RuntimeError(f"flash_attention kernel launch failed: {native_build.launch_error(err)}")
-    flash_attention.launches += 1
-    flash_attention.launches_by_batch[b] = flash_attention.launches_by_batch.get(b, 0) + 1
-    dtype = str(q.dtype).replace("torch.", "")
-    flash_attention.launches_by_dtype[dtype] = flash_attention.launches_by_dtype.get(dtype, 0) + 1
+        native.launch(LIB, ENTRY[q.dtype], q.device, ptr(q), ptr(k), ptr(v), ptr(o), ptr(lse), ptr(mask),
+                      ptr(m0_log2), b, h, sq, skv, *strides, scale_log2, int(bounded))
+    native.count("flash_attention", q.dtype, batch=b)  # by batch: a cfg-skipped step runs B, not 2B
 
 
 def _flash_attention_cuda(q, k, v, scale, return_lse, key_pad_mask, softmax_mode):
@@ -279,7 +256,7 @@ def _flash_attention_cuda(q, k, v, scale, return_lse, key_pad_mask, softmax_mode
     with phase("s2v.sync.b1_guard"):
         rerun = float(logl.amin()) < BOUNDED_MIN_LOG_L
     if rerun:
-        flash_attention.reruns += 1
+        native.count("flash_attention_rerun")
         lse = online(return_lse)
         return (o, lse) if return_lse else o
     if return_lse:
@@ -310,9 +287,3 @@ def flash_attention(
     if devices == {"cuda"}:
         return _flash_attention_cuda(q, k, v, scale, return_lse, key_pad_mask, softmax_mode)
     raise ValueError(f"flash_attention needs q, k, v all on the CPU or all on CUDA, got {devices}")
-
-
-flash_attention.launches = 0
-flash_attention.launches_by_batch = {}  # batch size -> launches (a cfg-skipped step runs B, not 2B)
-flash_attention.launches_by_dtype = {}  # "bfloat16" / "float16" / "float32" -> launches
-flash_attention.reruns = 0

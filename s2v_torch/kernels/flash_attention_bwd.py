@@ -39,25 +39,25 @@ sums in tile order).
 
 ``flash_attention_bwd`` dispatches on the device of its inputs: CPU tensors
 go to :func:`flash_attention_bwd_reference`, the plain PyTorch version; CUDA
-tensors launch the kernels or raise.  ``flash_attention_bwd.launches`` counts
-calls that launched them (``launches_by_dtype`` the same by element type).
+tensors launch the kernels or raise.  ``native.count`` records each call
+that launched them as ``flash_attention_bwd`` (by element type).
 """
 
 from __future__ import annotations
 
-import ctypes
 import math
 from typing import Optional, Tuple
 
 import torch
 
-from s2v_torch.kernels import attention_f32
+from s2v_torch.kernels import attention_f32, native
 from s2v_torch.kernels.flash_attention import (
     LOG2E,
     REFERENCE_CHUNK,
     check_kernel_inputs,
     check_kernel_tensor,
 )
+from s2v_torch.kernels.native import F32, I32, I64, PTR, STREAM, ptr
 from s2v_torch.utils import native_build
 
 SOURCE = native_build.CSRC_DIR / "flash_attention_bwd.cu"
@@ -71,20 +71,9 @@ DS_BOUND_LOG2 = 14
 # the parts of one call, a bit mask of the C entry point
 PART_PREPASS, PART_DQ, PART_DKV = 1, 2, 4
 ALL_PARTS = PART_PREPASS | PART_DQ | PART_DKV
-_lib = None
-
-
-def _library():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(native_build.build_one(SOURCE)))
-        vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        for name in ENTRY.values():
-            fn = getattr(lib, name)
-            fn.argtypes = [vp] * 12 + [i32] * 4 + [i64] * 24 + [ctypes.c_float, i32, vp]
-            fn.restype = i32
-        _lib = lib
-    return _lib
+LIB = native_build.Library(SOURCE, {**{name: [PTR] * 12 + [I32] * 4 + [I64] * 24 + [F32, I32, STREAM]
+                                 for name in ENTRY.values()},
+                              "s2v_flash_attention_bwd_smem_bytes": []})
 
 
 def _check_shapes(q, k, v, o, lse, g) -> None:
@@ -244,19 +233,12 @@ def _launch(q, k, v, o, g, lse, dq, dk, dv, scale: float, workspace, parts: int 
     if q.dtype == torch.float32:
         attention_f32.launch_bwd(q, k, v, o, g, lse, dq, dk, dv, scale, workspace=workspace, parts=parts)
     else:
-        ptr = lambda t: ctypes.c_void_p(t.data_ptr() if t is not None else 0)  # noqa: E731
         strides = [s for t in (q, k, v, o, g, dq, dk, dv) for s in t.stride()[:3]]
         ds_exp = ds_exponent(v, g) if q.dtype == torch.float16 else None
-        err = getattr(_library(), ENTRY[q.dtype])(
-            ptr(q), ptr(k), ptr(v), ptr(o), ptr(g), ptr(lse), ptr(ds_exp), ptr(workspace[0]), ptr(workspace[1]),
-            ptr(dq), ptr(dk), ptr(dv), b, h, sq, skv, *strides, ctypes.c_float(scale), int(parts),
-            ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream),
-        )
-        if err != 0:
-            raise RuntimeError(f"flash_attention_bwd kernel launch failed: {native_build.launch_error(err)}")
-    flash_attention_bwd.launches += 1
-    dtype = str(q.dtype).replace("torch.", "")
-    flash_attention_bwd.launches_by_dtype[dtype] = flash_attention_bwd.launches_by_dtype.get(dtype, 0) + 1
+        native.launch(LIB, ENTRY[q.dtype], q.device, ptr(q), ptr(k), ptr(v), ptr(o), ptr(g), ptr(lse), ptr(ds_exp),
+                      ptr(workspace[0]), ptr(workspace[1]), ptr(dq), ptr(dk), ptr(dv), b, h, sq, skv, *strides,
+                      scale, int(parts))
+    native.count("flash_attention_bwd", q.dtype)
 
 
 def _flash_attention_bwd_cuda(q, k, v, o, lse, g, scale):
@@ -294,7 +276,3 @@ def flash_attention_bwd(
     if devices == {"cuda"}:
         return _flash_attention_bwd_cuda(q, k, v, o, lse, g, scale)
     raise ValueError(f"flash_attention_bwd needs all its inputs on the CPU or all on CUDA, got {devices}")
-
-
-flash_attention_bwd.launches = 0
-flash_attention_bwd.launches_by_dtype = {}  # "bfloat16" / "float16" / "float32" -> launches

@@ -31,11 +31,12 @@ tile only.
 
 ``flash_attention_qk_int8`` dispatches on the device of its inputs: CPU
 tensors go to :func:`flash_attention_qk_int8_reference`, the plain PyTorch
-version; CUDA tensors launch the kernels or raise.
-``flash_attention_qk_int8.launches`` counts main-kernel launches and
-``flash_attention_qk_int8.prepass_launches`` pre-pass launches (both
-kernels).  :func:`flash_attention_qk_int8_blocked` emulates the main
-kernel's schedule in plain PyTorch; the card tests hold the kernel to it.
+version; CUDA tensors launch the kernels or raise.  ``native.count``
+records each main-kernel launch as ``flash_attention_qk_int8`` (by element
+type) and each pre-pass launch (both kernels) as
+``flash_attention_qk_int8_prepass``.
+:func:`flash_attention_qk_int8_blocked` emulates the main kernel's schedule
+in plain PyTorch; the card tests hold the kernel to it.
 
 Element types of q, k, v: bf16 (the 5b models) and fp16 (the 2b family), the
 kernels templated on the type with two C entry points each (``ENTRY``,
@@ -52,24 +53,23 @@ transposed planes, each tile's sum from zero added in fp32; nothing is
 rounded below fp32.  Its bound at the main shape: the logits 2.3 ms, the
 exponentials 8.4 ms, P·V 27.2 ms at the 3-pass TF32 floor (3 × 4.5·10¹²
 operations at 495 TFLOP/s).
-``launches_by_dtype`` counts main-kernel launches by type.
 """
 
 from __future__ import annotations
 
-import ctypes
 import math
 from typing import Optional, Tuple
 
 import torch
 
-from s2v_torch.kernels import attention_f32
+from s2v_torch.kernels import attention_f32, native
 from s2v_torch.kernels.flash_attention import (
     LOG2E,
     REFERENCE_CHUNK,
     check_kernel_inputs,
     check_kernel_tensor,
 )
+from s2v_torch.kernels.native import F32, I32, I64, PTR, STREAM, ptr
 from s2v_torch.ops.quant import INV_127
 from s2v_torch.utils import native_build
 
@@ -85,43 +85,16 @@ MAX_EXACT_FP32_HEAD_DIM = 1040
 KERNEL_QUERY_TILE = 128
 KERNEL_KEY_TILE = 128
 KERNEL_KEY_TILE_F32 = attention_f32.KERNEL_ROWS
-_lib = None
-
-
-def _library():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(native_build.build_one(SOURCE)))
-        vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        for name in ENTRY.values():
-            getattr(lib, name).argtypes = [vp] * 5 + [i32] * 4 + [i64] * 12 + [vp]
-        for name in PREPASS_ENTRY.values():
-            getattr(lib, name).argtypes = [vp] * 6 + [i32] * 4 + [i64] * 6 + [ctypes.c_float, vp]
-        lib.s2v_int8_qk_tile.argtypes = [vp] * 4
-        lib.s2v_int8_attention_fwd_smem_bytes.argtypes = []
-        for name in (*ENTRY.values(), *PREPASS_ENTRY.values(), "s2v_int8_qk_tile",
-                     "s2v_int8_attention_fwd_smem_bytes"):
-            getattr(lib, name).restype = i32
-        _lib = lib
-    return _lib
-
-
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
-
-
-def _stream(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
-
-
-def _raise_on(err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what} launch failed: {native_build.launch_error(err)}")
+LIB = native_build.Library(SOURCE, {**{name: [PTR] * 5 + [I32] * 4 + [I64] * 12 + [STREAM] for name in ENTRY.values()},
+                              **{name: [PTR] * 6 + [I32] * 4 + [I64] * 6 + [F32, STREAM]
+                                 for name in PREPASS_ENTRY.values()},
+                              "s2v_int8_qk_tile": [PTR] * 3 + [STREAM],
+                              "s2v_int8_attention_fwd_smem_bytes": []})
 
 
 def kernel_smem_bytes() -> int:
     """Dynamic shared memory a block of the main kernel asks for."""
-    return _library().s2v_int8_attention_fwd_smem_bytes()
+    return LIB.entry("s2v_int8_attention_fwd_smem_bytes")()
 
 
 def quantize_tensor_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -272,12 +245,9 @@ def launch_int8_prepass(q: torch.Tensor, k: torch.Tensor, scale: float):
     amax = torch.empty(2, dtype=torch.float32, device=q.device)  # workspace
     dq = torch.empty(1, dtype=torch.float32, device=q.device)
     b, sq, h, _ = q.shape
-    err = getattr(_library(), PREPASS_ENTRY[q.dtype])(
-        *(_ptr(t) for t in (q, k, q_i8, k_i8, amax, dq)), b, h, sq, k.shape[1],
-        *q.stride()[:3], *k.stride()[:3], ctypes.c_float(scale), _stream(q),
-    )
-    _raise_on(err, "flash_attention_qk_int8 pre-pass")
-    flash_attention_qk_int8.prepass_launches += 1
+    native.launch(LIB, PREPASS_ENTRY[q.dtype], q.device, *(ptr(t) for t in (q, k, q_i8, k_i8, amax, dq)), b, h,
+                  sq, k.shape[1], *q.stride()[:3], *k.stride()[:3], scale)
+    native.count("flash_attention_qk_int8_prepass")
     return q_i8, k_i8, dq
 
 
@@ -291,14 +261,9 @@ def launch_int8(q_i8, k_i8, v, o, dq) -> None:
     else:
         b, sq, h, _ = q_i8.shape
         strides = [s for t in (q_i8, k_i8, v, o) for s in t.stride()[:3]]
-        err = getattr(_library(), ENTRY[v.dtype])(
-            *(_ptr(t) for t in (q_i8, k_i8, v, o, dq)),
-            b, h, sq, k_i8.shape[1], *strides, _stream(q_i8),
-        )
-        _raise_on(err, "flash_attention_qk_int8 kernel")
-    flash_attention_qk_int8.launches += 1
-    dtype = str(v.dtype).replace("torch.", "")
-    flash_attention_qk_int8.launches_by_dtype[dtype] = flash_attention_qk_int8.launches_by_dtype.get(dtype, 0) + 1
+        native.launch(LIB, ENTRY[v.dtype], q_i8.device, *(ptr(t) for t in (q_i8, k_i8, v, o, dq)), b, h, sq,
+                      k_i8.shape[1], *strides)
+    native.count("flash_attention_qk_int8", v.dtype)
 
 
 def int8_qk_tile(q_i8: torch.Tensor, k_i8: torch.Tensor) -> torch.Tensor:
@@ -309,7 +274,7 @@ def int8_qk_tile(q_i8: torch.Tensor, k_i8: torch.Tensor) -> torch.Tensor:
         raise ValueError("int8_qk_tile takes int8 q [64, 64] and k [128, 64]")
     q_i8, k_i8 = q_i8.contiguous(), k_i8.contiguous()
     out = torch.empty(64, 128, dtype=torch.int32, device=q_i8.device)
-    _raise_on(_library().s2v_int8_qk_tile(_ptr(q_i8), _ptr(k_i8), _ptr(out), _stream(q_i8)), "int8_qk_tile")
+    native.launch(LIB, "s2v_int8_qk_tile", q_i8.device, ptr(q_i8), ptr(k_i8), ptr(out))
     return out
 
 
@@ -342,8 +307,3 @@ def flash_attention_qk_int8(
     if devices == {"cuda"}:
         return _flash_attention_qk_int8_cuda(q, k, v, scale)
     raise ValueError(f"flash_attention_qk_int8 needs q, k, v all on the CPU or all on CUDA, got {devices}")
-
-
-flash_attention_qk_int8.launches = 0
-flash_attention_qk_int8.prepass_launches = 0
-flash_attention_qk_int8.launches_by_dtype = {}  # "bfloat16" / "float16" / "float32" -> main-kernel launches

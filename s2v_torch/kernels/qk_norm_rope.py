@@ -16,9 +16,9 @@ bf16 or fp16 with d = 64, and no gradient needed (grad mode off, or none of
 q, k and the norm params requiring one); the kernel has no backward, so the
 trainers keep the plain chain.  Every other call, on the CPU, in fp32 or
 under autograd, runs :func:`qk_norm_rope_reference`, the plain chain
-itself.  ``qk_norm_rope.launches`` counts kernel launches
-(``launches_by_dtype`` the same by element type) and
-``qk_norm_rope.plain_calls`` the calls that ran the plain chain.
+itself.  ``native.count`` records each launch as ``qk_norm_rope`` (by
+element type) and each call that ran the plain chain as
+``qk_norm_rope_plain``.
 
 The kernel computes in fp32 throughout and rounds once (see
 :func:`qk_norm_rope_emulated`); the plain chain applies the norm in the
@@ -28,33 +28,23 @@ bf16/fp16 limits (2^-6 of the largest value, 1e-2 relative L2).
 
 from __future__ import annotations
 
-import ctypes
 from typing import Optional, Tuple
 
 import torch
 
+from s2v_torch.kernels import native
+from s2v_torch.kernels.native import F32, I32, I64, PTR, STREAM, ptr
 from s2v_torch.ops.norms import layer_norm
 from s2v_torch.ops.rope import apply_rotary_emb
 from s2v_torch.utils import native_build
+from s2v_torch.utils.device import needs_grad
 
 HEAD_DIM = 64
 SOURCE = native_build.CSRC_DIR / "qk_norm_rope.cu"
 # the C entry point of each element type
 ENTRY = {torch.bfloat16: "s2v_qk_norm_rope", torch.float16: "s2v_qk_norm_rope_f16"}
-_lib = None
-
-
-def _library():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(native_build.build_one(SOURCE)))
-        vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        for name in ENTRY.values():
-            fn = getattr(lib, name)
-            fn.argtypes = [vp] * 10 + [i32] * 3 + [i64] * 6 + [ctypes.c_float, vp]
-            fn.restype = i32
-        _lib = lib
-    return _lib
+LIB = native_build.Library(SOURCE, {name: [PTR] * 10 + [I32] * 3 + [I64] * 6 + [F32, STREAM]
+                                    for name in ENTRY.values()})
 
 
 def qk_norm_rope_reference(q: torch.Tensor, k: torch.Tensor, norm_q: dict, norm_k: dict, eps: float,
@@ -136,8 +126,7 @@ def _kernel_engages(q: torch.Tensor, k: torch.Tensor, norm_q: dict, norm_k: dict
     gradient needed (the kernel has no backward)."""
     if not (q.is_cuda and k.is_cuda and q.dtype in ENTRY and q.shape[-1] == HEAD_DIM):
         return False
-    params = (norm_q["weight"], norm_q["bias"], norm_k["weight"], norm_k["bias"])
-    return not (torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, *params)))
+    return not needs_grad(q, k, norm_q["weight"], norm_q["bias"], norm_k["weight"], norm_k["bias"])
 
 
 def _launch(q, k, norm_q, norm_k, eps, cos, sin):
@@ -151,17 +140,9 @@ def _launch(q, k, norm_q, norm_k, eps, cos, sin):
     b, s, h, d = q.shape
     out = torch.empty((2, b, s, h, d), dtype=q.dtype, device=q.device)
     q_out, k_out = out[0], out[1]
-    ptr = lambda t: ctypes.c_void_p(t.data_ptr() if t is not None else 0)  # noqa: E731
-    err = getattr(_library(), ENTRY[q.dtype])(
-        ptr(q), ptr(k), ptr(q_out), ptr(k_out), ptr(wq), ptr(bq), ptr(wk), ptr(bk), ptr(cos), ptr(sin),
-        b, s, h, *q.stride()[:3], *k.stride()[:3], ctypes.c_float(eps),
-        ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream),
-    )
-    if err != 0:
-        raise RuntimeError(f"qk_norm_rope kernel launch failed: {native_build.launch_error(err)}")
-    qk_norm_rope.launches += 1
-    dtype = str(q.dtype).replace("torch.", "")
-    qk_norm_rope.launches_by_dtype[dtype] = qk_norm_rope.launches_by_dtype.get(dtype, 0) + 1
+    native.launch(LIB, ENTRY[q.dtype], q.device, ptr(q), ptr(k), ptr(q_out), ptr(k_out), ptr(wq), ptr(bq), ptr(wk),
+                  ptr(bk), ptr(cos), ptr(sin), b, s, h, *q.stride()[:3], *k.stride()[:3], eps)
+    native.count("qk_norm_rope", q.dtype)
     return q_out, k_out
 
 
@@ -175,10 +156,5 @@ def qk_norm_rope(q: torch.Tensor, k: torch.Tensor, norm_q: dict, norm_k: dict, e
     docstring for which calls take the kernel."""
     if _kernel_engages(q, k, norm_q, norm_k):
         return _launch(q, k, norm_q, norm_k, eps, cos, sin)
-    qk_norm_rope.plain_calls += 1
+    native.count("qk_norm_rope_plain")
     return qk_norm_rope_reference(q, k, norm_q, norm_k, eps, cos, sin)
-
-
-qk_norm_rope.launches = 0
-qk_norm_rope.launches_by_dtype = {}  # "bfloat16" / "float16" -> launches
-qk_norm_rope.plain_calls = 0  # calls that ran the plain chain (the CPU, fp32, autograd)

@@ -66,6 +66,7 @@ from s2v_torch.parallel.sp_attention import (
     int8_allgather_attention,
     ulysses_attention_trainable,
 )
+from s2v_torch.utils.device import needs_grad
 from s2v_torch.utils.logging import phase
 
 # backends that take the sliding temporal window (entry points configure its width)
@@ -162,15 +163,11 @@ class _FlashAttention(torch.autograd.Function):
         return flash_attention_bwd(q, k, v, o, lse, g.contiguous())
 
 
-def _needs_grad(*tensors) -> bool:
-    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
-
-
 def flash_attention_trainable(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Differentiable flash attention, ``[B, S, H, d]`` in and out.  Without
     autograd (no input needs a grad, or grad mode is off) it is one B1 call
     without lse, exactly what inference runs."""
-    if _needs_grad(q, k, v):
+    if needs_grad(q, k, v):
         return _FlashAttention.apply(q, k, v)
     return flash_attention(q, k, v, softmax_mode=FLASH_SOFTMAX_MODE)
 
@@ -197,7 +194,7 @@ def banded_attention_trainable(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                                tokens_per_frame: int, window_frames: int) -> torch.Tensor:
     """Differentiable banded windowed attention, ``[B, S, H, d]`` in and out.
     Without autograd it is one B4 call without lse, what inference runs."""
-    if _needs_grad(q, k, v):
+    if needs_grad(q, k, v):
         return _BandedAttention.apply(q, k, v, global_len, tokens_per_frame, window_frames)
     return banded_flash_attention(q, k, v, global_len, tokens_per_frame, window_frames)
 
@@ -221,7 +218,7 @@ class _Int8Attention(torch.autograd.Function):
 def int8_attention_inference_only(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """int8-QK attention, ``[B, S, H, d]`` in and out.  Without autograd it
     is one B3 call."""
-    if _needs_grad(q, k, v):
+    if needs_grad(q, k, v):
         return _Int8Attention.apply(q, k, v)
     return flash_attention_qk_int8(q, k, v)
 
@@ -240,7 +237,7 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, block_q
     block runs in ``torch.utils.checkpoint``, so the backward recomputes one
     block's probabilities at a time instead of keeping all S² of them."""
     scale = 1.0 / (q.shape[-1] ** 0.5)
-    grad = _needs_grad(q, k, v)
+    grad = needs_grad(q, k, v)
     outs = []
     for i in range(0, q.shape[1], block_q):
         q_blk = q[:, i:i + block_q]

@@ -25,6 +25,8 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from s2v_torch.utils.device import needs_grad
+
 # quantized per block (JAX ``quantize_transformer_params``): ~96% of the
 # DiT's linear operations
 QUANTIZED_LEAVES = (("attn", "qkv"), ("attn", "to_out"), ("ff", "net_0"), ("ff", "net_2"))
@@ -160,7 +162,7 @@ def _rank0_bias(bias, tp):
 
     if bias is None:
         return None
-    if torch.is_grad_enabled() and bias.requires_grad:
+    if needs_grad(bias):
         bias = copy_to_model(bias, tp)
         return bias if tp.rank == 0 else bias * 0
     return bias if tp.rank == 0 else None

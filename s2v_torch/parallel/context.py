@@ -56,6 +56,8 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.distributed as dist
 
+from s2v_torch.utils.device import needs_grad
+
 _ACTIVE: Dict[str, Optional[object]] = {"mesh": None, "map": None}
 
 
@@ -255,10 +257,6 @@ def data_parallel() -> Optional[DimGroup]:
     return dim_group("dp")
 
 
-def _needs_grad(x: torch.Tensor) -> bool:
-    return torch.is_grad_enabled() and x.requires_grad
-
-
 class _CopyToModel(torch.autograd.Function):
     """Megatron's f: identity forward, the gradient all-reduced over the group."""
 
@@ -292,12 +290,12 @@ def copy_to_model(x: torch.Tensor, tp: DimGroup) -> torch.Tensor:
     """The input of a column-parallel linear (or a leaf a rank uses on its
     own heads only): the same tensor, whose gradient, a partial sum over
     ``model``, is all-reduced there.  Without autograd, ``x``."""
-    return _CopyToModel.apply(x, tp.group) if _needs_grad(x) else x
+    return _CopyToModel.apply(x, tp.group) if needs_grad(x) else x
 
 
 def reduce_from_model(x: torch.Tensor, tp: DimGroup) -> torch.Tensor:
     """The output of a row-parallel linear: the ranks' partial sums added."""
-    if _needs_grad(x):
+    if needs_grad(x):
         return _ReduceFromModel.apply(x, tp.group)
     x = x.contiguous()
     dist.all_reduce(x, group=tp.group)
@@ -321,7 +319,7 @@ class _GatherLast(torch.autograd.Function):
 
 def gather_columns(x: torch.Tensor, tp: DimGroup) -> torch.Tensor:
     """A column-parallel output ``[..., N/tp]`` -> ``[..., N]`` on every rank."""
-    if _needs_grad(x):
+    if needs_grad(x):
         return _GatherLast.apply(x, tp)
     return all_gather_rows(x, tp.group, tp.size, dim=x.dim() - 1).contiguous()
 
@@ -361,7 +359,7 @@ class _GatherBatch(torch.autograd.Function):
 def gather_rows_over(x: torch.Tensor, dp: DimGroup) -> torch.Tensor:
     """Every data rank's rows in rank order; the backward keeps this rank's
     rows of a gradient every rank holds alike."""
-    if _needs_grad(x):
+    if needs_grad(x):
         return _GatherBatch.apply(x, dp)
     return all_gather_rows(x, dp.group, dp.size, dim=0)
 
@@ -409,7 +407,7 @@ def sum_grads(tree, dims=("sp", "dp"), where=None):
             return {k: walk(v, path + (k,)) for k, v in t.items()}
         if isinstance(t, (list, tuple)):
             return type(t)(walk(v, path + (i,)) for i, v in enumerate(t))
-        if isinstance(t, torch.Tensor) and t.requires_grad and torch.is_grad_enabled():
+        if isinstance(t, torch.Tensor) and needs_grad(t):
             groups = default if where is None else _replica_groups(where(path))
             return _SumOver.apply(t, groups) if groups else t
         return t

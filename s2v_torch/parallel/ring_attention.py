@@ -27,7 +27,7 @@ import torch.distributed as dist
 
 from s2v_torch.kernels.flash_attention import NEG_INF, flash_attention
 from s2v_torch.parallel.context import FrameShard
-from s2v_torch.parallel.sp_attention import needs_grad
+from s2v_torch.utils.device import needs_grad
 
 # query rows per block of the backward's fp32 probabilities: 512 x 19,126
 # keys x 48 heads is 1.9 GB per tensor

@@ -38,6 +38,8 @@ from typing import Dict, Optional, Tuple, Union
 import torch
 import torch.distributed as dist
 
+from s2v_torch.utils.device import needs_grad
+
 # logical and mesh names of the axes (s2v_tpu/parallel/sharding.py:139-140)
 _ALIAS = {"dp": "data", "tp": "model", "sp": "seq", "data": "data", "model": "model", "seq": "seq"}
 # leaves below this many elements stay whole under FSDP (JAX's fsdp_min_size)
@@ -392,7 +394,7 @@ class ParamGather:
             p = spec_at(specs, path)
             if not isinstance(x, torch.Tensor) or p.data_dim is None:
                 return x
-            if torch.is_grad_enabled() and x.requires_grad:
+            if needs_grad(x):
                 return _GatherShards.apply(x, p.data_dim, self.dp)
             return _all_gather_dim(x, p.data_dim, self.dp.group)
 

@@ -39,6 +39,7 @@ from s2v_torch.kernels.flash_attention import flash_attention
 from s2v_torch.kernels.flash_attention_bwd import flash_attention_bwd
 from s2v_torch.kernels.int8_attention import flash_attention_qk_int8
 from s2v_torch.parallel.context import FrameShard, all_gather_rows, sum_and_take
+from s2v_torch.utils.device import needs_grad
 
 # JAX's message for a differentiated int8 backend (s2v_tpu/ops/attention.py:319-330)
 INT8_BACKWARD_MESSAGE = ("the int8-QK attention backends ('pallas_int8'/'sp_int8') are inference-only (no backward "
@@ -119,10 +120,6 @@ class _Int8AllgatherKV(torch.autograd.Function):
     @staticmethod
     def backward(ctx, go):
         raise NotImplementedError(INT8_BACKWARD_MESSAGE)
-
-
-def needs_grad(*tensors) -> bool:
-    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def allgather_kv_attention_trainable(q, k, v, shard: FrameShard, global_len: int,

@@ -19,3 +19,10 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def needs_grad(*tensors: torch.Tensor) -> bool:
+    """Whether autograd records a call on ``tensors``: grad mode on (not
+    ``no_grad``, not ``inference_mode``) and one of them requiring a
+    gradient.  Kernels without a backward run only when it is False."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)

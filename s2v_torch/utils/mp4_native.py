@@ -13,29 +13,18 @@ import numpy as np
 from s2v_torch.utils import native_build
 
 SOURCE = native_build.REPO_ROOT / "native" / "mp4_muxer.cc"
-_lib = None
-
-
-def _library() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(native_build.build_one(SOURCE)))
-        lib.s2v_mp4_open.restype = ctypes.c_void_p
-        lib.s2v_mp4_open.argtypes = [ctypes.c_char_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int]
-        lib.s2v_mp4_write_frame.restype = ctypes.c_int
-        lib.s2v_mp4_write_frame.argtypes = [ctypes.c_void_p, ctypes.c_char_p]
-        lib.s2v_mp4_close.restype = ctypes.c_int
-        lib.s2v_mp4_close.argtypes = [ctypes.c_void_p]
-        lib.s2v_mp4_last_error.restype = ctypes.c_char_p
-        lib.s2v_mp4_last_error.argtypes = []
-        _lib = lib
-    return _lib
+LIB = native_build.Library(SOURCE, {
+    "s2v_mp4_open": [ctypes.c_char_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int],
+    "s2v_mp4_write_frame": [ctypes.c_void_p, ctypes.c_char_p],
+    "s2v_mp4_close": [ctypes.c_void_p],
+    "s2v_mp4_last_error": [],
+}, restype={"s2v_mp4_open": ctypes.c_void_p, "s2v_mp4_last_error": ctypes.c_char_p})
 
 
 def is_available() -> bool:
     """Whether the muxer builds and loads here."""
     try:
-        _library()
+        LIB.load()
     except (RuntimeError, OSError):
         return False
     return True
@@ -44,7 +33,7 @@ def is_available() -> bool:
 def write_mp4(frames: np.ndarray, path: str, fps: int = 8, crf: int = 23) -> str:
     """Encode uint8 RGB frames ``[T, H, W, 3]`` to an H.264 yuv420p mp4 at
     ``path``.  Odd sizes are edge-padded to even (yuv420p)."""
-    lib = _library()
+    lib = LIB.load()
     frames = np.ascontiguousarray(frames)
     if frames.dtype != np.uint8 or frames.ndim != 4 or frames.shape[-1] != 3:
         raise ValueError(f"expected uint8 [T, H, W, 3], got {frames.dtype} {frames.shape}")

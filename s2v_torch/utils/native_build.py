@@ -1,15 +1,17 @@
 """Build the port's native sources into ``<repo>/build`` at first use.
 
 Each source is compiled into a shared library with a plain C interface,
-loaded with ``ctypes``.  The library name carries a hash of the source, of
-the local headers it includes (``csrc/hopper.cuh``) and of the command, so
-an edited source or header is rebuilt and a stale build never loads.
+loaded with ``ctypes`` by a :class:`Library` that declares its entries.
+The library name carries a hash of the source, of the local headers it
+includes (``csrc/hopper.cuh``) and of the command, so an edited source or
+header is rebuilt and a stale build never loads.
 Compilers run only when a kernel is first needed on a machine that has them;
 importing this module starts nothing.
 """
 
 from __future__ import annotations
 
+import ctypes
 import hashlib
 import os
 import re
@@ -17,7 +19,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, List, Sequence
+from typing import Dict, List, Mapping, Optional, Sequence
 
 REPO_ROOT = Path(__file__).resolve().parents[2]
 BUILD_DIR = REPO_ROOT / "build"
@@ -120,3 +122,33 @@ def launch_error(code: int) -> str:
 
 def build_one(src: Path) -> Path:
     return build([src])[Path(src).stem]["path"]
+
+
+class Library:
+    """One native source and its C entries, ``{name: argument types}``.
+    Nothing is built at construction: the first :meth:`load` builds the
+    source (or finds its build), loads it once per process and declares
+    every entry's ``argtypes`` and ``restype``: ``restype[name]`` where
+    given, else ``c_int`` (a kernel's launch entry returns an error code
+    that :func:`launch_error` names)."""
+
+    def __init__(self, source: Path, entries: Mapping[str, Sequence[type]],
+                 restype: Optional[Mapping[str, Optional[type]]] = None):
+        self.source, self.entries, self.restype = Path(source), dict(entries), dict(restype or {})
+        self._cdll: Optional[ctypes.CDLL] = None
+
+    def load(self) -> ctypes.CDLL:
+        if self._cdll is None:
+            cdll = ctypes.CDLL(str(build_one(self.source)))
+            for name, argtypes in self.entries.items():
+                fn = getattr(cdll, name)
+                fn.argtypes = list(argtypes)
+                fn.restype = self.restype.get(name, ctypes.c_int)
+            self._cdll = cdll
+        return self._cdll
+
+    def entry(self, name: str):
+        """The declared C function ``name`` (loading the library first)."""
+        if name not in self.entries:
+            raise KeyError(f"{name} is not an entry declared for {self.source.name}")
+        return getattr(self.load(), name)

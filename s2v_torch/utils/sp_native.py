@@ -23,25 +23,13 @@ from s2v_torch.utils import native_build
 from s2v_torch.utils.logging import get_logger
 
 SOURCE = native_build.REPO_ROOT / "native" / "sp_tokenizer.cc"
-_lib = None
-
-
-def _library() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(native_build.build_one(SOURCE)))
-        lib.sp_load.restype = ctypes.c_void_p
-        lib.sp_load.argtypes = [ctypes.c_char_p]
-        lib.sp_vocab_size.restype = ctypes.c_int
-        lib.sp_vocab_size.argtypes = [ctypes.c_void_p]
-        lib.sp_piece_to_id.restype = ctypes.c_int
-        lib.sp_piece_to_id.argtypes = [ctypes.c_void_p, ctypes.c_char_p]
-        lib.sp_encode.restype = ctypes.c_int
-        lib.sp_encode.argtypes = [ctypes.c_void_p, ctypes.c_char_p, ctypes.POINTER(ctypes.c_int), ctypes.c_int]
-        lib.sp_free.restype = None
-        lib.sp_free.argtypes = [ctypes.c_void_p]
-        _lib = lib
-    return _lib
+LIB = native_build.Library(SOURCE, {
+    "sp_load": [ctypes.c_char_p],
+    "sp_vocab_size": [ctypes.c_void_p],
+    "sp_piece_to_id": [ctypes.c_void_p, ctypes.c_char_p],
+    "sp_encode": [ctypes.c_void_p, ctypes.c_char_p, ctypes.POINTER(ctypes.c_int), ctypes.c_int],
+    "sp_free": [ctypes.c_void_p],
+}, restype={"sp_load": ctypes.c_void_p, "sp_free": None})
 
 
 def _needs_nmt_nfkc(text: str) -> bool:
@@ -86,7 +74,7 @@ class NativeSPTokenizer:
 
     def __init__(self, spiece_model_path: Union[str, Path], cls_token: str = "<cls>",
                  fallback_tokenizer_json: Optional[str] = None):
-        self._lib = _library()
+        self._lib = LIB.load()
         self._h = self._lib.sp_load(str(spiece_model_path).encode())
         if not self._h:
             raise ValueError(f"failed to parse sentencepiece model: {spiece_model_path}")

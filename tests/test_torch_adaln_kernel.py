@@ -16,6 +16,7 @@ torch, so on the card:
 import pytest
 import torch
 
+from s2v_torch.kernels import native
 from s2v_torch.kernels.adaln import (
     adaln_zero_join,
     adaln_zero_join_emulated,
@@ -100,9 +101,9 @@ def test_wrapper_is_the_plain_chain_on_the_cpu(dtype, base):
     text, ref, video = _streams(2, (5, 7, 12), 64, dtype)
     params, base_linear = _params(64, dtype, base=base)
     temb = _temb(2, dtype)
-    plain, launches = adaln_zero_join.plain_calls, adaln_zero_join.launches
+    plain, launches = native.launches("adaln_zero_join_plain"), native.launches("adaln_zero_join")
     joined, gates = ada_layer_norm_zero_joined(params, video, text, ref, temb, EPS, base_linear=base_linear)
-    assert (adaln_zero_join.plain_calls, adaln_zero_join.launches) == (plain + 1, launches)
+    assert (native.launches("adaln_zero_join_plain"), native.launches("adaln_zero_join")) == (plain + 1, launches)
     want, want_gates = _old_block_join(params, video, text, ref, temb, base_linear)
     assert joined.dtype == dtype and torch.equal(joined, want)
     for g, w in zip(gates, want_gates):
@@ -117,9 +118,9 @@ def test_norm_out_is_the_plain_chain_on_the_cpu(dtype):
     video = joint[:, 5:]
     params, _ = _params(64, dtype, seed=5, chunks=2)
     temb = _temb(2, dtype)
-    plain = adaln_zero_join.plain_calls
+    plain = native.launches("adaln_zero_join_plain")
     got = ada_layer_norm_out(params, video, temb, EPS)
-    assert adaln_zero_join.plain_calls == plain + 1
+    assert native.launches("adaln_zero_join_plain") == plain + 1
     shift, scale = torch.nn.functional.linear(torch.nn.functional.silu(temb.float()), params["linear"]["weight"],
                                               params["linear"]["bias"]).chunk(2, dim=-1)
     from s2v_torch.ops.norms import layer_norm
@@ -179,10 +180,10 @@ def _grads(fn, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_autograd_runs_the_plain_chain(dtype):
-    launches, plain = adaln_zero_join.launches, adaln_zero_join.plain_calls
+    launches, plain = native.launches("adaln_zero_join"), native.launches("adaln_zero_join_plain")
     out, grads = _grads(adaln_zero_join, dtype)
-    assert adaln_zero_join.launches == launches
-    assert adaln_zero_join.plain_calls == plain + 1
+    assert native.launches("adaln_zero_join") == launches
+    assert native.launches("adaln_zero_join_plain") == plain + 1
     want_out, want_grads = _grads(adaln_zero_join_reference, dtype)
     for g, w in zip((out, *grads), (want_out, *want_grads)):
         assert torch.equal(g, w)
@@ -238,10 +239,10 @@ def _assert_within_ulp(got, emulated):
 
 
 def _kernel_case(streams, mods, norm):
-    launches, plain = adaln_zero_join.launches, adaln_zero_join.plain_calls
+    launches, plain = native.launches("adaln_zero_join"), native.launches("adaln_zero_join_plain")
     got = adaln_zero_join(streams, mods, norm, EPS)
     torch.cuda.synchronize()
-    assert (adaln_zero_join.launches, adaln_zero_join.plain_calls) == (launches + 1, plain)
+    assert (native.launches("adaln_zero_join"), native.launches("adaln_zero_join_plain")) == (launches + 1, plain)
     emulated = adaln_zero_join_emulated(streams, mods, norm, EPS)
     assert got.is_contiguous() and got.dtype == streams[0].dtype and got.shape == emulated.shape
     _assert_within_ulp(got, emulated)
@@ -253,12 +254,12 @@ def test_autograd_runs_the_plain_chain_on_the_card(cuda):
     text, ref, video = (t.requires_grad_() for t in _streams(2, (5, 7, 12), 64, torch.bfloat16, cuda))
     mods = _mods(2, 64, cuda)
     norm = _params(64, torch.bfloat16, cuda)[0]["norm"]
-    launches, plain = adaln_zero_join.launches, adaln_zero_join.plain_calls
+    launches, plain = native.launches("adaln_zero_join"), native.launches("adaln_zero_join_plain")
     adaln_zero_join((text, ref, video), mods, norm, EPS)
-    assert (adaln_zero_join.launches, adaln_zero_join.plain_calls) == (launches, plain + 1)
+    assert (native.launches("adaln_zero_join"), native.launches("adaln_zero_join_plain")) == (launches, plain + 1)
     with torch.no_grad():  # the same call without a gradient takes the kernel
         adaln_zero_join((text, ref, video), mods, norm, EPS)
-    assert (adaln_zero_join.launches, adaln_zero_join.plain_calls) == (launches + 1, plain + 1)
+    assert (native.launches("adaln_zero_join"), native.launches("adaln_zero_join_plain")) == (launches + 1, plain + 1)
 
 
 # (B, (T, R, V), D): ragged rows past a block, a zero-width ref, widths
@@ -297,10 +298,10 @@ def test_norm_out_takes_one_launch(cuda, dtype):
     joint = _streams(2, (226 + 300,), 128, dtype, cuda, seed=16)[0]
     params, _ = _params(128, dtype, cuda, seed=17, chunks=2)
     temb = _temb(2, dtype, cuda)
-    launches = adaln_zero_join.launches
+    launches = native.launches("adaln_zero_join")
     got = ada_layer_norm_out(params, joint[:, 226:], temb, EPS)
     torch.cuda.synchronize()
-    assert adaln_zero_join.launches == launches + 1
+    assert native.launches("adaln_zero_join") == launches + 1
     shift, scale = torch.nn.functional.linear(torch.nn.functional.silu(temb.float()), params["linear"]["weight"],
                                               params["linear"]["bias"]).chunk(2, dim=-1)
     _assert_within_ulp(got, adaln_zero_join_emulated((joint[:, 226:],), ((shift, scale),), params["norm"], EPS))
@@ -314,10 +315,10 @@ def test_block_modulation_takes_one_launch(cuda, base):
     text, ref, video = _streams(2, (11, 16, 48), 192, torch.bfloat16, cuda, seed=18)
     params, base_linear = _params(192, torch.bfloat16, cuda, seed=19, base=base)
     temb = _temb(2, torch.bfloat16, cuda)
-    launches = adaln_zero_join.launches
+    launches = native.launches("adaln_zero_join")
     joined, gates = ada_layer_norm_zero_joined(params, video, text, ref, temb, EPS, base_linear=base_linear)
     torch.cuda.synchronize()
-    assert adaln_zero_join.launches == launches + 1
+    assert native.launches("adaln_zero_join") == launches + 1
     want, want_gates = _old_block_join(params, video, text, ref, temb, base_linear)
     _assert_within(joined, want)
     for g, w in zip(gates, want_gates):

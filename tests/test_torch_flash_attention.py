@@ -109,10 +109,10 @@ def test_bf16_only_kernels_refuse_fp16_naming_c1(monkeypatch):
     class Launched(Exception):
         pass
 
-    def no_library():
+    def no_library(name):
         raise Launched
 
-    monkeypatch.setattr(int8_attention, "_library", no_library)
+    monkeypatch.setattr(int8_attention.LIB, "entry", no_library)
     for dtype in (torch.bfloat16, torch.float16, torch.float32):
         q = torch.empty(2, 40, 3, 64, dtype=dtype, device="meta")
         check_kernel_inputs(q, q, q)

@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+from s2v_torch.kernels import native
 from s2v_torch.kernels.banded_attention import (
     banded_flash_attention,
     banded_flash_attention_blocked,
@@ -117,9 +118,9 @@ def test_bounded_reruns_online_on_underflow(cuda):
     k[:, :, :, :32] = 0
     q *= 40
     k *= 40
-    before = flash_attention.reruns
+    before = native.launches("flash_attention_rerun")
     o = flash_attention(q, k, v, softmax_mode="bounded")
-    assert flash_attention.reruns == before + 1
+    assert native.launches("flash_attention_rerun") == before + 1
     o_ref = flash_attention_reference(q, k, v, softmax_mode="online")
     _assert_close(o, o_ref)
 
@@ -134,7 +135,7 @@ def test_fully_masked_rows_are_zero(cuda):
 
 def test_unsupported_inputs_raise_before_launch(cuda):
     q, k, v = _qkv(1, 64, 64, 1, 3, cuda)
-    before = flash_attention.launches
+    before = native.launches("flash_attention")
     with pytest.raises(ValueError):
         flash_attention(q.double(), k.double(), v.double())  # fp32 runs its own kernel; fp64 none
     with pytest.raises(ValueError):
@@ -143,7 +144,7 @@ def test_unsupported_inputs_raise_before_launch(cuda):
     shifted = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda)[1:].view(q.shape)
     with pytest.raises(ValueError):
         flash_attention(shifted, k, v)
-    assert flash_attention.launches == before
+    assert native.launches("flash_attention") == before
 
 
 # B2 against its plain version on the same bf16 inputs: the kernel rounds P
@@ -155,11 +156,11 @@ def test_bwd_kernel_matches_plain(cuda, sq, skv):
     q, k, v = _qkv(2, sq, skv, 3, 4, cuda)
     o, lse = flash_attention(q, k, v, return_lse=True, softmax_mode="bounded")
     do = torch.from_numpy(np.random.RandomState(5).randn(*q.shape).astype(np.float32)).to(cuda, torch.bfloat16)
-    before = flash_attention_bwd.launches
+    before = native.launches("flash_attention_bwd")
     got = flash_attention_bwd(q, k, v, o, lse, do)
     want = flash_attention_bwd_reference(q, k, v, o, lse, do)
     torch.cuda.synchronize()
-    assert flash_attention_bwd.launches == before + 1
+    assert native.launches("flash_attention_bwd") == before + 1
     for a, w, x in zip(got, want, (q, k, v)):
         assert a.shape == x.shape and a.dtype == torch.bfloat16
         _assert_close(a, w)
@@ -181,9 +182,10 @@ def test_bwd_kernel_reads_strided_views(cuda):
 def test_trainable_grads_match_plain_autograd(cuda):
     q, k, v = (x.requires_grad_() for x in _qkv(1, 300, 300, 2, 7, cuda))
     do = torch.from_numpy(np.random.RandomState(8).randn(1, 300, 2, 64).astype(np.float32)).to(cuda, torch.bfloat16)
-    before = (flash_attention.launches, flash_attention_bwd.launches)
+    before = (native.launches("flash_attention"), native.launches("flash_attention_bwd"))
     got = torch.autograd.grad(flash_attention_trainable(q, k, v), (q, k, v), do)
-    assert (flash_attention.launches, flash_attention_bwd.launches) == (before[0] + 1, before[1] + 1)
+    assert (native.launches("flash_attention"), native.launches("flash_attention_bwd")) == (
+        before[0] + 1, before[1] + 1)
     leaves = [x.detach().float().requires_grad_() for x in (q, k, v)]
     s = torch.einsum("bqhd,bkhd->bhqk", leaves[0], leaves[1]) / 8.0
     want = torch.autograd.grad(torch.einsum("bhqk,bkhd->bqhd", s.softmax(-1), leaves[2]), leaves, do.float())
@@ -195,7 +197,7 @@ def test_trainable_grads_match_plain_autograd(cuda):
 def test_bwd_unsupported_inputs_raise_before_launch(cuda):
     q, k, v = _qkv(1, 64, 64, 1, 9, cuda)
     o, lse = flash_attention(q, k, v, return_lse=True)
-    before = flash_attention_bwd.launches
+    before = native.launches("flash_attention_bwd")
     with pytest.raises(ValueError):
         flash_attention_bwd(q.double(), k.double(), v.double(), o.double(), lse, o.double())
     with pytest.raises(ValueError):
@@ -203,7 +205,7 @@ def test_bwd_unsupported_inputs_raise_before_launch(cuda):
     shifted = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda)[1:].view(q.shape)
     with pytest.raises(ValueError):
         flash_attention_bwd(q, k, v, o, lse, shifted)
-    assert flash_attention_bwd.launches == before
+    assert native.launches("flash_attention_bwd") == before
 
 
 # B1 and B2 as Hopper kernels (TMA tiles behind mbarrier rings, wgmma):
@@ -289,11 +291,11 @@ def _band_qkv(g, tpf, f, seed, device):
 @pytest.mark.parametrize("g,tpf,f,w", BANDS)
 def test_banded_kernel_matches_plain(cuda, g, tpf, f, w):
     q, k, v = _band_qkv(g, tpf, f, 10, cuda)
-    before = banded_flash_attention.launches
+    before = native.launches("banded_flash_attention")
     o, lse = banded_flash_attention(q, k, v, g, tpf, w, return_lse=True)
     o_ref, lse_ref = banded_flash_attention_reference(q, k, v, g, tpf, w, return_lse=True)
     torch.cuda.synchronize()
-    assert banded_flash_attention.launches == before + 1
+    assert native.launches("banded_flash_attention") == before + 1
     assert o.shape == q.shape and lse.shape == (2, 3, q.shape[1])
     _assert_close(o, o_ref)
     assert (lse - lse_ref).abs().max().item() < 1e-2
@@ -304,12 +306,13 @@ def test_banded_bwd_kernel_matches_plain(cuda, g, tpf, f, w):
     q, k, v = _band_qkv(g, tpf, f, 11, cuda)
     o, lse = banded_flash_attention(q, k, v, g, tpf, w, return_lse=True)
     do = torch.from_numpy(np.random.RandomState(12).randn(*q.shape).astype(np.float32)).to(cuda, torch.bfloat16)
-    before = (banded_flash_attention_bwd.launches, flash_attention_bwd.launches)
+    before = (native.launches("banded_flash_attention_bwd"), native.launches("flash_attention_bwd"))
     got = banded_flash_attention_bwd(q, k, v, o, lse, do, g, tpf, w)
     want = banded_flash_attention_bwd_reference(q, k, v, o, lse, do, g, tpf, w)
     torch.cuda.synchronize()
     # the video queries' banded kernels and the global queries' B2
-    assert (banded_flash_attention_bwd.launches, flash_attention_bwd.launches) == (before[0] + 1, before[1] + 1)
+    assert (native.launches("banded_flash_attention_bwd"), native.launches("flash_attention_bwd")) == (
+        before[0] + 1, before[1] + 1)
     for a, r, x in zip(got, want, (q, k, v)):
         assert a.shape == x.shape and a.dtype == torch.bfloat16
         _assert_close(a, r)
@@ -366,7 +369,7 @@ def test_banded_trainable_grads_match_plain_autograd(cuda):
 def test_banded_unsupported_inputs_raise_before_launch(cuda):
     q, k, v = _band_qkv(24, 20, 5, 15, cuda)
     o, lse = banded_flash_attention(q, k, v, 24, 20, 1, return_lse=True)
-    before = (banded_flash_attention.launches, banded_flash_attention_bwd.launches)
+    before = (native.launches("banded_flash_attention"), native.launches("banded_flash_attention_bwd"))
     with pytest.raises(ValueError):
         banded_flash_attention(q.double(), k.double(), v.double(), 24, 20, 1)
     with pytest.raises(ValueError):
@@ -380,7 +383,7 @@ def test_banded_unsupported_inputs_raise_before_launch(cuda):
         banded_flash_attention_bwd(q, k, v, o, lse.to(torch.bfloat16), o, 24, 20, 1)
     with pytest.raises(ValueError):
         banded_flash_attention_bwd(q, k, v, o, lse, shifted, 24, 20, 1)
-    assert (banded_flash_attention.launches, banded_flash_attention_bwd.launches) == before
+    assert (native.launches("banded_flash_attention"), native.launches("banded_flash_attention_bwd")) == before
 
 
 # B6 and B7 (one SP shard of video-query frames at a runtime frame offset)
@@ -408,11 +411,11 @@ def test_banded_local_kernel_matches_plain(cuda, g, tpf, f, w):
     q, k, v = _band_qkv(g, tpf, f, 20, cuda)
     for f_loc, off in _ring_shards(f):
         q_loc = _shard(q, g, tpf, f, f_loc, off)
-        before = banded_flash_attention_local.launches
+        before = native.launches("banded_flash_attention_local")
         o, lse = banded_flash_attention_local(q_loc, k, v, g, tpf, w, off, f, return_lse=True)
         o_ref, lse_ref = banded_flash_attention_local_reference(q_loc, k, v, g, tpf, w, off, f, return_lse=True)
         torch.cuda.synchronize()
-        assert banded_flash_attention_local.launches == before + 1
+        assert native.launches("banded_flash_attention_local") == before + 1
         assert o.shape == q_loc.shape and lse.shape == (2, 3, q_loc.shape[1])
         _assert_close(o, o_ref)
         assert (lse - lse_ref).abs().max().item() < 1e-2
@@ -425,11 +428,11 @@ def test_banded_local_bwd_kernel_matches_plain(cuda, g, tpf, f, w):
     for f_loc, off in _ring_shards(f):
         q_loc, do_loc = _shard(q, g, tpf, f, f_loc, off), _shard(do, g, tpf, f, f_loc, off)
         o, lse = banded_flash_attention_local(q_loc, k, v, g, tpf, w, off, f, return_lse=True)
-        before = banded_flash_attention_local_bwd.launches
+        before = native.launches("banded_flash_attention_local_bwd")
         got = banded_flash_attention_local_bwd(q_loc, k, v, o, lse, do_loc, g, tpf, w, off, f)
         want = banded_flash_attention_local_bwd_reference(q_loc, k, v, o, lse, do_loc, g, tpf, w, off, f)
         torch.cuda.synchronize()
-        assert banded_flash_attention_local_bwd.launches == before + 1
+        assert native.launches("banded_flash_attention_local_bwd") == before + 1
         for a, r, x in zip(got, want, (q_loc, k, v)):
             assert a.shape == x.shape and a.dtype == torch.bfloat16
             if r.any():
@@ -495,7 +498,7 @@ def test_banded_local_unsupported_inputs_raise_before_launch(cuda):
     q, k, v = _band_qkv(g, tpf, f, 25, cuda)
     q_loc = q[:, g:g + 2 * tpf]
     o, lse = banded_flash_attention_local(q_loc, k, v, g, tpf, 1, 0, f, return_lse=True)
-    before = (banded_flash_attention_local.launches, banded_flash_attention_local_bwd.launches)
+    before = (native.launches("banded_flash_attention_local"), native.launches("banded_flash_attention_local_bwd"))
     # a negative offset (an offset past F is a shard of dummy frames, which runs)
     with pytest.raises(ValueError):
         banded_flash_attention_local(q_loc, k, v, g, tpf, 1, -1, f)
@@ -509,7 +512,8 @@ def test_banded_local_unsupported_inputs_raise_before_launch(cuda):
         banded_flash_attention_local(q_loc, k, v, g, tpf, 1, 0, f + 1)
     with pytest.raises(ValueError):
         banded_flash_attention_local_bwd(q_loc, k, v, o, lse.to(torch.bfloat16), o, g, tpf, 1, 0, f)
-    assert (banded_flash_attention_local.launches, banded_flash_attention_local_bwd.launches) == before
+    assert (native.launches("banded_flash_attention_local"),
+            native.launches("banded_flash_attention_local_bwd")) == before
 
 
 def test_sp_windowed_on_one_rank_matches_plain_autograd(cuda):
@@ -532,7 +536,7 @@ def test_sp_windowed_on_one_rank_matches_plain_autograd(cuda):
         g, tpf, f, w = 40, 100, 5, 1
         q, k, v = (x.requires_grad_() for x in _band_qkv(g, tpf, f, 26, cuda))
         do = torch.from_numpy(np.random.RandomState(27).randn(*q.shape).astype(np.float32)).to(cuda, torch.bfloat16)
-        before = (banded_flash_attention_local.launches, banded_flash_attention_local_bwd.launches)
+        before = (native.launches("banded_flash_attention_local"), native.launches("banded_flash_attention_local_bwd"))
         shard = FrameShard(f, tpf, 1, 0, mesh.get_group("seq"))
         o = banded_allgather_attention_trainable(q, k, v, shard, g, w)
         got = torch.autograd.grad(o, (q, k, v), do)
@@ -540,8 +544,8 @@ def test_sp_windowed_on_one_rank_matches_plain_autograd(cuda):
         o_ref = reference(*leaves, g, tpf, w)
         want = torch.autograd.grad(o_ref, leaves, do.float())
         torch.cuda.synchronize()
-        assert (banded_flash_attention_local.launches, banded_flash_attention_local_bwd.launches) == (
-            before[0] + 1, before[1] + 1)
+        assert (native.launches("banded_flash_attention_local"),
+                native.launches("banded_flash_attention_local_bwd")) == (before[0] + 1, before[1] + 1)
         _assert_close(o, o_ref)
         for a, r in zip(got, want):
             _assert_close(a, r)
@@ -608,14 +612,15 @@ def test_chunked_matches_b1_b2_and_plain_autograd(cuda, sq, block_q):
     do = torch.from_numpy(np.random.RandomState(31).randn(*q.shape).astype(np.float32)).to(cuda, torch.bfloat16)
     o = chunked_attention(q, k, v, block_q=block_q)
     got = torch.autograd.grad(o, (q, k, v), do)
-    before = (flash_attention.launches, flash_attention_bwd.launches)
+    before = (native.launches("flash_attention"), native.launches("flash_attention_bwd"))
     o_kernel = flash_attention_trainable(q, k, v)
     kernel = torch.autograd.grad(o_kernel, (q, k, v), do)
     leaves = [x.detach().float().requires_grad_() for x in (q, k, v)]
     o_ref = flash_attention_reference(*leaves)
     want = torch.autograd.grad(o_ref, leaves, do.float())
     torch.cuda.synchronize()
-    assert (flash_attention.launches, flash_attention_bwd.launches) == (before[0] + 1, before[1] + 1)
+    assert (native.launches("flash_attention"), native.launches("flash_attention_bwd")) == (
+        before[0] + 1, before[1] + 1)
     _assert_close(o, o_ref)
     _assert_close(o, o_kernel)
     for a, b, r in zip(got, kernel, want):
@@ -641,9 +646,9 @@ def test_segmented_generate_equals_the_whole_loop(cuda, kw):
     embeds = torch.from_numpy(np.random.RandomState(0).randn(2, 16, 32).astype(np.float32))
     args = dict(prompt_embeds=embeds, ref_latents=torch.zeros(1, 1, 4, 4, 4), height=32, width=32, num_frames=9,
                 num_inference_steps=4, output_type="latent", seed=1, **kw)
-    before = flash_attention.launches
+    before = native.launches("flash_attention")
     whole = pipe.generate(**args)
-    assert flash_attention.launches > before
+    assert native.launches("flash_attention") > before
     for seg in (1, 2):
         assert torch.equal(pipe.generate(segment_steps=seg, **args), whole), seg
     assert torch.isfinite(whole.float()).all()
@@ -655,11 +660,11 @@ def test_segmented_generate_equals_the_whole_loop(cuda, kw):
 @pytest.mark.parametrize("b,sq,skv,h", [(2, 200, 200, 3), (1, 77, 333, 2), (2, 1000, 129, 2), (1, 90, 90, 1)])
 def test_int8_kernel_matches_plain(cuda, b, sq, skv, h):
     q, k, v = _qkv(b, sq, skv, h, 16, cuda)
-    before = flash_attention_qk_int8.launches
+    before = native.launches("flash_attention_qk_int8")
     o = flash_attention_qk_int8(q, k, v)
     o_ref = flash_attention_qk_int8_reference(q, k, v)
     torch.cuda.synchronize()
-    assert flash_attention_qk_int8.launches == before + 1
+    assert native.launches("flash_attention_qk_int8") == before + 1
     assert o.shape == q.shape and o.dtype == torch.bfloat16
     _assert_close(o, o_ref)
 
@@ -681,7 +686,7 @@ def test_int8_kernel_negative_logit_rows(cuda):
 
 def test_int8_unsupported_inputs_raise_before_launch(cuda):
     q, k, v = _qkv(1, 64, 64, 1, 18, cuda)
-    before = flash_attention_qk_int8.launches
+    before = native.launches("flash_attention_qk_int8")
     with pytest.raises(ValueError):
         flash_attention_qk_int8(q.double(), k.double(), v.double())
     with pytest.raises(ValueError):
@@ -691,7 +696,7 @@ def test_int8_unsupported_inputs_raise_before_launch(cuda):
         flash_attention_qk_int8(q, k, shifted)
     with pytest.raises(ValueError):
         flash_attention_qk_int8(q, k[:, :0], v[:, :0])
-    assert flash_attention_qk_int8.launches == before
+    assert native.launches("flash_attention_qk_int8") == before
 
 
 def test_int8_wgmma_s8_tile_matches_integer_matmul(cuda):
@@ -737,11 +742,11 @@ def test_int8_prepass_kernels_equal_plain_prepass(cuda, name):
     bit for bit: half-to-even ties, an all-zero k (scale 1), CFG halves of
     different magnitudes sharing one scale, and strided views."""
     q, k = _prepass_case(name, cuda)
-    before = flash_attention_qk_int8.prepass_launches
+    before = native.launches("flash_attention_qk_int8_prepass")
     got = launch_int8_prepass(q, k, 0.125)
     want = int8_prepass(q, k, 0.125)
     torch.cuda.synchronize()
-    assert flash_attention_qk_int8.prepass_launches == before + 1
+    assert native.launches("flash_attention_qk_int8_prepass") == before + 1
     assert got[0].is_contiguous() and got[1].is_contiguous()
     for a, w in zip(got, want):
         assert a.dtype == w.dtype and torch.equal(a, w.reshape(a.shape))
@@ -817,13 +822,13 @@ def test_kernel_fp16_matches_plain(cuda, mode, sq, skv, masked):
     if masked:
         mask = torch.zeros(skv, dtype=torch.bool, device=cuda)
         mask[3:30] = True
-    before, reruns = dict(flash_attention.launches_by_dtype), flash_attention.reruns
+    before, reruns = native.launches("flash_attention", "float16"), native.launches("flash_attention_rerun")
     o, lse = flash_attention(q, k, v, return_lse=True, key_pad_mask=mask, softmax_mode=mode)
     o_ref, lse_ref = flash_attention_reference(q, k, v, return_lse=True, key_pad_mask=mask, softmax_mode=mode)
     torch.cuda.synchronize()
     # one launch, and one more if the bounded guard re-ran the call online
-    launched = flash_attention.launches_by_dtype["float16"] - before.get("float16", 0)
-    assert o.dtype == torch.float16 and launched == 1 + flash_attention.reruns - reruns
+    launched = native.launches("flash_attention", "float16") - before
+    assert o.dtype == torch.float16 and launched == 1 + native.launches("flash_attention_rerun") - reruns
     _assert_close(o, o_ref)
     assert (lse - lse_ref).abs().max().item() < 1e-3
 
@@ -852,11 +857,11 @@ def test_kernel_fp16_bounded_without_rerun(cuda, mode, sq, skv):
     fp16 kernel's own result stands (no online re-run)."""
     q, k, v = _qkv16(2, sq, skv, 3, 29, cuda)
     q, k = (torch.nn.functional.layer_norm(x.float(), (64,)).half() for x in (q, k))
-    reruns = flash_attention.reruns
+    reruns = native.launches("flash_attention_rerun")
     o, lse = flash_attention(q, k, v, return_lse=True, softmax_mode=mode)
     o_ref, lse_ref = flash_attention_reference(q, k, v, return_lse=True, softmax_mode=mode)
     torch.cuda.synchronize()
-    assert flash_attention.reruns == reruns
+    assert native.launches("flash_attention_rerun") == reruns
     _assert_close(o, o_ref)
     assert (lse - lse_ref).abs().max().item() < 1e-3
 
@@ -869,11 +874,11 @@ def test_kernel_fp16_bounded_rows_far_below_m0(cuda, mode):
     guard re-runs the call online."""
     q, k, v = _qkv16(1, 300, 300, 2, 26, cuda)
     q[:, 0] *= 4
-    before = flash_attention.reruns
+    before = native.launches("flash_attention_rerun")
     o, lse = flash_attention(q, k, v, return_lse=True, softmax_mode=mode)
     o_ref, lse_ref = flash_attention_reference(q, k, v, return_lse=True, softmax_mode=mode)
     torch.cuda.synchronize()
-    assert flash_attention.reruns == before + 1
+    assert native.launches("flash_attention_rerun") == before + 1
     _assert_close(o, o_ref)
     assert (lse - lse_ref).abs().max().item() < 1e-3
 
@@ -935,8 +940,8 @@ def _fp16_limits(a, ref):
 @pytest.mark.parametrize("g,tpf,f,w", BANDS)
 def test_banded_kernels_fp16_match_plain_and_schedule(cuda, g, tpf, f, w):
     q, k, v = (x.half() for x in _band_qkv(g, tpf, f, 40, cuda))
-    before = (banded_flash_attention.launches_by_dtype.get("float16", 0),
-              banded_flash_attention_bwd.launches_by_dtype.get("float16", 0))
+    before = (native.launches("banded_flash_attention", "float16"),
+              native.launches("banded_flash_attention_bwd", "float16"))
     o, lse = banded_flash_attention(q, k, v, g, tpf, w, return_lse=True)
     o_ref, lse_ref = banded_flash_attention_reference(q, k, v, g, tpf, w, return_lse=True)
     o_emu = banded_flash_attention_blocked(q, k, v, g, tpf, w)
@@ -945,8 +950,8 @@ def test_banded_kernels_fp16_match_plain_and_schedule(cuda, g, tpf, f, w):
     want = banded_flash_attention_bwd_reference(q, k, v, o, lse, do, g, tpf, w)
     emulated = banded_flash_attention_bwd_blocked(q, k, v, o, lse, do, g, tpf, w)
     torch.cuda.synchronize()
-    assert (banded_flash_attention.launches_by_dtype["float16"],
-            banded_flash_attention_bwd.launches_by_dtype["float16"]) == (before[0] + 1, before[1] + 1)
+    assert (native.launches("banded_flash_attention", "float16"),
+            native.launches("banded_flash_attention_bwd", "float16")) == (before[0] + 1, before[1] + 1)
     assert o.dtype == torch.float16
     _assert_close(o, o_ref)
     _assert_close(o, o_emu)
@@ -1020,10 +1025,10 @@ def test_int8_kernel_fp16_matches_plain_and_schedule(cuda, b, sq, skv, h):
     scale = 64 ** -0.5
     for got, want in zip(launch_int8_prepass(q, k, scale), int8_prepass(q, k, scale)):
         assert torch.equal(got, want)
-    before = flash_attention_qk_int8.launches_by_dtype.get("float16", 0)
+    before = native.launches("flash_attention_qk_int8", "float16")
     o = flash_attention_qk_int8(q, k, v)
     torch.cuda.synchronize()
-    assert flash_attention_qk_int8.launches_by_dtype["float16"] == before + 1
+    assert native.launches("flash_attention_qk_int8", "float16") == before + 1
     assert o.dtype == torch.float16
     _assert_close(o, flash_attention_qk_int8_reference(q, k, v))
     _assert_close(o, flash_attention_qk_int8_blocked(q, k, v))
@@ -1037,12 +1042,12 @@ def test_bf16_only_kernels_refuse_fp16_on_the_card(cuda):
     from s2v_torch.ops.attention import joint_attention
 
     q, k, v = _qkv16(1, 200, 200, 2, 25, cuda)
-    before = flash_attention_qk_int8.launches_by_dtype.get("float32", 0)
+    before = native.launches("flash_attention_qk_int8", "float32")
     assert flash_attention_qk_int8(q.float(), k.float(), v.float()).dtype == torch.float32
-    assert flash_attention_qk_int8.launches_by_dtype["float32"] == before + 1
-    before = banded_flash_attention.launches_by_dtype.get("float32", 0)
+    assert native.launches("flash_attention_qk_int8", "float32") == before + 1
+    before = native.launches("banded_flash_attention", "float32")
     assert banded_flash_attention(q.float(), k.float(), v.float(), 40, 40, 1).dtype == torch.float32
-    assert banded_flash_attention.launches_by_dtype["float32"] == before + 1
+    assert native.launches("banded_flash_attention", "float32") == before + 1
     d = 2 * 64
     params = {"qkv": {"weight": torch.randn(3 * d, d, device=cuda, dtype=torch.float16) * 0.05,
                       "bias": torch.zeros(3 * d, device=cuda, dtype=torch.float16)},
@@ -1053,15 +1058,15 @@ def test_bf16_only_kernels_refuse_fp16_on_the_card(cuda):
               "to_out": {"weight": torch.randn(d, d, device=cuda, dtype=torch.float16) * 0.05,
                          "bias": torch.zeros(d, device=cuda, dtype=torch.float16)}}
     x = torch.randn(1, 200, d, device=cuda, dtype=torch.float16)
-    for backend, window, fn in (("flash_int8", None, flash_attention_qk_int8),
-                                ("windowed", (40, 40, 1), banded_flash_attention)):
-        before = fn.launches_by_dtype.get("float16", 0)
+    for backend, window, kernel in (("flash_int8", None, "flash_attention_qk_int8"),
+                                    ("windowed", (40, 40, 1), "banded_flash_attention")):
+        before = native.launches(kernel, "float16")
         assert joint_attention(params, x, 2, backend=backend, window=window).dtype == torch.float16
-        assert fn.launches_by_dtype["float16"] == before + 1
+        assert native.launches(kernel, "float16") == before + 1
         fp32_params = {k: {n: t.float() for n, t in leaf.items()} for k, leaf in params.items()}
-        before = fn.launches_by_dtype.get("float32", 0)
+        before = native.launches(kernel, "float32")
         assert joint_attention(fp32_params, x.float(), 2, backend=backend, window=window).dtype == torch.float32
-        assert fn.launches_by_dtype["float32"] == before + 1
+        assert native.launches(kernel, "float32") == before + 1
     assert joint_attention(params, x, 2, backend="flash").dtype == torch.float16
 
 
@@ -1102,9 +1107,9 @@ def test_fp32_b1_b2_match_plain_and_emulation(no_tf32, mode):
     q, k, v = (_f32((2, s, 3, 64), i, no_tf32) for i, s in enumerate((200, 333, 333)))
     mask = torch.zeros(333, dtype=torch.bool, device=no_tf32)
     mask[7:40] = True
-    before = flash_attention.launches_by_dtype.get("float32", 0)
+    before = native.launches("flash_attention", "float32")
     o, lse = flash_attention(q, k, v, return_lse=True, key_pad_mask=mask, softmax_mode=mode)
-    assert o.dtype == torch.float32 and flash_attention.launches_by_dtype["float32"] > before
+    assert o.dtype == torch.float32 and native.launches("flash_attention", "float32") > before
     o_ref, lse_ref = flash_attention_reference(q, k, v, return_lse=True, key_pad_mask=mask, softmax_mode=mode)
     _close_f32(o, o_ref, FP32_FWD)
     _close_f32(o, af.flash_attention_f32_blocked(q, k, v, key_pad_mask=mask, softmax_mode=mode), FP32_FWD)
@@ -1176,9 +1181,9 @@ def test_int8_kernel_fp32_matches_plain_and_schedule(no_tf32, b, sq, skv, h):
     q, k, v = (_f32((b, s, h, 64), 40 + i + s, no_tf32) for i, s in enumerate((sq, skv, skv)))
     for got, want in zip(launch_int8_prepass(q, k, 0.125), int8_prepass(q, k, 0.125)):
         assert torch.equal(got, want)
-    before = flash_attention_qk_int8.launches_by_dtype.get("float32", 0)
+    before = native.launches("flash_attention_qk_int8", "float32")
     o = flash_attention_qk_int8(q, k, v)
-    assert o.dtype == torch.float32 and flash_attention_qk_int8.launches_by_dtype["float32"] == before + 1
+    assert o.dtype == torch.float32 and native.launches("flash_attention_qk_int8", "float32") == before + 1
     _close_f32(o, flash_attention_qk_int8_reference(q, k, v), FP32_FWD)
     _close_f32(o, flash_attention_qk_int8_blocked(q, k, v), FP32_FWD)
     assert torch.equal(o, flash_attention_qk_int8(q, k, v))

@@ -14,6 +14,7 @@ shapes.  This file imports only torch, so on the card:
 import pytest
 import torch
 
+from s2v_torch.kernels import native
 from s2v_torch.kernels.qk_norm_rope import (
     check_kernel_inputs,
     qk_norm_rope,
@@ -88,10 +89,10 @@ def test_wrapper_is_the_plain_chain_on_the_cpu(dtype, rope):
     assert not q.is_contiguous() and not k.is_contiguous()
     norm_q, norm_k = _norms(dtype)
     cos, sin = _small_tables() if rope else (None, None)
-    plain = qk_norm_rope.plain_calls
+    plain = native.launches("qk_norm_rope_plain")
     got = qk_norm_rope(q, k, norm_q, norm_k, EPS, cos, sin)
     want = _old_chain(q, k, norm_q, norm_k, EPS, cos, sin)
-    assert qk_norm_rope.plain_calls == plain + 1
+    assert native.launches("qk_norm_rope_plain") == plain + 1
     for g, w in zip(got, want):
         assert g.dtype == dtype and torch.equal(g, w)
 
@@ -169,10 +170,10 @@ def _grads(fn, dtype, device):
 
 
 def _autograd_case(device, dtype):
-    launches, plain = qk_norm_rope.launches, qk_norm_rope.plain_calls
+    launches, plain = native.launches("qk_norm_rope"), native.launches("qk_norm_rope_plain")
     outs, grads = _grads(qk_norm_rope, dtype, device)
-    assert qk_norm_rope.launches == launches
-    assert qk_norm_rope.plain_calls == plain + 1
+    assert native.launches("qk_norm_rope") == launches
+    assert native.launches("qk_norm_rope_plain") == plain + 1
     want_outs, want_grads = _grads(_old_chain, dtype, device)
     for g, w in zip((*outs, *grads), (*want_outs, *want_grads)):
         assert torch.equal(g, w)
@@ -189,17 +190,17 @@ def test_autograd_runs_the_plain_chain(dtype):
 def test_autograd_runs_the_plain_chain_on_the_card(cuda):
     _autograd_case(cuda, torch.bfloat16)
     q, k = _qk(1, 21, 3, torch.bfloat16, cuda)
-    launches, plain = qk_norm_rope.launches, qk_norm_rope.plain_calls
+    launches, plain = native.launches("qk_norm_rope"), native.launches("qk_norm_rope_plain")
     with torch.no_grad():  # the same call without a gradient takes the kernel
         qk_norm_rope(q.detach().requires_grad_(), k, *_norms(torch.bfloat16, cuda), EPS)
-    assert (qk_norm_rope.launches, qk_norm_rope.plain_calls) == (launches + 1, plain)
+    assert (native.launches("qk_norm_rope"), native.launches("qk_norm_rope_plain")) == (launches + 1, plain)
 
 
 def _kernel_case(q, k, norm_q, norm_k, cos, sin):
-    launches = qk_norm_rope.launches
+    launches = native.launches("qk_norm_rope")
     got = qk_norm_rope(q, k, norm_q, norm_k, EPS, cos, sin)
     torch.cuda.synchronize()
-    assert qk_norm_rope.launches == launches + 1
+    assert native.launches("qk_norm_rope") == launches + 1
     emulated = qk_norm_rope_emulated(q, k, norm_q, norm_k, EPS, cos, sin)
     plain = qk_norm_rope_reference(q, k, norm_q, norm_k, EPS, cos, sin)
     for g, e, p in zip(got, emulated, plain):
